@@ -1,0 +1,328 @@
+"""Factor-graph representations for minibatch Gibbs sampling (PyTorch).
+
+The paper's experimental models (Ising / Potts with a Gaussian-kernel
+interaction matrix) are both *weighted-match* pairwise models:
+
+  Potts:  phi_{ij}(x) = beta * A_ij * delta(x_i, x_j)          M_phi = b A_ij
+  Ising:  phi_{ij}(x) = beta * A_ij * (s_i s_j + 1)            M_phi = 2 b A_ij
+
+with one factor per *unordered* pair {i,j}.  Both are
+``phi_ij(x) = W_ij * delta(x_i, x_j)`` for a symmetric non-negative
+match-weight matrix W.  :class:`MatchGraph` holds W and every Definition-1
+quantity (``Psi``, ``L``, ``Delta``) as tensors on one device, plus the
+alias tables that make a factor draw O(1).
+
+Alias tables are built once on the host with Vose's algorithm, from the
+float64 weights, so they are identical to the JAX package's tables.  The
+per-row tables (read by MGPMH) and the flat pair table (read by the global
+minibatch estimators) are built on first use: the Gibbs engines read
+neither, and the flat table alone has n(n-1)/2 entries.
+"""
+from __future__ import annotations
+
+from typing import Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+
+__all__ = [
+    "MatchGraph",
+    "build_alias_table",
+    "alias_draw",
+    "graph_from_numpy",
+    "gaussian_kernel_interactions",
+    "make_ising_graph",
+    "make_potts_graph",
+    "make_lattice_ising",
+    "lattice_colors",
+    "make_pair_ising",
+    "pair_colors",
+]
+
+
+# ---------------------------------------------------------------------------
+# Alias tables (Vose) — O(1) categorical sampling
+# ---------------------------------------------------------------------------
+
+def build_alias_table(p: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Build a Vose alias table for probability vector ``p`` (need not be
+    normalized).  Returns ``(prob, alias)`` with ``prob`` float32 in [0,1]
+    and ``alias`` int32, each of shape ``p.shape``.
+    """
+    p = np.asarray(p, dtype=np.float64)
+    m = p.shape[0]
+    total = p.sum()
+    if total <= 0:
+        # Degenerate: uniform table.
+        return np.ones(m, np.float32), np.arange(m, dtype=np.int32)
+    q = p * (m / total)
+    prob = np.zeros(m, np.float64)
+    alias = np.zeros(m, np.int32)
+    small = [i for i in range(m) if q[i] < 1.0]
+    large = [i for i in range(m) if q[i] >= 1.0]
+    while small and large:
+        s = small.pop()
+        l = large.pop()
+        prob[s] = q[s]
+        alias[s] = l
+        q[l] = (q[l] + q[s]) - 1.0
+        (small if q[l] < 1.0 else large).append(l)
+    for i in large:
+        prob[i] = 1.0
+    for i in small:
+        prob[i] = 1.0
+    return prob.astype(np.float32), alias.astype(np.int32)
+
+
+def alias_draw(gen: torch.Generator, prob: torch.Tensor, alias: torch.Tensor,
+               shape: Tuple[int, ...]) -> torch.Tensor:
+    """Draw ``shape`` iid samples from the alias table in O(1) each, from
+    ``gen`` (a generator on the table's device)."""
+    m = prob.shape[0]
+    idx = torch.randint(0, m, shape, generator=gen, device=prob.device)
+    u = torch.rand(shape, generator=gen, device=prob.device)
+    return torch.where(u >= prob[idx], alias[idx].long(), idx).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Interaction matrices (paper Appendix B)
+# ---------------------------------------------------------------------------
+
+def gaussian_kernel_interactions(grid: int, gamma: float = 1.5) -> np.ndarray:
+    """``A_ij = exp(-gamma * d_ij^2)`` for variables laid out on a
+    ``grid x grid`` lattice (paper Appendix B).  Zero diagonal."""
+    coords = np.stack(np.meshgrid(np.arange(grid), np.arange(grid),
+                                  indexing="ij"), -1).reshape(-1, 2)
+    d2 = ((coords[:, None, :] - coords[None, :, :]) ** 2).sum(-1)
+    A = np.exp(-gamma * d2.astype(np.float64))
+    np.fill_diagonal(A, 0.0)
+    return A
+
+
+# ---------------------------------------------------------------------------
+# MatchGraph
+# ---------------------------------------------------------------------------
+
+_ROW_TABLES = ("row_prob", "row_alias")
+_PAIR_TABLES = ("pair_a", "pair_b", "pair_prob", "pair_alias")
+
+
+class MatchGraph:
+    """Dense weighted-match pairwise factor graph on one device.
+
+    Attributes
+    ----------
+    W        : (n, n) float32 symmetric, zero diagonal — match weights = M_phi.
+    D        : domain size of every variable.
+    psi      : total maximum energy  Psi = sum_{i<j} W_ij.
+    L        : local maximum energy  L = max_i sum_j W_ij.
+    delta    : max degree Delta = max_i |{j : W_ij > 0}|.
+    row_sum  : (n,) L_i = sum_j W_ij.
+    row_prob/row_alias   : (n, n) per-row alias tables, p_j = W_ij / L_i
+                           (MGPMH's local minibatch over A[i]); built on
+                           first use.
+    pair_a/b : (F,) endpoints of the F = n(n-1)/2 upper-triangle factors.
+    pair_prob/pair_alias : alias table over factors, p_phi = M_phi / Psi;
+                           built on first use.
+    """
+
+    def __init__(self, *, W: torch.Tensor, D: int, psi: float, L: float,
+                 delta: int, row_sum: torch.Tensor,
+                 tables: Optional[Mapping[str, torch.Tensor]] = None,
+                 weights64: Optional[np.ndarray] = None):
+        self.W = W
+        self.D = int(D)
+        self.psi = float(psi)
+        self.L = float(L)
+        self.delta = int(delta)
+        self.row_sum = row_sum
+        self._tables = dict(tables or {})
+        # float64 weights the lazy alias tables are built from (as the JAX
+        # builder does); None when every table was given
+        self._weights64 = weights64
+
+    @property
+    def device(self) -> torch.device:
+        return self.W.device
+
+    @property
+    def n(self) -> int:
+        return self.W.shape[0]
+
+    @property
+    def num_factors(self) -> int:
+        return self.n * (self.n - 1) // 2
+
+    def _table(self, name: str) -> torch.Tensor:
+        if name not in self._tables:
+            if self._weights64 is None:
+                raise ValueError(f"graph was built without {name!r} and "
+                                 f"without host weights to build it from")
+            group = _ROW_TABLES if name in _ROW_TABLES else _PAIR_TABLES
+            build = _row_tables if group is _ROW_TABLES else _pair_tables
+            for k, v in zip(group, build(self._weights64)):
+                self._tables[k] = torch.from_numpy(v).to(self.device)
+        return self._tables[name]
+
+    row_prob = property(lambda self: self._table("row_prob"))
+    row_alias = property(lambda self: self._table("row_alias"))
+    pair_a = property(lambda self: self._table("pair_a"))
+    pair_b = property(lambda self: self._table("pair_b"))
+    pair_prob = property(lambda self: self._table("pair_prob"))
+    pair_alias = property(lambda self: self._table("pair_alias"))
+
+    def to(self, device) -> "MatchGraph":
+        """This graph on ``device`` (self when it is there already)."""
+        device = torch.device(device)
+        if device.type == self.device.type and device.index in (
+                None, self.device.index):
+            return self
+        return MatchGraph(
+            W=self.W.to(device), D=self.D, psi=self.psi, L=self.L,
+            delta=self.delta, row_sum=self.row_sum.to(device),
+            tables={k: v.to(device) for k, v in self._tables.items()},
+            weights64=self._weights64)
+
+    # -- energies --
+    def energy(self, x: torch.Tensor) -> torch.Tensor:
+        """Total energy zeta(x) = sum_{i<j} W_ij d(x_i, x_j).
+
+        ``x``: (..., n) int32.  Returns (...,) float32.
+        """
+        match = (x[..., :, None] == x[..., None, :]).to(self.W.dtype)
+        return 0.5 * torch.einsum("...ij,ij->...", match, self.W)
+
+    def cond_energies(self, x: torch.Tensor, i) -> torch.Tensor:
+        """Exact conditional energies eps_u = sum_{j != i} W_ij d(u, x_j)
+        for all u (the O(D*Delta) inner loop of Algorithm 1).
+
+        ``x``: (n,) int32, ``i``: scalar site index.  Returns (D,) float32.
+        """
+        w_row = self.W[i]  # (n,) ; diagonal is zero so j == i contributes 0
+        onehot = (x[:, None] == torch.arange(self.D, device=x.device)
+                  ).to(w_row.dtype)                         # (n, D)
+        return w_row @ onehot
+
+    @staticmethod
+    def from_interactions(A: np.ndarray, *, match_weight_scale: float,
+                          D: int, device=None) -> "MatchGraph":
+        """Build from a symmetric interaction matrix A, with
+        ``W = match_weight_scale * A``."""
+        device = resolve_device(device)
+        A = np.asarray(A, np.float64)
+        if not np.allclose(A, A.T):
+            raise ValueError("interaction matrix must be symmetric")
+        W = match_weight_scale * A
+        np.fill_diagonal(W, 0.0)
+        n = W.shape[0]
+        iu, ju = np.triu_indices(n, k=1)
+        psi = float(W[iu, ju].sum())
+        row_sum = W.sum(1)
+        L = float(row_sum.max())
+        delta = int((W > 0).sum(1).max())
+        return MatchGraph(
+            W=torch.from_numpy(W.astype(np.float32)).to(device), D=D,
+            psi=psi, L=L, delta=delta,
+            row_sum=torch.from_numpy(row_sum.astype(np.float32)).to(device),
+            weights64=W)
+
+
+def _row_tables(W: np.ndarray):
+    n = W.shape[0]
+    row_prob = np.zeros((n, n), np.float32)
+    row_alias = np.zeros((n, n), np.int32)
+    for i in range(n):
+        row_prob[i], row_alias[i] = build_alias_table(W[i])
+    return row_prob, row_alias
+
+
+def _pair_tables(W: np.ndarray):
+    iu, ju = np.triu_indices(W.shape[0], k=1)
+    pair_prob, pair_alias = build_alias_table(W[iu, ju])
+    return (iu.astype(np.int32), ju.astype(np.int32), pair_prob, pair_alias)
+
+
+def graph_from_numpy(arrays: Mapping[str, np.ndarray], *, D: int, psi: float,
+                     L: float, delta: int, device=None) -> MatchGraph:
+    """A port graph from another implementation's arrays — e.g. the JAX
+    ``MatchGraph``'s leaves, ``{f: np.asarray(getattr(g, f))}`` for ``W``,
+    ``row_sum``, ``row_prob``, ``row_alias``, ``pair_a``, ``pair_b``,
+    ``pair_prob`` and ``pair_alias`` — so both compute on the same tables.
+    ``W`` and ``row_sum`` are required; every table is taken as given."""
+    device = resolve_device(device)
+    missing = {"W", "row_sum", *_ROW_TABLES, *_PAIR_TABLES} - set(arrays)
+    if missing:
+        raise ValueError(f"graph_from_numpy needs arrays {sorted(missing)}")
+    dtypes = {"W": torch.float32, "row_sum": torch.float32,
+              "row_prob": torch.float32, "pair_prob": torch.float32,
+              "row_alias": torch.int32, "pair_a": torch.int32,
+              "pair_b": torch.int32, "pair_alias": torch.int32}
+    t = {k: torch.tensor(np.asarray(arrays[k])).to(device, dtypes[k])
+         for k in dtypes}
+    return MatchGraph(W=t.pop("W"), D=D, psi=psi, L=L, delta=delta,
+                      row_sum=t.pop("row_sum"), tables=t)
+
+
+def make_ising_graph(grid: int = 20, beta: float = 1.0, gamma: float = 1.5,
+                     device=None) -> MatchGraph:
+    """Paper Section 2 validation model: fully-connected Ising on a
+    ``grid x grid`` lattice, Gaussian-kernel interactions, D = 2, match
+    weight 2*beta*A (grid=20, beta=1 gives Psi = 416.1, L = 2.21)."""
+    A = gaussian_kernel_interactions(grid, gamma)
+    return MatchGraph.from_interactions(A, match_weight_scale=2.0 * beta,
+                                        D=2, device=device)
+
+
+def make_potts_graph(grid: int = 20, beta: float = 4.6, D: int = 10,
+                     gamma: float = 1.5, device=None) -> MatchGraph:
+    """Paper Section 3 validation model: Potts, match weight beta*A
+    (grid=20, beta=4.6 gives Psi = 957.1, L = 5.09)."""
+    A = gaussian_kernel_interactions(grid, gamma)
+    return MatchGraph.from_interactions(A, match_weight_scale=beta, D=D,
+                                        device=device)
+
+
+def make_lattice_ising(grid: int, beta: float = 0.4,
+                       device=None) -> MatchGraph:
+    """Nearest-neighbor Ising on a grid (sparse, 2-colorable): the workload
+    where chromatic scheduling applies."""
+    n = grid * grid
+    W = np.zeros((n, n))
+    for r in range(grid):
+        for c in range(grid):
+            i = r * grid + c
+            for (dr, dc) in ((0, 1), (1, 0)):
+                rr, cc = r + dr, c + dc
+                if rr < grid and cc < grid:
+                    j = rr * grid + cc
+                    W[i, j] = W[j, i] = 2.0 * beta   # ising match weight
+    return MatchGraph.from_interactions(W, match_weight_scale=1.0, D=2,
+                                        device=device)
+
+
+def lattice_colors(grid: int) -> np.ndarray:
+    """Checkerboard 2-coloring of the ``grid x grid`` lattice."""
+    r, c = np.divmod(np.arange(grid * grid), grid)
+    return ((r + c) % 2).astype(np.int32)
+
+
+def make_pair_ising(n_strong: int, n_weak: int, w_strong: float = 3.5,
+                    w_weak: float = 0.25, device=None) -> MatchGraph:
+    """Heterogeneous pair-Ising: ``n_strong + n_weak`` independent 2-site
+    Ising pairs (sites 2p, 2p+1 coupled with match weight ``w_strong`` for
+    the first ``n_strong`` pairs, ``w_weak`` after).  Every marginal is
+    exactly uniform; pairs are 2-colorable (``pair_colors``)."""
+    n = 2 * (n_strong + n_weak)
+    W = np.zeros((n, n))
+    for p in range(n_strong + n_weak):
+        w = w_strong if p < n_strong else w_weak
+        W[2 * p, 2 * p + 1] = W[2 * p + 1, 2 * p] = w
+    return MatchGraph.from_interactions(W, match_weight_scale=1.0, D=2,
+                                        device=device)
+
+
+def pair_colors(n_pairs: int) -> np.ndarray:
+    """Proper 2-coloring of ``make_pair_ising`` (even/odd site of a pair)."""
+    return (np.arange(2 * n_pairs) % 2).astype(np.int32)

@@ -1,0 +1,198 @@
+"""Batched fused-sweep samplers: vanilla Gibbs (Algorithm 1) and MGPMH
+(Algorithm 4), on the uniform-site and chromatic schedules.
+
+A sweep builder returns ``sweep(state) -> state`` over a batched
+:class:`ChainState` (x of shape (C, n)): ``sweep_len`` sequentially
+composed site updates per call, all randomness (sites, Poisson totals,
+alias-table uniforms, Gumbel noise, MH uniforms) drawn up front in one
+batched pass on the state's device, and the x-dependent pipeline run as one
+``kernels.ops`` call — one kernel launch on the card.  Each sub-step is
+exactly one iteration of the single-site chain at an i.i.d.-uniform site.
+
+RNG contract: every state carries ONE ``torch.Generator`` on its device
+(``state.gen``), and a sweep draws everything it needs from it, in a fixed
+order, advancing it in place.  The state a sweep returns shares that
+generator, so re-running a sweep from an older state does not repeat its
+draws; seed a fresh generator to replay.  The streams differ from the JAX
+package's (threefry) streams, so the two agree in distribution, not in bits.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .factor_graph import MatchGraph
+from ..kernels import ops as kernel_ops
+
+__all__ = [
+    "ChainState",
+    "init_state",
+    "gibbs_select",
+    "mh_accept",
+    "gumbel",
+    "gibbs_draws",
+    "mgpmh_draws",
+    "validate_coloring",
+]
+
+_TINY = torch.finfo(torch.float32).tiny
+
+
+class ChainState(NamedTuple):
+    """Batched chain state.
+
+    ``cache`` is the cached energy estimate of the MIN-Gibbs-type samplers;
+    unused (0) by Gibbs and MGPMH.  ``accepts`` counts MH acceptances per
+    chain (MGPMH).
+    """
+    x: torch.Tensor        # (C, n) int32
+    cache: torch.Tensor    # (C,) float32
+    gen: torch.Generator   # on x's device
+    accepts: torch.Tensor  # (C,) int32
+
+
+def init_state(gen: torch.Generator, graph: MatchGraph, n_chains: int, *,
+               start: str = "constant") -> ChainState:
+    """Paper: "unmixed configuration where each site takes on the same
+    state" (``constant``), or i.i.d. uniform values (``random``)."""
+    dev = graph.device
+    shape = (n_chains, graph.n)
+    if start == "constant":
+        x = torch.zeros(shape, dtype=torch.int32, device=dev)
+    elif start == "random":
+        x = torch.randint(0, graph.D, shape, generator=gen, device=dev,
+                          dtype=torch.int32)
+    else:
+        raise ValueError(start)
+    return ChainState(x=x,
+                      cache=torch.zeros((n_chains,), device=dev),
+                      gen=gen,
+                      accepts=torch.zeros((n_chains,), dtype=torch.int32,
+                                          device=dev))
+
+
+def gumbel(shape, gen: torch.Generator, device) -> torch.Tensor:
+    """Standard Gumbel noise ``-log(-log u)`` from ``gen``."""
+    u = torch.rand(shape, generator=gen, device=device).clamp_min_(_TINY)
+    return -torch.log(-torch.log(u))
+
+
+def gibbs_select(eps: torch.Tensor, gumbel_noise: torch.Tensor) -> torch.Tensor:
+    """Categorical draw over (C, D) energies via Gumbel-argmax
+    (``categorical(exp eps)`` == ``argmax(eps + gumbel)``, first maximum)."""
+    return torch.argmax(eps + gumbel_noise, dim=-1).to(torch.int32)
+
+
+def mh_accept(logu, exact_diff, eps_xi, eps_v) -> torch.Tensor:
+    """The MGPMH acceptance rule:
+    ``log a = (exact(y) - exact(x)) + (eps_x - eps_v)``; accept iff
+    ``logu < log a``."""
+    return logu < exact_diff + (eps_xi - eps_v)
+
+
+def gibbs_draws(gen, C: int, S: int, n: int, D: int, device):
+    """The pre-drawn inputs of one Gibbs sweep call, in the sweep's draw
+    order: sites (C, S) int32, then Gumbels (C, S, D)."""
+    i = torch.randint(0, n, (C, S), generator=gen, device=device,
+                      dtype=torch.int32)
+    return i, gumbel((C, S, D), gen, device)
+
+
+def mgpmh_draws(gen, graph: MatchGraph, C: int, S: int, lam: float,
+                capacity: int):
+    """The pre-drawn inputs of one MGPMH sweep call, in the sweep's draw
+    order: sites (C, S) int32; Poisson totals
+    ``B = min(Poisson(lam * L_i / L), capacity)`` (footnote 7 on the local
+    minibatch over A[i]) int32; alias index uniforms (C, S, K); alias accept
+    uniforms (C, S, K); Gumbels (C, S, D); log MH uniforms (C, S)."""
+    dev, K = graph.device, capacity
+    i = torch.randint(0, graph.n, (C, S), generator=gen, device=dev,
+                      dtype=torch.int32)
+    lam_i = (lam / graph.L) * graph.row_sum[i.long()]
+    B = torch.poisson(lam_i, generator=gen).clamp_(max=K).to(torch.int32)
+    u_idx = torch.rand((C, S, K), generator=gen, device=dev)
+    u_alias = torch.rand((C, S, K), generator=gen, device=dev)
+    g = gumbel((C, S, graph.D), gen, dev)
+    logu = torch.log(torch.rand((C, S), generator=gen, device=dev))
+    return i, B, u_idx, u_alias, g, logu
+
+
+def _build_gibbs_sweep(graph: MatchGraph, sweep_len: int):
+    """``sweep_len`` sequential vanilla-Gibbs updates per call, one fused
+    kernel launch (or its plain version on the CPU) for all chains."""
+    n, D, dev = graph.n, graph.D, graph.device
+
+    def sweep(state: ChainState) -> ChainState:
+        i, g = gibbs_draws(state.gen, state.x.shape[0], sweep_len, n, D, dev)
+        x = kernel_ops.gibbs_sweep(state.x, graph.W, i, g, D=D)
+        return state._replace(x=x)
+
+    return sweep
+
+
+def _build_mgpmh_sweep(graph: MatchGraph, lam: float, capacity: int,
+                       sweep_len: int):
+    """``sweep_len`` sequential MGPMH updates (Algorithm 4 per sub-step) per
+    call, one fused launch for all chains, fed by :func:`mgpmh_draws`.
+    Distributionally identical to ``sweep_len`` single-site MGPMH steps —
+    Theorems 3/4 apply unchanged."""
+    D = graph.D
+    scale = float(graph.L / lam)
+    W, row_prob, row_alias = graph.W, graph.row_prob, graph.row_alias
+
+    def sweep(state: ChainState) -> ChainState:
+        draws = mgpmh_draws(state.gen, graph, state.x.shape[0], sweep_len,
+                            lam, capacity)
+        x, acc = kernel_ops.mgpmh_sweep(state.x, W, row_prob, row_alias,
+                                        *draws, D=D, scale=scale)
+        return state._replace(x=x, accepts=state.accepts + acc)
+
+    return sweep
+
+
+def validate_coloring(graph: MatchGraph, colors) -> list:
+    """Check ``colors`` is a proper coloring of ``graph`` (non-empty
+    classes, no same-color factors) and return the color classes as numpy
+    index arrays."""
+    colors = np.asarray(colors)
+    n = graph.n
+    if colors.shape != (n,):
+        raise ValueError(f"colors must have shape ({n},), got {colors.shape}")
+    n_colors = int(colors.max()) + 1
+    classes = [np.flatnonzero(colors == c) for c in range(n_colors)]
+    for c, sites in enumerate(classes):
+        if sites.size == 0:
+            raise ValueError(f"color class {c} is empty")
+        idx = torch.as_tensor(sites, device=graph.device)
+        if bool((graph.W[idx][:, idx] != 0.0).any()):
+            raise ValueError(
+                f"colors is not a proper coloring: class {c} shares factors")
+    return classes
+
+
+def _build_chromatic_gibbs_sweep(graph: MatchGraph, colors):
+    """One full chromatic Gibbs sweep per call: every color class updated as
+    a block through the fused Gibbs kernel, one launch per class.
+
+    Same-color sites share no factor (checked at build time), so the
+    kernel's sequential loop over a class IS the parallel block update:
+    every in-class update reads energies of the state the class started
+    from.  Per class, in color order, the sweep draws Gumbels (C, |class|, D)
+    from ``state.gen``.  ``updates_per_call`` is n.
+    """
+    D, dev = graph.D, graph.device
+    classes = [torch.as_tensor(s, dtype=torch.int32, device=dev)
+               for s in validate_coloring(graph, colors)]
+
+    def sweep(state: ChainState) -> ChainState:
+        C = state.x.shape[0]
+        x = state.x
+        for sites in classes:
+            g = gumbel((C, sites.shape[0], D), state.gen, dev)
+            i_sites = sites.expand(C, -1).contiguous()
+            x = kernel_ops.gibbs_sweep(x, graph.W, i_sites, g, D=D)
+        return state._replace(x=x)
+
+    return sweep

@@ -1,0 +1,111 @@
+"""Build the CUDA kernel library at first use and load it with ctypes.
+
+``nvcc`` compiles ``csrc/*.cu`` (plain C interface, no PyTorch headers, so a
+build takes seconds) for ``sm_90a`` into ``build/repro_torch/`` at the root
+of the checkout, under a name that carries a hash of the sources and flags:
+a changed source is rebuilt, an unchanged one is loaded as built.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+__all__ = ["BuildInfo", "load_library", "nvcc_command", "find_nvcc"]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+# -fmad=false: the plain versions round every product and sum separately,
+# and a contracted a*b+c would round once
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+_c_int, _c_ptr, _c_float = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
+_SIGNATURES = {
+    # x, W, i_sites, gumbel, x_out, C, n, S, D, stream
+    "gibbs_sweep_launch": [_c_ptr] * 5 + [_c_int] * 4 + [_c_ptr],
+    # x, W, row_prob, row_alias, i_sites, B, u_idx, u_alias, gumbel, logu,
+    # x_out, accepts, C, n, S, K, D, scale, stream
+    "mgpmh_sweep_launch": [_c_ptr] * 12 + [_c_int] * 5 + [_c_float, _c_ptr],
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class BuildInfo:
+    """The loaded library and how it was made."""
+    lib: ctypes.CDLL
+    path: Path
+    seconds: float      # nvcc wall time; 0.0 when an earlier build was reused
+    log: str            # nvcc's output (-Xptxas -v: registers, smem, spills)
+
+
+def find_nvcc() -> str:
+    """Path of ``nvcc``: ``$CUDA_HOME/bin``, then ``/usr/local/cuda/bin``,
+    then ``PATH``."""
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").is_file():
+            return str(Path(root) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, "
+                           "/usr/local/cuda/bin and PATH): the CUDA kernels "
+                           "are built from source at first use")
+    return found
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def nvcc_command(nvcc: str, sources, out: Path):
+    return [nvcc, *NVCC_FLAGS, "-o", str(out), *map(str, sources)]
+
+
+def _digest(sources) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+@functools.lru_cache(maxsize=1)
+def load_library() -> BuildInfo:
+    """Build (if needed) and load the kernel library; one per process."""
+    sources = _sources()
+    out = BUILD_DIR / f"libfused_sweep-{_digest(sources)}.so"
+    seconds, log = 0.0, ""
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        # build under a temporary name, then rename: a concurrent process
+        # never loads a half-written library
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        try:
+            t0 = time.perf_counter()
+            proc = subprocess.run(nvcc_command(find_nvcc(), sources, Path(tmp)),
+                                  capture_output=True, text=True)
+            seconds = time.perf_counter() - t0
+            log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+            os.replace(tmp, out)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    lib = ctypes.CDLL(str(out))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.cuda_error_string.argtypes = [ctypes.c_int]
+    lib.cuda_error_string.restype = ctypes.c_char_p
+    return BuildInfo(lib=lib, path=out, seconds=seconds, log=log)

@@ -6,21 +6,34 @@
 Phases, each printed as it ends; any failure exits non-zero:
   1. device and toolchain (card, power limit, torch/CUDA, nvcc, triton);
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
-     with ``-Xptxas -v`` registers / shared memory per kernel);
+     with ``-Xptxas -v`` registers / shared memory for all seven kernels);
   3. each kernel against its plain PyTorch version on the card, on the same
-     tensors: (a) at the parity shapes of the tests, exactly equal;
-     (b) at full width (potts-64x64, C=256, S=64, K=201, D=10, and the
-     chromatic lattice-ising-64x64 class), at most 1% of chains differ — the
+     tensors: (a) at the parity shapes of the tests, exactly equal (the
+     in-kernel-RNG kernels with seeds 0, 1 and 2^31-1); (b) at full width
+     on potts-64x64: mgpmh (C=256, S=64, K=201), gibbs and the chromatic
+     lattice-ising-64x64 class with at most 1% of chains differing — the
      plain version sums the ~1564 non-zero W terms of a row in another
      order, so only a near-tie can flip a decision, and a flip then changes
-     the rest of that chain;
+     the rest of that chain — and MIN-Gibbs (C=16, S=8, K=17188) and
+     DoubleMIN (C=64, S=16, K1=201, K2=17188) exactly equal (integer
+     counts, no float reduction); the in-kernel-RNG kernels at those
+     shapes with at most 1% of chains differing;
   4. the main path through the user entry points (``engine.make`` +
      ``run_marginal_experiment``): mgpmh and gibbs on potts-64x64 with 256
-     chains x 200 sweeps of 64 updates, then chromatic gibbs on
-     lattice-ising-64x64; launch counts reset before and read after each
-     run, and must equal the sweep calls (color classes x calls);
-  5. kernel times (CUDA-event medians) at the main-path shapes beside the
-     plain versions' times and the least time the card could take.
+     chains x 200 sweeps of 64 updates, chromatic gibbs on
+     lattice-ising-64x64, min-gibbs (128 chains x 200 sweeps of 8) and
+     doublemin (256 chains x 100 sweeps of 64) on potts-64x64 at their
+     default lambda; launch counts reset before and read after each run,
+     and must equal the sweep calls (color classes x calls);
+  5. the in-kernel-RNG path at C=256, S=64 on potts-64x64 (the MIN-Gibbs
+     host form would need 45 GB of streams there): a few calls of each
+     ``*_rng`` kernel with fresh seeds, launch counts reset before and read
+     after, device memory growth no more than the outputs plus 1 MiB;
+  6. kernel times (CUDA-event medians) at the shapes of phases 4-5 beside
+     the plain versions' times and the least time the card could take;
+     the timed outputs of each slice-2 kernel and its plain version are
+     compared there too (host-stream kernels exactly, in-kernel-RNG kernels
+     to at most 1% of chains, their plain versions run on chain slices).
 
 Prints the kernels' JSON record and the card's name and power limit, then
 as its last line ``{"ok": true, "device": {...}}``.  Also writes the full
@@ -29,6 +42,7 @@ nothing of JAX.
 """
 import importlib.metadata
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -44,11 +58,34 @@ sys.path.insert(0, str(ROOT / "src"))
 # H100 SXM published peaks (NVIDIA data sheet), at the full 700 W limit
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# int32 rate: 64 INT32 lanes per SM (half the 128 FP32 lanes, NVIDIA H100
+# Tensor Core GPU Architecture white paper) x 132 SMs x the 1.98 GHz clock
+# behind the data sheet's 67 TFLOP/s (= 132 x 128 x 2 x 1.98e9)
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# one Philox4x32-10 call, 4 words: 10 rounds of two 32x32 -> 64-bit
+# multiplies (one IMAD.WIDE gives hi and lo) and two three-input XORs (one
+# LOP3 each); the round keys depend only on (seed, stream), so the function
+# needs them once per stream, not once per call
+PHILOX_INT_OPS = 10 * 4
 
 C_FULL, S_FULL, SWEEPS = 256, 64, 200
+C_MIN, S_MIN, SWEEPS_MIN = 128, 8, 200        # min-gibbs main path
+C_DMIN, S_DMIN, SWEEPS_DMIN = 256, 64, 100    # doublemin main path
+FULL_MIN, FULL_DMIN = (16, 8), (64, 16)       # exact full-width checks
+# chains per call of a plain in-kernel-RNG version held against the kernel
+# at C=256, S=64: it materialises every stream of its chains (~1.5 GB per
+# MIN-Gibbs chain, ~0.15 GB per DoubleMIN chain)
+SLICE_MIN, SLICE_DMIN = 8, 64
+RNG_CALLS = 3                                 # phase 5 calls per kernel
 PARITY_MGPMH = [(4, 5, 17, 3, 11), (8, 8, 128, 10, 40), (3, 1, 1, 2, 5),
                 (5, 12, 33, 6, 20), (2, 3, 9, 129, 7)]
 PARITY_GIBBS = [(4, 5, 3, 11), (8, 8, 10, 40), (3, 1, 2, 5)]
+PARITY_MIN = [(4, 5, 17, 3, 11), (3, 1, 1, 2, 5), (5, 7, 33, 4, 20)]
+PARITY_DMIN = [(4, 5, 17, 9, 3, 11), (3, 1, 1, 1, 2, 5),
+               (5, 7, 33, 21, 4, 20)]         # (C, S, K1, K2, D, n)
+SEEDS = (0, 1, 2 ** 31 - 1)
+KERNELS = ("gibbs_sweep", "mgpmh_sweep", "mgpmh_sweep_rng", "min_gibbs_sweep",
+           "min_gibbs_sweep_rng", "double_min_sweep", "double_min_sweep_rng")
 
 
 def fail(msg):
@@ -64,8 +101,9 @@ def say(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
 
 
-def median_ms(fn, reps, warmup=1):
-    """Median CUDA-event time of ``fn()`` over ``reps`` timed calls."""
+def timed(fn, reps, warmup=1):
+    """(median CUDA-event ms over ``reps`` timed calls of ``fn()``, the
+    last call's result)."""
     for _ in range(warmup):
         fn()
     times = []
@@ -73,11 +111,15 @@ def median_ms(fn, reps, warmup=1):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        out = fn()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return statistics.median(times), out
+
+
+def median_ms(fn, reps, warmup=1):
+    return timed(fn, reps, warmup)[0]
 
 
 def phase_device():
@@ -110,57 +152,116 @@ def phase_build():
              if "registers" in ln or "entry function" in ln or "spill" in ln]
     for ln in ptxas:
         say("2 build", ln)
-    say("2 build", f"{built.path.name}: nvcc {built.seconds:.1f} s, load "
-        f"{wall:.1f} s")
+    entries = [ln for ln in ptxas if "entry function" in ln]
+    say("2 build", f"{built.path.name}: {len(entries)} kernels, nvcc "
+        f"{built.seconds:.1f} s, load {wall:.1f} s")
+    if built.seconds > 0:            # a reused library printed no log
+        check(len(entries) == len(KERNELS),
+              f"ptxas compiled {len(entries)} kernels, expected "
+              f"{len(KERNELS)}")
     return dict(nvcc_seconds=built.seconds, load_seconds=wall, ptxas=ptxas)
 
 
-def _alias_rows(rng, n):
-    from repro_torch.core.factor_graph import build_alias_table
-    A = rng.uniform(0.1, 1.0, (n, n))
-    A = (A + A.T) / 2
-    np.fill_diagonal(A, 0)
-    rp = np.zeros((n, n), np.float32)
-    ra = np.zeros((n, n), np.int32)
-    for i in range(n):
-        rp[i], ra[i] = build_alias_table(A[i])
-    return A.astype(np.float32), rp, ra
+def _seed(k, dev):
+    return torch.tensor([k], dtype=torch.int32, device=dev)
+
+
+def _equal(a, b):
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    return all(torch.equal(p, q) for p, q in zip(a, b))
+
+
+def first_differing_substep(run, S):
+    """Smallest s such that the kernel and the plain version differ after
+    the first s sub-steps (``run(s) -> (kernel_out, plain_out)``): the
+    streams of a sub-step do not depend on S, so a truncated call replays
+    the same draws."""
+    for s in range(1, S + 1):
+        if not _equal(*run(s)):
+            return s
+    return None
+
+
+def rng_parity(name, kernel, plain, args, per_step, shape, dev):
+    """An in-kernel-RNG kernel against its plain version, seeds 0, 1 and
+    2^31-1: exactly equal, else the seed, shape and first differing
+    sub-step are printed and the phase fails.  ``per_step``: positions of
+    the (C, S, ...) inputs (sites, Poisson totals)."""
+    S = args[per_step[0]].shape[1]
+    for seed in SEEDS:
+        sd = _seed(seed, dev)
+
+        def run(s):
+            a = tuple(v[:, :s].contiguous() if j in per_step else v
+                      for j, v in enumerate(args))
+            out = kernel(a, sd), plain(a, sd)
+            torch.cuda.synchronize()
+            return out
+
+        if not _equal(*run(S)):
+            fail(f"{name} kernel != plain version at shape {shape}, seed "
+                 f"{seed}, first differing sub-step "
+                 f"{first_differing_substep(run, S)}")
 
 
 def phase_parity(dev):
     """Kernels vs plain versions at the test shapes: exactly equal."""
-    from repro_torch.kernels import fused_sweep as fs, ref
-    t = lambda a: torch.from_numpy(a).to(dev)
+    from repro_torch.kernels import fused_sweep as fs, parity_inputs as pin
+    from repro_torch.kernels import ref
+    t = lambda arrays: tuple(torch.from_numpy(a).to(dev) for a in arrays)
     for (C, S, K, D, n) in PARITY_MGPMH:
-        rng = np.random.default_rng(C * 100 + S * 10 + K + D + n)
-        W, rp, ra = _alias_rows(rng, n)
-        x = rng.integers(0, D, (C, n)).astype(np.int32)
-        i = rng.integers(0, n, (C, S)).astype(np.int32)
-        B = rng.integers(0, K + 1, (C, S)).astype(np.int32)
-        u1 = rng.uniform(size=(C, S, K)).astype(np.float32)
-        u2 = rng.uniform(size=(C, S, K)).astype(np.float32)
-        g = rng.gumbel(size=(C, S, D)).astype(np.float32)
-        lu = np.log(rng.uniform(size=(C, S))).astype(np.float32)
-        args = [t(a) for a in (x, W, rp, ra, i, B, u1, u2, g, lu)]
+        args = t(pin.mgpmh_inputs(C, S, K, D, n))
         xk, ak = fs.mgpmh_sweep_cuda(*args, D=D, scale=0.7)
         xr, ar = ref.mgpmh_sweep_ref(*args, D, 0.7)
         torch.cuda.synchronize()
         check(torch.equal(xk, xr) and torch.equal(ak, ar),
               f"mgpmh kernel != plain version at (C,S,K,D,n)="
               f"{(C, S, K, D, n)}")
+        rng_parity("mgpmh_sweep_rng",
+                   lambda a, sd: fs.mgpmh_sweep_rng_cuda(*a, sd, D=D,
+                                                         scale=0.7, K=K),
+                   lambda a, sd: ref.mgpmh_sweep_rng_ref(*a, sd, D, 0.7, K),
+                   tuple(args[:6]), (4, 5), (C, S, K, D, n), dev)
     for (C, S, D, n) in PARITY_GIBBS:
-        rng = np.random.default_rng(C + S + D + n)
-        W, _, _ = _alias_rows(rng, n)
-        x = rng.integers(0, D, (C, n)).astype(np.int32)
-        i = rng.integers(0, n, (C, S)).astype(np.int32)
-        g = rng.gumbel(size=(C, S, D)).astype(np.float32)
-        args = [t(a) for a in (x, W, i, g)]
+        args = t(pin.gibbs_inputs(C, S, D, n))
         xk = fs.gibbs_sweep_cuda(*args, D=D)
         torch.cuda.synchronize()
         check(torch.equal(xk, ref.gibbs_sweep_ref(*args, D)),
               f"gibbs kernel != plain version at (C,S,D,n)={(C, S, D, n)}")
+    for shape in PARITY_MIN:
+        C, S, K, D, n = shape
+        args = t(pin.min_gibbs_inputs(*shape))
+        check(_equal(fs.min_gibbs_sweep_cuda(*args, D=D, lscale=0.37),
+                     ref.min_gibbs_sweep_ref(*args, D, 0.37)),
+              f"min_gibbs kernel != plain version at (C,S,K,D,n)={shape}")
+        head = args[:7] + (args[-1],)          # x, tables, i, B, cache
+        rng_parity("min_gibbs_sweep_rng",
+                   lambda a, sd: fs.min_gibbs_sweep_rng_cuda(
+                       *a, sd, D=D, lscale=0.37, K=K),
+                   lambda a, sd: ref.min_gibbs_sweep_rng_ref(
+                       *a, sd, D, 0.37, K), head, (5, 6), shape, dev)
+    for shape in PARITY_DMIN:
+        C, S, K1, K2, D, n = shape
+        args = t(pin.double_min_inputs(*shape))
+        check(_equal(fs.double_min_sweep_cuda(*args, D=D, scale1=0.7,
+                                              lscale2=0.31),
+                     ref.double_min_sweep_ref(*args, D, 0.7, 0.31)),
+              f"double_min kernel != plain version at "
+              f"(C,S,K1,K2,D,n)={shape}")
+        head = args[:7] + (args[10], args[-1])  # x, tables, i, B1, B2, cache
+        rng_parity("double_min_sweep_rng",
+                   lambda a, sd: fs.double_min_sweep_rng_cuda(
+                       *a, sd, D=D, scale1=0.7, lscale2=0.31, K1=K1, K2=K2),
+                   lambda a, sd: ref.double_min_sweep_rng_ref(
+                       *a, sd, D, 0.7, 0.31, K1, K2), head, (5, 6, 7),
+                   shape, dev)
+    torch.cuda.synchronize()
     say("3a parity", f"{len(PARITY_MGPMH)} mgpmh + {len(PARITY_GIBBS)} gibbs "
-        f"shapes: kernel == plain version exactly (x and accepts)")
+        f"+ {len(PARITY_MIN)} min-gibbs + {len(PARITY_DMIN)} doublemin "
+        f"shapes: kernel == plain version exactly (x, cache, accepts); the "
+        f"3 in-kernel-RNG kernels == their plain versions exactly at the "
+        f"same shapes for seeds {list(SEEDS)}")
 
 
 def build_graphs(dev):
@@ -171,10 +272,14 @@ def build_graphs(dev):
     t1 = time.perf_counter()
     lattice = engine.make_workload("lattice-ising-64x64", device=dev)
     t2 = time.perf_counter()
+    _ = potts.pair_prob          # the flat factor table the cache init reads
+    t3 = time.perf_counter()
     say("graphs", f"potts-64x64 n={potts.n} D={potts.D} L={potts.L:.4f} "
         f"psi={potts.psi:.1f} delta={potts.delta} built in {t1 - t0:.1f} s; "
-        f"lattice-ising-64x64 n={lattice.graph.n} built in {t2 - t1:.1f} s")
-    return potts, lattice
+        f"lattice-ising-64x64 n={lattice.graph.n} built in {t2 - t1:.1f} s; "
+        f"potts-64x64 flat pair table (F={potts.num_factors}) built in "
+        f"{t3 - t2:.1f} s")
+    return potts, lattice, t3 - t2
 
 
 def mgpmh_inputs(graph, C, S, seed):
@@ -205,7 +310,55 @@ def gibbs_inputs(graph, C, S, seed, sites=None):
     return (x, graph.W, i, g)
 
 
-def compare(name, out_k, out_p, C):
+def min_gibbs_inputs(graph, C, S, seed):
+    """Inputs of one MIN-Gibbs sweep call at the engine defaults."""
+    from repro_torch.core import samplers
+    from repro_torch.core.estimators import (min_gibbs_lscale,
+                                             recommended_capacity)
+    lam = min(2.0 * graph.psi ** 2, 16384.0)
+    K = recommended_capacity(lam)
+    gen = torch.Generator(device=graph.device).manual_seed(seed)
+    st = samplers.init_state(gen, graph, C, start="random")
+    st = samplers.init_min_gibbs_cache(gen, graph, st, lam, K)
+    npb, nab = samplers._node_alias_table(graph)
+    draws = samplers.min_gibbs_draws(gen, graph, C, S, lam, K)
+    args = (st.x, npb, nab, graph.row_prob, graph.row_alias, *draws,
+            st.cache)
+    return args, dict(D=graph.D, lscale=min_gibbs_lscale(graph.psi, lam)), K
+
+
+def double_min_inputs(graph, C, S, seed):
+    """Inputs of one DoubleMIN sweep call at the engine defaults."""
+    from repro_torch.core import samplers
+    from repro_torch.core.estimators import (min_gibbs_lscale,
+                                             recommended_capacity)
+    lam1 = 4.0 * graph.L ** 2
+    lam2 = min(2.0 * graph.psi ** 2, 16384.0)
+    K1, K2 = recommended_capacity(lam1), recommended_capacity(lam2)
+    gen = torch.Generator(device=graph.device).manual_seed(seed)
+    st = samplers.init_state(gen, graph, C, start="random")
+    st = samplers.init_min_gibbs_cache(gen, graph, st, lam2, K2)
+    npb, nab = samplers._node_alias_table(graph)
+    draws = samplers.double_min_draws(gen, graph, C, S, lam1, K1, lam2, K2)
+    args = (st.x, graph.row_prob, graph.row_alias, npb, nab, *draws,
+            st.cache)
+    kw = dict(D=graph.D, scale1=graph.L / lam1,
+              lscale2=min_gibbs_lscale(graph.psi, lam2))
+    return args, kw, K1, K2
+
+
+def rng_view(kind, args, kw, K):
+    """The in-kernel-RNG form of a host-stream argument list: drop the
+    streams, add nothing but the seed (given at the call)."""
+    if kind == "mgpmh":
+        return args[:6], dict(kw, K=K)
+    if kind == "min_gibbs":
+        return args[:7] + (args[-1],), dict(kw, K=K)
+    K1, K2 = K
+    return args[:7] + (args[10], args[-1]), dict(kw, K1=K1, K2=K2)
+
+
+def compare(name, out_k, out_p, C, exact=False, phase="3b full width"):
     """(differing chains, max abs err) of kernel vs plain outputs."""
     outs_k = out_k if isinstance(out_k, tuple) else (out_k,)
     outs_p = out_p if isinstance(out_p, tuple) else (out_p,)
@@ -216,8 +369,11 @@ def compare(name, out_k, out_p, C):
         differ |= d if d.dim() == 1 else d.any(dim=1)
         err = max(err, float((a.double() - b.double()).abs().max()))
     n_diff = int(differ.sum())
-    say("3b full width", f"{name}: {n_diff}/{C} chains differ from the "
+    say(phase, f"{name}: {n_diff}/{C} chains differ from the "
         f"plain version, max abs err {err}")
+    if exact:
+        check(n_diff == 0, f"{name}: {n_diff} of {C} chains differ "
+              f"(must be exactly equal)")
     check(n_diff <= 0.01 * C, f"{name}: {n_diff} of {C} chains differ "
           f"(tolerance 1%)")
     return n_diff, err
@@ -233,6 +389,11 @@ def phase_full_width(potts, lattice):
     out["mgpmh_sweep"] = compare(
         "mgpmh_sweep", fs.mgpmh_sweep_cuda(*args, **kw),
         ref.mgpmh_sweep_ref(*args, kw["D"], kw["scale"]), C_FULL)
+    a, k = rng_view("mgpmh", args, kw, K)
+    sd = _seed(11, potts.device)
+    out["mgpmh_sweep_rng"] = compare(
+        "mgpmh_sweep_rng", fs.mgpmh_sweep_rng_cuda(*a, sd, **k),
+        ref.mgpmh_sweep_rng_ref(*a, sd, k["D"], k["scale"], K), C_FULL)
     args = gibbs_inputs(potts, C_FULL, S_FULL, seed=2)
     out["gibbs_sweep"] = compare(
         "gibbs_sweep", fs.gibbs_sweep_cuda(*args, D=potts.D),
@@ -245,15 +406,59 @@ def phase_full_width(potts, lattice):
         "gibbs_sweep (chromatic class)",
         fs.gibbs_sweep_cuda(*args, D=2), ref.gibbs_sweep_ref(*args, 2),
         C_FULL)
+    C, S = FULL_MIN
+    args, kw, K = min_gibbs_inputs(potts, C, S, seed=8)
+    lscale = kw["lscale"]
+    say("3b full width", f"min-gibbs lam=16384 capacity K={K} "
+        f"lscale={lscale:.5f} C={C} S={S} mean B="
+        f"{float(args[6].float().mean()):.1f}")
+    check(K == 17188, f"capacity {K} != 17188 at lam=16384")
+    out["min_gibbs_sweep"] = compare(
+        "min_gibbs_sweep", fs.min_gibbs_sweep_cuda(*args, **kw),
+        ref.min_gibbs_sweep_ref(*args, kw["D"], lscale), C, exact=True)
+    a, k = rng_view("min_gibbs", args, kw, K)
+    del args
+    sd = _seed(12, potts.device)
+    out["min_gibbs_sweep_rng"] = compare(
+        "min_gibbs_sweep_rng", fs.min_gibbs_sweep_rng_cuda(*a, sd, **k),
+        ref.min_gibbs_sweep_rng_ref(*a, sd, k["D"], lscale, K), C)
+    C, S = FULL_DMIN
+    args, kw, K1, K2 = double_min_inputs(potts, C, S, seed=9)
+    say("3b full width", f"doublemin K1={K1} K2={K2} C={C} S={S}")
+    out["double_min_sweep"] = compare(
+        "double_min_sweep", fs.double_min_sweep_cuda(*args, **kw),
+        ref.double_min_sweep_ref(*args, kw["D"], kw["scale1"],
+                                 kw["lscale2"]), C, exact=True)
+    a, k = rng_view("double_min", args, kw, (K1, K2))
+    del args
+    sd = _seed(13, potts.device)
+    out["double_min_sweep_rng"] = compare(
+        "double_min_sweep_rng", fs.double_min_sweep_rng_cuda(*a, sd, **k),
+        ref.double_min_sweep_rng_ref(*a, sd, k["D"], k["scale1"],
+                                     k["lscale2"], K1, K2), C)
+    torch.cuda.empty_cache()
     return out
 
 
-def run_main_path(name, eng, n_iters, n_snapshots, expect):
+def read_launches():
+    from repro_torch.kernels import fused_sweep as fs
+    return {fn.__name__[:-len("_cuda")]: fn.launches for fn in fs.WRAPPERS}
+
+
+def run_main_path(name, eng, n_chains, n_iters, n_snapshots, expect,
+                  falling=True):
     """Drive one engine through run_marginal_experiment with the launch
-    counts set to 0 just before and read just after."""
+    counts set to 0 just before and read just after.  ``expect(calls)``
+    names the launches of the engine's kernel; every other kernel must
+    have none.  ``falling``: the marginal error must fall and never rise
+    by more than 1e-3; otherwise (the sticky MIN-Gibbs-type chains at
+    their capped default lambda, whose trajectory is flat to ~1e-6) the
+    chains must have moved and the error must stay finite and within its
+    range."""
     from repro_torch.core import chains
     from repro_torch.kernels import fused_sweep as fs
-    st = eng.init(0, C_FULL)
+    st = eng.init(0, n_chains)
+    x0, cache0 = st.x.clone(), float(st.cache.mean())
     torch.cuda.synchronize()
     fs.reset_launch_counts()
     t0 = time.perf_counter()
@@ -261,54 +466,219 @@ def run_main_path(name, eng, n_iters, n_snapshots, expect):
                                         n_snapshots=n_snapshots)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"gibbs_sweep": fs.gibbs_sweep_cuda.launches,
-                "mgpmh_sweep": fs.mgpmh_sweep_cuda.launches}
+    launches = read_launches()
     errs = [float(e) for e in tr.error]
     calls = int(tr.iters[-1]) // eng.updates_per_call
-    updates = calls * eng.updates_per_call * C_FULL
+    updates = calls * eng.updates_per_call * n_chains
     acc = (1.0 if eng.exact_accept else
            float(tr.final.accepts.double().sum()) / updates)
-    rec = dict(engine=eng.describe(), sweep_calls=calls, marg_err=errs,
-               acceptance=acc, seconds=wall, updates_per_s=updates / wall,
-               launches=launches)
-    say("4 main path", f"{name}: marg_err " + " ".join(f"{e:.4f}" for e in errs)
-        + f"; acc={acc:.4f}; {updates / wall / 1e6:.2f}M updates/s "
-        f"({wall:.2f} s); launches {launches}")
-    for kernel, want in expect(calls).items():
-        check(launches[kernel] == want,
+    moved = int((tr.final.x != x0).sum())
+    rec = dict(engine=eng.describe(), chains=n_chains, sweep_calls=calls,
+               marg_err=errs, acceptance=acc, seconds=wall,
+               updates_per_s=updates / wall, sites_changed=moved,
+               launches={k: v for k, v in launches.items() if v})
+    say("4 main path", f"{name}: marg_err "
+        + " ".join(f"{e:.6f}" for e in errs)
+        + f"; acc={acc:.4f}; {updates / wall / 1e6:.3f}M updates/s "
+        f"({wall:.2f} s); {moved} of {n_chains * eng.graph.n} (chain, site) "
+        f"values changed; launches {rec['launches']}")
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(expect(calls))
+    for kernel, n in want.items():
+        check(launches[kernel] == n,
               f"{name}: {kernel} launched {launches[kernel]} times, "
-              f"expected {want}")
+              f"expected {n}")
     check(all(np.isfinite(errs)), f"{name}: non-finite marginal error")
-    check(errs[-1] < errs[0] and all(b <= a + 1e-3 for a, b in
-                                    zip(errs, errs[1:])),
-          f"{name}: marginal error not decreasing: {errs}")
-    check(tr.final.x.shape == (C_FULL, eng.graph.n)
+    if falling:
+        check(errs[-1] < errs[0] and all(b <= a + 1e-3 for a, b in
+                                        zip(errs, errs[1:])),
+              f"{name}: marginal error not decreasing: {errs}")
+    else:
+        top = math.sqrt(1.0 - 1.0 / eng.graph.D)    # a one-hot marginal
+        check(moved > 0, f"{name}: no chain changed any site")
+        check(all(0.0 <= e <= top + 1e-6 for e in errs),
+              f"{name}: marginal error outside [0, {top}]: {errs}")
+    check(tr.final.x.shape == (n_chains, eng.graph.n)
           and int(tr.final.x.min()) >= 0
           and int(tr.final.x.max()) < eng.graph.D,
           f"{name}: final state out of domain")
+    if eng.cache_init is not None:
+        cache = tr.final.cache
+        check(bool(torch.isfinite(cache).all()),
+              f"{name}: non-finite cache")
+        rec["cache_mean"] = float(cache.mean())
+        rec["cache_start_mean"] = cache0
+        say("4 main path", f"{name}: cache finite on all {n_chains} chains, "
+            f"mean {cache0:.2f} at init, {rec['cache_mean']:.2f} at the end")
     return rec
 
 
-def phase_main_path(potts, lattice):
+def phase_main_path(potts, lattice, pair_table_s):
     from repro_torch.core import engine
     out = {}
     eng = engine.make("mgpmh", potts, sweep=S_FULL)
     check(eng.backend == "cuda", "mgpmh engine is not on the cuda backend")
     out["mgpmh"] = run_main_path(
-        "mgpmh potts-64x64", eng, SWEEPS * S_FULL, 10,
-        lambda calls: {"mgpmh_sweep": calls, "gibbs_sweep": 0})
+        "mgpmh potts-64x64", eng, C_FULL, SWEEPS * S_FULL, 10,
+        lambda calls: {"mgpmh_sweep": calls})
     check(out["mgpmh"]["acceptance"] > 0.9,
           f"mgpmh acceptance {out['mgpmh']['acceptance']} <= 0.9")
     eng = engine.make("gibbs", potts, sweep=S_FULL)
     out["gibbs"] = run_main_path(
-        "gibbs potts-64x64", eng, SWEEPS * S_FULL, 10,
-        lambda calls: {"gibbs_sweep": calls, "mgpmh_sweep": 0})
+        "gibbs potts-64x64", eng, C_FULL, SWEEPS * S_FULL, 10,
+        lambda calls: {"gibbs_sweep": calls})
     eng = engine.make("gibbs", lattice.graph,
                       schedule=engine.ChromaticBlocks(lattice.colors))
     out["chromatic"] = run_main_path(
-        "chromatic gibbs lattice-ising-64x64", eng, 20 * lattice.graph.n, 4,
-        lambda calls: {"gibbs_sweep": 2 * calls, "mgpmh_sweep": 0})
+        "chromatic gibbs lattice-ising-64x64", eng, C_FULL,
+        20 * lattice.graph.n, 4, lambda calls: {"gibbs_sweep": 2 * calls})
+    t0 = time.perf_counter()
+    eng = engine.make("min-gibbs", potts, sweep=S_MIN)
+    build_s = time.perf_counter() - t0
+    check(eng.backend == "cuda", "min-gibbs engine is not on the cuda backend")
+    streams = host_stream_bytes(
+        "min_gibbs", dict(D=potts.D, K=eng.params["capacity"]), C_MIN, S_MIN)
+    say("4 main path", f"min-gibbs potts-64x64 params {eng.params}; engine "
+        f"built in {build_s:.2f} s; flat pair table built in "
+        f"{pair_table_s:.1f} s (host, at graph build); host-drawn streams "
+        f"{streams / 1e9:.2f} GB per call")
+    out["min-gibbs"] = run_main_path(
+        "min-gibbs potts-64x64", eng, C_MIN, SWEEPS_MIN * S_MIN, 10,
+        lambda calls: {"min_gibbs_sweep": calls}, falling=False)
+    out["min-gibbs"].update(params=eng.params, engine_build_s=build_s,
+                            pair_table_s=pair_table_s)
+    eng = engine.make("doublemin", potts, sweep=S_DMIN)
+    kw = dict(D=potts.D, K1=eng.params["capacity1"],
+              K2=eng.params["capacity2"])
+    say("4 main path", f"doublemin potts-64x64 params {eng.params}; "
+        f"host-drawn streams "
+        f"{host_stream_bytes('double_min', kw, C_DMIN, S_DMIN) / 1e9:.2f} "
+        f"GB per call")
+    out["doublemin"] = run_main_path(
+        "doublemin potts-64x64", eng, C_DMIN, SWEEPS_DMIN * S_DMIN, 10,
+        lambda calls: {"double_min_sweep": calls}, falling=False)
+    out["doublemin"]["params"] = eng.params
+    check(out["doublemin"]["acceptance"] > 0,
+          "doublemin accepted no proposal")
+    torch.cuda.empty_cache()
     return out
+
+
+def rng_path_inputs(potts, seed):
+    """Pre-made inputs of the three in-kernel-RNG kernels at C=256, S=64 on
+    potts-64x64 at the engines' default lambdas: state, sites, Poisson
+    totals and caches only."""
+    from repro_torch.core import samplers
+    from repro_torch.core.estimators import (min_gibbs_lscale,
+                                             recommended_capacity)
+    C, S, dev = C_FULL, S_FULL, potts.device
+    lam1, lam2 = 4.0 * potts.L ** 2, min(2.0 * potts.psi ** 2, 16384.0)
+    K1, K2 = recommended_capacity(lam1), recommended_capacity(lam2)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    st = samplers.init_state(gen, potts, C, start="random")
+    cache = samplers.init_min_gibbs_cache(gen, potts, st, lam2, K2).cache
+    i = torch.randint(0, potts.n, (C, S), generator=gen, device=dev,
+                      dtype=torch.int32)
+    lam_i = (lam1 / potts.L) * potts.row_sum[i.long()]
+    B1 = torch.poisson(lam_i, generator=gen).clamp_(max=K1).to(torch.int32)
+    poisson2 = lambda shape: torch.poisson(
+        torch.full(shape, lam2, device=dev), generator=gen
+    ).clamp_(max=K2).to(torch.int32)
+    npb, nab = samplers._node_alias_table(potts)
+    rp, ra = potts.row_prob, potts.row_alias
+    lscale2 = min_gibbs_lscale(potts.psi, lam2)
+    return {
+        "mgpmh_sweep_rng": (
+            (st.x, potts.W, rp, ra, i, B1),
+            dict(D=potts.D, scale=potts.L / lam1, K=K1)),
+        "min_gibbs_sweep_rng": (
+            (st.x, npb, nab, rp, ra, i, poisson2((C, S, potts.D)), cache),
+            dict(D=potts.D, lscale=lscale2, K=K2)),
+        "double_min_sweep_rng": (
+            (st.x, rp, ra, npb, nab, i, B1, poisson2((C, S)), cache),
+            dict(D=potts.D, scale1=potts.L / lam1, lscale2=lscale2, K1=K1,
+                 K2=K2)),
+    }
+
+
+def host_stream_bytes(kernel, kw, C=C_FULL, S=S_FULL):
+    """Bytes of the pre-drawn streams the host-stream form of ``kernel``
+    takes for one call (uniforms, Gumbels, log-uniforms; float32)."""
+    D = kw["D"]
+    if kernel.startswith("mgpmh"):
+        return 4 * C * S * (2 * kw["K"] + D + 1)
+    if kernel.startswith("min_gibbs"):
+        return 4 * C * S * D * (4 * kw["K"] + 1)
+    return 4 * C * S * (2 * kw["K1"] + D + 4 * kw["K2"] + 1)
+
+
+def phase_rng_path(potts):
+    """The in-kernel-RNG path: RNG_CALLS chained calls of each kernel with
+    fresh seeds, launch counts reset before and read after, and each call's
+    device memory growth held to its outputs plus 1 MiB."""
+    from repro_torch.kernels import fused_sweep as fs
+    inputs = rng_path_inputs(potts, seed=21)
+    torch.cuda.synchronize()
+    fs.reset_launch_counts()
+    out = {}
+    for k, (args, kw) in inputs.items():
+        wrapper = getattr(fs, k + "_cuda")
+        a = list(args)
+        times, grown, acc = [], [], 0
+        for call in range(RNG_CALLS):
+            seed = _seed(1000 + call, potts.device)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            res = wrapper(*a, seed, **kw)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+            outputs = sum(t.numel() * t.element_size() for t in res)
+            grown.append(torch.cuda.max_memory_allocated() - before)
+            check(grown[-1] <= outputs + (1 << 20),
+                  f"{k}: device memory grew {grown[-1]} bytes in a call, "
+                  f"outputs {outputs} bytes")
+            a[0] = res[0]                         # chain the state
+            if k != "mgpmh_sweep_rng":
+                a[-1] = res[1]                    # and the cache
+            if k != "min_gibbs_sweep_rng":
+                acc += int(res[-1].sum())
+        x = a[0]
+        check(int(x.min()) >= 0 and int(x.max()) < potts.D,
+              f"{k}: state out of domain")
+        if k != "mgpmh_sweep_rng":
+            check(bool(torch.isfinite(a[-1]).all()), f"{k}: non-finite cache")
+        upd = C_FULL * S_FULL
+        rate = upd / (statistics.median(times) / 1e3)
+        streams = host_stream_bytes(k, kw)
+        rec = dict(calls=RNG_CALLS, call_ms=times, updates_per_s=rate,
+                   memory_growth_bytes=grown, outputs_bytes=outputs,
+                   host_stream_bytes=streams)
+        line = (f"{k} C={C_FULL} S={S_FULL} K={kw.get('K', kw.get('K2'))}: "
+                f"{RNG_CALLS} calls, median {statistics.median(times):.3f} "
+                f"ms, {rate / 1e6:.3f}M updates/s, memory growth "
+                f"{max(grown)} B (outputs {outputs} B; the host-stream form "
+                f"would hold {streams / 1e9:.2f} GB of streams)")
+        if k != "min_gibbs_sweep_rng":
+            rec["acceptance"] = acc / (RNG_CALLS * upd)
+            line += f", acceptance {rec['acceptance']:.4f}"
+        say("5 rng path", line)
+        out[k] = rec
+    launches = read_launches()
+    say("5 rng path", f"launches {launches}")
+    for k in KERNELS:
+        want = RNG_CALLS if k in inputs else 0
+        check(launches[k] == want,
+              f"rng path: {k} launched {launches[k]} times, expected {want}")
+    check(out["mgpmh_sweep_rng"]["acceptance"] > 0.9,
+          f"mgpmh_sweep_rng acceptance "
+          f"{out['mgpmh_sweep_rng']['acceptance']} <= 0.9")
+    out["launches"] = launches
+    return out, inputs
 
 
 def _unique_rows(i):
@@ -343,13 +713,100 @@ def mgpmh_bound(x, W, rp, ra, i, B, u1, u2, g, lu):
     return nbytes, ops
 
 
-def bound(nbytes, ops):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+def _pair_entries(row_sum, live):
+    """Expected distinct node and (a, idx2) row-table entries that ``live``
+    two-stage pair draws read: idx1 and idx2 are uniform over n, a follows
+    the node table's p_a = L_a / 2Psi.  (Counted from the distribution, not
+    the draws: the in-kernel-RNG forms never materialise theirs, and at
+    these draw counts the two agree to well under 1%.)"""
+    n = row_sum.numel()
+    p = row_sum.double() / row_sum.double().sum()
+    node = n * -math.expm1(live * math.log1p(-1.0 / n))
+    row = float((n * -torch.expm1(live * torch.log1p(-p / n))).sum())
+    return node, row
+
+
+def _local_entries(i, B, n):
+    """Expected distinct (i, idx) row-table entries of the local alias
+    draws: B[c, s] uniform picks of idx in row i[c, s]."""
+    T = torch.bincount(i.long().flatten(), weights=B.double().flatten(),
+                       minlength=n)
+    return float((n * -torch.expm1(T * math.log1p(-1.0 / n))).sum())
+
+
+def _philox_calls(B, K=None):
+    """Philox calls (4 words each) the live lanes of one stream need: lanes
+    [0, B) of each (c, s) row, or with ``K`` lanes [u*K, u*K + B) of each
+    (c, s, u) (MIN-Gibbs's D*K-lane streams)."""
+    B = B.long()
+    if K is None:
+        return int(((B + 3) // 4).sum())
+    first = torch.arange(B.shape[-1], device=B.device) * K
+    calls = (first + B - 1) // 4 - first // 4 + 1
+    return int(torch.where(B > 0, calls, 0).sum())
+
+
+def _gumbel_calls(i, D, extra=0):
+    """Philox calls of the D Gumbel lanes (and ``extra`` one-lane streams)
+    of each (c, s)."""
+    return (-(-D // 4) + extra) * i.numel()
+
+
+def min_gibbs_bound(args, row_sum, rng, K):
+    """x, tables, i, B first in ``args``; rng: the Philox form."""
+    x, i, B = args[0], args[5], args[6]
+    C, n = x.shape
+    D = B.shape[-1]
+    live = int(B.long().sum())
+    node, row = _pair_entries(row_sum, live)
+    nbytes = (8 * C * n + 8 * C + 4 * i.numel() + 4 * B.numel()
+              + 8 * (node + row))
+    int_ops = 0
+    if rng:
+        int_ops = PHILOX_INT_OPS * (4 * _philox_calls(B, K)
+                                    + _gumbel_calls(i, D))
+    else:
+        nbytes += 16 * live + 4 * B.numel()          # uniforms, Gumbels
+    return nbytes, 4 * live, int_ops
+
+
+def double_min_bound(x, i, B1, B2, row_sum, D, rng):
+    C, n = x.shape
+    live1, live2 = int(B1.long().sum()), int(B2.long().sum())
+    node, row = _pair_entries(row_sum, live2)
+    nbytes = (8 * C * n + 12 * C + 12 * i.numel()
+              + 8 * (_local_entries(i, B1, n) + node + row))
+    int_ops = 0
+    if rng:
+        int_ops = PHILOX_INT_OPS * (2 * _philox_calls(B1)
+                                    + 4 * _philox_calls(B2)
+                                    + _gumbel_calls(i, D, extra=1))
+    else:
+        nbytes += 8 * live1 + 16 * live2 + 4 * (D + 1) * i.numel()
+    return nbytes, 4 * (live1 + live2), int_ops
+
+
+def mgpmh_rng_bound(x, W, rp, ra, i, B, D):
+    C, n = x.shape
+    live = int(B.long().sum())
+    nbytes = (8 * C * n + 4 * C + 8 * i.numel()
+              + 8 * _local_entries(i, B, n)           # alias entries
+              + 4 * n * _unique_rows(i))              # exact-pass W rows
+    int_ops = PHILOX_INT_OPS * (2 * _philox_calls(B)
+                                + _gumbel_calls(i, D, extra=1))
+    return nbytes, 2 * _row_nnz(W, i) + 4 * live, int_ops
+
+
+def bound(nbytes, ops, int_ops=0):
+    """Least time in ms: the larger of the bytes over the memory rate and
+    the operations over their peak rates (fp32, int32)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / FP32_OPS_PER_S + int_ops / INT32_OPS_PER_S
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_times(potts, lattice):
+def phase_times(potts, lattice, rng_inputs):
     from repro_torch.kernels import fused_sweep as fs, ref
     recs = {}
     args, kw, _, _ = mgpmh_inputs(potts, C_FULL, S_FULL, seed=4)
@@ -375,11 +832,121 @@ def phase_times(potts, lattice):
     recs["gibbs_sweep_chromatic"] = dict(
         ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
         shape="lattice-ising-64x64 one class C=256 S=2048 D=2")
+    recs.update(new_kernel_times(potts, rng_inputs))
     for k, r in recs.items():
-        say("5 times", f"{k} [{r['shape']}]: kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']})")
+        rate = (f", {r['pair_draws_per_s'] / 1e9:.2f} G pair draws/s"
+                if "pair_draws_per_s" in r else "")
+        say("6 times", f"{k} [{r['shape']}]: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms [{r.get('plain_shape', r['shape'])}], "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}){rate}")
     recs["per_sweep_ms"] = sweep_parts(potts, lattice)
+    return recs
+
+
+def _per_s(B, ms):
+    """Live draws (the Poisson totals' sum) per second of kernel time."""
+    return int(B.long().sum()) / (ms / 1e3)
+
+
+def sliced_plain(plain, args, per_chain, step):
+    """A plain in-kernel-RNG version over chain slices of ``step`` rows
+    (``plain(args, chain0)``; all chains' streams at once would not fit):
+    (CUDA-event ms summed over the slices, the slices' outputs joined)."""
+    C = args[0].shape[0]
+    ms, outs = 0.0, []
+    for lo in range(0, C, step):
+        part = tuple(v[lo:lo + step] if j in per_chain else v
+                     for j, v in enumerate(args))
+        t, out = timed(lambda: plain(part, lo), 1, warmup=0)
+        ms += t
+        outs.append(out)
+    return ms, tuple(torch.cat(o) for o in zip(*outs))
+
+
+def new_kernel_times(potts, rng_inputs):
+    """Slice-2 kernels at the shapes of phases 4 (host streams) and 5
+    (in-kernel RNG), each held against its plain version on the same
+    inputs: the host-stream kernels exactly, the in-kernel-RNG kernels to
+    at most 1% of chains.  The plain in-kernel-RNG versions materialise
+    every stream (MIN-Gibbs's > 45 GB at C=256, S=64), so they run on chain
+    slices (``chain0``), and their time is the slices' sum."""
+    from repro_torch.kernels import fused_sweep as fs, ref
+    recs = {}
+    rs = potts.row_sum
+    check_at = lambda k, C, ko, po, exact: dict(zip(
+        ("differing_chains", "max_abs_err"),
+        compare(k, ko, po, C, exact=exact, phase="6 times")))
+    args, kw, K = min_gibbs_inputs(potts, C_MIN, S_MIN, seed=31)
+    D, lscale = kw["D"], kw["lscale"]
+    ms, ko = timed(lambda: fs.min_gibbs_sweep_cuda(*args, **kw), 5)
+    pms, po = timed(lambda: ref.min_gibbs_sweep_ref(*args, D, lscale), 1)
+    bms, by = bound(*min_gibbs_bound(args, rs, rng=False, K=K))
+    shape = f"potts-64x64 C={C_MIN} S={S_MIN} K={K} D={D}"
+    recs["min_gibbs_sweep"] = dict(
+        ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by, shape=shape,
+        pair_draws_per_s=_per_s(args[6], ms),
+        **check_at("min_gibbs_sweep", C_MIN, ko, po, True))
+    del args, ko, po
+    torch.cuda.empty_cache()
+    args, kw, K1, K2 = double_min_inputs(potts, C_DMIN, S_DMIN, seed=32)
+    ms, ko = timed(lambda: fs.double_min_sweep_cuda(*args, **kw), 5)
+    pms, po = timed(lambda: ref.double_min_sweep_ref(
+        *args, kw["D"], kw["scale1"], kw["lscale2"]), 1)
+    bms, by = bound(*double_min_bound(args[0], args[5], args[6], args[10],
+                                      rs, D, rng=False))
+    recs["double_min_sweep"] = dict(
+        ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+        shape=f"potts-64x64 C={C_DMIN} S={S_DMIN} K1={K1} K2={K2} D={D}",
+        pair_draws_per_s=_per_s(args[10], ms),
+        **check_at("double_min_sweep", C_DMIN, ko, po, True))
+    del args, ko, po
+    torch.cuda.empty_cache()
+    seed = _seed(77, potts.device)
+    rng_shape = f"potts-64x64 C={C_FULL} S={S_FULL}"
+    args, kw = rng_inputs["mgpmh_sweep_rng"]
+    ms, ko = timed(lambda: fs.mgpmh_sweep_rng_cuda(*args, seed, **kw), 10)
+    pms, po = timed(lambda: ref.mgpmh_sweep_rng_ref(
+        *args, seed, kw["D"], kw["scale"], kw["K"]), 3)
+    bms, by = bound(*mgpmh_rng_bound(*args, kw["D"]))
+    recs["mgpmh_sweep_rng"] = dict(
+        ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+        shape=f"{rng_shape} K={kw['K']}",
+        **check_at("mgpmh_sweep_rng", C_FULL, ko, po, False))
+    args, kw = rng_inputs["min_gibbs_sweep_rng"]
+    ms, ko = timed(lambda: fs.min_gibbs_sweep_rng_cuda(*args, seed, **kw), 3)
+    bms, by = bound(*min_gibbs_bound(args, rs, rng=True, K=kw["K"]))
+    pms, po = sliced_plain(
+        lambda a, c0: ref.min_gibbs_sweep_rng_ref(
+            *a, seed, D, kw["lscale"], kw["K"], chain0=c0),
+        args, (0, 5, 6, 7), SLICE_MIN)
+    recs["min_gibbs_sweep_rng"] = dict(
+        ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+        pair_draws_per_s=_per_s(args[6], ms),
+        shape=f"{rng_shape} K={kw['K']}",
+        plain_shape=f"{rng_shape} K={kw['K']} in slices of {SLICE_MIN} "
+                    f"chains",
+        **check_at("min_gibbs_sweep_rng", C_FULL, ko, po, False))
+    del ko, po
+    torch.cuda.empty_cache()
+    args, kw = rng_inputs["double_min_sweep_rng"]
+    ms, ko = timed(lambda: fs.double_min_sweep_rng_cuda(*args, seed, **kw),
+                   5)
+    bms, by = bound(*double_min_bound(args[0], args[5], args[6], args[7],
+                                      rs, D, rng=True))
+    pms, po = sliced_plain(
+        lambda a, c0: ref.double_min_sweep_rng_ref(
+            *a, seed, D, kw["scale1"], kw["lscale2"], kw["K1"], kw["K2"],
+            chain0=c0),
+        args, (0, 5, 6, 7, 8), SLICE_DMIN)
+    recs["double_min_sweep_rng"] = dict(
+        ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+        pair_draws_per_s=_per_s(args[7], ms),
+        shape=f"{rng_shape} K1={kw['K1']} K2={kw['K2']}",
+        plain_shape=f"{rng_shape} K1={kw['K1']} K2={kw['K2']} in slices of "
+                    f"{SLICE_DMIN} chains",
+        **check_at("double_min_sweep_rng", C_FULL, ko, po, False))
+    del ko, po
+    torch.cuda.empty_cache()
     return recs
 
 
@@ -395,9 +962,15 @@ def sweep_parts(potts, lattice):
     ones = torch.ones((C_FULL, potts.n, 1), device=potts.device)
     x = torch.zeros((C_FULL, potts.n), dtype=torch.long, device=potts.device)
     half = lattice.graph.n // 2
+    lam2 = min(2.0 * potts.psi ** 2, 16384.0)
+    K2 = recommended_capacity(lam2)
     parts = {
         "mgpmh_draws": median_ms(lambda: samplers.mgpmh_draws(
             gen, potts, C_FULL, S_FULL, lam, K), 20),
+        "min_gibbs_draws": median_ms(lambda: samplers.min_gibbs_draws(
+            gen, potts, C_MIN, S_MIN, lam2, K2), 5),
+        "double_min_draws": median_ms(lambda: samplers.double_min_draws(
+            gen, potts, C_DMIN, S_DMIN, lam, K, lam2, K2), 5),
         "gibbs_draws": median_ms(lambda: samplers.gibbs_draws(
             gen, C_FULL, S_FULL, potts.n, potts.D, potts.device), 20),
         "chromatic_draws_per_class": median_ms(lambda: samplers.gumbel(
@@ -405,9 +978,20 @@ def sweep_parts(potts, lattice):
         "marginal_accumulate": median_ms(lambda: marg.scatter_add_(
             2, x.unsqueeze(-1), ones), 20),
     }
-    say("5 times", "per sweep call, besides the kernel: " + ", ".join(
+    say("6 times", "per sweep call, besides the kernel: " + ", ".join(
         f"{k} {v:.4f} ms" for k, v in parts.items()))
     return parts
+
+
+REPLACES = {
+    "gibbs_sweep": "src/repro/kernels/fused_sweep.py:577",
+    "mgpmh_sweep": "src/repro/kernels/fused_sweep.py:505",
+    "mgpmh_sweep_rng": "src/repro/kernels/fused_sweep.py:542",
+    "min_gibbs_sweep": "src/repro/kernels/fused_sweep.py:605",
+    "min_gibbs_sweep_rng": "src/repro/kernels/fused_sweep.py:650",
+    "double_min_sweep": "src/repro/kernels/fused_sweep.py:687",
+    "double_min_sweep_rng": "src/repro/kernels/fused_sweep.py:739",
+}
 
 
 def main():
@@ -416,32 +1000,40 @@ def main():
               "False); this script runs on the card only", file=sys.stderr)
         return 1
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     record = {"device": phase_device()}
     record["build"] = phase_build()
     phase_parity(dev)
-    potts, lattice = build_graphs(dev)
-    record["full_width"] = phase_full_width(potts, lattice)
-    record["main_path"] = main = phase_main_path(potts, lattice)
-    record["times"] = times = phase_times(potts, lattice)
+    potts, lattice, pair_table_s = build_graphs(dev)
+    record["full_width"] = full = phase_full_width(potts, lattice)
+    record["main_path"] = main = phase_main_path(potts, lattice,
+                                                 pair_table_s)
+    record["rng_path"], rng_inputs = phase_rng_path(potts)
+    record["times"] = times = phase_times(potts, lattice, rng_inputs)
 
     src = "src/repro_torch/kernels/csrc/fused_sweep.cu"
-    replaces = {"gibbs_sweep": "src/repro/kernels/fused_sweep.py:577",
-                "mgpmh_sweep": "src/repro/kernels/fused_sweep.py:505"}
     kernels = []
-    for k in ("gibbs_sweep", "mgpmh_sweep"):
-        launches = sum(run["launches"][k] for run in main.values())
-        check(launches > 0, f"{k} was not launched on the main path")
+    for k in KERNELS:
+        if k.endswith("_rng"):
+            launches = record["rng_path"]["launches"][k]
+        else:
+            launches = sum(run["launches"].get(k, 0) for run in main.values())
+        check(launches > 0, f"{k} was not launched on its path")
         t = times[k]
         kernels.append(dict(
-            name=k, route="cuda", source=src, replaces=replaces[k],
-            launches=launches, max_abs_err=record["full_width"][k][1],
+            name=k, route="cuda", source=src, replaces=REPLACES[k],
+            launches=launches,
+            max_abs_err=max(full[k][1], t.get("max_abs_err", 0.0)),
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-            bound_by=t["bound_by"], library_ms=None))
+            bound_by=t["bound_by"], library_ms=None, shape=t["shape"],
+            plain_shape=t.get("plain_shape", t["shape"])))
     record["kernels"] = kernels
+    record["seconds"] = time.perf_counter() - t_start
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
+    say("done", f"{record['seconds']:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(record["device"]["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {

@@ -19,8 +19,9 @@ The backend follows the device: ``"cuda"`` runs the hand-written kernels
 (``kernels/csrc``), ``"torch"`` their plain PyTorch versions on the CPU.
 ``make`` runs on the card unless given ``device="cpu"``.
 
-Ported so far: ``gibbs`` (uniform + chromatic) and ``mgpmh`` (uniform).
-The other engines of the JAX package raise an error that says so.
+Ported so far: ``gibbs`` (uniform + chromatic), ``mgpmh``, ``min-gibbs``
+and ``doublemin`` (uniform).  ``local-gibbs`` raises an error that says
+so.
 """
 from __future__ import annotations
 
@@ -44,7 +45,7 @@ __all__ = [
 ]
 
 # engines of the JAX package this port does not have yet
-NOT_PORTED = ("min-gibbs", "doublemin", "local-gibbs")
+NOT_PORTED = ("local-gibbs",)
 
 
 # ---------------------------------------------------------------------------
@@ -112,6 +113,10 @@ class Engine:
                                   versions, on the CPU).
     ``exact_accept``              True for Gibbs-type engines whose every
                                   update is accepted by construction.
+    ``cache_init``                ``state -> state`` that seeds the
+                                  augmented-energy cache (MIN-Gibbs,
+                                  DoubleMIN) from ``state.gen``; run by
+                                  ``init``.
     """
     name: str
     backend: str
@@ -123,11 +128,15 @@ class Engine:
     params: Dict[str, Any] = dataclasses.field(repr=False)
     sweep_fn: Callable = dataclasses.field(repr=False)
     exact_accept: bool = False
+    cache_init: Optional[Callable] = dataclasses.field(default=None,
+                                                       repr=False)
 
     def init(self, seed, n_chains: int, *, start: str = "constant"):
         """Batched initial state for ``n_chains`` chains.  ``seed`` is an
         int (seeds a new generator on the engine's device) or a
-        ``torch.Generator`` on that device, which the state then owns."""
+        ``torch.Generator`` on that device, which the state then owns.
+        Engines with a cache seed it with one estimator draw per chain,
+        from the same generator, after the start state is drawn."""
         if isinstance(seed, torch.Generator):
             gen = seed
             if gen.device.type != self.device.type:
@@ -136,7 +145,10 @@ class Engine:
         else:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(int(seed))
-        return S.init_state(gen, self.graph, n_chains, start=start)
+        state = S.init_state(gen, self.graph, n_chains, start=start)
+        if self.cache_init is not None:
+            state = self.cache_init(state)
+        return state
 
     def sweep(self, state):
         """Advance every chain by ``updates_per_call`` site updates."""
@@ -215,11 +227,12 @@ def make(name: str, graph: MatchGraph, *, sweep: Optional[int] = None,
 
 
 def _engine(name, backend, schedule, upd, graph, params, sweep_fn,
-            exact_accept=False):
+            exact_accept=False, cache_init=None):
     return Engine(name=name, backend=backend, device=graph.device,
                   schedule=schedule, updates_per_call=upd,
                   marginal_samples_per_call=1, graph=graph, params=params,
-                  sweep_fn=sweep_fn, exact_accept=exact_accept)
+                  sweep_fn=sweep_fn, exact_accept=exact_accept,
+                  cache_init=cache_init)
 
 
 def _reject_unknown(name, params):
@@ -242,18 +255,63 @@ def _gibbs_builder(graph, *, schedule, backend, **params):
                    exact_accept=True)
 
 
+def _require_uniform(name, schedule):
+    if not isinstance(schedule, UniformSites):
+        raise ValueError(f"engine {name!r} supports only the UniformSites "
+                         f"schedule, got {schedule.describe()}")
+
+
+def _global_lam(graph) -> float:
+    """Default global-minibatch size: the paper's 2 Psi^2, capped at 16384
+    as the JAX package caps it (the host-drawn streams are
+    O(C*S*D*capacity))."""
+    return float(min(2.0 * graph.psi ** 2, 16384.0))
+
+
 @register("mgpmh", backends=("torch", "cuda"))
 def _mgpmh_builder(graph, *, schedule, backend, lam=None, capacity=None,
                    **params):
     _reject_unknown("mgpmh", params)
-    if not isinstance(schedule, UniformSites):
-        raise ValueError(f"engine 'mgpmh' supports only the UniformSites "
-                         f"schedule, got {schedule.describe()}")
+    _require_uniform("mgpmh", schedule)
     lam = float(4.0 * graph.L ** 2) if lam is None else float(lam)
     capacity = recommended_capacity(lam) if capacity is None else capacity
     sweep_fn = S._build_mgpmh_sweep(graph, lam, capacity, schedule.sweep_len)
     return _engine("mgpmh", backend, schedule, schedule.sweep_len, graph,
                    dict(lam=lam, capacity=capacity), sweep_fn)
+
+
+@register("min-gibbs", backends=("torch", "cuda"))
+def _min_gibbs_builder(graph, *, schedule, backend, lam=None, capacity=None,
+                       **params):
+    _reject_unknown("min-gibbs", params)
+    _require_uniform("min-gibbs", schedule)
+    lam = _global_lam(graph) if lam is None else float(lam)
+    capacity = recommended_capacity(lam) if capacity is None else capacity
+    sweep_fn = S._build_min_gibbs_sweep(graph, lam, capacity,
+                                        schedule.sweep_len)
+    cache_init = lambda st: S.init_min_gibbs_cache(st.gen, graph, st, lam,
+                                                   capacity)
+    return _engine("min-gibbs", backend, schedule, schedule.sweep_len, graph,
+                   dict(lam=lam, capacity=capacity), sweep_fn,
+                   exact_accept=True, cache_init=cache_init)
+
+
+@register("doublemin", backends=("torch", "cuda"))
+def _doublemin_builder(graph, *, schedule, backend, lam1=None,
+                       capacity1=None, lam2=None, capacity2=None, **params):
+    _reject_unknown("doublemin", params)
+    _require_uniform("doublemin", schedule)
+    lam1 = float(4.0 * graph.L ** 2) if lam1 is None else float(lam1)
+    lam2 = _global_lam(graph) if lam2 is None else float(lam2)
+    capacity1 = recommended_capacity(lam1) if capacity1 is None else capacity1
+    capacity2 = recommended_capacity(lam2) if capacity2 is None else capacity2
+    sweep_fn = S._build_double_min_sweep(graph, lam1, capacity1, lam2,
+                                         capacity2, schedule.sweep_len)
+    cache_init = lambda st: S.init_min_gibbs_cache(st.gen, graph, st, lam2,
+                                                   capacity2)
+    return _engine("doublemin", backend, schedule, schedule.sweep_len, graph,
+                   dict(lam1=lam1, capacity1=capacity1, lam2=lam2,
+                        capacity2=capacity2), sweep_fn, cache_init=cache_init)
 
 
 # ---------------------------------------------------------------------------

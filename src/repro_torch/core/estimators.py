@@ -7,9 +7,10 @@ draws a static ``capacity`` of ids and masks draws ``k >= B``; the clamp
 probability ``P(B > capacity)`` is computed in closed form
 (`capacity_overflow_prob`) and chosen < 1e-8 by `recommended_capacity`.
 
-For MGPMH on a weighted-match graph every per-draw contribution is the
-constant ``L/lam`` times a match indicator, so the minibatch energy is a
-bucket count (``kernels/ref.py``).
+On a weighted-match graph every per-draw contribution is a constant times
+a match indicator: ``L/lam`` for MGPMH, so its minibatch energy is a bucket
+count (``kernels/ref.py``), and ``log1p(Psi/lam)`` for the MIN-Gibbs
+estimator of eq. (2) (``min_gibbs_estimate``).
 """
 from __future__ import annotations
 
@@ -24,6 +25,9 @@ __all__ = [
     "lemma2_lambda",
     "recommended_capacity",
     "capacity_overflow_prob",
+    "draw_global_minibatch",
+    "min_gibbs_lscale",
+    "min_gibbs_estimate",
     "draw_local_minibatch",
 ]
 
@@ -55,6 +59,60 @@ def capacity_overflow_prob(lam: float, capacity: int) -> torch.Tensor:
         torch.tensor(float(capacity + 1), dtype=torch.float32),
         torch.tensor(float(lam), dtype=torch.float32))
 
+
+# ---------------------------------------------------------------------------
+# Global minibatch (MIN-Gibbs / DoubleMIN second batch)
+# ---------------------------------------------------------------------------
+
+def draw_global_minibatch(gen: torch.Generator, graph: MatchGraph,
+                          lam: float, capacity: int,
+                          shape: Tuple[int, ...] = ()
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Draw ``shape + (capacity,)`` factor ids from p_phi = M_phi/Psi (the
+    flat factor alias table) plus the Poisson totals ``B`` of shape
+    ``shape``, clamped to ``capacity`` (draws k >= B are to be masked).
+
+    Draws from ``gen`` in this order: the totals, then the alias index
+    integers, then the alias accept uniforms.  Returns (idx int32, B int32).
+    """
+    rate = torch.full(tuple(shape), float(lam), device=graph.device)
+    B = torch.poisson(rate, generator=gen).clamp_(max=capacity)
+    idx = alias_draw(gen, graph.pair_prob, graph.pair_alias,
+                     tuple(shape) + (capacity,))
+    return idx, B.to(torch.int32)
+
+
+def min_gibbs_lscale(psi: float, lam: float) -> float:
+    """Per-match weight ``log1p(Psi/lam)`` of the eq.-(2) estimator, in
+    float64 (the kernels and plain versions round it to float32 once)."""
+    return math.log1p(psi / lam)
+
+
+def min_gibbs_estimate(graph: MatchGraph, x: torch.Tensor, idx: torch.Tensor,
+                       B: torch.Tensor, lam: float) -> torch.Tensor:
+    """Bias-adjusted estimator of eq. (2) for match graphs.
+
+    eps_x = sum_{phi in S} s_phi log(1 + Psi/(lam M_phi) phi(x))
+          = log1p(Psi/lam) * #{draws k < B : x[a_k] == x[b_k]}.
+
+    ``x`` (..., n) int32, ``idx`` (..., K) factor ids, ``B`` (...) counts,
+    batched over leading dims (one estimate per chain).  Satisfies
+    E[exp(eps_x)] = exp(zeta(x)) exactly (Lemma 1).  Returns (...) float32.
+    """
+    idx = idx.long()
+    a = graph.pair_a[idx].long()
+    b = graph.pair_b[idx].long()
+    live = torch.arange(idx.shape[-1], device=idx.device) < B[..., None]
+    match = torch.gather(x, -1, a) == torch.gather(x, -1, b)
+    matches = (match & live).sum(-1).to(torch.float32)
+    lscale = torch.tensor(min_gibbs_lscale(graph.psi, lam),
+                          dtype=torch.float32, device=matches.device)
+    return lscale * matches
+
+
+# ---------------------------------------------------------------------------
+# Local minibatch over A[i] (MGPMH / DoubleMIN first batch)
+# ---------------------------------------------------------------------------
 
 def draw_local_minibatch(gen: torch.Generator, graph: MatchGraph, i: int,
                          lam: float, capacity: int

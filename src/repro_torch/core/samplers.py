@@ -1,5 +1,6 @@
-"""Batched fused-sweep samplers: vanilla Gibbs (Algorithm 1) and MGPMH
-(Algorithm 4), on the uniform-site and chromatic schedules.
+"""Batched fused-sweep samplers: vanilla Gibbs (Algorithm 1), MIN-Gibbs
+(Algorithm 2), MGPMH (Algorithm 4) and DoubleMIN (Algorithm 5), on the
+uniform-site schedule, plus Gibbs on the chromatic schedule.
 
 A sweep builder returns ``sweep(state) -> state`` over a batched
 :class:`ChainState` (x of shape (C, n)): ``sweep_len`` sequentially
@@ -15,6 +16,12 @@ order, advancing it in place.  The state a sweep returns shares that
 generator, so re-running a sweep from an older state does not repeat its
 draws; seed a fresh generator to replay.  The streams differ from the JAX
 package's (threefry) streams, so the two agree in distribution, not in bits.
+
+MIN-Gibbs and DoubleMIN carry an augmented state, the cached energy
+estimate ``state.cache`` (eps of the current value for MIN-Gibbs, xi_x for
+DoubleMIN), threaded through the kernel's sub-steps.  It is seeded with one
+estimator draw per chain (``init_min_gibbs_cache``, run by ``Engine.init``;
+for DoubleMIN with its second-batch λ2 and capacity).
 """
 from __future__ import annotations
 
@@ -23,7 +30,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .factor_graph import MatchGraph
+from .estimators import (draw_global_minibatch, min_gibbs_estimate,
+                         min_gibbs_lscale)
+from .factor_graph import MatchGraph, build_alias_table
 from ..kernels import ops as kernel_ops
 
 __all__ = [
@@ -31,9 +40,13 @@ __all__ = [
     "init_state",
     "gibbs_select",
     "mh_accept",
+    "min_gibbs_select",
     "gumbel",
     "gibbs_draws",
     "mgpmh_draws",
+    "min_gibbs_draws",
+    "double_min_draws",
+    "init_min_gibbs_cache",
     "validate_coloring",
 ]
 
@@ -45,7 +58,7 @@ class ChainState(NamedTuple):
 
     ``cache`` is the cached energy estimate of the MIN-Gibbs-type samplers;
     unused (0) by Gibbs and MGPMH.  ``accepts`` counts MH acceptances per
-    chain (MGPMH).
+    chain (MGPMH, DoubleMIN).
     """
     x: torch.Tensor        # (C, n) int32
     cache: torch.Tensor    # (C,) float32
@@ -92,6 +105,17 @@ def mh_accept(logu, exact_diff, eps_xi, eps_v) -> torch.Tensor:
     return logu < exact_diff + (eps_xi - eps_v)
 
 
+def min_gibbs_select(eps, cache, xi, gumbel_noise, rows):
+    """Alg 2's augmented-state recursion at one sub-step: overwrite the
+    current-value slot with the cached estimate, Gumbel-argmax, cache the
+    winner's estimate.  eps (C, D); cache (C,); xi (C,) current values.
+    Returns ``(v (C,) int32, new_cache (C,))``; ``eps`` is not modified."""
+    eps = eps.clone()
+    eps[rows, xi.long()] = cache
+    v = gibbs_select(eps, gumbel_noise)
+    return v, eps[rows, v.long()]
+
+
 def gibbs_draws(gen, C: int, S: int, n: int, D: int, device):
     """The pre-drawn inputs of one Gibbs sweep call, in the sweep's draw
     order: sites (C, S) int32, then Gumbels (C, S, D)."""
@@ -117,6 +141,66 @@ def mgpmh_draws(gen, graph: MatchGraph, C: int, S: int, lam: float,
     g = gumbel((C, S, graph.D), gen, dev)
     logu = torch.log(torch.rand((C, S), generator=gen, device=dev))
     return i, B, u_idx, u_alias, g, logu
+
+
+def min_gibbs_draws(gen, graph: MatchGraph, C: int, S: int, lam: float,
+                    capacity: int):
+    """The pre-drawn inputs of one MIN-Gibbs sweep call, in the sweep's draw
+    order: sites (C, S) int32; per-candidate Poisson totals
+    ``B = min(Poisson(lam), capacity)`` (C, S, D) int32; the four two-stage
+    pair-draw uniform streams u_node, u_nacc, u_row, u_racc (C, S, D, K);
+    Gumbels (C, S, D)."""
+    dev, D, K = graph.device, graph.D, capacity
+    i = torch.randint(0, graph.n, (C, S), generator=gen, device=dev,
+                      dtype=torch.int32)
+    rate = torch.full((C, S, D), float(lam), device=dev)
+    B = torch.poisson(rate, generator=gen).clamp_(max=K).to(torch.int32)
+    u4 = [torch.rand((C, S, D, K), generator=gen, device=dev)
+          for _ in range(4)]
+    return (i, B, *u4, gumbel((C, S, D), gen, dev))
+
+
+def double_min_draws(gen, graph: MatchGraph, C: int, S: int, lam1: float,
+                     capacity1: int, lam2: float, capacity2: int):
+    """The pre-drawn inputs of one DoubleMIN sweep call, in the sweep's draw
+    order: sites (C, S) int32; ``B1 = min(Poisson(lam1 * L_i / L), K1)``;
+    u_idx, u_alias (C, S, K1); Gumbels (C, S, D);
+    ``B2 = min(Poisson(lam2), K2)`` (C, S); u_node, u_nacc, u_row, u_racc
+    (C, S, K2); log MH uniforms (C, S)."""
+    dev, K1, K2 = graph.device, capacity1, capacity2
+    i = torch.randint(0, graph.n, (C, S), generator=gen, device=dev,
+                      dtype=torch.int32)
+    lam_i = (lam1 / graph.L) * graph.row_sum[i.long()]
+    B1 = torch.poisson(lam_i, generator=gen).clamp_(max=K1).to(torch.int32)
+    u_idx = torch.rand((C, S, K1), generator=gen, device=dev)
+    u_alias = torch.rand((C, S, K1), generator=gen, device=dev)
+    g = gumbel((C, S, graph.D), gen, dev)
+    rate = torch.full((C, S), float(lam2), device=dev)
+    B2 = torch.poisson(rate, generator=gen).clamp_(max=K2).to(torch.int32)
+    v4 = [torch.rand((C, S, K2), generator=gen, device=dev)
+          for _ in range(4)]
+    logu = torch.log(torch.rand((C, S), generator=gen, device=dev))
+    return (i, B1, u_idx, u_alias, g, B2, *v4, logu)
+
+
+def init_min_gibbs_cache(gen, graph: MatchGraph, state: ChainState,
+                         lam: float, capacity: int) -> ChainState:
+    """Seed every chain's cache with one eq.-(2) estimate of its energy:
+    one global minibatch per chain, drawn from ``gen``."""
+    idx, B = draw_global_minibatch(gen, graph, lam, capacity,
+                                   (state.x.shape[0],))
+    return state._replace(cache=min_gibbs_estimate(graph, state.x, idx, B,
+                                                   lam))
+
+
+def _node_alias_table(graph: MatchGraph):
+    """Alias table over sites with p_a = L_a / 2Psi — stage one of the
+    two-stage global factor draw (stage two is the per-row table; the
+    product is exactly M_phi / Psi).  Built from the float32 row sums, as
+    the JAX package builds it, so the two tables are identical."""
+    prob, alias = build_alias_table(graph.row_sum.cpu().numpy())
+    return (torch.from_numpy(prob).to(graph.device),
+            torch.from_numpy(alias).to(graph.device))
 
 
 def _build_gibbs_sweep(graph: MatchGraph, sweep_len: int):
@@ -148,6 +232,53 @@ def _build_mgpmh_sweep(graph: MatchGraph, lam: float, capacity: int,
         x, acc = kernel_ops.mgpmh_sweep(state.x, W, row_prob, row_alias,
                                         *draws, D=D, scale=scale)
         return state._replace(x=x, accepts=state.accepts + acc)
+
+    return sweep
+
+
+def _build_min_gibbs_sweep(graph: MatchGraph, lam: float, capacity: int,
+                           sweep_len: int):
+    """``sweep_len`` sequential MIN-Gibbs updates (Algorithm 2 per sub-step)
+    per call, one fused launch for all chains, fed by
+    :func:`min_gibbs_draws`; the cached estimate rides ``state.cache``.
+    The global minibatches use the two-stage pair draw (node table, then
+    row table), so the sweep never reads the flat factor table."""
+    D = graph.D
+    lscale = min_gibbs_lscale(graph.psi, lam)
+    node_prob, node_alias = _node_alias_table(graph)
+    row_prob, row_alias = graph.row_prob, graph.row_alias
+
+    def sweep(state: ChainState) -> ChainState:
+        draws = min_gibbs_draws(state.gen, graph, state.x.shape[0],
+                                sweep_len, lam, capacity)
+        x, cache = kernel_ops.min_gibbs_sweep(
+            state.x, node_prob, node_alias, row_prob, row_alias, *draws,
+            state.cache, D=D, lscale=lscale)
+        return state._replace(x=x, cache=cache)
+
+    return sweep
+
+
+def _build_double_min_sweep(graph: MatchGraph, lam1: float, capacity1: int,
+                            lam2: float, capacity2: int, sweep_len: int):
+    """``sweep_len`` sequential DoubleMIN updates (Algorithm 5 per
+    sub-step) per call: MGPMH proposal plus a second global minibatch in
+    the acceptance test, one fused launch fed by :func:`double_min_draws`.
+    The cached xi_x rides ``state.cache``; accepts add to
+    ``state.accepts``."""
+    D = graph.D
+    scale1 = float(graph.L / lam1)
+    lscale2 = min_gibbs_lscale(graph.psi, lam2)
+    node_prob, node_alias = _node_alias_table(graph)
+    row_prob, row_alias = graph.row_prob, graph.row_alias
+
+    def sweep(state: ChainState) -> ChainState:
+        draws = double_min_draws(state.gen, graph, state.x.shape[0],
+                                 sweep_len, lam1, capacity1, lam2, capacity2)
+        x, cache, acc = kernel_ops.double_min_sweep(
+            state.x, row_prob, row_alias, node_prob, node_alias, *draws,
+            state.cache, D=D, scale1=scale1, lscale2=lscale2)
+        return state._replace(x=x, cache=cache, accepts=state.accepts + acc)
 
     return sweep
 

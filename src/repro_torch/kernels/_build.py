@@ -2,8 +2,9 @@
 
 ``nvcc`` compiles ``csrc/*.cu`` (plain C interface, no PyTorch headers, so a
 build takes seconds) for ``sm_90a`` into ``build/repro_torch/`` at the root
-of the checkout, under a name that carries a hash of the sources and flags:
-a changed source is rebuilt, an unchanged one is loaded as built.
+of the checkout, under a name that carries a hash of the sources, the
+headers they include (``csrc/*.cuh``) and the flags: a changed source is
+rebuilt, an unchanged one is loaded as built.
 """
 from __future__ import annotations
 
@@ -35,6 +36,28 @@ _SIGNATURES = {
     # x, W, row_prob, row_alias, i_sites, B, u_idx, u_alias, gumbel, logu,
     # x_out, accepts, C, n, S, K, D, scale, stream
     "mgpmh_sweep_launch": [_c_ptr] * 12 + [_c_int] * 5 + [_c_float, _c_ptr],
+    # x, W, row_prob, row_alias, i_sites, B, seed, x_out, accepts,
+    # C, n, S, K, D, scale, stream
+    "mgpmh_sweep_rng_launch": [_c_ptr] * 9 + [_c_int] * 5 + [_c_float, _c_ptr],
+    # x, node_prob, node_alias, row_prob, row_alias, i_sites, B, u_node,
+    # u_nacc, u_row, u_racc, gumbel, cache, x_out, cache_out,
+    # C, n, S, K, D, lscale, stream
+    "min_gibbs_sweep_launch": [_c_ptr] * 15 + [_c_int] * 5 + [_c_float,
+                                                             _c_ptr],
+    # x, node_prob, node_alias, row_prob, row_alias, i_sites, B, cache, seed,
+    # x_out, cache_out, C, n, S, K, D, lscale, stream
+    "min_gibbs_sweep_rng_launch": [_c_ptr] * 11 + [_c_int] * 5 + [_c_float,
+                                                                 _c_ptr],
+    # x, row_prob, row_alias, node_prob, node_alias, i_sites, B1, u_idx,
+    # u_alias, gumbel, B2, u_node, u_nacc, u_row, u_racc, logu, cache, x_out,
+    # cache_out, accepts, C, n, S, K1, K2, D, scale1, lscale2, stream
+    "double_min_sweep_launch": [_c_ptr] * 20 + [_c_int] * 6 + [_c_float] * 2
+                               + [_c_ptr],
+    # x, row_prob, row_alias, node_prob, node_alias, i_sites, B1, B2, cache,
+    # seed, x_out, cache_out, accepts, C, n, S, K1, K2, D, scale1, lscale2,
+    # stream
+    "double_min_sweep_rng_launch": [_c_ptr] * 13 + [_c_int] * 6
+                                   + [_c_float] * 2 + [_c_ptr],
 }
 
 
@@ -71,7 +94,7 @@ def nvcc_command(nvcc: str, sources, out: Path):
 
 def _digest(sources) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in [*sources, *sorted(CSRC.glob("*.cuh"))]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

@@ -1,27 +1,43 @@
-// Fused multi-site sweep kernels for Hopper (sm_90a): vanilla Gibbs and
-// MGPMH, S sequentially composed site updates per chain in one launch.
+// Fused multi-site sweep kernels for Hopper (sm_90a): vanilla Gibbs, MGPMH,
+// MIN-Gibbs and DoubleMIN, S sequentially composed site updates per chain
+// in one launch.
 //
-// Replace the TPU kernels gibbs_sweep_pallas / mgpmh_sweep_pallas
-// (src/repro/kernels/fused_sweep.py, body _sweep_kernel).  Semantics are
-// those of the plain versions in ../ref.py: same pre-drawn inputs, same
-// decisions.
+// Replace the TPU kernels of src/repro/kernels/fused_sweep.py:
+//   gibbs_sweep_pallas, mgpmh_sweep_pallas(_rng)    body _sweep_kernel
+//   min_gibbs_sweep_pallas(_rng)                    body _min_gibbs_kernel
+//   double_min_sweep_pallas(_rng)                   body _double_min_kernel
+// Semantics are those of the plain versions in ../ref.py: same pre-drawn
+// inputs, same decisions.
 //
 // Layout: one thread block per chain; the chain's state row x lives in
 // shared memory for all S sub-steps (sub-steps are sequential, so the loop
 // over s replaces the TPU kernel's fori_loop).  The (n, n) tables stay in
 // global memory and each sub-step reads only what it needs: the W row of
-// the updated site (4n bytes) and, for MGPMH, the B alias entries it draws.
+// the updated site (4n bytes), the alias entries its draws land on.
 // Site ids and alias entries are int32 throughout.
+//
+// Random source: the three minibatch bodies are templates over where their
+// uniforms come from, as the TPU file builds each body with host_rng
+// True/False.  HostStreams reads pre-drawn streams (bit-comparable to the
+// plain versions); PhiloxStreams computes the same lanes in-kernel from a
+// (1,) int32 device seed (philox.cuh, layout in ../philox.py), so no
+// (C, S, K)-sized stream exists in device memory.
 //
 // Determinism: float partial sums are reduced in a fixed order (per-thread
 // strided sums, warp shuffles, then warp partials summed in order by one
-// thread); the only atomics are integer counts, whose result does not
-// depend on order.  Argmax takes the first maximum.  Build with
-// -fmad=false: the plain versions round every product and sum separately.
+// thread); counts are integers, reduced per warp and added once per warp,
+// whose result does not depend on order.  Argmax takes the first maximum.
+// Build with -fmad=false: the plain versions round every product and sum
+// separately.
 //
 // Plain C interface (loaded with ctypes); every launch returns
 // cudaGetLastError().
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <initializer_list>
+
+#include "philox.cuh"
 
 namespace {
 
@@ -29,6 +45,10 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 // value buckets one pass over the W row accumulates in registers
 constexpr int kChunk = 8;
+// the global-minibatch bodies (MIN-Gibbs, DoubleMIN) run ~10^5 independent
+// random gathers per sub-step: more warps per block hide more latency
+constexpr int kDrawThreads = 512;
+constexpr int kDrawWarps = kDrawThreads / 32;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -57,14 +77,107 @@ __device__ __forceinline__ void block_sum_chunk(const float (&acc)[kChunk],
   __syncthreads();
 }
 
+// The block size is a compile-time stride: read from blockDim.x, the stride
+// slowed the whole Gibbs sweep on the H100 (PERF.md Findings).
+template <int kBlock>
 __device__ __forceinline__ void load_row(int* xs, const int* src, int n) {
-  for (int j = threadIdx.x; j < n; j += kThreads) xs[j] = src[j];
+  for (int j = threadIdx.x; j < n; j += kBlock) xs[j] = src[j];
   __syncthreads();
 }
 
+template <int kBlock>
 __device__ __forceinline__ void store_row(int* dst, const int* xs, int n) {
   __syncthreads();
-  for (int j = threadIdx.x; j < n; j += kThreads) dst[j] = xs[j];
+  for (int j = threadIdx.x; j < n; j += kBlock) dst[j] = xs[j];
+}
+
+// ---------------------------------------------------------------------------
+// Random sources.  A body asks for lane `lane` of stream `st` at sub-step s
+// of its chain; the stream ids are the table of ../philox.py.
+// ---------------------------------------------------------------------------
+constexpr int kMaxStreams = 8;
+
+// Pre-drawn streams: p[st] holds (C, S, lanes[st]) values, chain-major.
+// Gumbel and log-uniform streams hold the transformed values.
+struct HostStreams {
+  const float* p[kMaxStreams];
+  int lanes[kMaxStreams];
+  long long row;  // c * S, set by begin()
+
+  __device__ void begin(int c, int S) { row = static_cast<long long>(c) * S; }
+  __device__ float at(int st, int s, int lane) const {
+    return p[st][(row + s) * lanes[st] + lane];
+  }
+  __device__ float uniform(int st, int s, int lane) const {
+    return at(st, s, lane);
+  }
+  __device__ float gumbel(int st, int s, int lane) const {
+    return at(st, s, lane);
+  }
+  __device__ float logu(int st, int s) const { return at(st, s, 0); }
+};
+
+// In-kernel Philox4x32-10 keyed by (seed, stream), counter (lane/4, s, c).
+struct PhiloxStreams {
+  const int* seed_ptr;  // (1,) int32 on the device: no host sync
+  uint32_t seed;
+  int c;
+
+  __device__ void begin(int c_, int) {
+    c = c_;
+    seed = static_cast<uint32_t>(__ldg(seed_ptr));
+  }
+  __device__ float uniform(int st, int s, int lane) const {
+    return philox::uniform(seed, static_cast<uint32_t>(st), c, s, lane);
+  }
+  __device__ float gumbel(int st, int s, int lane) const {
+    return philox::gumbel(uniform(st, s, lane));
+  }
+  __device__ float logu(int st, int s) const {
+    return philox::log_uniform(uniform(st, s, 0));
+  }
+};
+
+__device__ __forceinline__ int scaled_index(float u, float fn, int n) {
+  return min(static_cast<int>(__fmul_rn(u, fn)), n - 1);
+}
+
+// Two-stage global factor draw of lane `lane` from streams st0..st0+3:
+// endpoint a from the node alias table (p_a = L_a / 2Psi), endpoint b from
+// row a's alias table (p_b = W_ab / L_a).  The node tables (8n bytes) are
+// read through the read-only cache; row entries are random 4-byte gathers.
+template <class Src>
+__device__ __forceinline__ int2 pair_draw(const Src& rng, int st0, int s,
+                                          int lane,
+                                          const float* __restrict__ node_prob,
+                                          const int* __restrict__ node_alias,
+                                          const float* __restrict__ row_prob,
+                                          const int* __restrict__ row_alias,
+                                          int n, float fn) {
+  const int idx1 = scaled_index(rng.uniform(st0, s, lane), fn, n);
+  const int a = rng.uniform(st0 + 1, s, lane) < __ldg(node_prob + idx1)
+                    ? idx1
+                    : __ldg(node_alias + idx1);
+  const int idx2 = scaled_index(rng.uniform(st0 + 2, s, lane), fn, n);
+  const long long e = static_cast<long long>(a) * n + idx2;
+  const int b = rng.uniform(st0 + 3, s, lane) < row_prob[e] ? idx2
+                                                            : row_alias[e];
+  return make_int2(a, b);
+}
+
+// Sum of one int per thread over the block, returned on thread 0 (0 on the
+// others): one reduction per warp, then the warp totals.  Integer sums do
+// not depend on order.
+template <int kBlock>
+__device__ __forceinline__ int block_count(int m, int* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  m = __reduce_add_sync(0xffffffffu, m);
+  if (lane == 0) red[warp] = m;
+  __syncthreads();
+  int total = 0;
+  if (threadIdx.x == 0)
+    for (int w = 0; w < kBlock / 32; ++w) total += red[w];
+  return total;
 }
 
 // ---------------------------------------------------------------------------
@@ -80,7 +193,7 @@ gibbs_sweep_kernel(const int* __restrict__ x_in, const float* __restrict__ W,
   float* eps = reinterpret_cast<float*>(xs + n);    // D
   float* red = eps + D;                             // kWarps * kChunk
   const long long c = blockIdx.x;
-  load_row(xs, x_in + c * n, n);
+  load_row<kThreads>(xs, x_in + c * n, n);
   for (int s = 0; s < S; ++s) {
     const int i = i_sites[c * S + s];
     const float* wrow = W + (long long)i * n;
@@ -108,61 +221,64 @@ gibbs_sweep_kernel(const int* __restrict__ x_in, const float* __restrict__ W,
     }
     __syncthreads();
   }
-  store_row(x_out + c * n, xs, n);
+  store_row<kThreads>(x_out + c * n, xs, n);
 }
 
 // ---------------------------------------------------------------------------
 // MGPMH: alias-draw B neighbours of i from row i's table, count their values
 // (eps_u = scale * count_u), Gumbel-argmax proposal v, exact pass at v and
 // x_i only, accept iff logu < (exact_v - exact_xi) + (eps_xi - eps_v).
+// Streams: 0 u_idx (K), 1 u_alias (K), 2 gumbel (D), 3 logu (1).
 // ---------------------------------------------------------------------------
+template <class Src>
 __global__ void __launch_bounds__(kThreads)
 mgpmh_sweep_kernel(const int* __restrict__ x_in, const float* __restrict__ W,
                    const float* __restrict__ row_prob,
                    const int* __restrict__ row_alias,
                    const int* __restrict__ i_sites, const int* __restrict__ B,
-                   const float* __restrict__ u_idx,
-                   const float* __restrict__ u_alias,
-                   const float* __restrict__ gumbel,
-                   const float* __restrict__ logu, int* __restrict__ x_out,
+                   Src src, int* __restrict__ x_out,
                    int* __restrict__ accepts, int n, int S, int K, int D,
                    float scale) {
   extern __shared__ int smem[];
   int* xs = smem;                                   // n
   int* cnt = xs + n;                                // D
-  float* red = reinterpret_cast<float*>(cnt + D);   // kWarps * 2
+  float* gs = reinterpret_cast<float*>(cnt + D);    // D
+  float* red = gs + D;                              // kWarps * 2
   __shared__ int sh_v, sh_xi;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long c = blockIdx.x;
+  const int c = blockIdx.x;
   const float fn = static_cast<float>(n);
+  Src rng = src;
+  rng.begin(c, S);
   int acc = 0;
-  load_row(xs, x_in + c * n, n);
+  load_row<kThreads>(xs, x_in + static_cast<long long>(c) * n, n);
   for (int s = 0; s < S; ++s) {
-    const long long cs = c * S + s;
+    const long long cs = static_cast<long long>(c) * S + s;
     const int i = i_sites[cs];
     const int b = min(max(B[cs], 0), K);
-    for (int u = threadIdx.x; u < D; u += kThreads) cnt[u] = 0;
+    for (int u = threadIdx.x; u < D; u += kThreads) {
+      cnt[u] = 0;
+      gs[u] = rng.gumbel(2, s, u);
+    }
     __syncthreads();
     // stage 1+2: local alias minibatch over A[i], bucketed by value
-    const float* u1 = u_idx + cs * K;
-    const float* u2 = u_alias + cs * K;
-    const float* prow = row_prob + (long long)i * n;
-    const int* arow = row_alias + (long long)i * n;
+    const float* prow = row_prob + static_cast<long long>(i) * n;
+    const int* arow = row_alias + static_cast<long long>(i) * n;
     for (int k = threadIdx.x; k < b; k += kThreads) {
-      const int idx = min(static_cast<int>(__fmul_rn(u1[k], fn)), n - 1);
-      const int j = (u2[k] < prow[idx]) ? idx : arow[idx];
+      const int idx = scaled_index(rng.uniform(0, s, k), fn, n);
+      const int j = (rng.uniform(1, s, k) < prow[idx]) ? idx : arow[idx];
       const int val = xs[j];
       if (val >= 0 && val < D) atomicAdd(&cnt[val], 1);
     }
     __syncthreads();
     // stage 3: Gumbel-max proposal
     if (threadIdx.x == 0) {
-      const float* g = gumbel + cs * D;
       int best = 0;
-      float top = __fadd_rn(__fmul_rn(scale, static_cast<float>(cnt[0])), g[0]);
+      float top = __fadd_rn(__fmul_rn(scale, static_cast<float>(cnt[0])),
+                            gs[0]);
       for (int u = 1; u < D; ++u) {
         const float sc =
-            __fadd_rn(__fmul_rn(scale, static_cast<float>(cnt[u])), g[u]);
+            __fadd_rn(__fmul_rn(scale, static_cast<float>(cnt[u])), gs[u]);
         if (sc > top) { top = sc; best = u; }
       }
       sh_v = best;
@@ -171,7 +287,7 @@ mgpmh_sweep_kernel(const int* __restrict__ x_in, const float* __restrict__ W,
     __syncthreads();
     const int v = sh_v, xi = sh_xi;
     // stage 4: exact conditional pass, only at v and x_i
-    const float* wrow = W + (long long)i * n;
+    const float* wrow = W + static_cast<long long>(i) * n;
     float ev = 0.f, ex = 0.f;
     for (int j = threadIdx.x; j < n; j += kThreads) {
       const float w = wrow[j];
@@ -193,15 +309,191 @@ mgpmh_sweep_kernel(const int* __restrict__ x_in, const float* __restrict__ W,
       const float eps_v = __fmul_rn(scale, static_cast<float>(cnt[v]));
       const float log_a = __fadd_rn(__fsub_rn(exact_v, exact_xi),
                                     __fsub_rn(eps_xi, eps_v));
-      if (logu[cs] < log_a) {
+      if (rng.logu(3, s) < log_a) {
         xs[i] = v;
         ++acc;
       }
     }
     __syncthreads();
   }
-  store_row(x_out + c * n, xs, n);
+  store_row<kThreads>(x_out + static_cast<long long>(c) * n, xs, n);
   if (threadIdx.x == 0) accepts[c] = acc;
+}
+
+// ---------------------------------------------------------------------------
+// MIN-Gibbs (Algorithm 2): per candidate u, B[c,s,u] two-stage pair draws
+// on x[i <- u]; eps_u = lscale * matches; eps[x_i] <- cache; Gumbel-argmax
+// v; cache <- eps_v.  The D*K draw lanes of a sub-step are independent:
+// lane u*K + k is draw k of candidate u.  Lanes with k >= B[c,s,u] read
+// nothing.  Each thread counts matches in a register, each warp reduces
+// once per candidate and adds once to the shared count.
+// Streams: 0 u_node, 1 u_nacc, 2 u_row, 3 u_racc (D*K), 4 gumbel (D).
+// ---------------------------------------------------------------------------
+template <class Src>
+__global__ void __launch_bounds__(kDrawThreads)
+min_gibbs_sweep_kernel(const int* __restrict__ x_in,
+                       const float* __restrict__ node_prob,
+                       const int* __restrict__ node_alias,
+                       const float* __restrict__ row_prob,
+                       const int* __restrict__ row_alias,
+                       const int* __restrict__ i_sites,
+                       const int* __restrict__ B, Src src,
+                       const float* __restrict__ cache_in,
+                       int* __restrict__ x_out, float* __restrict__ cache_out,
+                       int n, int S, int K, int D, float lscale) {
+  extern __shared__ int smem[];
+  int* xs = smem;                                   // n
+  int* cnt = xs + n;                                // D
+  float* gs = reinterpret_cast<float*>(cnt + D);    // D
+  const int lane = threadIdx.x & 31;
+  const int c = blockIdx.x;
+  const float fn = static_cast<float>(n);
+  Src rng = src;
+  rng.begin(c, S);
+  float cache = threadIdx.x == 0 ? cache_in[c] : 0.f;   // thread 0's
+  load_row<kDrawThreads>(xs, x_in + static_cast<long long>(c) * n, n);
+  for (int s = 0; s < S; ++s) {
+    const long long cs = static_cast<long long>(c) * S + s;
+    const int i = i_sites[cs];
+    for (int u = threadIdx.x; u < D; u += kDrawThreads) {
+      cnt[u] = 0;
+      gs[u] = rng.gumbel(4, s, u);
+    }
+    __syncthreads();
+    for (int u = 0; u < D; ++u) {
+      const int b = min(max(B[cs * D + u], 0), K);
+      int m = 0;
+      for (int k = threadIdx.x; k < b; k += kDrawThreads) {
+        const int2 e = pair_draw(rng, 0, s, u * K + k, node_prob, node_alias,
+                                 row_prob, row_alias, n, fn);
+        const int xa = e.x == i ? u : xs[e.x];
+        const int xb = e.y == i ? u : xs[e.y];
+        m += xa == xb;
+      }
+      m = __reduce_add_sync(0xffffffffu, m);
+      if (lane == 0 && m) atomicAdd(&cnt[u], m);
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      const int xi = xs[i];
+      int best = 0;
+      float best_eps = 0.f, top = 0.f;
+      for (int u = 0; u < D; ++u) {
+        const float e =
+            u == xi ? cache : __fmul_rn(lscale, static_cast<float>(cnt[u]));
+        const float sc = __fadd_rn(e, gs[u]);
+        if (u == 0 || sc > top) { top = sc; best = u; best_eps = e; }
+      }
+      cache = best_eps;
+      xs[i] = best;
+    }
+    __syncthreads();
+  }
+  store_row<kDrawThreads>(x_out + static_cast<long long>(c) * n, xs, n);
+  if (threadIdx.x == 0) cache_out[c] = cache;
+}
+
+// ---------------------------------------------------------------------------
+// DoubleMIN (Algorithm 5): MGPMH proposal over K1 local draws (no exact
+// pass), then K2 two-stage pair draws at y = x[i <- v];
+// xi_y = lscale2 * matches; accept iff
+// logu < (xi_y - cache) + (eps_xi - eps_v); on accept cache <- xi_y.
+// Streams: 0 u_idx, 1 u_alias (K1), 2 gumbel (D), 3 u_node, 4 u_nacc,
+// 5 u_row, 6 u_racc (K2), 7 logu (1).
+// ---------------------------------------------------------------------------
+template <class Src>
+__global__ void __launch_bounds__(kDrawThreads)
+double_min_sweep_kernel(const int* __restrict__ x_in,
+                        const float* __restrict__ row_prob,
+                        const int* __restrict__ row_alias,
+                        const float* __restrict__ node_prob,
+                        const int* __restrict__ node_alias,
+                        const int* __restrict__ i_sites,
+                        const int* __restrict__ B1,
+                        const int* __restrict__ B2, Src src,
+                        const float* __restrict__ cache_in,
+                        int* __restrict__ x_out,
+                        float* __restrict__ cache_out,
+                        int* __restrict__ accepts, int n, int S, int K1,
+                        int K2, int D, float scale1, float lscale2) {
+  extern __shared__ int smem[];
+  int* xs = smem;                                   // n
+  int* cnt = xs + n;                                // D
+  float* gs = reinterpret_cast<float*>(cnt + D);    // D
+  int* red = reinterpret_cast<int*>(gs + D);        // kDrawWarps
+  __shared__ int sh_v;
+  const int c = blockIdx.x;
+  const float fn = static_cast<float>(n);
+  Src rng = src;
+  rng.begin(c, S);
+  float cache = threadIdx.x == 0 ? cache_in[c] : 0.f;   // thread 0's
+  int acc = 0;
+  load_row<kDrawThreads>(xs, x_in + static_cast<long long>(c) * n, n);
+  for (int s = 0; s < S; ++s) {
+    const long long cs = static_cast<long long>(c) * S + s;
+    const int i = i_sites[cs];
+    const int b1 = min(max(B1[cs], 0), K1);
+    const int b2 = min(max(B2[cs], 0), K2);
+    for (int u = threadIdx.x; u < D; u += kDrawThreads) {
+      cnt[u] = 0;
+      gs[u] = rng.gumbel(2, s, u);
+    }
+    __syncthreads();
+    // stage 1: local alias minibatch over A[i], bucketed by value
+    const float* prow = row_prob + static_cast<long long>(i) * n;
+    const int* arow = row_alias + static_cast<long long>(i) * n;
+    for (int k = threadIdx.x; k < b1; k += kDrawThreads) {
+      const int idx = scaled_index(rng.uniform(0, s, k), fn, n);
+      const int j = (rng.uniform(1, s, k) < prow[idx]) ? idx : arow[idx];
+      const int val = xs[j];
+      if (val >= 0 && val < D) atomicAdd(&cnt[val], 1);
+    }
+    __syncthreads();
+    // stage 2: Gumbel-max proposal
+    if (threadIdx.x == 0) {
+      int best = 0;
+      float top = __fadd_rn(__fmul_rn(scale1, static_cast<float>(cnt[0])),
+                            gs[0]);
+      for (int u = 1; u < D; ++u) {
+        const float sc =
+            __fadd_rn(__fmul_rn(scale1, static_cast<float>(cnt[u])), gs[u]);
+        if (sc > top) { top = sc; best = u; }
+      }
+      sh_v = best;
+    }
+    __syncthreads();
+    const int v = sh_v;
+    // stage 3: second (global) minibatch at y = x[i <- v]
+    int m = 0;
+    for (int k = threadIdx.x; k < b2; k += kDrawThreads) {
+      const int2 e = pair_draw(rng, 3, s, k, node_prob, node_alias, row_prob,
+                               row_alias, n, fn);
+      const int ya = e.x == i ? v : xs[e.x];
+      const int yb = e.y == i ? v : xs[e.y];
+      m += ya == yb;
+    }
+    m = block_count<kDrawThreads>(m, red);
+    // stage 4: MH accept against the cached xi_x
+    if (threadIdx.x == 0) {
+      const int xi = xs[i];
+      const float xi_y = __fmul_rn(lscale2, static_cast<float>(m));
+      const float eps_xi = __fmul_rn(scale1, static_cast<float>(cnt[xi]));
+      const float eps_v = __fmul_rn(scale1, static_cast<float>(cnt[v]));
+      const float log_a = __fadd_rn(__fsub_rn(xi_y, cache),
+                                    __fsub_rn(eps_xi, eps_v));
+      if (rng.logu(7, s) < log_a) {
+        xs[i] = v;
+        cache = xi_y;
+        ++acc;
+      }
+    }
+    __syncthreads();
+  }
+  store_row<kDrawThreads>(x_out + static_cast<long long>(c) * n, xs, n);
+  if (threadIdx.x == 0) {
+    cache_out[c] = cache;
+    accepts[c] = acc;
+  }
 }
 
 template <typename Kernel>
@@ -211,6 +503,79 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
   return cudaSuccess;
+}
+
+size_t mgpmh_smem(int n, int D) {
+  return sizeof(int) * (static_cast<size_t>(n) + 2 * static_cast<size_t>(D)) +
+         sizeof(float) * kWarps * 2;
+}
+
+size_t draw_smem(int n, int D) {
+  return sizeof(int) * (static_cast<size_t>(n) + 2 * static_cast<size_t>(D)) +
+         sizeof(int) * kDrawWarps;
+}
+
+template <class Src>
+int launch_mgpmh(const int* x, const float* W, const float* row_prob,
+                 const int* row_alias, const int* i_sites, const int* B,
+                 Src src, int* x_out, int* accepts, int C, int n, int S, int K,
+                 int D, float scale, cudaStream_t stream) {
+  const size_t smem = mgpmh_smem(n, D);
+  cudaError_t err = prepare(mgpmh_sweep_kernel<Src>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  mgpmh_sweep_kernel<Src><<<C, kThreads, smem, stream>>>(
+      x, W, row_prob, row_alias, i_sites, B, src, x_out, accepts, n, S, K, D,
+      scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class Src>
+int launch_min_gibbs(const int* x, const float* node_prob,
+                     const int* node_alias, const float* row_prob,
+                     const int* row_alias, const int* i_sites, const int* B,
+                     Src src, const float* cache, int* x_out,
+                     float* cache_out, int C, int n, int S, int K, int D,
+                     float lscale, cudaStream_t stream) {
+  const size_t smem = draw_smem(n, D);
+  cudaError_t err = prepare(min_gibbs_sweep_kernel<Src>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  min_gibbs_sweep_kernel<Src><<<C, kDrawThreads, smem, stream>>>(
+      x, node_prob, node_alias, row_prob, row_alias, i_sites, B, src, cache,
+      x_out, cache_out, n, S, K, D, lscale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class Src>
+int launch_double_min(const int* x, const float* row_prob,
+                      const int* row_alias, const float* node_prob,
+                      const int* node_alias, const int* i_sites,
+                      const int* B1, const int* B2, Src src,
+                      const float* cache, int* x_out, float* cache_out,
+                      int* accepts, int C, int n, int S, int K1, int K2, int D,
+                      float scale1, float lscale2, cudaStream_t stream) {
+  const size_t smem = draw_smem(n, D);
+  cudaError_t err = prepare(double_min_sweep_kernel<Src>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  double_min_sweep_kernel<Src><<<C, kDrawThreads, smem, stream>>>(
+      x, row_prob, row_alias, node_prob, node_alias, i_sites, B1, B2, src,
+      cache, x_out, cache_out, accepts, n, S, K1, K2, D, scale1, lscale2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+HostStreams host_streams(std::initializer_list<const float*> p,
+                         std::initializer_list<int> lanes) {
+  HostStreams h{};
+  int k = 0;
+  for (const float* q : p) h.p[k++] = q;
+  k = 0;
+  for (int l : lanes) h.lanes[k++] = l;
+  return h;
+}
+
+PhiloxStreams philox_streams(const int* seed) {
+  PhiloxStreams r{};
+  r.seed_ptr = seed;
+  return r;
 }
 
 }  // namespace
@@ -235,14 +600,85 @@ int mgpmh_sweep_launch(const int* x, const float* W, const float* row_prob,
                        const float* gumbel, const float* logu, int* x_out,
                        int* accepts, int C, int n, int S, int K, int D,
                        float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(int) * ((size_t)n + (size_t)D) +
-                      sizeof(float) * kWarps * 2;
-  cudaError_t err = prepare(mgpmh_sweep_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  mgpmh_sweep_kernel<<<C, kThreads, smem, stream>>>(
-      x, W, row_prob, row_alias, i_sites, B, u_idx, u_alias, gumbel, logu,
-      x_out, accepts, n, S, K, D, scale);
-  return static_cast<int>(cudaGetLastError());
+  return launch_mgpmh(x, W, row_prob, row_alias, i_sites, B,
+                      host_streams({u_idx, u_alias, gumbel, logu},
+                                   {K, K, D, 1}),
+                      x_out, accepts, C, n, S, K, D, scale, stream);
+}
+
+int mgpmh_sweep_rng_launch(const int* x, const float* W,
+                           const float* row_prob, const int* row_alias,
+                           const int* i_sites, const int* B, const int* seed,
+                           int* x_out, int* accepts, int C, int n, int S,
+                           int K, int D, float scale, cudaStream_t stream) {
+  return launch_mgpmh(x, W, row_prob, row_alias, i_sites, B,
+                      philox_streams(seed), x_out, accepts, C, n, S, K, D,
+                      scale, stream);
+}
+
+int min_gibbs_sweep_launch(const int* x, const float* node_prob,
+                           const int* node_alias, const float* row_prob,
+                           const int* row_alias, const int* i_sites,
+                           const int* B, const float* u_node,
+                           const float* u_nacc, const float* u_row,
+                           const float* u_racc, const float* gumbel,
+                           const float* cache, int* x_out, float* cache_out,
+                           int C, int n, int S, int K, int D, float lscale,
+                           cudaStream_t stream) {
+  const int DK = D * K;
+  return launch_min_gibbs(
+      x, node_prob, node_alias, row_prob, row_alias, i_sites, B,
+      host_streams({u_node, u_nacc, u_row, u_racc, gumbel},
+                   {DK, DK, DK, DK, D}),
+      cache, x_out, cache_out, C, n, S, K, D, lscale, stream);
+}
+
+int min_gibbs_sweep_rng_launch(const int* x, const float* node_prob,
+                               const int* node_alias, const float* row_prob,
+                               const int* row_alias, const int* i_sites,
+                               const int* B, const float* cache,
+                               const int* seed, int* x_out, float* cache_out,
+                               int C, int n, int S, int K, int D,
+                               float lscale, cudaStream_t stream) {
+  return launch_min_gibbs(x, node_prob, node_alias, row_prob, row_alias,
+                          i_sites, B, philox_streams(seed), cache, x_out,
+                          cache_out, C, n, S, K, D, lscale, stream);
+}
+
+int double_min_sweep_launch(const int* x, const float* row_prob,
+                            const int* row_alias, const float* node_prob,
+                            const int* node_alias, const int* i_sites,
+                            const int* B1, const float* u_idx,
+                            const float* u_alias, const float* gumbel,
+                            const int* B2, const float* u_node,
+                            const float* u_nacc, const float* u_row,
+                            const float* u_racc, const float* logu,
+                            const float* cache, int* x_out, float* cache_out,
+                            int* accepts, int C, int n, int S, int K1, int K2,
+                            int D, float scale1, float lscale2,
+                            cudaStream_t stream) {
+  return launch_double_min(
+      x, row_prob, row_alias, node_prob, node_alias, i_sites, B1, B2,
+      host_streams({u_idx, u_alias, gumbel, u_node, u_nacc, u_row, u_racc,
+                    logu},
+                   {K1, K1, D, K2, K2, K2, K2, 1}),
+      cache, x_out, cache_out, accepts, C, n, S, K1, K2, D, scale1, lscale2,
+      stream);
+}
+
+int double_min_sweep_rng_launch(const int* x, const float* row_prob,
+                                const int* row_alias, const float* node_prob,
+                                const int* node_alias, const int* i_sites,
+                                const int* B1, const int* B2,
+                                const float* cache, const int* seed,
+                                int* x_out, float* cache_out, int* accepts,
+                                int C, int n, int S, int K1, int K2, int D,
+                                float scale1, float lscale2,
+                                cudaStream_t stream) {
+  return launch_double_min(x, row_prob, row_alias, node_prob, node_alias,
+                           i_sites, B1, B2, philox_streams(seed), cache,
+                           x_out, cache_out, accepts, C, n, S, K1, K2, D,
+                           scale1, lscale2, stream);
 }
 
 const char* cuda_error_string(int err) {

@@ -8,19 +8,24 @@ by ``ops.py`` from the tensors' device.  ``<wrapper>.launches`` counts the
 kernel launches the wrapper made; nothing else touches it but a caller that
 resets it.
 
-Site ids and B must lie in range (the samplers draw them so); the kernels
-do not check them.
+Site ids must lie in range (the samplers draw them so); the kernels do
+not check them.  Poisson totals are clamped to [0, capacity] in-kernel.
 
-Both kernels replace ``_sweep_kernel`` of the TPU package
-(``src/repro/kernels/fused_sweep.py:219``), which holds the whole (n, n)
-tables in VMEM and gathers rows with one-hot matrix products.  On Hopper the
-tables (64 MiB each at potts-64x64) cannot sit in shared memory, and a
-one-hot product would do n times the work of a gather, so the kernels
-gather straight from global memory: per sub-step and chain one W row (4n
-bytes) and, for MGPMH, B alias entries (8 bytes each).  That traffic bounds
-them; ``chip_smoke.py`` computes the bound for each run.  One block per
-chain keeps the chain's state in shared memory across all S sub-steps, so x
-never round-trips to global memory inside a sweep.
+The TPU bodies (``_sweep_kernel``, ``_min_gibbs_kernel``,
+``_double_min_kernel`` in ``src/repro/kernels/fused_sweep.py``) hold the
+whole (n, n) tables in VMEM and gather rows with one-hot matrix products.
+On Hopper the tables (64 MiB each at potts-64x64) cannot sit in shared
+memory, and a one-hot product would do n times the work of a gather, so the
+kernels gather straight from global memory: per sub-step and chain one W
+row (4n bytes) and the alias entries the draws land on (8 bytes each).  One
+block per chain keeps the chain's state in shared memory across all S
+sub-steps, so x never round-trips to global memory inside a sweep;
+``chip_smoke.py`` computes each kernel's bound for its run.
+
+The ``*_rng_cuda`` wrappers take a (1,) int32 ``seed`` tensor on the card
+in place of the uniform streams: the kernel draws every uniform, Gumbel and
+log-uniform in-kernel with Philox4x32-10 (``philox.py`` has the layout), so
+they allocate only their outputs and no stream of C·S·K uniforms exists.
 """
 from __future__ import annotations
 
@@ -28,7 +33,10 @@ import torch
 
 from ._build import load_library
 
-__all__ = ["gibbs_sweep_cuda", "mgpmh_sweep_cuda", "reset_launch_counts"]
+__all__ = ["gibbs_sweep_cuda", "mgpmh_sweep_cuda", "mgpmh_sweep_rng_cuda",
+           "min_gibbs_sweep_cuda", "min_gibbs_sweep_rng_cuda",
+           "double_min_sweep_cuda", "double_min_sweep_rng_cuda",
+           "reset_launch_counts"]
 
 # dynamic shared memory one block may use (H100: 227 KB)
 _MAX_SMEM = 232448
@@ -55,17 +63,37 @@ def _check_cuda(tensors):
 
 
 def _check_smem(n: int, D: int):
-    if 4 * (n + D) + 256 > _MAX_SMEM:
+    if 4 * (n + 2 * D) + 256 > _MAX_SMEM:
         raise ValueError(f"n={n} sites do not fit one block's shared memory "
                          f"({_MAX_SMEM} bytes)")
 
 
-def _launch(name: str, args):
+def _launch(name: str, x: torch.Tensor, args):
+    """Launch ``name`` on the current stream of x's device; ``args`` are
+    tensors (passed by data pointer) and scalars, in the C order."""
     lib = load_library().lib
-    err = getattr(lib, name)(*args)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, name)(
+            *(a.data_ptr() if isinstance(a, torch.Tensor) else a
+              for a in args), stream)
     if err != 0:
         raise RuntimeError(f"{name} failed: CUDA error {err} "
                            f"({lib.cuda_error_string(err).decode()})")
+
+
+def _sites(i_sites) -> int:
+    return i_sites.shape[1] if i_sites.dim() == 2 else -1
+
+
+def _check_node_tables(node_prob, node_alias, n):
+    _check(node_prob, "node_prob", torch.float32, (n,))
+    _check(node_alias, "node_alias", torch.int32, (n,))
+
+
+def _check_row_tables(row_prob, row_alias, n):
+    _check(row_prob, "row_prob", torch.float32, (n, n))
+    _check(row_alias, "row_alias", torch.int32, (n, n))
 
 
 def gibbs_sweep_cuda(x, W, i_sites, gumbel, *, D: int):
@@ -80,7 +108,7 @@ def gibbs_sweep_cuda(x, W, i_sites, gumbel, *, D: int):
     registers) and reduces them in a fixed order.
     """
     C, n = x.shape
-    S = i_sites.shape[1] if i_sites.dim() == 2 else -1
+    S = _sites(i_sites)
     _check(x, "x", torch.int32, (C, n))
     _check(W, "W", torch.float32, (n, n))
     _check(i_sites, "i_sites", torch.int32, (C, S))
@@ -90,11 +118,7 @@ def gibbs_sweep_cuda(x, W, i_sites, gumbel, *, D: int):
     out = torch.empty_like(x)
     if C == 0:
         return out
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _launch("gibbs_sweep_launch",
-                (x.data_ptr(), W.data_ptr(), i_sites.data_ptr(),
-                 gumbel.data_ptr(), out.data_ptr(), C, n, S, D, stream))
+    _launch("gibbs_sweep_launch", x, (x, W, i_sites, gumbel, out, C, n, S, D))
     gibbs_sweep_cuda.launches += 1
     return out
 
@@ -116,12 +140,11 @@ def mgpmh_sweep_cuda(x, W, row_prob, row_alias, i_sites, B, u_idx, u_alias,
     the acceptance ratio reads.
     """
     C, n = x.shape
-    S = i_sites.shape[1] if i_sites.dim() == 2 else -1
+    S = _sites(i_sites)
     K = u_idx.shape[-1]
     _check(x, "x", torch.int32, (C, n))
     _check(W, "W", torch.float32, (n, n))
-    _check(row_prob, "row_prob", torch.float32, (n, n))
-    _check(row_alias, "row_alias", torch.int32, (n, n))
+    _check_row_tables(row_prob, row_alias, n)
     _check(i_sites, "i_sites", torch.int32, (C, S))
     _check(B, "B", torch.int32, (C, S))
     _check(u_idx, "u_idx", torch.float32, (C, S, K))
@@ -135,23 +158,241 @@ def mgpmh_sweep_cuda(x, W, row_prob, row_alias, i_sites, B, u_idx, u_alias,
     acc = torch.empty((C,), dtype=torch.int32, device=x.device)
     if C == 0:
         return out, acc
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _launch("mgpmh_sweep_launch",
-                (x.data_ptr(), W.data_ptr(), row_prob.data_ptr(),
-                 row_alias.data_ptr(), i_sites.data_ptr(), B.data_ptr(),
-                 u_idx.data_ptr(), u_alias.data_ptr(), gumbel.data_ptr(),
-                 logu.data_ptr(), out.data_ptr(), acc.data_ptr(),
-                 C, n, S, K, D, float(scale), stream))
+    _launch("mgpmh_sweep_launch", x,
+            (x, W, row_prob, row_alias, i_sites, B, u_idx, u_alias, gumbel,
+             logu, out, acc, C, n, S, K, D, float(scale)))
     mgpmh_sweep_cuda.launches += 1
     return out, acc
 
 
-gibbs_sweep_cuda.launches = 0
-mgpmh_sweep_cuda.launches = 0
+def mgpmh_sweep_rng_cuda(x, W, row_prob, row_alias, i_sites, B, seed, *,
+                         D: int, scale: float, K: int):
+    """``mgpmh_sweep_cuda`` with in-kernel Philox uniforms
+    (``ref.mgpmh_sweep_rng_ref``): ``seed`` (1,) int32 on the card replaces
+    u_idx, u_alias, gumbel and logu; K is the capacity.
+    Returns (x_out (C, n) int32, accepts (C,) int32).
+
+    Replaces ``mgpmh_sweep_pallas_rng``
+    (``src/repro/kernels/fused_sweep.py:542``).  The MGPMH body of
+    ``mgpmh_sweep_cuda`` instantiated with the Philox source: the byte
+    bound loses the 8 bytes of uniforms per live draw and gains one
+    Philox4x32-10 call (~100 int32 operations) per uniform, so at K=201
+    the operations and the gathers bound it about equally.
+    """
+    C, n = x.shape
+    S = _sites(i_sites)
+    _check(x, "x", torch.int32, (C, n))
+    _check(W, "W", torch.float32, (n, n))
+    _check_row_tables(row_prob, row_alias, n)
+    _check(i_sites, "i_sites", torch.int32, (C, S))
+    _check(B, "B", torch.int32, (C, S))
+    _check(seed, "seed", torch.int32, (1,))
+    _check_cuda([x, W, row_prob, row_alias, i_sites, B, seed])
+    _check_smem(n, D)
+    out = torch.empty_like(x)
+    acc = torch.empty((C,), dtype=torch.int32, device=x.device)
+    if C == 0:
+        return out, acc
+    _launch("mgpmh_sweep_rng_launch", x,
+            (x, W, row_prob, row_alias, i_sites, B, seed, out, acc, C, n, S,
+             int(K), D, float(scale)))
+    mgpmh_sweep_rng_cuda.launches += 1
+    return out, acc
+
+
+def _min_gibbs_checks(x, node_prob, node_alias, row_prob, row_alias, i_sites,
+                      B, cache, D):
+    C, n = x.shape
+    S = _sites(i_sites)
+    _check(x, "x", torch.int32, (C, n))
+    _check_node_tables(node_prob, node_alias, n)
+    _check_row_tables(row_prob, row_alias, n)
+    _check(i_sites, "i_sites", torch.int32, (C, S))
+    _check(B, "B", torch.int32, (C, S, D))
+    _check(cache, "cache", torch.float32, (C,))
+    _check_smem(n, D)
+    return C, n, S
+
+
+def min_gibbs_sweep_cuda(x, node_prob, node_alias, row_prob, row_alias,
+                         i_sites, B, u_node, u_nacc, u_row, u_racc, gumbel,
+                         cache, *, D: int, lscale: float):
+    """S fused MIN-Gibbs site updates per chain
+    (``ref.min_gibbs_sweep_ref``).
+
+    x (C, n) int32; node_prob (n,) float32 / node_alias (n,) int32;
+    row_prob/row_alias (n, n); i_sites (C, S) int32; B (C, S, D) int32;
+    u_node/u_nacc/u_row/u_racc (C, S, D, K) float32; gumbel (C, S, D)
+    float32; cache (C,) float32.  ``lscale`` = log1p(Psi/lam).
+    Returns (x_out (C, n) int32, cache_out (C,) float32).
+
+    Replaces ``min_gibbs_sweep_pallas``
+    (``src/repro/kernels/fused_sweep.py:605``, body ``_min_gibbs_kernel``).
+    Bound by bytes: per live draw four 4-byte uniforms and two random table
+    gathers (node entry, row entry).  The D*K draw lanes of a sub-step are
+    independent, so 512 threads per block walk them candidate by candidate,
+    skip lanes past B[c, s, u] without loading them, count matches in a
+    register and add once per warp and candidate; each 4-byte gather still
+    moves a 32-byte sector, so the kernel runs far from the byte bound.
+    """
+    C, n, S = _min_gibbs_checks(x, node_prob, node_alias, row_prob,
+                                row_alias, i_sites, B, cache, D)
+    K = u_node.shape[-1]
+    for t, name in ((u_node, "u_node"), (u_nacc, "u_nacc"), (u_row, "u_row"),
+                    (u_racc, "u_racc")):
+        _check(t, name, torch.float32, (C, S, D, K))
+    _check(gumbel, "gumbel", torch.float32, (C, S, D))
+    _check_cuda([x, node_prob, node_alias, row_prob, row_alias, i_sites, B,
+                 u_node, u_nacc, u_row, u_racc, gumbel, cache])
+    out = torch.empty_like(x)
+    cache_out = torch.empty_like(cache)
+    if C == 0:
+        return out, cache_out
+    _launch("min_gibbs_sweep_launch", x,
+            (x, node_prob, node_alias, row_prob, row_alias, i_sites, B,
+             u_node, u_nacc, u_row, u_racc, gumbel, cache, out, cache_out,
+             C, n, S, K, D, float(lscale)))
+    min_gibbs_sweep_cuda.launches += 1
+    return out, cache_out
+
+
+def min_gibbs_sweep_rng_cuda(x, node_prob, node_alias, row_prob, row_alias,
+                             i_sites, B, cache, seed, *, D: int,
+                             lscale: float, K: int):
+    """``min_gibbs_sweep_cuda`` with in-kernel Philox uniforms
+    (``ref.min_gibbs_sweep_rng_ref``): ``seed`` (1,) int32 on the card
+    replaces the four (C, S, D, K) streams and the Gumbels; B stays an
+    input.  Returns (x_out (C, n) int32, cache_out (C,) float32).
+
+    Replaces ``min_gibbs_sweep_pallas_rng``
+    (``src/repro/kernels/fused_sweep.py:650``).  The MIN-Gibbs body with
+    the Philox source.  Bound by integer operations: four Philox4x32-10
+    calls per live draw (one word of four used).  Allocates only x_out and
+    cache_out: at potts-64x64's default lam the host form's streams would
+    be 45 GB at C=256, S=64.
+    """
+    C, n, S = _min_gibbs_checks(x, node_prob, node_alias, row_prob,
+                                row_alias, i_sites, B, cache, D)
+    _check(seed, "seed", torch.int32, (1,))
+    _check_cuda([x, node_prob, node_alias, row_prob, row_alias, i_sites, B,
+                 cache, seed])
+    out = torch.empty_like(x)
+    cache_out = torch.empty_like(cache)
+    if C == 0:
+        return out, cache_out
+    _launch("min_gibbs_sweep_rng_launch", x,
+            (x, node_prob, node_alias, row_prob, row_alias, i_sites, B, cache,
+             seed, out, cache_out, C, n, S, int(K), D, float(lscale)))
+    min_gibbs_sweep_rng_cuda.launches += 1
+    return out, cache_out
+
+
+def _double_min_checks(x, row_prob, row_alias, node_prob, node_alias,
+                       i_sites, B1, B2, cache, D):
+    C, n = x.shape
+    S = _sites(i_sites)
+    _check(x, "x", torch.int32, (C, n))
+    _check_row_tables(row_prob, row_alias, n)
+    _check_node_tables(node_prob, node_alias, n)
+    _check(i_sites, "i_sites", torch.int32, (C, S))
+    _check(B1, "B1", torch.int32, (C, S))
+    _check(B2, "B2", torch.int32, (C, S))
+    _check(cache, "cache", torch.float32, (C,))
+    _check_smem(n, D)
+    return C, n, S
+
+
+def _double_min_outputs(x, cache):
+    return (torch.empty_like(x), torch.empty_like(cache),
+            torch.empty((x.shape[0],), dtype=torch.int32, device=x.device))
+
+
+def double_min_sweep_cuda(x, row_prob, row_alias, node_prob, node_alias,
+                          i_sites, B1, u_idx, u_alias, gumbel, B2, u_node,
+                          u_nacc, u_row, u_racc, logu, cache, *, D: int,
+                          scale1: float, lscale2: float):
+    """S fused DoubleMIN site updates per chain
+    (``ref.double_min_sweep_ref``).
+
+    x (C, n) int32; row tables (n, n); node tables (n,); i_sites/B1/B2
+    (C, S) int32; u_idx/u_alias (C, S, K1) float32; gumbel (C, S, D);
+    u_node/u_nacc/u_row/u_racc (C, S, K2) float32; logu (C, S); cache (C,).
+    ``scale1`` = L/lam1, ``lscale2`` = log1p(Psi/lam2).
+    Returns (x_out (C, n) int32, cache_out (C,) float32, accepts (C,) int32).
+
+    Replaces ``double_min_sweep_pallas``
+    (``src/repro/kernels/fused_sweep.py:687``, body ``_double_min_kernel``).
+    Bound by bytes: per sub-step B1 local draws (MGPMH's stage 1, no exact
+    pass) and B2 two-stage pair draws, 16 bytes of uniforms and two random
+    table gathers each.  512 threads per block spread the K2 lanes, count
+    matches in registers and reduce once over the block; the accept test
+    uses the cached estimate, so no W row is read.
+    """
+    C, n, S = _double_min_checks(x, row_prob, row_alias, node_prob,
+                                 node_alias, i_sites, B1, B2, cache, D)
+    K1 = u_idx.shape[-1]
+    K2 = u_node.shape[-1]
+    _check(u_idx, "u_idx", torch.float32, (C, S, K1))
+    _check(u_alias, "u_alias", torch.float32, (C, S, K1))
+    _check(gumbel, "gumbel", torch.float32, (C, S, D))
+    for t, name in ((u_node, "u_node"), (u_nacc, "u_nacc"), (u_row, "u_row"),
+                    (u_racc, "u_racc")):
+        _check(t, name, torch.float32, (C, S, K2))
+    _check(logu, "logu", torch.float32, (C, S))
+    _check_cuda([x, row_prob, row_alias, node_prob, node_alias, i_sites, B1,
+                 u_idx, u_alias, gumbel, B2, u_node, u_nacc, u_row, u_racc,
+                 logu, cache])
+    out, cache_out, acc = _double_min_outputs(x, cache)
+    if C == 0:
+        return out, cache_out, acc
+    _launch("double_min_sweep_launch", x,
+            (x, row_prob, row_alias, node_prob, node_alias, i_sites, B1,
+             u_idx, u_alias, gumbel, B2, u_node, u_nacc, u_row, u_racc, logu,
+             cache, out, cache_out, acc, C, n, S, K1, K2, D, float(scale1),
+             float(lscale2)))
+    double_min_sweep_cuda.launches += 1
+    return out, cache_out, acc
+
+
+def double_min_sweep_rng_cuda(x, row_prob, row_alias, node_prob, node_alias,
+                              i_sites, B1, B2, cache, seed, *, D: int,
+                              scale1: float, lscale2: float, K1: int,
+                              K2: int):
+    """``double_min_sweep_cuda`` with in-kernel Philox uniforms
+    (``ref.double_min_sweep_rng_ref``): ``seed`` (1,) int32 on the card
+    replaces the proposal, Gumbel, second-batch and MH streams; B1, B2 stay
+    inputs.  Returns (x_out, cache_out, accepts).
+
+    Replaces ``double_min_sweep_pallas_rng``
+    (``src/repro/kernels/fused_sweep.py:739``).  The DoubleMIN body with the
+    Philox source; bound by integer operations (one Philox4x32-10 call per
+    uniform).  Allocates only its three outputs.
+    """
+    C, n, S = _double_min_checks(x, row_prob, row_alias, node_prob,
+                                 node_alias, i_sites, B1, B2, cache, D)
+    _check(seed, "seed", torch.int32, (1,))
+    _check_cuda([x, row_prob, row_alias, node_prob, node_alias, i_sites, B1,
+                 B2, cache, seed])
+    out, cache_out, acc = _double_min_outputs(x, cache)
+    if C == 0:
+        return out, cache_out, acc
+    _launch("double_min_sweep_rng_launch", x,
+            (x, row_prob, row_alias, node_prob, node_alias, i_sites, B1, B2,
+             cache, seed, out, cache_out, acc, C, n, S, int(K1), int(K2), D,
+             float(scale1), float(lscale2)))
+    double_min_sweep_rng_cuda.launches += 1
+    return out, cache_out, acc
+
+
+WRAPPERS = (gibbs_sweep_cuda, mgpmh_sweep_cuda, mgpmh_sweep_rng_cuda,
+            min_gibbs_sweep_cuda, min_gibbs_sweep_rng_cuda,
+            double_min_sweep_cuda, double_min_sweep_rng_cuda)
 
 
 def reset_launch_counts():
     """Set every wrapper's launch count to 0."""
-    gibbs_sweep_cuda.launches = 0
-    mgpmh_sweep_cuda.launches = 0
+    for fn in WRAPPERS:
+        fn.launches = 0
+
+
+reset_launch_counts()

@@ -2,14 +2,19 @@
 
 A CPU tensor goes to the plain PyTorch version (``ref.py``); a CUDA tensor
 goes to the hand-written kernel (``fused_sweep.py``), which launches or
-raises.  Nothing falls back from one to the other.
+raises.  Nothing falls back from one to the other.  The in-kernel-RNG
+kernels have no entry here (as in the JAX package): they are called
+through ``fused_sweep`` directly.
 """
 from __future__ import annotations
 
-from .fused_sweep import gibbs_sweep_cuda, mgpmh_sweep_cuda
-from .ref import gibbs_sweep_ref, mgpmh_sweep_ref
+from .fused_sweep import (double_min_sweep_cuda, gibbs_sweep_cuda,
+                          mgpmh_sweep_cuda, min_gibbs_sweep_cuda)
+from .ref import (double_min_sweep_ref, gibbs_sweep_ref, mgpmh_sweep_ref,
+                  min_gibbs_sweep_ref)
 
-__all__ = ["gibbs_sweep", "mgpmh_sweep"]
+__all__ = ["gibbs_sweep", "mgpmh_sweep", "min_gibbs_sweep",
+           "double_min_sweep"]
 
 
 def _route(x, op: str) -> str:
@@ -45,3 +50,43 @@ def gibbs_sweep(x, W, i_sites, gumbel, *, D: int):
     if _route(x, "gibbs_sweep") == "cpu":
         return gibbs_sweep_ref(x, W, i_sites, gumbel, D)
     return gibbs_sweep_cuda(x, W, i_sites, gumbel, D=D)
+
+
+def min_gibbs_sweep(x, node_prob, node_alias, row_prob, row_alias, i_sites,
+                    B, u_node, u_nacc, u_row, u_racc, gumbel, cache, *,
+                    D: int, lscale: float):
+    """S fused sequential MIN-Gibbs site updates per chain with the cached
+    energy estimate threaded through (see ``ref.min_gibbs_sweep_ref``).
+
+    x (C, n) i32; node_prob/node_alias (n,); row_prob/row_alias (n, n);
+    i_sites (C, S); B (C, S, D) i32; u_node/u_nacc/u_row/u_racc
+    (C, S, D, K) f32 uniforms; gumbel (C, S, D) f32; cache (C,) f32.
+    ``lscale`` = log1p(Psi/lam).  Returns (x_out (C, n) i32,
+    cache_out (C,) f32).
+    """
+    args = (x, node_prob, node_alias, row_prob, row_alias, i_sites, B,
+            u_node, u_nacc, u_row, u_racc, gumbel, cache)
+    if _route(x, "min_gibbs_sweep") == "cpu":
+        return min_gibbs_sweep_ref(*args, D, lscale)
+    return min_gibbs_sweep_cuda(*args, D=D, lscale=lscale)
+
+
+def double_min_sweep(x, row_prob, row_alias, node_prob, node_alias, i_sites,
+                     B1, u_idx, u_alias, gumbel, B2, u_node, u_nacc, u_row,
+                     u_racc, logu, cache, *, D: int, scale1: float,
+                     lscale2: float):
+    """S fused sequential DoubleMIN site updates per chain with the cached
+    xi_x threaded through (see ``ref.double_min_sweep_ref``).
+
+    x (C, n) i32; row/node tables as in min_gibbs_sweep; i_sites/B1/B2/logu
+    (C, S); u_idx/u_alias (C, S, K1) f32; u_node/u_nacc/u_row/u_racc
+    (C, S, K2) f32; gumbel (C, S, D) f32; cache (C,) f32.
+    ``scale1`` = L/lam1, ``lscale2`` = log1p(Psi/lam2).  Returns
+    (x_out (C, n) i32, cache_out (C,) f32, accepts (C,) i32).
+    """
+    args = (x, row_prob, row_alias, node_prob, node_alias, i_sites, B1,
+            u_idx, u_alias, gumbel, B2, u_node, u_nacc, u_row, u_racc, logu,
+            cache)
+    if _route(x, "double_min_sweep") == "cpu":
+        return double_min_sweep_ref(*args, D, scale1, lscale2)
+    return double_min_sweep_cuda(*args, D=D, scale1=scale1, lscale2=lscale2)

@@ -1,0 +1,98 @@
+"""numpy-drawn inputs of the fused sweeps at the parity shapes.
+
+The kernels, their plain versions and the JAX oracles are compared on the
+same inputs, drawn exactly as the JAX package's ``tests/test_sweep.py``
+draws them (seeded ``numpy.random.default_rng``, the same draw order).
+The port's tests and ``chip_smoke.py`` both build their inputs here, in
+each sweep's argument order.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from ..core.factor_graph import build_alias_table
+
+__all__ = ["alias_rows", "node_table", "gibbs_inputs", "mgpmh_inputs",
+           "min_gibbs_inputs", "double_min_inputs"]
+
+
+def _symmetric(rng, n):
+    A = rng.uniform(0.1, 1.0, (n, n))
+    A = (A + A.T) / 2
+    np.fill_diagonal(A, 0)
+    return A
+
+
+def alias_rows(rng, n):
+    """A random symmetric (n, n) weight matrix and its row alias tables:
+    (W float32, row_prob float32, row_alias int32)."""
+    A = _symmetric(rng, n)
+    rp = np.zeros((n, n), np.float32)
+    ra = np.zeros((n, n), np.int32)
+    for i in range(n):
+        rp[i], ra[i] = build_alias_table(A[i])
+    return A.astype(np.float32), rp, ra
+
+
+def node_table(rng, n):
+    """The node alias table (prob, alias) of a second random matrix's row
+    sums."""
+    return build_alias_table(_symmetric(rng, n).sum(1))
+
+
+def gibbs_inputs(C, S, D, n):
+    """(x, W, i_sites, gumbel)."""
+    rng = np.random.default_rng(C + S + D + n)
+    W, _, _ = alias_rows(rng, n)
+    return (rng.integers(0, D, (C, n)).astype(np.int32), W,
+            rng.integers(0, n, (C, S)).astype(np.int32),
+            rng.gumbel(size=(C, S, D)).astype(np.float32))
+
+
+def mgpmh_inputs(C, S, K, D, n):
+    """(x, W, row_prob, row_alias, i_sites, B, u_idx, u_alias, gumbel,
+    logu)."""
+    rng = np.random.default_rng(C * 100 + S * 10 + K + D + n)
+    W, rp, ra = alias_rows(rng, n)
+    x = rng.integers(0, D, (C, n)).astype(np.int32)
+    i = rng.integers(0, n, (C, S)).astype(np.int32)
+    B = rng.integers(0, K + 1, (C, S)).astype(np.int32)
+    u1 = rng.uniform(size=(C, S, K)).astype(np.float32)
+    u2 = rng.uniform(size=(C, S, K)).astype(np.float32)
+    g = rng.gumbel(size=(C, S, D)).astype(np.float32)
+    lu = np.log(rng.uniform(size=(C, S))).astype(np.float32)
+    return (x, W, rp, ra, i, B, u1, u2, g, lu)
+
+
+def min_gibbs_inputs(C, S, K, D, n):
+    """(x, node_prob, node_alias, row_prob, row_alias, i_sites, B, u_node,
+    u_nacc, u_row, u_racc, gumbel, cache)."""
+    rng = np.random.default_rng(C * 100 + S * 10 + K + D + n)
+    _, rp, ra = alias_rows(rng, n)
+    npb, nab = node_table(rng, n)
+    x = rng.integers(0, D, (C, n)).astype(np.int32)
+    i = rng.integers(0, n, (C, S)).astype(np.int32)
+    B = rng.integers(0, K + 1, (C, S, D)).astype(np.int32)
+    u4 = [rng.uniform(size=(C, S, D, K)).astype(np.float32) for _ in range(4)]
+    g = rng.gumbel(size=(C, S, D)).astype(np.float32)
+    cache = rng.uniform(0, 3, (C,)).astype(np.float32)
+    return (x, npb, nab, rp, ra, i, B, *u4, g, cache)
+
+
+def double_min_inputs(C, S, K1, K2, D, n):
+    """(x, row_prob, row_alias, node_prob, node_alias, i_sites, B1, u_idx,
+    u_alias, gumbel, B2, u_node, u_nacc, u_row, u_racc, logu, cache)."""
+    rng = np.random.default_rng(C * 100 + S * 10 + K1 + K2 + D + n)
+    _, rp, ra = alias_rows(rng, n)
+    npb, nab = node_table(rng, n)
+    x = rng.integers(0, D, (C, n)).astype(np.int32)
+    i = rng.integers(0, n, (C, S)).astype(np.int32)
+    B1 = rng.integers(0, K1 + 1, (C, S)).astype(np.int32)
+    u1 = rng.uniform(size=(C, S, K1)).astype(np.float32)
+    u2 = rng.uniform(size=(C, S, K1)).astype(np.float32)
+    g = rng.gumbel(size=(C, S, D)).astype(np.float32)
+    B2 = rng.integers(0, K2 + 1, (C, S)).astype(np.int32)
+    v4 = [rng.uniform(size=(C, S, K2)).astype(np.float32) for _ in range(4)]
+    lu = np.log(rng.uniform(size=(C, S))).astype(np.float32)
+    cache = rng.uniform(0, 3, (C,)).astype(np.float32)
+    return (x, rp, ra, npb, nab, i, B1, u1, u2, g, B2, *v4, lu, cache)

@@ -15,12 +15,28 @@ Two choices the kernels share, for bit-equal results on one device:
     two can differ in the last bit, which flips a decision only at a
     near-tie);
   * argmax takes the FIRST maximum, as ``jnp.argmax`` does.
+
+MIN-Gibbs and DoubleMIN draw their global minibatches in two stages, as the
+JAX oracles do: endpoint ``a`` from a node alias table (p_a = L_a / 2Psi),
+endpoint ``b`` from row a's alias table (p_b = W_ab / L_a), so
+p({a, b}) = M_phi / Psi with (n,)-indexed tables only.
+
+The ``*_rng_ref`` versions are the plain versions of the in-kernel-RNG
+kernels: each makes its uniform streams from the seed with
+``philox.uniforms`` (the layout the kernels reproduce) and calls the
+host-stream version.  They hold the whole streams in memory, so they run at
+test and check sizes only.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["bucket_energy_ref", "gibbs_sweep_ref", "mgpmh_sweep_ref"]
+from . import philox
+
+__all__ = ["bucket_energy_ref", "gibbs_sweep_ref", "mgpmh_sweep_ref",
+           "min_gibbs_sweep_ref", "double_min_sweep_ref",
+           "mgpmh_sweep_rng_ref", "min_gibbs_sweep_rng_ref",
+           "double_min_sweep_rng_ref"]
 
 
 def _onehot(v: torch.Tensor, D: int) -> torch.Tensor:
@@ -98,3 +114,178 @@ def mgpmh_sweep_ref(x, W, row_prob, row_alias, i_sites, B, u_idx, u_alias,
         x[rows, i] = torch.where(accept, v, xi).to(x.dtype)
         acc += accept.to(torch.int32)
     return x, acc
+
+
+def _pair_pick(node_prob, node_alias, row_prob, row_alias, u_node, u_nacc,
+               u_row, u_racc, n):
+    """Two-stage global factor draw: endpoint ``a`` from the node alias
+    table, endpoint ``b`` from row ``a``'s alias table.  All uniforms
+    (..., K)-shaped; returns int64 endpoint arrays ``(a, b)``."""
+    idx1 = torch.clamp((u_node * n).to(torch.int32), max=n - 1).long()
+    a = torch.where(u_nacc < node_prob[idx1], idx1, node_alias[idx1].long())
+    idx2 = torch.clamp((u_row * n).to(torch.int32), max=n - 1).long()
+    b = torch.where(u_racc < row_prob[a, idx2], idx2,
+                    row_alias[a, idx2].long())
+    return a, b
+
+
+def min_gibbs_sweep_ref(x, node_prob, node_alias, row_prob, row_alias,
+                        i_sites, B, u_node, u_nacc, u_row, u_racc, gumbel,
+                        cache, D: int, lscale: float):
+    """S sequentially composed MIN-Gibbs site updates (Algorithm 2 per
+    sub-step), the cached energy estimate threaded through.
+
+    Per sub-step s (all chains c in parallel, sites sequential in s):
+      {a_k, b_k} ~ p_phi = M_phi/Psi   two-stage draw, per candidate u
+      eps_u = lscale * #{k < B_u : x_u[a_k] = x_u[b_k]},  x_u = x[i_s <- u]
+      eps_{x(i)} <- cache              (Alg 2's augmented-state slot)
+      v = argmax_u eps_u + gumbel_u;  x[i_s] <- v;  cache <- eps_v.
+
+    x (C, n) int32; node_prob/node_alias (n,); row_prob/row_alias (n, n);
+    i_sites (C, S); B (C, S, D) int32 per-candidate Poisson totals;
+    u_node/u_nacc/u_row/u_racc (C, S, D, K) f32; gumbel (C, S, D);
+    cache (C,) f32.  ``lscale`` = log1p(Psi/lam).
+    Returns (x_out (C, n) int32, cache_out (C,) f32).
+    """
+    C, n = x.shape
+    K = u_node.shape[-1]
+    dev = x.device
+    rows = torch.arange(C, device=dev)
+    # the factor draws are x-independent: hoist them out of the loop
+    a, b = _pair_pick(node_prob, node_alias, row_prob, row_alias,
+                      u_node, u_nacc, u_row, u_racc, n)      # (C, S, D, K)
+    live = torch.arange(K, device=dev) < B[..., None]         # (C, S, D, K)
+    u_cand = torch.arange(D, device=dev)[None, :, None]
+    lscale_f = torch.tensor(lscale, dtype=torch.float32, device=dev)
+    x = x.clone()
+    for s in range(i_sites.shape[1]):
+        i = i_sites[:, s].long()[:, None, None]
+        a_s, b_s = a[:, s], b[:, s]                          # (C, D, K)
+        xa = torch.gather(x, 1, a_s.reshape(C, -1)).reshape(a_s.shape)
+        xb = torch.gather(x, 1, b_s.reshape(C, -1)).reshape(b_s.shape)
+        xa = torch.where(a_s == i, u_cand, xa.long())
+        xb = torch.where(b_s == i, u_cand, xb.long())
+        m = ((xa == xb) & live[:, s]).sum(-1).to(torch.float32)
+        eps = lscale_f * m                                   # (C, D)
+        xi = x[rows, i[:, 0, 0]].long()
+        eps[rows, xi] = cache
+        v = torch.argmax(eps + gumbel[:, s], dim=-1)
+        x[rows, i[:, 0, 0]] = v.to(x.dtype)
+        cache = eps[rows, v]
+    return x, cache.clone()
+
+
+def double_min_sweep_ref(x, row_prob, row_alias, node_prob, node_alias,
+                         i_sites, B1, u_idx, u_alias, gumbel, B2, u_node,
+                         u_nacc, u_row, u_racc, logu, cache, D: int,
+                         scale1: float, lscale2: float):
+    """S sequentially composed DoubleMIN site updates (Algorithm 5 per
+    sub-step), the cached second-batch estimate xi_x threaded through.
+
+    Per sub-step s:
+      j_k  ~ alias(W[i_s]/L_i)        MGPMH proposal minibatch (u_idx/u_alias)
+      eps_u = scale1 * #{k < B1 : x[j_k] = u};  v = argmax_u eps_u + gumbel_u
+      {a_k, b_k} ~ p_phi              second (global) batch, two-stage draw
+      xi_y = lscale2 * #{k < B2 : y[a_k] = y[b_k]},  y = x[i_s <- v]
+      log a = (xi_y - cache) + (eps_{x(i)} - eps_v);  accept iff logu < log a
+      on accept: x <- y, cache <- xi_y.
+
+    x (C, n) int32; row/node tables as in min_gibbs_sweep_ref; i_sites/B1/
+    B2/logu (C, S); u_idx/u_alias (C, S, K1); u_node/u_nacc/u_row/u_racc
+    (C, S, K2); gumbel (C, S, D); cache (C,).  ``scale1`` = L/lam1,
+    ``lscale2`` = log1p(Psi/lam2).
+    Returns (x_out (C, n) int32, cache_out (C,) f32, accepts (C,) int32).
+    """
+    C, n = x.shape
+    K1 = u_idx.shape[-1]
+    K2 = u_node.shape[-1]
+    dev = x.device
+    rows = torch.arange(C, device=dev)
+    # x-independent draws hoisted: proposal neighbours + second-batch pairs
+    idx = torch.clamp((u_idx * n).to(torch.int32), max=n - 1).long()
+    ii = i_sites.long()[:, :, None]
+    j_all = torch.where(u_alias < row_prob[ii, idx], idx,
+                        row_alias[ii, idx].long())           # (C, S, K1)
+    live1 = torch.arange(K1, device=dev) < B1[:, :, None]
+    a, b = _pair_pick(node_prob, node_alias, row_prob, row_alias,
+                      u_node, u_nacc, u_row, u_racc, n)      # (C, S, K2)
+    live2 = torch.arange(K2, device=dev) < B2[:, :, None]
+    scale1_f = torch.tensor(scale1, dtype=torch.float32, device=dev)
+    lscale2_f = torch.tensor(lscale2, dtype=torch.float32, device=dev)
+    x = x.clone()
+    acc = torch.zeros((C,), dtype=torch.int32, device=dev)
+    for s in range(i_sites.shape[1]):
+        i = i_sites[:, s].long()
+        vals = torch.gather(x, 1, j_all[:, s])               # (C, K1)
+        counts = (_onehot(vals, D) * live1[:, s, :, None]).sum(1)
+        eps = scale1_f * counts                              # (C, D)
+        v = torch.argmax(eps + gumbel[:, s], dim=-1)
+        xi = x[rows, i].long()
+        a_s, b_s = a[:, s], b[:, s]
+        ya = torch.where(a_s == i[:, None], v[:, None],
+                         torch.gather(x, 1, a_s).long())
+        yb = torch.where(b_s == i[:, None], v[:, None],
+                         torch.gather(x, 1, b_s).long())
+        m = ((ya == yb) & live2[:, s]).sum(-1).to(torch.float32)
+        xi_y = lscale2_f * m
+        log_a = (xi_y - cache) + (eps[rows, xi] - eps[rows, v])
+        accept = logu[:, s] < log_a
+        x[rows, i] = torch.where(accept, v, xi).to(x.dtype)
+        cache = torch.where(accept, xi_y, cache)
+        acc += accept.to(torch.int32)
+    return x, cache.clone(), acc
+
+
+def mgpmh_sweep_rng_ref(x, W, row_prob, row_alias, i_sites, B, seed, D: int,
+                        scale: float, K: int, chain0: int = 0):
+    """``mgpmh_sweep_ref`` fed by the Philox streams of ``seed`` (streams
+    0-3 of ``philox.MGPMH_STREAMS``); K is the capacity.  With ``chain0``,
+    the chains are rows chain0 .. chain0 + C - 1 of a larger kernel call."""
+    C, S = i_sites.shape
+    st = philox.MGPMH_STREAMS
+    draw = lambda stream, L: philox.uniforms(seed, stream, C, S, L, x.device,
+                                             chain0)
+    u_idx, u_alias = draw([st["u_idx"], st["u_alias"]], K)
+    g = philox.to_gumbel(draw(st["gumbel"], D))
+    logu = philox.to_log_uniform(draw(st["logu"], 1)[..., 0])
+    return mgpmh_sweep_ref(x, W, row_prob, row_alias, i_sites, B, u_idx,
+                           u_alias, g, logu, D, scale)
+
+
+def min_gibbs_sweep_rng_ref(x, node_prob, node_alias, row_prob, row_alias,
+                            i_sites, B, cache, seed, D: int, lscale: float,
+                            K: int, chain0: int = 0):
+    """``min_gibbs_sweep_ref`` fed by the Philox streams of ``seed``
+    (``philox.MIN_GIBBS_STREAMS``: lane u*K + k of streams 0-3 is draw k of
+    candidate u); B (C, S, D) stays an input.  ``chain0`` as in
+    ``mgpmh_sweep_rng_ref``."""
+    C, S = i_sites.shape
+    st = philox.MIN_GIBBS_STREAMS
+    draw = lambda stream, L: philox.uniforms(seed, stream, C, S, L, x.device,
+                                             chain0)
+    u4 = draw([st[k] for k in ("u_node", "u_nacc", "u_row", "u_racc")],
+              D * K).reshape(4, C, S, D, K)
+    g = philox.to_gumbel(draw(st["gumbel"], D))
+    return min_gibbs_sweep_ref(x, node_prob, node_alias, row_prob,
+                               row_alias, i_sites, B, *u4, g, cache, D,
+                               lscale)
+
+
+def double_min_sweep_rng_ref(x, row_prob, row_alias, node_prob, node_alias,
+                             i_sites, B1, B2, cache, seed, D: int,
+                             scale1: float, lscale2: float, K1: int,
+                             K2: int, chain0: int = 0):
+    """``double_min_sweep_ref`` fed by the Philox streams of ``seed``
+    (``philox.DOUBLE_MIN_STREAMS``); B1, B2 stay inputs.  ``chain0`` as in
+    ``mgpmh_sweep_rng_ref``."""
+    C, S = i_sites.shape
+    st = philox.DOUBLE_MIN_STREAMS
+    draw = lambda stream, L: philox.uniforms(seed, stream, C, S, L, x.device,
+                                             chain0)
+    u_idx, u_alias = draw([st["u_idx"], st["u_alias"]], K1)
+    g = philox.to_gumbel(draw(st["gumbel"], D))
+    v4 = draw([st[k] for k in ("u_node", "u_nacc", "u_row", "u_racc")], K2)
+    logu = philox.to_log_uniform(draw(st["logu"], 1)[..., 0])
+    return double_min_sweep_ref(x, row_prob, row_alias, node_prob,
+                                node_alias, i_sites, B1, u_idx, u_alias, g,
+                                B2, *v4, logu, cache, D, scale1, lscale2)

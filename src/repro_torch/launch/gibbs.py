@@ -2,11 +2,14 @@
 
   PYTHONPATH=src python -m repro_torch.launch.gibbs --config potts-64x64 \
       --engine mgpmh --steps 200 --chains 256 --sweep 64
+  PYTHONPATH=src python -m repro_torch.launch.gibbs --config potts-64x64 \
+      --engine min-gibbs --steps 200 --chains 128 --sweep 8
   PYTHONPATH=src python -m repro_torch.launch.gibbs \
       --config lattice-ising-64x64 --engine gibbs --chromatic --steps 20
 
-Engines and workloads come from the registries in
-``repro_torch.core.engine``.  Runs on the card unless ``--device cpu``.
+Engines (gibbs, mgpmh, min-gibbs, doublemin) and workloads come from the
+registries in ``repro_torch.core.engine``.  Runs on the card unless
+``--device cpu``.
 Each log line reports the running-marginal error, the acceptance rate and
 the throughput in site updates per second (host clock; the log line's host
 read waits for the device).

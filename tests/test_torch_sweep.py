@@ -16,15 +16,19 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# the suite runs in several worker processes at once: one intra-op
+# thread each keeps them from oversubscribing the cores (these small
+# tensors gain nothing from more)
+torch.set_num_threads(1)
 
 import jax.numpy as jnp  # noqa: E402
 
 from repro.core import make_potts_graph as j_make_potts_graph  # noqa: E402
-from repro.core.factor_graph import build_alias_table  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.core import chains, engine, samplers  # noqa: E402
 from repro_torch.core import factor_graph as tfg  # noqa: E402
 from repro_torch.kernels import _build, fused_sweep, ops  # noqa: E402
+from repro_torch.kernels import parity_inputs as pin  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.launch import gibbs as launcher  # noqa: E402
 
@@ -40,43 +44,8 @@ MGPMH_SHAPES = [          # (C, S, K, D, n), as tests/test_sweep.py:53-59
 GIBBS_SHAPES = [(4, 5, 3, 11), (8, 8, 10, 40), (3, 1, 2, 5)]   # (C, S, D, n)
 
 
-def _graph_arrays(rng, n):
-    A = rng.uniform(0.1, 1.0, (n, n))
-    A = (A + A.T) / 2
-    np.fill_diagonal(A, 0)
-    rp = np.zeros((n, n), np.float32)
-    ra = np.zeros((n, n), np.int32)
-    for i in range(n):
-        rp[i], ra[i] = build_alias_table(A[i])
-    return A.astype(np.float32), rp, ra
-
-
-def _mgpmh_inputs(C, S, K, D, n):
-    """numpy inputs drawn exactly as tests/test_sweep.py draws them."""
-    rng = np.random.default_rng(C * 100 + S * 10 + K + D + n)
-    W, rp, ra = _graph_arrays(rng, n)
-    return (W, rp, ra,
-            rng.integers(0, D, (C, n)).astype(np.int32),
-            rng.integers(0, n, (C, S)).astype(np.int32),
-            rng.integers(0, K + 1, (C, S)).astype(np.int32),
-            rng.uniform(size=(C, S, K)).astype(np.float32),
-            rng.uniform(size=(C, S, K)).astype(np.float32),
-            rng.gumbel(size=(C, S, D)).astype(np.float32),
-            np.log(rng.uniform(size=(C, S))).astype(np.float32))
-
-
-def _gibbs_inputs(C, S, D, n):
-    rng = np.random.default_rng(C + S + D + n)
-    W, _, _ = _graph_arrays(rng, n)
-    return (W, rng.integers(0, D, (C, n)).astype(np.int32),
-            rng.integers(0, n, (C, S)).astype(np.int32),
-            rng.gumbel(size=(C, S, D)).astype(np.float32))
-
-
-def _mgpmh_args(arrays, device):
-    W, rp, ra, x, i, B, u1, u2, g, lu = (torch.from_numpy(a).to(device)
-                                         for a in arrays)
-    return (x, W, rp, ra, i, B, u1, u2, g, lu)
+def _torch(arrays, device="cpu"):
+    return tuple(torch.from_numpy(a).to(device) for a in arrays)
 
 
 # ---------------------------------------------------------------------------
@@ -85,12 +54,9 @@ def _mgpmh_args(arrays, device):
 
 @pytest.mark.parametrize("C,S,K,D,n", MGPMH_SHAPES)
 def test_mgpmh_sweep_ref_equals_jax_oracle(C, S, K, D, n):
-    arrays = _mgpmh_inputs(C, S, K, D, n)
-    W, rp, ra, x, i, B, u1, u2, g, lu = arrays
-    xj, aj = jref.mgpmh_sweep_ref(*(jnp.asarray(a) for a in
-                                    (x, W, rp, ra, i, B, u1, u2, g, lu)),
-                                  D, 0.7)
-    xt, at = tref.mgpmh_sweep_ref(*_mgpmh_args(arrays, "cpu"), D, 0.7)
+    arrays = pin.mgpmh_inputs(C, S, K, D, n)
+    xj, aj = jref.mgpmh_sweep_ref(*map(jnp.asarray, arrays), D, 0.7)
+    xt, at = tref.mgpmh_sweep_ref(*_torch(arrays), D, 0.7)
     np.testing.assert_array_equal(xt.numpy(), np.asarray(xj))
     np.testing.assert_array_equal(at.numpy(), np.asarray(aj))
     assert xt.dtype == torch.int32 and at.dtype == torch.int32
@@ -98,7 +64,7 @@ def test_mgpmh_sweep_ref_equals_jax_oracle(C, S, K, D, n):
 
 @pytest.mark.parametrize("C,S,D,n", GIBBS_SHAPES)
 def test_gibbs_sweep_ref_equals_jax_oracle(C, S, D, n):
-    W, x, i, g = _gibbs_inputs(C, S, D, n)
+    x, W, i, g = pin.gibbs_inputs(C, S, D, n)
     xj = jref.gibbs_sweep_ref(jnp.asarray(x), jnp.asarray(W), jnp.asarray(i),
                               jnp.asarray(g), D)
     x_t = torch.from_numpy(x)
@@ -139,19 +105,18 @@ def test_select_and_accept_primitives_equal_jax():
 # ---------------------------------------------------------------------------
 
 def test_ops_send_cpu_tensors_to_the_plain_versions():
-    arrays = _mgpmh_inputs(4, 5, 17, 3, 11)
-    args = _mgpmh_args(arrays, "cpu")
+    args = _torch(pin.mgpmh_inputs(4, 5, 17, 3, 11))
     x0, a0 = ops.mgpmh_sweep(*args, D=3, scale=0.7)
     x1, a1 = tref.mgpmh_sweep_ref(*args, 3, 0.7)
     assert torch.equal(x0, x1) and torch.equal(a0, a1)
-    W, x, i, g = (torch.from_numpy(a) for a in _gibbs_inputs(4, 5, 3, 11))
+    x, W, i, g = _torch(pin.gibbs_inputs(4, 5, 3, 11))
     assert torch.equal(ops.gibbs_sweep(x, W, i, g, D=3),
                        tref.gibbs_sweep_ref(x, W, i, g, 3))
 
 
 def test_cuda_wrappers_refuse_cpu_tensors_and_bad_inputs():
     fused_sweep.reset_launch_counts()
-    W, x, i, g = (torch.from_numpy(a) for a in _gibbs_inputs(4, 5, 3, 11))
+    x, W, i, g = _torch(pin.gibbs_inputs(4, 5, 3, 11))
     with pytest.raises(ValueError, match="CUDA tensors"):
         fused_sweep.gibbs_sweep_cuda(x, W, i, g, D=3)
     with pytest.raises(ValueError, match="gumbel must have shape"):
@@ -161,7 +126,7 @@ def test_cuda_wrappers_refuse_cpu_tensors_and_bad_inputs():
     with pytest.raises(ValueError, match="i_sites must be contiguous"):
         it = i.t().contiguous().t()
         fused_sweep.gibbs_sweep_cuda(x, W, it, g, D=3)
-    args = _mgpmh_args(_mgpmh_inputs(4, 5, 17, 3, 11), "cpu")
+    args = _torch(pin.mgpmh_inputs(4, 5, 17, 3, 11))
     with pytest.raises(ValueError, match="CUDA tensors"):
         fused_sweep.mgpmh_sweep_cuda(*args, D=3, scale=0.7)
     with pytest.raises(ValueError, match="B must be torch.int32"):
@@ -273,7 +238,7 @@ def test_run_marginal_experiment_trace_and_tv():
 
 def test_registry_round_trip_and_errors():
     g = tfg.make_potts_graph(grid=3, beta=1.0, D=3, device="cpu")
-    assert engine.names() == ("gibbs", "mgpmh")
+    assert engine.names() == ("doublemin", "gibbs", "mgpmh", "min-gibbs")
     for name in engine.names():
         assert engine.backends(name) == ("torch", "cuda")
         eng = engine.make(name, g, sweep=5, device="cpu")
@@ -341,7 +306,7 @@ def cuda():
 @pytest.mark.gpu
 @pytest.mark.parametrize("C,S,K,D,n", MGPMH_SHAPES)
 def test_mgpmh_kernel_equals_plain_version(cuda, C, S, K, D, n):
-    args = _mgpmh_args(_mgpmh_inputs(C, S, K, D, n), cuda)
+    args = _torch(pin.mgpmh_inputs(C, S, K, D, n), cuda)
     before = fused_sweep.mgpmh_sweep_cuda.launches
     xk, ak = fused_sweep.mgpmh_sweep_cuda(*args, D=D, scale=0.7)
     xr, ar = tref.mgpmh_sweep_ref(*args, D, 0.7)
@@ -353,8 +318,7 @@ def test_mgpmh_kernel_equals_plain_version(cuda, C, S, K, D, n):
 @pytest.mark.gpu
 @pytest.mark.parametrize("C,S,D,n", GIBBS_SHAPES)
 def test_gibbs_kernel_equals_plain_version(cuda, C, S, D, n):
-    W, x, i, g = (torch.from_numpy(a).to(cuda)
-                  for a in _gibbs_inputs(C, S, D, n))
+    x, W, i, g = _torch(pin.gibbs_inputs(C, S, D, n), cuda)
     xk = fused_sweep.gibbs_sweep_cuda(x, W, i, g, D=D)
     torch.cuda.synchronize()
     assert torch.equal(xk, tref.gibbs_sweep_ref(x, W, i, g, D))

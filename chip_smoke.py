@@ -5,8 +5,9 @@
 
 Phases, each printed as it ends; any failure exits non-zero:
   1. device and toolchain (card, power limit, torch/CUDA, nvcc, triton);
-  2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
-     with ``-Xptxas -v`` registers / shared memory for all seven kernels);
+  2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
+     per source, all started together; ``-Xptxas -v`` registers / shared
+     memory for all eight kernels);
   3. each kernel against its plain PyTorch version on the card, on the same
      tensors: (a) at the parity shapes of the tests, exactly equal (the
      in-kernel-RNG kernels with seeds 0, 1 and 2^31-1); (b) at full width
@@ -17,14 +18,24 @@ Phases, each printed as it ends; any failure exits non-zero:
      the rest of that chain — and MIN-Gibbs (C=16, S=8, K=17188) and
      DoubleMIN (C=64, S=16, K1=201, K2=17188) exactly equal (integer
      counts, no float reduction); the in-kernel-RNG kernels at those
-     shapes with at most 1% of chains differing;
+     shapes with at most 1% of chains differing; (c) the bucket-energy
+     kernel at the eight shapes of ``tests/test_kernels.py``, the three of
+     ``benchmarks/kernel_bench.py`` and the local path's (C=256, K=B in
+     {8, 32, 128}, D=10): bit-equal at integer weights, within rtol 1e-5 /
+     atol 1e-4 at N(0,1) weights (another summation order), the same bits
+     on a second launch, plus out-of-range values and an f16 input;
   4. the main path through the user entry points (``engine.make`` +
      ``run_marginal_experiment``): mgpmh and gibbs on potts-64x64 with 256
      chains x 200 sweeps of 64 updates, chromatic gibbs on
      lattice-ising-64x64, min-gibbs (128 chains x 200 sweeps of 8) and
      doublemin (256 chains x 100 sweeps of 64) on potts-64x64 at their
-     default lambda; launch counts reset before and read after each run,
-     and must equal the sweep calls (color classes x calls);
+     default lambda, and local-gibbs (256 chains x 100 sweeps of 64) for
+     B in {8, 32, 128}, the Fig. 2a batch sizes, each replayed from its
+     seed to the same bits; launch counts reset before and read after each
+     run, and must equal the sweep calls (color classes x calls; S x calls
+     bucket-energy launches for local-gibbs); then each of the five
+     single-site reference steps 64 times at C=256, chains moving and
+     their bucket-energy launches counted;
   5. the in-kernel-RNG path at C=256, S=64 on potts-64x64 (the MIN-Gibbs
      host form would need 45 GB of streams there): a few calls of each
      ``*_rng`` kernel with fresh seeds, launch counts reset before and read
@@ -33,7 +44,11 @@ Phases, each printed as it ends; any failure exits non-zero:
      the plain versions' times and the least time the card could take;
      the timed outputs of each slice-2 kernel and its plain version are
      compared there too (host-stream kernels exactly, in-kernel-RNG kernels
-     to at most 1% of chains, their plain versions run on chain slices).
+     to at most 1% of chains, their plain versions run on chain slices);
+     the bucket-energy kernel at every phase-3c shape beside its plain
+     version, ``scatter_add_`` and its bound, and one local-gibbs sweep call
+     split into its draws, its S kernel launches and the rest, with the
+     device's busy time over one call from ``torch.profiler``.
 
 Prints the kernels' JSON record and the card's name and power limit, then
 as its last line ``{"ok": true, "device": {...}}``.  Also writes the full
@@ -85,7 +100,18 @@ PARITY_DMIN = [(4, 5, 17, 9, 3, 11), (3, 1, 1, 1, 2, 5),
                (5, 7, 33, 21, 4, 20)]         # (C, S, K1, K2, D, n)
 SEEDS = (0, 1, 2 ** 31 - 1)
 KERNELS = ("gibbs_sweep", "mgpmh_sweep", "mgpmh_sweep_rng", "min_gibbs_sweep",
-           "min_gibbs_sweep_rng", "double_min_sweep", "double_min_sweep_rng")
+           "min_gibbs_sweep_rng", "double_min_sweep", "double_min_sweep_rng",
+           "bucket_energy")
+# bucket-energy shapes (C, K, D): tests/test_kernels.py:30-33,
+# benchmarks/kernel_bench.py:29, and the local path's minibatches
+LOCAL_B = (8, 32, 128)                        # the Fig. 2a batch sizes
+SWEEPS_LOCAL = 100
+BUCKET_SHAPES = [(1, 1, 2), (4, 100, 10), (8, 256, 2), (32, 1024, 10),
+                 (5, 513, 257), (16, 50, 129), (3, 2000, 4), (7, 131, 128),
+                 (64, 1024, 10), (256, 4096, 10), (64, 8192, 2),
+                 *((C_FULL, b, 10) for b in LOCAL_B)]
+BUCKET_MAIN = (C_FULL, 32, 10)                # local-gibbs at the default B
+STEP_CALLS = 64                               # phase 4 single-site steps
 
 
 def fail(msg):
@@ -141,6 +167,21 @@ def phase_device():
                 torch_cuda=torch.version.cuda, nvcc=nvcc, triton=triton)
     say("1 device", json.dumps(info))
     return info
+
+
+def wrappers():
+    """Every kernel wrapper, each with its launch count."""
+    from repro_torch.kernels import fused_sweep as fs, minibatch_energy as me
+    return fs.WRAPPERS + (me.bucket_energy_cuda,)
+
+
+def reset_launches():
+    for fn in wrappers():
+        fn.launches = 0
+
+
+def read_launches():
+    return {fn.__name__[:-len("_cuda")]: fn.launches for fn in wrappers()}
 
 
 def phase_build():
@@ -262,6 +303,67 @@ def phase_parity(dev):
         f"shapes: kernel == plain version exactly (x, cache, accepts); the "
         f"3 in-kernel-RNG kernels == their plain versions exactly at the "
         f"same shapes for seeds {list(SEEDS)}")
+
+
+def bucket_inputs(C, K, D, weights, dev, seed):
+    """w (C, K) float32 (integers in [-8, 8], where every summation order
+    is exact, or N(0, 1)) and v (C, K) int32 in [0, D), from ``seed``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if weights == "integer":
+        w = torch.randint(-8, 9, (C, K), generator=gen, device=dev).float()
+    else:
+        w = torch.randn((C, K), generator=gen, device=dev)
+    v = torch.randint(0, D, (C, K), generator=gen, device=dev,
+                      dtype=torch.int32)
+    return w, v
+
+
+def bucket_close(got, want):
+    """The tolerance of tests/test_kernels.py for real weights, where the
+    kernel sums in another order than the plain version's einsum."""
+    return torch.allclose(got, want, rtol=1e-5, atol=1e-4)
+
+
+def phase_bucket_parity(dev):
+    """The bucket-energy kernel against its plain version at every shape of
+    BUCKET_SHAPES: bit-equal at integer weights, within tolerance at real
+    weights, the same bits on a second launch; out-of-range values and an
+    f16 input through ``ops.bucket_energy``."""
+    from repro_torch.kernels import minibatch_energy as me, ops, ref
+    err = 0.0
+    for k, (C, K, D) in enumerate(BUCKET_SHAPES):
+        for weights in ("integer", "normal"):
+            w, v = bucket_inputs(C, K, D, weights, dev, seed=k)
+            got = me.bucket_energy_cuda(w, v, D)
+            again = me.bucket_energy_cuda(w, v, D)
+            want = ref.bucket_energy_ref(w, v, D)
+            torch.cuda.synchronize()
+            check(torch.equal(got, again), f"bucket_energy at (C,K,D)="
+                  f"{(C, K, D)}: two launches gave different bits")
+            if weights == "integer":
+                check(torch.equal(got, want), f"bucket_energy != plain "
+                      f"version at integer weights, (C,K,D)={(C, K, D)}")
+            else:
+                err = max(err, float((got - want).abs().max()))
+                check(bucket_close(got, want), f"bucket_energy off the "
+                      f"plain version at (C,K,D)={(C, K, D)}: max abs err "
+                      f"{float((got - want).abs().max())}")
+    w = torch.ones((1, 4), device=dev)
+    v = torch.tensor([[0, 1, 5, 9]], dtype=torch.int32, device=dev)
+    got = ops.bucket_energy(w, v, 3)
+    check(got.tolist() == [[1.0, 1.0, 0.0]]
+          and torch.equal(got, ref.bucket_energy_ref(w, v, 3)),
+          f"bucket_energy: values >= D landed in a bucket: {got.tolist()}")
+    w, v = bucket_inputs(4, 64, 8, "normal", dev, seed=99)
+    got = ops.bucket_energy(w.half(), v.long(), 8)
+    want = ref.bucket_energy_ref(w.half().float(), v, 8)
+    check(got.dtype == torch.float32 and bucket_close(got, want),
+          "bucket_energy on f16 weights off the plain version")
+    say("3c bucket energy", f"{len(BUCKET_SHAPES)} shapes: kernel == plain "
+        f"version bit for bit at integer weights, max abs err {err:.3g} at "
+        f"N(0,1) weights (rtol 1e-5, atol 1e-4), same bits on a second "
+        f"launch; values >= D land nowhere; f16 weights cast up")
+    return dict(shapes=BUCKET_SHAPES, max_abs_err=err)
 
 
 def build_graphs(dev):
@@ -440,13 +542,8 @@ def phase_full_width(potts, lattice):
     return out
 
 
-def read_launches():
-    from repro_torch.kernels import fused_sweep as fs
-    return {fn.__name__[:-len("_cuda")]: fn.launches for fn in fs.WRAPPERS}
-
-
 def run_main_path(name, eng, n_chains, n_iters, n_snapshots, expect,
-                  falling=True):
+                  falling=True, replay=False):
     """Drive one engine through run_marginal_experiment with the launch
     counts set to 0 just before and read just after.  ``expect(calls)``
     names the launches of the engine's kernel; every other kernel must
@@ -454,13 +551,13 @@ def run_main_path(name, eng, n_chains, n_iters, n_snapshots, expect,
     by more than 1e-3; otherwise (the sticky MIN-Gibbs-type chains at
     their capped default lambda, whose trajectory is flat to ~1e-6) the
     chains must have moved and the error must stay finite and within its
-    range."""
+    range.  ``replay``: a second run from the same seed, after the counts
+    are read, must end in the same bits."""
     from repro_torch.core import chains
-    from repro_torch.kernels import fused_sweep as fs
     st = eng.init(0, n_chains)
     x0, cache0 = st.x.clone(), float(st.cache.mean())
     torch.cuda.synchronize()
-    fs.reset_launch_counts()
+    reset_launches()
     t0 = time.perf_counter()
     tr = chains.run_marginal_experiment(eng, st, n_iters=n_iters,
                                         n_snapshots=n_snapshots)
@@ -502,6 +599,15 @@ def run_main_path(name, eng, n_chains, n_iters, n_snapshots, expect,
           and int(tr.final.x.min()) >= 0
           and int(tr.final.x.max()) < eng.graph.D,
           f"{name}: final state out of domain")
+    if replay:
+        again = chains.run_marginal_experiment(
+            eng, eng.init(0, n_chains), n_iters=n_iters,
+            n_snapshots=n_snapshots)
+        check(torch.equal(again.final.x, tr.final.x)
+              and torch.equal(again.error, tr.error),
+              f"{name}: a replay from the same seed ended elsewhere")
+        rec["replay_bit_identical"] = True
+        say("4 main path", f"{name}: replay from seed 0 bit-identical")
     if eng.cache_init is not None:
         cache = tr.final.cache
         check(bool(torch.isfinite(cache).all()),
@@ -560,6 +666,78 @@ def phase_main_path(potts, lattice, pair_table_s):
     out["doublemin"]["params"] = eng.params
     check(out["doublemin"]["acceptance"] > 0,
           "doublemin accepted no proposal")
+    for B in LOCAL_B:
+        eng = engine.make("local-gibbs", potts, sweep=S_FULL, batch_size=B)
+        check(eng.backend == "cuda",
+              "local-gibbs engine is not on the cuda backend")
+        rec = run_main_path(
+            f"local-gibbs B={B} potts-64x64", eng, C_FULL,
+            SWEEPS_LOCAL * S_FULL, 10,
+            lambda calls: {"bucket_energy": S_FULL * calls}, replay=True)
+        check(rec["sites_changed"] > 0,
+              f"local-gibbs B={B}: no chain changed any site")
+        out[f"local-gibbs B={B}"] = rec
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_steps(potts):
+    """Each single-site reference step STEP_CALLS times from a random start
+    at C=256: chains move, and the bucket-energy kernel is launched as often
+    as the step computes energies through it (Gibbs: the exact pass; local:
+    the minibatch; MGPMH: proposal and exact pass; DoubleMIN: the proposal;
+    MIN-Gibbs counts matches without it)."""
+    from repro_torch.core import samplers
+    from repro_torch.core.estimators import recommended_capacity
+    lam1, lam2 = 4.0 * potts.L ** 2, min(2.0 * potts.psi ** 2, 16384.0)
+    K1, K2 = recommended_capacity(lam1), recommended_capacity(lam2)
+    cases = {
+        "gibbs": (samplers.make_gibbs_step(potts), None, 1),
+        "local-gibbs": (samplers.make_local_gibbs_step(potts, 32), None, 1),
+        "mgpmh": (samplers.make_mgpmh_step(potts, lam1, K1), None, 2),
+        "min-gibbs": (samplers.make_min_gibbs_step(potts, lam2, K2),
+                      samplers.init_min_gibbs_cache, 0),
+        "doublemin": (samplers.make_double_min_step(potts, lam1, K1, lam2,
+                                                    K2),
+                      samplers.init_double_min_cache, 1),
+    }
+    out = {}
+    for k, (name, (step, cache_init, per_step)) in enumerate(cases.items()):
+        gen = torch.Generator(device=potts.device).manual_seed(40 + k)
+        st = samplers.init_state(gen, potts, C_FULL, start="random")
+        if cache_init is not None:
+            st = cache_init(gen, potts, st, lam2, K2)
+        x0 = st.x.clone()
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(STEP_CALLS):
+            st = step(st)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        moved = int((st.x != x0).sum())
+        want = dict.fromkeys(KERNELS, 0)
+        want["bucket_energy"] = per_step * STEP_CALLS
+        check(launches == want, f"{name} step: launches {launches}, "
+              f"expected {want}")
+        check(moved > 0, f"{name} step: no chain changed any site")
+        check(int(st.x.min()) >= 0 and int(st.x.max()) < potts.D,
+              f"{name} step: state out of domain")
+        check(bool(torch.isfinite(st.cache).all()),
+              f"{name} step: non-finite cache")
+        rec = dict(steps=STEP_CALLS, chains=C_FULL, sites_changed=moved,
+                   seconds=wall, updates_per_s=STEP_CALLS * C_FULL / wall,
+                   bucket_energy_launches=launches["bucket_energy"])
+        if name in ("mgpmh", "doublemin"):
+            rec["acceptance"] = float(st.accepts.sum()) / (STEP_CALLS
+                                                          * C_FULL)
+        say("4 steps", f"{name} step x{STEP_CALLS} at C={C_FULL}: {moved} "
+            f"(chain, site) values changed, {rec['updates_per_s'] / 1e3:.1f}k"
+            f" updates/s, {launches['bucket_energy']} bucket-energy launches"
+            + (f", acceptance {rec['acceptance']:.4f}" if "acceptance" in rec
+               else ""))
+        out[name] = rec
     torch.cuda.empty_cache()
     return out
 
@@ -619,7 +797,7 @@ def phase_rng_path(potts):
     from repro_torch.kernels import fused_sweep as fs
     inputs = rng_path_inputs(potts, seed=21)
     torch.cuda.synchronize()
-    fs.reset_launch_counts()
+    reset_launches()
     out = {}
     for k, (args, kw) in inputs.items():
         wrapper = getattr(fs, k + "_cuda")
@@ -840,7 +1018,115 @@ def phase_times(potts, lattice, rng_inputs):
             f"{r['plain_ms']:.4f} ms [{r.get('plain_shape', r['shape'])}], "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}){rate}")
     recs["per_sweep_ms"] = sweep_parts(potts, lattice)
+    recs["bucket_energy_shapes"] = shapes = bucket_times(potts.device)
+    recs["bucket_energy"] = dict(
+        shapes["C={} K={} D={}".format(*BUCKET_MAIN)],
+        max_abs_err=max(r["max_abs_err"] for r in shapes.values()))
+    recs["local_sweep_ms"] = local_split(potts)
     return recs
+
+
+def per_launch_ms(fn, n, reps=5):
+    """Median over ``reps`` of the CUDA-event time of ``n`` back-to-back
+    calls, divided by n (a kernel of a few microseconds is timed as the
+    stream of launches its caller makes)."""
+    return median_ms(lambda: [fn() for _ in range(n)], reps) / n
+
+
+def bucket_times(dev):
+    """The bucket-energy kernel at every BUCKET_SHAPES shape beside its
+    plain version, the one PyTorch call that computes the same function
+    (``zeros.scatter_add_``, float atomics, order not fixed) and its bound:
+    C*K*8 bytes read and C*D*4 written against C*K adds."""
+    from repro_torch.kernels import minibatch_energy as me, ref
+    recs = {}
+    for k, (C, K, D) in enumerate(BUCKET_SHAPES):
+        w, v = bucket_inputs(C, K, D, "normal", dev, seed=100 + k)
+        v64 = v.long()
+        library = lambda: torch.zeros((C, D), device=dev).scatter_add_(
+            1, v64, w)
+        out, want, lib = (me.bucket_energy_cuda(w, v, D),
+                          ref.bucket_energy_ref(w, v, D), library())
+        check(bucket_close(out, want) and bucket_close(lib, want),
+              f"bucket_energy / scatter_add_ off the plain version at "
+              f"(C,K,D)={(C, K, D)}")
+        ms = per_launch_ms(lambda: me.bucket_energy_cuda(w, v, D), 100)
+        pms = per_launch_ms(lambda: ref.bucket_energy_ref(w, v, D), 20)
+        lms = per_launch_ms(library, 100)
+        bms, by = bound(8 * C * K + 4 * C * D, C * K)
+        shape = f"C={C} K={K} D={D}"
+        recs[shape] = dict(ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bms,
+                           bound_by=by, shape=shape,
+                           max_abs_err=float((out - want).abs().max()))
+        say("6 times", f"bucket_energy [C={C} K={K} D={D}]: kernel {ms:.4f} "
+            f"ms, plain {pms:.4f} ms, scatter_add_ {lms:.4f} ms, bound "
+            f"{bms:.6f} ms ({by})")
+    return recs
+
+
+def local_split(potts):
+    """One local-gibbs sweep call (C=256, S=64) per batch size, CUDA-event
+    medians: the whole call, its S draws (sites, subset keys and top-B,
+    Gumbels) alone, its S kernel launches alone at the call's shapes, and
+    the rest (gathers of W[i, j] and x[j], scaling, argmax, state write)."""
+    from repro_torch.core import engine, samplers
+    from repro_torch.kernels import minibatch_energy as me
+    out = {}
+    C, S, n, D, dev = C_FULL, S_FULL, potts.n, potts.D, potts.device
+    for B in LOCAL_B:
+        eng = engine.make("local-gibbs", potts, sweep=S, batch_size=B)
+        st = eng.init(3, C, start="random")
+        call = median_ms(lambda: eng.sweep(st), 10)
+        gen = torch.Generator(device=dev).manual_seed(4)
+        draws = median_ms(lambda: [samplers.local_gibbs_draws(
+            gen, C, n, B, D, dev) for _ in range(S)], 10)
+        i, j, _ = samplers.local_gibbs_draws(gen, C, n, B, D, dev)
+        w, v = potts.W[i[:, None], j], st.x.gather(1, j)
+        kern = median_ms(lambda: [me.bucket_energy_cuda(w, v, D)
+                                  for _ in range(S)], 10)
+        keys = median_ms(lambda: [torch.rand(
+            (C, n - 1), generator=gen, device=dev, dtype=torch.float64
+        ).topk(B, dim=1, sorted=False) for _ in range(S)], 10)
+        out[B] = rec = dict(call_ms=call, draws_ms=draws,
+                            subset_keys_ms=keys, kernels_ms=kern,
+                            rest_ms=call - draws - kern,
+                            updates_per_s=C * S / (call / 1e3),
+                            **device_busy(lambda: eng.sweep(st)))
+        # the profiled device time against the unprofiled call's time
+        rec["device_idle_share"] = 1.0 - rec["device_busy_ms"] / call
+        say("6 times", f"local-gibbs sweep call B={B} C={C} S={S}: "
+            f"{call:.3f} ms = draws {draws:.3f} (of which subset keys and "
+            f"top-B {keys:.3f}) + {S} kernel launches {kern:.3f} + rest "
+            f"{call - draws - kern:.3f} ({rec['updates_per_s'] / 1e6:.3f}M "
+            f"updates/s); profiled call: {rec['profiled_wall_ms']:.3f} ms "
+            f"wall, device busy {rec['device_busy_ms']:.3f} ms (idle "
+            f"{rec['device_idle_share']:.3f} of the call), top device ops "
+            + ", ".join(f"{k} {v:.4f}" for k, v in
+                        rec["top_device_ops_ms"].items()))
+    return out
+
+
+def device_busy(fn):
+    """One call of ``fn`` under torch.profiler: wall ms (host clock, to a
+    synchronize; the profiler's own cost included), device ms (the summed
+    time of the device's kernels, memcpys and memsets; one stream) and the
+    five of them with the most time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    name = lambda key: key.split("(")[0].split("<")[0].split(" ")[-1]
+    ops = [(name(e.key), e.self_device_time_total / 1e3)
+           for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    ops = sorted((o for o in ops if o[1] > 0), key=lambda o: -o[1])
+    return dict(profiled_wall_ms=1e3 * wall,
+                device_busy_ms=sum(ms for _, ms in ops),
+                top_device_ops_ms={k: ms for k, ms in ops[:5]})
 
 
 def _per_s(B, ms):
@@ -991,7 +1277,9 @@ REPLACES = {
     "min_gibbs_sweep_rng": "src/repro/kernels/fused_sweep.py:650",
     "double_min_sweep": "src/repro/kernels/fused_sweep.py:687",
     "double_min_sweep_rng": "src/repro/kernels/fused_sweep.py:739",
+    "bucket_energy": "src/repro/kernels/minibatch_energy.py:54",
 }
+SOURCES = {"bucket_energy": "src/repro_torch/kernels/csrc/bucket_energy.cu"}
 
 
 def main():
@@ -1002,13 +1290,18 @@ def main():
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
     t_start = time.perf_counter()
     dev = torch.device("cuda")
+    # the plain versions' products in full float32, as on the CPU
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     record = {"device": phase_device()}
     record["build"] = phase_build()
     phase_parity(dev)
+    record["bucket_parity"] = phase_bucket_parity(dev)
     potts, lattice, pair_table_s = build_graphs(dev)
     record["full_width"] = full = phase_full_width(potts, lattice)
     record["main_path"] = main = phase_main_path(potts, lattice,
                                                  pair_table_s)
+    record["steps"] = phase_steps(potts)
     record["rng_path"], rng_inputs = phase_rng_path(potts)
     record["times"] = times = phase_times(potts, lattice, rng_inputs)
 
@@ -1021,13 +1314,15 @@ def main():
             launches = sum(run["launches"].get(k, 0) for run in main.values())
         check(launches > 0, f"{k} was not launched on its path")
         t = times[k]
+        err = full[k][1] if k in full else record["bucket_parity"][
+            "max_abs_err"]
         kernels.append(dict(
-            name=k, route="cuda", source=src, replaces=REPLACES[k],
-            launches=launches,
-            max_abs_err=max(full[k][1], t.get("max_abs_err", 0.0)),
+            name=k, route="cuda", source=SOURCES.get(k, src),
+            replaces=REPLACES[k], launches=launches,
+            max_abs_err=max(err, t.get("max_abs_err", 0.0)),
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-            bound_by=t["bound_by"], library_ms=None, shape=t["shape"],
-            plain_shape=t.get("plain_shape", t["shape"])))
+            bound_by=t["bound_by"], library_ms=t.get("library_ms"),
+            shape=t["shape"], plain_shape=t.get("plain_shape", t["shape"])))
     record["kernels"] = kernels
     record["seconds"] = time.perf_counter() - t_start
     out_dir = ROOT / "chiprun_out"

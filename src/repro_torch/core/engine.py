@@ -19,9 +19,9 @@ The backend follows the device: ``"cuda"`` runs the hand-written kernels
 (``kernels/csrc``), ``"torch"`` their plain PyTorch versions on the CPU.
 ``make`` runs on the card unless given ``device="cpu"``.
 
-Ported so far: ``gibbs`` (uniform + chromatic), ``mgpmh``, ``min-gibbs``
-and ``doublemin`` (uniform).  ``local-gibbs`` raises an error that says
-so.
+Engines: ``gibbs`` (uniform + chromatic), ``mgpmh``, ``min-gibbs``,
+``doublemin`` and ``local-gibbs`` (uniform) — every engine of the JAX
+package.
 """
 from __future__ import annotations
 
@@ -43,10 +43,6 @@ __all__ = [
     "make", "names", "backends", "register",
     "Workload", "WORKLOADS", "make_workload", "workload_names",
 ]
-
-# engines of the JAX package this port does not have yet
-NOT_PORTED = ("local-gibbs",)
-
 
 # ---------------------------------------------------------------------------
 # Schedules
@@ -200,10 +196,6 @@ def make(name: str, graph: MatchGraph, *, sweep: Optional[int] = None,
     graph is moved there.  Algorithm parameters (lam, capacity) are keyword
     ``params`` with paper-recipe defaults.
     """
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"engine {name!r} is not ported to repro_torch yet; ported: "
-            f"{list(names())}")
     if name not in _BUILDERS:
         raise KeyError(f"unknown engine {name!r}; available: {list(names())}")
     builder, supported = _BUILDERS[name]
@@ -307,11 +299,26 @@ def _doublemin_builder(graph, *, schedule, backend, lam1=None,
     capacity2 = recommended_capacity(lam2) if capacity2 is None else capacity2
     sweep_fn = S._build_double_min_sweep(graph, lam1, capacity1, lam2,
                                          capacity2, schedule.sweep_len)
-    cache_init = lambda st: S.init_min_gibbs_cache(st.gen, graph, st, lam2,
-                                                   capacity2)
+    cache_init = lambda st: S.init_double_min_cache(st.gen, graph, st, lam2,
+                                                    capacity2)
     return _engine("doublemin", backend, schedule, schedule.sweep_len, graph,
                    dict(lam1=lam1, capacity1=capacity1, lam2=lam2,
                         capacity2=capacity2), sweep_fn, cache_init=cache_init)
+
+
+@register("local-gibbs", backends=("torch", "cuda"))
+def _local_gibbs_builder(graph, *, schedule, backend, batch_size=None,
+                         **params):
+    """Algorithm 3 as S single-site steps per call (the JAX package has no
+    fused local kernel either): one bucket-energy launch per sub-step."""
+    _reject_unknown("local-gibbs", params)
+    _require_uniform("local-gibbs", schedule)
+    batch_size = min(32, graph.n - 1) if batch_size is None else batch_size
+    step = S.make_local_gibbs_step(graph, batch_size)
+    return _engine("local-gibbs", backend, schedule, schedule.sweep_len,
+                   graph, dict(batch_size=batch_size),
+                   S._build_step_sweep(step, schedule.sweep_len),
+                   exact_accept=True)
 
 
 # ---------------------------------------------------------------------------

@@ -114,15 +114,25 @@ def min_gibbs_estimate(graph: MatchGraph, x: torch.Tensor, idx: torch.Tensor,
 # Local minibatch over A[i] (MGPMH / DoubleMIN first batch)
 # ---------------------------------------------------------------------------
 
-def draw_local_minibatch(gen: torch.Generator, graph: MatchGraph, i: int,
+def draw_local_minibatch(gen: torch.Generator, graph: MatchGraph, i,
                          lam: float, capacity: int
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Draw the MGPMH minibatch over A[i]: ``s_phi ~ Poisson(lam M_phi / L)``
     for the factors {i,j}, realized as ``B ~ Poisson(lam * L_i / L)`` total
     draws of neighbor ids j ~ W_ij / L_i (per-row alias table).
 
-    Returns (j_ids (capacity,) int32, B scalar int32 clamped to capacity)."""
+    ``i`` is one site, or a tensor of sites (one per chain) whose shape
+    leads the outputs.  Draws from ``gen`` the totals, then the alias index
+    integers, then the alias accept uniforms.  Returns (j_ids
+    ``i.shape + (capacity,)`` int32, B ``i.shape`` int32 clamped to
+    capacity)."""
+    i = torch.as_tensor(i, device=graph.device).long()
     lam_i = (lam / graph.L) * graph.row_sum[i]
-    B = torch.poisson(lam_i.reshape(1), generator=gen)[0]
-    j = alias_draw(gen, graph.row_prob[i], graph.row_alias[i], (capacity,))
-    return j, B.clamp(max=capacity).to(torch.int32)
+    B = torch.poisson(lam_i.reshape(-1), generator=gen).reshape(i.shape)
+    shape = tuple(i.shape) + (capacity,)
+    idx = torch.randint(0, graph.n, shape, generator=gen, device=graph.device)
+    u = torch.rand(shape, generator=gen, device=graph.device)
+    rows = i[..., None]
+    j = torch.where(u >= graph.row_prob[rows, idx],
+                    graph.row_alias[rows, idx].long(), idx)
+    return j.to(torch.int32), B.clamp(max=capacity).to(torch.int32)

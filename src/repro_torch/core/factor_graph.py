@@ -10,7 +10,10 @@ with one factor per *unordered* pair {i,j}.  Both are
 ``phi_ij(x) = W_ij * delta(x_i, x_j)`` for a symmetric non-negative
 match-weight matrix W.  :class:`MatchGraph` holds W and every Definition-1
 quantity (``Psi``, ``L``, ``Delta``) as tensors on one device, plus the
-alias tables that make a factor draw O(1).
+alias tables that make a factor draw O(1).  :class:`TabularPairwiseGraph`
+holds general tabular pairwise factors in numpy for the exact
+transition-matrix validators (``spectral.py``) and exact marginals
+(``diagnostics/exact.py``), small state spaces only.
 
 Alias tables are built once on the host with Vose's algorithm, from the
 float64 weights, so they are identical to the JAX package's tables.  The
@@ -20,6 +23,7 @@ neither, and the flat table alone has n(n-1)/2 entries.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Mapping, Optional, Tuple
 
 import numpy as np
@@ -29,6 +33,7 @@ from .._device import resolve_device
 
 __all__ = [
     "MatchGraph",
+    "TabularPairwiseGraph",
     "build_alias_table",
     "alias_draw",
     "graph_from_numpy",
@@ -326,3 +331,99 @@ def make_pair_ising(n_strong: int, n_weak: int, w_strong: float = 3.5,
 def pair_colors(n_pairs: int) -> np.ndarray:
     """Proper 2-coloring of ``make_pair_ising`` (even/odd site of a pair)."""
     return (np.arange(2 * n_pairs) % 2).astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# TabularPairwiseGraph — general factors for exact validation
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TabularPairwiseGraph:
+    """General pairwise factor graph with explicit tables.
+
+    Factor f connects variables (a_f, b_f) and has value
+    ``phi_f(x) = table[f, x[a_f], x[b_f]] >= 0``.  Used by the exact
+    transition-matrix validators, small n only.  Pure numpy (a copy of the
+    JAX package's class, so the port reads no module of it).
+    """
+
+    pairs: np.ndarray   # (F, 2) int
+    tables: np.ndarray  # (F, D, D) float64, non-negative
+    n: int
+    D: int
+
+    def __post_init__(self):
+        if self.tables.min() < 0.0:
+            raise ValueError("factors must be non-negative")
+
+    @property
+    def num_factors(self) -> int:
+        return self.pairs.shape[0]
+
+    def factor_values(self, x: np.ndarray) -> np.ndarray:
+        """phi_f(x) for all f.  x: (n,) -> (F,)."""
+        a, b = self.pairs[:, 0], self.pairs[:, 1]
+        return self.tables[np.arange(self.num_factors), x[a], x[b]]
+
+    def energy(self, x: np.ndarray) -> float:
+        return float(self.factor_values(x).sum())
+
+    # Definition 1 quantities ------------------------------------------------
+    @property
+    def M(self) -> np.ndarray:
+        """Per-factor maximum energies."""
+        return self.tables.max(axis=(1, 2))
+
+    @property
+    def psi(self) -> float:
+        return float(self.M.sum())
+
+    def adjacent(self, i: int) -> np.ndarray:
+        """Indices of factors that depend on variable i (A[i])."""
+        return np.where((self.pairs == i).any(axis=1))[0]
+
+    @property
+    def L(self) -> float:
+        return float(max(self.M[self.adjacent(i)].sum()
+                         for i in range(self.n)))
+
+    @property
+    def delta(self) -> int:
+        return int(max(len(self.adjacent(i)) for i in range(self.n)))
+
+    def all_states(self) -> np.ndarray:
+        """Enumerate Omega (D^n states).  (|Omega|, n) int array."""
+        grids = np.meshgrid(*([np.arange(self.D)] * self.n), indexing="ij")
+        return np.stack([g.ravel() for g in grids], axis=-1)
+
+    def pi(self) -> np.ndarray:
+        """Exact stationary distribution over all_states()."""
+        states = self.all_states()
+        e = np.array([self.energy(s) for s in states])
+        w = np.exp(e - e.max())
+        return w / w.sum()
+
+    @staticmethod
+    def random(n: int, D: int, max_energy: float, seed: int,
+               connectivity: str = "full") -> "TabularPairwiseGraph":
+        rng = np.random.default_rng(seed)
+        if connectivity == "full":
+            pairs = np.array([(i, j) for i in range(n)
+                              for j in range(i + 1, n)])
+        elif connectivity == "chain":
+            pairs = np.array([(i, i + 1) for i in range(n - 1)])
+        else:
+            raise ValueError(connectivity)
+        tables = rng.uniform(0.0, max_energy, size=(len(pairs), D, D))
+        return TabularPairwiseGraph(pairs=pairs, tables=tables, n=n, D=D)
+
+    @staticmethod
+    def from_match_graph(g: MatchGraph) -> "TabularPairwiseGraph":
+        """The match graph's n(n-1)/2 upper-triangle factors (the order of
+        ``pair_a`` / ``pair_b``) as tables ``W_ab * 1[x_a == x_b]``."""
+        W = g.W.cpu().numpy()
+        a, b = np.triu_indices(W.shape[0], k=1)
+        pairs = np.stack([a, b], -1)
+        tables = W[a, b][:, None, None] * np.eye(g.D)[None, :, :]
+        return TabularPairwiseGraph(pairs=pairs, tables=tables,
+                                    n=W.shape[0], D=g.D)

@@ -1,27 +1,37 @@
-"""Batched fused-sweep samplers: vanilla Gibbs (Algorithm 1), MIN-Gibbs
-(Algorithm 2), MGPMH (Algorithm 4) and DoubleMIN (Algorithm 5), on the
-uniform-site schedule, plus Gibbs on the chromatic schedule.
+"""The paper's five sampling algorithms on a batched :class:`ChainState`
+(x of shape (C, n)): single-site reference steps and the fused multi-site
+sweeps the Engine API assembles.
 
-A sweep builder returns ``sweep(state) -> state`` over a batched
-:class:`ChainState` (x of shape (C, n)): ``sweep_len`` sequentially
-composed site updates per call, all randomness (sites, Poisson totals,
-alias-table uniforms, Gumbel noise, MH uniforms) drawn up front in one
-batched pass on the state's device, and the x-dependent pipeline run as one
-``kernels.ops`` call — one kernel launch on the card.  Each sub-step is
-exactly one iteration of the single-site chain at an i.i.d.-uniform site.
+  * ``make_*_step(graph, ...)`` — ``step(state) -> state`` advances every
+    chain by one update at an i.i.d.-uniform site: vanilla Gibbs
+    (Algorithm 1), MIN-Gibbs (2), Local Minibatch Gibbs (3), MGPMH (4) and
+    DoubleMIN (5).  They are the distributional ground truth the sweeps are
+    held to, and ``_build_step_sweep`` makes a sweep of S of them for an
+    algorithm without a fused kernel (Local Minibatch Gibbs).  Their
+    energies go through ``kernels.ops.bucket_energy`` (the exact pass and
+    the local minibatches); MIN-Gibbs and DoubleMIN count matches with
+    ``min_gibbs_estimate``.
+  * ``_build_*_sweep(...)`` — ``sweep(state) -> state``: ``sweep_len``
+    sequentially composed site updates per call, all randomness (sites,
+    Poisson totals, alias-table uniforms, Gumbel noise, MH uniforms) drawn
+    up front in one batched pass on the state's device, and the
+    x-dependent pipeline run as one ``kernels.ops`` call — one kernel launch
+    on the card.  Each sub-step is exactly one iteration of the single-site
+    chain at an i.i.d.-uniform site.  Gibbs also runs on the chromatic
+    schedule.
 
 RNG contract: every state carries ONE ``torch.Generator`` on its device
-(``state.gen``), and a sweep draws everything it needs from it, in a fixed
-order, advancing it in place.  The state a sweep returns shares that
-generator, so re-running a sweep from an older state does not repeat its
-draws; seed a fresh generator to replay.  The streams differ from the JAX
+(``state.gen``), and a step or sweep draws everything it needs from it, in
+a fixed order, advancing it in place.  The state it returns shares that
+generator, so re-running from an older state does not repeat its draws;
+seed a fresh generator to replay.  The streams differ from the JAX
 package's (threefry) streams, so the two agree in distribution, not in bits.
 
 MIN-Gibbs and DoubleMIN carry an augmented state, the cached energy
 estimate ``state.cache`` (eps of the current value for MIN-Gibbs, xi_x for
 DoubleMIN), threaded through the kernel's sub-steps.  It is seeded with one
-estimator draw per chain (``init_min_gibbs_cache``, run by ``Engine.init``;
-for DoubleMIN with its second-batch λ2 and capacity).
+estimator draw per chain (``init_min_gibbs_cache`` /
+``init_double_min_cache``, run by ``Engine.init``).
 """
 from __future__ import annotations
 
@@ -30,14 +40,20 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .estimators import (draw_global_minibatch, min_gibbs_estimate,
-                         min_gibbs_lscale)
+from .estimators import (draw_global_minibatch, draw_local_minibatch,
+                         min_gibbs_estimate, min_gibbs_lscale)
 from .factor_graph import MatchGraph, build_alias_table
 from ..kernels import ops as kernel_ops
 
 __all__ = [
     "ChainState",
     "init_state",
+    "make_gibbs_step",
+    "make_min_gibbs_step",
+    "make_local_gibbs_step",
+    "make_mgpmh_step",
+    "make_double_min_step",
+    "local_gibbs_draws",
     "gibbs_select",
     "mh_accept",
     "min_gibbs_select",
@@ -47,6 +63,7 @@ __all__ = [
     "min_gibbs_draws",
     "double_min_draws",
     "init_min_gibbs_cache",
+    "init_double_min_cache",
     "validate_coloring",
 ]
 
@@ -191,6 +208,196 @@ def init_min_gibbs_cache(gen, graph: MatchGraph, state: ChainState,
                                    (state.x.shape[0],))
     return state._replace(cache=min_gibbs_estimate(graph, state.x, idx, B,
                                                    lam))
+
+
+def init_double_min_cache(gen, graph: MatchGraph, state: ChainState,
+                          lam2: float, capacity2: int) -> ChainState:
+    """Seed every chain's cached xi_x with one eq.-(2) estimate at the
+    second-batch size ``lam2``: one global minibatch per chain, from
+    ``gen``."""
+    return init_min_gibbs_cache(gen, graph, state, lam2, capacity2)
+
+
+# ---------------------------------------------------------------------------
+# Single-site reference steps: one update per chain at a uniform site
+# ---------------------------------------------------------------------------
+
+def _sites(gen, graph: MatchGraph, C: int) -> torch.Tensor:
+    """One uniform site per chain, (C,) int64."""
+    return torch.randint(0, graph.n, (C,), generator=gen, device=graph.device)
+
+
+def _at(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``t[c, idx[c]]`` for every row c."""
+    return t.gather(1, idx.long()[:, None])[:, 0]
+
+
+def _set_sites(x: torch.Tensor, i: torch.Tensor, v: torch.Tensor):
+    """A copy of x with ``x[c, i[c]] = v[c]``."""
+    return x.scatter(1, i[:, None], v.to(x.dtype)[:, None])
+
+
+def make_gibbs_step(graph: MatchGraph):
+    """Algorithm 1.  Per chain: a uniform site i, the exact conditional
+    energies ``eps_u = sum_j W[i, j] 1[x_j = u]`` (one bucket-energy call,
+    w = W[i], v = x, K = n), then ``x_i ~ exp(eps)`` by Gumbel-argmax.
+    Draws the sites, then the Gumbels."""
+    D, dev = graph.D, graph.device
+
+    def step(state: ChainState) -> ChainState:
+        C = state.x.shape[0]
+        i = _sites(state.gen, graph, C)
+        eps = kernel_ops.bucket_energy(graph.W[i], state.x, D)
+        v = gibbs_select(eps, gumbel((C, D), state.gen, dev))
+        return state._replace(x=_set_sites(state.x, i, v))
+
+    return step
+
+
+def make_min_gibbs_step(graph: MatchGraph, lam: float, capacity: int):
+    """Algorithm 2, with the bias-adjusted global estimator of eq. (2).
+    Per chain: a uniform site i; for every candidate value u an independent
+    global minibatch, evaluated at ``x[i <- u]`` (``min_gibbs_estimate``'s
+    match counts); the current value's slot takes the cached estimate, and
+    the Gumbel-argmax winner's estimate becomes the cache.  Draws the sites,
+    the (C, D) global minibatches, then the Gumbels."""
+    D, dev = graph.D, graph.device
+    values = torch.arange(D, dtype=torch.int32, device=dev)
+
+    def step(state: ChainState) -> ChainState:
+        x, gen = state.x, state.gen
+        C = x.shape[0]
+        i = _sites(gen, graph, C)
+        idx, B = draw_global_minibatch(gen, graph, lam, capacity, (C, D))
+        y = x[:, None, :].repeat(1, D, 1)                    # (C, D, n)
+        y.scatter_(2, i[:, None, None].expand(C, D, 1),
+                   values[None, :, None].expand(C, D, 1))
+        eps = min_gibbs_estimate(graph, y, idx, B, lam)      # (C, D)
+        rows = torch.arange(C, device=dev)
+        v, cache = min_gibbs_select(eps, state.cache, _at(x, i),
+                                    gumbel((C, D), gen, dev), rows)
+        return state._replace(x=_set_sites(x, i, v), cache=cache)
+
+    return step
+
+
+def local_gibbs_draws(gen, C: int, n: int, batch_size: int, D: int, device):
+    """The draws of one Local Minibatch Gibbs update per chain, in draw
+    order: sites i (C,) int64; ``batch_size`` distinct neighbours
+    j (C, batch_size) int64, none equal to i; Gumbels (C, D).
+
+    The neighbours are the top ``batch_size`` of n - 1 i.i.d. float64
+    uniform keys (so every subset of the other sites is equally likely; a
+    tie between keys, which could bias the pick, has probability ~n^2/2^53),
+    mapped past i by ``j + (j >= i)`` as the JAX step does.  The keys take
+    C*(n-1)*8 bytes per update."""
+    i = torch.randint(0, n, (C,), generator=gen, device=device)
+    keys = torch.rand((C, n - 1), generator=gen, device=device,
+                      dtype=torch.float64)
+    j = keys.topk(batch_size, dim=1, sorted=False).indices
+    j = j + (j >= i[:, None])
+    return i, j, gumbel((C, D), gen, device)
+
+
+def make_local_gibbs_step(graph: MatchGraph, batch_size: int):
+    """Algorithm 3, Local Minibatch Gibbs: one shared uniform minibatch S of
+    ``batch_size`` distinct factors of A[i] (drawn without replacement, the
+    paper's uniform-subset statement) for every candidate value, and
+    ``eps_u = (n - 1)/B * sum_{j in S} W[i, j] 1[x_j = u]`` — one
+    bucket-energy call (w = W[i, j], v = x[j], K = B) per update.  Biased
+    for B < n - 1; exactly Gibbs at B = n - 1."""
+    n, D, dev = graph.n, graph.D, graph.device
+    if not 1 <= batch_size <= n - 1:
+        raise ValueError(f"batch_size must lie in [1, n - 1 = {n - 1}], got "
+                         f"{batch_size}")
+    scale = (n - 1) / batch_size                     # |A[i]| / |S|
+
+    def step(state: ChainState) -> ChainState:
+        x = state.x
+        i, j, g = local_gibbs_draws(state.gen, x.shape[0], n, batch_size, D,
+                                    dev)
+        eps = scale * kernel_ops.bucket_energy(graph.W[i[:, None], j],
+                                               x.gather(1, j), D)
+        return state._replace(x=_set_sites(x, i, gibbs_select(eps, g)))
+
+    return step
+
+
+def _mgpmh_proposal(graph: MatchGraph, gen, x, i, lam: float, capacity: int):
+    """The proposal of Algorithms 4 and 5 at sites i (C,): the local
+    minibatch of ``draw_local_minibatch``, its energies
+    ``eps = bucket_energy((L/lam) * mask, x[j])`` and a Gumbel-argmax draw.
+    Returns (v (C,) int32, eps (C, D))."""
+    j, B = draw_local_minibatch(gen, graph, i, lam, capacity)
+    live = torch.arange(capacity, device=graph.device) < B[:, None]
+    w = (graph.L / lam) * live.to(torch.float32)
+    eps = kernel_ops.bucket_energy(w, x.gather(1, j.long()), graph.D)
+    v = gibbs_select(eps, gumbel((x.shape[0], graph.D), gen, graph.device))
+    return v, eps
+
+
+def make_mgpmh_step(graph: MatchGraph, lam: float, capacity: int):
+    """Algorithm 4.  Per chain: a uniform site i, the minibatch proposal,
+    the exact conditional pass (w = W[i], v = x) and the MH test
+    ``log u < (exact_v - exact_xi) + (eps_xi - eps_v)``.  Draws the sites,
+    the proposal (totals, alias draws, Gumbels), then the MH uniforms."""
+    dev = graph.device
+
+    def step(state: ChainState) -> ChainState:
+        x, gen = state.x, state.gen
+        C = x.shape[0]
+        i = _sites(gen, graph, C)
+        v, eps = _mgpmh_proposal(graph, gen, x, i, lam, capacity)
+        exact = kernel_ops.bucket_energy(graph.W[i], x, graph.D)
+        xi = _at(x, i)
+        logu = torch.log(torch.rand((C,), generator=gen, device=dev))
+        accept = mh_accept(logu, _at(exact, v) - _at(exact, xi),
+                           _at(eps, xi), _at(eps, v))
+        return state._replace(
+            x=_set_sites(x, i, torch.where(accept, v, xi)),
+            accepts=state.accepts + accept.to(torch.int32))
+
+    return step
+
+
+def make_double_min_step(graph: MatchGraph, lam1: float, capacity1: int,
+                         lam2: float, capacity2: int):
+    """Algorithm 5.  The MGPMH proposal, then a second (global,
+    bias-adjusted) minibatch at ``y = x[i <- v]`` in the test
+    ``log u < (xi_y - xi_x) + (eps_xi - eps_v)``; the cached xi_x rides
+    ``state.cache``.  Draws the sites, the proposal, the second batch, then
+    the MH uniforms."""
+    dev = graph.device
+
+    def step(state: ChainState) -> ChainState:
+        x, gen = state.x, state.gen
+        C = x.shape[0]
+        i = _sites(gen, graph, C)
+        v, eps = _mgpmh_proposal(graph, gen, x, i, lam1, capacity1)
+        y = _set_sites(x, i, v)
+        idx, B = draw_global_minibatch(gen, graph, lam2, capacity2, (C,))
+        xi_y = min_gibbs_estimate(graph, y, idx, B, lam2)
+        logu = torch.log(torch.rand((C,), generator=gen, device=dev))
+        accept = mh_accept(logu, xi_y - state.cache, _at(eps, _at(x, i)),
+                           _at(eps, v))
+        return state._replace(
+            x=torch.where(accept[:, None], y, x),
+            cache=torch.where(accept, xi_y, state.cache),
+            accepts=state.accepts + accept.to(torch.int32))
+
+    return step
+
+
+def _build_step_sweep(step, sweep_len: int):
+    """``sweep_len`` applications of a single-site ``step`` per call — the
+    sweep of an algorithm without a fused kernel (Local Minibatch Gibbs:
+    one bucket-energy launch per sub-step on the card)."""
+    def sweep(state: ChainState) -> ChainState:
+        for _ in range(sweep_len):
+            state = step(state)
+        return state
+
+    return sweep
 
 
 def _node_alias_table(graph: MatchGraph):

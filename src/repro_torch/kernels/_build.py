@@ -1,10 +1,12 @@
 """Build the CUDA kernel library at first use and load it with ctypes.
 
-``nvcc`` compiles ``csrc/*.cu`` (plain C interface, no PyTorch headers, so a
-build takes seconds) for ``sm_90a`` into ``build/repro_torch/`` at the root
-of the checkout, under a name that carries a hash of the sources, the
-headers they include (``csrc/*.cuh``) and the flags: a changed source is
-rebuilt, an unchanged one is loaded as built.
+``nvcc`` compiles each ``csrc/*.cu`` (plain C interface, no PyTorch headers,
+so a build takes seconds) for ``sm_90a``, one process per source, all
+started together, and links the objects into one library in
+``build/repro_torch/`` at the root of the checkout, under a name that
+carries a hash of the sources, the headers they include (``csrc/*.cuh``)
+and the flags: a changed source is rebuilt, an unchanged one is loaded as
+built.
 """
 from __future__ import annotations
 
@@ -19,15 +21,15 @@ import tempfile
 import time
 from pathlib import Path
 
-__all__ = ["BuildInfo", "load_library", "nvcc_command", "find_nvcc"]
+__all__ = ["BuildInfo", "load_library", "nvcc_command", "link_command",
+           "find_nvcc"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 # -fmad=false: the plain versions round every product and sum separately,
 # and a contracted a*b+c would round once
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _c_int, _c_ptr, _c_float = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
 _SIGNATURES = {
@@ -58,6 +60,8 @@ _SIGNATURES = {
     # stream
     "double_min_sweep_rng_launch": [_c_ptr] * 13 + [_c_int] * 6
                                    + [_c_float] * 2 + [_c_ptr],
+    # w, v, out, C, K, D, stream
+    "bucket_energy_launch": [_c_ptr] * 3 + [_c_int] * 3 + [_c_ptr],
 }
 
 
@@ -88,8 +92,41 @@ def _sources():
     return sorted(CSRC.glob("*.cu"))
 
 
-def nvcc_command(nvcc: str, sources, out: Path):
-    return [nvcc, *NVCC_FLAGS, "-o", str(out), *map(str, sources)]
+def nvcc_command(nvcc: str, source: Path, obj: Path):
+    """Compile one source into an object file."""
+    return [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(source)]
+
+
+def link_command(nvcc: str, objects, out: Path):
+    """Link the objects into the shared library (for the same target, so
+    nvcc does not assume its deprecated default one)."""
+    return [nvcc, "-shared", *NVCC_FLAGS[:2], "-o", str(out),
+            *map(str, objects)]
+
+
+def _compile_and_link(nvcc: str, sources, out: Path, tmpdir: Path) -> str:
+    """Compile every source in its own nvcc process, all at once, then link;
+    returns the compilers' output.  Raises if any step fails."""
+    objects = [tmpdir / (src.stem + ".o") for src in sources]
+    procs = [subprocess.Popen(nvcc_command(nvcc, src, obj),
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objects)]
+    logs, failed = [], []
+    for src, proc in zip(sources, procs):
+        text = proc.communicate()[0]
+        logs.append(f"== {src.name}\n{text}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode})")
+    log = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{log}")
+    proc = subprocess.run(link_command(nvcc, objects, out),
+                          capture_output=True, text=True)
+    log += proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{log}")
+    return log
 
 
 def _digest(sources) -> str:
@@ -104,26 +141,18 @@ def _digest(sources) -> str:
 def load_library() -> BuildInfo:
     """Build (if needed) and load the kernel library; one per process."""
     sources = _sources()
-    out = BUILD_DIR / f"libfused_sweep-{_digest(sources)}.so"
+    out = BUILD_DIR / f"libkernels-{_digest(sources)}.so"
     seconds, log = 0.0, ""
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        # build under a temporary name, then rename: a concurrent process
+        # build in a temporary directory, then rename: a concurrent process
         # never loads a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            fresh = Path(tmp) / out.name
             t0 = time.perf_counter()
-            proc = subprocess.run(nvcc_command(find_nvcc(), sources, Path(tmp)),
-                                  capture_output=True, text=True)
+            log = _compile_and_link(find_nvcc(), sources, fresh, Path(tmp))
             seconds = time.perf_counter() - t0
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-            os.replace(tmp, out)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
+            os.replace(fresh, out)
     lib = ctypes.CDLL(str(out))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -1,19 +1,22 @@
-"""Public sweep operations, dispatched by the tensors' device.
+"""Public kernel operations, dispatched by the tensors' device.
 
 A CPU tensor goes to the plain PyTorch version (``ref.py``); a CUDA tensor
-goes to the hand-written kernel (``fused_sweep.py``), which launches or
-raises.  Nothing falls back from one to the other.  The in-kernel-RNG
+goes to the hand-written kernel (``fused_sweep.py``,
+``minibatch_energy.py``), which launches or raises.  Nothing falls back from one to the other.  The in-kernel-RNG
 kernels have no entry here (as in the JAX package): they are called
 through ``fused_sweep`` directly.
 """
 from __future__ import annotations
 
+import torch
+
 from .fused_sweep import (double_min_sweep_cuda, gibbs_sweep_cuda,
                           mgpmh_sweep_cuda, min_gibbs_sweep_cuda)
-from .ref import (double_min_sweep_ref, gibbs_sweep_ref, mgpmh_sweep_ref,
-                  min_gibbs_sweep_ref)
+from .minibatch_energy import bucket_energy_cuda
+from .ref import (bucket_energy_ref, double_min_sweep_ref, gibbs_sweep_ref,
+                  mgpmh_sweep_ref, min_gibbs_sweep_ref)
 
-__all__ = ["gibbs_sweep", "mgpmh_sweep", "min_gibbs_sweep",
+__all__ = ["bucket_energy", "gibbs_sweep", "mgpmh_sweep", "min_gibbs_sweep",
            "double_min_sweep"]
 
 
@@ -22,6 +25,21 @@ def _route(x, op: str) -> str:
         raise ValueError(f"{op} runs on 'cpu' or 'cuda' tensors, got "
                          f"{x.device}")
     return x.device.type
+
+
+def bucket_energy(w, v, D: int):
+    """E[c, u] = sum_k w[c, k] * 1[v[c, k] == u] (see
+    ``ref.bucket_energy_ref``); values of v outside [0, D) land in no bucket.
+
+    w (C, K) float (float16 and others cast to float32), v (C, K) integer
+    (cast to int32), any C and K, no padding.  Returns (C, D) float32.
+    """
+    route = _route(w, "bucket_energy")
+    w = w.to(torch.float32).contiguous()
+    v = v.to(torch.int32).contiguous()
+    if route == "cpu":
+        return bucket_energy_ref(w, v, D)
+    return bucket_energy_cuda(w, v, D)
 
 
 def mgpmh_sweep(x, W, row_prob, row_alias, i_sites, B, u_idx, u_alias,

@@ -46,9 +46,14 @@ def _onehot(v: torch.Tensor, D: int) -> torch.Tensor:
 
 
 def bucket_energy_ref(w: torch.Tensor, v: torch.Tensor, D: int) -> torch.Tensor:
-    """E[c, u] = sum_k w[c, k] * 1[v[c, k] == u].
+    """E[c, u] = sum_k w[c, k] * 1[v[c, k] == u] for u in [0, D).
 
-    w: (C, K) float, v: (C, K) int in [0, D). Returns (C, D) float32.
+    The plain version of the bucket-energy kernel
+    (``csrc/bucket_energy.cu``) and the shared primitive of the samplers:
+    minibatch energies (``w = scale * mask`` or ``W[i, j]``, ``v = x[j]``)
+    and the exact conditional pass (``w = W[i, :]``, ``v = x``).
+    w: (C, K) float, v: (C, K) int; values of v outside [0, D) land in no
+    bucket (the JAX package's padding convention).  Returns (C, D) float32.
     """
     return torch.einsum("ck,ckd->cd", w.to(torch.float32), _onehot(v, D))
 

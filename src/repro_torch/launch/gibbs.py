@@ -7,8 +7,8 @@
   PYTHONPATH=src python -m repro_torch.launch.gibbs \
       --config lattice-ising-64x64 --engine gibbs --chromatic --steps 20
 
-Engines (gibbs, mgpmh, min-gibbs, doublemin) and workloads come from the
-registries in ``repro_torch.core.engine``.  Runs on the card unless
+Engines (gibbs, mgpmh, min-gibbs, doublemin, local-gibbs) and workloads
+come from the registries in ``repro_torch.core.engine``.  Runs on the card unless
 ``--device cpu``.
 Each log line reports the running-marginal error, the acceptance rate and
 the throughput in site updates per second (host clock; the log line's host

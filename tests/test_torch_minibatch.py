@@ -369,17 +369,26 @@ def test_engine_init_seeds_a_cache_and_defaults_follow_the_jax_package():
 
 
 def test_registry_lists_four_engines_and_refuses_local_gibbs():
+    """Written when local-gibbs was not ported; now the registry holds all
+    five engines of the JAX package, and local-gibbs is refused only what
+    the JAX engine refuses (schedules other than UniformSites, unknown
+    params)."""
     g = tfg.make_potts_graph(grid=2, beta=0.8, D=3, device="cpu")
-    assert engine.names() == ("doublemin", "gibbs", "mgpmh", "min-gibbs")
-    assert engine.NOT_PORTED == ("local-gibbs",)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        engine.make("local-gibbs", g, device="cpu")
+    assert engine.names() == ("doublemin", "gibbs", "local-gibbs", "mgpmh",
+                              "min-gibbs")
+    assert not hasattr(engine, "NOT_PORTED")
+    eng = engine.make("local-gibbs", g, device="cpu")
+    assert engine.backends("local-gibbs") == ("torch", "cuda")
+    assert eng.params == {"batch_size": g.n - 1} and eng.exact_accept
+    assert eng.updates_per_call == 1 and eng.cache_init is None
     colors = engine.ChromaticBlocks(np.arange(g.n) % 2)
-    for name in ("min-gibbs", "doublemin"):
+    for name in ("min-gibbs", "doublemin", "local-gibbs"):
         with pytest.raises(ValueError, match="only the UniformSites"):
             engine.make(name, g, schedule=colors, device="cpu")
     with pytest.raises(TypeError, match="unknown params"):
         engine.make("doublemin", g, lam=3.0, device="cpu")
+    with pytest.raises(TypeError, match="unknown params"):
+        engine.make("local-gibbs", g, lam=3.0, device="cpu")
 
 
 def test_engines_default_to_the_card():

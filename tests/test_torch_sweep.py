@@ -138,11 +138,17 @@ def test_cuda_wrappers_refuse_cpu_tensors_and_bad_inputs():
 
 
 def test_kernel_build_command_targets_sm_90a():
-    cmd = _build.nvcc_command("nvcc", _build._sources(),
-                              _build.BUILD_DIR / "lib.so")
-    assert cmd[:3] == ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a"]
-    assert "-fmad=false" in cmd and "-shared" in cmd
-    assert [p.name for p in _build._sources()] == ["fused_sweep.cu"]
+    sources = _build._sources()
+    assert [p.name for p in sources] == ["bucket_energy.cu", "fused_sweep.cu"]
+    for src in sources:                  # one nvcc process per source
+        cmd = _build.nvcc_command("nvcc", src, _build.BUILD_DIR / "k.o")
+        assert cmd[:3] == ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a"]
+        assert "-fmad=false" in cmd and "-c" in cmd and cmd[-1] == str(src)
+    link = _build.link_command("nvcc", ["a.o", "b.o"],
+                               _build.BUILD_DIR / "lib.so")
+    assert link[:4] == ["nvcc", "-shared", "-gencode",
+                        "arch=compute_90a,code=sm_90a"]
+    assert link[-2:] == ["a.o", "b.o"]
     assert _build.BUILD_DIR.parts[-2:] == ("build", "repro_torch")
 
 
@@ -238,7 +244,8 @@ def test_run_marginal_experiment_trace_and_tv():
 
 def test_registry_round_trip_and_errors():
     g = tfg.make_potts_graph(grid=3, beta=1.0, D=3, device="cpu")
-    assert engine.names() == ("doublemin", "gibbs", "mgpmh", "min-gibbs")
+    assert engine.names() == ("doublemin", "gibbs", "local-gibbs", "mgpmh",
+                              "min-gibbs")
     for name in engine.names():
         assert engine.backends(name) == ("torch", "cuda")
         eng = engine.make(name, g, sweep=5, device="cpu")
@@ -250,9 +257,9 @@ def test_registry_round_trip_and_errors():
     eng = engine.make("mgpmh", g, device="cpu")
     assert eng.params["lam"] == pytest.approx(4 * g.L ** 2)
     assert eng.updates_per_call == 1
-    for name in engine.NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            engine.make(name, g, device="cpu")
+    # every engine of the JAX package is ported: none is refused by name
+    from repro.core import engine as jengine
+    assert set(engine.names()) == set(jengine.names())
     with pytest.raises(KeyError, match="unknown engine"):
         engine.make("nope", g, device="cpu")
     with pytest.raises(ValueError, match="either sweep= or schedule="):

@@ -7,7 +7,8 @@ Phases, each printed as it ends; any failure exits non-zero:
   1. device and toolchain (card, power limit, torch/CUDA, nvcc, triton);
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
      per source, all started together; ``-Xptxas -v`` registers / shared
-     memory for all eight kernels);
+     memory for every kernel: the eight sampling kernels and flash
+     attention's bf16 and float32 instances for head dims 16-128);
   3. each kernel against its plain PyTorch version on the card, on the same
      tensors: (a) at the parity shapes of the tests, exactly equal (the
      in-kernel-RNG kernels with seeds 0, 1 and 2^31-1); (b) at full width
@@ -23,7 +24,12 @@ Phases, each printed as it ends; any failure exits non-zero:
      ``benchmarks/kernel_bench.py`` and the local path's (C=256, K=B in
      {8, 32, 128}, D=10): bit-equal at integer weights, within rtol 1e-5 /
      atol 1e-4 at N(0,1) weights (another summation order), the same bits
-     on a second launch, plus out-of-range values and an f16 input;
+     on a second launch, plus out-of-range values and an f16 input; (d)
+     the flash-attention kernel at the six shapes of
+     ``tests/test_torch_flash.py`` in float32 (rtol 1e-4, atol 1e-5) and at
+     tinyllama-1.1b's prefill shape (B=8, Sq=Sk=2048, H=32, KVH=4, hd=64,
+     causal), with a 1024 window and at S=32 in bf16 (rtol 1e-2, atol
+     1e-2), the same bits on a second launch;
   4. the main path through the user entry points (``engine.make`` +
      ``run_marginal_experiment``): mgpmh and gibbs on potts-64x64 with 256
      chains x 200 sweeps of 64 updates, chromatic gibbs on
@@ -48,7 +54,19 @@ Phases, each printed as it ends; any failure exits non-zero:
      the bucket-energy kernel at every phase-3c shape beside its plain
      version, ``scatter_add_`` and its bound, and one local-gibbs sweep call
      split into its draws, its S kernel launches and the rest, with the
-     device's busy time over one call from ``torch.profiler``.
+     device's busy time over one call from ``torch.profiler``; the
+     flash-attention kernel at the prefill shape beside its plain version,
+     ``scaled_dot_product_attention`` (timed, never called by the port) and
+     its tensor-core bound;
+  7. the dense-transformer serve path at full width: tinyllama-1.1b (1.1 B
+     parameters) with weights drawn on the card from a seed, through
+     ``make_prefill_step`` (B=8, S=2048; the flash kernel's launch count
+     reset before the calls and read after: one launch per layer and call)
+     and ``make_serve_step`` (32 greedy decode steps at B=8 from an empty
+     2048-position cache); at B=1, S=32 the forward logits against 32
+     decode steps under the reference's criterion (log-softmax max abs diff
+     < 0.15, argmax agreement >= 0.9); prefill and decode ms and tokens/s
+     and the peak device memory, beside the card's name and power limit.
 
 Prints the kernels' JSON record and the card's name and power limit, then
 as its last line ``{"ok": true, "device": {...}}``.  Also writes the full
@@ -73,6 +91,7 @@ sys.path.insert(0, str(ROOT / "src"))
 # H100 SXM published peaks (NVIDIA data sheet), at the full 700 W limit
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_TC_FLOPS_PER_S = 989e12                  # dense bf16 tensor cores
 # int32 rate: 64 INT32 lanes per SM (half the 128 FP32 lanes, NVIDIA H100
 # Tensor Core GPU Architecture white paper) x 132 SMs x the 1.98 GHz clock
 # behind the data sheet's 67 TFLOP/s (= 132 x 128 x 2 x 1.98e9)
@@ -101,7 +120,10 @@ PARITY_DMIN = [(4, 5, 17, 9, 3, 11), (3, 1, 1, 1, 2, 5),
 SEEDS = (0, 1, 2 ** 31 - 1)
 KERNELS = ("gibbs_sweep", "mgpmh_sweep", "mgpmh_sweep_rng", "min_gibbs_sweep",
            "min_gibbs_sweep_rng", "double_min_sweep", "double_min_sweep_rng",
-           "bucket_energy")
+           "bucket_energy", "flash_attention")
+# ptxas entry functions: one per kernel, but flash attention has a bf16 and
+# a float32 instance for each of its four head dims
+PTXAS_ENTRIES = len(KERNELS) - 1 + 2 * 4
 # bucket-energy shapes (C, K, D): tests/test_kernels.py:30-33,
 # benchmarks/kernel_bench.py:29, and the local path's minibatches
 LOCAL_B = (8, 32, 128)                        # the Fig. 2a batch sizes
@@ -112,6 +134,28 @@ BUCKET_SHAPES = [(1, 1, 2), (4, 100, 10), (8, 256, 2), (32, 1024, 10),
                  *((C_FULL, b, 10) for b in LOCAL_B)]
 BUCKET_MAIN = (C_FULL, 32, 10)                # local-gibbs at the default B
 STEP_CALLS = 64                               # phase 4 single-site steps
+# flash attention: the shapes of tests/test_torch_flash.py (float32), then
+# tinyllama-1.1b's prefill attention (B, Sq=Sk, H, KVH, hd, window), bf16:
+# the serve path's shape, with a 1024 window, and one under a 64-key tile
+FLASH_SHAPES = [(2, 128, 128, 4, 2, 64, 0, True),
+                (1, 256, 256, 2, 1, 64, 64, True),
+                (2, 100, 100, 4, 4, 32, 0, True),
+                (1, 64, 192, 2, 2, 64, 0, False),
+                (1, 128, 128, 2, 2, 128, 32, True),
+                (1, 384, 384, 2, 2, 64, 64, True)]
+FLASH_MAIN = (8, 2048, 32, 4, 64, 0)
+FLASH_BF16 = [FLASH_MAIN, (8, 2048, 32, 4, 64, 1024), (8, 32, 32, 4, 64, 0)]
+# bf16 output: one rounding of values of size ~1 is 2^-8 and p is rounded
+# to bf16 against another running max than the plain version's: within two
+# bf16 ulps of the plain version
+FLASH_BF16_TOL = dict(rtol=1e-2, atol=1e-2)
+# phase 7: tinyllama-1.1b serve path at full width
+SERVE_ARCH, SERVE_SEED = "tinyllama-1.1b", 0
+PREFILL_B, PREFILL_S, PREFILL_CALLS = 8, 2048, 4
+DECODE_B, DECODE_STEPS = 8, 32
+CHECK_S = 32                                  # decode vs forward, B = 1
+# the reference's decode-vs-forward criterion (tests/test_models.py:92-99)
+SELF_TOL, SELF_AGREE = 0.15, 0.9
 
 
 def fail(msg):
@@ -172,7 +216,8 @@ def phase_device():
 def wrappers():
     """Every kernel wrapper, each with its launch count."""
     from repro_torch.kernels import fused_sweep as fs, minibatch_energy as me
-    return fs.WRAPPERS + (me.bucket_energy_cuda,)
+    from repro_torch.kernels import flash_attention as fa
+    return fs.WRAPPERS + (me.bucket_energy_cuda, fa.flash_attention_cuda)
 
 
 def reset_launches():
@@ -197,9 +242,9 @@ def phase_build():
     say("2 build", f"{built.path.name}: {len(entries)} kernels, nvcc "
         f"{built.seconds:.1f} s, load {wall:.1f} s")
     if built.seconds > 0:            # a reused library printed no log
-        check(len(entries) == len(KERNELS),
+        check(len(entries) == PTXAS_ENTRIES,
               f"ptxas compiled {len(entries)} kernels, expected "
-              f"{len(KERNELS)}")
+              f"{PTXAS_ENTRIES}")
     return dict(nvcc_seconds=built.seconds, load_seconds=wall, ptxas=ptxas)
 
 
@@ -1047,9 +1092,19 @@ def bucket_times(dev):
             1, v64, w)
         out, want, lib = (me.bucket_energy_cuda(w, v, D),
                           ref.bucket_energy_ref(w, v, D), library())
-        check(bucket_close(out, want) and bucket_close(lib, want),
-              f"bucket_energy / scatter_add_ off the plain version at "
-              f"(C,K,D)={(C, K, D)}")
+        check(bucket_close(out, want), f"bucket_energy off the plain "
+              f"version at (C,K,D)={(C, K, D)}: max abs err "
+              f"{float((out - want).abs().max())}")
+        # scatter_add_ adds in the order its atomics land, which changes
+        # from run to run: hold it to the float64 sum within the bound of
+        # float32 summation in any order, (K - 1) 2^-24 sum_k |w[c, k]|
+        # (rtol 1e-5 / atol 1e-4 failed it once at (64, 8192, 2))
+        exact = torch.zeros((C, D), dtype=torch.float64, device=dev
+                            ).scatter_add_(1, v64, w.double())
+        lib_tol = (K - 1) * 2.0 ** -24 * w.double().abs().sum(1, True)
+        check(bool(((lib.double() - exact).abs() <= lib_tol).all()),
+              f"scatter_add_ off the float64 sum at (C,K,D)={(C, K, D)} "
+              f"beyond float32 summation error")
         ms = per_launch_ms(lambda: me.bucket_energy_cuda(w, v, D), 100)
         pms = per_launch_ms(lambda: ref.bucket_energy_ref(w, v, D), 20)
         lms = per_launch_ms(library, 100)
@@ -1119,7 +1174,8 @@ def device_busy(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    name = lambda key: key.split("(")[0].split("<")[0].split(" ")[-1]
+    name = lambda key: key.replace("(anonymous namespace)::", "").split(
+        "(")[0].split("<")[0].split(" ")[-1]
     ops = [(name(e.key), e.self_device_time_total / 1e3)
            for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -1269,6 +1325,217 @@ def sweep_parts(potts, lattice):
     return parts
 
 
+def flash_inputs(B, Sq, Sk, H, KVH, hd, dtype, dev, seed):
+    """q (B, Sq, H, hd), k and v (B, Sk, KVH, hd), N(0, 1), from seed."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn(shape, generator=gen, device=dev).to(dtype)
+                 for shape in ((B, Sq, H, hd), (B, Sk, KVH, hd),
+                               (B, Sk, KVH, hd)))
+
+
+def phase_flash_parity(dev):
+    """The flash-attention kernel against its plain version: float32 at the
+    test shapes (rtol 1e-4, atol 1e-5, the JAX test's tolerance), bf16 at
+    tinyllama-1.1b's prefill shape, with a 1024 window and at S = 32 (one
+    ragged tile) within FLASH_BF16_TOL; the same bits on a second launch."""
+    from repro_torch.kernels import flash_attention as fa, ref
+    cases = [(shape, torch.float32, dict(rtol=1e-4, atol=1e-5))
+             for shape in FLASH_SHAPES]
+    cases += [((B, S, S, H, KVH, hd, w, True), torch.bfloat16,
+               FLASH_BF16_TOL) for B, S, H, KVH, hd, w in FLASH_BF16]
+    errs = {}
+    for k, ((B, Sq, Sk, H, KVH, hd, w, causal), dtype, tol) in enumerate(
+            cases):
+        q, kk, v = flash_inputs(B, Sq, Sk, H, KVH, hd, dtype, dev, seed=k)
+        got = fa.flash_attention_cuda(q, kk, v, window=w, causal=causal)
+        again = fa.flash_attention_cuda(q, kk, v, window=w, causal=causal)
+        want = ref.flash_attention_ref(q, kk, v, window=w, causal=causal)
+        torch.cuda.synchronize()
+        shape = (B, Sq, Sk, H, KVH, hd, w, causal)
+        check(torch.equal(got, again), f"flash_attention at {shape}: two "
+              f"launches gave different bits")
+        err = float((got.float() - want.float()).abs().max())
+        errs[f"{shape} {str(dtype)[6:]}"] = err
+        check(torch.allclose(got.float(), want.float(), **tol),
+              f"flash_attention off the plain version at {shape} "
+              f"{dtype}: max abs err {err}")
+    bf16_red = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    say("3d flash attention", f"{len(FLASH_SHAPES)} float32 shapes within "
+        f"rtol 1e-4 / atol 1e-5 (max abs err "
+        f"{max(list(errs.values())[:len(FLASH_SHAPES)]):.3g}), "
+        f"{len(FLASH_BF16)} bf16 shapes {FLASH_BF16} within {FLASH_BF16_TOL} "
+        f"(max abs err {max(list(errs.values())[len(FLASH_SHAPES):]):.3g}); "
+        f"same bits on a second launch; allow_tf32 "
+        f"{torch.backends.cuda.matmul.allow_tf32}, "
+        f"allow_bf16_reduced_precision_reduction {bf16_red}")
+    return dict(max_abs_err=max(errs.values()), errors=errs,
+                allow_bf16_reduced_precision_reduction=bf16_red)
+
+
+def attended_pairs(Sq, Sk, window, causal):
+    """(query, key) pairs the mask lets through, per (batch, head)."""
+    i = np.arange(Sq)
+    lo = np.maximum(0, i - window + 1) if window > 0 else np.zeros_like(i)
+    hi = np.minimum(Sk - 1, i) if causal else np.full_like(i, Sk - 1)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def flash_times(dev):
+    """At the serve path's shape: the kernel (CUDA-event median), its plain
+    version, scaled_dot_product_attention(is_causal, enable_gqa) on the
+    same tensors (the library yardstick; the port never calls it), and the
+    bound: the larger of the bytes (q, k, v read once, out written once)
+    over the memory rate and 4*hd FLOPs per attended pair over the bf16
+    tensor-core peak."""
+    from repro_torch.kernels import flash_attention as fa, ref
+    B, S, H, KVH, hd, w = FLASH_MAIN
+    q, k, v = flash_inputs(B, S, S, H, KVH, hd, torch.bfloat16, dev,
+                           seed=50)
+    ms = per_launch_ms(lambda: fa.flash_attention_cuda(q, k, v, window=w),
+                       20)
+    pms = per_launch_ms(lambda: ref.flash_attention_ref(q, k, v, window=w),
+                        3)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    lib = sdpa().transpose(1, 2)
+    got = fa.flash_attention_cuda(q, k, v, window=w)
+    check(torch.allclose(lib.float(), got.float(), **FLASH_BF16_TOL),
+          "scaled_dot_product_attention off the kernel at the serve shape")
+    lms = per_launch_ms(sdpa, 20)
+    nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * KVH * hd)
+    flops = 4 * hd * B * H * attended_pairs(S, S, w, True)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_TC_FLOPS_PER_S
+    rec = dict(ms=ms, plain_ms=pms, library_ms=lms,
+               bound_ms=1e3 * max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               flops=flops, bytes=nbytes, tflops_per_s=flops / ms / 1e9,
+               shape=f"B={B} Sq=Sk={S} H={H} KVH={KVH} hd={hd} causal bf16")
+    say("6 times", f"flash_attention [{rec['shape']}]: kernel {ms:.4f} ms "
+        f"({rec['tflops_per_s']:.1f} TFLOP/s), plain {pms:.4f} ms, "
+        f"scaled_dot_product_attention {lms:.4f} ms, bound "
+        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}: {flops:.3e} FLOPs, "
+        f"{nbytes / 1e6:.1f} MB)")
+    return rec
+
+
+def _sync_ms(fn):
+    """(host ms of fn() up to a synchronize, its result)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0), out
+
+
+def phase_serve(dev, smi):
+    """tinyllama-1.1b at full width, weights drawn on the card from a seed,
+    through the serve path's entry points (make_prefill_step,
+    make_serve_step): prefill at B=8, S=2048 with the flash kernel's launch
+    count reset before and read after (one launch per layer and call); 32
+    greedy decode steps at B=8 from an empty cache of 2048 positions; and
+    at B=1, S=32 the forward logits against 32 decode steps under the
+    reference's criterion."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    cfg = get_arch(SERVE_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t_init, model = _sync_ms(lambda: T.init_params(cfg, SERVE_SEED,
+                                                   device=dev))
+    check(T.param_count(cfg) == sum(p.numel() for p in model.parameters()),
+          "tinyllama-1.1b: the model's parameters != param_count")
+    gen = torch.Generator(device=dev).manual_seed(SERVE_SEED + 1)
+    toks = torch.randint(1, cfg.vocab_size, (PREFILL_B, PREFILL_S),
+                         generator=gen, device=dev)
+    prefill = steps.make_prefill_step(cfg)
+    reset_launches()
+    times = []
+    for _ in range(PREFILL_CALLS):
+        ms, logits = _sync_ms(lambda: prefill(model, {"tokens": toks}))
+        times.append(ms)
+    launches = fa.flash_attention_cuda.launches
+    counts = read_launches()
+    check(launches == cfg.num_layers * PREFILL_CALLS,
+          f"prefill: {launches} flash-attention launches in "
+          f"{PREFILL_CALLS} calls, expected {cfg.num_layers} per call")
+    check(all(n == 0 for k, n in counts.items() if k != "flash_attention"),
+          f"prefill launched other kernels: {counts}")
+    check(tuple(logits.shape) == (PREFILL_B, T._pad_vocab(cfg.vocab_size))
+          and logits.dtype == torch.float32
+          and bool(torch.isfinite(logits).all()),
+          "prefill logits not finite float32 (B, vocab_padded)")
+    prefill_ms = statistics.median(times[1:])      # the first warms up
+
+    serve = steps.make_serve_step(cfg)
+    cache = T.init_cache(cfg, DECODE_B, PREFILL_S, device=dev)
+    tok = toks[:DECODE_B, :1]
+
+    def step():
+        nonlocal tok, cache
+        lg, cache = serve(model, tok, cache)
+        tok = torch.argmax(lg, dim=-1, keepdim=True)
+        return lg
+    step_ms = []
+    for _ in range(DECODE_STEPS):
+        ms, lg = _sync_ms(step)
+        step_ms.append(ms)
+    check(cache["length"] == DECODE_STEPS
+          and bool(torch.isfinite(lg).all()),
+          "decode: cache length or logits wrong")
+    decode_ms = statistics.median(step_ms[1:])     # the first warms up
+    # where the time goes: one more prefill call and decode step, traced
+    prof = dict(prefill=device_busy(lambda: prefill(model, {"tokens": toks})),
+                decode_step=device_busy(step))
+
+    one = toks[:1, :CHECK_S]
+    before = fa.flash_attention_cuda.launches
+    with torch.no_grad():
+        fwd = (T.forward(cfg, model, one) @ model.head()).float()
+    check(fa.flash_attention_cuda.launches - before == cfg.num_layers,
+          "forward at S=32 did not run the flash kernel in every layer")
+    cache = T.init_cache(cfg, 1, CHECK_S, device=dev)
+    dec = torch.stack([serve(model, one[:, s:s + 1], cache)[0]
+                       for s in range(CHECK_S)], dim=1)
+    diff = float((torch.log_softmax(fwd, -1)
+                  - torch.log_softmax(dec, -1)).abs().max())
+    agree = float((fwd.argmax(-1) == dec.argmax(-1)).float().mean())
+    check(diff < SELF_TOL and agree >= SELF_AGREE,
+          f"decode vs forward at B=1, S={CHECK_S}: log-softmax max abs diff "
+          f"{diff:.4f} (< {SELF_TOL}), argmax agreement {agree:.3f} "
+          f"(>= {SELF_AGREE})")
+    rec = dict(arch=SERVE_ARCH, params=T.param_count(cfg), seed=SERVE_SEED,
+               init_ms=t_init, prefill_ms=prefill_ms, prefill_ms_all=times,
+               prefill_tokens_per_s=PREFILL_B * PREFILL_S / prefill_ms * 1e3,
+               prefill_calls=PREFILL_CALLS, flash_launches=launches,
+               decode_ms_per_step=decode_ms, decode_ms_all=step_ms,
+               decode_tokens_per_s=DECODE_B / decode_ms * 1e3,
+               profile=prof,
+               decode_vs_forward=dict(max_abs_logsoftmax=diff,
+                                      argmax_agree=agree),
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               card=smi)
+    say("7 serve", f"{SERVE_ARCH} ({rec['params']} params, weights from seed "
+        f"{SERVE_SEED}) on {smi}: prefill B={PREFILL_B} S={PREFILL_S} "
+        f"{prefill_ms:.2f} ms/call ({rec['prefill_tokens_per_s']:.0f} "
+        f"tokens/s; calls {[round(t, 2) for t in times]} ms), "
+        f"{launches} flash launches in {PREFILL_CALLS} calls; decode "
+        f"B={DECODE_B} {decode_ms:.3f} ms/step median of steps 2-"
+        f"{DECODE_STEPS} (first {step_ms[0]:.1f} ms; "
+        f"{rec['decode_tokens_per_s']:.0f} tokens/s); decode vs forward at "
+        f"B=1 S={CHECK_S}: log-softmax max abs diff {diff:.4f}, argmax "
+        f"agreement {agree:.3f}; peak memory "
+        f"{rec['peak_memory_gb']:.2f} GB")
+    for k, r in prof.items():
+        say("7 serve", f"{k} traced: wall {r['profiled_wall_ms']:.2f} ms, "
+            f"device busy {r['device_busy_ms']:.2f} ms (idle "
+            f"{1 - r['device_busy_ms'] / r['profiled_wall_ms']:.3f}), top "
+            f"device ops " + ", ".join(f"{n} {ms:.3f}" for n, ms in
+                                       r['top_device_ops_ms'].items()))
+    return rec
+
+
 REPLACES = {
     "gibbs_sweep": "src/repro/kernels/fused_sweep.py:577",
     "mgpmh_sweep": "src/repro/kernels/fused_sweep.py:505",
@@ -1278,8 +1545,11 @@ REPLACES = {
     "double_min_sweep": "src/repro/kernels/fused_sweep.py:687",
     "double_min_sweep_rng": "src/repro/kernels/fused_sweep.py:739",
     "bucket_energy": "src/repro/kernels/minibatch_energy.py:54",
+    "flash_attention": "src/repro/kernels/flash_attention.py:79",
 }
-SOURCES = {"bucket_energy": "src/repro_torch/kernels/csrc/bucket_energy.cu"}
+SOURCES = {"bucket_energy": "src/repro_torch/kernels/csrc/bucket_energy.cu",
+           "flash_attention":
+               "src/repro_torch/kernels/csrc/flash_attention.cu"}
 
 
 def main():
@@ -1297,6 +1567,7 @@ def main():
     record["build"] = phase_build()
     phase_parity(dev)
     record["bucket_parity"] = phase_bucket_parity(dev)
+    record["flash_parity"] = phase_flash_parity(dev)
     potts, lattice, pair_table_s = build_graphs(dev)
     record["full_width"] = full = phase_full_width(potts, lattice)
     record["main_path"] = main = phase_main_path(potts, lattice,
@@ -1304,18 +1575,24 @@ def main():
     record["steps"] = phase_steps(potts)
     record["rng_path"], rng_inputs = phase_rng_path(potts)
     record["times"] = times = phase_times(potts, lattice, rng_inputs)
+    times["flash_attention"] = flash_times(dev)
+    record["serve"] = serve = phase_serve(dev, record["device"]["nvidia_smi"])
 
     src = "src/repro_torch/kernels/csrc/fused_sweep.cu"
     kernels = []
     for k in KERNELS:
         if k.endswith("_rng"):
             launches = record["rng_path"]["launches"][k]
+        elif k == "flash_attention":
+            launches = serve["flash_launches"]
         else:
             launches = sum(run["launches"].get(k, 0) for run in main.values())
         check(launches > 0, f"{k} was not launched on its path")
         t = times[k]
-        err = full[k][1] if k in full else record["bucket_parity"][
-            "max_abs_err"]
+        err = (full[k][1] if k in full
+               else record["flash_parity"]["max_abs_err"]
+               if k == "flash_attention"
+               else record["bucket_parity"]["max_abs_err"])
         kernels.append(dict(
             name=k, route="cuda", source=SOURCES.get(k, src),
             replaces=REPLACES[k], launches=launches,

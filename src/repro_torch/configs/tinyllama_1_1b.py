@@ -1,0 +1,18 @@
+"""tinyllama-1.1b [dense] — 22L d_model=2048 32H (GQA kv=4) d_ff=5632
+vocab=32000, llama2-arch.  [arXiv:2401.02385; hf]
+Pure full attention -> long_500k skipped."""
+import dataclasses
+
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="tinyllama-1.1b", family="dense",
+    num_layers=22, d_model=2048, num_heads=32, num_kv_heads=4, head_dim=64,
+    d_ff=5632, vocab_size=32000,
+    rope_theta=1e4,
+    skip_shapes=("long_500k",),
+)
+
+SMOKE = dataclasses.replace(
+    CONFIG, name="tinyllama-smoke", num_layers=2, d_model=128, num_heads=8,
+    num_kv_heads=2, head_dim=16, d_ff=256, vocab_size=512)

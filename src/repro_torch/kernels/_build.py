@@ -62,6 +62,10 @@ _SIGNATURES = {
                                    + [_c_float] * 2 + [_c_ptr],
     # w, v, out, C, K, D, stream
     "bucket_energy_launch": [_c_ptr] * 3 + [_c_int] * 3 + [_c_ptr],
+    # q, k, v, out, B, Sq, Sk, H, KVH, hd, window, causal, is_bf16, scale,
+    # stream
+    "flash_attention_launch": [_c_ptr] * 4 + [_c_int] * 9 + [_c_float,
+                                                             _c_ptr],
 }
 
 

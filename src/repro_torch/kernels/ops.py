@@ -2,7 +2,8 @@
 
 A CPU tensor goes to the plain PyTorch version (``ref.py``); a CUDA tensor
 goes to the hand-written kernel (``fused_sweep.py``,
-``minibatch_energy.py``), which launches or raises.  Nothing falls back from one to the other.  The in-kernel-RNG
+``minibatch_energy.py``, ``flash_attention.py``), which launches or
+raises.  Nothing falls back from one to the other.  The in-kernel-RNG
 kernels have no entry here (as in the JAX package): they are called
 through ``fused_sweep`` directly.
 """
@@ -12,12 +13,14 @@ import torch
 
 from .fused_sweep import (double_min_sweep_cuda, gibbs_sweep_cuda,
                           mgpmh_sweep_cuda, min_gibbs_sweep_cuda)
+from .flash_attention import flash_attention_cuda
 from .minibatch_energy import bucket_energy_cuda
-from .ref import (bucket_energy_ref, double_min_sweep_ref, gibbs_sweep_ref,
-                  mgpmh_sweep_ref, min_gibbs_sweep_ref)
+from .ref import (bucket_energy_ref, double_min_sweep_ref,
+                  flash_attention_ref, gibbs_sweep_ref, mgpmh_sweep_ref,
+                  min_gibbs_sweep_ref)
 
-__all__ = ["bucket_energy", "gibbs_sweep", "mgpmh_sweep", "min_gibbs_sweep",
-           "double_min_sweep"]
+__all__ = ["bucket_energy", "flash_attention", "gibbs_sweep", "mgpmh_sweep",
+           "min_gibbs_sweep", "double_min_sweep"]
 
 
 def _route(x, op: str) -> str:
@@ -40,6 +43,22 @@ def bucket_energy(w, v, D: int):
     if route == "cpu":
         return bucket_energy_ref(w, v, D)
     return bucket_energy_cuda(w, v, D)
+
+
+def flash_attention(q, k, v, *, window: int = 0, causal: bool = True):
+    """Online-softmax attention over grouped-query heads (see
+    ``ref.flash_attention_ref``).
+
+    q (B, Sq, H, hd), k and v (B, Sk, KVH, hd), float32 or bfloat16 (one
+    dtype), H % KVH == 0; ``window <= 0`` is full attention; causal masking
+    is top-left aligned.  Any Sq and Sk, no padding and no head repeat.
+    Returns (B, Sq, H, hd) in q's dtype.
+    """
+    route = _route(q, "flash_attention")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if route == "cpu":
+        return flash_attention_ref(q, k, v, window=window, causal=causal)
+    return flash_attention_cuda(q, k, v, window=window, causal=causal)
 
 
 def mgpmh_sweep(x, W, row_prob, row_alias, i_sites, B, u_idx, u_alias,

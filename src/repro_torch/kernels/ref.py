@@ -36,7 +36,9 @@ from . import philox
 __all__ = ["bucket_energy_ref", "gibbs_sweep_ref", "mgpmh_sweep_ref",
            "min_gibbs_sweep_ref", "double_min_sweep_ref",
            "mgpmh_sweep_rng_ref", "min_gibbs_sweep_rng_ref",
-           "double_min_sweep_rng_ref"]
+           "double_min_sweep_rng_ref", "flash_attention_ref"]
+
+NEG_INF = -1e30     # the masked score of the TPU kernel (not -inf)
 
 
 def _onehot(v: torch.Tensor, D: int) -> torch.Tensor:
@@ -56,6 +58,51 @@ def bucket_energy_ref(w: torch.Tensor, v: torch.Tensor, D: int) -> torch.Tensor:
     bucket (the JAX package's padding convention).  Returns (C, D) float32.
     """
     return torch.einsum("ck,ckd->cd", w.to(torch.float32), _onehot(v, D))
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, window: int = 0, causal: bool = True
+                        ) -> torch.Tensor:
+    """softmax(q k^T * hd^-0.5, masked) v over grouped-query heads: the plain
+    version of the flash-attention kernel (``csrc/flash_attention.cu``), with
+    the TPU kernel's arithmetic (``_kernel`` in
+    ``src/repro/kernels/flash_attention.py``).
+
+    q (B, Sq, H, hd), k and v (B, Sk, KVH, hd), float32 or bfloat16, H % KVH
+    == 0: query head h reads KV head h // (H // KVH).  Key j is valid for
+    query i when (causal) i >= j and (window > 0) i - j < window, both
+    counted from 0 even when Sq != Sk; ``window <= 0`` is full attention.
+    Scores are the float32 dot times hd^-0.5, masked to -1e30; p =
+    exp(s - max) is cast to v's dtype before the PV product, which sums in
+    float32; out = acc / max(l, 1e-30) in q's dtype.  A row with no valid
+    key is zeros (the TPU kernel leaves that row to its padding).  One batch
+    element at a time: the (H, Sq, Sk) float32 scores of one element are the
+    largest transient.
+    """
+    B, Sq, H, hd = q.shape
+    Sk, KVH = k.shape[1], k.shape[2]
+    G = H // KVH
+    i = torch.arange(Sq, device=q.device)[:, None]
+    j = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= i >= j
+    if window > 0:
+        mask &= (i - j) < window
+    out = torch.empty_like(q)
+    for b in range(B):
+        qb = q[b].transpose(0, 1).to(torch.float32)             # (H, Sq, hd)
+        kb = k[b].transpose(0, 1).repeat_interleave(G, dim=0)   # (H, Sk, hd)
+        vb = v[b].transpose(0, 1).repeat_interleave(G, dim=0)
+        s = (qb @ kb.to(torch.float32).transpose(1, 2)) * hd ** -0.5
+        s = s.masked_fill(~mask, NEG_INF)
+        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        l = p.sum(dim=-1, keepdim=True)
+        acc = p.to(v.dtype).to(torch.float32) @ vb.to(torch.float32)
+        o = acc / torch.clamp(l, min=1e-30)
+        o = o.masked_fill(~mask.any(dim=-1)[None, :, None], 0.0)
+        out[b] = o.transpose(0, 1).to(q.dtype)
+    return out
 
 
 def gibbs_sweep_ref(x, W, i_sites, gumbel, D: int):

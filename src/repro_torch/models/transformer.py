@@ -1,0 +1,433 @@
+"""The dense GQA transformer family — init, forward, decode — in PyTorch:
+the serve path of ``repro/models/transformer.py``.
+
+Covers every dense config of the registry (tinyllama-1.1b,
+h2o-danube-3-4b, gemma3-12b, starcoder2-7b): swiglu or gelu MLP, any
+``window_pattern``, tied or untied embeddings.  The other families (MoE,
+MLA, SSM, hybrid, encoder-decoder, VLM stub) raise ``NotImplementedError``.
+Training (``loss_fn``, remat) is not ported yet.
+
+Design notes
+------------
+* **Modules.** ``Transformer`` holds ``embed``, one ``Layer`` per layer
+  (``ln1``, ``ln2``, ``attn`` = ``Attention``, ``mlp`` = ``MLP``),
+  ``final_norm`` and, untied, ``lm_head``.  Weights keep the JAX package's
+  layout (``x @ w``, w of shape (d_in, d_out)), so ``params_from_jax`` is a
+  copy.  Layer ``g * P + p`` is the reference's stacked leaf ``[g, p]``
+  (P = ``len(cfg.window_pattern)``) and has window ``window_pattern[p]``.
+* **Mixed precision**, as the reference's ``_cast_params``: weights of two
+  or more dimensions are stored in bf16 (cast once at load: the same bits
+  as its per-call cast), 1-D norm scales stay float32, the residual stream
+  is bf16, and logits are the bf16 product widened to float32.
+* **Decode caches** are ring buffers of ``min(window, seq)`` slots with an
+  absolute-position array (``pos``) for masking, laid out as the
+  reference's: per slot p, ``k``/``v`` (G, B, KVH, S_w, hd) and ``pos``
+  (G, S_w).  ``decode_step`` writes them in place (the reference returns a
+  new tree) and returns the same dict; ``length`` is a Python int.
+* **Vocab padding.** Embedding / lm-head pad the vocab to a multiple of
+  128, so shapes and logits equal the reference's.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, List
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .._device import resolve_device
+from ..configs.base import ModelConfig
+from . import attention as attn_lib
+from .layers import rms_norm, rope, truncated_normal_init
+
+__all__ = ["Transformer", "init_params", "params_from_jax", "forward",
+           "init_cache", "decode_step", "param_count", "COMPUTE_DTYPE"]
+
+COMPUTE_DTYPE = torch.bfloat16
+
+
+def _pad_vocab(v: int) -> int:
+    return ((v + 127) // 128) * 128
+
+
+def _require_dense(cfg: ModelConfig) -> None:
+    """Raise for a family the port does not run yet."""
+    family = None
+    if cfg.is_moe:
+        family = "MoE"
+    elif cfg.attention == "mla":
+        family = "MLA"
+    elif cfg.has_ssm:
+        family = "SSM / hybrid"
+    elif cfg.encoder_layers:
+        family = "encoder-decoder"
+    elif cfg.num_image_tokens:
+        family = "VLM"
+    elif cfg.family != "dense" or cfg.attention != "gqa":
+        family = f"{cfg.family} / {cfg.attention}"
+    if family is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the {family} family is not ported yet (ROADMAP.md "
+            f"Queue 1 item 10: the port runs the dense GQA family only)")
+
+
+def _param_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+    """The reference's parameter tree, flattened to '/'-joined paths, with
+    the stacked (G, P, ...) layer shapes."""
+    _require_dense(cfg)
+    d, H, KVH, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    G, P, vp, f = cfg.num_groups, cfg.period, _pad_vocab(cfg.vocab_size), \
+        cfg.d_ff
+    shapes = {"embed": (vp, d), "final_norm": (d,),
+              "layers/ln1": (G, P, d), "layers/ln2": (G, P, d),
+              "layers/attn/wq": (G, P, d, H * hd),
+              "layers/attn/wk": (G, P, d, KVH * hd),
+              "layers/attn/wv": (G, P, d, KVH * hd),
+              "layers/attn/wo": (G, P, H * hd, d),
+              "layers/mlp/w_up": (G, P, d, f),
+              "layers/mlp/w_down": (G, P, f, d)}
+    if cfg.mlp_type == "swiglu":
+        shapes["layers/mlp/w_gate"] = (G, P, d, f)
+    if not cfg.tie_embeddings:
+        shapes["lm_head"] = (d, vp)
+    return shapes
+
+
+def param_count(cfg: ModelConfig) -> int:
+    """Parameters of the model, from shapes alone (nothing allocated)."""
+    return sum(math.prod(s) for s in _param_shapes(cfg).values())
+
+
+# ===========================================================================
+# Modules
+# ===========================================================================
+
+def _weight(shape, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+def _mlp_apply(cfg: ModelConfig, h, p):
+    if cfg.mlp_type == "swiglu":
+        m = F.silu(h @ p["w_gate"]) * (h @ p["w_up"])
+    else:        # jax.nn.gelu defaults to the tanh approximation
+        m = F.gelu(h @ p["w_up"], approximate="tanh")
+    return m @ p["w_down"]
+
+
+class Attention(nn.Module):
+    """GQA projections: wq (d, H*hd), wk/wv (d, KVH*hd), wo (H*hd, d)."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        d, H, KVH, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                         cfg.head_dim)
+        self.cfg = cfg
+        self.wq = _weight((d, H * hd), COMPUTE_DTYPE, device)
+        self.wk = _weight((d, KVH * hd), COMPUTE_DTYPE, device)
+        self.wv = _weight((d, KVH * hd), COMPUTE_DTYPE, device)
+        self.wo = _weight((H * hd, d), COMPUTE_DTYPE, device)
+
+    def weights(self) -> Dict[str, torch.Tensor]:
+        return {"wq": self.wq, "wk": self.wk, "wv": self.wv, "wo": self.wo}
+
+    def forward(self, h, rope_cs, window: int, causal: bool = True):
+        cfg = self.cfg
+        out, _ = attn_lib.gqa_attend(
+            h, self.weights(), num_heads=cfg.num_heads,
+            num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+            window=window, rope_cos=rope_cs[0], rope_sin=rope_cs[1],
+            causal=causal)
+        return out
+
+
+class MLP(nn.Module):
+    """swiglu (w_gate, w_up, w_down) or gelu (w_up, w_down)."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        d, f = cfg.d_model, cfg.d_ff
+        self.cfg = cfg
+        if cfg.mlp_type == "swiglu":
+            self.w_gate = _weight((d, f), COMPUTE_DTYPE, device)
+        self.w_up = _weight((d, f), COMPUTE_DTYPE, device)
+        self.w_down = _weight((f, d), COMPUTE_DTYPE, device)
+
+    def forward(self, h):
+        return _mlp_apply(self.cfg, h, dict(self.named_parameters()))
+
+
+class Layer(nn.Module):
+    """Pre-norm block: x + attn(norm(x)), then + mlp(norm(x))."""
+
+    def __init__(self, cfg: ModelConfig, window: int, device=None):
+        super().__init__()
+        self.cfg, self.window = cfg, window
+        self.ln1 = _weight((cfg.d_model,), torch.float32, device)
+        self.ln2 = _weight((cfg.d_model,), torch.float32, device)
+        self.attn = Attention(cfg, device)
+        self.mlp = MLP(cfg, device)
+
+    def forward(self, x, rope_cs):
+        h = rms_norm(x, self.ln1, self.cfg.norm_eps)
+        x = x + self.attn(h, rope_cs, self.window)
+        h2 = rms_norm(x, self.ln2, self.cfg.norm_eps)
+        return x + self.mlp(h2)
+
+    def decode(self, x, kv, q_pos: int):
+        """One token; ``kv`` is this layer's {k, v, pos} view of the cache,
+        written in place."""
+        h = rms_norm(x, self.ln1, self.cfg.norm_eps)
+        x = x + _decode_gqa(self.cfg, h, self.attn.weights(), kv,
+                            self.window, q_pos)
+        h2 = rms_norm(x, self.ln2, self.cfg.norm_eps)
+        return x + self.mlp(h2)
+
+
+class Transformer(nn.Module):
+    """The dense GQA model; parameters are allocated empty on ``device`` and
+    filled by ``init_params`` (from a seed) or ``params_from_jax``."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        _require_dense(cfg)
+        device = resolve_device(device)
+        self.cfg = cfg
+        vp = _pad_vocab(cfg.vocab_size)
+        self.embed = _weight((vp, cfg.d_model), COMPUTE_DTYPE, device)
+        self.layers = nn.ModuleList(
+            Layer(cfg, cfg.window_pattern[i % cfg.period], device)
+            for i in range(cfg.num_layers))
+        self.final_norm = _weight((cfg.d_model,), torch.float32, device)
+        if not cfg.tie_embeddings:
+            self.lm_head = _weight((cfg.d_model, vp), COMPUTE_DTYPE, device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def head(self) -> torch.Tensor:
+        """The (d, vocab_padded) output projection, bf16."""
+        return self.embed.T if self.cfg.tie_embeddings else self.lm_head
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens (B, S) int -> final hidden states (B, S, d), bf16."""
+        cfg = self.cfg
+        x = self.embed[tokens]
+        rope_cs = _rope_tables(cfg, torch.arange(x.shape[1],
+                                                 device=x.device))
+        for layer in self.layers:
+            x = layer(x, rope_cs)
+        return rms_norm(x, self.final_norm, cfg.norm_eps)
+
+
+# ===========================================================================
+# Parameters
+# ===========================================================================
+
+def _layer_leaves(model: Transformer, i: int) -> Dict[str, torch.Tensor]:
+    """Layer i's parameters under the reference's 'layers/...' paths."""
+    layer = model.layers[i]
+    out = {"layers/ln1": layer.ln1, "layers/ln2": layer.ln2}
+    for name, p in layer.attn.named_parameters():
+        out[f"layers/attn/{name}"] = p
+    for name, p in layer.mlp.named_parameters():
+        out[f"layers/mlp/{name}"] = p
+    return out
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Transformer:
+    """A model with the reference's initialisation drawn from ``seed``:
+    norm scales zero, every weight std * N(0, 1) truncated to [-3, 3] with
+    std = fan_in^-0.5 (``init_params`` in the reference; jax.random gives
+    other numbers from the same seed).  Drawn on ``device`` (the card
+    unless told otherwise) in float32, one leaf at a time, then cast."""
+    model = Transformer(cfg, device)
+    dev = model.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    d, H, hd, f = cfg.d_model, cfg.num_heads, cfg.head_dim, cfg.d_ff
+    fan_in = {"wq": d, "wk": d, "wv": d, "wo": H * hd, "w_gate": d,
+              "w_up": d, "w_down": f, "embed": d, "lm_head": d}
+
+    def fill(p: torch.Tensor, name: str):
+        if p.dim() == 1:
+            p.zero_()
+        else:
+            p.copy_(truncated_normal_init(gen, p.shape, fan_in[name],
+                                          dtype=p.dtype, device=dev))
+
+    with torch.no_grad():
+        fill(model.embed, "embed")
+        for i in range(cfg.num_layers):
+            for path, p in _layer_leaves(model, i).items():
+                fill(p, path.rsplit("/", 1)[-1])
+        fill(model.final_norm, "final_norm")
+        if not cfg.tie_embeddings:
+            fill(model.lm_head, "lm_head")
+    return model
+
+
+def _flatten(tree, prefix="") -> Dict[str, Any]:
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flatten(v, f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def params_from_jax(cfg: ModelConfig, tree, device=None) -> Transformer:
+    """The port's model holding the reference's parameters.
+
+    ``tree``: the reference's ``init_params`` tree as nested dicts of numpy
+    arrays (layer leaves stacked (G, P, ...); layer g * P + p is leaf
+    [g, p]).  Raises ValueError for a missing or extra leaf or a wrong
+    shape.  Weights of two or more dimensions are cast to bf16 here, as the
+    reference casts them per call."""
+    want = _param_shapes(cfg)
+    leaves = _flatten(tree)
+    missing, extra = sorted(set(want) - set(leaves)), sorted(
+        set(leaves) - set(want))
+    if missing or extra:
+        raise ValueError(f"{cfg.name}: parameter tree does not match the "
+                         f"model: missing {missing}, extra {extra}")
+    arrays = {k: np.asarray(v, dtype=np.float32) for k, v in leaves.items()}
+    for k, shape in want.items():
+        if arrays[k].shape != shape:
+            raise ValueError(f"{cfg.name}: leaf {k} has shape "
+                             f"{arrays[k].shape}, expected {shape}")
+    model = Transformer(cfg, device)
+    P = cfg.period
+
+    def put(p: torch.Tensor, a: np.ndarray):
+        p.copy_(torch.from_numpy(np.array(a)).to(p.dtype))   # a copy
+
+    with torch.no_grad():
+        put(model.embed, arrays["embed"])
+        put(model.final_norm, arrays["final_norm"])
+        if not cfg.tie_embeddings:
+            put(model.lm_head, arrays["lm_head"])
+        for i in range(cfg.num_layers):
+            g, p = divmod(i, P)
+            for path, param in _layer_leaves(model, i).items():
+                put(param, arrays[path][g, p])
+    return model
+
+
+# ===========================================================================
+# Forward
+# ===========================================================================
+
+def _rope_tables(cfg: ModelConfig, positions: torch.Tensor):
+    """cos/sin (S, hd/2) float32 for positions (S,)."""
+    return rope(positions, cfg.head_dim, cfg.rope_theta)
+
+
+def forward(cfg: ModelConfig, params: Transformer,
+            tokens: torch.Tensor) -> torch.Tensor:
+    """Final hidden states (B, S, d) in COMPUTE_DTYPE; tokens (B, S) on the
+    model's device."""
+    _check_cfg(cfg, params)
+    return params(tokens)
+
+
+def _check_cfg(cfg: ModelConfig, params: Transformer) -> None:
+    if params.cfg != cfg:
+        raise ValueError(f"model was built for {params.cfg.name}, called "
+                         f"with {cfg.name}")
+
+
+# ===========================================================================
+# Decode
+# ===========================================================================
+
+def _cache_len(cfg: ModelConfig, slot: int, seq_len: int) -> int:
+    w = cfg.window_pattern[slot]
+    return min(w, seq_len) if w > 0 else seq_len
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
+               dtype=COMPUTE_DTYPE, device=None) -> Dict[str, Any]:
+    """Empty decode cache: ``length`` 0 and, per slot p, ``kv`` with k/v
+    (G, B, KVH, S_w, hd) (ring buffer of the slot's window) and ``pos``
+    (G, S_w) int32 — the reference's layout.  On the card unless told
+    otherwise."""
+    _require_dense(cfg)
+    dev = resolve_device(device)
+    G, KVH, hd = cfg.num_groups, cfg.num_kv_heads, cfg.head_dim
+    slots: List[Dict[str, Any]] = []
+    for slot in range(cfg.period):
+        Sw = _cache_len(cfg, slot, seq_len)
+        slots.append({"kv": {
+            "k": torch.zeros((G, batch, KVH, Sw, hd), dtype=dtype,
+                             device=dev),
+            "v": torch.zeros((G, batch, KVH, Sw, hd), dtype=dtype,
+                             device=dev),
+            "pos": torch.zeros((G, Sw), dtype=torch.int32, device=dev)}})
+    return {"length": 0, "slots": slots}
+
+
+def _rope_scalar(cfg: ModelConfig, pos: int, device):
+    """cos/sin (1, hd/2) for one position.  Filled on the device: a tensor
+    made from the Python int would be a blocking host-to-device copy in
+    every layer of every decode step."""
+    positions = torch.full((1,), pos, dtype=torch.float32, device=device)
+    return rope(positions, cfg.head_dim, cfg.rope_theta)
+
+
+def _decode_gqa(cfg: ModelConfig, h, pa, kv, window: int, q_pos: int):
+    """One-token GQA against a ring-buffer cache slice.
+    kv: {k (B, KVH, Sw, hd), v, pos (Sw,)}, written in place; returns the
+    attention output (B, 1, d)."""
+    B = h.shape[0]
+    H, KVH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    Sw = kv["k"].shape[2]
+    q = (h @ pa["wq"]).reshape(B, 1, H, hd)
+    k = (h @ pa["wk"]).reshape(B, 1, KVH, hd)
+    v = (h @ pa["wv"]).reshape(B, 1, KVH, hd)
+    cos, sin = _rope_scalar(cfg, q_pos, h.device)
+    q = attn_lib.apply_rope_bshd(q, cos, sin)
+    k = attn_lib.apply_rope_bshd(k, cos, sin)
+    slot_idx = q_pos % Sw
+    kv["k"][:, :, slot_idx, :] = k[:, 0].to(kv["k"].dtype)
+    kv["v"][:, :, slot_idx, :] = v[:, 0].to(kv["v"].dtype)
+    kv["pos"][slot_idx] = q_pos
+    nk, nv, npos = kv["k"], kv["v"], kv["pos"]
+    qg = (q[:, 0] * hd ** -0.5).reshape(B, KVH, H // KVH, hd).to(
+        torch.float32)
+    s = torch.einsum("bkgh,bksh->bkgs", qg, nk.to(torch.float32))
+    # Ring-buffer validity: a slot's most recent write is always within the
+    # last Sw positions, so (npos > q_pos - Sw) enforces the window exactly
+    # when Sw == window; (arange <= q_pos) masks not-yet-filled slots before
+    # the first wrap (their pos defaults to 0).
+    valid = ((npos <= q_pos) & (npos > q_pos - Sw)
+             & (torch.arange(Sw, device=h.device) <= q_pos))
+    s = s.masked_fill(~valid, attn_lib.NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgs,bksh->bkgh", p, nv.to(torch.float32))
+    o = o.reshape(B, 1, H * hd).to(h.dtype)
+    return o @ pa["wo"]
+
+
+@torch.no_grad()
+def decode_step(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor,
+                cache: Dict[str, Any]):
+    """One decode step.  tokens: (B, 1) int.  Returns (logits (B,
+    vocab_padded) float32, cache); the cache is written in place and
+    ``cache['length']`` (the 0-based position of this token before the
+    call) advances by one."""
+    _check_cfg(cfg, params)
+    q_pos = int(cache["length"])
+    x = params.embed[tokens]
+    P = cfg.period
+    for i, layer in enumerate(params.layers):
+        g, p = divmod(i, P)
+        kv = cache["slots"][p]["kv"]
+        x = layer.decode(x, {"k": kv["k"][g], "v": kv["v"][g],
+                             "pos": kv["pos"][g]}, q_pos)
+    cache["length"] = q_pos + 1
+    x = rms_norm(x, params.final_norm, cfg.norm_eps)
+    logits = (x[:, 0] @ params.head()).to(torch.float32)
+    return logits, cache

@@ -139,7 +139,9 @@ def test_cuda_wrappers_refuse_cpu_tensors_and_bad_inputs():
 
 def test_kernel_build_command_targets_sm_90a():
     sources = _build._sources()
-    assert [p.name for p in sources] == ["bucket_energy.cu", "fused_sweep.cu"]
+    assert [p.name for p in sources] == ["bucket_energy.cu",
+                                         "flash_attention.cu",
+                                         "fused_sweep.cu"]
     for src in sources:                  # one nvcc process per source
         cmd = _build.nvcc_command("nvcc", src, _build.BUILD_DIR / "k.o")
         assert cmd[:3] == ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a"]

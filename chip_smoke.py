@@ -7,8 +7,10 @@ Phases, each printed as it ends; any failure exits non-zero:
   1. device and toolchain (card, power limit, torch/CUDA, nvcc, triton);
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
      per source, all started together; ``-Xptxas -v`` registers / shared
-     memory for every kernel: the eight sampling kernels and flash
-     attention's bf16 and float32 instances for head dims 16-128);
+     memory for every kernel: the eight sampling kernels, flash
+     attention's three bf16 instances (padded head dims 64, 128, 256;
+     their registers, spills and launch shared memory printed apart, and
+     no wgmma serialised) and its four float32 ones);
   3. each kernel against its plain PyTorch version on the card, on the same
      tensors: (a) at the parity shapes of the tests, exactly equal (the
      in-kernel-RNG kernels with seeds 0, 1 and 2^31-1); (b) at full width
@@ -26,10 +28,14 @@ Phases, each printed as it ends; any failure exits non-zero:
      atol 1e-4 at N(0,1) weights (another summation order), the same bits
      on a second launch, plus out-of-range values and an f16 input; (d)
      the flash-attention kernel at the six shapes of
-     ``tests/test_torch_flash.py`` in float32 (rtol 1e-4, atol 1e-5) and at
-     tinyllama-1.1b's prefill shape (B=8, Sq=Sk=2048, H=32, KVH=4, hd=64,
-     causal), with a 1024 window and at S=32 in bf16 (rtol 1e-2, atol
-     1e-2), the same bits on a second launch;
+     ``tests/test_torch_flash.py`` in float32 (rtol 1e-4, atol 1e-5) and in
+     bf16 (rtol 1e-2, atol 1e-2) at the prefill attention of every dense
+     config at full width — tinyllama-1.1b (B=8, S=2048, H=32, KVH=4,
+     hd=64, causal; also with a 1024 window and at S=32), starcoder2-7b
+     (8, 2048, 36, 4, 128), h2o-danube-3-4b (1, 8192, 32, 8, 120, window
+     4096), gemma3-12b local (1, 4096, 16, 8, 256, window 1024) and global
+     — and a ragged bidirectional shape (Sq=200, Sk=333) of each head dim
+     16, 32, 64, 120, 128, 256, the same bits on a second launch;
   4. the main path through the user entry points (``engine.make`` +
      ``run_marginal_experiment``): mgpmh and gibbs on potts-64x64 with 256
      chains x 200 sweeps of 64 updates, chromatic gibbs on
@@ -55,9 +61,12 @@ Phases, each printed as it ends; any failure exits non-zero:
      version, ``scatter_add_`` and its bound, and one local-gibbs sweep call
      split into its draws, its S kernel launches and the rest, with the
      device's busy time over one call from ``torch.profiler``; the
-     flash-attention kernel at the prefill shape beside its plain version,
-     ``scaled_dot_product_attention`` (timed, never called by the port) and
-     its tensor-core bound;
+     flash-attention kernel at the prefill attention of tinyllama-1.1b,
+     starcoder2-7b, h2o-danube-3-4b and gemma3-12b (local and global)
+     beside its plain version, ``scaled_dot_product_attention`` (timed,
+     never called by the port; a boolean band mask where a window is set)
+     and its bound, the largest of three terms (HBM bytes, tensor-core
+     FLOPs, MUFU exponentials), each printed;
   7. the dense-transformer serve path at full width: tinyllama-1.1b (1.1 B
      parameters) with weights drawn on the card from a seed, through
      ``make_prefill_step`` (B=8, S=2048; the flash kernel's launch count
@@ -66,7 +75,11 @@ Phases, each printed as it ends; any failure exits non-zero:
      2048-position cache); at B=1, S=32 the forward logits against 32
      decode steps under the reference's criterion (log-softmax max abs diff
      < 0.15, argmax agreement >= 0.9); prefill and decode ms and tokens/s
-     and the peak device memory, beside the card's name and power limit.
+     and the peak device memory, beside the card's name and power limit;
+     then h2o-danube-3-4b (B=1, S=8192, hd 120) and gemma3-12b (B=1,
+     S=4096, hd 256) at full width, weights from a seed, one warm-up and
+     one counted prefill call each (one flash launch per layer, finite
+     logits, ms and tokens/s), each model freed before the next.
 
 Prints the kernels' JSON record and the card's name and power limit, then
 as its last line ``{"ok": true, "device": {...}}``.  Also writes the full
@@ -92,6 +105,9 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 BF16_TC_FLOPS_PER_S = 989e12                  # dense bf16 tensor cores
+# exponentials: 16 MUFU ex2 per clock per SM (4 per SM sub-partition) x
+# 132 SMs x the same 1.98 GHz clock
+EX2_PER_S = 132 * 16 * 1.98e9
 # int32 rate: 64 INT32 lanes per SM (half the 128 FP32 lanes, NVIDIA H100
 # Tensor Core GPU Architecture white paper) x 132 SMs x the 1.98 GHz clock
 # behind the data sheet's 67 TFLOP/s (= 132 x 128 x 2 x 1.98e9)
@@ -121,9 +137,10 @@ SEEDS = (0, 1, 2 ** 31 - 1)
 KERNELS = ("gibbs_sweep", "mgpmh_sweep", "mgpmh_sweep_rng", "min_gibbs_sweep",
            "min_gibbs_sweep_rng", "double_min_sweep", "double_min_sweep_rng",
            "bucket_energy", "flash_attention")
-# ptxas entry functions: one per kernel, but flash attention has a bf16 and
-# a float32 instance for each of its four head dims
-PTXAS_ENTRIES = len(KERNELS) - 1 + 2 * 4
+# ptxas entry functions: one per kernel, but flash attention has three bf16
+# instances (padded head dims 64, 128, 256) and four float32 ones (head
+# dims 16, 32, 64, 128)
+PTXAS_ENTRIES = len(KERNELS) - 1 + 3 + 4
 # bucket-energy shapes (C, K, D): tests/test_kernels.py:30-33,
 # benchmarks/kernel_bench.py:29, and the local path's minibatches
 LOCAL_B = (8, 32, 128)                        # the Fig. 2a batch sizes
@@ -134,17 +151,30 @@ BUCKET_SHAPES = [(1, 1, 2), (4, 100, 10), (8, 256, 2), (32, 1024, 10),
                  *((C_FULL, b, 10) for b in LOCAL_B)]
 BUCKET_MAIN = (C_FULL, 32, 10)                # local-gibbs at the default B
 STEP_CALLS = 64                               # phase 4 single-site steps
-# flash attention: the shapes of tests/test_torch_flash.py (float32), then
-# tinyllama-1.1b's prefill attention (B, Sq=Sk, H, KVH, hd, window), bf16:
-# the serve path's shape, with a 1024 window, and one under a 64-key tile
+# flash attention (B, Sq, Sk, H, KVH, hd, window, causal): the float32
+# shapes of tests/test_torch_flash.py that have a float32 template, then
+# bf16: the prefill attention of each dense config at full width —
+# tinyllama-1.1b (also with a 1024 window and at S=32, one ragged tile),
+# starcoder2-7b, h2o-danube-3-4b (window 4096 at S=8192: whole key tiles
+# outside it), gemma3-12b's local (window 1024) and global layers — and one
+# ragged bidirectional shape per head dim (Sq != Sk, neither a multiple of
+# the 128-row tile: the tensor maps' zero fill and the clipped stores)
 FLASH_SHAPES = [(2, 128, 128, 4, 2, 64, 0, True),
                 (1, 256, 256, 2, 1, 64, 64, True),
                 (2, 100, 100, 4, 4, 32, 0, True),
                 (1, 64, 192, 2, 2, 64, 0, False),
                 (1, 128, 128, 2, 2, 128, 32, True),
                 (1, 384, 384, 2, 2, 64, 64, True)]
-FLASH_MAIN = (8, 2048, 32, 4, 64, 0)
-FLASH_BF16 = [FLASH_MAIN, (8, 2048, 32, 4, 64, 1024), (8, 32, 32, 4, 64, 0)]
+FLASH_CONFIGS = {"tinyllama-1.1b": (8, 2048, 2048, 32, 4, 64, 0, True),
+                 "starcoder2-7b": (8, 2048, 2048, 36, 4, 128, 0, True),
+                 "h2o-danube-3-4b": (1, 8192, 8192, 32, 8, 120, 4096, True),
+                 "gemma3-12b local": (1, 4096, 4096, 16, 8, 256, 1024, True),
+                 "gemma3-12b global": (1, 4096, 4096, 16, 8, 256, 0, True)}
+FLASH_BF16 = [*FLASH_CONFIGS.values(),
+              (8, 2048, 2048, 32, 4, 64, 1024, True),
+              (8, 32, 32, 32, 4, 64, 0, True),
+              *((1, 200, 333, 4, 2, hd, 0, False)
+                for hd in (16, 32, 64, 120, 128, 256))]
 # bf16 output: one rounding of values of size ~1 is 2^-8 and p is rounded
 # to bf16 against another running max than the plain version's: within two
 # bf16 ulps of the plain version
@@ -152,6 +182,10 @@ FLASH_BF16_TOL = dict(rtol=1e-2, atol=1e-2)
 # phase 7: tinyllama-1.1b serve path at full width
 SERVE_ARCH, SERVE_SEED = "tinyllama-1.1b", 0
 PREFILL_B, PREFILL_S, PREFILL_CALLS = 8, 2048, 4
+# ... and one prefill call each of the configs with head dims 120 and 256
+# (arch, B, S): danube's window (4096) and gemma3's local window (1024)
+# exclude keys at these lengths
+WIDE_PREFILL = [("h2o-danube-3-4b", 1, 8192), ("gemma3-12b", 1, 4096)]
 DECODE_B, DECODE_STEPS = 8, 32
 CHECK_S = 32                                  # decode vs forward, B = 1
 # the reference's decode-vs-forward criterion (tests/test_models.py:92-99)
@@ -241,11 +275,37 @@ def phase_build():
     entries = [ln for ln in ptxas if "entry function" in ln]
     say("2 build", f"{built.path.name}: {len(entries)} kernels, nvcc "
         f"{built.seconds:.1f} s, load {wall:.1f} s")
+    flash = flash_bf16_ptxas(built.log)
+    for hdp, info in flash.items():
+        flash[hdp] = (f"{info}; dynamic shared memory "
+                      f"{built.lib.flash_attention_bf16_smem(hdp)} bytes")
+        say("2 build", f"flash bf16 HDP={hdp}: {flash[hdp]}")
+    serialized = [ln.strip() for ln in built.log.splitlines()
+                  if "wgmma" in ln and "serialized" in ln]
+    for ln in serialized:
+        say("2 build", ln)
     if built.seconds > 0:            # a reused library printed no log
         check(len(entries) == PTXAS_ENTRIES,
               f"ptxas compiled {len(entries)} kernels, expected "
               f"{PTXAS_ENTRIES}")
-    return dict(nvcc_seconds=built.seconds, load_seconds=wall, ptxas=ptxas)
+        check(len(flash) == 3 and not serialized,
+              f"flash bf16 instances {sorted(flash)}; wgmma serialized: "
+              f"{serialized}")
+    return dict(nvcc_seconds=built.seconds, load_seconds=wall, ptxas=ptxas,
+                flash_bf16=flash)
+
+
+def flash_bf16_ptxas(log):
+    """{padded head dim: "registers, shared memory, spills"} of the flash
+    kernel's bf16 instances, from the -Xptxas -v log."""
+    lines, out = log.splitlines(), {}
+    for n, ln in enumerate(lines):
+        if "entry function" in ln and "flash_bf16_kernel" in ln:
+            hdp = int(ln.split("flash_bf16_kernelILi")[1].split("E")[0])
+            out[hdp] = "; ".join(x.strip().replace("ptxas info    : ", "")
+                                 for x in lines[n + 1:n + 4]
+                                 if "spill" in x or "registers" in x)
+    return out
 
 
 def _seed(k, dev):
@@ -1336,13 +1396,14 @@ def flash_inputs(B, Sq, Sk, H, KVH, hd, dtype, dev, seed):
 def phase_flash_parity(dev):
     """The flash-attention kernel against its plain version: float32 at the
     test shapes (rtol 1e-4, atol 1e-5, the JAX test's tolerance), bf16 at
-    tinyllama-1.1b's prefill shape, with a 1024 window and at S = 32 (one
-    ragged tile) within FLASH_BF16_TOL; the same bits on a second launch."""
+    every dense config's prefill shape, tinyllama-1.1b's also with a 1024
+    window and at S = 32 (one ragged tile), and the ragged bidirectional
+    shapes of each head dim, within FLASH_BF16_TOL; the same bits on a
+    second launch."""
     from repro_torch.kernels import flash_attention as fa, ref
     cases = [(shape, torch.float32, dict(rtol=1e-4, atol=1e-5))
              for shape in FLASH_SHAPES]
-    cases += [((B, S, S, H, KVH, hd, w, True), torch.bfloat16,
-               FLASH_BF16_TOL) for B, S, H, KVH, hd, w in FLASH_BF16]
+    cases += [(shape, torch.bfloat16, FLASH_BF16_TOL) for shape in FLASH_BF16]
     errs = {}
     for k, ((B, Sq, Sk, H, KVH, hd, w, causal), dtype, tol) in enumerate(
             cases):
@@ -1359,12 +1420,15 @@ def phase_flash_parity(dev):
         check(torch.allclose(got.float(), want.float(), **tol),
               f"flash_attention off the plain version at {shape} "
               f"{dtype}: max abs err {err}")
-    bf16_red = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+        del q, kk, v, got, again, want
+    bf16_red = (torch.backends.cuda.matmul
+                .allow_bf16_reduced_precision_reduction)
     say("3d flash attention", f"{len(FLASH_SHAPES)} float32 shapes within "
         f"rtol 1e-4 / atol 1e-5 (max abs err "
         f"{max(list(errs.values())[:len(FLASH_SHAPES)]):.3g}), "
-        f"{len(FLASH_BF16)} bf16 shapes {FLASH_BF16} within {FLASH_BF16_TOL} "
-        f"(max abs err {max(list(errs.values())[len(FLASH_SHAPES):]):.3g}); "
+        f"{len(FLASH_BF16)} bf16 shapes (B, Sq, Sk, H, KVH, hd, window, "
+        f"causal) {FLASH_BF16} within {FLASH_BF16_TOL} (max abs err "
+        f"{max(list(errs.values())[len(FLASH_SHAPES):]):.3g}); "
         f"same bits on a second launch; allow_tf32 "
         f"{torch.backends.cuda.matmul.allow_tf32}, "
         f"allow_bf16_reduced_precision_reduction {bf16_red}")
@@ -1380,42 +1444,77 @@ def attended_pairs(Sq, Sk, window, causal):
     return int(np.maximum(0, hi - lo + 1).sum())
 
 
+def flash_bound(B, Sq, Sk, H, KVH, hd, w, causal):
+    """The least time in ms for one call and the term that sets it: the
+    largest of the bytes (q, k, v read once, out written once, bf16) over
+    the memory rate, 4*hd FLOPs per attended pair over the bf16 tensor-core
+    peak, and one exponential per attended pair over the MUFU rate."""
+    pairs = B * H * attended_pairs(Sq, Sk, w, causal)
+    terms = {"bytes": 2 * (2 * B * Sq * H * hd + 2 * B * Sk * KVH * hd)
+             / HBM_BYTES_PER_S,
+             "tensor cores": 4 * hd * pairs / BF16_TC_FLOPS_PER_S,
+             "exponentials": pairs / EX2_PER_S}
+    term = max(terms, key=terms.get)
+    return 1e3 * terms[term], term, {k: 1e3 * v for k, v in terms.items()}
+
+
 def flash_times(dev):
-    """At the serve path's shape: the kernel (CUDA-event median), its plain
-    version, scaled_dot_product_attention(is_causal, enable_gqa) on the
-    same tensors (the library yardstick; the port never calls it), and the
-    bound: the larger of the bytes (q, k, v read once, out written once)
-    over the memory rate and 4*hd FLOPs per attended pair over the bf16
-    tensor-core peak."""
+    """At each dense config's prefill attention (FLASH_CONFIGS): the kernel
+    (CUDA-event median), its plain version, scaled_dot_product_attention
+    (enable_gqa, with is_causal or, where a window is set, the causal band
+    as a boolean mask; the library yardstick, never called by the port) on
+    the same tensors, and the three-term bound.  The record of
+    tinyllama-1.1b's shape is the kernel's; every shape is listed under
+    "configs"."""
     from repro_torch.kernels import flash_attention as fa, ref
-    B, S, H, KVH, hd, w = FLASH_MAIN
-    q, k, v = flash_inputs(B, S, S, H, KVH, hd, torch.bfloat16, dev,
-                           seed=50)
-    ms = per_launch_ms(lambda: fa.flash_attention_cuda(q, k, v, window=w),
-                       20)
-    pms = per_launch_ms(lambda: ref.flash_attention_ref(q, k, v, window=w),
-                        3)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True)
-    lib = sdpa().transpose(1, 2)
-    got = fa.flash_attention_cuda(q, k, v, window=w)
-    check(torch.allclose(lib.float(), got.float(), **FLASH_BF16_TOL),
-          "scaled_dot_product_attention off the kernel at the serve shape")
-    lms = per_launch_ms(sdpa, 20)
-    nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * KVH * hd)
-    flops = 4 * hd * B * H * attended_pairs(S, S, w, True)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_TC_FLOPS_PER_S
-    rec = dict(ms=ms, plain_ms=pms, library_ms=lms,
-               bound_ms=1e3 * max(t_bytes, t_ops),
-               bound_by="bytes" if t_bytes >= t_ops else "operations",
-               flops=flops, bytes=nbytes, tflops_per_s=flops / ms / 1e9,
-               shape=f"B={B} Sq=Sk={S} H={H} KVH={KVH} hd={hd} causal bf16")
-    say("6 times", f"flash_attention [{rec['shape']}]: kernel {ms:.4f} ms "
-        f"({rec['tflops_per_s']:.1f} TFLOP/s), plain {pms:.4f} ms, "
-        f"scaled_dot_product_attention {lms:.4f} ms, bound "
-        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}: {flops:.3e} FLOPs, "
-        f"{nbytes / 1e6:.1f} MB)")
+    recs = {}
+    for name, (B, Sq, Sk, H, KVH, hd, w, causal) in FLASH_CONFIGS.items():
+        q, k, v = flash_inputs(B, Sq, Sk, H, KVH, hd, torch.bfloat16, dev,
+                               seed=50)
+        ms = per_launch_ms(
+            lambda: fa.flash_attention_cuda(q, k, v, window=w,
+                                             causal=causal), 20)
+        pms = per_launch_ms(
+            lambda: ref.flash_attention_ref(q, k, v, window=w,
+                                            causal=causal), 2, reps=3)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        if w == 0:
+            sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True)
+        else:
+            # the causal band as a boolean mask (True: attended), built
+            # once outside the timed call; every row keeps its own key
+            i = torch.arange(Sq, device=dev)[:, None]
+            j = torch.arange(Sk, device=dev)[None, :]
+            band = i - j < w
+            if causal:
+                band &= i >= j
+            sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=band, enable_gqa=True)
+        lib = sdpa().transpose(1, 2)
+        got = fa.flash_attention_cuda(q, k, v, window=w, causal=causal)
+        check(torch.allclose(lib.float(), got.float(), **FLASH_BF16_TOL),
+              f"scaled_dot_product_attention off the kernel at {name}")
+        lms = per_launch_ms(sdpa, 20)
+        del qt, kt, vt, lib, got
+        bound_ms, term, terms = flash_bound(B, Sq, Sk, H, KVH, hd, w, causal)
+        flops = 4 * hd * B * H * attended_pairs(Sq, Sk, w, causal)
+        recs[name] = dict(
+            ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bound_ms,
+            bound_by="bytes" if term == "bytes" else "operations",
+            bound_term=term, bound_terms_ms=terms, flops=flops,
+            tflops_per_s=flops / ms / 1e9,
+            shape=f"B={B} Sq={Sq} Sk={Sk} H={H} KVH={KVH} hd={hd} "
+                  f"window={w} {'causal' if causal else 'bidirectional'} "
+                  f"bf16")
+        say("6 times", f"flash_attention {name} [{recs[name]['shape']}]: "
+            f"kernel {ms:.4f} ms ({recs[name]['tflops_per_s']:.1f} "
+            f"TFLOP/s), plain {pms:.4f} ms, scaled_dot_product_attention "
+            f"{lms:.4f} ms, bound {bound_ms:.4f} ms set by {term} ("
+            + ", ".join(f"{k} {v:.4f}" for k, v in terms.items()) + " ms)")
+        del q, k, v
+    rec = dict(recs["tinyllama-1.1b"])
+    rec["configs"] = recs
     return rec
 
 
@@ -1536,6 +1635,64 @@ def phase_serve(dev, smi):
     return rec
 
 
+def phase_wide_prefill(dev, smi):
+    """The configs whose head dims the flash kernel pads to 128 and 256, at
+    full width with weights drawn on the card from a seed, through
+    make_prefill_step: one warm-up call, then one call with the launch
+    counts reset before and read after (one flash launch per layer, no
+    other kernel of the port), finite float32 logits; each model is freed
+    before the next."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    recs = {}
+    for arch, B, S in WIDE_PREFILL:
+        cfg = get_arch(arch)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t_init, model = _sync_ms(lambda: T.init_params(cfg, SERVE_SEED,
+                                                       device=dev))
+        check(T.param_count(cfg)
+              == sum(x.numel() for x in model.parameters()),
+              f"{arch}: the model's parameters != param_count")
+        gen = torch.Generator(device=dev).manual_seed(SERVE_SEED + 1)
+        toks = torch.randint(1, cfg.vocab_size, (B, S), generator=gen,
+                             device=dev)
+        prefill = steps.make_prefill_step(cfg)
+        first_ms, _ = _sync_ms(lambda: prefill(model, {"tokens": toks}))
+        reset_launches()
+        ms, logits = _sync_ms(lambda: prefill(model, {"tokens": toks}))
+        counts = read_launches()
+        check(counts["flash_attention"] == cfg.num_layers
+              and all(n == 0 for k, n in counts.items()
+                      if k != "flash_attention"),
+              f"{arch} prefill: launches {counts}, expected "
+              f"{cfg.num_layers} flash-attention launches and no other")
+        check(tuple(logits.shape) == (B, T._pad_vocab(cfg.vocab_size))
+              and logits.dtype == torch.float32
+              and bool(torch.isfinite(logits).all()),
+              f"{arch}: prefill logits not finite float32 (B, vocab_padded)")
+        recs[arch] = dict(
+            params=T.param_count(cfg), B=B, S=S, head_dim=cfg.head_dim,
+            windows=sorted(set(cfg.window_pattern)), init_ms=t_init,
+            first_call_ms=first_ms, prefill_ms=ms,
+            prefill_tokens_per_s=B * S / ms * 1e3,
+            flash_launches=counts["flash_attention"],
+            peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+            card=smi)
+        say("7 serve", f"{arch} ({recs[arch]['params']} params, hd "
+            f"{cfg.head_dim}, windows {recs[arch]['windows']}, weights from "
+            f"seed {SERVE_SEED}) on {smi}: prefill B={B} S={S} {ms:.2f} ms "
+            f"({recs[arch]['prefill_tokens_per_s']:.0f} tokens/s; first "
+            f"call {first_ms:.2f} ms), {counts['flash_attention']} flash "
+            f"launches in one call; peak memory "
+            f"{recs[arch]['peak_memory_gb']:.2f} GB")
+        del model, logits, toks
+    torch.cuda.empty_cache()
+    return recs
+
+
 REPLACES = {
     "gibbs_sweep": "src/repro/kernels/fused_sweep.py:577",
     "mgpmh_sweep": "src/repro/kernels/fused_sweep.py:505",
@@ -1577,6 +1734,8 @@ def main():
     record["times"] = times = phase_times(potts, lattice, rng_inputs)
     times["flash_attention"] = flash_times(dev)
     record["serve"] = serve = phase_serve(dev, record["device"]["nvidia_smi"])
+    record["wide_prefill"] = phase_wide_prefill(
+        dev, record["device"]["nvidia_smi"])
 
     src = "src/repro_torch/kernels/csrc/fused_sweep.cu"
     kernels = []

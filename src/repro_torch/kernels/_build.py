@@ -66,6 +66,8 @@ _SIGNATURES = {
     # stream
     "flash_attention_launch": [_c_ptr] * 4 + [_c_int] * 9 + [_c_float,
                                                              _c_ptr],
+    # hd -> the bf16 block's dynamic shared memory in bytes
+    "flash_attention_bf16_smem": [_c_int],
 }
 
 

@@ -17,11 +17,12 @@
 // (B, Sk, KVH, hd), each head a contiguous hd-vector, KV head h / G indexed
 // in the kernel (no repeat), ragged edges masked by bounds (no padding;
 // rows and keys past the end are zero in shared memory and never stored).
-// One block per (64-row query tile, head, batch) loops over its key tiles;
-// the sequential kv grid axis of the TPU kernel becomes that loop, with the
+// A work item (query tile, head, batch) loops over its key tiles; the
+// sequential kv grid axis of the TPU kernel becomes that loop, with the
 // running statistics in registers.  Tiles wholly above the causal diagonal
 // or wholly outside the window are skipped; a row with at least one valid
-// key gets the same result as without the skip.
+// key gets the same result as without the skip.  Causal work lists start
+// with the longest query tiles.
 //
 // The arithmetic follows _kernel: scores in float32, scaled after the dot;
 // masked scores set to -1e30 (not -inf: a row whose first tiles are all
@@ -34,35 +35,63 @@
 // ref.flash_attention_ref.
 //
 // Two kernels:
-//  * bf16 (the model's type): tensor cores through mma.sync m16n8k16
-//    (bf16 x bf16 -> f32), Q, K and V tiles in shared memory read with
-//    ldmatrix (rows padded by 16 bytes, so the eight row addresses of one
-//    ldmatrix hit 32 distinct banks), S and P in registers.  Each of the
-//    four warps owns 16 query rows: S = Q K^T lands in the mma accumulator
-//    layout, whose pairs of 8-key tiles are the A-operand layout of P V
-//    after packing to bf16, so P never touches shared memory.
-//  * float32 (the tests' type): one thread per query row, q in shared
-//    memory (rows padded by one word), K and V tiles broadcast from shared
-//    memory, the dot products and PV sums in float32 on the FP32 units.
-// -fmad=false is global (the sampling kernels need it for bit parity);
-// this kernel is held to a tolerance, not to bits: its products are
-// tensor-core fragments (bf16) or separate multiply and add (float32), and
-// it uses no explicit fmaf.  No float atomics: the summation order is fixed
+//  * bf16 (the model's type), one template per padded head dim HDP in
+//    {64, 128, 256} (hd 16, 32, 64 -> 64; 120, 128 -> 128; 256 -> 256).
+//    Persistent: one block per SM walks the work items blockIdx.x,
+//    + gridDim.x, ...; the longest-first order balances the blocks' shares
+//    to within one item, and the next item's Q and first K/V tiles load
+//    while the last one's softmax and stores run.  A block is three
+//    warpgroups: warpgroup 0 is the producer (one thread issues every copy;
+//    setmaxnreg drops it to 40 registers), warpgroups 1 and 2 are consumers
+//    of 64 query rows each (128 rows per item; 232 registers).
+//    - Loads: TMA (cp.async.bulk.tensor) through 4-D tensor maps (hd,
+//      heads, S, B) with 128-byte swizzle, in 64-column boxes; Q once per
+//      item, K and V tiles of BK keys (128; 64 at HDP 256) into rings of
+//      ST stages (3; 2 at HDP 256), each with a full and an empty
+//      mbarrier.  The maps' zero fill gives the ragged edges: rows past Sq
+//      or Sk of a batch element and columns past hd arrive as zeros.
+//    - Products: wgmma.  S = Q K^T is m64nBKk16 with both operands K-major
+//      in shared memory; O += P V is m64nHDPk16 with P in registers (the
+//      f32 accumulator layout of S, packed to bf16 pairs, is the A
+//      register-fragment layout) and V read MN-major (transpose bit).
+//    - Softmax overlaps the tensor cores, two ways: each consumer issues
+//      the next tile's Q K^T and this tile's P V back to back, waits for
+//      Q K^T only (wait_group 1) and runs the softmax while P V is in
+//      flight; and the two consumers take turns to issue (named barriers,
+//      ping-pong), so one's softmax runs beside the other's products.
+//      Exponentials are ex2 of scores pre-scaled by scale * log2(e) (one
+//      FFMA per score on interior tiles); only the tiles that cross the
+//      diagonal, the window edge or Sk are masked.
+//    - Epilogue: normalise in registers, store the rows < Sq and columns
+//      < hd directly (bf16 pairs).
+//  * float32 (the tests' type; hd 16, 32, 64, 128): one thread per query
+//    row, q in shared memory (rows padded by one word), K and V tiles
+//    broadcast from shared memory, the dot products and PV sums in float32
+//    on the FP32 units.
+// Built with the sampling kernels' flags, -fmad=false included: the bf16
+// form writes each of its fused multiply-adds as an explicit fmaf, which
+// the flag leaves alone.  No float atomics: the summation order is fixed
 // and two launches give the same bits.
 //
-// Bound, at the full-width prefill (B=8, Sq=Sk=2048, H=32, KVH=4, hd=64,
-// causal): 4*hd FLOPs per unmasked (i, j) pair, ~1.4e11 FLOPs against
-// ~0.15 GB of q, k, v and out, so the tensor-core rate bounds it
-// (chip_smoke.py computes the bound of each run).  This first version
-// loads each K/V tile synchronously (no cp.async / TMA pipeline, no wgmma):
-// latency is hidden only by the several blocks resident on an SM.
+// Bound, three terms; the largest binds (chip_smoke.py computes each run's):
+//  * tensor cores: 4*hd FLOPs per attended (i, j) pair at the bf16 peak;
+//  * exponentials: one ex2 per attended pair on the MUFU units, 16 per
+//    clock per SM (132 SMs); at hd=64 this equals the tensor-core term,
+//    which is why the softmax has to overlap the products;
+//  * bytes: q, k, v read once, out written once, over the HBM rate (far
+//    below the other two at the prefill shapes).
+// At B=8, Sq=Sk=2048, H=32, KVH=4, hd=64, causal: 1.375e11 FLOPs and
+// 5.37e8 exponentials, ~0.14 ms each.
 //
 // Plain C interface (loaded with ctypes); the launch returns
 // cudaGetLastError(), or cudaErrorInvalidValue for a head dim it was not
-// built for (16, 32, 64, 128).
+// built for (bf16: 16, 32, 64, 120, 128, 256; float32: 16, 32, 64, 128) or
+// a tensor map cuTensorMapEncodeTiled refuses.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 
 extern __shared__ __align__(16) unsigned char flash_smem[];
@@ -70,10 +99,10 @@ extern __shared__ __align__(16) unsigned char flash_smem[];
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kBQ = 64;          // query rows per block (both kernels)
-constexpr int kBK = 64;          // keys per tile, bf16 kernel
+constexpr int kBQ = 64;          // query rows per block, float32 kernel
 constexpr int kBKF = 16;         // keys per tile, float32 kernel
-constexpr int kWarps = kBQ / 16; // bf16 kernel: 16 query rows per warp
+constexpr int kRowBytes = 128;   // one swizzled smem row: 64 bf16 columns
+constexpr int kMaxDevices = 64;  // bf16 launch settings cached per device
 
 // [*t0, *t1): the key tiles that hold a valid key for some row of
 // [q0, q0 + rows).  Empty when no row has one.
@@ -92,35 +121,221 @@ __device__ __forceinline__ bool valid_key(int i, int j, int Sk, int window,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: mma.sync tensor cores
+// bf16: TMA, mbarriers, wgmma
 // ---------------------------------------------------------------------------
+
+constexpr int kConsumers = 2;    // consumer warpgroups of 64 query rows
+constexpr int kBM = 64 * kConsumers;                  // rows per work item
+constexpr int kThreads16 = 128 * (kConsumers + 1);    // + the producer
+// setmaxnreg: 128 x 40 + 256 x 232 <= 65536 registers of the SM
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+
+// the tiles of one padded head dim: BK keys per tile, ST stages
+template <int HDP>
+struct Tiles {
+  static constexpr int BK = HDP == 256 ? 64 : 128;
+  static constexpr int ST = HDP == 256 ? 2 : 3;
+  static constexpr int kQBytes = kBM * HDP * 2;
+  static constexpr int kKVBytes = BK * HDP * 2;      // one K or V tile
+  // Q, then the K ring, then the V ring, then the mbarriers; +1024 for
+  // the alignment the 128-byte swizzle needs
+  static constexpr int kSmem = 1024 + kQBytes + 2 * ST * kKVBytes
+                               + (2 + 4 * ST) * 8;
+};
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
+// arrive and add `bytes` to the transactions the phase waits for
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
 }
 
-// c += a (16x16, row) * b (16x8, col); bf16 in, float32 accumulate
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// one box of a 4-D tensor map into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+         "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+// wgmma shared-memory matrix descriptor, 128-byte swizzle (layout type 1):
+// start address, leading and stride byte offsets, all in 16-byte units
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
+         | static_cast<uint64_t>(lbo >> 4) << 16
+         | static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// keep the compiler from moving reads or writes of registers that an
+// in-flight wgmma owns across the fence, commit and wait instructions
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
+}
+
+// wgmma m64nNk16, bf16 x bf16 -> f32, per warpgroup; d holds the N/2
+// accumulators of this thread.  ss: A and B from shared memory, both
+// K-major; d = A B (accumulate == 0) or d += A B.  rs: A from registers
+// (four bf16 pairs), B MN-major in shared memory (transpose bit); d += A B.
+#define WG_F8(i)                                                            \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),               \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define WG_F32(i) WG_F8(i), WG_F8(i + 8), WG_F8(i + 16), WG_F8(i + 24)
+#define WG_D32                                                              \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31"
+#define WG_D64                                                              \
+  WG_D32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "   \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
+  "%58, %59, %60, %61, %62, %63"
+#define WG_D128                                                             \
+  WG_D64 ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, "   \
+  "%76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, "  \
+  "%90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, "    \
+  "%103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, " \
+  "%115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, " \
+  "%127"
+
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a,
+                                            uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{" WG_D32 "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : WG_F32(0)
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+  static __device__ __forceinline__ void rs(float (&d)[32],
+                                            const uint32_t* a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{" WG_D32 "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : WG_F32(0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a,
+                                            uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{" WG_D64 "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : WG_F32(0), WG_F32(32)
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+  static __device__ __forceinline__ void rs(float (&d)[64],
+                                            const uint32_t* a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{" WG_D64 "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : WG_F32(0), WG_F32(32)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<256> {
+  static __device__ __forceinline__ void rs(float (&d)[128],
+                                            const uint32_t* a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{" WG_D128 "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+        : WG_F32(0), WG_F32(32), WG_F32(64), WG_F32(96)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+#undef WG_F8
+#undef WG_F32
+#undef WG_D32
+#undef WG_D64
+#undef WG_D128
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// named barriers 1, 2 order the consumer warpgroups' wgmma issue
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" :: "r"(id) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" :: "r"(id) : "memory");
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -128,175 +343,329 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// rows [r0, r0 + 64) of a (rows, stride) bf16 head slice into a (64, LD)
-// shared tile, 16 bytes per thread and step; rows >= n are zero
-template <int HD, int LD, int kThreads>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          size_t stride, int r0, int n) {
-  constexpr int kChunks = HD / 8;      // 16-byte chunks per row
-  for (int c = threadIdx.x; c < 64 * kChunks; c += kThreads) {
-    const int r = c / kChunks, d = (c % kChunks) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < n)
-      val = *reinterpret_cast<const uint4*>(src + (r0 + r) * stride + d);
-    *reinterpret_cast<uint4*>(dst + r * LD + d) = val;
+// S = Q K^T for the warpgroup's 64 rows x BK keys.  Q and K tiles are
+// HDP / 64 column chunks of 128-byte swizzled rows; a k16 step moves 32
+// bytes inside a chunk.  Issued and committed, not waited for.
+template <int HDP>
+__device__ __forceinline__ void issue_qk(float (&s)[Tiles<HDP>::BK / 2],
+                                         uint32_t q, uint32_t k) {
+  constexpr int BK = Tiles<HDP>::BK;
+  pin(s);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < HDP / 16; ++kk) {
+    const uint32_t col = (kk % 4) * 32;
+    Wgmma<BK>::ss(s,
+                  desc_sw128(q + (kk / 4) * kBM * kRowBytes + col, 16, 1024),
+                  desc_sw128(k + (kk / 4) * BK * kRowBytes + col, 16, 1024),
+                  kk > 0);
   }
+  wgmma_commit();
+  pin(s);
 }
 
-template <int HD>
-__global__ void __launch_bounds__(kWarps * 32)
-flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                  const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v,
-                  __nv_bfloat16* __restrict__ out, int Sq, int Sk, int H,
-                  int KVH, int window, int causal, float scale) {
-  constexpr int LD = HD + 8;           // padded row, in elements
-  constexpr int kThreads = kWarps * 32;
-  constexpr int NT = kBK / 8;          // 8-key score tiles per warp
-  constexpr int DT = HD / 8;           // 8-dim output tiles per warp
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(flash_smem);
-  __nv_bfloat16* ks = qs + kBQ * LD;
-  __nv_bfloat16* vs = ks + kBK * LD;
-
-  // causal: the longest rows (last query tiles) start first
-  const int qt = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z, kh = h / (H / KVH);
-  const int q0 = qt * kBQ, rows = min(kBQ, Sq - q0);
-  const size_t qstride = static_cast<size_t>(H) * HD;
-  const size_t kstride = static_cast<size_t>(KVH) * HD;
-  const __nv_bfloat16* qb = q + static_cast<size_t>(b) * Sq * qstride
-                            + static_cast<size_t>(h) * HD;
-  const __nv_bfloat16* kb = k + static_cast<size_t>(b) * Sk * kstride
-                            + static_cast<size_t>(kh) * HD;
-  const __nv_bfloat16* vb = v + static_cast<size_t>(b) * Sk * kstride
-                            + static_cast<size_t>(kh) * HD;
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t4 = lane % 4;   // mma groupID, thread in group
-  const int wrow = warp * 16;              // the warp's first row in tile
-
-  load_tile<HD, LD, kThreads>(qs, qb, qstride, q0, Sq);
-  __syncthreads();
-  uint32_t qf[HD / 16][4];                 // A fragments of the warp's Q
+// O += P V: P (64 x BK) in registers, V (BK keys x HDP) MN-major: the
+// stride between 8-key groups is one swizzle atom (1024 bytes), between
+// 64-column chunks one chunk (BK rows); a k16 step is 16 keys
+template <int HDP>
+__device__ __forceinline__ void issue_pv(float (&o)[HDP / 2],
+                                         uint32_t (&p)[Tiles<HDP>::BK / 4],
+                                         uint32_t v) {
+  constexpr int BK = Tiles<HDP>::BK;
+  pin(o);
+  pin(p);
+  wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk)
-    ldsm_x4(qf[kk], qs + (wrow + lane % 16) * LD + kk * 16 + (lane / 16) * 8);
+  for (int kk = 0; kk < BK / 16; ++kk)
+    Wgmma<HDP>::rs(o, &p[4 * kk],
+                   desc_sw128(v + kk * 16 * kRowBytes, BK * kRowBytes, 1024));
+  wgmma_commit();
+  pin(o);
+}
 
-  float o[DT][4];
+// One tile's online softmax for this thread's rows ia and ia + 8.  s holds
+// raw scores in the accumulator layout (s[4j + e]: row ia + 8 (e / 2), key
+// k0 + 8j + 2 t4 + e % 2) and leaves as p = 2^(s c - m) in float32; m is
+// the running max of the scaled scores, corr the factor for what came
+// before.  Edge tiles are scaled and masked first (-1e30), so the same
+// FFMA serves both kinds with cs = 1 there.
+template <int BK>
+__device__ __forceinline__ void online_softmax(
+    float (&s)[BK / 2], float (&m)[2], float (&l)[2], float (&corr)[2],
+    float c, bool edge, int ia, int k0, int t4, int Sk, int window,
+    int causal) {
+  float cs = c;
+  if (edge) {
 #pragma unroll
-  for (int n = 0; n < DT; ++n)
-    o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
-  float m[2] = {kNegInf, kNegInf};         // rows g and g + 8
-  float l[2] = {0.0f, 0.0f};               // this thread's partial sums
-
-  int t0, t1;
-  key_tiles(q0, rows, Sk, window, causal, kBK, &t0, &t1);
-  for (int t = t0; t < t1; ++t) {
-    const int k0 = t * kBK;
-    __syncthreads();                       // the last tile is consumed
-    load_tile<HD, LD, kThreads>(ks, kb, kstride, k0, Sk);
-    load_tile<HD, LD, kThreads>(vs, vb, kstride, k0, Sk);
-    __syncthreads();
-
-    // S = Q K^T for the warp's 16 rows x 64 keys
-    float s[NT][4];
-#pragma unroll
-    for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t bk[4];
-        ldsm_x4(bk, ks + (np * 16 + lane % 8 + (lane / 16) * 8) * LD
-                        + kk * 16 + ((lane / 8) % 2) * 8);
-        mma_bf16(s[2 * np], qf[kk], bk[0], bk[1]);
-        mma_bf16(s[2 * np + 1], qf[kk], bk[2], bk[3]);
-      }
-    }
-
-    // scale, mask, and the tile's row maxima
-    const bool edge = k0 + kBK > Sk || (causal && k0 + kBK - 1 > q0)
-                      || (window > 0 && q0 + kBQ - 1 - k0 >= window);
-    float mt[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
+    for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float x = s[n][e] * scale;
-        if (edge) {
-          const int i = q0 + wrow + g + (e / 2) * 8;
-          const int j = k0 + n * 8 + 2 * t4 + (e % 2);
-          if (!valid_key(i, j, Sk, window, causal)) x = kNegInf;
-        }
-        s[n][e] = x;
-        mt[e / 2] = fmaxf(mt[e / 2], x);
+        const int i = ia + (e / 2) * 8, key = k0 + 8 * j + 2 * t4 + e % 2;
+        s[4 * j + e] =
+            valid_key(i, key, Sk, window, causal) ? s[4 * j + e] * c : kNegInf;
       }
-    }
-    float corr[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
-      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
-      const float m_new = fmaxf(m[r], mt[r]);
-      corr[r] = expf(m[r] - m_new);
-      m[r] = m_new;
-      l[r] *= corr[r];
-    }
-#pragma unroll
-    for (int n = 0; n < DT; ++n) {
-      o[n][0] *= corr[0]; o[n][1] *= corr[0];
-      o[n][2] *= corr[1]; o[n][3] *= corr[1];
-    }
-
-    // P = exp(S - m) in bf16 as the A operand; O += P V
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      float p[2][4];
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          p[hf][e] = expf(s[2 * kk + hf][e] - m[e / 2]);
-          l[e / 2] += p[hf][e];
-        }
-      const uint32_t a[4] = {pack_bf16(p[0][0], p[0][1]),
-                             pack_bf16(p[0][2], p[0][3]),
-                             pack_bf16(p[1][0], p[1][1]),
-                             pack_bf16(p[1][2], p[1][3])};
-#pragma unroll
-      for (int dn = 0; dn < HD / 16; ++dn) {
-        uint32_t bv[4];
-        ldsm_x4_trans(bv, vs + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * LD
-                              + dn * 16 + (lane / 16) * 8);
-        mma_bf16(o[2 * dn], a, bv[0], bv[1]);
-        mma_bf16(o[2 * dn + 1], a, bv[2], bv[3]);
-      }
-    }
+    cs = 1.0f;
   }
-
-  // the four threads of a row hold its partial normalisers
+  float mx[2][2] = {{kNegInf, kNegInf}, {kNegInf, kNegInf}};
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      mx[e / 2][j % 2] = fmaxf(mx[e / 2][j % 2], s[4 * j + e]);
+  float neg[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    float x = fmaxf(mx[r][0], mx[r][1]);
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+    const float m_new = fmaxf(m[r], x * cs);
+    corr[r] = ex2(m[r] - m_new);
+    m[r] = m_new;
+    neg[r] = -m_new;
   }
+  float sum[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int i = q0 + wrow + g + r * 8;
-    if (i >= Sq) continue;
-    // a row that saw no valid key is written as zeros
-    const bool none = m[r] == kNegInf;
-    const float den = fmaxf(l[r], 1e-30f);
-    __nv_bfloat16* dst = out + static_cast<size_t>(b) * Sq * qstride
-                         + i * qstride + static_cast<size_t>(h) * HD;
+  for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
-    for (int n = 0; n < DT; ++n) {
-      const __nv_bfloat162 val = __floats2bfloat162_rn(
-          none ? 0.0f : o[n][2 * r] / den,
-          none ? 0.0f : o[n][2 * r + 1] / den);
-      *reinterpret_cast<__nv_bfloat162*>(dst + n * 8 + 2 * t4) = val;
+    for (int e = 0; e < 4; ++e) {
+      const float p = ex2(fmaf(s[4 * j + e], cs, neg[e / 2]));
+      s[4 * j + e] = p;
+      sum[e / 2][j % 2] += p;
     }
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    l[r] = fmaf(l[r], corr[r], sum[r][0] + sum[r][1]);
+}
+
+// work item w of a persistent block: (query tile, head, batch), query
+// tiles slowest and heads fastest (the G heads of one KV head are
+// neighbours in time, so their K/V tiles are read from L2); causal grids
+// take the longest query tiles first, which balances the blocks' static
+// round-robin shares to within one item
+struct Item {
+  int q0, h, b;
+};
+
+__device__ __forceinline__ Item item(int w, int nq, int H, int B,
+                                     int causal) {
+  const int tile = w / (H * B), hb = w % (H * B);
+  return {(causal ? nq - 1 - tile : tile) * kBM, hb % H, hb / H};
+}
+
+template <int HDP>
+__global__ void __launch_bounds__(kThreads16, 1)
+flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv,
+                  __nv_bfloat16* __restrict__ out, int B, int Sq, int Sk,
+                  int H, int KVH, int hd, int window, int causal, float c) {
+  using T = Tiles<HDP>;
+  constexpr int BK = T::BK, ST = T::ST;
+  // shared memory: Q | K stages | V stages | barriers, 1024-aligned
+  const uint32_t base = (smem_addr(flash_smem) + 1023) & ~1023u;
+  const uint32_t qs = base;
+  const uint32_t ks = qs + T::kQBytes;
+  const uint32_t vs = ks + ST * T::kKVBytes;
+  const uint32_t bars = vs + ST * T::kKVBytes;
+  // q_full, q_empty, then per stage: k_full, v_full, k_empty, v_empty
+  const uint32_t q_full = bars, q_empty = bars + 8;
+  auto bar = [&](int kind, int st) { return bars + 8 * (2 + kind * ST + st); };
+
+  // this block's work items: w = blockIdx.x, + gridDim.x, ... < W; the
+  // K/V tiles of all of them form one stream through the rings
+  const int nq = (Sq + kBM - 1) / kBM, W = nq * B * H;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, 4 * kConsumers);   // one arrival per consumer warp
+    for (int st = 0; st < ST; ++st) {
+      mbar_init(bar(0, st), 1);
+      mbar_init(bar(1, st), 1);
+      mbar_init(bar(2, st), 4 * kConsumers);
+      mbar_init(bar(3, st), 4 * kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer: one thread issues every copy, in the consumers' order
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      int it = 0;                       // K (and V) tiles issued so far
+      for (int j = 0, w = blockIdx.x; w < W; ++j, w += gridDim.x) {
+        const Item x = item(w, nq, H, B, causal);
+        const int kh = x.h / (H / KVH);
+        int t0, t1;
+        key_tiles(x.q0, min(kBM, Sq - x.q0), Sk, window, causal, BK, &t0,
+                  &t1);
+        const int n = t1 - t0;
+        mbar_wait(q_empty, (j & 1) ^ 1);          // the last Q is read
+        mbar_expect_tx(q_full, T::kQBytes);
+#pragma unroll
+        for (int ch = 0; ch < HDP / 64; ++ch)
+          tma_load(qs + ch * kBM * kRowBytes, &tq, q_full, ch * 64, x.h,
+                   x.q0, x.b);
+        // K_0, then K_i and V_{i-1} for i = 1 .. n-1, then V_{n-1}
+        for (int i = 0; i <= n; ++i) {
+#pragma unroll
+          for (int kind = 0; kind < 2; ++kind) {
+            const int tile = kind == 0 ? i : i - 1;
+            if (tile < 0 || tile >= n) continue;
+            const int st = (it + tile) % ST, ph = ((it + tile) / ST) & 1;
+            mbar_wait(bar(2 + kind, st), ph ^ 1);   // the stage is free
+            mbar_expect_tx(bar(kind, st), T::kKVBytes);
+            const uint32_t dst = (kind == 0 ? ks : vs) + st * T::kKVBytes;
+            const CUtensorMap* map = kind == 0 ? &tk : &tv;
+#pragma unroll
+            for (int ch = 0; ch < HDP / 64; ++ch)
+              tma_load(dst + ch * BK * kRowBytes, map, bar(kind, st),
+                       ch * 64, kh, (t0 + tile) * BK, x.b);
+          }
+        }
+        it += n;
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows each
+    setmaxnreg_inc<kConsumerRegs>();
+    const int w = wg - 1, tid = threadIdx.x % 128;
+    const int wi = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t4 = lane % 4;   // accumulator row group, pair
+    const uint32_t qw = qs + 64 * w * kRowBytes;
+    float o[HDP / 2], s[BK / 2];
+    uint32_t p[BK / 4];
+#pragma unroll
+    for (int x = 0; x < BK / 2; ++x) s[x] = 0.0f;
+#pragma unroll
+    for (int x = 0; x < BK / 4; ++x) p[x] = 0u;
+
+    auto release = [&](uint32_t b_) {
+      if (lane == 0) mbar_arrive(b_);
+    };
+    // consumer w issues its products after the other one (ping-pong over
+    // named barriers 1 and 2), so one warpgroup's softmax runs beside the
+    // other's products
+    auto turn = [&]() { bar_sync(1 + w); };
+    auto pass = [&]() { bar_arrive(1 + (w + 1) % kConsumers); };
+    if (w == kConsumers - 1) bar_arrive(1);   // consumer 0 goes first
+
+    int it = 0;                               // K (and V) tiles consumed
+    for (int j = 0, wk = blockIdx.x; wk < W; ++j, wk += gridDim.x) {
+      const Item x = item(wk, nq, H, B, causal);
+      int t0, t1;
+      key_tiles(x.q0, min(kBM, Sq - x.q0), Sk, window, causal, BK, &t0,
+                &t1);
+      const int n = t1 - t0;
+      const int r0 = x.q0 + 64 * w;           // the warpgroup's first row
+      const int ia = r0 + 16 * wi + g;        // this thread's rows ia, ia + 8
+#pragma unroll
+      for (int y = 0; y < HDP / 2; ++y) o[y] = 0.0f;
+      float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+      float corr[2] = {1.0f, 1.0f};
+
+      // does tile t hold a masked (row, key) pair for these rows?
+      auto edge = [&](int t) {
+        const int k0 = t * BK;
+        return k0 + BK > Sk || (causal && k0 + BK - 1 > r0)
+               || (window > 0 && r0 + 63 - k0 >= window);
+      };
+      auto softmax = [&](int t) {
+        online_softmax<BK>(s, m, l, corr, c, edge(t), ia, t * BK, t4, Sk,
+                           window, causal);
+      };
+      auto to_bf16 = [&]() {
+#pragma unroll
+        for (int y = 0; y < BK / 4; ++y)
+          p[y] = pack_bf16(s[2 * y], s[2 * y + 1]);
+      };
+      auto rescale = [&]() {
+#pragma unroll
+        for (int y = 0; y < HDP / 8; ++y) {
+          o[4 * y] *= corr[0];
+          o[4 * y + 1] *= corr[0];
+          o[4 * y + 2] *= corr[1];
+          o[4 * y + 3] *= corr[1];
+        }
+      };
+      auto stage = [&](int i) { return (it + i) % ST; };
+      auto phase = [&](int i) { return ((it + i) / ST) & 1; };
+
+      mbar_wait(q_full, j & 1);
+      if (n == 0) release(q_empty);
+      if (n > 0) {
+        mbar_wait(bar(0, stage(0)), phase(0));
+        turn();
+        issue_qk<HDP>(s, qw, ks + stage(0) * T::kKVBytes);
+        pass();
+        wgmma_wait<0>();
+        pin(s);
+        release(bar(2, stage(0)));
+        if (n == 1) release(q_empty);         // Q's last product is done
+        softmax(t0);
+        to_bf16();
+        for (int i = 1; i < n; ++i) {
+          const int st = stage(i), pst = stage(i - 1);
+          mbar_wait(bar(0, st), phase(i));
+          turn();
+          issue_qk<HDP>(s, qw, ks + st * T::kKVBytes);     // S_i = Q K_i^T
+          rescale();
+          mbar_wait(bar(1, pst), phase(i - 1));
+          issue_pv<HDP>(o, p, vs + pst * T::kKVBytes);     // O += P_{i-1} V
+          pass();
+          wgmma_wait<1>();                                 // S_i is ready
+          pin(s);
+          release(bar(2, st));
+          if (i == n - 1) release(q_empty);
+          softmax(t0 + i);                                 // while P V runs
+          wgmma_wait<0>();
+          pin(o);
+          pin(p);
+          release(bar(3, pst));
+          to_bf16();
+        }
+        const int st = stage(n - 1);
+        rescale();
+        mbar_wait(bar(1, st), phase(n - 1));
+        turn();
+        issue_pv<HDP>(o, p, vs + st * T::kKVBytes);
+        pass();
+        wgmma_wait<0>();
+        pin(o);
+        release(bar(3, st));
+      }
+      it += n;
+
+      // the four threads of a row hold its partial normalisers
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      }
+      const size_t stride = static_cast<size_t>(H) * hd;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int i = ia + r * 8;
+        if (i >= Sq) continue;
+        // a row that saw no valid key is written as zeros
+        const bool none = m[r] == kNegInf;
+        const float inv = 1.0f / fmaxf(l[r], 1e-30f);
+        __nv_bfloat16* dst = out
+                             + (static_cast<size_t>(x.b) * Sq + i) * stride
+                             + static_cast<size_t>(x.h) * hd;
+#pragma unroll
+        for (int y = 0; y < HDP / 8; ++y) {
+          const int col = 8 * y + 2 * t4;
+          if (col >= hd) continue;
+          *reinterpret_cast<__nv_bfloat162*>(dst + col) =
+              __floats2bfloat162_rn(none ? 0.0f : o[4 * y + 2 * r] * inv,
+                                    none ? 0.0f : o[4 * y + 2 * r + 1] * inv);
+        }
+      }
+    }
+    // the last consumer's first arrival has no turn to match: take it
+    if (w == 0) bar_sync(1);
   }
 }
 
@@ -389,37 +758,107 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int d = 0; d < HD; ++d) dst[d] = none ? 0.0f : acc[d] / den;
 }
 
-template <int HD>
-cudaError_t launch_bf16(dim3 grid, cudaStream_t stream, const void* q,
-                        const void* k, const void* v, void* out, int Sq,
-                        int Sk, int H, int KVH, int window, int causal,
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// the CUDA driver's cuTensorMapEncodeTiled, found through the runtime (so
+// the library needs no -lcuda); null if the CUDA driver has none
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// (B, S, heads, hd) bf16, contiguous: a 4-D map (hd, heads, S, B) read in
+// boxes of 64 columns x `rows` positions of one head, 128-byte swizzle;
+// out-of-bounds elements (past S of a batch element, past hd) read as 0
+bool tensor_map(CUtensorMap* map, const void* base, int B, int S, int heads,
+                int hd, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {dims[0] * 2, dims[0] * dims[1] * 2,
+                                 dims[0] * dims[1] * dims[2] * 2};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HDP>
+cudaError_t launch_bf16(cudaStream_t stream, const void* q, const void* k,
+                        const void* v, void* out, int B, int Sq, int Sk,
+                        int H, int KVH, int hd, int window, int causal,
                         float scale) {
-  const size_t smem = (kBQ + 2 * kBK) * (HD + 8) * sizeof(__nv_bfloat16);
-  // above 48 KB a block's dynamic shared memory must be allowed first
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_bf16_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  using T = Tiles<HDP>;
+  CUtensorMap tq, tk, tv;
+  if (!tensor_map(&tq, q, B, Sq, H, hd, kBM)
+      || !tensor_map(&tk, k, B, Sk, KVH, hd, T::BK)
+      || !tensor_map(&tv, v, B, Sk, KVH, hd, T::BK))
+    return cudaErrorInvalidValue;
+  // persistent: one block per SM (or per work item, if fewer).  The SM
+  // count, and the shared-memory allowance a block above 48 KB needs, are
+  // set once per device and template, at its first launch
+  static std::atomic<int> sms_of[kMaxDevices];
+  int device, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
-  flash_bf16_kernel<HD><<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<__nv_bfloat16*>(out), Sq, Sk, H, KVH, window, causal,
-      scale);
+  if (device < kMaxDevices) sms = sms_of[device].load();
+  if (sms == 0) {
+    err = cudaFuncSetAttribute(flash_bf16_kernel<HDP>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               T::kSmem);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                   device);
+    if (err != cudaSuccess) return err;
+    if (device < kMaxDevices) sms_of[device].store(sms);
+  }
+  const long long items =
+      static_cast<long long>((Sq + kBM - 1) / kBM) * B * H;
+  const int grid = static_cast<int>(items < sms ? items : sms);
+  flash_bf16_kernel<HDP><<<grid, kThreads16, T::kSmem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), B, Sq, Sk, H, KVH, hd,
+      window, causal, scale * 1.4426950408889634f);   // scale * log2(e)
   return cudaGetLastError();
 }
 
 template <int HD>
-cudaError_t launch_f32(dim3 grid, cudaStream_t stream, const void* q,
-                       const void* k, const void* v, void* out, int Sq,
-                       int Sk, int H, int KVH, int window, int causal,
-                       float scale) {
+cudaError_t launch_f32(cudaStream_t stream, const void* q, const void* k,
+                       const void* v, void* out, int B, int Sq, int Sk,
+                       int H, int KVH, int window, int causal, float scale) {
   const size_t smem =
       (kBQ * (HD + 1) + 2 * kBKF * HD + kBKF * kBQ) * sizeof(float);
   const cudaError_t err = cudaFuncSetAttribute(
       flash_f32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
+  const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   flash_f32_kernel<HD><<<grid, kBQ, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), Sq, Sk, H, KVH,
@@ -433,29 +872,54 @@ extern "C" {
 
 // q (B, Sq, H, hd), k and v (B, Sk, KVH, hd), out (B, Sq, H, hd), all
 // contiguous on the card, 16-byte aligned, of one type: bfloat16 when
-// is_bf16, else float32.  B, Sq, Sk >= 1; H % KVH == 0; B <= 65535,
-// H <= 65535.  window <= 0: no window.  scale: hd^-0.5 as float32.
+// is_bf16, else float32.  B, Sq, Sk >= 1; H % KVH == 0; float32:
+// B <= 65535, H <= 65535; bf16: ceil(Sq / 128) * B * H < 2^31.  window <= 0:
+// no window.  scale: hd^-0.5 as float32.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* out, int B, int Sq, int Sk, int H, int KVH,
                            int hd, int window, int causal, int is_bf16,
                            float scale, cudaStream_t stream) {
-  const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-#define FLASH_CASE(HD)                                                      \
-  case HD:                                                                  \
-    return static_cast<int>(                                                \
-        is_bf16 ? launch_bf16<HD>(grid, stream, q, k, v, out, Sq, Sk, H,    \
-                                  KVH, window, causal, scale)               \
-                : launch_f32<HD>(grid, stream, q, k, v, out, Sq, Sk, H,     \
-                                 KVH, window, causal, scale));
-  switch (hd) {
-    FLASH_CASE(16)
-    FLASH_CASE(32)
-    FLASH_CASE(64)
-    FLASH_CASE(128)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (is_bf16) {
+    switch (hd) {
+      case 16: case 32: case 64:
+        err = launch_bf16<64>(stream, q, k, v, out, B, Sq, Sk, H, KVH, hd,
+                              window, causal, scale);
+        break;
+      case 120: case 128:
+        err = launch_bf16<128>(stream, q, k, v, out, B, Sq, Sk, H, KVH, hd,
+                               window, causal, scale);
+        break;
+      case 256:
+        err = launch_bf16<256>(stream, q, k, v, out, B, Sq, Sk, H, KVH, hd,
+                               window, causal, scale);
+        break;
+    }
+    return static_cast<int>(err);
   }
-#undef FLASH_CASE
+  switch (hd) {
+#define FLASH_F32(HD)                                                       \
+  case HD:                                                                  \
+    err = launch_f32<HD>(stream, q, k, v, out, B, Sq, Sk, H, KVH, window,   \
+                         causal, scale);                                    \
+    break;
+    FLASH_F32(16)
+    FLASH_F32(32)
+    FLASH_F32(64)
+    FLASH_F32(128)
+#undef FLASH_F32
+  }
+  return static_cast<int>(err);
+}
+
+// dynamic shared memory of one bf16 block for head dim hd (0: not built)
+int flash_attention_bf16_smem(int hd) {
+  switch (hd) {
+    case 16: case 32: case 64: return Tiles<64>::kSmem;
+    case 120: case 128: return Tiles<128>::kSmem;
+    case 256: return Tiles<256>::kSmem;
+  }
+  return 0;
 }
 
 }  // extern "C"

@@ -18,9 +18,13 @@ from .fused_sweep import _check, _check_cuda, _launch
 
 __all__ = ["flash_attention_cuda", "HEAD_DIMS"]
 
-# head dims the kernel is built for (templates in csrc/flash_attention.cu)
-HEAD_DIMS = (16, 32, 64, 128)
-_MAX_GRID_YZ = 65535
+# head dims the kernel is built for, per dtype (csrc/flash_attention.cu):
+# the bf16 templates pad hd to 64, 128 or 256 (every dense config's head
+# dim); the float32 form, the tests' type, has one template per hd
+HEAD_DIMS = {torch.bfloat16: (16, 32, 64, 120, 128, 256),
+             torch.float32: (16, 32, 64, 128)}
+_MAX_GRID_YZ = 65535            # float32 grid (query tiles, H, B)
+_MAX_ITEMS = 2 ** 31 - 1        # bf16 work items (128-row tiles x H x B)
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -37,24 +41,30 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Replaces ``flash_attention_pallas``
     (``src/repro/kernels/flash_attention.py:79``) with its GQA / padding
     wrapper (``src/repro/kernels/ops.py:298``): no head repeat, no padding.
-    Bound by the tensor-core rate at the model's prefill shapes.  bf16 runs
-    on mma.sync tensor-core fragments, float32 on the FP32 units.
+    Bound at the model's prefill shapes by the tensor cores and, as
+    closely at hd=64, by the exponentials.  bf16 runs on TMA loads and
+    wgmma with the softmax overlapping the products, float32 on the FP32
+    units.
     """
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"q and k must be (B, S, heads, hd), got shapes "
                          f"{tuple(q.shape)} and {tuple(k.shape)}")
     B, Sq, H, hd = q.shape
     Sk, KVH = k.shape[1], k.shape[2]
-    if q.dtype not in (torch.float32, torch.bfloat16):
+    if q.dtype not in HEAD_DIMS:
         raise ValueError(f"q must be float32 or bfloat16, got {q.dtype}")
-    if hd not in HEAD_DIMS:
+    if hd not in HEAD_DIMS[q.dtype]:
         raise ValueError(f"head dim {hd} is not supported by the "
-                         f"flash-attention kernel (built for {HEAD_DIMS})")
+                         f"flash-attention kernel for {q.dtype} (built for "
+                         f"{HEAD_DIMS[q.dtype]})")
     if KVH < 1 or H % KVH:
         raise ValueError(f"query heads ({H}) must be a multiple of KV heads "
                          f"({KVH})")
-    if max(B, H) > _MAX_GRID_YZ:
+    if q.dtype == torch.float32 and max(B, H) > _MAX_GRID_YZ:
         raise ValueError(f"B={B} and H={H} must be at most {_MAX_GRID_YZ}")
+    if q.dtype == torch.bfloat16 and -(-Sq // 128) * B * H > _MAX_ITEMS:
+        raise ValueError(f"B={B}, Sq={Sq}, H={H}: more than {_MAX_ITEMS} "
+                         f"work items")
     _check(q, "q", q.dtype, (B, Sq, H, hd))
     _check(k, "k", q.dtype, (B, Sk, KVH, hd))
     _check(v, "v", q.dtype, (B, Sk, KVH, hd))

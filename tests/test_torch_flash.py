@@ -8,9 +8,12 @@ machine with a CUDA card, the hand-written kernel against its plain version.
   * the model-level ``models.attention.flash_attention`` on bf16 inputs
     against the JAX model's jnp oracle, at a stated bf16 tolerance;
   * rows with no valid key are zeros; the CUDA wrapper refuses CPU
-    tensors and unsupported head dims instead of falling back;
+    tensors and head dims it is not built for (per dtype) instead of
+    falling back;
   * (gpu) the kernel equals its plain version on the card, float32 at the
-    same shapes and bf16 at model shapes, the same bits on a second launch.
+    same shapes (bf16 where float32 has no template), bf16 at model shapes
+    and at ragged bidirectional shapes of every padded head dim, the same
+    bits on a second launch.
 """
 import numpy as np
 import pytest
@@ -35,7 +38,8 @@ except ImportError:
 
 # (B, Sq, Sk, H, KVH, hd, window, causal): tests/test_kernels.py:117-123,
 # plus Sq = Sk = 384 with window 64, where whole 128-key tiles lie outside
-# the window
+# the window, and the head dims of h2o-danube-3-4b (120) and gemma3-12b
+# (256), short
 SHAPES = [
     (2, 128, 128, 4, 2, 64, 0, True),
     (1, 256, 256, 2, 1, 64, 64, True),     # sliding window
@@ -43,18 +47,29 @@ SHAPES = [
     (1, 64, 192, 2, 2, 64, 0, False),      # bidirectional, Sq != Sk
     (1, 128, 128, 2, 2, 128, 32, True),
     (1, 384, 384, 2, 2, 64, 64, True),     # tiles outside the window
+    (1, 136, 136, 4, 2, 120, 48, True),    # danube's hd, window, ragged
+    (1, 96, 160, 2, 1, 256, 0, False),     # gemma3's hd, Sq != Sk
 ]
 # bf16 model-level shapes (B, S, H, KVH, hd, window): the smoke configs'
-# head layouts and windows, one ragged length
+# head layouts and windows, one ragged length, and the full configs' head
+# dims 120 (danube, windowed) and 256 (gemma3)
 MODEL_SHAPES = [
     (2, 64, 8, 2, 16, 0),                  # tinyllama-smoke
     (2, 100, 4, 2, 32, 64),                # danube-smoke window, ragged
     (1, 96, 4, 2, 32, 32),                 # gemma3-smoke local layer
+    (1, 120, 4, 1, 120, 40),               # h2o-danube-3-4b head dim
+    (1, 72, 2, 1, 256, 0),                 # gemma3-12b head dim
 ]
+# ragged bidirectional bf16 shapes on the card, one per head dim and so
+# every padded template (64, 128, 256): Sq != Sk, neither a multiple of
+# the 128-row tiles, so the tensor maps' zero fill and the clipped stores
+# are exercised
+RAGGED_BF16 = [(1, 200, 333, 4, 2, hd, 0, False)
+               for hd in (16, 32, 64, 120, 128, 256)]
 # bf16: the port rounds its output to bf16 (2^-9 relative) where the JAX
 # oracle returns float32, and p is rounded to bf16 against another running
-# max (64-key tiles here, 1024-key chunks there); both are well inside
-# this bound for outputs of size ~1
+# max (the row's, or the kernel's per key tile, here; per 1024-key chunk
+# there); both are well inside this bound for outputs of size ~1
 BF16_RTOL, BF16_ATOL = 2e-2, 2e-2
 
 
@@ -121,6 +136,15 @@ def test_cuda_wrapper_refuses_cpu_tensors_and_other_head_dims():
     kv24 = torch.zeros((1, 8, 1, 24))
     with pytest.raises(ValueError, match="head dim 24 is not supported"):
         tflash.flash_attention_cuda(q24, kv24, kv24)
+    with pytest.raises(ValueError, match="head dim 24 is not supported"):
+        tflash.flash_attention_cuda(q24.bfloat16(), kv24.bfloat16(),
+                                    kv24.bfloat16())
+    for hd in (120, 256):         # bf16 only: float32 names its dtype
+        qf, kvf = torch.zeros((1, 8, 2, hd)), torch.zeros((1, 8, 1, hd))
+        with pytest.raises(ValueError, match=f"head dim {hd} is not "
+                           f"supported by the flash-attention kernel for "
+                           f"torch.float32"):
+            tflash.flash_attention_cuda(qf, kvf, kvf)
     with pytest.raises(ValueError, match="multiple of KV heads"):
         tflash.flash_attention_cuda(q, torch.zeros((1, 8, 3, 16)),
                                     torch.zeros((1, 8, 3, 16)))
@@ -128,6 +152,20 @@ def test_cuda_wrapper_refuses_cpu_tensors_and_other_head_dims():
         tflash.flash_attention_cuda(q.half(), k.half(), v.half())
     with pytest.raises(ValueError, match="'cpu' or 'cuda'"):
         ops.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+    assert tflash.flash_attention_cuda.launches == 0
+
+
+def test_cuda_wrapper_grid_limit_is_float32_only():
+    # float32 puts H on a grid axis (at most 65535); the persistent bf16
+    # grid is 1-D, so such a head count reaches the device check
+    H = 65536
+    q, kv = torch.zeros((1, 1, H, 16)), torch.zeros((1, 1, 1, 16))
+    tflash.flash_attention_cuda.launches = 0
+    with pytest.raises(ValueError, match="must be at most 65535"):
+        tflash.flash_attention_cuda(q, kv, kv)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tflash.flash_attention_cuda(q.bfloat16(), kv.bfloat16(),
+                                    kv.bfloat16())
     assert tflash.flash_attention_cuda.launches == 0
 
 
@@ -146,9 +184,12 @@ def cuda():
 @pytest.mark.gpu
 def test_flash_kernel_equals_plain_version(cuda):
     torch.backends.cuda.matmul.allow_tf32 = False
-    cases = [(s, torch.float32) for s in SHAPES] + [
+    f32_dims = tflash.HEAD_DIMS[torch.float32]
+    cases = [(s, torch.float32 if s[5] in f32_dims else torch.bfloat16)
+             for s in SHAPES] + [
         ((B, S, S, H, KVH, hd, w, True), torch.bfloat16)
-        for B, S, H, KVH, hd, w in MODEL_SHAPES + [(1, 300, 8, 2, 128, 0)]]
+        for B, S, H, KVH, hd, w in MODEL_SHAPES + [(1, 300, 8, 2, 128, 0)]
+    ] + [(s, torch.bfloat16) for s in RAGGED_BF16]
     for (B, Sq, Sk, H, KVH, hd, window, causal), dtype in cases:
         q, k, v = (torch.from_numpy(a).to(cuda, dtype)
                    for a in _inputs(B, Sq, Sk, H, KVH, hd, Sq + hd))

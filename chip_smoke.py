@@ -7,13 +7,15 @@ Phases, each printed as it ends; any failure exits non-zero:
   1. device and toolchain (card, power limit, torch/CUDA, nvcc, triton);
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
      per source, all started together; ``-Xptxas -v`` registers / shared
-     memory for every kernel: the eight sampling kernels, flash
-     attention's three bf16 instances (padded head dims 64, 128, 256;
-     their registers, spills and launch shared memory printed apart, and
-     no wgmma serialised) and its four float32 ones);
+     memory for every kernel: the nine sampling kernels, flash attention's
+     three bf16 instances (padded head dims 64, 128, 256; their registers,
+     spills and launch shared memory printed apart, and no wgmma
+     serialised) and its four float32 ones);
   3. each kernel against its plain PyTorch version on the card, on the same
      tensors: (a) at the parity shapes of the tests, exactly equal (the
-     in-kernel-RNG kernels with seeds 0, 1 and 2^31-1); (b) at full width
+     in-kernel-RNG kernels, the local-gibbs sweep among them, with seeds
+     0, 1 and 2^31-1; the local sweep also at B = 1, B = n-1, a ragged n,
+     B > 128 and D > 32); (b) at full width
      on potts-64x64: mgpmh (C=256, S=64, K=201), gibbs and the chromatic
      lattice-ising-64x64 class with at most 1% of chains differing — the
      plain version sums the ~1564 non-zero W terms of a row in another
@@ -21,7 +23,9 @@ Phases, each printed as it ends; any failure exits non-zero:
      the rest of that chain — and MIN-Gibbs (C=16, S=8, K=17188) and
      DoubleMIN (C=64, S=16, K1=201, K2=17188) exactly equal (integer
      counts, no float reduction); the in-kernel-RNG kernels at those
-     shapes with at most 1% of chains differing; (c) the bucket-energy
+     shapes with at most 1% of chains differing, and the local-gibbs sweep
+     (C=256, S=64, B in {8, 32, 128}) with at most 1% of chains differing
+     (``logf`` ulps in the Gumbels); (c) the bucket-energy
      kernel at the eight shapes of ``tests/test_kernels.py``, the three of
      ``benchmarks/kernel_bench.py`` and the local path's (C=256, K=B in
      {8, 32, 128}, D=10): bit-equal at integer weights, within rtol 1e-5 /
@@ -44,10 +48,11 @@ Phases, each printed as it ends; any failure exits non-zero:
      default lambda, and local-gibbs (256 chains x 100 sweeps of 64) for
      B in {8, 32, 128}, the Fig. 2a batch sizes, each replayed from its
      seed to the same bits; launch counts reset before and read after each
-     run, and must equal the sweep calls (color classes x calls; S x calls
-     bucket-energy launches for local-gibbs); then each of the five
-     single-site reference steps 64 times at C=256, chains moving and
-     their bucket-energy launches counted;
+     run, and must equal the sweep calls (color classes x calls; one
+     local-gibbs sweep launch per call and no bucket-energy launch); then
+     each of the five single-site reference steps 64 times at C=256, chains
+     moving and their bucket-energy launches counted (the bucket-energy
+     kernel's path);
   5. the in-kernel-RNG path at C=256, S=64 on potts-64x64 (the MIN-Gibbs
      host form would need 45 GB of streams there): a few calls of each
      ``*_rng`` kernel with fresh seeds, launch counts reset before and read
@@ -58,9 +63,13 @@ Phases, each printed as it ends; any failure exits non-zero:
      compared there too (host-stream kernels exactly, in-kernel-RNG kernels
      to at most 1% of chains, their plain versions run on chain slices);
      the bucket-energy kernel at every phase-3c shape beside its plain
-     version, ``scatter_add_`` and its bound, and one local-gibbs sweep call
-     split into its draws, its S kernel launches and the rest, with the
-     device's busy time over one call from ``torch.profiler``; the
+     version, ``scatter_add_`` and its bound, per launch as a stream of
+     launches (host path included) and as device time alone
+     (``torch.profiler``); the local-gibbs sweep kernel at B in {8, 32,
+     128} beside its plain version and bound, and one local-gibbs sweep
+     call split into the kernel and the rest (site and seed draws), with
+     updates/s and the device's busy time over one call from
+     ``torch.profiler``; the
      flash-attention kernel at the prefill attention of tinyllama-1.1b,
      starcoder2-7b, h2o-danube-3-4b and gemma3-12b (local and global)
      beside its plain version, ``scaled_dot_product_attention`` (timed,
@@ -134,9 +143,13 @@ PARITY_MIN = [(4, 5, 17, 3, 11), (3, 1, 1, 2, 5), (5, 7, 33, 4, 20)]
 PARITY_DMIN = [(4, 5, 17, 9, 3, 11), (3, 1, 1, 1, 2, 5),
                (5, 7, 33, 21, 4, 20)]         # (C, S, K1, K2, D, n)
 SEEDS = (0, 1, 2 ** 31 - 1)
+# (C, S, B, D, n) of the local-gibbs sweep: tests/test_torch_local_sweep.py
+PARITY_LOCAL = [(4, 5, 3, 3, 11), (8, 8, 10, 10, 40), (3, 1, 1, 2, 5),
+                (5, 12, 19, 6, 20), (2, 3, 100, 4, 129), (3, 4, 130, 5, 200),
+                (2, 2, 199, 3, 200), (2, 3, 40, 37, 90)]
 KERNELS = ("gibbs_sweep", "mgpmh_sweep", "mgpmh_sweep_rng", "min_gibbs_sweep",
            "min_gibbs_sweep_rng", "double_min_sweep", "double_min_sweep_rng",
-           "bucket_energy", "flash_attention")
+           "bucket_energy", "local_gibbs_sweep", "flash_attention")
 # ptxas entry functions: one per kernel, but flash attention has three bf16
 # instances (padded head dims 64, 128, 256) and four float32 ones (head
 # dims 16, 32, 64, 128)
@@ -150,6 +163,7 @@ BUCKET_SHAPES = [(1, 1, 2), (4, 100, 10), (8, 256, 2), (32, 1024, 10),
                  (64, 1024, 10), (256, 4096, 10), (64, 8192, 2),
                  *((C_FULL, b, 10) for b in LOCAL_B)]
 BUCKET_MAIN = (C_FULL, 32, 10)                # local-gibbs at the default B
+LOCAL_MAIN = 32                               # the local-gibbs default B
 STEP_CALLS = 64                               # phase 4 single-site steps
 # flash attention (B, Sq, Sk, H, KVH, hd, window, causal): the float32
 # shapes of tests/test_torch_flash.py that have a float32 template, then
@@ -250,8 +264,9 @@ def phase_device():
 def wrappers():
     """Every kernel wrapper, each with its launch count."""
     from repro_torch.kernels import fused_sweep as fs, minibatch_energy as me
-    from repro_torch.kernels import flash_attention as fa
-    return fs.WRAPPERS + (me.bucket_energy_cuda, fa.flash_attention_cuda)
+    from repro_torch.kernels import flash_attention as fa, local_sweep as ls
+    return fs.WRAPPERS + (me.bucket_energy_cuda, ls.local_gibbs_sweep_cuda,
+                          fa.flash_attention_cuda)
 
 
 def reset_launches():
@@ -402,12 +417,26 @@ def phase_parity(dev):
                    lambda a, sd: ref.double_min_sweep_rng_ref(
                        *a, sd, D, 0.7, 0.31, K1, K2), head, (5, 6, 7),
                    shape, dev)
+    from repro_torch.kernels import local_sweep as ls
+    for shape in PARITY_LOCAL:
+        C, S, B, D, n = shape
+        scale = (n - 1) / B
+        for weights in ("real", "integer"):
+            rng_parity("local_gibbs_sweep",
+                       lambda a, sd: ls.local_gibbs_sweep_cuda(
+                           *a, sd, B=B, D=D, scale=scale),
+                       lambda a, sd: ref.local_gibbs_sweep_ref(
+                           *a, sd, B, D, scale),
+                       t(pin.local_gibbs_inputs(C, S, D, n, weights)), (2,),
+                       shape, dev)
     torch.cuda.synchronize()
     say("3a parity", f"{len(PARITY_MGPMH)} mgpmh + {len(PARITY_GIBBS)} gibbs "
         f"+ {len(PARITY_MIN)} min-gibbs + {len(PARITY_DMIN)} doublemin "
         f"shapes: kernel == plain version exactly (x, cache, accepts); the "
         f"3 in-kernel-RNG kernels == their plain versions exactly at the "
-        f"same shapes for seeds {list(SEEDS)}")
+        f"same shapes for seeds {list(SEEDS)}; local_gibbs_sweep == its "
+        f"plain version exactly at {len(PARITY_LOCAL)} shapes (C,S,B,D,n) "
+        f"{PARITY_LOCAL}, real and integer weights, seeds {list(SEEDS)}")
 
 
 def bucket_inputs(C, K, D, weights, dev, seed):
@@ -643,8 +672,32 @@ def phase_full_width(potts, lattice):
         "double_min_sweep_rng", fs.double_min_sweep_rng_cuda(*a, sd, **k),
         ref.double_min_sweep_rng_ref(*a, sd, k["D"], k["scale1"],
                                      k["lscale2"], K1, K2), C)
+    from repro_torch.kernels import local_sweep as ls
+    worst = (0, 0.0)
+    for B in LOCAL_B:
+        (x, i), kw = local_inputs(potts, B, seed=14)
+        sd = _seed(15, potts.device)
+        got = compare(f"local_gibbs_sweep B={B}",
+                      ls.local_gibbs_sweep_cuda(x, potts.W, i, sd, **kw),
+                      ref.local_gibbs_sweep_ref(x, potts.W, i, sd, kw["B"],
+                                                kw["D"], kw["scale"]),
+                      C_FULL)
+        out[f"local_gibbs_sweep B={B}"] = got
+        worst = max(worst, got)
+    out["local_gibbs_sweep"] = worst
     torch.cuda.empty_cache()
     return out
+
+
+def local_inputs(potts, B, seed):
+    """((x, i_sites), kwargs) of one local-gibbs sweep call on potts-64x64 at
+    C=256, S=64, as the engine draws them (random x)."""
+    gen = torch.Generator(device=potts.device).manual_seed(seed)
+    x = torch.randint(0, potts.D, (C_FULL, potts.n), generator=gen,
+                      device=potts.device, dtype=torch.int32)
+    i = torch.randint(0, potts.n, (C_FULL, S_FULL), generator=gen,
+                      device=potts.device, dtype=torch.int32)
+    return (x, i), dict(B=B, D=potts.D, scale=(potts.n - 1) / B)
 
 
 def run_main_path(name, eng, n_chains, n_iters, n_snapshots, expect,
@@ -778,7 +831,7 @@ def phase_main_path(potts, lattice, pair_table_s):
         rec = run_main_path(
             f"local-gibbs B={B} potts-64x64", eng, C_FULL,
             SWEEPS_LOCAL * S_FULL, 10,
-            lambda calls: {"bucket_energy": S_FULL * calls}, replay=True)
+            lambda calls: {"local_gibbs_sweep": calls}, replay=True)
         check(rec["sites_changed"] > 0,
               f"local-gibbs B={B}: no chain changed any site")
         out[f"local-gibbs B={B}"] = rec
@@ -1127,6 +1180,8 @@ def phase_times(potts, lattice, rng_inputs):
     recs["bucket_energy"] = dict(
         shapes["C={} K={} D={}".format(*BUCKET_MAIN)],
         max_abs_err=max(r["max_abs_err"] for r in shapes.values()))
+    recs["local_gibbs_sweep_b"] = local = local_times(potts)
+    recs["local_gibbs_sweep"] = local[LOCAL_MAIN]
     recs["local_sweep_ms"] = local_split(potts)
     return recs
 
@@ -1165,57 +1220,159 @@ def bucket_times(dev):
         check(bool(((lib.double() - exact).abs() <= lib_tol).all()),
               f"scatter_add_ off the float64 sum at (C,K,D)={(C, K, D)} "
               f"beyond float32 summation error")
-        ms = per_launch_ms(lambda: me.bucket_energy_cuda(w, v, D), 100)
+        # the kernel and scatter_add_ in turns, so the host's load falls on
+        # both alike
+        ms, lms = alternating_per_launch_ms(
+            lambda: me.bucket_energy_cuda(w, v, D), library, 100)
         pms = per_launch_ms(lambda: ref.bucket_energy_ref(w, v, D), 20)
-        lms = per_launch_ms(library, 100)
+        dev_ms = kernel_device_ms(lambda: me.bucket_energy_cuda(w, v, D), 100,
+                                  "bucket_energy")
+        lib_dev_ms = kernel_device_ms(library, 100)
         bms, by = bound(8 * C * K + 4 * C * D, C * K)
         shape = f"C={C} K={K} D={D}"
-        recs[shape] = dict(ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bms,
-                           bound_by=by, shape=shape,
+        recs[shape] = dict(ms=ms, device_ms=dev_ms, plain_ms=pms,
+                           library_ms=lms, library_device_ms=lib_dev_ms,
+                           bound_ms=bms, bound_by=by, shape=shape,
                            max_abs_err=float((out - want).abs().max()))
         say("6 times", f"bucket_energy [C={C} K={K} D={D}]: kernel {ms:.4f} "
-            f"ms, plain {pms:.4f} ms, scatter_add_ {lms:.4f} ms, bound "
-            f"{bms:.6f} ms ({by})")
+            f"ms per launch (device {dev_ms:.4f}), plain {pms:.4f} ms, "
+            f"scatter_add_ {lms:.4f} ms per call (device, zeros and scatter "
+            f"{lib_dev_ms:.4f}), bound {bms:.6f} ms ({by})")
+    return recs
+
+
+def alternating_per_launch_ms(fn_a, fn_b, n, reps=5):
+    """Per-launch ms of two functions timed as ``per_launch_ms`` does, in
+    turns (a, b, a, b, ...), median of ``reps`` turns each."""
+    ta, tb = [], []
+    fn_a(), fn_b()
+    for _ in range(reps):
+        ta.append(per_launch_ms(fn_a, n, reps=1))
+        tb.append(per_launch_ms(fn_b, n, reps=1))
+    return statistics.median(ta), statistics.median(tb)
+
+
+def device_events(run, cpu=False, tries=3):
+    """(the device events of ``torch.profiler``'s ``key_averages()`` over one
+    window around ``run()``, what ``run`` returned).  CUPTI dropped every
+    device record of one window on the H100 in several hundred: a window
+    that delivered no device time is profiled again, up to ``tries``
+    windows, and the caller checks what the last one saw."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CUDA] + [ProfilerActivity.CPU] * cpu
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            out = run()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        if any(e.self_device_time_total > 0 for e in dev):
+            break
+    return dev, out
+
+
+def kernel_device_ms(fn, n, name=None):
+    """Device time per call of ``fn`` from ``torch.profiler`` over n calls:
+    the summed self device time of the device ops whose name holds ``name``
+    (all of them when None), divided by n."""
+    def run():
+        for _ in range(n):
+            fn()
+
+    fn()
+    dev, _ = device_events(run)
+    total = sum(e.self_device_time_total for e in dev
+                if name is None or name in e.key)
+    check(total > 0, f"torch.profiler saw no device time for {name or fn}")
+    return total / 1e3 / n
+
+
+def local_bound(x, i, B, D, seed):
+    """Bytes and operations one local-gibbs sweep call needs: the distinct
+    W entries its subsets read (counted from the plain version's subsets),
+    x read and written, the sites and the seed; one add per subset entry;
+    and the Philox calls of its two streams (B and D lanes, four words per
+    call)."""
+    from repro_torch.kernels import ref
+    C, n = x.shape
+    S = i.shape[1]
+    j = ref.local_gibbs_subsets(seed, i, B, n)
+    cells = int(torch.unique(i.long()[..., None] * n + j).numel())
+    nbytes = 4 * cells + 8 * C * n + 4 * C * S + 4
+    int_ops = PHILOX_INT_OPS * C * S * (-(-B // 4) + -(-D // 4))
+    return nbytes, C * S * B, int_ops
+
+
+def local_times(potts):
+    """The local-gibbs sweep kernel at C=256, S=64 on potts-64x64 for each
+    B in LOCAL_B beside its plain version and its bound (bytes: distinct W
+    entries, x, sites; the sub-steps' dependent latencies keep the kernel
+    far above it), each output held against the plain version's."""
+    from repro_torch.kernels import local_sweep as ls, ref
+    recs = {}
+    for B in LOCAL_B:
+        (x, i), kw = local_inputs(potts, B, seed=16)
+        sd = _seed(17, potts.device)
+        kernel = lambda: ls.local_gibbs_sweep_cuda(x, potts.W, i, sd, **kw)
+        ko = kernel()
+        # a stream of launches (the host's path runs ahead of the card's
+        # work), and the device time alone from torch.profiler
+        ms = per_launch_ms(kernel, 20)
+        dev_ms = kernel_device_ms(kernel, 20, "local_gibbs_sweep")
+        pms, po = timed(lambda: ref.local_gibbs_sweep_ref(
+            x, potts.W, i, sd, B, kw["D"], kw["scale"]), 1)
+        n_diff, err = compare(f"local_gibbs_sweep B={B}", ko, po, C_FULL,
+                              phase="6 times")
+        bms, by = bound(*local_bound(x, i, B, kw["D"], sd))
+        shape = f"potts-64x64 C={C_FULL} S={S_FULL} B={B} D={kw['D']}"
+        recs[B] = dict(ms=ms, device_ms=dev_ms, plain_ms=pms, bound_ms=bms,
+                       bound_by=by, library_ms=None, shape=shape,
+                       differing_chains=n_diff, max_abs_err=err)
+        say("6 times", f"local_gibbs_sweep [{shape}]: kernel {ms:.4f} ms per "
+            f"launch (device {dev_ms:.4f}), plain {pms:.4f} ms, bound "
+            f"{bms:.6f} ms ({by}; the S dependent sub-steps keep it "
+            f"latency-bound), no library call")
     return recs
 
 
 def local_split(potts):
     """One local-gibbs sweep call (C=256, S=64) per batch size, CUDA-event
-    medians: the whole call, its S draws (sites, subset keys and top-B,
-    Gumbels) alone, its S kernel launches alone at the call's shapes, and
-    the rest (gathers of W[i, j] and x[j], scaling, argmax, state write)."""
-    from repro_torch.core import engine, samplers
-    from repro_torch.kernels import minibatch_energy as me
+    medians: the whole call (``eng.sweep``), the kernel alone on the same
+    inputs, and the rest (the site and seed draws, the launch's host path);
+    updates/s of the call, and the device's busy time over one call from
+    ``torch.profiler`` against the unprofiled call's time."""
+    from repro_torch.core import engine
+    from repro_torch.kernels import local_sweep as ls
     out = {}
     C, S, n, D, dev = C_FULL, S_FULL, potts.n, potts.D, potts.device
     for B in LOCAL_B:
         eng = engine.make("local-gibbs", potts, sweep=S, batch_size=B)
         st = eng.init(3, C, start="random")
-        call = median_ms(lambda: eng.sweep(st), 10)
+        call = median_ms(lambda: eng.sweep(st), 20)
         gen = torch.Generator(device=dev).manual_seed(4)
-        draws = median_ms(lambda: [samplers.local_gibbs_draws(
-            gen, C, n, B, D, dev) for _ in range(S)], 10)
-        i, j, _ = samplers.local_gibbs_draws(gen, C, n, B, D, dev)
-        w, v = potts.W[i[:, None], j], st.x.gather(1, j)
-        kern = median_ms(lambda: [me.bucket_energy_cuda(w, v, D)
-                                  for _ in range(S)], 10)
-        keys = median_ms(lambda: [torch.rand(
-            (C, n - 1), generator=gen, device=dev, dtype=torch.float64
-        ).topk(B, dim=1, sorted=False) for _ in range(S)], 10)
-        out[B] = rec = dict(call_ms=call, draws_ms=draws,
-                            subset_keys_ms=keys, kernels_ms=kern,
-                            rest_ms=call - draws - kern,
+        draw = lambda: (
+            torch.randint(0, n, (C, S), generator=gen, device=dev,
+                          dtype=torch.int32),
+            torch.randint(0, 2 ** 31 - 1, (1,), generator=gen, device=dev,
+                          dtype=torch.int32))
+        draws = median_ms(draw, 20)
+        i, sd = draw()
+        kern = median_ms(lambda: ls.local_gibbs_sweep_cuda(
+            st.x, potts.W, i, sd, B=B, D=D, scale=(n - 1) / B), 20)
+        out[B] = rec = dict(call_ms=call, kernel_ms=kern, draws_ms=draws,
+                            rest_ms=call - kern,
                             updates_per_s=C * S / (call / 1e3),
                             **device_busy(lambda: eng.sweep(st)))
         # the profiled device time against the unprofiled call's time
         rec["device_idle_share"] = 1.0 - rec["device_busy_ms"] / call
         say("6 times", f"local-gibbs sweep call B={B} C={C} S={S}: "
-            f"{call:.3f} ms = draws {draws:.3f} (of which subset keys and "
-            f"top-B {keys:.3f}) + {S} kernel launches {kern:.3f} + rest "
-            f"{call - draws - kern:.3f} ({rec['updates_per_s'] / 1e6:.3f}M "
-            f"updates/s); profiled call: {rec['profiled_wall_ms']:.3f} ms "
-            f"wall, device busy {rec['device_busy_ms']:.3f} ms (idle "
-            f"{rec['device_idle_share']:.3f} of the call), top device ops "
+            f"{call:.4f} ms = kernel {kern:.4f} + rest {call - kern:.4f} "
+            f"(site and seed draws alone {draws:.4f}; "
+            f"{rec['updates_per_s'] / 1e6:.3f}M updates/s); profiled call: "
+            f"{rec['profiled_wall_ms']:.3f} ms wall, device busy "
+            f"{rec['device_busy_ms']:.4f} ms (idle "
+            f"{rec['device_idle_share']:.3f} of the call), device ops "
             + ", ".join(f"{k} {v:.4f}" for k, v in
                         rec["top_device_ops_ms"].items()))
     return out
@@ -1226,20 +1383,18 @@ def device_busy(fn):
     synchronize; the profiler's own cost included), device ms (the summed
     time of the device's kernels, memcpys and memsets; one stream) and the
     five of them with the most time."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    def run():
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        return time.perf_counter() - t0
+
+    dev, wall = device_events(run, cpu=True)
     name = lambda key: key.replace("(anonymous namespace)::", "").split(
         "(")[0].split("<")[0].split(" ")[-1]
-    ops = [(name(e.key), e.self_device_time_total / 1e3)
-           for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+    ops = [(name(e.key), e.self_device_time_total / 1e3) for e in dev]
     ops = sorted((o for o in ops if o[1] > 0), key=lambda o: -o[1])
+    check(bool(ops), f"torch.profiler saw no device time for {fn}")
     return dict(profiled_wall_ms=1e3 * wall,
                 device_busy_ms=sum(ms for _, ms in ops),
                 top_device_ops_ms={k: ms for k, ms in ops[:5]})
@@ -1702,9 +1857,12 @@ REPLACES = {
     "double_min_sweep": "src/repro/kernels/fused_sweep.py:687",
     "double_min_sweep_rng": "src/repro/kernels/fused_sweep.py:739",
     "bucket_energy": "src/repro/kernels/minibatch_energy.py:54",
+    # bucket_energy_pallas on the local path (src/repro/core/samplers.py:161)
+    "local_gibbs_sweep": "src/repro/kernels/minibatch_energy.py:54",
     "flash_attention": "src/repro/kernels/flash_attention.py:79",
 }
 SOURCES = {"bucket_energy": "src/repro_torch/kernels/csrc/bucket_energy.cu",
+           "local_gibbs_sweep": "src/repro_torch/kernels/csrc/local_sweep.cu",
            "flash_attention":
                "src/repro_torch/kernels/csrc/flash_attention.cu"}
 
@@ -1744,6 +1902,9 @@ def main():
             launches = record["rng_path"]["launches"][k]
         elif k == "flash_attention":
             launches = serve["flash_launches"]
+        elif k == "bucket_energy":       # the single-site steps' energy
+            launches = sum(r["bucket_energy_launches"]
+                           for r in record["steps"].values())
         else:
             launches = sum(run["launches"].get(k, 0) for run in main.values())
         check(launches > 0, f"{k} was not launched on its path")

@@ -309,15 +309,18 @@ def _doublemin_builder(graph, *, schedule, backend, lam1=None,
 @register("local-gibbs", backends=("torch", "cuda"))
 def _local_gibbs_builder(graph, *, schedule, backend, batch_size=None,
                          **params):
-    """Algorithm 3 as S single-site steps per call (the JAX package has no
-    fused local kernel either): one bucket-energy launch per sub-step."""
+    """Algorithm 3, S sub-steps per call in one fused launch
+    (``S._build_local_gibbs_sweep``): the subsets (Floyd's algorithm) and
+    the Gumbels are drawn from Philox in the call, in-kernel on the card and
+    by the plain version on the CPU.  The JAX package scans S single-site
+    steps instead; the two agree in distribution."""
     _reject_unknown("local-gibbs", params)
     _require_uniform("local-gibbs", schedule)
     batch_size = min(32, graph.n - 1) if batch_size is None else batch_size
-    step = S.make_local_gibbs_step(graph, batch_size)
     return _engine("local-gibbs", backend, schedule, schedule.sweep_len,
                    graph, dict(batch_size=batch_size),
-                   S._build_step_sweep(step, schedule.sweep_len),
+                   S._build_local_gibbs_sweep(graph, batch_size,
+                                              schedule.sweep_len),
                    exact_accept=True)
 
 

@@ -6,10 +6,10 @@ sweeps the Engine API assembles.
     chain by one update at an i.i.d.-uniform site: vanilla Gibbs
     (Algorithm 1), MIN-Gibbs (2), Local Minibatch Gibbs (3), MGPMH (4) and
     DoubleMIN (5).  They are the distributional ground truth the sweeps are
-    held to, and ``_build_step_sweep`` makes a sweep of S of them for an
-    algorithm without a fused kernel (Local Minibatch Gibbs).  Their
-    energies go through ``kernels.ops.bucket_energy`` (the exact pass and
-    the local minibatches); MIN-Gibbs and DoubleMIN count matches with
+    held to, and ``_build_step_sweep`` makes a sweep of S of them (the
+    unfused sweep the fused ones are compared with).  Their energies go
+    through ``kernels.ops.bucket_energy`` (the exact pass and the local
+    minibatches); MIN-Gibbs and DoubleMIN count matches with
     ``min_gibbs_estimate``.
   * ``_build_*_sweep(...)`` — ``sweep(state) -> state``: ``sweep_len``
     sequentially composed site updates per call, all randomness (sites,
@@ -18,7 +18,9 @@ sweeps the Engine API assembles.
     x-dependent pipeline run as one ``kernels.ops`` call — one kernel launch
     on the card.  Each sub-step is exactly one iteration of the single-site
     chain at an i.i.d.-uniform site.  Gibbs also runs on the chromatic
-    schedule.
+    schedule.  Local Minibatch Gibbs draws only its sites and a Philox
+    seed up front; its subsets and Gumbels are drawn in the call (in-kernel
+    on the card).
 
 RNG contract: every state carries ONE ``torch.Generator`` on its device
 (``state.gen``), and a step or sweep draws everything it needs from it, in
@@ -299,6 +301,14 @@ def local_gibbs_draws(gen, C: int, n: int, batch_size: int, D: int, device):
     return i, j, gumbel((C, D), gen, device)
 
 
+def _local_scale(n: int, batch_size: int) -> float:
+    """|A[i]| / |S| of Algorithm 3, after checking 1 <= B <= n - 1."""
+    if not 1 <= batch_size <= n - 1:
+        raise ValueError(f"batch_size must lie in [1, n - 1 = {n - 1}], got "
+                         f"{batch_size}")
+    return (n - 1) / batch_size
+
+
 def make_local_gibbs_step(graph: MatchGraph, batch_size: int):
     """Algorithm 3, Local Minibatch Gibbs: one shared uniform minibatch S of
     ``batch_size`` distinct factors of A[i] (drawn without replacement, the
@@ -307,10 +317,7 @@ def make_local_gibbs_step(graph: MatchGraph, batch_size: int):
     bucket-energy call (w = W[i, j], v = x[j], K = B) per update.  Biased
     for B < n - 1; exactly Gibbs at B = n - 1."""
     n, D, dev = graph.n, graph.D, graph.device
-    if not 1 <= batch_size <= n - 1:
-        raise ValueError(f"batch_size must lie in [1, n - 1 = {n - 1}], got "
-                         f"{batch_size}")
-    scale = (n - 1) / batch_size                     # |A[i]| / |S|
+    scale = _local_scale(n, batch_size)
 
     def step(state: ChainState) -> ChainState:
         x = state.x
@@ -389,9 +396,10 @@ def make_double_min_step(graph: MatchGraph, lam1: float, capacity1: int,
 
 
 def _build_step_sweep(step, sweep_len: int):
-    """``sweep_len`` applications of a single-site ``step`` per call — the
-    sweep of an algorithm without a fused kernel (Local Minibatch Gibbs:
-    one bucket-energy launch per sub-step on the card)."""
+    """``sweep_len`` applications of a single-site ``step`` per call: the
+    unfused sweep of an algorithm, one launch of each of its step's kernels
+    per sub-step on the card (Local Minibatch Gibbs's fused sweep,
+    ``_build_local_gibbs_sweep``, is held to it in distribution)."""
     def sweep(state: ChainState) -> ChainState:
         for _ in range(sweep_len):
             state = step(state)
@@ -418,6 +426,30 @@ def _build_gibbs_sweep(graph: MatchGraph, sweep_len: int):
     def sweep(state: ChainState) -> ChainState:
         i, g = gibbs_draws(state.gen, state.x.shape[0], sweep_len, n, D, dev)
         x = kernel_ops.gibbs_sweep(state.x, graph.W, i, g, D=D)
+        return state._replace(x=x)
+
+    return sweep
+
+
+def _build_local_gibbs_sweep(graph: MatchGraph, batch_size: int,
+                             sweep_len: int):
+    """``sweep_len`` sequential Local Minibatch Gibbs updates (Algorithm 3
+    per sub-step) per call, one fused launch for all chains.  Per call it
+    draws the sites (C, S) int32, then a (1,) int32 Philox seed, from
+    ``state.gen`` on the state's device (no host sync); the B-subsets
+    (Floyd's algorithm, uniform over the B-subsets of the other sites) and
+    the Gumbels come from Philox under that seed, in-kernel on the card and
+    in ``ref.local_gibbs_sweep_ref`` on the CPU, with the same bits."""
+    n, D, dev = graph.n, graph.D, graph.device
+    scale = _local_scale(n, batch_size)
+
+    def sweep(state: ChainState) -> ChainState:
+        i = torch.randint(0, n, (state.x.shape[0], sweep_len),
+                          generator=state.gen, device=dev, dtype=torch.int32)
+        seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=state.gen,
+                             device=dev, dtype=torch.int32)
+        x = kernel_ops.local_gibbs_sweep(state.x, graph.W, i, seed,
+                                         B=batch_size, D=D, scale=scale)
         return state._replace(x=x)
 
     return sweep

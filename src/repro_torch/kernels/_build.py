@@ -62,6 +62,9 @@ _SIGNATURES = {
                                    + [_c_float] * 2 + [_c_ptr],
     # w, v, out, C, K, D, stream
     "bucket_energy_launch": [_c_ptr] * 3 + [_c_int] * 3 + [_c_ptr],
+    # x, W, i_sites, seed, x_out, C, n, S, B, D, scale, stream
+    "local_gibbs_sweep_launch": [_c_ptr] * 5 + [_c_int] * 5 + [_c_float,
+                                                               _c_ptr],
     # q, k, v, out, B, Sq, Sk, H, KVH, hd, window, causal, is_bf16, scale,
     # stream
     "flash_attention_launch": [_c_ptr] * 4 + [_c_int] * 9 + [_c_float,
@@ -75,6 +78,7 @@ _SIGNATURES = {
 class BuildInfo:
     """The loaded library and how it was made."""
     lib: ctypes.CDLL
+    fns: dict           # launch name -> its ctypes function, typed once
     path: Path
     seconds: float      # nvcc wall time; 0.0 when an earlier build was reused
     log: str            # nvcc's output (-Xptxas -v: registers, smem, spills)
@@ -160,10 +164,11 @@ def load_library() -> BuildInfo:
             seconds = time.perf_counter() - t0
             os.replace(fresh, out)
     lib = ctypes.CDLL(str(out))
+    fns = {}
     for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
+        fn = fns[name] = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     lib.cuda_error_string.argtypes = [ctypes.c_int]
     lib.cuda_error_string.restype = ctypes.c_char_p
-    return BuildInfo(lib=lib, path=out, seconds=seconds, log=log)
+    return BuildInfo(lib=lib, fns=fns, path=out, seconds=seconds, log=log)

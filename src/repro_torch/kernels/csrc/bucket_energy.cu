@@ -4,7 +4,8 @@
 // convention).  The energy of every minibatch Gibbs variant has this form:
 // Local Minibatch Gibbs (w = W[i, j], v = x[j]), the MGPMH proposal
 // (w = (L/lambda) * mask, v = x[j]) and the exact conditional pass
-// (w = W[i, :], v = x).
+// (w = W[i, :], v = x).  In the port it is the energy of the single-site
+// reference steps; the local-gibbs engine runs local_sweep.cu instead.
 //
 // Replaces bucket_energy_pallas (src/repro/kernels/minibatch_energy.py,
 // body _kernel).  The TPU kernel builds a (BC, BK, 128) one-hot block in
@@ -18,8 +19,8 @@
 // bound, the D tail a mask on the store, so any (C, K, D) works.
 //
 // Bound: bytes (C*K*8 read once, C*D*4 written); C*K*D compare-selects and
-// C*K adds are far below the FP32 rate.  At the local path's K = B <= 128
-// the launch latency dominates.
+// C*K adds are far below the FP32 rate.  At the minibatch shapes (K <= 128)
+// the launch, not the device work, sets the time.
 //
 // Plain C interface (loaded with ctypes); the launch returns
 // cudaGetLastError().

@@ -7,6 +7,7 @@
 //   key  = (seed, stream)        ctr = (lane / 4, s, c, 0)
 //   bits = word (lane % 4) of philox4x32_10(ctr, key)
 //   u    = float(bits >> 8) * 2^-24                  exact, in [0, 1)
+// (the local sweep's subset stream uses the raw words: bits()).
 // One call per lane uses one of the four words (the other three are wasted;
 // a later kernel can hand them to neighbouring lanes).
 #pragma once
@@ -33,16 +34,23 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
   return c;
 }
 
-// Uniform of lane `lane` of stream `stream` at sub-step s of chain row c.
-__device__ __forceinline__ float uniform(uint32_t seed, uint32_t stream,
+// Raw 32-bit word of lane `lane` of stream `stream` at sub-step s of chain
+// row c.
+__device__ __forceinline__ uint32_t bits(uint32_t seed, uint32_t stream,
                                          int c, int s, int lane) {
   const uint4 w = philox4x32_10(
       make_uint4(static_cast<uint32_t>(lane) >> 2, static_cast<uint32_t>(s),
                  static_cast<uint32_t>(c), 0u),
       seed, stream);
   const int q = lane & 3;
-  const uint32_t bits = q == 0 ? w.x : q == 1 ? w.y : q == 2 ? w.z : w.w;
-  return __fmul_rn(__uint2float_rn(bits >> 8), 5.9604644775390625e-08f);
+  return q == 0 ? w.x : q == 1 ? w.y : q == 2 ? w.z : w.w;
+}
+
+// Uniform of lane `lane` of stream `stream` at sub-step s of chain row c.
+__device__ __forceinline__ float uniform(uint32_t seed, uint32_t stream,
+                                         int c, int s, int lane) {
+  return __fmul_rn(__uint2float_rn(bits(seed, stream, c, s, lane) >> 8),
+                   5.9604644775390625e-08f);
 }
 
 // 1e-20 rounded from double, as the plain version's Python scalar is

@@ -1,18 +1,23 @@
 """PyTorch wrapper of the bucket-energy kernel in ``csrc/bucket_energy.cu``.
 
 Computes ``E[c, u] = sum_k w[c, k] * 1[v[c, k] == u]``, the energy of every
-minibatch Gibbs variant (see ``ref.bucket_energy_ref``).  Like the sweep
-wrappers (``fused_sweep.py``) it checks dtype, shape, contiguity and device,
+minibatch Gibbs variant (see ``ref.bucket_energy_ref``); in the port, the
+energy of the single-site reference steps.  Like the sweep wrappers
+(``fused_sweep.py``) it checks dtype, shape, contiguity and device,
 allocates its output with ``torch.empty``, launches on PyTorch's current
 stream without synchronising, raises if the launch was refused, and counts
 its launches in ``bucket_energy_cuda.launches``.  CUDA tensors only: the CPU
 path is the plain version, chosen by ``ops.bucket_energy``.
+
+A launch reads ~10 KB at the minibatch shapes, so its host path is kept
+short: ``_call`` reuses the typed ctypes function and reads the stream
+handle once, and the data pointers go to it straight.
 """
 from __future__ import annotations
 
 import torch
 
-from .fused_sweep import _check, _check_cuda, _launch
+from .fused_sweep import _call, _check, _check_cuda
 
 __all__ = ["bucket_energy_cuda"]
 
@@ -49,7 +54,8 @@ def bucket_energy_cuda(w: torch.Tensor, v: torch.Tensor, D: int
     out = torch.empty((C, D), dtype=torch.float32, device=w.device)
     if C == 0:
         return out
-    _launch("bucket_energy_launch", w, (w, v, out, C, K, D))
+    _call("bucket_energy_launch", w.get_device(),
+          (w.data_ptr(), v.data_ptr(), out.data_ptr(), C, K, D))
     bucket_energy_cuda.launches += 1
     return out
 

@@ -2,10 +2,11 @@
 
 A CPU tensor goes to the plain PyTorch version (``ref.py``); a CUDA tensor
 goes to the hand-written kernel (``fused_sweep.py``,
-``minibatch_energy.py``, ``flash_attention.py``), which launches or
-raises.  Nothing falls back from one to the other.  The in-kernel-RNG
-kernels have no entry here (as in the JAX package): they are called
-through ``fused_sweep`` directly.
+``minibatch_energy.py``, ``local_sweep.py``, ``flash_attention.py``), which
+launches or raises.  Nothing falls back from one to the other.  The
+in-kernel-RNG forms of the fused sweeps have no entry here (as in the JAX
+package): they are called through ``fused_sweep`` directly.  The
+local-gibbs sweep draws in-kernel only, and has its entry here.
 """
 from __future__ import annotations
 
@@ -14,13 +15,14 @@ import torch
 from .fused_sweep import (double_min_sweep_cuda, gibbs_sweep_cuda,
                           mgpmh_sweep_cuda, min_gibbs_sweep_cuda)
 from .flash_attention import flash_attention_cuda
+from .local_sweep import local_gibbs_sweep_cuda
 from .minibatch_energy import bucket_energy_cuda
 from .ref import (bucket_energy_ref, double_min_sweep_ref,
-                  flash_attention_ref, gibbs_sweep_ref, mgpmh_sweep_ref,
-                  min_gibbs_sweep_ref)
+                  flash_attention_ref, gibbs_sweep_ref,
+                  local_gibbs_sweep_ref, mgpmh_sweep_ref, min_gibbs_sweep_ref)
 
 __all__ = ["bucket_energy", "flash_attention", "gibbs_sweep", "mgpmh_sweep",
-           "min_gibbs_sweep", "double_min_sweep"]
+           "min_gibbs_sweep", "double_min_sweep", "local_gibbs_sweep"]
 
 
 def _route(x, op: str) -> str:
@@ -127,3 +129,17 @@ def double_min_sweep(x, row_prob, row_alias, node_prob, node_alias, i_sites,
     if _route(x, "double_min_sweep") == "cpu":
         return double_min_sweep_ref(*args, D, scale1, lscale2)
     return double_min_sweep_cuda(*args, D=D, scale1=scale1, lscale2=lscale2)
+
+
+def local_gibbs_sweep(x, W, i_sites, seed, *, B: int, D: int,
+                      scale: float):
+    """S fused sequential Local Minibatch Gibbs site updates per chain, the
+    B-subsets (Floyd's algorithm) and Gumbels drawn from Philox under
+    ``seed`` (see ``ref.local_gibbs_sweep_ref``).
+
+    x (C, n) i32; W (n, n) f32; i_sites (C, S) i32; seed (1,) i32;
+    1 <= B <= n - 1; ``scale`` = (n-1)/B.  Returns x_out (C, n) i32.
+    """
+    if _route(x, "local_gibbs_sweep") == "cpu":
+        return local_gibbs_sweep_ref(x, W, i_sites, seed, B, D, scale)
+    return local_gibbs_sweep_cuda(x, W, i_sites, seed, B=B, D=D, scale=scale)

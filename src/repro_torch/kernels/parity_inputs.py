@@ -13,7 +13,7 @@ import numpy as np
 from ..core.factor_graph import build_alias_table
 
 __all__ = ["alias_rows", "node_table", "gibbs_inputs", "mgpmh_inputs",
-           "min_gibbs_inputs", "double_min_inputs"]
+           "min_gibbs_inputs", "double_min_inputs", "local_gibbs_inputs"]
 
 
 def _symmetric(rng, n):
@@ -96,3 +96,18 @@ def double_min_inputs(C, S, K1, K2, D, n):
     lu = np.log(rng.uniform(size=(C, S))).astype(np.float32)
     cache = rng.uniform(0, 3, (C,)).astype(np.float32)
     return (x, rp, ra, npb, nab, i, B1, u1, u2, g, B2, *v4, lu, cache)
+
+
+def local_gibbs_inputs(C, S, D, n, weights="real"):
+    """(x, W, i_sites) of a local-gibbs sweep call (its subsets and Gumbels
+    come from the seed; it reads no alias table, so none is built).
+    ``weights``: "real" (a random symmetric matrix, entries in [0.1, 1),
+    zero diagonal) or "integer" (symmetric integers in [-4, 4], zero
+    diagonal: every summation order gives the same bits)."""
+    rng = np.random.default_rng(C * 100 + S * 10 + D + n)
+    W = _symmetric(rng, n).astype(np.float32)
+    if weights == "integer":
+        A = np.triu(rng.integers(-4, 5, (n, n)), 1)
+        W = (A + A.T).astype(np.float32)
+    return (rng.integers(0, D, (C, n)).astype(np.int32), W,
+            rng.integers(0, n, (C, S)).astype(np.int32))

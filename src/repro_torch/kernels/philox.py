@@ -16,6 +16,7 @@ Layout (the kernels reproduce it bit for bit)::
     ctr  = (lane // 4, s, c, 0)         c = chain row of the call, s = sub-step
     bits = word (lane % 4) of philox4x32_10(ctr, key)
     u    = float32(bits >> 8) * 2^-24   exact, in [0, 1)
+    k    = (bits * (r + 1)) >> 32       raw-word streams only: k in [0, r]
     gumbel = -log(-log(u + 1e-20) + 1e-20)
     logu   = log(u + 1e-20)
 
@@ -29,6 +30,9 @@ Stream ids, with L lanes per (c, s) each; K is the unpadded capacity:
                lane = u·K + k), 4 gumbel (D)
     doublemin  0 u_idx, 1 u_alias (K1), 2 gumbel (D), 3 u_node, 4 u_nacc,
                5 u_row, 6 u_racc (K2), 7 logu (1)
+    local      0 u_sub (B; the raw 32-bit words, not uniforms: lane t
+               draws Floyd's k_t in [0, r_t] by multiply-high),
+               1 gumbel (D)
     =========  ==========================================================
 
 uint32 arithmetic is carried in int64 tensors; the 32x32 -> 64-bit
@@ -38,8 +42,9 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["philox4x32_10", "uniforms", "to_gumbel", "to_log_uniform",
-           "MGPMH_STREAMS", "MIN_GIBBS_STREAMS", "DOUBLE_MIN_STREAMS"]
+__all__ = ["philox4x32_10", "words", "uniforms", "to_gumbel",
+           "to_log_uniform", "MGPMH_STREAMS", "MIN_GIBBS_STREAMS",
+           "DOUBLE_MIN_STREAMS", "LOCAL_GIBBS_STREAMS"]
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57       # Random123's Philox4x32 multipliers
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85       # its Weyl key increments
@@ -50,6 +55,7 @@ MGPMH_STREAMS = dict(u_idx=0, u_alias=1, gumbel=2, logu=3)
 MIN_GIBBS_STREAMS = dict(u_node=0, u_nacc=1, u_row=2, u_racc=3, gumbel=4)
 DOUBLE_MIN_STREAMS = dict(u_idx=0, u_alias=1, gumbel=2, u_node=3, u_nacc=4,
                           u_row=5, u_racc=6, logu=7)
+LOCAL_GIBBS_STREAMS = dict(u_sub=0, gumbel=1)
 
 
 def _mulhilo(m: int, x: torch.Tensor):
@@ -79,13 +85,13 @@ def philox4x32_10(ctr, key):
     return c0, c1, c2, c3
 
 
-def uniforms(seed, stream, C: int, S: int, L: int, device=None,
-             chain0: int = 0) -> torch.Tensor:
-    """The (C, S, L) float32 uniforms of one stream, as the kernels draw
-    them: lane l of sub-step s of chain row c is word l % 4 of the Philox
-    block at counter (l // 4, s, c, 0) under key (seed mod 2^32, stream).
-    ``chain0`` offsets the chain rows, so rows chain0 .. chain0 + C - 1 of
-    a larger call can be drawn alone.
+def words(seed, stream, C: int, S: int, L: int, device=None,
+          chain0: int = 0) -> torch.Tensor:
+    """The (C, S, L) raw 32-bit words of one stream, as int64 in
+    [0, 2^32): lane l of sub-step s of chain row c is word l % 4 of the
+    Philox block at counter (l // 4, s, c, 0) under key
+    (seed mod 2^32, stream).  ``chain0`` offsets the chain rows, so rows
+    chain0 .. chain0 + C - 1 of a larger call can be drawn alone.
 
     ``seed`` is the (1,) int32 tensor a sweep takes, or an int.  ``stream``
     is an int, or a sequence of ints for several streams of the same width
@@ -100,13 +106,21 @@ def uniforms(seed, stream, C: int, S: int, L: int, device=None,
                          device=dev)[:, None, None, None]
     blocks = -(-L // 4)
     ar = lambda m: torch.arange(m, dtype=torch.int64, device=dev)
-    words = philox4x32_10(
+    out = philox4x32_10(
         (ar(blocks)[None, None, None, :], ar(S)[None, None, :, None],
          (chain0 + ar(C))[None, :, None, None], 0), (k0, k1))
-    bits = torch.stack(torch.broadcast_tensors(*words), dim=-1)
+    bits = torch.stack(torch.broadcast_tensors(*out), dim=-1)
     bits = bits.reshape(k1.shape[0], C, S, 4 * blocks)[..., :L]
-    u = (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
-    return u if many else u[0]
+    return bits if many else bits[0]
+
+
+def uniforms(seed, stream, C: int, S: int, L: int, device=None,
+             chain0: int = 0) -> torch.Tensor:
+    """The (C, S, L) float32 uniforms of one stream, as the kernels draw
+    them: ``float32(bits >> 8) * 2^-24`` of :func:`words` (same arguments),
+    exact, in [0, 1)."""
+    bits = words(seed, stream, C, S, L, device, chain0)
+    return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
 def to_gumbel(u: torch.Tensor) -> torch.Tensor:

@@ -26,6 +26,11 @@ kernels: each makes its uniform streams from the seed with
 ``philox.uniforms`` (the layout the kernels reproduce) and calls the
 host-stream version.  They hold the whole streams in memory, so they run at
 test and check sizes only.
+
+``local_gibbs_sweep_ref`` is the plain version of the Local Minibatch Gibbs
+sweep kernel (``csrc/local_sweep.cu``): Philox words, Floyd's subsets and
+Gumbels from the seed, then the sub-steps in order, each bucket summed
+over the subset in draw order, as the kernel sums.
 """
 from __future__ import annotations
 
@@ -36,7 +41,8 @@ from . import philox
 __all__ = ["bucket_energy_ref", "gibbs_sweep_ref", "mgpmh_sweep_ref",
            "min_gibbs_sweep_ref", "double_min_sweep_ref",
            "mgpmh_sweep_rng_ref", "min_gibbs_sweep_rng_ref",
-           "double_min_sweep_rng_ref", "flash_attention_ref"]
+           "double_min_sweep_rng_ref", "local_gibbs_subsets",
+           "local_gibbs_sweep_ref", "flash_attention_ref"]
 
 NEG_INF = -1e30     # the masked score of the TPU kernel (not -inf)
 
@@ -341,3 +347,72 @@ def double_min_sweep_rng_ref(x, row_prob, row_alias, node_prob, node_alias,
     return double_min_sweep_ref(x, row_prob, row_alias, node_prob,
                                 node_alias, i_sites, B1, u_idx, u_alias, g,
                                 B2, *v4, logu, cache, D, scale1, lscale2)
+
+
+def local_gibbs_subsets(seed, i_sites, B: int, n: int, chain0: int = 0):
+    """The subsets of a Local Minibatch Gibbs sweep call: j (C, S, B) int64,
+    B distinct sites per (chain, sub-step), none equal to that sub-step's
+    site, in draw order.
+
+    Floyd's algorithm over {0 .. n-2}: at step t = 0 .. B-1, with
+    r = n-1-B+t, draw k = (bits * (r+1)) >> 32 from lane t of the u_sub
+    stream (``philox.LOCAL_GIBBS_STREAMS``; raw 32-bit words) and insert k,
+    or r if k is already in the subset; then ``j = k + (k >= i)`` skips the
+    site, as the JAX step does.  Every B-subset is equally likely up to the
+    multiply-high bias, at most (r+1)/2^32 per draw (3.8e-6 at n = 16384);
+    at B = n-1 the subset is every other site.  ``chain0`` as in
+    ``mgpmh_sweep_rng_ref``.
+    """
+    C, S = i_sites.shape
+    m = n - 1
+    dev = i_sites.device
+    bits = philox.words(seed, philox.LOCAL_GIBBS_STREAMS["u_sub"], C, S, B,
+                        dev, chain0).reshape(C * S, B)
+    rows = torch.arange(C * S, device=dev)
+    member = torch.zeros((C * S, m), dtype=torch.bool, device=dev)
+    k = torch.empty((C * S, B), dtype=torch.int64, device=dev)
+    for t in range(B):
+        r = m - B + t
+        draw = (bits[:, t] * (r + 1)) >> 32
+        pick = torch.where(member[rows, draw], r, draw)
+        member[rows, pick] = True
+        k[:, t] = pick
+    k = k.reshape(C, S, B)
+    return k + (k >= i_sites.long()[..., None]).long()
+
+
+def local_gibbs_sweep_ref(x, W, i_sites, seed, B: int, D: int, scale: float,
+                          chain0: int = 0):
+    """S sequentially composed Local Minibatch Gibbs updates (Algorithm 3
+    per sub-step), every draw from the Philox streams of ``seed``.
+
+    Per sub-step s (all chains c in parallel, sites sequential in s):
+      j_t  = t-th site of Floyd's B-subset of the sites other than i
+             (``local_gibbs_subsets``)
+      eps_u = scale * sum_t W[i, j_t] 1[x[j_t] = u],  summed t = 0 .. B-1
+      x_i <- argmax_u eps_u + gumbel_u    (first maximum)
+
+    x (C, n) int32; W (n, n) float32; i_sites (C, S) int32; seed (1,)
+    int32; ``scale`` = (n-1)/B.  Returns x_out (C, n) int32.  The subsets
+    and the weights they read do not depend on x, so they are drawn and
+    gathered for all sub-steps first.  ``chain0`` as in
+    ``mgpmh_sweep_rng_ref``.
+    """
+    C, n = x.shape
+    S = i_sites.shape[1]
+    dev = x.device
+    rows = torch.arange(C, device=dev)
+    j = local_gibbs_subsets(seed, i_sites, B, n, chain0)       # (C, S, B)
+    w = W[i_sites.long()[..., None], j]                        # (C, S, B)
+    g = philox.to_gumbel(philox.uniforms(
+        seed, philox.LOCAL_GIBBS_STREAMS["gumbel"], C, S, D, dev, chain0))
+    scale_f = torch.tensor(scale, dtype=torch.float32, device=dev)
+    x = x.clone()
+    for s in range(S):
+        onehot = _onehot(torch.gather(x, 1, j[:, s]), D)        # (C, B, D)
+        acc = torch.zeros((C, D), dtype=torch.float32, device=dev)
+        for t in range(B):
+            acc = acc + w[:, s, t, None] * onehot[:, t, :]
+        v = torch.argmax(scale_f * acc + g[:, s], dim=-1)
+        x[rows, i_sites[:, s].long()] = v.to(x.dtype)
+    return x

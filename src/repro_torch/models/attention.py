@@ -40,7 +40,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     attention.  Returns (B, Sq, H, hd) in q's dtype.  The scale hd^-0.5
     multiplies the float32 score, as in the TPU kernel (the JAX oracle
     scales q in bf16 first: the same for hd 16, 64 and 256, one bf16
-    rounding of q apart for 32 and 128).
+    rounding of q apart for 32, 120 and 128).
     """
     return ops.flash_attention(q, k, v, window=int(window), causal=causal)
 

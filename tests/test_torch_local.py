@@ -15,7 +15,8 @@ against its plain version.
   * ``TabularPairwiseGraph``, ``spectral`` and ``diagnostics.exact`` equal
     the JAX modules on the same inputs;
   * (gpu) the kernel equals its plain version on the card, and local-gibbs
-    there reaches the exact marginals at B = n - 1.
+    there reaches the exact marginals at B = n - 1 through one fused
+    local-sweep launch per call.
 """
 import numpy as np
 import pytest
@@ -30,7 +31,8 @@ from repro_torch.core import chains, engine, samplers  # noqa: E402
 from repro_torch.core import factor_graph as tfg  # noqa: E402
 from repro_torch.core import spectral as tsp  # noqa: E402
 from repro_torch.diagnostics import exact as texact  # noqa: E402
-from repro_torch.kernels import minibatch_energy, ops  # noqa: E402
+from repro_torch.kernels import (local_sweep, minibatch_energy,  # noqa: E402
+                                 ops)
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.launch import gibbs as launcher  # noqa: E402
 
@@ -486,11 +488,15 @@ def test_bucket_energy_kernel_equals_plain_version(cuda):
 
 @pytest.mark.gpu
 def test_local_gibbs_on_the_card_reaches_exact_marginals(cuda):
+    """One fused local-sweep launch per sweep call, and no bucket-energy
+    launch: the engine no longer runs the single-site step."""
     g = tfg.make_potts_graph(grid=2, beta=0.5, D=3, device=cuda)
     eng = engine.make("local-gibbs", g, sweep=8, batch_size=g.n - 1)
     assert eng.backend == "cuda"
     before = minibatch_energy.bucket_energy_cuda.launches
+    fused = local_sweep.local_gibbs_sweep_cuda.launches
     tr = _run_engine(eng, 1024, 40)
-    assert minibatch_energy.bucket_energy_cuda.launches - before == 8 * 40
+    assert local_sweep.local_gibbs_sweep_cuda.launches - fused == 40
+    assert minibatch_energy.bucket_energy_cuda.launches - before == 0
     emp = (tr.marg.sum(0) / (40 * 1024)).cpu().numpy()
     assert np.abs(emp - _exact(g)).max() < 0.02

@@ -95,3 +95,30 @@ def test_chain_offset_draws_the_rows_of_a_larger_call(chain0, C):
     assert torch.equal(part, full[:, chain0:chain0 + C])
     bits = _philox_py((6 // 4, 1, chain0, 0), ((-3) & M32, 4))[6 % 4]
     assert float(part[1, 0, 1, 6]) == (bits >> 8) * 2.0 ** -24
+
+
+@pytest.mark.parametrize("seed", [0, 2 ** 31 - 1, -9])
+def test_local_gibbs_streams_follow_the_layout(seed):
+    """The local sweep's streams (``LOCAL_GIBBS_STREAMS``): u_sub lane t is
+    the raw 32-bit word t % 4 at counter (t // 4, s, c, 0) under key
+    (seed mod 2^32, 0); gumbel lane u the uniform of stream 1's word."""
+    st = philox.LOCAL_GIBBS_STREAMS
+    assert st == dict(u_sub=0, gumbel=1)
+    C, S, B, D = 2, 3, 9, 5
+    sd = torch.tensor([seed], dtype=torch.int32)
+    raw = philox.words(sd, st["u_sub"], C, S, B)
+    u = philox.uniforms(sd, st["gumbel"], C, S, D)
+    assert raw.dtype == torch.int64 and raw.shape == (C, S, B)
+    for c in range(C):
+        for s in range(S):
+            for t in range(B):
+                assert int(raw[c, s, t]) == _philox_py(
+                    (t // 4, s, c, 0), (seed & M32, 0))[t % 4]
+            for lane in range(D):
+                bits = _philox_py((lane // 4, s, c, 0),
+                                  (seed & M32, 1))[lane % 4]
+                assert float(u[c, s, lane]) == (bits >> 8) * 2.0 ** -24
+    # Floyd's draw k = (bits * (r + 1)) >> 32 stays in [0, r]
+    r = torch.arange(B) + 40
+    k = (raw * (r + 1)) >> 32
+    assert bool(((k >= 0) & (k <= r)).all())

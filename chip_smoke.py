@@ -15,7 +15,10 @@ Phases, each printed as it ends; any failure exits non-zero:
      tensors: (a) at the parity shapes of the tests, exactly equal (the
      in-kernel-RNG kernels, the local-gibbs sweep among them, with seeds
      0, 1 and 2^31-1; the local sweep also at B = 1, B = n-1, a ragged n,
-     B > 128 and D > 32); (b) at full width
+     B > 128 and D > 32; MIN-Gibbs and DoubleMIN also at shapes whose
+     lane rows take a block three passes and are not a multiple of 4,
+     with Poisson totals at 0 and at capacity, twice each with the same
+     bits); (b) at full width
      on potts-64x64: mgpmh (C=256, S=64, K=201), gibbs and the chromatic
      lattice-ising-64x64 class with at most 1% of chains differing — the
      plain version sums the ~1564 non-zero W terms of a row in another
@@ -142,6 +145,10 @@ PARITY_GIBBS = [(4, 5, 3, 11), (8, 8, 10, 40), (3, 1, 2, 5)]
 PARITY_MIN = [(4, 5, 17, 3, 11), (3, 1, 1, 2, 5), (5, 7, 33, 4, 20)]
 PARITY_DMIN = [(4, 5, 17, 9, 3, 11), (3, 1, 1, 1, 2, 5),
                (5, 7, 33, 21, 4, 20)]         # (C, S, K1, K2, D, n)
+# long lane rows (tests/test_torch_minibatch.py): D*K = 5155 and K2 =
+# 4099 lanes, neither a multiple of 4, three passes of a 512-thread block
+SPLIT_MIN = (3, 4, 1031, 5, 300)
+SPLIT_DMIN = (3, 4, 33, 4099, 4, 300)
 SEEDS = (0, 1, 2 ** 31 - 1)
 # (C, S, B, D, n) of the local-gibbs sweep: tests/test_torch_local_sweep.py
 PARITY_LOCAL = [(4, 5, 3, 3, 11), (8, 8, 10, 10, 40), (3, 1, 1, 2, 5),
@@ -327,6 +334,13 @@ def _seed(k, dev):
     return torch.tensor([k], dtype=torch.int32, device=dev)
 
 
+def packed(args):
+    """A MIN-Gibbs or DoubleMIN kernel's arguments from its plain
+    version's (``parity_inputs.packed_args``)."""
+    from repro_torch.kernels.parity_inputs import packed_args
+    return packed_args(args)
+
+
 def _equal(a, b):
     a = a if isinstance(a, tuple) else (a,)
     b = b if isinstance(b, tuple) else (b,)
@@ -393,19 +407,20 @@ def phase_parity(dev):
     for shape in PARITY_MIN:
         C, S, K, D, n = shape
         args = t(pin.min_gibbs_inputs(*shape))
-        check(_equal(fs.min_gibbs_sweep_cuda(*args, D=D, lscale=0.37),
+        check(_equal(fs.min_gibbs_sweep_cuda(*packed(args), D=D,
+                                             lscale=0.37),
                      ref.min_gibbs_sweep_ref(*args, D, 0.37)),
               f"min_gibbs kernel != plain version at (C,S,K,D,n)={shape}")
         head = args[:7] + (args[-1],)          # x, tables, i, B, cache
         rng_parity("min_gibbs_sweep_rng",
                    lambda a, sd: fs.min_gibbs_sweep_rng_cuda(
-                       *a, sd, D=D, lscale=0.37, K=K),
+                       *packed(a), sd, D=D, lscale=0.37, K=K),
                    lambda a, sd: ref.min_gibbs_sweep_rng_ref(
                        *a, sd, D, 0.37, K), head, (5, 6), shape, dev)
     for shape in PARITY_DMIN:
         C, S, K1, K2, D, n = shape
         args = t(pin.double_min_inputs(*shape))
-        check(_equal(fs.double_min_sweep_cuda(*args, D=D, scale1=0.7,
+        check(_equal(fs.double_min_sweep_cuda(*packed(args), D=D, scale1=0.7,
                                               lscale2=0.31),
                      ref.double_min_sweep_ref(*args, D, 0.7, 0.31)),
               f"double_min kernel != plain version at "
@@ -413,10 +428,12 @@ def phase_parity(dev):
         head = args[:7] + (args[10], args[-1])  # x, tables, i, B1, B2, cache
         rng_parity("double_min_sweep_rng",
                    lambda a, sd: fs.double_min_sweep_rng_cuda(
-                       *a, sd, D=D, scale1=0.7, lscale2=0.31, K1=K1, K2=K2),
+                       *packed(a), sd, D=D, scale1=0.7, lscale2=0.31, K1=K1,
+                       K2=K2),
                    lambda a, sd: ref.double_min_sweep_rng_ref(
                        *a, sd, D, 0.7, 0.31, K1, K2), head, (5, 6, 7),
                    shape, dev)
+    split_parity(dev)
     from repro_torch.kernels import local_sweep as ls
     for shape in PARITY_LOCAL:
         C, S, B, D, n = shape
@@ -434,9 +451,58 @@ def phase_parity(dev):
         f"+ {len(PARITY_MIN)} min-gibbs + {len(PARITY_DMIN)} doublemin "
         f"shapes: kernel == plain version exactly (x, cache, accepts); the "
         f"3 in-kernel-RNG kernels == their plain versions exactly at the "
-        f"same shapes for seeds {list(SEEDS)}; local_gibbs_sweep == its "
+        f"same shapes for seeds {list(SEEDS)}; both forms of min-gibbs "
+        f"{SPLIT_MIN} and doublemin {SPLIT_DMIN} (totals at 0 and at "
+        f"capacity) exactly, twice; "
+        f"local_gibbs_sweep == its "
         f"plain version exactly at {len(PARITY_LOCAL)} shapes (C,S,B,D,n) "
         f"{PARITY_LOCAL}, real and integer weights, seeds {list(SEEDS)}")
+
+
+def split_parity(dev):
+    """MIN-Gibbs and DoubleMIN at the SPLIT shapes, Poisson totals forced
+    to 0 and to capacity in some rows (``parity_inputs.edge_totals``): each
+    form equals its plain version bit for bit, on two launches."""
+    from repro_torch.kernels import fused_sweep as fs, parity_inputs as pin
+    from repro_torch.kernels import ref
+    t = lambda arrays: tuple(torch.from_numpy(a).to(dev) for a in arrays)
+
+    def twice(name, launch, want, seed=None):
+        first, again = launch(), launch()
+        torch.cuda.synchronize()
+        check(_equal(first, want) and _equal(again, want),
+              f"{name} at seed {seed}: kernel != plain version (or two "
+              f"launches differ)")
+
+    C, S, K, D, n = SPLIT_MIN
+    arrays = list(pin.min_gibbs_inputs(*SPLIT_MIN))
+    arrays[6] = pin.edge_totals(arrays[6], K)
+    args = t(arrays)
+    kargs, head = packed(args), args[:7] + (args[-1],)
+    want = ref.min_gibbs_sweep_ref(*args, D, 0.37)
+    rng_want = {sd: ref.min_gibbs_sweep_rng_ref(*head, _seed(sd, dev), D,
+                                                0.37, K) for sd in SEEDS}
+    twice("min_gibbs_sweep", lambda: fs.min_gibbs_sweep_cuda(
+        *kargs, D=D, lscale=0.37), want)
+    for sd in SEEDS:
+        twice("min_gibbs_sweep_rng", lambda: fs.min_gibbs_sweep_rng_cuda(
+            *kargs[:5], args[-1], _seed(sd, dev), D=D, lscale=0.37, K=K),
+            rng_want[sd], sd)
+    C, S, K1, K2, D, n = SPLIT_DMIN
+    arrays = list(pin.double_min_inputs(*SPLIT_DMIN))
+    arrays[6] = pin.edge_totals(arrays[6], K1)
+    arrays[10] = pin.edge_totals(arrays[10], K2)
+    args = t(arrays)
+    kargs, head = packed(args), args[:7] + (args[10], args[-1])
+    want = ref.double_min_sweep_ref(*args, D, 0.7, 0.31)
+    rng_want = {sd: ref.double_min_sweep_rng_ref(
+        *head, _seed(sd, dev), D, 0.7, 0.31, K1, K2) for sd in SEEDS}
+    twice("double_min_sweep", lambda: fs.double_min_sweep_cuda(
+        *kargs, D=D, scale1=0.7, lscale2=0.31), want)
+    for sd in SEEDS:
+        twice("double_min_sweep_rng", lambda: fs.double_min_sweep_rng_cuda(
+            *kargs[:5], args[10], args[-1], _seed(sd, dev), D=D, scale1=0.7,
+            lscale2=0.31, K1=K1, K2=K2), rng_want[sd], sd)
 
 
 def bucket_inputs(C, K, D, weights, dev, seed):
@@ -650,26 +716,28 @@ def phase_full_width(potts, lattice):
         f"{float(args[6].float().mean()):.1f}")
     check(K == 17188, f"capacity {K} != 17188 at lam=16384")
     out["min_gibbs_sweep"] = compare(
-        "min_gibbs_sweep", fs.min_gibbs_sweep_cuda(*args, **kw),
+        "min_gibbs_sweep", fs.min_gibbs_sweep_cuda(*packed(args), **kw),
         ref.min_gibbs_sweep_ref(*args, kw["D"], lscale), C, exact=True)
     a, k = rng_view("min_gibbs", args, kw, K)
     del args
     sd = _seed(12, potts.device)
     out["min_gibbs_sweep_rng"] = compare(
-        "min_gibbs_sweep_rng", fs.min_gibbs_sweep_rng_cuda(*a, sd, **k),
+        "min_gibbs_sweep_rng",
+        fs.min_gibbs_sweep_rng_cuda(*packed(a), sd, **k),
         ref.min_gibbs_sweep_rng_ref(*a, sd, k["D"], lscale, K), C)
     C, S = FULL_DMIN
     args, kw, K1, K2 = double_min_inputs(potts, C, S, seed=9)
     say("3b full width", f"doublemin K1={K1} K2={K2} C={C} S={S}")
     out["double_min_sweep"] = compare(
-        "double_min_sweep", fs.double_min_sweep_cuda(*args, **kw),
+        "double_min_sweep", fs.double_min_sweep_cuda(*packed(args), **kw),
         ref.double_min_sweep_ref(*args, kw["D"], kw["scale1"],
                                  kw["lscale2"]), C, exact=True)
     a, k = rng_view("double_min", args, kw, (K1, K2))
     del args
     sd = _seed(13, potts.device)
     out["double_min_sweep_rng"] = compare(
-        "double_min_sweep_rng", fs.double_min_sweep_rng_cuda(*a, sd, **k),
+        "double_min_sweep_rng",
+        fs.double_min_sweep_rng_cuda(*packed(a), sd, **k),
         ref.double_min_sweep_rng_ref(*a, sd, k["D"], k["scale1"],
                                      k["lscale2"], K1, K2), C)
     from repro_torch.kernels import local_sweep as ls
@@ -959,7 +1027,7 @@ def phase_rng_path(potts):
     out = {}
     for k, (args, kw) in inputs.items():
         wrapper = getattr(fs, k + "_cuda")
-        a = list(args)
+        a = list(args if k == "mgpmh_sweep_rng" else packed(args))
         times, grown, acc = [], [], 0
         for call in range(RNG_CALLS):
             seed = _seed(1000 + call, potts.device)
@@ -1435,7 +1503,8 @@ def new_kernel_times(potts, rng_inputs):
         compare(k, ko, po, C, exact=exact, phase="6 times")))
     args, kw, K = min_gibbs_inputs(potts, C_MIN, S_MIN, seed=31)
     D, lscale = kw["D"], kw["lscale"]
-    ms, ko = timed(lambda: fs.min_gibbs_sweep_cuda(*args, **kw), 5)
+    kargs = packed(args)
+    ms, ko = timed(lambda: fs.min_gibbs_sweep_cuda(*kargs, **kw), 5)
     pms, po = timed(lambda: ref.min_gibbs_sweep_ref(*args, D, lscale), 1)
     bms, by = bound(*min_gibbs_bound(args, rs, rng=False, K=K))
     shape = f"potts-64x64 C={C_MIN} S={S_MIN} K={K} D={D}"
@@ -1443,10 +1512,11 @@ def new_kernel_times(potts, rng_inputs):
         ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by, shape=shape,
         pair_draws_per_s=_per_s(args[6], ms),
         **check_at("min_gibbs_sweep", C_MIN, ko, po, True))
-    del args, ko, po
+    del args, kargs, ko, po
     torch.cuda.empty_cache()
     args, kw, K1, K2 = double_min_inputs(potts, C_DMIN, S_DMIN, seed=32)
-    ms, ko = timed(lambda: fs.double_min_sweep_cuda(*args, **kw), 5)
+    kargs = packed(args)
+    ms, ko = timed(lambda: fs.double_min_sweep_cuda(*kargs, **kw), 5)
     pms, po = timed(lambda: ref.double_min_sweep_ref(
         *args, kw["D"], kw["scale1"], kw["lscale2"]), 1)
     bms, by = bound(*double_min_bound(args[0], args[5], args[6], args[10],
@@ -1456,7 +1526,7 @@ def new_kernel_times(potts, rng_inputs):
         shape=f"potts-64x64 C={C_DMIN} S={S_DMIN} K1={K1} K2={K2} D={D}",
         pair_draws_per_s=_per_s(args[10], ms),
         **check_at("double_min_sweep", C_DMIN, ko, po, True))
-    del args, ko, po
+    del args, kargs, ko, po
     torch.cuda.empty_cache()
     seed = _seed(77, potts.device)
     rng_shape = f"potts-64x64 C={C_FULL} S={S_FULL}"
@@ -1470,7 +1540,9 @@ def new_kernel_times(potts, rng_inputs):
         shape=f"{rng_shape} K={kw['K']}",
         **check_at("mgpmh_sweep_rng", C_FULL, ko, po, False))
     args, kw = rng_inputs["min_gibbs_sweep_rng"]
-    ms, ko = timed(lambda: fs.min_gibbs_sweep_rng_cuda(*args, seed, **kw), 3)
+    kargs = packed(args)
+    ms, ko = timed(lambda: fs.min_gibbs_sweep_rng_cuda(*kargs, seed, **kw),
+                   3)
     bms, by = bound(*min_gibbs_bound(args, rs, rng=True, K=kw["K"]))
     pms, po = sliced_plain(
         lambda a, c0: ref.min_gibbs_sweep_rng_ref(
@@ -1486,7 +1558,8 @@ def new_kernel_times(potts, rng_inputs):
     del ko, po
     torch.cuda.empty_cache()
     args, kw = rng_inputs["double_min_sweep_rng"]
-    ms, ko = timed(lambda: fs.double_min_sweep_rng_cuda(*args, seed, **kw),
+    kargs = packed(args)
+    ms, ko = timed(lambda: fs.double_min_sweep_rng_cuda(*kargs, seed, **kw),
                    5)
     bms, by = bound(*double_min_bound(args[0], args[5], args[6], args[7],
                                       rs, D, rng=True))

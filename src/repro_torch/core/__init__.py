@@ -19,7 +19,7 @@ from .factor_graph import (MatchGraph, TabularPairwiseGraph, graph_from_numpy,
                            gaussian_kernel_interactions, make_ising_graph,
                            make_potts_graph, make_lattice_ising,
                            lattice_colors, make_pair_ising, pair_colors,
-                           build_alias_table, alias_draw)
+                           build_alias_table, alias_draw, pack_alias)
 from .estimators import (lemma2_lambda, recommended_capacity,
                          capacity_overflow_prob, draw_global_minibatch,
                          draw_local_minibatch, min_gibbs_estimate)

@@ -36,6 +36,7 @@ __all__ = [
     "TabularPairwiseGraph",
     "build_alias_table",
     "alias_draw",
+    "pack_alias",
     "graph_from_numpy",
     "gaussian_kernel_interactions",
     "make_ising_graph",
@@ -91,6 +92,20 @@ def alias_draw(gen: torch.Generator, prob: torch.Tensor, alias: torch.Tensor,
     return torch.where(u >= prob[idx], alias[idx].long(), idx).to(torch.int32)
 
 
+def pack_alias(prob: torch.Tensor, alias: torch.Tensor) -> torch.Tensor:
+    """An alias table as one record per entry: ``(..., 2)`` int32 whose
+    record e holds ``prob[e]``'s float32 bits and ``alias[e]``.  The
+    MIN-Gibbs and DoubleMIN kernels read one aligned 8-byte record per
+    draw (one memory sector) where the two tables would cost two."""
+    if prob.dtype != torch.float32 or alias.dtype != torch.int32:
+        raise ValueError(f"pack_alias takes float32 prob and int32 alias, "
+                         f"got {prob.dtype} and {alias.dtype}")
+    if prob.shape != alias.shape:
+        raise ValueError(f"prob {tuple(prob.shape)} and alias "
+                         f"{tuple(alias.shape)} differ in shape")
+    return torch.stack((prob.view(torch.int32), alias), dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # Interaction matrices (paper Appendix B)
 # ---------------------------------------------------------------------------
@@ -128,6 +143,12 @@ class MatchGraph:
     row_prob/row_alias   : (n, n) per-row alias tables, p_j = W_ij / L_i
                            (MGPMH's local minibatch over A[i]); built on
                            first use.
+    row_pack : (n, n, 2) int32, the two row tables as one record per entry
+               (:func:`pack_alias`), what the MIN-Gibbs and DoubleMIN
+               sweeps read; built on first use.  The separate tables are
+               kept only where something read them (MGPMH): a graph the
+               MIN engines alone read holds 8n^2 bytes of row tables, one
+               MGPMH reads too twice that (128 MiB more at n = 4096).
     pair_a/b : (F,) endpoints of the F = n(n-1)/2 upper-triangle factors.
     pair_prob/pair_alias : alias table over factors, p_phi = M_phi / Psi;
                            built on first use.
@@ -177,6 +198,17 @@ class MatchGraph:
     pair_b = property(lambda self: self._table("pair_b"))
     pair_prob = property(lambda self: self._table("pair_prob"))
     pair_alias = property(lambda self: self._table("pair_alias"))
+
+    @property
+    def row_pack(self) -> torch.Tensor:
+        if "row_pack" not in self._tables:
+            if "row_prob" in self._tables or self._weights64 is None:
+                pack = pack_alias(self.row_prob, self.row_alias)
+            else:         # packed on the host; the tables are not kept
+                pack = pack_alias(*map(torch.from_numpy,
+                                       _row_tables(self._weights64)))
+            self._tables["row_pack"] = pack.to(self.device)
+        return self._tables["row_pack"]
 
     def to(self, device) -> "MatchGraph":
         """This graph on ``device`` (self when it is there already)."""

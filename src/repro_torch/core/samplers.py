@@ -44,7 +44,7 @@ import torch
 
 from .estimators import (draw_global_minibatch, draw_local_minibatch,
                          min_gibbs_estimate, min_gibbs_lscale)
-from .factor_graph import MatchGraph, build_alias_table
+from .factor_graph import MatchGraph, build_alias_table, pack_alias
 from ..kernels import ops as kernel_ops
 
 __all__ = [
@@ -481,18 +481,19 @@ def _build_min_gibbs_sweep(graph: MatchGraph, lam: float, capacity: int,
     per call, one fused launch for all chains, fed by
     :func:`min_gibbs_draws`; the cached estimate rides ``state.cache``.
     The global minibatches use the two-stage pair draw (node table, then
-    row table), so the sweep never reads the flat factor table."""
+    row table), so the sweep never reads the flat factor table; it reads
+    both tables as packed records (``graph.row_pack``)."""
     D = graph.D
     lscale = min_gibbs_lscale(graph.psi, lam)
-    node_prob, node_alias = _node_alias_table(graph)
-    row_prob, row_alias = graph.row_prob, graph.row_alias
+    node_pack = pack_alias(*_node_alias_table(graph))
+    row_pack = graph.row_pack
 
     def sweep(state: ChainState) -> ChainState:
         draws = min_gibbs_draws(state.gen, graph, state.x.shape[0],
                                 sweep_len, lam, capacity)
         x, cache = kernel_ops.min_gibbs_sweep(
-            state.x, node_prob, node_alias, row_prob, row_alias, *draws,
-            state.cache, D=D, lscale=lscale)
+            state.x, node_pack, row_pack, *draws, state.cache, D=D,
+            lscale=lscale)
         return state._replace(x=x, cache=cache)
 
     return sweep
@@ -508,15 +509,15 @@ def _build_double_min_sweep(graph: MatchGraph, lam1: float, capacity1: int,
     D = graph.D
     scale1 = float(graph.L / lam1)
     lscale2 = min_gibbs_lscale(graph.psi, lam2)
-    node_prob, node_alias = _node_alias_table(graph)
-    row_prob, row_alias = graph.row_prob, graph.row_alias
+    node_pack = pack_alias(*_node_alias_table(graph))
+    row_pack = graph.row_pack
 
     def sweep(state: ChainState) -> ChainState:
         draws = double_min_draws(state.gen, graph, state.x.shape[0],
                                  sweep_len, lam1, capacity1, lam2, capacity2)
         x, cache, acc = kernel_ops.double_min_sweep(
-            state.x, row_prob, row_alias, node_prob, node_alias, *draws,
-            state.cache, D=D, scale1=scale1, lscale2=lscale2)
+            state.x, row_pack, node_pack, *draws, state.cache, D=D,
+            scale1=scale1, lscale2=lscale2)
         return state._replace(x=x, cache=cache, accepts=state.accepts + acc)
 
     return sweep

@@ -41,24 +41,22 @@ _SIGNATURES = {
     # x, W, row_prob, row_alias, i_sites, B, seed, x_out, accepts,
     # C, n, S, K, D, scale, stream
     "mgpmh_sweep_rng_launch": [_c_ptr] * 9 + [_c_int] * 5 + [_c_float, _c_ptr],
-    # x, node_prob, node_alias, row_prob, row_alias, i_sites, B, u_node,
-    # u_nacc, u_row, u_racc, gumbel, cache, x_out, cache_out,
-    # C, n, S, K, D, lscale, stream
-    "min_gibbs_sweep_launch": [_c_ptr] * 15 + [_c_int] * 5 + [_c_float,
+    # x, node_pack, row_pack, i_sites, B, u_node, u_nacc, u_row, u_racc,
+    # gumbel, cache, x_out, cache_out, C, n, S, K, D, lscale, stream
+    "min_gibbs_sweep_launch": [_c_ptr] * 13 + [_c_int] * 5 + [_c_float,
                                                              _c_ptr],
-    # x, node_prob, node_alias, row_prob, row_alias, i_sites, B, cache, seed,
-    # x_out, cache_out, C, n, S, K, D, lscale, stream
-    "min_gibbs_sweep_rng_launch": [_c_ptr] * 11 + [_c_int] * 5 + [_c_float,
-                                                                 _c_ptr],
-    # x, row_prob, row_alias, node_prob, node_alias, i_sites, B1, u_idx,
-    # u_alias, gumbel, B2, u_node, u_nacc, u_row, u_racc, logu, cache, x_out,
-    # cache_out, accepts, C, n, S, K1, K2, D, scale1, lscale2, stream
-    "double_min_sweep_launch": [_c_ptr] * 20 + [_c_int] * 6 + [_c_float] * 2
+    # x, node_pack, row_pack, i_sites, B, cache, seed, x_out, cache_out,
+    # C, n, S, K, D, lscale, stream
+    "min_gibbs_sweep_rng_launch": [_c_ptr] * 9 + [_c_int] * 5 + [_c_float,
+                                                                _c_ptr],
+    # x, row_pack, node_pack, i_sites, B1, u_idx, u_alias, gumbel, B2,
+    # u_node, u_nacc, u_row, u_racc, logu, cache, x_out, cache_out, accepts,
+    # C, n, S, K1, K2, D, scale1, lscale2, stream
+    "double_min_sweep_launch": [_c_ptr] * 18 + [_c_int] * 6 + [_c_float] * 2
                                + [_c_ptr],
-    # x, row_prob, row_alias, node_prob, node_alias, i_sites, B1, B2, cache,
-    # seed, x_out, cache_out, accepts, C, n, S, K1, K2, D, scale1, lscale2,
-    # stream
-    "double_min_sweep_rng_launch": [_c_ptr] * 13 + [_c_int] * 6
+    # x, row_pack, node_pack, i_sites, B1, B2, cache, seed, x_out, cache_out,
+    # accepts, C, n, S, K1, K2, D, scale1, lscale2, stream
+    "double_min_sweep_rng_launch": [_c_ptr] * 11 + [_c_int] * 6
                                    + [_c_float] * 2 + [_c_ptr],
     # w, v, out, C, K, D, stream
     "bucket_energy_launch": [_c_ptr] * 3 + [_c_int] * 3 + [_c_ptr],

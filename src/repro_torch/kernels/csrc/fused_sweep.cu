@@ -14,6 +14,10 @@
 // over s replaces the TPU kernel's fori_loop).  The (n, n) tables stay in
 // global memory and each sub-step reads only what it needs: the W row of
 // the updated site (4n bytes), the alias entries its draws land on.
+// MIN-Gibbs and DoubleMIN, whose sub-steps each make up to D*K (K2)
+// independent two-stage pair draws, take four consecutive lanes per thread
+// and read one packed 8-byte row record (prob's bits, alias) per draw: one
+// memory sector where two separate tables would cost two.
 // Site ids and alias entries are int32 throughout.
 //
 // Random source: the three minibatch bodies are templates over where their
@@ -25,8 +29,9 @@
 //
 // Determinism: float partial sums are reduced in a fixed order (per-thread
 // strided sums, warp shuffles, then warp partials summed in order by one
-// thread); counts are integers, reduced per warp and added once per warp,
-// whose result does not depend on order.  Argmax takes the first maximum.
+// thread); counts are integers, added per warp and per block, whose sum
+// does not depend on order or on how the draws are split.  Argmax takes
+// the first maximum.
 // Build with -fmad=false: the plain versions round every product and sum
 // separately.
 //
@@ -102,6 +107,7 @@ constexpr int kMaxStreams = 8;
 struct HostStreams {
   const float* p[kMaxStreams];
   int lanes[kMaxStreams];
+  bool vec;       // the pair-draw streams: 16-byte rows (lanes % 4 == 0)
   long long row;  // c * S, set by begin()
 
   __device__ void begin(int c, int S) { row = static_cast<long long>(c) * S; }
@@ -115,6 +121,18 @@ struct HostStreams {
     return at(st, s, lane);
   }
   __device__ float logu(int st, int s) const { return at(st, s, 0); }
+  // Lanes 4q..4q+3 (0 past the row's end; lane 4q lies in it): one 16-byte
+  // load where the rows allow it.  Each stream value is read once, so the
+  // loads stream past the caches (evict-first) and leave L2 to the row
+  // table's records.
+  __device__ float4 quad(int st, int s, int q) const {
+    const float* r = p[st] + (row + s) * lanes[st];
+    if (vec) return __ldcs(reinterpret_cast<const float4*>(r) + q);
+    const int l = 4 * q, L = lanes[st];
+    return make_float4(__ldcs(r + l), l + 1 < L ? __ldcs(r + l + 1) : 0.f,
+                       l + 2 < L ? __ldcs(r + l + 2) : 0.f,
+                       l + 3 < L ? __ldcs(r + l + 3) : 0.f);
+  }
 };
 
 // In-kernel Philox4x32-10 keyed by (seed, stream), counter (lane/4, s, c).
@@ -136,33 +154,56 @@ struct PhiloxStreams {
   __device__ float logu(int st, int s) const {
     return philox::log_uniform(uniform(st, s, 0));
   }
+  // Lanes 4q..4q+3: the four words of one Philox call.
+  __device__ float4 quad(int st, int s, int q) const {
+    return philox::uniforms4(seed, static_cast<uint32_t>(st), c, s, q);
+  }
 };
 
 __device__ __forceinline__ int scaled_index(float u, float fn, int n) {
   return min(static_cast<int>(__fmul_rn(u, fn)), n - 1);
 }
 
-// Two-stage global factor draw of lane `lane` from streams st0..st0+3:
+// Two-stage global factor draws of lanes 4q..4q+3 of streams st0..st0+3:
 // endpoint a from the node alias table (p_a = L_a / 2Psi), endpoint b from
-// row a's alias table (p_b = W_ab / L_a).  The node tables (8n bytes) are
-// read through the read-only cache; row entries are random 4-byte gathers.
+// row a's alias table (p_b = W_ab / L_a).  Every table entry is one packed
+// 8-byte record (prob's bits, alias): the node records (8n bytes) stay in
+// cache, a row record is one random sector.  The four lanes' loads do not
+// depend on each other, so a thread keeps four gather chains in flight.  A
+// lane that is not live loads no record and draws (0, 0).
 template <class Src>
-__device__ __forceinline__ int2 pair_draw(const Src& rng, int st0, int s,
-                                          int lane,
-                                          const float* __restrict__ node_prob,
-                                          const int* __restrict__ node_alias,
-                                          const float* __restrict__ row_prob,
-                                          const int* __restrict__ row_alias,
-                                          int n, float fn) {
-  const int idx1 = scaled_index(rng.uniform(st0, s, lane), fn, n);
-  const int a = rng.uniform(st0 + 1, s, lane) < __ldg(node_prob + idx1)
-                    ? idx1
-                    : __ldg(node_alias + idx1);
-  const int idx2 = scaled_index(rng.uniform(st0 + 2, s, lane), fn, n);
-  const long long e = static_cast<long long>(a) * n + idx2;
-  const int b = rng.uniform(st0 + 3, s, lane) < row_prob[e] ? idx2
-                                                            : row_alias[e];
-  return make_int2(a, b);
+__device__ __forceinline__ void pair_draw4(const Src& rng, int st0, int s,
+                                           int q, const bool (&live)[4],
+                                           const int2* __restrict__ node,
+                                           const int2* __restrict__ row,
+                                           int n, float fn, int (&a)[4],
+                                           int (&b)[4]) {
+  const float4 q0 = rng.quad(st0, s, q), q1 = rng.quad(st0 + 1, s, q);
+  const float4 q2 = rng.quad(st0 + 2, s, q), q3 = rng.quad(st0 + 3, s, q);
+  const float u0[4] = {q0.x, q0.y, q0.z, q0.w};
+  const float u1[4] = {q1.x, q1.y, q1.z, q1.w};
+  const float u2[4] = {q2.x, q2.y, q2.z, q2.w};
+  const float u3[4] = {q3.x, q3.y, q3.z, q3.w};
+  int idx[4];
+  int2 rec[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    idx[j] = scaled_index(u0[j], fn, n);
+    rec[j] = live[j] ? __ldg(node + idx[j]) : make_int2(0, 0);
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    a[j] = u1[j] < __int_as_float(rec[j].x) ? idx[j] : rec[j].y;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    idx[j] = scaled_index(u2[j], fn, n);
+    rec[j] = live[j]
+                 ? __ldg(row + static_cast<long long>(a[j]) * n + idx[j])
+                 : make_int2(0, 0);
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    b[j] = u3[j] < __int_as_float(rec[j].x) ? idx[j] : rec[j].y;
 }
 
 // Sum of one int per thread over the block, returned on thread 0 (0 on the
@@ -324,18 +365,18 @@ mgpmh_sweep_kernel(const int* __restrict__ x_in, const float* __restrict__ W,
 // MIN-Gibbs (Algorithm 2): per candidate u, B[c,s,u] two-stage pair draws
 // on x[i <- u]; eps_u = lscale * matches; eps[x_i] <- cache; Gumbel-argmax
 // v; cache <- eps_v.  The D*K draw lanes of a sub-step are independent:
-// lane u*K + k is draw k of candidate u.  Lanes with k >= B[c,s,u] read
-// nothing.  Each thread counts matches in a register, each warp reduces
-// once per candidate and adds once to the shared count.
+// lane l = u*K + k is draw k of candidate u, live iff k < B[c,s,u]; one
+// flat walk covers them all, a quad of four consecutive lanes per thread
+// and 32 quads per warp and pass.  A quad within one candidate adds its
+// matches through a warp-aggregated shared counter (one add per candidate
+// the warp saw); a quad across a candidate boundary adds lane by lane.
 // Streams: 0 u_node, 1 u_nacc, 2 u_row, 3 u_racc (D*K), 4 gumbel (D).
 // ---------------------------------------------------------------------------
 template <class Src>
 __global__ void __launch_bounds__(kDrawThreads)
 min_gibbs_sweep_kernel(const int* __restrict__ x_in,
-                       const float* __restrict__ node_prob,
-                       const int* __restrict__ node_alias,
-                       const float* __restrict__ row_prob,
-                       const int* __restrict__ row_alias,
+                       const int2* __restrict__ node,
+                       const int2* __restrict__ row,
                        const int* __restrict__ i_sites,
                        const int* __restrict__ B, Src src,
                        const float* __restrict__ cache_in,
@@ -344,10 +385,12 @@ min_gibbs_sweep_kernel(const int* __restrict__ x_in,
   extern __shared__ int smem[];
   int* xs = smem;                                   // n
   int* cnt = xs + n;                                // D
-  float* gs = reinterpret_cast<float*>(cnt + D);    // D
+  int* bs = cnt + D;                                // D: clamped totals
+  float* gs = reinterpret_cast<float*>(bs + D);     // D
   const int lane = threadIdx.x & 31;
   const int c = blockIdx.x;
   const float fn = static_cast<float>(n);
+  const int L = D * K, Q = (L + 3) >> 2;
   Src rng = src;
   rng.begin(c, S);
   float cache = threadIdx.x == 0 ? cache_in[c] : 0.f;   // thread 0's
@@ -357,21 +400,51 @@ min_gibbs_sweep_kernel(const int* __restrict__ x_in,
     const int i = i_sites[cs];
     for (int u = threadIdx.x; u < D; u += kDrawThreads) {
       cnt[u] = 0;
+      bs[u] = min(max(B[cs * D + u], 0), K);
       gs[u] = rng.gumbel(4, s, u);
     }
     __syncthreads();
-    for (int u = 0; u < D; ++u) {
-      const int b = min(max(B[cs * D + u], 0), K);
-      int m = 0;
-      for (int k = threadIdx.x; k < b; k += kDrawThreads) {
-        const int2 e = pair_draw(rng, 0, s, u * K + k, node_prob, node_alias,
-                                 row_prob, row_alias, n, fn);
-        const int xa = e.x == i ? u : xs[e.x];
-        const int xb = e.y == i ? u : xs[e.y];
-        m += xa == xb;
+    for (int q0 = (threadIdx.x >> 5) * 32; q0 < Q; q0 += kDrawThreads) {
+      const int q = q0 + lane, l0 = 4 * q;
+      int u[4];
+      bool live[4], any = false;
+      int k = l0 % K;                // K > 0: else the row has no quad
+      u[0] = l0 / K;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (j) {
+          u[j] = u[j - 1];
+          if (++k == K) { k = 0; ++u[j]; }
+        }
+        live[j] = l0 + j < L && k < bs[u[j]];
+        any |= live[j];
       }
-      m = __reduce_add_sync(0xffffffffu, m);
-      if (lane == 0 && m) atomicAdd(&cnt[u], m);
+      int m = 0, key = -1;
+      if (any) {
+        int a[4], b[4];
+        pair_draw4(rng, 0, s, q, live, node, row, n, fn, a, b);
+        bool hit[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int xa = a[j] == i ? u[j] : xs[a[j]];
+          const int xb = b[j] == i ? u[j] : xs[b[j]];
+          hit[j] = live[j] && xa == xb;
+        }
+        if (u[0] == u[3]) {
+          m = hit[0] + hit[1] + hit[2] + hit[3];
+          key = m ? u[0] : -1;
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (hit[j]) atomicAdd(&cnt[u[j]], 1);
+        }
+      }
+      // m < 8: three ballots give each group's sum to its first lane
+      const unsigned grp = __match_any_sync(0xffffffffu, key);
+      const int sum = __popc(__ballot_sync(0xffffffffu, m & 1) & grp) +
+                      2 * __popc(__ballot_sync(0xffffffffu, m & 2) & grp) +
+                      4 * __popc(__ballot_sync(0xffffffffu, m & 4) & grp);
+      if (key >= 0 && lane == __ffs(grp) - 1) atomicAdd(&cnt[key], sum);
     }
     __syncthreads();
     if (threadIdx.x == 0) {
@@ -398,16 +471,16 @@ min_gibbs_sweep_kernel(const int* __restrict__ x_in,
 // pass), then K2 two-stage pair draws at y = x[i <- v];
 // xi_y = lscale2 * matches; accept iff
 // logu < (xi_y - cache) + (eps_xi - eps_v); on accept cache <- xi_y.
+// The B2 pair draws go four consecutive lanes per thread, counted in
+// registers and reduced once per sub-step.
 // Streams: 0 u_idx, 1 u_alias (K1), 2 gumbel (D), 3 u_node, 4 u_nacc,
 // 5 u_row, 6 u_racc (K2), 7 logu (1).
 // ---------------------------------------------------------------------------
 template <class Src>
 __global__ void __launch_bounds__(kDrawThreads)
 double_min_sweep_kernel(const int* __restrict__ x_in,
-                        const float* __restrict__ row_prob,
-                        const int* __restrict__ row_alias,
-                        const float* __restrict__ node_prob,
-                        const int* __restrict__ node_alias,
+                        const int2* __restrict__ row,
+                        const int2* __restrict__ node,
                         const int* __restrict__ i_sites,
                         const int* __restrict__ B1,
                         const int* __restrict__ B2, Src src,
@@ -440,11 +513,12 @@ double_min_sweep_kernel(const int* __restrict__ x_in,
     }
     __syncthreads();
     // stage 1: local alias minibatch over A[i], bucketed by value
-    const float* prow = row_prob + static_cast<long long>(i) * n;
-    const int* arow = row_alias + static_cast<long long>(i) * n;
+    const int2* arow = row + static_cast<long long>(i) * n;
     for (int k = threadIdx.x; k < b1; k += kDrawThreads) {
       const int idx = scaled_index(rng.uniform(0, s, k), fn, n);
-      const int j = (rng.uniform(1, s, k) < prow[idx]) ? idx : arow[idx];
+      const int2 rec = __ldg(arow + idx);
+      const int j = rng.uniform(1, s, k) < __int_as_float(rec.x) ? idx
+                                                                 : rec.y;
       const int val = xs[j];
       if (val >= 0 && val < D) atomicAdd(&cnt[val], 1);
     }
@@ -465,12 +539,19 @@ double_min_sweep_kernel(const int* __restrict__ x_in,
     const int v = sh_v;
     // stage 3: second (global) minibatch at y = x[i <- v]
     int m = 0;
-    for (int k = threadIdx.x; k < b2; k += kDrawThreads) {
-      const int2 e = pair_draw(rng, 3, s, k, node_prob, node_alias, row_prob,
-                               row_alias, n, fn);
-      const int ya = e.x == i ? v : xs[e.x];
-      const int yb = e.y == i ? v : xs[e.y];
-      m += ya == yb;
+    for (int q = threadIdx.x; 4 * q < b2; q += kDrawThreads) {
+      const int l0 = 4 * q;
+      bool live[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) live[j] = l0 + j < b2;
+      int a[4], b[4];
+      pair_draw4(rng, 3, s, q, live, node, row, n, fn, a, b);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int ya = a[j] == i ? v : xs[a[j]];
+        const int yb = b[j] == i ? v : xs[b[j]];
+        m += live[j] && ya == yb;
+      }
     }
     m = block_count<kDrawThreads>(m, red);
     // stage 4: MH accept against the cached xi_x
@@ -510,11 +591,6 @@ size_t mgpmh_smem(int n, int D) {
          sizeof(float) * kWarps * 2;
 }
 
-size_t draw_smem(int n, int D) {
-  return sizeof(int) * (static_cast<size_t>(n) + 2 * static_cast<size_t>(D)) +
-         sizeof(int) * kDrawWarps;
-}
-
 template <class Src>
 int launch_mgpmh(const int* x, const float* W, const float* row_prob,
                  const int* row_alias, const int* i_sites, const int* B,
@@ -529,46 +605,57 @@ int launch_mgpmh(const int* x, const float* W, const float* row_prob,
   return static_cast<int>(cudaGetLastError());
 }
 
+// x, then D counts, D Gumbels and (MIN-Gibbs) D clamped totals, then the
+// warp partials (DoubleMIN)
+size_t draw_smem(int n, int D) {
+  return sizeof(int) * (static_cast<size_t>(n) + 3 * static_cast<size_t>(D) +
+                        kDrawWarps);
+}
+
 template <class Src>
-int launch_min_gibbs(const int* x, const float* node_prob,
-                     const int* node_alias, const float* row_prob,
-                     const int* row_alias, const int* i_sites, const int* B,
-                     Src src, const float* cache, int* x_out,
-                     float* cache_out, int C, int n, int S, int K, int D,
-                     float lscale, cudaStream_t stream) {
+int launch_min_gibbs(const int* x, const int2* node, const int2* row,
+                     const int* i_sites, const int* B, Src src,
+                     const float* cache, int* x_out, float* cache_out, int C,
+                     int n, int S, int K, int D, float lscale,
+                     cudaStream_t stream) {
   const size_t smem = draw_smem(n, D);
   cudaError_t err = prepare(min_gibbs_sweep_kernel<Src>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   min_gibbs_sweep_kernel<Src><<<C, kDrawThreads, smem, stream>>>(
-      x, node_prob, node_alias, row_prob, row_alias, i_sites, B, src, cache,
-      x_out, cache_out, n, S, K, D, lscale);
+      x, node, row, i_sites, B, src, cache, x_out, cache_out, n, S, K, D,
+      lscale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <class Src>
-int launch_double_min(const int* x, const float* row_prob,
-                      const int* row_alias, const float* node_prob,
-                      const int* node_alias, const int* i_sites,
-                      const int* B1, const int* B2, Src src,
-                      const float* cache, int* x_out, float* cache_out,
-                      int* accepts, int C, int n, int S, int K1, int K2, int D,
-                      float scale1, float lscale2, cudaStream_t stream) {
+int launch_double_min(const int* x, const int2* row, const int2* node,
+                      const int* i_sites, const int* B1, const int* B2,
+                      Src src, const float* cache, int* x_out,
+                      float* cache_out, int* accepts, int C, int n, int S,
+                      int K1, int K2, int D, float scale1, float lscale2,
+                      cudaStream_t stream) {
   const size_t smem = draw_smem(n, D);
   cudaError_t err = prepare(double_min_sweep_kernel<Src>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   double_min_sweep_kernel<Src><<<C, kDrawThreads, smem, stream>>>(
-      x, row_prob, row_alias, node_prob, node_alias, i_sites, B1, B2, src,
-      cache, x_out, cache_out, accepts, n, S, K1, K2, D, scale1, lscale2);
+      x, row, node, i_sites, B1, B2, src, cache, x_out, cache_out, accepts,
+      n, S, K1, K2, D, scale1, lscale2);
   return static_cast<int>(cudaGetLastError());
 }
 
+// ``pair``: the id of the first of the four pair-draw streams (-1: none);
+// their rows are read as 16-byte quads when every row starts 16-byte
+// aligned.
 HostStreams host_streams(std::initializer_list<const float*> p,
-                         std::initializer_list<int> lanes) {
+                         std::initializer_list<int> lanes, int pair = -1) {
   HostStreams h{};
   int k = 0;
   for (const float* q : p) h.p[k++] = q;
   k = 0;
   for (int l : lanes) h.lanes[k++] = l;
+  h.vec = pair >= 0 && h.lanes[pair] % 4 == 0;
+  for (int st = pair; h.vec && st < pair + 4; ++st)
+    h.vec = reinterpret_cast<uintptr_t>(h.p[st]) % 16 == 0;
   return h;
 }
 
@@ -616,69 +703,69 @@ int mgpmh_sweep_rng_launch(const int* x, const float* W,
                       scale, stream);
 }
 
-int min_gibbs_sweep_launch(const int* x, const float* node_prob,
-                           const int* node_alias, const float* row_prob,
-                           const int* row_alias, const int* i_sites,
-                           const int* B, const float* u_node,
-                           const float* u_nacc, const float* u_row,
-                           const float* u_racc, const float* gumbel,
-                           const float* cache, int* x_out, float* cache_out,
-                           int C, int n, int S, int K, int D, float lscale,
+// The packed tables arrive as int32 (..., 2) buffers: record e at 8e bytes.
+int min_gibbs_sweep_launch(const int* x, const int* node, const int* row,
+                           const int* i_sites, const int* B,
+                           const float* u_node, const float* u_nacc,
+                           const float* u_row, const float* u_racc,
+                           const float* gumbel, const float* cache,
+                           int* x_out, float* cache_out, int C, int n, int S,
+                           int K, int D, float lscale,
                            cudaStream_t stream) {
   const int DK = D * K;
   return launch_min_gibbs(
-      x, node_prob, node_alias, row_prob, row_alias, i_sites, B,
+      x, reinterpret_cast<const int2*>(node),
+      reinterpret_cast<const int2*>(row), i_sites, B,
       host_streams({u_node, u_nacc, u_row, u_racc, gumbel},
-                   {DK, DK, DK, DK, D}),
+                   {DK, DK, DK, DK, D}, 0),
       cache, x_out, cache_out, C, n, S, K, D, lscale, stream);
 }
 
-int min_gibbs_sweep_rng_launch(const int* x, const float* node_prob,
-                               const int* node_alias, const float* row_prob,
-                               const int* row_alias, const int* i_sites,
-                               const int* B, const float* cache,
-                               const int* seed, int* x_out, float* cache_out,
-                               int C, int n, int S, int K, int D,
-                               float lscale, cudaStream_t stream) {
-  return launch_min_gibbs(x, node_prob, node_alias, row_prob, row_alias,
-                          i_sites, B, philox_streams(seed), cache, x_out,
-                          cache_out, C, n, S, K, D, lscale, stream);
+int min_gibbs_sweep_rng_launch(const int* x, const int* node, const int* row,
+                               const int* i_sites, const int* B,
+                               const float* cache, const int* seed,
+                               int* x_out, float* cache_out, int C, int n,
+                               int S, int K, int D, float lscale,
+                               cudaStream_t stream) {
+  return launch_min_gibbs(x, reinterpret_cast<const int2*>(node),
+                          reinterpret_cast<const int2*>(row), i_sites, B,
+                          philox_streams(seed), cache, x_out, cache_out, C, n,
+                          S, K, D, lscale, stream);
 }
 
-int double_min_sweep_launch(const int* x, const float* row_prob,
-                            const int* row_alias, const float* node_prob,
-                            const int* node_alias, const int* i_sites,
-                            const int* B1, const float* u_idx,
-                            const float* u_alias, const float* gumbel,
-                            const int* B2, const float* u_node,
-                            const float* u_nacc, const float* u_row,
-                            const float* u_racc, const float* logu,
-                            const float* cache, int* x_out, float* cache_out,
-                            int* accepts, int C, int n, int S, int K1, int K2,
-                            int D, float scale1, float lscale2,
+int double_min_sweep_launch(const int* x, const int* row, const int* node,
+                            const int* i_sites, const int* B1,
+                            const float* u_idx, const float* u_alias,
+                            const float* gumbel, const int* B2,
+                            const float* u_node, const float* u_nacc,
+                            const float* u_row, const float* u_racc,
+                            const float* logu, const float* cache,
+                            int* x_out, float* cache_out, int* accepts, int C,
+                            int n, int S, int K1, int K2, int D,
+                            float scale1, float lscale2,
                             cudaStream_t stream) {
   return launch_double_min(
-      x, row_prob, row_alias, node_prob, node_alias, i_sites, B1, B2,
+      x, reinterpret_cast<const int2*>(row),
+      reinterpret_cast<const int2*>(node), i_sites, B1, B2,
       host_streams({u_idx, u_alias, gumbel, u_node, u_nacc, u_row, u_racc,
                     logu},
-                   {K1, K1, D, K2, K2, K2, K2, 1}),
-      cache, x_out, cache_out, accepts, C, n, S, K1, K2, D, scale1, lscale2,
-      stream);
+                   {K1, K1, D, K2, K2, K2, K2, 1}, 3),
+      cache, x_out, cache_out, accepts, C, n, S, K1, K2, D, scale1,
+      lscale2, stream);
 }
 
-int double_min_sweep_rng_launch(const int* x, const float* row_prob,
-                                const int* row_alias, const float* node_prob,
-                                const int* node_alias, const int* i_sites,
-                                const int* B1, const int* B2,
-                                const float* cache, const int* seed,
-                                int* x_out, float* cache_out, int* accepts,
-                                int C, int n, int S, int K1, int K2, int D,
-                                float scale1, float lscale2,
-                                cudaStream_t stream) {
-  return launch_double_min(x, row_prob, row_alias, node_prob, node_alias,
-                           i_sites, B1, B2, philox_streams(seed), cache,
-                           x_out, cache_out, accepts, C, n, S, K1, K2, D,
-                           scale1, lscale2, stream);
+int double_min_sweep_rng_launch(const int* x, const int* row, const int* node,
+                                const int* i_sites, const int* B1,
+                                const int* B2, const float* cache,
+                                const int* seed, int* x_out, float* cache_out,
+                                int* accepts, int C, int n, int S, int K1,
+                                int K2, int D, float scale1,
+                                float lscale2, cudaStream_t stream) {
+  return launch_double_min(x, reinterpret_cast<const int2*>(row),
+                           reinterpret_cast<const int2*>(node), i_sites, B1,
+                           B2, philox_streams(seed), cache, x_out, cache_out,
+                           accepts, C, n, S, K1, K2, D, scale1, lscale2,
+                           stream);
 }
 
 const char* cuda_error_string(int err) {

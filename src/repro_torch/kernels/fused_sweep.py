@@ -17,10 +17,14 @@ whole (n, n) tables in VMEM and gather rows with one-hot matrix products.
 On Hopper the tables (64 MiB each at potts-64x64) cannot sit in shared
 memory, and a one-hot product would do n times the work of a gather, so the
 kernels gather straight from global memory: per sub-step and chain one W
-row (4n bytes) and the alias entries the draws land on (8 bytes each).  One
-block per chain keeps the chain's state in shared memory across all S
-sub-steps, so x never round-trips to global memory inside a sweep;
-``chip_smoke.py`` computes each kernel's bound for its run.
+row (4n bytes) and the alias entries the draws land on.  One block per
+chain keeps the chain's state in shared memory across all S sub-steps, so
+x never round-trips to global memory inside a sweep.  MIN-Gibbs and
+DoubleMIN take four consecutive draw lanes per thread and read the node
+and row alias tables as packed 8-byte records
+(``core.factor_graph.pack_alias``): a draw's random row entry is one memory
+sector where the two tables cost two.  ``chip_smoke.py`` computes each
+kernel's bound for its run.
 
 The ``*_rng_cuda`` wrappers take a (1,) int32 ``seed`` tensor on the card
 in place of the uniform streams: the kernel draws every uniform, Gumbel and
@@ -62,8 +66,8 @@ def _check_cuda(tensors):
             raise ValueError(f"all inputs must be on {dev}, got {t.device}")
 
 
-def _check_smem(n: int, D: int):
-    if 4 * (n + 2 * D) + 256 > _MAX_SMEM:
+def _check_smem(n: int, D: int, words_per_value: int = 2):
+    if 4 * (n + words_per_value * D) + 256 > _MAX_SMEM:
         raise ValueError(f"n={n} sites do not fit one block's shared memory "
                          f"({_MAX_SMEM} bytes)")
 
@@ -99,14 +103,14 @@ def _sites(i_sites) -> int:
     return i_sites.shape[1] if i_sites.dim() == 2 else -1
 
 
-def _check_node_tables(node_prob, node_alias, n):
-    _check(node_prob, "node_prob", torch.float32, (n,))
-    _check(node_alias, "node_alias", torch.int32, (n,))
-
-
 def _check_row_tables(row_prob, row_alias, n):
     _check(row_prob, "row_prob", torch.float32, (n, n))
     _check(row_alias, "row_alias", torch.int32, (n, n))
+
+
+def _check_packs(node_pack, row_pack, n):
+    _check(node_pack, "node_pack", torch.int32, (n, 2))
+    _check(row_pack, "row_pack", torch.int32, (n, n, 2))
 
 
 def gibbs_sweep_cuda(x, W, i_sites, gumbel, *, D: int):
@@ -213,65 +217,66 @@ def mgpmh_sweep_rng_cuda(x, W, row_prob, row_alias, i_sites, B, seed, *,
     return out, acc
 
 
-def _min_gibbs_checks(x, node_prob, node_alias, row_prob, row_alias, i_sites,
-                      B, cache, D):
+def _min_gibbs_checks(x, node_pack, row_pack, i_sites, B, cache, D):
     C, n = x.shape
     S = _sites(i_sites)
     _check(x, "x", torch.int32, (C, n))
-    _check_node_tables(node_prob, node_alias, n)
-    _check_row_tables(row_prob, row_alias, n)
+    _check_packs(node_pack, row_pack, n)
     _check(i_sites, "i_sites", torch.int32, (C, S))
     _check(B, "B", torch.int32, (C, S, D))
     _check(cache, "cache", torch.float32, (C,))
-    _check_smem(n, D)
+    _check_smem(n, D, words_per_value=3)
     return C, n, S
 
 
-def min_gibbs_sweep_cuda(x, node_prob, node_alias, row_prob, row_alias,
-                         i_sites, B, u_node, u_nacc, u_row, u_racc, gumbel,
-                         cache, *, D: int, lscale: float):
+def min_gibbs_sweep_cuda(x, node_pack, row_pack, i_sites, B, u_node, u_nacc,
+                         u_row, u_racc, gumbel, cache, *, D: int,
+                         lscale: float):
     """S fused MIN-Gibbs site updates per chain
-    (``ref.min_gibbs_sweep_ref``).
+    (``ref.min_gibbs_sweep_ref``, which reads the unpacked tables).
 
-    x (C, n) int32; node_prob (n,) float32 / node_alias (n,) int32;
-    row_prob/row_alias (n, n); i_sites (C, S) int32; B (C, S, D) int32;
-    u_node/u_nacc/u_row/u_racc (C, S, D, K) float32; gumbel (C, S, D)
-    float32; cache (C,) float32.  ``lscale`` = log1p(Psi/lam).
+    x (C, n) int32; node_pack (n, 2) / row_pack (n, n, 2) int32, the node
+    and row alias tables packed by ``core.factor_graph.pack_alias``;
+    i_sites (C, S) int32; B (C, S, D) int32; u_node/u_nacc/u_row/u_racc
+    (C, S, D, K) float32; gumbel (C, S, D) float32; cache (C,) float32.
+    ``lscale`` = log1p(Psi/lam).
     Returns (x_out (C, n) int32, cache_out (C,) float32).
 
     Replaces ``min_gibbs_sweep_pallas``
     (``src/repro/kernels/fused_sweep.py:605``, body ``_min_gibbs_kernel``).
-    Bound by bytes: per live draw four 4-byte uniforms and two random table
-    gathers (node entry, row entry).  The D*K draw lanes of a sub-step are
-    independent, so 512 threads per block walk them candidate by candidate,
-    skip lanes past B[c, s, u] without loading them, count matches in a
-    register and add once per warp and candidate; each 4-byte gather still
-    moves a 32-byte sector, so the kernel runs far from the byte bound.
+    Bound by bytes: per live draw 16 bytes of uniforms and one random
+    8-byte row record (the node records stay in cache); the card's
+    random-gather rate, not the bound, sets its time
+    (``scripts/pair_draw_ab.py``, PERF.md).  One block of 512 threads per
+    chain walks a sub-step's D*K lanes in one flat loop, four consecutive
+    lanes per thread (one 16-byte load per stream where D*K % 4 == 0; four
+    independent gather chains), skips the records of dead lanes
+    (k >= B[c, s, u]) and counts matches in warp-aggregated shared
+    counters.
     """
-    C, n, S = _min_gibbs_checks(x, node_prob, node_alias, row_prob,
-                                row_alias, i_sites, B, cache, D)
+    C, n, S = _min_gibbs_checks(x, node_pack, row_pack, i_sites, B, cache,
+                                D)
     K = u_node.shape[-1]
     for t, name in ((u_node, "u_node"), (u_nacc, "u_nacc"), (u_row, "u_row"),
                     (u_racc, "u_racc")):
         _check(t, name, torch.float32, (C, S, D, K))
     _check(gumbel, "gumbel", torch.float32, (C, S, D))
-    _check_cuda([x, node_prob, node_alias, row_prob, row_alias, i_sites, B,
-                 u_node, u_nacc, u_row, u_racc, gumbel, cache])
+    _check_cuda([x, node_pack, row_pack, i_sites, B, u_node, u_nacc, u_row,
+                 u_racc, gumbel, cache])
     out = torch.empty_like(x)
     cache_out = torch.empty_like(cache)
     if C == 0:
         return out, cache_out
     _launch("min_gibbs_sweep_launch", x,
-            (x, node_prob, node_alias, row_prob, row_alias, i_sites, B,
-             u_node, u_nacc, u_row, u_racc, gumbel, cache, out, cache_out,
-             C, n, S, K, D, float(lscale)))
+            (x, node_pack, row_pack, i_sites, B, u_node, u_nacc, u_row,
+             u_racc, gumbel, cache, out, cache_out, C, n, S, K, D,
+             float(lscale)))
     min_gibbs_sweep_cuda.launches += 1
     return out, cache_out
 
 
-def min_gibbs_sweep_rng_cuda(x, node_prob, node_alias, row_prob, row_alias,
-                             i_sites, B, cache, seed, *, D: int,
-                             lscale: float, K: int):
+def min_gibbs_sweep_rng_cuda(x, node_pack, row_pack, i_sites, B, cache, seed,
+                             *, D: int, lscale: float, K: int):
     """``min_gibbs_sweep_cuda`` with in-kernel Philox uniforms
     (``ref.min_gibbs_sweep_rng_ref``): ``seed`` (1,) int32 on the card
     replaces the four (C, S, D, K) streams and the Gumbels; B stays an
@@ -279,39 +284,37 @@ def min_gibbs_sweep_rng_cuda(x, node_prob, node_alias, row_prob, row_alias,
 
     Replaces ``min_gibbs_sweep_pallas_rng``
     (``src/repro/kernels/fused_sweep.py:650``).  The MIN-Gibbs body with
-    the Philox source.  Bound by integer operations: four Philox4x32-10
-    calls per live draw (one word of four used).  Allocates only x_out and
-    cache_out: at potts-64x64's default lam the host form's streams would
-    be 45 GB at C=256, S=64.
+    the Philox source: a thread's four lanes take the four words of one
+    Philox4x32-10 call per stream (the counter is lane // 4), beside the
+    same random row-record gathers, which set its time.  Allocates only
+    x_out and cache_out: at potts-64x64's default lam the host form's
+    streams would be 45 GB at C=256, S=64.
     """
-    C, n, S = _min_gibbs_checks(x, node_prob, node_alias, row_prob,
-                                row_alias, i_sites, B, cache, D)
+    C, n, S = _min_gibbs_checks(x, node_pack, row_pack, i_sites, B, cache,
+                                D)
     _check(seed, "seed", torch.int32, (1,))
-    _check_cuda([x, node_prob, node_alias, row_prob, row_alias, i_sites, B,
-                 cache, seed])
+    _check_cuda([x, node_pack, row_pack, i_sites, B, cache, seed])
     out = torch.empty_like(x)
     cache_out = torch.empty_like(cache)
     if C == 0:
         return out, cache_out
     _launch("min_gibbs_sweep_rng_launch", x,
-            (x, node_prob, node_alias, row_prob, row_alias, i_sites, B, cache,
-             seed, out, cache_out, C, n, S, int(K), D, float(lscale)))
+            (x, node_pack, row_pack, i_sites, B, cache, seed, out, cache_out,
+             C, n, S, int(K), D, float(lscale)))
     min_gibbs_sweep_rng_cuda.launches += 1
     return out, cache_out
 
 
-def _double_min_checks(x, row_prob, row_alias, node_prob, node_alias,
-                       i_sites, B1, B2, cache, D):
+def _double_min_checks(x, row_pack, node_pack, i_sites, B1, B2, cache, D):
     C, n = x.shape
     S = _sites(i_sites)
     _check(x, "x", torch.int32, (C, n))
-    _check_row_tables(row_prob, row_alias, n)
-    _check_node_tables(node_prob, node_alias, n)
+    _check_packs(node_pack, row_pack, n)
     _check(i_sites, "i_sites", torch.int32, (C, S))
     _check(B1, "B1", torch.int32, (C, S))
     _check(B2, "B2", torch.int32, (C, S))
     _check(cache, "cache", torch.float32, (C,))
-    _check_smem(n, D)
+    _check_smem(n, D, words_per_value=3)
     return C, n, S
 
 
@@ -320,29 +323,31 @@ def _double_min_outputs(x, cache):
             torch.empty((x.shape[0],), dtype=torch.int32, device=x.device))
 
 
-def double_min_sweep_cuda(x, row_prob, row_alias, node_prob, node_alias,
-                          i_sites, B1, u_idx, u_alias, gumbel, B2, u_node,
-                          u_nacc, u_row, u_racc, logu, cache, *, D: int,
-                          scale1: float, lscale2: float):
+def double_min_sweep_cuda(x, row_pack, node_pack, i_sites, B1, u_idx,
+                          u_alias, gumbel, B2, u_node, u_nacc, u_row, u_racc,
+                          logu, cache, *, D: int, scale1: float,
+                          lscale2: float):
     """S fused DoubleMIN site updates per chain
-    (``ref.double_min_sweep_ref``).
+    (``ref.double_min_sweep_ref``, which reads the unpacked tables).
 
-    x (C, n) int32; row tables (n, n); node tables (n,); i_sites/B1/B2
-    (C, S) int32; u_idx/u_alias (C, S, K1) float32; gumbel (C, S, D);
-    u_node/u_nacc/u_row/u_racc (C, S, K2) float32; logu (C, S); cache (C,).
-    ``scale1`` = L/lam1, ``lscale2`` = log1p(Psi/lam2).
+    x (C, n) int32; row_pack (n, n, 2) / node_pack (n, 2) int32, the packed
+    row and node alias tables (``core.factor_graph.pack_alias``);
+    i_sites/B1/B2 (C, S) int32; u_idx/u_alias (C, S, K1) float32; gumbel
+    (C, S, D); u_node/u_nacc/u_row/u_racc (C, S, K2) float32; logu (C, S);
+    cache (C,).  ``scale1`` = L/lam1, ``lscale2`` = log1p(Psi/lam2).
     Returns (x_out (C, n) int32, cache_out (C,) float32, accepts (C,) int32).
 
     Replaces ``double_min_sweep_pallas``
     (``src/repro/kernels/fused_sweep.py:687``, body ``_double_min_kernel``).
     Bound by bytes: per sub-step B1 local draws (MGPMH's stage 1, no exact
-    pass) and B2 two-stage pair draws, 16 bytes of uniforms and two random
-    table gathers each.  512 threads per block spread the K2 lanes, count
-    matches in registers and reduce once over the block; the accept test
-    uses the cached estimate, so no W row is read.
+    pass) and B2 two-stage pair draws, 16 bytes of uniforms and one random
+    8-byte row record each.  One block of 512 threads per chain; the B2
+    pair draws go four consecutive lanes per thread, count matches in
+    registers and reduce once per sub-step; the accept test uses the
+    cached estimate, so no W row is read.
     """
-    C, n, S = _double_min_checks(x, row_prob, row_alias, node_prob,
-                                 node_alias, i_sites, B1, B2, cache, D)
+    C, n, S = _double_min_checks(x, row_pack, node_pack, i_sites, B1, B2,
+                                 cache, D)
     K1 = u_idx.shape[-1]
     K2 = u_node.shape[-1]
     _check(u_idx, "u_idx", torch.float32, (C, S, K1))
@@ -352,25 +357,22 @@ def double_min_sweep_cuda(x, row_prob, row_alias, node_prob, node_alias,
                     (u_racc, "u_racc")):
         _check(t, name, torch.float32, (C, S, K2))
     _check(logu, "logu", torch.float32, (C, S))
-    _check_cuda([x, row_prob, row_alias, node_prob, node_alias, i_sites, B1,
-                 u_idx, u_alias, gumbel, B2, u_node, u_nacc, u_row, u_racc,
-                 logu, cache])
+    _check_cuda([x, row_pack, node_pack, i_sites, B1, u_idx, u_alias, gumbel,
+                 B2, u_node, u_nacc, u_row, u_racc, logu, cache])
     out, cache_out, acc = _double_min_outputs(x, cache)
     if C == 0:
         return out, cache_out, acc
     _launch("double_min_sweep_launch", x,
-            (x, row_prob, row_alias, node_prob, node_alias, i_sites, B1,
-             u_idx, u_alias, gumbel, B2, u_node, u_nacc, u_row, u_racc, logu,
-             cache, out, cache_out, acc, C, n, S, K1, K2, D, float(scale1),
-             float(lscale2)))
+            (x, row_pack, node_pack, i_sites, B1, u_idx, u_alias, gumbel, B2,
+             u_node, u_nacc, u_row, u_racc, logu, cache, out, cache_out, acc,
+             C, n, S, K1, K2, D, float(scale1), float(lscale2)))
     double_min_sweep_cuda.launches += 1
     return out, cache_out, acc
 
 
-def double_min_sweep_rng_cuda(x, row_prob, row_alias, node_prob, node_alias,
-                              i_sites, B1, B2, cache, seed, *, D: int,
-                              scale1: float, lscale2: float, K1: int,
-                              K2: int):
+def double_min_sweep_rng_cuda(x, row_pack, node_pack, i_sites, B1, B2, cache,
+                              seed, *, D: int, scale1: float, lscale2: float,
+                              K1: int, K2: int):
     """``double_min_sweep_cuda`` with in-kernel Philox uniforms
     (``ref.double_min_sweep_rng_ref``): ``seed`` (1,) int32 on the card
     replaces the proposal, Gumbel, second-batch and MH streams; B1, B2 stay
@@ -378,21 +380,21 @@ def double_min_sweep_rng_cuda(x, row_prob, row_alias, node_prob, node_alias,
 
     Replaces ``double_min_sweep_pallas_rng``
     (``src/repro/kernels/fused_sweep.py:739``).  The DoubleMIN body with the
-    Philox source; bound by integer operations (one Philox4x32-10 call per
-    uniform).  Allocates only its three outputs.
+    Philox source: the pair draws take one Philox4x32-10 call per stream
+    and four lanes, the local draws one per uniform, beside the same
+    random row-record gathers.  Allocates only its three outputs.
     """
-    C, n, S = _double_min_checks(x, row_prob, row_alias, node_prob,
-                                 node_alias, i_sites, B1, B2, cache, D)
+    C, n, S = _double_min_checks(x, row_pack, node_pack, i_sites, B1, B2,
+                                 cache, D)
     _check(seed, "seed", torch.int32, (1,))
-    _check_cuda([x, row_prob, row_alias, node_prob, node_alias, i_sites, B1,
-                 B2, cache, seed])
+    _check_cuda([x, row_pack, node_pack, i_sites, B1, B2, cache, seed])
     out, cache_out, acc = _double_min_outputs(x, cache)
     if C == 0:
         return out, cache_out, acc
     _launch("double_min_sweep_rng_launch", x,
-            (x, row_prob, row_alias, node_prob, node_alias, i_sites, B1, B2,
-             cache, seed, out, cache_out, acc, C, n, S, int(K1), int(K2), D,
-             float(scale1), float(lscale2)))
+            (x, row_pack, node_pack, i_sites, B1, B2, cache, seed, out,
+             cache_out, acc, C, n, S, int(K1), int(K2), D, float(scale1),
+             float(lscale2)))
     double_min_sweep_rng_cuda.launches += 1
     return out, cache_out, acc
 

@@ -91,44 +91,54 @@ def gibbs_sweep(x, W, i_sites, gumbel, *, D: int):
     return gibbs_sweep_cuda(x, W, i_sites, gumbel, D=D)
 
 
-def min_gibbs_sweep(x, node_prob, node_alias, row_prob, row_alias, i_sites,
-                    B, u_node, u_nacc, u_row, u_racc, gumbel, cache, *,
-                    D: int, lscale: float):
+def _unpack(pack):
+    """(prob, alias) of a packed alias table, as views of its records."""
+    return pack[..., 0].view(torch.float32), pack[..., 1]
+
+
+def min_gibbs_sweep(x, node_pack, row_pack, i_sites, B, u_node, u_nacc,
+                    u_row, u_racc, gumbel, cache, *, D: int, lscale: float):
     """S fused sequential MIN-Gibbs site updates per chain with the cached
     energy estimate threaded through (see ``ref.min_gibbs_sweep_ref``).
 
-    x (C, n) i32; node_prob/node_alias (n,); row_prob/row_alias (n, n);
+    x (C, n) i32; node_pack (n, 2) / row_pack (n, n, 2) i32, the node and
+    row alias tables as one record per entry
+    (``core.factor_graph.pack_alias``; ``MatchGraph.row_pack``): the kernel
+    reads the records, the plain version the two tables as views of them.
     i_sites (C, S); B (C, S, D) i32; u_node/u_nacc/u_row/u_racc
     (C, S, D, K) f32 uniforms; gumbel (C, S, D) f32; cache (C,) f32.
     ``lscale`` = log1p(Psi/lam).  Returns (x_out (C, n) i32,
     cache_out (C,) f32).
     """
-    args = (x, node_prob, node_alias, row_prob, row_alias, i_sites, B,
-            u_node, u_nacc, u_row, u_racc, gumbel, cache)
+    rest = (i_sites, B, u_node, u_nacc, u_row, u_racc, gumbel, cache)
     if _route(x, "min_gibbs_sweep") == "cpu":
-        return min_gibbs_sweep_ref(*args, D, lscale)
-    return min_gibbs_sweep_cuda(*args, D=D, lscale=lscale)
+        return min_gibbs_sweep_ref(x, *_unpack(node_pack), *_unpack(row_pack),
+                                   *rest, D, lscale)
+    return min_gibbs_sweep_cuda(x, node_pack, row_pack, *rest, D=D,
+                                lscale=lscale)
 
 
-def double_min_sweep(x, row_prob, row_alias, node_prob, node_alias, i_sites,
-                     B1, u_idx, u_alias, gumbel, B2, u_node, u_nacc, u_row,
-                     u_racc, logu, cache, *, D: int, scale1: float,
-                     lscale2: float):
+def double_min_sweep(x, row_pack, node_pack, i_sites, B1, u_idx, u_alias,
+                     gumbel, B2, u_node, u_nacc, u_row, u_racc, logu, cache,
+                     *, D: int, scale1: float, lscale2: float):
     """S fused sequential DoubleMIN site updates per chain with the cached
-    xi_x threaded through (see ``ref.double_min_sweep_ref``).
+    xi_x threaded through (see ``ref.double_min_sweep_ref``, whose order of
+    tables, row before node, it keeps).
 
-    x (C, n) i32; row/node tables as in min_gibbs_sweep; i_sites/B1/B2/logu
-    (C, S); u_idx/u_alias (C, S, K1) f32; u_node/u_nacc/u_row/u_racc
-    (C, S, K2) f32; gumbel (C, S, D) f32; cache (C,) f32.
-    ``scale1`` = L/lam1, ``lscale2`` = log1p(Psi/lam2).  Returns
-    (x_out (C, n) i32, cache_out (C,) f32, accepts (C,) i32).
+    x (C, n) i32; row_pack/node_pack as in min_gibbs_sweep;
+    i_sites/B1/B2/logu (C, S); u_idx/u_alias (C, S, K1) f32;
+    u_node/u_nacc/u_row/u_racc (C, S, K2) f32; gumbel (C, S, D) f32;
+    cache (C,) f32.  ``scale1`` = L/lam1, ``lscale2`` = log1p(Psi/lam2).
+    Returns (x_out (C, n) i32, cache_out (C,) f32, accepts (C,) i32).
     """
-    args = (x, row_prob, row_alias, node_prob, node_alias, i_sites, B1,
-            u_idx, u_alias, gumbel, B2, u_node, u_nacc, u_row, u_racc, logu,
-            cache)
+    rest = (i_sites, B1, u_idx, u_alias, gumbel, B2, u_node, u_nacc, u_row,
+            u_racc, logu, cache)
     if _route(x, "double_min_sweep") == "cpu":
-        return double_min_sweep_ref(*args, D, scale1, lscale2)
-    return double_min_sweep_cuda(*args, D=D, scale1=scale1, lscale2=lscale2)
+        return double_min_sweep_ref(x, *_unpack(row_pack),
+                                    *_unpack(node_pack), *rest, D, scale1,
+                                    lscale2)
+    return double_min_sweep_cuda(x, row_pack, node_pack, *rest, D=D,
+                                 scale1=scale1, lscale2=lscale2)
 
 
 def local_gibbs_sweep(x, W, i_sites, seed, *, B: int, D: int,

@@ -10,10 +10,11 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..core.factor_graph import build_alias_table
+from ..core.factor_graph import build_alias_table, pack_alias
 
 __all__ = ["alias_rows", "node_table", "gibbs_inputs", "mgpmh_inputs",
-           "min_gibbs_inputs", "double_min_inputs", "local_gibbs_inputs"]
+           "min_gibbs_inputs", "double_min_inputs", "edge_totals",
+           "packed_args", "local_gibbs_inputs"]
 
 
 def _symmetric(rng, n):
@@ -96,6 +97,29 @@ def double_min_inputs(C, S, K1, K2, D, n):
     lu = np.log(rng.uniform(size=(C, S))).astype(np.float32)
     cache = rng.uniform(0, 3, (C,)).astype(np.float32)
     return (x, rp, ra, npb, nab, i, B1, u1, u2, g, B2, *v4, lu, cache)
+
+
+def edge_totals(B, K):
+    """A copy of the Poisson totals ``B`` ((C, S) or (C, S, D)) with rows
+    at the ends of [0, K]: chain 0's first sub-step 0, chain 1's first
+    sub-step K, and the last (c, s) row K (with D candidates: 0 and K in
+    turns) -- rows whose lanes a kernel skips whole or walks to the end."""
+    B = np.array(B, copy=True)
+    B[0, 0] = 0
+    B[1 % B.shape[0], 0] = K
+    if B.ndim == 3:
+        B[-1, -1, ::2], B[-1, -1, 1::2] = 0, K
+    else:
+        B[-1, -1] = K
+    return B
+
+
+def packed_args(args):
+    """A MIN-Gibbs or DoubleMIN kernel's arguments from its plain
+    version's (tensors, host or Philox form): the (prob, alias) table pairs
+    at positions 1-4 packed into records, as the engines hand them over."""
+    return (args[0], pack_alias(args[1], args[2]),
+            pack_alias(args[3], args[4]), *args[5:])
 
 
 def local_gibbs_inputs(C, S, D, n, weights="real"):

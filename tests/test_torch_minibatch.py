@@ -10,9 +10,12 @@ with a CUDA card, the five new kernels against their plain versions.
   * distributional: the min-gibbs and doublemin engines, and loops of the
     three ``*_rng_ref`` plain versions with fresh seeds, reach the exact
     marginals of an enumerable Potts graph;
-  * engine, registry, launcher and wrapper checks;
-  * (gpu) the kernels equal their plain versions on the card, and the
-    ``*_rng`` wrappers allocate no stream buffers.
+  * engine, registry, launcher and wrapper checks; the packed alias
+    tables the MIN-Gibbs and DoubleMIN kernels read hold the two tables'
+    bits;
+  * (gpu) the kernels equal their plain versions on the card, also at
+    shapes whose lane rows take a block several passes and are not a
+    multiple of 4, and the ``*_rng`` wrappers allocate no stream buffers.
 """
 import numpy as np
 import pytest
@@ -49,6 +52,11 @@ MIN_GIBBS_SHAPES = [(4, 5, 17, 3, 11), (3, 1, 1, 2, 5), (5, 7, 33, 4, 20)]
 DOUBLE_MIN_SHAPES = [(4, 5, 17, 9, 3, 11), (3, 1, 1, 1, 2, 5),
                      (5, 7, 33, 21, 4, 20)]        # (C, S, K1, K2, D, n)
 SEEDS = [0, 1, 2 ** 31 - 1]
+# D*K = 5155 and K2 = 4099 lanes (neither a multiple of 4): quads of four
+# lanes cross candidate boundaries, each row ends inside a quad, and a
+# block's 512 threads (2048 lanes a pass) take three passes over each row
+SPLIT_MIN = (3, 4, 1031, 5, 300)                    # (C, S, K, D, n)
+SPLIT_DMIN = (3, 4, 33, 4099, 4, 300)               # (C, S, K1, K2, D, n)
 
 
 def _torch(arrays, device="cpu"):
@@ -70,7 +78,8 @@ def test_min_gibbs_sweep_ref_equals_jax_oracle(C, S, K, D, n):
     np.testing.assert_array_equal(ct.numpy(), np.asarray(cj))
     assert xt.dtype == torch.int32 and ct.dtype == torch.float32
     np.testing.assert_array_equal(args[0].numpy(), arrays[0])   # untouched
-    x1, c1 = ops.min_gibbs_sweep(*args, D=D, lscale=0.37)       # CPU route
+    x1, c1 = ops.min_gibbs_sweep(*pin.packed_args(args), D=D,   # CPU route
+                                 lscale=0.37)
     assert torch.equal(x1, xt) and torch.equal(c1, ct)
 
 
@@ -84,7 +93,8 @@ def test_double_min_sweep_ref_equals_jax_oracle(C, S, K1, K2, D, n):
     np.testing.assert_array_equal(xt.numpy(), np.asarray(xj))
     np.testing.assert_array_equal(ct.numpy(), np.asarray(cj))
     np.testing.assert_array_equal(at.numpy(), np.asarray(aj))
-    out = ops.double_min_sweep(*args, D=D, scale1=0.7, lscale2=0.31)
+    out = ops.double_min_sweep(*pin.packed_args(args), D=D, scale1=0.7,
+                               lscale2=0.31)
     assert all(torch.equal(a, b) for a, b in zip(out, (xt, ct, at)))
 
 
@@ -414,34 +424,116 @@ def test_launcher_runs_min_gibbs_and_doublemin(capsys):
 
 def test_new_cuda_wrappers_refuse_cpu_tensors_and_bad_inputs():
     fused_sweep.reset_launch_counts()
-    a = _torch(pin.min_gibbs_inputs(4, 5, 17, 3, 11))
+    plain = _torch(pin.min_gibbs_inputs(4, 5, 17, 3, 11))
+    a = pin.packed_args(plain)
     with pytest.raises(ValueError, match="CUDA tensors"):
         fused_sweep.min_gibbs_sweep_cuda(*a, D=3, lscale=0.37)
     with pytest.raises(ValueError, match="B must have shape"):
         bad = list(a)
-        bad[6] = bad[6][..., :2].contiguous()
+        bad[4] = bad[4][..., :2].contiguous()
         fused_sweep.min_gibbs_sweep_cuda(*bad, D=3, lscale=0.37)
     seed = torch.zeros((1,), dtype=torch.int32)
-    x, npb, nab, rp, ra, i, B = a[:7]
+    x, node, row, i, B = a[:5]
+    rp, ra = plain[3:5]
     cache = a[-1]
     with pytest.raises(ValueError, match="CUDA tensors"):
-        fused_sweep.min_gibbs_sweep_rng_cuda(x, npb, nab, rp, ra, i, B, cache,
-                                             seed, D=3, lscale=0.37, K=17)
+        fused_sweep.min_gibbs_sweep_rng_cuda(x, node, row, i, B, cache, seed,
+                                             D=3, lscale=0.37, K=17)
     with pytest.raises(ValueError, match="seed must have shape"):
-        fused_sweep.min_gibbs_sweep_rng_cuda(x, npb, nab, rp, ra, i, B, cache,
+        fused_sweep.min_gibbs_sweep_rng_cuda(x, node, row, i, B, cache,
                                              seed[:0], D=3, lscale=0.37, K=17)
-    d = _torch(pin.double_min_inputs(4, 5, 17, 9, 3, 11))
+    d = pin.packed_args(_torch(pin.double_min_inputs(4, 5, 17, 9, 3, 11)))
     with pytest.raises(ValueError, match="CUDA tensors"):
         fused_sweep.double_min_sweep_cuda(*d, D=3, scale1=0.7, lscale2=0.31)
     with pytest.raises(ValueError, match="cache must be torch.float32"):
         fused_sweep.double_min_sweep_rng_cuda(
-            *d[:7], d[10], d[-1].double(), seed, D=3, scale1=0.7,
+            *d[:5], d[8], d[-1].double(), seed, D=3, scale1=0.7,
             lscale2=0.31, K1=17, K2=9)
     W = torch.zeros((11, 11))
     with pytest.raises(ValueError, match="CUDA tensors"):
         fused_sweep.mgpmh_sweep_rng_cuda(x, W, rp, ra, i,
                                          B[..., 0].contiguous(), seed, D=3,
                                          scale=0.7, K=17)
+    assert all(fn.launches == 0 for fn in fused_sweep.WRAPPERS)
+
+
+def test_packed_alias_tables_hold_both_tables_bits():
+    """A packed record holds prob's float32 bits and the alias exactly, for
+    the row tables of potts-20x20 (built once per graph, and moved with
+    it), a parity ``alias_rows`` table and a node table."""
+    g = engine.make_workload("potts-20x20", device="cpu").graph
+    rp, ra = pin.alias_rows(np.random.default_rng(5), 37)[1:]
+    npb, nab = samplers._node_alias_table(g)
+    for prob, alias, pack in (
+            (g.row_prob, g.row_alias, g.row_pack),
+            (*_torch((rp, ra)), tfg.pack_alias(*_torch((rp, ra)))),
+            (npb, nab, tfg.pack_alias(npb, nab))):
+        assert pack.dtype == torch.int32 and pack.is_contiguous()
+        assert pack.shape == (*prob.shape, 2)
+        assert torch.equal(pack[..., 0], prob.view(torch.int32))
+        assert torch.equal(pack[..., 0].view(torch.float32), prob)
+        assert torch.equal(pack[..., 1], alias)
+    assert g.row_pack is g.row_pack                    # built once
+    assert torch.equal(g.to("cpu").row_pack, g.row_pack)
+    fresh = engine.make_workload("potts-20x20", device="cpu").graph
+    pack = fresh.row_pack          # packed first: no separate tables kept
+    assert "row_prob" not in fresh._tables
+    assert torch.equal(pack, g.row_pack)
+    with pytest.raises(ValueError, match="float32 prob and int32 alias"):
+        tfg.pack_alias(npb.double(), nab)
+    with pytest.raises(ValueError, match="differ in shape"):
+        tfg.pack_alias(npb[:-1], nab)
+
+
+@pytest.mark.parametrize("kind", ["min-gibbs", "double-min"])
+def test_cuda_wrappers_refuse_bad_packed_tables(kind):
+    """The packed tables are checked by shape and dtype, before the device:
+    the separate tables, a transposed record layout or int64 records are
+    refused by name."""
+    if kind == "min-gibbs":
+        plain = _torch(pin.min_gibbs_inputs(4, 5, 17, 3, 11))
+        call = lambda a: fused_sweep.min_gibbs_sweep_cuda(*a, D=3,
+                                                          lscale=0.37)
+        node_at, row_at = 1, 2
+    else:
+        plain = _torch(pin.double_min_inputs(4, 5, 17, 9, 3, 11))
+        call = lambda a: fused_sweep.double_min_sweep_cuda(
+            *a, D=3, scale1=0.7, lscale2=0.31)
+        node_at, row_at = 2, 1
+    good = pin.packed_args(plain)
+    cases = [(row_at, good[row_at].permute(2, 0, 1).contiguous(),
+              r"row_pack must have shape \(11, 11, 2\)"),
+             (row_at, good[row_at].long(), "row_pack must be torch.int32"),
+             (row_at, plain[3 if kind == "min-gibbs" else 1],
+              "row_pack must be torch.int32"),
+             (node_at, good[node_at][:, :1].contiguous(),
+              r"node_pack must have shape \(11, 2\)"),
+             (node_at, good[node_at].float(), "node_pack must be torch.int32"),
+             (row_at, good[row_at][:, :, :2].transpose(0, 1),
+              "row_pack must be contiguous")]
+    for at, table, msg in cases:
+        bad = list(good)
+        bad[at] = table
+        with pytest.raises(ValueError, match=msg):
+            call(bad)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        call(good)
+
+
+def test_ops_send_packed_sweeps_on_the_cpu_to_the_plain_versions():
+    """On CPU tensors ``ops`` takes the packed tables, as the kernels do,
+    calls the plain versions on the two tables read back from them, and
+    never the kernels."""
+    fused_sweep.reset_launch_counts()
+    a = _torch(pin.min_gibbs_inputs(4, 5, 17, 3, 11))
+    want = tref.min_gibbs_sweep_ref(*a, 3, 0.37)
+    got = ops.min_gibbs_sweep(*pin.packed_args(a), D=3, lscale=0.37)
+    assert all(torch.equal(p, q) for p, q in zip(got, want))
+    d = _torch(pin.double_min_inputs(4, 5, 17, 9, 3, 11))
+    want = tref.double_min_sweep_ref(*d, 3, 0.7, 0.31)
+    got = ops.double_min_sweep(*pin.packed_args(d), D=3, scale1=0.7,
+                               lscale2=0.31)
+    assert all(torch.equal(p, q) for p, q in zip(got, want))
     assert all(fn.launches == 0 for fn in fused_sweep.WRAPPERS)
 
 
@@ -460,7 +552,8 @@ def cuda():
 @pytest.mark.parametrize("C,S,K,D,n", MIN_GIBBS_SHAPES)
 def test_min_gibbs_kernels_equal_plain_versions(cuda, C, S, K, D, n):
     args = _torch(pin.min_gibbs_inputs(C, S, K, D, n), cuda)
-    out = fused_sweep.min_gibbs_sweep_cuda(*args, D=D, lscale=0.37)
+    out = fused_sweep.min_gibbs_sweep_cuda(*pin.packed_args(args), D=D,
+                                           lscale=0.37)
     want = tref.min_gibbs_sweep_ref(*args, D, 0.37)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(out, want))
@@ -468,7 +561,7 @@ def test_min_gibbs_kernels_equal_plain_versions(cuda, C, S, K, D, n):
     for seed in SEEDS:
         s = torch.tensor([seed], dtype=torch.int32, device=cuda)
         out = fused_sweep.min_gibbs_sweep_rng_cuda(
-            x, npb, nab, rp, ra, i, B, args[-1], s, D=D, lscale=0.37, K=K)
+            *pin.packed_args(args[:7]), args[-1], s, D=D, lscale=0.37, K=K)
         want = tref.min_gibbs_sweep_rng_ref(x, npb, nab, rp, ra, i, B,
                                             args[-1], s, D, 0.37, K)
         torch.cuda.synchronize()
@@ -479,8 +572,8 @@ def test_min_gibbs_kernels_equal_plain_versions(cuda, C, S, K, D, n):
 @pytest.mark.parametrize("C,S,K1,K2,D,n", DOUBLE_MIN_SHAPES)
 def test_double_min_kernels_equal_plain_versions(cuda, C, S, K1, K2, D, n):
     args = _torch(pin.double_min_inputs(C, S, K1, K2, D, n), cuda)
-    out = fused_sweep.double_min_sweep_cuda(*args, D=D, scale1=0.7,
-                                            lscale2=0.31)
+    out = fused_sweep.double_min_sweep_cuda(*pin.packed_args(args), D=D,
+                                            scale1=0.7, lscale2=0.31)
     want = tref.double_min_sweep_ref(*args, D, 0.7, 0.31)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(out, want))
@@ -488,11 +581,69 @@ def test_double_min_kernels_equal_plain_versions(cuda, C, S, K1, K2, D, n):
     for seed in SEEDS:
         s = torch.tensor([seed], dtype=torch.int32, device=cuda)
         out = fused_sweep.double_min_sweep_rng_cuda(
-            *head, B2, cache, s, D=D, scale1=0.7, lscale2=0.31, K1=K1, K2=K2)
+            *pin.packed_args(head), B2, cache, s, D=D, scale1=0.7,
+            lscale2=0.31, K1=K1, K2=K2)
         want = tref.double_min_sweep_rng_ref(*head, B2, cache, s, D, 0.7,
                                              0.31, K1, K2)
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(out, want)), seed
+
+
+def _same_twice(launch, want):
+    """``launch()`` twice equals ``want`` bit for bit both times."""
+    first, again = launch(), launch()
+    torch.cuda.synchronize()
+    return all(torch.equal(a, b) and torch.equal(b, w)
+               for a, b, w in zip(first, again, want))
+
+
+@pytest.mark.gpu
+def test_min_gibbs_kernels_at_long_lane_rows_equal_plain_versions(cuda):
+    """MIN-Gibbs at a shape whose D*K lanes (not a multiple of 4) take a
+    block three passes, with quads across candidate boundaries and rows of
+    B at 0 and at K: the host-stream and Philox forms equal their plain
+    versions bit for bit, and a second launch gives the same bits."""
+    C, S, K, D, n = SPLIT_MIN
+    arrays = list(pin.min_gibbs_inputs(*SPLIT_MIN))
+    arrays[6] = pin.edge_totals(arrays[6], K)
+    args = _torch(arrays, cuda)
+    kargs = pin.packed_args(args)
+    assert _same_twice(
+        lambda: fused_sweep.min_gibbs_sweep_cuda(*kargs, D=D, lscale=0.37),
+        tref.min_gibbs_sweep_ref(*args, D, 0.37))
+    head = args[:7] + (args[-1],)
+    for seed in SEEDS:
+        s = torch.tensor([seed], dtype=torch.int32, device=cuda)
+        assert _same_twice(
+            lambda: fused_sweep.min_gibbs_sweep_rng_cuda(
+                *kargs[:5], args[-1], s, D=D, lscale=0.37, K=K),
+            tref.min_gibbs_sweep_rng_ref(*head, s, D, 0.37, K)), seed
+
+
+@pytest.mark.gpu
+def test_double_min_kernels_at_long_lane_rows_equal_plain_versions(cuda):
+    """DoubleMIN with K2 = 4099 pair-draw lanes, three passes of the block
+    ending inside a quad, rows of B1 and B2 at 0 and at capacity: both
+    forms equal their plain versions bit for bit, twice."""
+    C, S, K1, K2, D, n = SPLIT_DMIN
+    arrays = list(pin.double_min_inputs(*SPLIT_DMIN))
+    arrays[6] = pin.edge_totals(arrays[6], K1)
+    arrays[10] = pin.edge_totals(arrays[10], K2)
+    args = _torch(arrays, cuda)
+    kargs = pin.packed_args(args)
+    assert _same_twice(
+        lambda: fused_sweep.double_min_sweep_cuda(
+            *kargs, D=D, scale1=0.7, lscale2=0.31),
+        tref.double_min_sweep_ref(*args, D, 0.7, 0.31))
+    head = args[:7] + (args[10], args[-1])
+    for seed in SEEDS:
+        s = torch.tensor([seed], dtype=torch.int32, device=cuda)
+        assert _same_twice(
+            lambda: fused_sweep.double_min_sweep_rng_cuda(
+                *kargs[:5], args[10], args[-1], s, D=D, scale1=0.7,
+                lscale2=0.31, K1=K1, K2=K2),
+            tref.double_min_sweep_rng_ref(*head, s, D, 0.7, 0.31, K1,
+                                          K2)), seed
 
 
 @pytest.mark.gpu
@@ -532,8 +683,8 @@ def test_engines_on_the_card_reach_exact_marginals(cuda):
 @pytest.mark.gpu
 def test_rng_wrappers_allocate_no_stream_buffers(cuda):
     C, S, K, D, n = 64, 16, 4096, 10, 256
-    args = _torch(pin.min_gibbs_inputs(8, 1, 1, D, n)[1:5], cuda)  # tables
-    npb, nab, rp, ra = args
+    tables = _torch(pin.min_gibbs_inputs(8, 1, 1, D, n)[:5], cuda)
+    node, row = pin.packed_args(tables)[1:3]
     x = torch.zeros((C, n), dtype=torch.int32, device=cuda)
     i = torch.randint(0, n, (C, S), dtype=torch.int32, device=cuda)
     B = torch.full((C, S, D), K, dtype=torch.int32, device=cuda)
@@ -542,9 +693,8 @@ def test_rng_wrappers_allocate_no_stream_buffers(cuda):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(cuda)
     before = torch.cuda.memory_allocated(cuda)
-    out = fused_sweep.min_gibbs_sweep_rng_cuda(x, npb, nab, rp, ra, i, B,
-                                               cache, seed, D=D, lscale=0.3,
-                                               K=K)
+    out = fused_sweep.min_gibbs_sweep_rng_cuda(x, node, row, i, B, cache,
+                                               seed, D=D, lscale=0.3, K=K)
     torch.cuda.synchronize()
     grown = torch.cuda.max_memory_allocated(cuda) - before
     outputs = sum(t.numel() * t.element_size() for t in out)

@@ -7,23 +7,34 @@ Phases, each printed as it ends; any failure exits non-zero:
   1. device and toolchain (card, power limit, torch/CUDA, nvcc, triton);
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
      per source, all started together; ``-Xptxas -v`` registers / shared
-     memory for every kernel: the nine sampling kernels, flash attention's
-     three bf16 instances (padded head dims 64, 128, 256; their registers,
-     spills and launch shared memory printed apart, and no wgmma
-     serialised) and its four float32 ones);
+     memory for every kernel: the ten sampling kernels (the Gibbs sweep
+     one instance per register width, 2/4/8/10/16 buckets, the chromatic
+     class kernel one per 2/4/8/16), flash attention's three bf16
+     instances (padded head dims 64, 128, 256; their registers, spills and
+     launch shared memory printed apart, and no wgmma serialised) and its
+     four float32 ones);
   3. each kernel against its plain PyTorch version on the card, on the same
      tensors: (a) at the parity shapes of the tests, exactly equal (the
      in-kernel-RNG kernels, the local-gibbs sweep among them, with seeds
-     0, 1 and 2^31-1; the local sweep also at B = 1, B = n-1, a ragged n,
+     0, 1 and 2^31-1; the Gibbs sweep also at its ring's shapes -- D=129
+     above the register width, a ragged n=1001, S=1, and an odd n=23301
+     whose rows stream through the ring in chunks -- twice each; the
+     chromatic class kernel on every class of lattices (4x4, 6x6) and of
+     hub graphs of degree 99 and 299 (the warp form, integer weights) at
+     D in {2, 3, 10, 129}, against its plain version and the sequential
+     plain version, twice; the local sweep also at B = 1, B = n-1, a ragged n,
      B > 128 and D > 32; MIN-Gibbs and DoubleMIN also at shapes whose
      lane rows take a block three passes and are not a multiple of 4,
      with Poisson totals at 0 and at capacity, twice each with the same
      bits); (b) at full width
-     on potts-64x64: mgpmh (C=256, S=64, K=201), gibbs and the chromatic
-     lattice-ising-64x64 class with at most 1% of chains differing — the
-     plain version sums the ~1564 non-zero W terms of a row in another
-     order, so only a near-tie can flip a decision, and a flip then changes
-     the rest of that chain — and MIN-Gibbs (C=16, S=8, K=17188) and
+     on potts-64x64: mgpmh (C=256, S=64, K=201) and gibbs with at most 1%
+     of chains differing — the plain version sums the ~1564 non-zero W
+     terms of a row in another order, so only a near-tie can flip a
+     decision, and a flip then changes the rest of that chain — the
+     chromatic class kernel on both classes of lattice-ising-64x64 at
+     C=256 exactly equal to its plain version and to the sequential plain
+     version (all weights 0.8: any order of summing four gives the same
+     float), and MIN-Gibbs (C=16, S=8, K=17188) and
      DoubleMIN (C=64, S=16, K1=201, K2=17188) exactly equal (integer
      counts, no float reduction); the in-kernel-RNG kernels at those
      shapes with at most 1% of chains differing, and the local-gibbs sweep
@@ -51,7 +62,8 @@ Phases, each printed as it ends; any failure exits non-zero:
      default lambda, and local-gibbs (256 chains x 100 sweeps of 64) for
      B in {8, 32, 128}, the Fig. 2a batch sizes, each replayed from its
      seed to the same bits; launch counts reset before and read after each
-     run, and must equal the sweep calls (color classes x calls; one
+     run, and must equal the sweep calls (chromatic: one class-kernel
+     launch per color class and call, no gibbs_sweep launch; one
      local-gibbs sweep launch per call and no bucket-energy launch); then
      each of the five single-site reference steps 64 times at C=256, chains
      moving and their bucket-energy launches counted (the bucket-energy
@@ -61,7 +73,11 @@ Phases, each printed as it ends; any failure exits non-zero:
      ``*_rng`` kernel with fresh seeds, launch counts reset before and read
      after, device memory growth no more than the outputs plus 1 MiB;
   6. kernel times (CUDA-event medians) at the shapes of phases 4-5 beside
-     the plain versions' times and the least time the card could take;
+     the plain versions' times and the least time the card could take
+     (the Gibbs ring's plan printed; the chromatic class kernel per launch
+     as a stream of launches, single call and device time, beside a
+     float32 ``torch.matmul`` + argmax yardstick, TF32 off, and its byte
+     bound over x, the Gumbels and the class rows' records);
      the timed outputs of each slice-2 kernel and its plain version are
      compared there too (host-stream kernels exactly, in-kernel-RNG kernels
      to at most 1% of chains, their plain versions run on chain slices);
@@ -154,13 +170,28 @@ SEEDS = (0, 1, 2 ** 31 - 1)
 PARITY_LOCAL = [(4, 5, 3, 3, 11), (8, 8, 10, 10, 40), (3, 1, 1, 2, 5),
                 (5, 12, 19, 6, 20), (2, 3, 100, 4, 129), (3, 4, 130, 5, 200),
                 (2, 2, 199, 3, 200), (2, 3, 40, 37, 90)]
-KERNELS = ("gibbs_sweep", "mgpmh_sweep", "mgpmh_sweep_rng", "min_gibbs_sweep",
-           "min_gibbs_sweep_rng", "double_min_sweep", "double_min_sweep_rng",
-           "bucket_energy", "local_gibbs_sweep", "flash_attention")
+KERNELS = ("gibbs_sweep", "gibbs_class_sweep", "mgpmh_sweep",
+           "mgpmh_sweep_rng", "min_gibbs_sweep", "min_gibbs_sweep_rng",
+           "double_min_sweep", "double_min_sweep_rng", "bucket_energy",
+           "local_gibbs_sweep", "flash_attention")
 # ptxas entry functions: one per kernel, but flash attention has three bf16
 # instances (padded head dims 64, 128, 256) and four float32 ones (head
-# dims 16, 32, 64, 128)
-PTXAS_ENTRIES = len(KERNELS) - 1 + 3 + 4
+# dims 16, 32, 64, 128), the Gibbs sweep one per register width (2, 4, 8,
+# 10, 16 buckets) and the class kernel one per width (2, 4, 8, 16)
+PTXAS_ENTRIES = len(KERNELS) - 3 + (3 + 4) + 5 + 4
+# the Gibbs ring kernel's new shapes (C, S, D, n): tests/test_torch_sweep.py
+# GIBBS_RING_SHAPES (D > the register width, a ragged n, S = 1, an odd n
+# that takes the chunked ring)
+PARITY_RING = [(2, 3, 129, 7), (3, 6, 10, 1001), (4, 1, 10, 40),
+               (2, 3, 10, 23301), (2, 2, 129, 23301)]
+CHUNKED_N = 20000
+# the class kernel (graph kind, size, weights, D, C): the lattice with
+# lattice-ising's weights, and a hub of degree size - 1 (the warp form) with
+# integer weights (every summation order gives the same bits):
+# tests/test_torch_chromatic.py
+PARITY_CLASS = [("lattice", 4, "ising", 2, 5), ("lattice", 6, "ising", 2, 3),
+                ("hub", 100, "integer", 2, 6), ("hub", 100, "integer", 10, 6),
+                ("hub", 300, "integer", 3, 6), ("hub", 300, "integer", 129, 6)]
 # bucket-energy shapes (C, K, D): tests/test_kernels.py:30-33,
 # benchmarks/kernel_bench.py:29, and the local path's minibatches
 LOCAL_B = (8, 32, 128)                        # the Fig. 2a batch sizes
@@ -272,8 +303,9 @@ def wrappers():
     """Every kernel wrapper, each with its launch count."""
     from repro_torch.kernels import fused_sweep as fs, minibatch_energy as me
     from repro_torch.kernels import flash_attention as fa, local_sweep as ls
-    return fs.WRAPPERS + (me.bucket_energy_cuda, ls.local_gibbs_sweep_cuda,
-                          fa.flash_attention_cuda)
+    from repro_torch.kernels import chromatic_sweep as chs
+    return fs.WRAPPERS + (chs.gibbs_class_sweep_cuda, me.bucket_energy_cuda,
+                          ls.local_gibbs_sweep_cuda, fa.flash_attention_cuda)
 
 
 def reset_launches():
@@ -404,6 +436,8 @@ def phase_parity(dev):
         torch.cuda.synchronize()
         check(torch.equal(xk, ref.gibbs_sweep_ref(*args, D)),
               f"gibbs kernel != plain version at (C,S,D,n)={(C, S, D, n)}")
+    ring_parity(dev)
+    class_parity(dev)
     for shape in PARITY_MIN:
         C, S, K, D, n = shape
         args = t(pin.min_gibbs_inputs(*shape))
@@ -448,6 +482,8 @@ def phase_parity(dev):
                        shape, dev)
     torch.cuda.synchronize()
     say("3a parity", f"{len(PARITY_MGPMH)} mgpmh + {len(PARITY_GIBBS)} gibbs "
+        f"+ {len(PARITY_RING)} gibbs ring shapes {PARITY_RING} (twice) + "
+        f"gibbs_class_sweep at {PARITY_CLASS} (every class, twice) "
         f"+ {len(PARITY_MIN)} min-gibbs + {len(PARITY_DMIN)} doublemin "
         f"shapes: kernel == plain version exactly (x, cache, accepts); the "
         f"3 in-kernel-RNG kernels == their plain versions exactly at the "
@@ -457,6 +493,78 @@ def phase_parity(dev):
         f"local_gibbs_sweep == its "
         f"plain version exactly at {len(PARITY_LOCAL)} shapes (C,S,B,D,n) "
         f"{PARITY_LOCAL}, real and integer weights, seeds {list(SEEDS)}")
+
+
+def ring_inputs(C, S, D, n, dev):
+    """(x, W, i_sites, gumbel) of a Gibbs ring shape on the card, chain 0's
+    first three values outside [0, D); the chunked-ring sizes draw W
+    (2.2 GB) on the card (``tests/test_torch_sweep.py::_ring_inputs``)."""
+    from repro_torch.kernels import parity_inputs as pin
+    if n < CHUNKED_N:
+        x, W, i, g = (torch.from_numpy(a).to(dev)
+                      for a in pin.gibbs_inputs(C, S, D, n))
+    else:
+        gen = torch.Generator(device=dev).manual_seed(n + D)
+        W = torch.rand((n, n), generator=gen, device=dev)
+        x = torch.randint(0, D, (C, n), generator=gen, device=dev,
+                          dtype=torch.int32)
+        i = torch.randint(0, n, (C, S), generator=gen, device=dev,
+                          dtype=torch.int32)
+        u = torch.rand((C, S, D), generator=gen, device=dev)
+        g = -torch.log(-torch.log(u + 1e-20) + 1e-20)
+    x[0, :3] = torch.tensor([-1, D, D + 5], dtype=torch.int32)
+    return x, W, i, g
+
+
+def ring_parity(dev):
+    """The Gibbs kernel at the ring shapes: the planned ring (chunked
+    exactly where n >= CHUNKED_N), twice the same bits, equal to the plain
+    version."""
+    from repro_torch.kernels import fused_sweep as fs, ref
+    for shape in PARITY_RING:
+        C, S, D, n = shape
+        plan = fs.gibbs_ring_plan(n, D)
+        check((plan["chunks"] > 1) == (n >= CHUNKED_N),
+              f"gibbs ring plan {plan} at n={n}")
+        x, W, i, g = ring_inputs(C, S, D, n, dev)
+        outs = [fs.gibbs_sweep_cuda(x, W, i, g, D=D) for _ in range(2)]
+        want = ref.gibbs_sweep_ref(x, W, i, g, D)
+        torch.cuda.synchronize()
+        check(torch.equal(outs[0], outs[1]) and torch.equal(outs[0], want),
+              f"gibbs kernel != plain version at ring shape (C,S,D,n)="
+              f"{shape}, plan {plan}")
+        say("3a parity", f"gibbs ring shape {shape}: plan {plan}")
+        del x, W, i, g, outs, want
+        torch.cuda.empty_cache()
+
+
+def class_parity(dev):
+    """The class kernel on every class of each PARITY_CLASS graph: twice
+    the same bits, equal to its plain version and to the sequential plain
+    version."""
+    from repro_torch.core.factor_graph import MatchGraph
+    from repro_torch.kernels import chromatic_sweep as chs, ref
+    from repro_torch.kernels import parity_inputs as pin
+    for kind, size, weights, D, C in PARITY_CLASS:
+        W, colors = pin.class_graph(kind, size, weights)
+        g = MatchGraph.from_interactions(W.astype(np.float64),
+                                         match_weight_scale=1.0, D=D,
+                                         device=dev)
+        nbr = g.nbr_pack
+        for k in range(int(colors.max()) + 1):
+            sites = np.flatnonzero(colors == k)
+            x, st, gum = (torch.from_numpy(a).to(dev) for a in
+                          pin.gibbs_class_inputs(C, D, g.n, sites, k))
+            outs = [chs.gibbs_class_sweep_cuda(x.clone(), *nbr, st, gum, D=D)
+                    for _ in range(2)]
+            want = ref.gibbs_class_sweep_ref(x, g.W, st, gum, D)
+            seq = ref.gibbs_sweep_ref(x, g.W, st.expand(C, -1).contiguous(),
+                                      gum, D)
+            torch.cuda.synchronize()
+            check(torch.equal(outs[0], outs[1])
+                  and torch.equal(outs[0], want) and torch.equal(want, seq),
+                  f"gibbs_class_sweep != plain versions on {kind} {size} "
+                  f"{weights} D={D}, class {k}")
 
 
 def split_parity(dev):
@@ -597,18 +705,13 @@ def mgpmh_inputs(graph, C, S, seed):
     return args, dict(D=graph.D, scale=graph.L / lam), lam, K
 
 
-def gibbs_inputs(graph, C, S, seed, sites=None):
-    """Inputs of one Gibbs sweep call; with ``sites``, of one chromatic
-    color class (S = its size)."""
+def gibbs_inputs(graph, C, S, seed):
+    """Inputs of one Gibbs sweep call."""
     from repro_torch.core import samplers
     gen = torch.Generator(device=graph.device).manual_seed(seed)
     x = torch.randint(0, graph.D, (C, graph.n), generator=gen,
                       device=graph.device, dtype=torch.int32)
-    if sites is not None:
-        S = sites.numel()
     i, g = samplers.gibbs_draws(gen, C, S, graph.n, graph.D, graph.device)
-    if sites is not None:
-        i = sites.expand(C, -1).contiguous()
     return (x, graph.W, i, g)
 
 
@@ -700,14 +803,7 @@ def phase_full_width(potts, lattice):
     out["gibbs_sweep"] = compare(
         "gibbs_sweep", fs.gibbs_sweep_cuda(*args, D=potts.D),
         ref.gibbs_sweep_ref(*args, potts.D), C_FULL)
-    sites = torch.as_tensor(np.flatnonzero(lattice.colors == 0),
-                            dtype=torch.int32, device=potts.device)
-    args = gibbs_inputs(lattice.graph, C_FULL, None, seed=3,
-                        sites=sites)
-    out["gibbs_sweep_chromatic"] = compare(
-        "gibbs_sweep (chromatic class)",
-        fs.gibbs_sweep_cuda(*args, D=2), ref.gibbs_sweep_ref(*args, 2),
-        C_FULL)
+    out["gibbs_class_sweep"] = class_full_width(lattice)
     C, S = FULL_MIN
     args, kw, K = min_gibbs_inputs(potts, C, S, seed=8)
     lscale = kw["lscale"]
@@ -755,6 +851,38 @@ def phase_full_width(potts, lattice):
     out["local_gibbs_sweep"] = worst
     torch.cuda.empty_cache()
     return out
+
+
+def class_full_width(lattice):
+    """Both classes of lattice-ising-64x64 at C=256 through the class
+    kernel, in color order, against its plain version and the sequential
+    plain version: no chain may differ (all weights are 0.8, and any order
+    of summing at most four of them gives the same float)."""
+    from repro_torch.core import samplers
+    from repro_torch.kernels import chromatic_sweep as chs, ref
+    graph = lattice.graph
+    gen = torch.Generator(device=graph.device).manual_seed(3)
+    x = torch.randint(0, graph.D, (C_FULL, graph.n), generator=gen,
+                      device=graph.device, dtype=torch.int32)
+    nbr = graph.nbr_pack
+    worst = (0, 0.0)
+    for k in range(2):
+        sites = torch.as_tensor(np.flatnonzero(lattice.colors == k),
+                                dtype=torch.int32, device=graph.device)
+        g = samplers.gumbel((C_FULL, sites.numel(), graph.D), gen,
+                            graph.device)
+        xk = chs.gibbs_class_sweep_cuda(x.clone(), *nbr, sites, g,
+                                        D=graph.D)
+        want = ref.gibbs_class_sweep_ref(x, graph.W, sites, g, graph.D)
+        seq = ref.gibbs_sweep_ref(x, graph.W,
+                                  sites.expand(C_FULL, -1).contiguous(), g,
+                                  graph.D)
+        worst = max(worst, compare(
+            f"gibbs_class_sweep class {k}", xk, want, C_FULL, exact=True))
+        compare(f"gibbs_class_sweep class {k} vs the sequential plain "
+                f"version", xk, seq, C_FULL, exact=True)
+        x = xk
+    return worst
 
 
 def local_inputs(potts, B, seed):
@@ -863,7 +991,8 @@ def phase_main_path(potts, lattice, pair_table_s):
                       schedule=engine.ChromaticBlocks(lattice.colors))
     out["chromatic"] = run_main_path(
         "chromatic gibbs lattice-ising-64x64", eng, C_FULL,
-        20 * lattice.graph.n, 4, lambda calls: {"gibbs_sweep": 2 * calls})
+        20 * lattice.graph.n, 4,
+        lambda calls: {"gibbs_class_sweep": 2 * calls})
     t0 = time.perf_counter()
     eng = engine.make("min-gibbs", potts, sweep=S_MIN)
     build_s = time.perf_counter() - t0
@@ -1226,16 +1355,8 @@ def phase_times(potts, lattice, rng_inputs):
     bms, by = bound(*gibbs_bound(*args))
     recs["gibbs_sweep"] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
                                shape="potts-64x64 C=256 S=64 D=10")
-    sites = torch.as_tensor(np.flatnonzero(lattice.colors == 0),
-                            dtype=torch.int32, device=potts.device)
-    args = gibbs_inputs(lattice.graph, C_FULL, None, seed=6,
-                        sites=sites)
-    ms = median_ms(lambda: fs.gibbs_sweep_cuda(*args, D=2), 5)
-    pms = median_ms(lambda: ref.gibbs_sweep_ref(*args, 2), 1)
-    bms, by = bound(*gibbs_bound(*args))
-    recs["gibbs_sweep_chromatic"] = dict(
-        ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
-        shape="lattice-ising-64x64 one class C=256 S=2048 D=2")
+    recs["gibbs_sweep"]["ring"] = fs.gibbs_ring_plan(potts.n, potts.D)
+    recs["gibbs_class_sweep"] = class_times(lattice)
     recs.update(new_kernel_times(potts, rng_inputs))
     for k, r in recs.items():
         rate = (f", {r['pair_draws_per_s'] / 1e9:.2f} G pair draws/s"
@@ -1252,6 +1373,70 @@ def phase_times(potts, lattice, rng_inputs):
     recs["local_gibbs_sweep"] = local[LOCAL_MAIN]
     recs["local_sweep_ms"] = local_split(potts)
     return recs
+
+
+def gibbs_class_bound(x, offsets, sites, g):
+    """Bytes and operations one class update needs: x read and written once
+    (8*C*n), the Gumbels, the records of the class rows (8 per non-zero),
+    their offsets and the sites; one compare-add per (chain, non-zero,
+    bucket)."""
+    C, n = x.shape
+    idx = sites.long()
+    nnz = int((offsets[idx + 1] - offsets[idx]).sum())
+    nbytes = 8 * C * n + 4 * g.numel() + 8 * nnz + 12 * sites.numel()
+    return nbytes, C * nnz * g.shape[-1]
+
+
+def class_library(W, x, sites, g):
+    """A function computing the class's new values (m, C) as one float32
+    ``torch.matmul`` of W[sites] (m x n) by the one-hot state (n x C*D),
+    plus the Gumbels and the argmax (first maximum) -- the library
+    yardstick of the class kernel, used nowhere in the port.  W[sites], the
+    one-hot matrix and the transposed Gumbels are made once, outside it."""
+    C, n = x.shape
+    m, D = g.shape[1], g.shape[2]
+    Wc = W[sites.long()]
+    oh = (x.T[..., None] == torch.arange(D, device=x.device)).to(
+        torch.float32).reshape(n, C * D)
+    gT = g.transpose(0, 1).contiguous()
+    return lambda: torch.argmax(torch.matmul(Wc, oh).view(m, C, D) + gT,
+                                dim=-1)
+
+
+def class_times(lattice):
+    """The class kernel on class 0 of lattice-ising-64x64 at C=256: per
+    launch as a stream of launches (host path included; it writes the class
+    in place, and a repeat writes the same values), single call, device
+    time alone, beside its plain version, the ``torch.matmul`` yardstick
+    (TF32 off) and its bound."""
+    from repro_torch.core import samplers
+    from repro_torch.kernels import chromatic_sweep as chs, ref
+    graph = lattice.graph
+    gen = torch.Generator(device=graph.device).manual_seed(6)
+    x = torch.randint(0, graph.D, (C_FULL, graph.n), generator=gen,
+                      device=graph.device, dtype=torch.int32)
+    sites = torch.as_tensor(np.flatnonzero(lattice.colors == 0),
+                            dtype=torch.int32, device=graph.device)
+    g = samplers.gumbel((C_FULL, sites.numel(), graph.D), gen, graph.device)
+    nbr = graph.nbr_pack
+    xk = x.clone()
+    f = lambda: chs.gibbs_class_sweep_cuda(xk, *nbr, sites, g, D=graph.D)
+    single = median_ms(f, 50)
+    ms = per_launch_ms(f, 20)
+    dms = kernel_device_ms(f, 20, "gibbs_class")
+    pms, want = timed(lambda: ref.gibbs_class_sweep_ref(x, graph.W, sites, g,
+                                                        graph.D), 5)
+    lms, v = timed(class_library(graph.W, x, sites, g), 20)
+    torch.cuda.synchronize()
+    check(torch.equal(xk, want), "gibbs_class_sweep != plain version in "
+          "phase 6")
+    check(torch.equal(v.T.to(torch.int32), want[:, sites.long()]),
+          "the matmul yardstick != the plain version")
+    bms, by = bound(*gibbs_class_bound(x, nbr[0], sites, g))
+    return dict(ms=ms, single_call_ms=single, device_ms=dms, plain_ms=pms,
+                library_ms=lms, bound_ms=bms, bound_by=by,
+                shape=f"lattice-ising-64x64 class 0 C={C_FULL} "
+                      f"m={sites.numel()} D={graph.D}")
 
 
 def per_launch_ms(fn, n, reps=5):
@@ -1923,6 +2108,8 @@ def phase_wide_prefill(dev, smi):
 
 REPLACES = {
     "gibbs_sweep": "src/repro/kernels/fused_sweep.py:577",
+    # gibbs_sweep_pallas on the chromatic path (one launch per color class)
+    "gibbs_class_sweep": "src/repro/kernels/fused_sweep.py:577",
     "mgpmh_sweep": "src/repro/kernels/fused_sweep.py:505",
     "mgpmh_sweep_rng": "src/repro/kernels/fused_sweep.py:542",
     "min_gibbs_sweep": "src/repro/kernels/fused_sweep.py:605",
@@ -1935,6 +2122,8 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:79",
 }
 SOURCES = {"bucket_energy": "src/repro_torch/kernels/csrc/bucket_energy.cu",
+           "gibbs_class_sweep":
+               "src/repro_torch/kernels/csrc/chromatic_sweep.cu",
            "local_gibbs_sweep": "src/repro_torch/kernels/csrc/local_sweep.cu",
            "flash_attention":
                "src/repro_torch/kernels/csrc/flash_attention.cu"}

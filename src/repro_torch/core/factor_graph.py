@@ -210,6 +210,26 @@ class MatchGraph:
             self._tables["row_pack"] = pack.to(self.device)
         return self._tables["row_pack"]
 
+    @property
+    def nbr_pack(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """W's non-zero entries row by row, as a CSR neighbour table:
+        (offsets (n + 1,) int32, records (nnz, 2) int32), row i's records
+        ``records[offsets[i]:offsets[i + 1]]``, each (j, W[i, j]'s float32
+        bits), j ascending.  Built on the host from the float32 W at first
+        use and kept; only the chromatic engine reads it."""
+        if "nbr_offsets" not in self._tables:
+            W = self.W.cpu().numpy()
+            rows, cols = np.nonzero(W)              # row-major, j ascending
+            offsets = np.zeros(self.n + 1, np.int32)
+            np.cumsum(np.bincount(rows, minlength=self.n), out=offsets[1:])
+            records = np.stack([cols.astype(np.int32),
+                                W[rows, cols].view(np.int32)], axis=-1)
+            self._tables["nbr_offsets"] = torch.from_numpy(offsets).to(
+                self.device)
+            self._tables["nbr_records"] = torch.from_numpy(
+                np.ascontiguousarray(records)).to(self.device)
+        return self._tables["nbr_offsets"], self._tables["nbr_records"]
+
     def to(self, device) -> "MatchGraph":
         """This graph on ``device`` (self when it is there already)."""
         device = torch.device(device)

@@ -545,25 +545,27 @@ def validate_coloring(graph: MatchGraph, colors) -> list:
 
 def _build_chromatic_gibbs_sweep(graph: MatchGraph, colors):
     """One full chromatic Gibbs sweep per call: every color class updated as
-    a block through the fused Gibbs kernel, one launch per class.
+    a block, one class-kernel launch per class.
 
-    Same-color sites share no factor (checked at build time), so the
-    kernel's sequential loop over a class IS the parallel block update:
-    every in-class update reads energies of the state the class started
-    from.  Per class, in color order, the sweep draws Gumbels (C, |class|, D)
-    from ``state.gen``.  ``updates_per_call`` is n.
+    Same-color sites share no factor (checked at build time), so every
+    in-class update reads energies of the state the class started from:
+    the class kernel updates all (chain, site) pairs of a class at once,
+    walking W's neighbour table (``graph.nbr_pack``, built here), and
+    writes the class in place into the call's one copy of the state.  Per
+    class, in color order, the sweep draws Gumbels (C, |class|, D) from
+    ``state.gen``.  ``updates_per_call`` is n.
     """
     D, dev = graph.D, graph.device
     classes = [torch.as_tensor(s, dtype=torch.int32, device=dev)
                for s in validate_coloring(graph, colors)]
+    W, nbr = graph.W, graph.nbr_pack
 
     def sweep(state: ChainState) -> ChainState:
         C = state.x.shape[0]
-        x = state.x
+        x = state.x.clone()
         for sites in classes:
             g = gumbel((C, sites.shape[0], D), state.gen, dev)
-            i_sites = sites.expand(C, -1).contiguous()
-            x = kernel_ops.gibbs_sweep(x, graph.W, i_sites, g, D=D)
+            kernel_ops.gibbs_class_sweep(x, W, nbr, sites, g, D=D)
         return state._replace(x=x)
 
     return sweep

@@ -13,7 +13,10 @@
 // shared memory for all S sub-steps (sub-steps are sequential, so the loop
 // over s replaces the TPU kernel's fori_loop).  The (n, n) tables stay in
 // global memory and each sub-step reads only what it needs: the W row of
-// the updated site (4n bytes), the alias entries its draws land on.
+// the updated site (4n bytes), the alias entries its draws land on.  The
+// Gibbs body knows every row it will read at launch (the sites are drawn
+// before it) and streams them through a ring of shared-memory stages with
+// TMA copies ahead of the sub-steps (its section below).
 // MIN-Gibbs and DoubleMIN, whose sub-steps each make up to D*K (K2)
 // independent two-stage pair draws, take four consecutive lanes per thread
 // and read one packed 8-byte row record (prob's bits, alias) per draw: one
@@ -28,8 +31,8 @@
 // (C, S, K)-sized stream exists in device memory.
 //
 // Determinism: float partial sums are reduced in a fixed order (per-thread
-// strided sums, warp shuffles, then warp partials summed in order by one
-// thread); counts are integers, added per warp and per block, whose sum
+// strided sums, warp shuffles, then warp partials summed in warp order);
+// counts are integers, added per warp and per block, whose sum
 // does not depend on order or on how the draws are split.  Argmax takes
 // the first maximum.
 // Build with -fmad=false: the plain versions round every product and sum
@@ -38,6 +41,8 @@
 // Plain C interface (loaded with ctypes); every launch returns
 // cudaGetLastError().
 #include <cuda_runtime.h>
+#include <limits.h>
+#include <math.h>
 #include <stdint.h>
 
 #include <initializer_list>
@@ -48,8 +53,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-// value buckets one pass over the W row accumulates in registers
-constexpr int kChunk = 8;
 // the global-minibatch bodies (MIN-Gibbs, DoubleMIN) run ~10^5 independent
 // random gathers per sub-step: more warps per block hide more latency
 constexpr int kDrawThreads = 512;
@@ -60,26 +63,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1)
     v += __shfl_down_sync(0xffffffffu, v, off);
   return v;
-}
-
-// Sum each of kChunk per-thread partials over the block, in a fixed order.
-// out[k] = total of acc[k] for k < nout.  Called by every thread.
-__device__ __forceinline__ void block_sum_chunk(const float (&acc)[kChunk],
-                                                float* red, float* out,
-                                                int nout) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int k = 0; k < kChunk; ++k) {
-    const float v = warp_sum(acc[k]);
-    if (lane == 0) red[warp * kChunk + k] = v;
-  }
-  __syncthreads();
-  if (threadIdx.x < kChunk && threadIdx.x < nout) {
-    float t = red[threadIdx.x];
-    for (int w = 1; w < kWarps; ++w) t += red[w * kChunk + threadIdx.x];
-    out[threadIdx.x] = t;
-  }
-  __syncthreads();
 }
 
 // The block size is a compile-time stride: read from blockDim.x, the stride
@@ -223,46 +206,275 @@ __device__ __forceinline__ int block_count(int m, int* red) {
 
 // ---------------------------------------------------------------------------
 // Gibbs: eps_u = sum_j W[i,j] 1[x_j = u] for all u; x_i <- argmax eps + g.
+//
+// The sites are drawn before the launch, so every W row a chain will read
+// is known when it starts.  One producer warp (one thread of it) streams
+// them through a ring of kStages = 2 stages in shared memory with 1-D bulk
+// copies (TMA), one full and one empty mbarrier per stage, one sub-step
+// ahead of the kGibbsThreads consumer threads; a stage is refilled when
+// every consumer warp has arrived on its empty barrier.  (A deeper ring,
+// up to 8 rows ahead, and no prefetch at all were measured against it:
+// the consumers' sub-step, not the row stream, bounds the kernel, and
+// rows one sub-step ahead hide the stream; PERF.md, Findings.)  A row that
+// fits twice beside the state is one stage; a longer row streams as
+// fixed-size chunks, a multiple of the block, so every thread reads the
+// same j in the same order either way and the bits do not depend on the
+// plan.  Rows start anywhere (n need not be a multiple of 4): a stage holds
+// the 16-byte aligned span around its row, and the float after the last
+// aligned word of W (odd n only) is stored by the producer itself.
+//
+// Per sub-step each consumer thread sums its strided j (j = tid + k*block,
+// ascending) into kD register buckets in one pass over the staged row;
+// each bucket is summed over the warp by a shuffle tree and the warp
+// totals, in warp order, by lane u of every warp, which adds the Gumbel
+// and takes the first maximum with shuffles.  Every warp reaches the same
+// argmax and writes it to x_i itself, so the sub-step ends at its single
+// block barrier (partials double-buffered by pass).  D > kD takes D-chunks
+// of kD buckets over the staged row (over the row's chunks again where the
+// row is chunked), one barrier per chunk.
+//
+// The state row lives in shared memory as int16 (n <= 2 * the int32 row of
+// the other kernels): a value outside [0, D) is stored as -1, which
+// matches no bucket, and is written back from x_in at the end (only
+// updated sites change, and they take values in [0, D)).
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
+constexpr int kGibbsThreads = 256;                  // consumer threads
+constexpr int kGibbsWarps = kGibbsThreads / 32;
+constexpr int kStages = 2;
+constexpr size_t kMaxSmem = 232448;                 // one block's most
+
+struct RingPlan {
+  int chunk;    // floats of a row per stage (n: whole rows)
+  int chunks;   // Q = ceil(n / chunk)
+  int stride;   // floats between stages: chunk + 3 rounded up to 32
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// arrive and add `bytes` to the transactions the phase waits for
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from global to
+// shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// the consumer threads only (the producer warp leaves early)
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" :: "n"(kGibbsThreads) : "memory");
+}
+
+// First maximum of (score, index) over the warp: every lane gets it.
+__device__ __forceinline__ void warp_argmax(float& sc, int& idx) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float o = __shfl_xor_sync(0xffffffffu, sc, off);
+    const int oi = __shfl_xor_sync(0xffffffffu, idx, off);
+    if (o > sc || (o == sc && oi < idx)) { sc = o; idx = oi; }
+  }
+}
+
+// Shared-memory layout: ring (kStages * stride floats, 128-byte aligned),
+// full and empty mbarriers (kStages each), the site of each stage, the
+// warp partials (2 x warps x kD), the int16 state row (n).
+size_t gibbs_smem(const RingPlan& p, int n, int kD) {
+  return sizeof(float) * kStages * static_cast<size_t>(p.stride) +
+         (2 * sizeof(uint64_t) + sizeof(int)) * kStages +
+         sizeof(float) * 2 * kGibbsWarps * kD + sizeof(int16_t) * n;
+}
+
+// Whole rows where two fit beside the state, else chunks of a multiple of
+// the block; false when not even a block's width fits.
+bool plan_ring(int n, int kD, RingPlan* p, size_t* smem) {
+  p->stride = (n + 3 + 31) / 32 * 32;
+  p->chunk = n;
+  p->chunks = 1;
+  if ((*smem = gibbs_smem(*p, n, kD)) <= kMaxSmem) return true;
+  p->stride = 0;
+  const size_t fixed = gibbs_smem(*p, n, kD);      // all but the ring
+  if (fixed >= kMaxSmem) return false;
+  // stride <= chunk + 3 + 31
+  const long long fit = static_cast<long long>(
+      (kMaxSmem - fixed) / (sizeof(float) * kStages)) - 34;
+  p->chunk = static_cast<int>(fit / kGibbsThreads * kGibbsThreads);
+  if (p->chunk < kGibbsThreads) return false;
+  p->stride = (p->chunk + 3 + 31) / 32 * 32;
+  p->chunks = (n + p->chunk - 1) / p->chunk;
+  *smem = gibbs_smem(*p, n, kD);
+  return true;
+}
+
+template <int kD>
+__global__ void __launch_bounds__(kGibbsThreads + 32)
 gibbs_sweep_kernel(const int* __restrict__ x_in, const float* __restrict__ W,
                    const int* __restrict__ i_sites,
                    const float* __restrict__ gumbel, int* __restrict__ x_out,
-                   int n, int S, int D) {
-  extern __shared__ int smem[];
-  int* xs = smem;                                   // n
-  float* eps = reinterpret_cast<float*>(xs + n);    // D
-  float* red = eps + D;                             // kWarps * kChunk
+                   int n, int S, int D, RingPlan plan) {
+  extern __shared__ __align__(128) unsigned char gibbs_buf[];
+  const int Q = plan.chunks, chunk = plan.chunk;
+  float* ring = reinterpret_cast<float*>(gibbs_buf);
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      ring + static_cast<size_t>(kStages) * plan.stride);
+  uint64_t* empty = full + kStages;
+  int* stage_site = reinterpret_cast<int*>(empty + kStages);
+  float* red = reinterpret_cast<float*>(stage_site + kStages);
+  int16_t* xs = reinterpret_cast<int16_t*>(red + 2 * kGibbsWarps * kD);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long c = blockIdx.x;
-  load_row<kThreads>(xs, x_in + c * n, n);
-  for (int s = 0; s < S; ++s) {
-    const int i = i_sites[c * S + s];
-    const float* wrow = W + (long long)i * n;
-    for (int u0 = 0; u0 < D; u0 += kChunk) {
-      float acc[kChunk];
-#pragma unroll
-      for (int k = 0; k < kChunk; ++k) acc[k] = 0.f;
-      for (int j = threadIdx.x; j < n; j += kThreads) {
-        const float w = wrow[j];
-        const int v = xs[j] - u0;
-#pragma unroll
-        for (int k = 0; k < kChunk; ++k) acc[k] += (v == k) ? w : 0.f;
-      }
-      block_sum_chunk(acc, red, eps + u0, D - u0);
+  // D-chunks per sub-step; ring items per sub-step: one whole row read by
+  // every D-chunk, or the row's Q chunks once per D-chunk
+  const int P = (D + kD - 1) / kD;
+  const int per_s = Q == 1 ? 1 : P * Q;
+  if (threadIdx.x == 0) {
+    for (int r = 0; r < kStages; ++r) {
+      mbar_init(smem_u32(full + r), 1);
+      mbar_init(smem_u32(empty + r), kGibbsWarps);
     }
-    if (threadIdx.x == 0) {
-      const float* g = gumbel + (c * S + s) * D;
-      int best = 0;
-      float top = __fadd_rn(eps[0], g[0]);
-      for (int u = 1; u < D; ++u) {
-        const float sc = __fadd_rn(eps[u], g[u]);
-        if (sc > top) { top = sc; best = u; }
-      }
-      xs[i] = best;
-    }
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  store_row<kThreads>(x_out + c * n, xs, n);
+  __syncthreads();
+
+  if (warp == kGibbsWarps) {                        // the producer
+    if (lane == 0) {
+      const long long last = static_cast<long long>(n) * n & ~3LL;
+      const long long T = static_cast<long long>(S) * per_s;
+      int i = 0;
+      for (long long t = 0; t < T; ++t) {
+        const int slot = static_cast<int>(t % kStages);
+        if (t >= kStages)
+          mbar_wait(smem_u32(empty + slot), ((t / kStages) - 1) & 1);
+        const int e = static_cast<int>(t % per_s), q = e % Q;
+        if (e == 0) i = __ldg(i_sites + c * S + t / per_s);
+        stage_site[slot] = i;
+        // the chunk's floats [g0, g0 + len) of flat W, staged at
+        // stage[mis ..]: the copy starts at the aligned word a = g0 - mis
+        const long long g0 = static_cast<long long>(i) * n +
+                             static_cast<long long>(q) * chunk;
+        const long long g1 = g0 + min(chunk, n - q * chunk);
+        const int mis = static_cast<int>(g0 & 3);
+        const long long a = g0 - mis, b = min((g1 + 3) & ~3LL, last);
+        float* stage = ring + static_cast<size_t>(slot) * plan.stride;
+        for (long long f = max(b, g0); f < g1; ++f)
+          stage[mis + (f - g0)] = __ldg(W + f);
+        const uint32_t bar = smem_u32(full + slot);
+        if (b > a) {
+          const uint32_t bytes = static_cast<uint32_t>(4 * (b - a));
+          mbar_expect_tx(bar, bytes);
+          bulk_load(smem_u32(stage), W + a, bytes, bar);
+        } else {
+          mbar_arrive(bar);
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumers
+  const int* xrow = x_in + c * n;
+  for (int j = threadIdx.x; j < n; j += kGibbsThreads) {
+    const int v = xrow[j];
+    xs[j] = static_cast<int16_t>(v >= 0 && v < D ? v : -1);
+  }
+  consumer_sync();
+  long long t0 = 0;                                 // first item of s
+  int pc = 0;                                       // passes so far
+  for (int s = 0; s < S; ++s) {
+    const float* g = gumbel + (c * S + s) * D;
+    const float gpre = lane < kD && lane < D ? __ldg(g + lane) : 0.f;
+    int i = 0, mis = 0, best = 0;
+    float top = 0.f;
+    for (int p = 0; p < P; ++p) {
+      const int u0 = p * kD;
+      float acc[kD];
+#pragma unroll
+      for (int k = 0; k < kD; ++k) acc[k] = 0.f;
+      for (int q = 0; q < Q; ++q) {
+        const long long t = t0 + (Q == 1 ? 0 : p * Q + q);
+        const int slot = static_cast<int>(t % kStages);
+        if (Q > 1 || p == 0) {
+          mbar_wait(smem_u32(full + slot), (t / kStages) & 1);
+          if (p == 0 && q == 0) {
+            i = stage_site[slot];
+            mis = static_cast<int>(static_cast<long long>(i) * n & 3);
+          }
+        }
+        const float* w = ring + static_cast<size_t>(slot) * plan.stride + mis;
+        const int16_t* xq = xs + q * chunk;
+        const int len = min(chunk, n - q * chunk);
+#pragma unroll 4     // four j in flight per thread (6-8% faster, PERF.md)
+        for (int j = threadIdx.x; j < len; j += kGibbsThreads) {
+          const float wj = w[j];
+          const int v = xq[j] - u0;
+#pragma unroll
+          for (int k = 0; k < kD; ++k)
+            if (v == k) acc[k] += wj;
+        }
+        if (Q > 1 || p == P - 1) {                  // release the stage
+          __syncwarp();
+          if (lane == 0) mbar_arrive(smem_u32(empty + slot));
+        }
+      }
+      float* rb = red + (pc & 1) * kGibbsWarps * kD;
+#pragma unroll
+      for (int k = 0; k < kD; ++k) {
+        const float v = warp_sum(acc[k]);
+        if (lane == 0) rb[warp * kD + k] = v;
+      }
+      consumer_sync();
+      float sc = -INFINITY;
+      int idx = INT_MAX;
+      if (lane < kD && u0 + lane < D) {
+        float tot = rb[lane];
+        for (int w2 = 1; w2 < kGibbsWarps; ++w2) tot += rb[w2 * kD + lane];
+        sc = __fadd_rn(tot, p == 0 ? gpre : __ldg(g + u0 + lane));
+        idx = u0 + lane;
+      }
+      warp_argmax(sc, idx);
+      if (p == 0 || sc > top) { top = sc; best = idx; }
+      ++pc;
+    }
+    t0 += per_s;
+    if (lane == 0) xs[i] = static_cast<int16_t>(best);
+    __syncwarp();
+  }
+  consumer_sync();
+  int* out = x_out + c * n;
+  for (int j = threadIdx.x; j < n; j += kGibbsThreads) {
+    const int v = xs[j];
+    out[j] = v >= 0 ? v : xrow[j];
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -643,6 +855,27 @@ int launch_double_min(const int* x, const int2* row, const int2* node,
   return static_cast<int>(cudaGetLastError());
 }
 
+// kD: the register buckets of one pass, the smallest instance >= D (10
+// and 2 on the main paths), 16 in D-chunks above it.
+template <int kD>
+int launch_gibbs(const int* x, const float* W, const int* i_sites,
+                 const float* gumbel, int* x_out, int C, int n, int S, int D,
+                 cudaStream_t stream) {
+  RingPlan plan;
+  size_t smem = 0;
+  if (!plan_ring(n, kD, &plan, &smem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = prepare(gibbs_sweep_kernel<kD>, smem);
+  if (err == cudaSuccess)      // several blocks per SM: all shared memory
+    err = cudaFuncSetAttribute(gibbs_sweep_kernel<kD>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  gibbs_sweep_kernel<kD><<<C, kGibbsThreads + 32, smem, stream>>>(
+      x, W, i_sites, gumbel, x_out, n, S, D, plan);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // ``pair``: the id of the first of the four pair-draw streams (-1: none);
 // their rows are read as 16-byte quads when every row starts 16-byte
 // aligned.
@@ -672,13 +905,30 @@ extern "C" {
 int gibbs_sweep_launch(const int* x, const float* W, const int* i_sites,
                        const float* gumbel, int* x_out, int C, int n, int S,
                        int D, cudaStream_t stream) {
-  const size_t smem = sizeof(int) * (size_t)n + sizeof(float) * (size_t)D +
-                      sizeof(float) * kWarps * kChunk;
-  cudaError_t err = prepare(gibbs_sweep_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  gibbs_sweep_kernel<<<C, kThreads, smem, stream>>>(x, W, i_sites, gumbel,
-                                                    x_out, n, S, D);
-  return static_cast<int>(cudaGetLastError());
+  if (D <= 2) return launch_gibbs<2>(x, W, i_sites, gumbel, x_out, C, n, S,
+                                     D, stream);
+  if (D <= 4) return launch_gibbs<4>(x, W, i_sites, gumbel, x_out, C, n, S,
+                                     D, stream);
+  if (D <= 8) return launch_gibbs<8>(x, W, i_sites, gumbel, x_out, C, n, S,
+                                     D, stream);
+  if (D <= 10) return launch_gibbs<10>(x, W, i_sites, gumbel, x_out, C, n,
+                                       S, D, stream);
+  return launch_gibbs<16>(x, W, i_sites, gumbel, x_out, C, n, S, D, stream);
+}
+
+// The Gibbs kernel's ring at (n, D): out = {chunk floats, chunks per row,
+// shared-memory bytes}; returns 0, or cudaErrorInvalidValue when no ring
+// fits.
+int gibbs_sweep_plan(int n, int D, int* out) {
+  const int kD = D <= 2 ? 2 : D <= 4 ? 4 : D <= 8 ? 8 : D <= 10 ? 10 : 16;
+  RingPlan plan;
+  size_t smem = 0;
+  if (!plan_ring(n, kD, &plan, &smem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  out[0] = plan.chunk;
+  out[1] = plan.chunks;
+  out[2] = static_cast<int>(smem);
+  return 0;
 }
 
 int mgpmh_sweep_launch(const int* x, const float* W, const float* row_prob,

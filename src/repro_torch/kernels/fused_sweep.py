@@ -33,11 +33,13 @@ they allocate only their outputs and no stream of C·S·K uniforms exists.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ._build import load_library
 
-__all__ = ["gibbs_sweep_cuda", "mgpmh_sweep_cuda", "mgpmh_sweep_rng_cuda",
+__all__ = ["gibbs_sweep_cuda", "gibbs_ring_plan", "mgpmh_sweep_cuda", "mgpmh_sweep_rng_cuda",
            "min_gibbs_sweep_cuda", "min_gibbs_sweep_rng_cuda",
            "double_min_sweep_cuda", "double_min_sweep_rng_cuda",
            "reset_launch_counts"]
@@ -120,9 +122,14 @@ def gibbs_sweep_cuda(x, W, i_sites, gumbel, *, D: int):
     gumbel (C, S, D) float32.  Returns x_out (C, n) int32.
 
     Replaces ``gibbs_sweep_pallas`` (``src/repro/kernels/fused_sweep.py:577``).
-    Bound by bytes: one W row per sub-step and chain.  One block of 256
-    threads per chain sums the row into D value buckets (eight per pass, in
-    registers) and reduces them in a fixed order.
+    Bound by bytes: one W row per sub-step and chain.  One block per chain:
+    a producer thread keeps the next sub-step's row in flight through a
+    ring of two shared-memory stages (1-D TMA copies, one mbarrier pair
+    per stage; rows too long for two stages stream as chunks), and
+    256 consumer threads sum each staged row into D value buckets in
+    registers in one pass, reduce them in a fixed order and take the
+    argmax with warp shuffles, one block barrier per sub-step.  W must be
+    16-byte aligned (any tensor PyTorch allocates is).
     """
     C, n = x.shape
     S = _sites(i_sites)
@@ -132,12 +139,28 @@ def gibbs_sweep_cuda(x, W, i_sites, gumbel, *, D: int):
     _check(gumbel, "gumbel", torch.float32, (C, S, D))
     _check_cuda([x, W, i_sites, gumbel])
     _check_smem(n, D)
+    if W.data_ptr() % 16:
+        raise ValueError("W must start 16-byte aligned (the kernel copies "
+                         "its rows with TMA)")
     out = torch.empty_like(x)
     if C == 0:
         return out
     _launch("gibbs_sweep_launch", x, (x, W, i_sites, gumbel, out, C, n, S, D))
     gibbs_sweep_cuda.launches += 1
     return out
+
+
+def gibbs_ring_plan(n: int, D: int) -> dict:
+    """The two-stage ring ``gibbs_sweep_cuda`` plans at (n, D): ``chunk``
+    (floats of a row per stage), ``chunks`` (per row; 1 = whole rows) and
+    ``smem`` (bytes per block).  Builds the library at first use."""
+    out = (ctypes.c_int * 3)()
+    info = load_library()
+    err = info.fns["gibbs_sweep_plan"](int(n), int(D), ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"no Gibbs ring fits n={n}, D={D}: "
+                           f"{info.lib.cuda_error_string(err).decode()}")
+    return dict(zip(("chunk", "chunks", "smem"), out))
 
 
 def mgpmh_sweep_cuda(x, W, row_prob, row_alias, i_sites, B, u_idx, u_alias,

@@ -2,8 +2,8 @@
 
 A CPU tensor goes to the plain PyTorch version (``ref.py``); a CUDA tensor
 goes to the hand-written kernel (``fused_sweep.py``,
-``minibatch_energy.py``, ``local_sweep.py``, ``flash_attention.py``), which
-launches or raises.  Nothing falls back from one to the other.  The
+``chromatic_sweep.py``, ``minibatch_energy.py``, ``local_sweep.py``,
+``flash_attention.py``), which launches or raises.  Nothing falls back from one to the other.  The
 in-kernel-RNG forms of the fused sweeps have no entry here (as in the JAX
 package): they are called through ``fused_sweep`` directly.  The
 local-gibbs sweep draws in-kernel only, and has its entry here.
@@ -12,16 +12,18 @@ from __future__ import annotations
 
 import torch
 
+from .chromatic_sweep import gibbs_class_sweep_cuda
 from .fused_sweep import (double_min_sweep_cuda, gibbs_sweep_cuda,
                           mgpmh_sweep_cuda, min_gibbs_sweep_cuda)
 from .flash_attention import flash_attention_cuda
 from .local_sweep import local_gibbs_sweep_cuda
 from .minibatch_energy import bucket_energy_cuda
 from .ref import (bucket_energy_ref, double_min_sweep_ref,
-                  flash_attention_ref, gibbs_sweep_ref,
+                  flash_attention_ref, gibbs_class_sweep_ref, gibbs_sweep_ref,
                   local_gibbs_sweep_ref, mgpmh_sweep_ref, min_gibbs_sweep_ref)
 
-__all__ = ["bucket_energy", "flash_attention", "gibbs_sweep", "mgpmh_sweep",
+__all__ = ["bucket_energy", "flash_attention", "gibbs_sweep",
+           "gibbs_class_sweep", "mgpmh_sweep",
            "min_gibbs_sweep", "double_min_sweep", "local_gibbs_sweep"]
 
 
@@ -89,6 +91,20 @@ def gibbs_sweep(x, W, i_sites, gumbel, *, D: int):
     if _route(x, "gibbs_sweep") == "cpu":
         return gibbs_sweep_ref(x, W, i_sites, gumbel, D)
     return gibbs_sweep_cuda(x, W, i_sites, gumbel, D=D)
+
+
+def gibbs_class_sweep(x, W, nbr_pack, sites, gumbel, *, D: int):
+    """One chromatic Gibbs color class of every chain, updated IN PLACE in
+    ``x``, which it returns (see ``ref.gibbs_class_sweep_ref``).
+
+    x (C, n) i32; W (n, n) f32 and ``nbr_pack`` = (offsets, records), its
+    neighbour table (``MatchGraph.nbr_pack``): the kernel walks the table,
+    the plain version reads W; sites (m,) i32, a color class of a proper
+    coloring; gumbel (C, m, D) f32.
+    """
+    if _route(x, "gibbs_class_sweep") == "cpu":
+        return x.copy_(gibbs_class_sweep_ref(x, W, sites, gumbel, D))
+    return gibbs_class_sweep_cuda(x, *nbr_pack, sites, gumbel, D=D)
 
 
 def _unpack(pack):

@@ -10,11 +10,13 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..core.factor_graph import build_alias_table, pack_alias
+from ..core.factor_graph import (build_alias_table, make_pair_ising,
+                                 pack_alias, pair_colors)
 
 __all__ = ["alias_rows", "node_table", "gibbs_inputs", "mgpmh_inputs",
            "min_gibbs_inputs", "double_min_inputs", "edge_totals",
-           "packed_args", "local_gibbs_inputs"]
+           "packed_args", "local_gibbs_inputs", "class_graph",
+           "gibbs_class_inputs"]
 
 
 def _symmetric(rng, n):
@@ -135,3 +137,76 @@ def local_gibbs_inputs(C, S, D, n, weights="real"):
         W = (A + A.T).astype(np.float32)
     return (rng.integers(0, D, (C, n)).astype(np.int32), W,
             rng.integers(0, n, (C, S)).astype(np.int32))
+
+
+def _weights(rng, mask, weights):
+    """Symmetric weights on the symmetric 0/1 pattern ``mask``: "ising"
+    (0.8, lattice-ising's 2*beta), "real" (uniform in [0.1, 1]) or
+    "integer" (integers in [1, 4]: every summation order gives the same
+    bits)."""
+    n = mask.shape[0]
+    if weights == "ising":
+        A = np.full((n, n), 0.8)
+    elif weights == "real":
+        A = rng.uniform(0.1, 1.0, (n, n))
+    elif weights == "integer":
+        A = rng.integers(1, 5, (n, n)).astype(np.float64)
+    else:
+        raise ValueError(f"unknown weights {weights!r}")
+    A = np.triu(A, 1)
+    return ((A + A.T) * mask).astype(np.float32)
+
+
+def _greedy_coloring(W):
+    """A proper coloring of W's pattern: each site, in order, takes the
+    smallest color none of its earlier neighbours has."""
+    n = W.shape[0]
+    colors = np.zeros(n, np.int32)
+    for i in range(n):
+        taken = set(colors[np.flatnonzero(W[i, :i])].tolist())
+        colors[i] = min(set(range(n)) - taken)
+    return colors
+
+
+def class_graph(kind, size, weights="real"):
+    """(W (n, n) float32, colors (n,) int32): a graph with zero diagonal and
+    a proper coloring of it.
+
+    ``kind``: "lattice", the size x size nearest-neighbour lattice (open
+    edges) with its checkerboard coloring; "pairs", ``size`` + ``size``
+    independent pairs with ``make_pair_ising``'s weights (3.5, then 0.25)
+    and the even/odd coloring; "hub", ``size`` sites where site 0 is joined
+    to every other site and the others by a sparse random pattern (some of
+    them isolated from all but the hub), greedily colored, so site 0 is a
+    class of its own of degree size - 1.  ``weights`` as ``_weights``
+    (pairs ignore it).
+    """
+    rng = np.random.default_rng(1000 + size)
+    if kind == "lattice":
+        n = size * size
+        r, c = np.divmod(np.arange(n), size)
+        mask = ((np.abs(r[:, None] - r[None, :])
+                 + np.abs(c[:, None] - c[None, :])) == 1).astype(np.float64)
+        return _weights(rng, mask, weights), ((r + c) % 2).astype(np.int32)
+    if kind == "pairs":
+        return (make_pair_ising(size, size, device="cpu").W.numpy(),
+                pair_colors(2 * size))
+    if kind == "hub":
+        n = size
+        mask = np.triu(rng.uniform(size=(n, n)) < 3.0 / n, 1)
+        mask[:, n // 2:] &= False             # the upper half: hub only
+        mask[0, 1:] = True
+        mask = (mask | mask.T).astype(np.float64)
+        W = _weights(rng, mask, weights)
+        return W, _greedy_coloring(W)
+    raise ValueError(f"unknown graph kind {kind!r}")
+
+
+def gibbs_class_inputs(C, D, n, sites, seed):
+    """(x, sites, gumbel) of one class update: x (C, n) int32 with values
+    in [-1, D] (a few outside [0, D), which match no bucket), the class
+    sites as int32, gumbel (C, m, D) float32."""
+    rng = np.random.default_rng(seed)
+    sites = np.asarray(sites, np.int32)
+    return (rng.integers(-1, D + 1, (C, n)).astype(np.int32), sites,
+            rng.gumbel(size=(C, sites.size, D)).astype(np.float32))

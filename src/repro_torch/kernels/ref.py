@@ -38,7 +38,8 @@ import torch
 
 from . import philox
 
-__all__ = ["bucket_energy_ref", "gibbs_sweep_ref", "mgpmh_sweep_ref",
+__all__ = ["bucket_energy_ref", "gibbs_sweep_ref", "gibbs_class_sweep_ref",
+           "mgpmh_sweep_ref",
            "min_gibbs_sweep_ref", "double_min_sweep_ref",
            "mgpmh_sweep_rng_ref", "min_gibbs_sweep_rng_ref",
            "double_min_sweep_rng_ref", "local_gibbs_subsets",
@@ -126,6 +127,27 @@ def gibbs_sweep_ref(x, W, i_sites, gumbel, D: int):
         i = i_sites[:, s].long()
         eps = bucket_energy_ref(W[i], x, D)                    # (C, D)
         x[rows, i] = torch.argmax(eps + gumbel[:, s, :], dim=-1).to(x.dtype)
+    return x
+
+
+def gibbs_class_sweep_ref(x, W, sites, gumbel, D: int):
+    """One chromatic Gibbs color class of every chain, as one block update:
+    x[c, i] <- argmax_u (eps[c, k, u] + gumbel[c, k, u]) for i = sites[k],
+    eps = einsum(W[sites], onehot(x)), every eps read from the state the
+    class started from (first maximum; values outside [0, D) match no
+    bucket).
+
+    The plain version of the class kernel (``csrc/chromatic_sweep.cu``),
+    dense and independent of its neighbour table.  Equal to
+    ``gibbs_sweep_ref`` fed ``i_sites`` = the class in any order when the
+    class sites share no factor.  x (C, n) int32; W (n, n) float32; sites
+    (m,) int; gumbel (C, m, D) float32.  Returns x_out (C, n) int32 (the
+    input is not modified).
+    """
+    idx = sites.long()
+    eps = torch.einsum("kj,cjd->ckd", W[idx], _onehot(x, D))   # (C, m, D)
+    x = x.clone()
+    x[:, idx] = torch.argmax(eps + gumbel, dim=-1).to(x.dtype)
     return x
 
 

@@ -42,6 +42,13 @@ MGPMH_SHAPES = [          # (C, S, K, D, n), as tests/test_sweep.py:53-59
     (2, 3, 9, 129, 7),
 ]
 GIBBS_SHAPES = [(4, 5, 3, 11), (8, 8, 10, 40), (3, 1, 2, 5)]   # (C, S, D, n)
+# the Gibbs kernel's ring (C, S, D, n): D above the register width, a ragged
+# n (not a multiple of the block, the chunk or 4: rows start anywhere), a
+# second S = 1, and an odd n long enough for the chunked ring (its last row
+# ends past W's last aligned word), with D = 10 and D = 129
+GIBBS_RING_SHAPES = [(2, 3, 129, 7), (3, 6, 10, 1001), (4, 1, 10, 40),
+                     (2, 3, 10, 23301), (2, 2, 129, 23301)]
+CHUNKED_N = 20000       # above it, a row does not fit twice beside the state
 
 
 def _torch(arrays, device="cpu"):
@@ -140,6 +147,7 @@ def test_cuda_wrappers_refuse_cpu_tensors_and_bad_inputs():
 def test_kernel_build_command_targets_sm_90a():
     sources = _build._sources()
     assert [p.name for p in sources] == ["bucket_energy.cu",
+                                         "chromatic_sweep.cu",
                                          "flash_attention.cu",
                                          "fused_sweep.cu", "local_sweep.cu"]
     for src in sources:                  # one nvcc process per source
@@ -331,6 +339,39 @@ def test_gibbs_kernel_equals_plain_version(cuda, C, S, D, n):
     xk = fused_sweep.gibbs_sweep_cuda(x, W, i, g, D=D)
     torch.cuda.synchronize()
     assert torch.equal(xk, tref.gibbs_sweep_ref(x, W, i, g, D))
+
+
+def _ring_inputs(C, S, D, n, dev):
+    """(x, W, i_sites, gumbel) on the card, x with values outside [0, D)
+    in chain 0.  The chunked-ring sizes draw W (2.2 GB) on the card."""
+    if n < CHUNKED_N:
+        x, W, i, g = _torch(pin.gibbs_inputs(C, S, D, n), dev)
+    else:
+        gen = torch.Generator(device=dev).manual_seed(n + D)
+        W = torch.rand((n, n), generator=gen, device=dev)
+        x = torch.randint(0, D, (C, n), generator=gen, device=dev,
+                          dtype=torch.int32)
+        i = torch.randint(0, n, (C, S), generator=gen, device=dev,
+                          dtype=torch.int32)
+        u = torch.rand((C, S, D), generator=gen, device=dev)
+        g = -torch.log(-torch.log(u + 1e-20) + 1e-20)
+    x[0, :3] = torch.tensor([-1, D, D + 5], dtype=torch.int32)
+    return x, W, i, g
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,S,D,n", GIBBS_RING_SHAPES)
+def test_gibbs_ring_kernel_equals_plain_version(cuda, C, S, D, n):
+    plan = fused_sweep.gibbs_ring_plan(n, D)
+    assert (plan["chunks"] > 1) == (n >= CHUNKED_N)
+    assert plan["smem"] <= fused_sweep._MAX_SMEM
+    x, W, i, g = _ring_inputs(C, S, D, n, cuda)
+    before = fused_sweep.gibbs_sweep_cuda.launches
+    outs = [fused_sweep.gibbs_sweep_cuda(x, W, i, g, D=D) for _ in range(2)]
+    want = tref.gibbs_sweep_ref(x, W, i, g, D)
+    torch.cuda.synchronize()
+    assert fused_sweep.gibbs_sweep_cuda.launches == before + 2
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], want)
 
 
 @pytest.mark.gpu

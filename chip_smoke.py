@@ -8,8 +8,9 @@ Phases, each printed as it ends; any failure exits non-zero:
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
      per source, all started together; ``-Xptxas -v`` registers / shared
      memory for every kernel: the ten sampling kernels (the Gibbs sweep
-     one instance per register width, 2/4/8/10/16 buckets, the chromatic
-     class kernel one per 2/4/8/16), flash attention's three bf16
+     and both MGPMH forms one instance per register width, 2/4/8/10/16
+     buckets, the chromatic class kernel one per 2/4/8/16), flash
+     attention's three bf16
      instances (padded head dims 64, 128, 256; their registers, spills and
      launch shared memory printed apart, and no wgmma serialised) and its
      four float32 ones);
@@ -18,7 +19,11 @@ Phases, each printed as it ends; any failure exits non-zero:
      in-kernel-RNG kernels, the local-gibbs sweep among them, with seeds
      0, 1 and 2^31-1; the Gibbs sweep also at its ring's shapes -- D=129
      above the register width, a ragged n=1001, S=1, and an odd n=23301
-     whose rows stream through the ring in chunks -- twice each; the
+     whose rows stream through the ring in chunks -- twice each; both
+     MGPMH kernels also at their edge shapes -- an odd n, D=33, K=600
+     (several rounds of draws), n=23301 (chunked rows), x outside [0, D)
+     at sites never updated, Poisson totals at 0 and at K -- twice each,
+     the Philox form for every seed; the
      chromatic class kernel on every class of lattices (4x4, 6x6) and of
      hub graphs of degree 99 and 299 (the warp form, integer weights) at
      D in {2, 3, 10, 129}, against its plain version and the sequential
@@ -88,7 +93,11 @@ Phases, each printed as it ends; any failure exits non-zero:
      128} beside its plain version and bound, and one local-gibbs sweep
      call split into the kernel and the rest (site and seed draws), with
      updates/s and the device's busy time over one call from
-     ``torch.profiler``; the
+     ``torch.profiler``; the MGPMH engine's sweep call traced (the call,
+     its draws and the kernel's wrapper alone, with the host's issue time
+     of each, and over a stream of ten calls the device's busy time, idle
+     share and top ops; the MGPMH kernels' live draws beside a
+     random-gather probe of as many records); the
      flash-attention kernel at the prefill attention of tinyllama-1.1b,
      starcoder2-7b, h2o-danube-3-4b and gemma3-12b (local and global)
      beside its plain version, ``scaled_dot_product_attention`` (timed,
@@ -176,15 +185,25 @@ KERNELS = ("gibbs_sweep", "gibbs_class_sweep", "mgpmh_sweep",
            "local_gibbs_sweep", "flash_attention")
 # ptxas entry functions: one per kernel, but flash attention has three bf16
 # instances (padded head dims 64, 128, 256) and four float32 ones (head
-# dims 16, 32, 64, 128), the Gibbs sweep one per register width (2, 4, 8,
-# 10, 16 buckets) and the class kernel one per width (2, 4, 8, 16)
-PTXAS_ENTRIES = len(KERNELS) - 3 + (3 + 4) + 5 + 4
+# dims 16, 32, 64, 128), the Gibbs sweep and both MGPMH forms one per
+# register width (2, 4, 8, 10, 16 buckets) and the class kernel one per
+# width (2, 4, 8, 16)
+PTXAS_ENTRIES = len(KERNELS) - 5 + (3 + 4) + 3 * 5 + 4
 # the Gibbs ring kernel's new shapes (C, S, D, n): tests/test_torch_sweep.py
 # GIBBS_RING_SHAPES (D > the register width, a ragged n, S = 1, an odd n
 # that takes the chunked ring)
 PARITY_RING = [(2, 3, 129, 7), (3, 6, 10, 1001), (4, 1, 10, 40),
                (2, 3, 10, 23301), (2, 2, 129, 23301)]
 CHUNKED_N = 20000
+# the MGPMH kernels' edge shapes (C, S, K, D, n), x outside [0, D) at sites
+# never updated and totals at 0 and at K: tests/test_torch_sweep.py
+# MGPMH_EDGE_SHAPES (an odd n, D above the register width, K above the
+# block, an odd n whose rows stream through the ring in chunks)
+PARITY_MGPMH_EDGE = [(3, 6, 17, 10, 1001), (2, 3, 9, 33, 7),
+                     (3, 4, 600, 5, 301), (2, 3, 17, 10, 23301),
+                     (2, 2, 9, 33, 23301)]
+# host-clock reps of the mgpmh call's split (phase 6)
+CALL_REPS = 20
 # the class kernel (graph kind, size, weights, D, C): the lattice with
 # lattice-ising's weights, and a hub of degree size - 1 (the warp form) with
 # integer weights (every summation order gives the same bits):
@@ -373,6 +392,13 @@ def packed(args):
     return packed_args(args)
 
 
+def packed_mgpmh(args):
+    """An MGPMH kernel's arguments from its plain version's: the row
+    tables packed (``parity_inputs.packed_mgpmh_args``)."""
+    from repro_torch.kernels.parity_inputs import packed_mgpmh_args
+    return packed_mgpmh_args(args)
+
+
 def _equal(a, b):
     a = a if isinstance(a, tuple) else (a,)
     b = b if isinstance(b, tuple) else (b,)
@@ -419,17 +445,18 @@ def phase_parity(dev):
     t = lambda arrays: tuple(torch.from_numpy(a).to(dev) for a in arrays)
     for (C, S, K, D, n) in PARITY_MGPMH:
         args = t(pin.mgpmh_inputs(C, S, K, D, n))
-        xk, ak = fs.mgpmh_sweep_cuda(*args, D=D, scale=0.7)
+        xk, ak = fs.mgpmh_sweep_cuda(*packed_mgpmh(args), D=D, scale=0.7)
         xr, ar = ref.mgpmh_sweep_ref(*args, D, 0.7)
         torch.cuda.synchronize()
         check(torch.equal(xk, xr) and torch.equal(ak, ar),
               f"mgpmh kernel != plain version at (C,S,K,D,n)="
               f"{(C, S, K, D, n)}")
         rng_parity("mgpmh_sweep_rng",
-                   lambda a, sd: fs.mgpmh_sweep_rng_cuda(*a, sd, D=D,
-                                                         scale=0.7, K=K),
+                   lambda a, sd: fs.mgpmh_sweep_rng_cuda(
+                       *packed_mgpmh(a), sd, D=D, scale=0.7, K=K),
                    lambda a, sd: ref.mgpmh_sweep_rng_ref(*a, sd, D, 0.7, K),
                    tuple(args[:6]), (4, 5), (C, S, K, D, n), dev)
+    mgpmh_edge_parity(dev)
     for (C, S, D, n) in PARITY_GIBBS:
         args = t(pin.gibbs_inputs(C, S, D, n))
         xk = fs.gibbs_sweep_cuda(*args, D=D)
@@ -481,7 +508,9 @@ def phase_parity(dev):
                        t(pin.local_gibbs_inputs(C, S, D, n, weights)), (2,),
                        shape, dev)
     torch.cuda.synchronize()
-    say("3a parity", f"{len(PARITY_MGPMH)} mgpmh + {len(PARITY_GIBBS)} gibbs "
+    say("3a parity", f"{len(PARITY_MGPMH)} mgpmh + {len(PARITY_MGPMH_EDGE)} "
+        f"mgpmh edge shapes {PARITY_MGPMH_EDGE} (both forms, twice) + "
+        f"{len(PARITY_GIBBS)} gibbs "
         f"+ {len(PARITY_RING)} gibbs ring shapes {PARITY_RING} (twice) + "
         f"gibbs_class_sweep at {PARITY_CLASS} (every class, twice) "
         f"+ {len(PARITY_MIN)} min-gibbs + {len(PARITY_DMIN)} doublemin "
@@ -535,6 +564,40 @@ def ring_parity(dev):
               f"{shape}, plan {plan}")
         say("3a parity", f"gibbs ring shape {shape}: plan {plan}")
         del x, W, i, g, outs, want
+        torch.cuda.empty_cache()
+
+
+def mgpmh_edge_parity(dev):
+    """Both MGPMH kernels at the edge shapes (``mgpmh_edge_inputs``): the
+    planned ring (chunked exactly where n >= CHUNKED_N), twice the same
+    bits, equal to the plain versions (the Philox form for every seed)."""
+    from repro_torch.kernels import fused_sweep as fs, parity_inputs as pin
+    from repro_torch.kernels import ref
+    for shape in PARITY_MGPMH_EDGE:
+        C, S, K, D, n = shape
+        plan = fs.mgpmh_ring_plan(n, D)
+        check((plan["chunks"] > 1) == (n >= CHUNKED_N),
+              f"mgpmh ring plan {plan} at n={n}")
+        args = pin.mgpmh_edge_inputs(C, S, K, D, n, dev)
+        kargs = packed_mgpmh(args)
+        outs = [fs.mgpmh_sweep_cuda(*kargs, D=D, scale=0.7)
+                for _ in range(2)]
+        want = ref.mgpmh_sweep_ref(*args, D, 0.7)
+        torch.cuda.synchronize()
+        check(all(_equal(o, want) for o in outs),
+              f"mgpmh kernel != plain version at edge shape (C,S,K,D,n)="
+              f"{shape}, plan {plan}")
+        for sd in SEEDS:
+            seed = _seed(sd, dev)
+            outs = [fs.mgpmh_sweep_rng_cuda(*kargs[:5], seed, D=D, scale=0.7,
+                                            K=K) for _ in range(2)]
+            want = ref.mgpmh_sweep_rng_ref(*args[:6], seed, D, 0.7, K)
+            torch.cuda.synchronize()
+            check(all(_equal(o, want) for o in outs),
+                  f"mgpmh_sweep_rng != plain version at edge shape "
+                  f"(C,S,K,D,n)={shape}, seed {sd}")
+        say("3a parity", f"mgpmh edge shape {shape}: plan {plan}")
+        del args, kargs, outs, want
         torch.cuda.empty_cache()
 
 
@@ -678,7 +741,7 @@ def build_graphs(dev):
     from repro_torch.core import engine
     t0 = time.perf_counter()
     potts = engine.make_workload("potts-64x64", device=dev).graph
-    _ = potts.row_prob                       # the lazy row tables MGPMH reads
+    _ = potts.row_pack                       # the lazy packed row tables
     t1 = time.perf_counter()
     lattice = engine.make_workload("lattice-ising-64x64", device=dev)
     t2 = time.perf_counter()
@@ -700,9 +763,43 @@ def mgpmh_inputs(graph, C, S, seed):
     gen = torch.Generator(device=graph.device).manual_seed(seed)
     x = torch.randint(0, graph.D, (C, graph.n), generator=gen,
                       device=graph.device, dtype=torch.int32)
-    draws = samplers.mgpmh_draws(gen, graph, C, S, lam, K)
+    draws = samplers.mgpmh_draws(gen, graph, C, S,
+                                 samplers.mgpmh_rate(graph, lam), K)
     args = (x, graph.W, graph.row_prob, graph.row_alias, *draws)
     return args, dict(D=graph.D, scale=graph.L / lam), lam, K
+
+
+def mgpmh_kargs(args, graph):
+    """An MGPMH kernel's arguments from the plain version's (x, W,
+    row_prob, row_alias, ...), whose tables are the graph's views of its
+    packed records: the packed table itself, no copy."""
+    pack = graph.row_pack
+    check(args[2].data_ptr() == pack.data_ptr()
+          and args[3].data_ptr() == pack.data_ptr() + 4,
+          "mgpmh_kargs takes the graph's row-table views")
+    return (args[0], args[1], pack, *args[4:])
+
+
+def gather_probe(records, dev):
+    """CUDA-event ms of ``torch.take`` of ``records`` random 8-byte records
+    from a 128 MiB table (the card's random-gather rate, PERF.md PR 17)."""
+    table = torch.arange(16 << 20, dtype=torch.int64, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    idx = torch.randint(0, table.numel(), (records,), generator=gen,
+                        device=dev)
+    ms, got = timed(lambda: torch.take(table, idx), 5)
+    check(torch.equal(got, idx), "the gather probe read wrong records")
+    return ms
+
+
+def gather_floor(B):
+    """The MGPMH call's live draws (the Poisson totals' sum), the bytes of
+    one 32-byte sector per draw, and the time of as many random 8-byte
+    record gathers (``gather_probe``): a floor of the draws beside the
+    byte bound, which counts each distinct record once."""
+    live = int(B.long().sum())
+    return dict(live_draws=live, draw_sector_bytes=32 * live,
+                gather_probe_ms=gather_probe(live, B.device))
 
 
 def gibbs_inputs(graph, C, S, seed):
@@ -792,12 +889,13 @@ def phase_full_width(potts, lattice):
         f"mean B={float(args[5].float().mean()):.2f}")
     check(K == 201, f"capacity {K} != 201 at potts-64x64's default lambda")
     out["mgpmh_sweep"] = compare(
-        "mgpmh_sweep", fs.mgpmh_sweep_cuda(*args, **kw),
+        "mgpmh_sweep", fs.mgpmh_sweep_cuda(*mgpmh_kargs(args, potts), **kw),
         ref.mgpmh_sweep_ref(*args, kw["D"], kw["scale"]), C_FULL)
     a, k = rng_view("mgpmh", args, kw, K)
     sd = _seed(11, potts.device)
     out["mgpmh_sweep_rng"] = compare(
-        "mgpmh_sweep_rng", fs.mgpmh_sweep_rng_cuda(*a, sd, **k),
+        "mgpmh_sweep_rng",
+        fs.mgpmh_sweep_rng_cuda(*mgpmh_kargs(a, potts), sd, **k),
         ref.mgpmh_sweep_rng_ref(*a, sd, k["D"], k["scale"], K), C_FULL)
     args = gibbs_inputs(potts, C_FULL, S_FULL, seed=2)
     out["gibbs_sweep"] = compare(
@@ -1156,7 +1254,8 @@ def phase_rng_path(potts):
     out = {}
     for k, (args, kw) in inputs.items():
         wrapper = getattr(fs, k + "_cuda")
-        a = list(args if k == "mgpmh_sweep_rng" else packed(args))
+        a = list(mgpmh_kargs(args, potts) if k == "mgpmh_sweep_rng"
+                 else packed(args))
         times, grown, acc = [], [], 0
         for call in range(RNG_CALLS):
             seed = _seed(1000 + call, potts.device)
@@ -1232,15 +1331,22 @@ def gibbs_bound(x, W, i, g):
     return nbytes, ops
 
 
-def mgpmh_bound(x, W, rp, ra, i, B, u1, u2, g, lu):
+def mgpmh_bound(x, W, rp, ra, i, B, u1, u2, g, lu, sectors=False):
+    """Bytes and operations of one MGPMH call: x, the sites and totals,
+    the Gumbels and logu, the live uniforms, the distinct 8-byte row
+    records the draws read (``sectors``: one 32-byte sector per live draw,
+    the least a random record costs the memory), the distinct W rows; two
+    compare-adds per row term and four operations per draw."""
     C, n = x.shape
     K = u1.shape[-1]
     live = torch.arange(K, device=x.device) < B[..., None]
     idx = torch.clamp((u1 * n).to(torch.int64), max=n - 1)
     keys = (i.long()[..., None] * n + idx)[live]
+    records = (32 * int(B.long().sum()) if sectors
+               else 8 * int(torch.unique(keys).numel()))
     nbytes = (8 * C * n + 4 * C + 12 * i.numel() + 4 * g.numel()
               + 8 * int(B.long().sum())              # the live uniforms
-              + 8 * int(torch.unique(keys).numel())   # their table entries
+              + records                               # their table entries
               + 4 * n * _unique_rows(i))              # exact-pass W rows
     ops = 2 * _row_nnz(W, i) + 4 * int(B.long().sum())
     return nbytes, ops
@@ -1319,11 +1425,12 @@ def double_min_bound(x, i, B1, B2, row_sum, D, rng):
     return nbytes, 4 * (live1 + live2), int_ops
 
 
-def mgpmh_rng_bound(x, W, rp, ra, i, B, D):
+def mgpmh_rng_bound(x, W, rp, ra, i, B, D, sectors=False):
     C, n = x.shape
     live = int(B.long().sum())
+    records = 32 * live if sectors else 8 * _local_entries(i, B, n)
     nbytes = (8 * C * n + 4 * C + 8 * i.numel()
-              + 8 * _local_entries(i, B, n)           # alias entries
+              + records                               # alias entries
               + 4 * n * _unique_rows(i))              # exact-pass W rows
     int_ops = PHILOX_INT_OPS * (2 * _philox_calls(B)
                                 + _gumbel_calls(i, D, extra=1))
@@ -1343,12 +1450,17 @@ def phase_times(potts, lattice, rng_inputs):
     from repro_torch.kernels import fused_sweep as fs, ref
     recs = {}
     args, kw, _, _ = mgpmh_inputs(potts, C_FULL, S_FULL, seed=4)
-    ms = median_ms(lambda: fs.mgpmh_sweep_cuda(*args, **kw), 20)
+    kargs = mgpmh_kargs(args, potts)
+    ms = median_ms(lambda: fs.mgpmh_sweep_cuda(*kargs, **kw), 20)
     pms = median_ms(lambda: ref.mgpmh_sweep_ref(*args, kw["D"], kw["scale"]),
                     3)
     bms, by = bound(*mgpmh_bound(*args))
     recs["mgpmh_sweep"] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
-                               shape="potts-64x64 C=256 S=64 K=201 D=10")
+                               shape="potts-64x64 C=256 S=64 K=201 D=10",
+                               sector_bound_ms=bound(*mgpmh_bound(
+                                   *args, sectors=True))[0],
+                               **gather_floor(args[5]),
+                               ring=fs.mgpmh_ring_plan(potts.n, potts.D))
     args = gibbs_inputs(potts, C_FULL, S_FULL, seed=5)
     ms = median_ms(lambda: fs.gibbs_sweep_cuda(*args, D=potts.D), 20)
     pms = median_ms(lambda: ref.gibbs_sweep_ref(*args, potts.D), 3)
@@ -1361,6 +1473,11 @@ def phase_times(potts, lattice, rng_inputs):
     for k, r in recs.items():
         rate = (f", {r['pair_draws_per_s'] / 1e9:.2f} G pair draws/s"
                 if "pair_draws_per_s" in r else "")
+        if "gather_probe_ms" in r:
+            rate += (f"; {r['live_draws']} live draws: bound with one "
+                     f"sector each {r['sector_bound_ms']:.4f} ms, a "
+                     f"random-gather probe of as many records "
+                     f"{r['gather_probe_ms']:.4f} ms")
         say("6 times", f"{k} [{r['shape']}]: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms [{r.get('plain_shape', r['shape'])}], "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}){rate}")
@@ -1372,6 +1489,7 @@ def phase_times(potts, lattice, rng_inputs):
     recs["local_gibbs_sweep_b"] = local = local_times(potts)
     recs["local_gibbs_sweep"] = local[LOCAL_MAIN]
     recs["local_sweep_ms"] = local_split(potts)
+    recs["mgpmh_call"] = mgpmh_call(potts)
     return recs
 
 
@@ -1631,6 +1749,83 @@ def local_split(potts):
     return out
 
 
+def host_ms(fn, n):
+    """Host-clock ms per call of ``fn`` over n calls with no synchronize
+    between them: the time the host takes to issue one call's work."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e3 * (t1 - t0) / n
+
+
+def call_trace(call, parts, n=CALL_REPS, window=10):
+    """One sweep call split up: CUDA-event medians of the whole call and of
+    each of ``parts`` (name -> fn, on inputs made once) alone, the host's
+    issue time of each (``host_ms``); a stream of ``window`` calls (ms per
+    call), and the device's busy time and top ops over such a stream under
+    torch.profiler, per call, with the idle share of the unprofiled
+    stream's time."""
+    rec = dict(call_ms=median_ms(call, n), call_host_ms=host_ms(call, n),
+               parts=list(parts))
+    for name, fn in parts.items():
+        rec[f"{name}_ms"] = median_ms(fn, n)
+        rec[f"{name}_host_ms"] = host_ms(fn, n)
+    stream = lambda: [call() for _ in range(window)]
+    rec["stream_call_ms"] = median_ms(stream, 3) / window
+    busy = device_busy(stream)
+    rec.update(window=window,
+               profiled_wall_ms=busy["profiled_wall_ms"] / window,
+               device_busy_ms=busy["device_busy_ms"] / window,
+               top_device_ops_ms={k: v / window for k, v in
+                                  busy["top_device_ops_ms"].items()})
+    rec["device_idle_share"] = 1.0 - rec["device_busy_ms"] / rec[
+        "stream_call_ms"]
+    return rec
+
+
+def trace_line(name, rec):
+    """A ``call_trace`` record as one line."""
+    parts = ", ".join(f"{p} {rec[p + '_ms']:.4f} (host "
+                      f"{rec[p + '_host_ms']:.4f})" for p in rec["parts"])
+    return (f"{name}: call {rec['call_ms']:.4f} ms (host issue "
+            f"{rec['call_host_ms']:.4f}); alone: {parts}; a stream of "
+            f"{rec['window']} calls {rec['stream_call_ms']:.4f} ms per call, "
+            f"device busy {rec['device_busy_ms']:.4f} (idle "
+            f"{rec['device_idle_share']:.3f}; profiled wall "
+            f"{rec['profiled_wall_ms']:.4f}), top device ops per call "
+            + ", ".join(f"{k} {v:.4f}" for k, v in
+                        rec["top_device_ops_ms"].items()))
+
+
+def mgpmh_call(potts):
+    """The MGPMH engine's sweep call at C=256, S=64 (phase 4's), traced:
+    the whole call, its draws and the kernel's wrapper alone, the device's
+    busy time and idle share over a stream of calls, and updates/s of that
+    stream."""
+    from repro_torch.core import engine, samplers
+    from repro_torch.kernels import fused_sweep as fs
+    eng = engine.make("mgpmh", potts, sweep=S_FULL)
+    st = eng.init(3, C_FULL, start="random")
+    lam, K = eng.params["lam"], eng.params["capacity"]
+    rate = samplers.mgpmh_rate(potts, lam)
+    gen = torch.Generator(device=potts.device).manual_seed(4)
+    draw = lambda: samplers.mgpmh_draws(gen, potts, C_FULL, S_FULL, rate, K)
+    kargs = (st.x, potts.W, potts.row_pack, *draw())
+    kw = dict(D=potts.D, scale=potts.L / lam)
+    rec = call_trace(lambda: eng.sweep(st), {
+        "draws": draw,
+        "kernel": lambda: fs.mgpmh_sweep_cuda(*kargs, **kw)})
+    rec["updates_per_s"] = C_FULL * S_FULL / (rec["stream_call_ms"] / 1e3)
+    say("6 times", trace_line(f"mgpmh sweep call potts-64x64 C={C_FULL} "
+                              f"S={S_FULL} K={K}", rec)
+        + f"; {rec['updates_per_s'] / 1e6:.3f}M updates/s")
+    return rec
+
+
 def device_busy(fn):
     """One call of ``fn`` under torch.profiler: wall ms (host clock, to a
     synchronize; the profiler's own cost included), device ms (the summed
@@ -1716,13 +1911,16 @@ def new_kernel_times(potts, rng_inputs):
     seed = _seed(77, potts.device)
     rng_shape = f"potts-64x64 C={C_FULL} S={S_FULL}"
     args, kw = rng_inputs["mgpmh_sweep_rng"]
-    ms, ko = timed(lambda: fs.mgpmh_sweep_rng_cuda(*args, seed, **kw), 10)
+    kargs = mgpmh_kargs(args, potts)
+    ms, ko = timed(lambda: fs.mgpmh_sweep_rng_cuda(*kargs, seed, **kw), 10)
     pms, po = timed(lambda: ref.mgpmh_sweep_rng_ref(
         *args, seed, kw["D"], kw["scale"], kw["K"]), 3)
     bms, by = bound(*mgpmh_rng_bound(*args, kw["D"]))
     recs["mgpmh_sweep_rng"] = dict(
         ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
-        shape=f"{rng_shape} K={kw['K']}",
+        shape=f"{rng_shape} K={kw['K']}", **gather_floor(args[5]),
+        sector_bound_ms=bound(*mgpmh_rng_bound(*args, kw["D"],
+                                               sectors=True))[0],
         **check_at("mgpmh_sweep_rng", C_FULL, ko, po, False))
     args, kw = rng_inputs["min_gibbs_sweep_rng"]
     kargs = packed(args)
@@ -1773,6 +1971,7 @@ def sweep_parts(potts, lattice):
     gen = torch.Generator(device=potts.device).manual_seed(7)
     lam = 4.0 * potts.L ** 2
     K = recommended_capacity(lam)
+    rate = samplers.mgpmh_rate(potts, lam)
     marg = torch.zeros((C_FULL, potts.n, potts.D), device=potts.device)
     ones = torch.ones((C_FULL, potts.n, 1), device=potts.device)
     x = torch.zeros((C_FULL, potts.n), dtype=torch.long, device=potts.device)
@@ -1781,7 +1980,7 @@ def sweep_parts(potts, lattice):
     K2 = recommended_capacity(lam2)
     parts = {
         "mgpmh_draws": median_ms(lambda: samplers.mgpmh_draws(
-            gen, potts, C_FULL, S_FULL, lam, K), 20),
+            gen, potts, C_FULL, S_FULL, rate, K), 20),
         "min_gibbs_draws": median_ms(lambda: samplers.min_gibbs_draws(
             gen, potts, C_MIN, S_MIN, lam2, K2), 5),
         "double_min_draws": median_ms(lambda: samplers.double_min_draws(

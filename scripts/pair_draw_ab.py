@@ -204,12 +204,7 @@ def time_tree(tree):
     # the gather probe: as many random 8-byte records as the MIN-Gibbs call
     # draws, from a 128 MiB table
     live = out["min_gibbs_sweep"]["live_draws"]
-    table = torch.arange(16 << 20, dtype=torch.int64, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(5)
-    idx = torch.randint(0, table.numel(), (live,), generator=gen, device=dev)
-    probe_ms, got = cs.timed(lambda: torch.take(table, idx), 5)
-    assert torch.equal(got, idx)
-    del table, idx, got
+    probe_ms = cs.gather_probe(live, dev)
     torch.cuda.empty_cache()
     return dict(tree=str(tree), module=fs.__file__,
                 ptxas=ptxas(built.log) if built.log else "reused",

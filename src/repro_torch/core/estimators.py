@@ -119,7 +119,8 @@ def draw_local_minibatch(gen: torch.Generator, graph: MatchGraph, i,
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Draw the MGPMH minibatch over A[i]: ``s_phi ~ Poisson(lam M_phi / L)``
     for the factors {i,j}, realized as ``B ~ Poisson(lam * L_i / L)`` total
-    draws of neighbor ids j ~ W_ij / L_i (per-row alias table).
+    draws of neighbor ids j ~ W_ij / L_i (row i's alias table, read as
+    packed records, ``MatchGraph.row_pack``).
 
     ``i`` is one site, or a tensor of sites (one per chain) whose shape
     leads the outputs.  Draws from ``gen`` the totals, then the alias index
@@ -132,7 +133,7 @@ def draw_local_minibatch(gen: torch.Generator, graph: MatchGraph, i,
     shape = tuple(i.shape) + (capacity,)
     idx = torch.randint(0, graph.n, shape, generator=gen, device=graph.device)
     u = torch.rand(shape, generator=gen, device=graph.device)
-    rows = i[..., None]
-    j = torch.where(u >= graph.row_prob[rows, idx],
-                    graph.row_alias[rows, idx].long(), idx)
+    rec = graph.row_pack[i[..., None], idx]    # one record per draw
+    j = torch.where(u >= rec[..., 0].view(torch.float32), rec[..., 1].long(),
+                    idx)
     return j.to(torch.int32), B.clamp(max=capacity).to(torch.int32)

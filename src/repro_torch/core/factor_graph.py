@@ -17,9 +17,11 @@ transition-matrix validators (``spectral.py``) and exact marginals
 
 Alias tables are built once on the host with Vose's algorithm, from the
 float64 weights, so they are identical to the JAX package's tables.  The
-per-row tables (read by MGPMH) and the flat pair table (read by the global
-minibatch estimators) are built on first use: the Gibbs engines read
-neither, and the flat table alone has n(n-1)/2 entries.
+per-row tables, kept as one packed record per entry (read by MGPMH,
+MIN-Gibbs and DoubleMIN and the single-site local proposal), and the flat
+pair table (read by the global minibatch estimators) are built on first
+use: the Gibbs engines read neither, and the flat table alone has n(n-1)/2
+entries.
 """
 from __future__ import annotations
 
@@ -125,7 +127,6 @@ def gaussian_kernel_interactions(grid: int, gamma: float = 1.5) -> np.ndarray:
 # MatchGraph
 # ---------------------------------------------------------------------------
 
-_ROW_TABLES = ("row_prob", "row_alias")
 _PAIR_TABLES = ("pair_a", "pair_b", "pair_prob", "pair_alias")
 
 
@@ -140,15 +141,13 @@ class MatchGraph:
     L        : local maximum energy  L = max_i sum_j W_ij.
     delta    : max degree Delta = max_i |{j : W_ij > 0}|.
     row_sum  : (n,) L_i = sum_j W_ij.
-    row_prob/row_alias   : (n, n) per-row alias tables, p_j = W_ij / L_i
-                           (MGPMH's local minibatch over A[i]); built on
-                           first use.
-    row_pack : (n, n, 2) int32, the two row tables as one record per entry
-               (:func:`pack_alias`), what the MIN-Gibbs and DoubleMIN
-               sweeps read; built on first use.  The separate tables are
-               kept only where something read them (MGPMH): a graph the
-               MIN engines alone read holds 8n^2 bytes of row tables, one
-               MGPMH reads too twice that (128 MiB more at n = 4096).
+    row_pack : (n, n, 2) int32, the per-row alias tables, p_j = W_ij / L_i
+               (the local minibatch over A[i]; stage two of the global
+               pair draw), as one record per entry (:func:`pack_alias`):
+               what every sampler reads.  Packed on the host at first use
+               and the only copy kept: 8n^2 bytes (128 MiB at n = 4096).
+    row_prob/row_alias   : (n, n) views of row_pack's two fields (float32
+                           prob, int32 alias), for the plain versions.
     pair_a/b : (F,) endpoints of the F = n(n-1)/2 upper-triangle factors.
     pair_prob/pair_alias : alias table over factors, p_phi = M_phi / Psi;
                            built on first use.
@@ -186,29 +185,25 @@ class MatchGraph:
             if self._weights64 is None:
                 raise ValueError(f"graph was built without {name!r} and "
                                  f"without host weights to build it from")
-            group = _ROW_TABLES if name in _ROW_TABLES else _PAIR_TABLES
-            build = _row_tables if group is _ROW_TABLES else _pair_tables
-            for k, v in zip(group, build(self._weights64)):
-                self._tables[k] = torch.from_numpy(v).to(self.device)
+            if name == "row_pack":      # packed on the host; only it kept
+                tables = {name: pack_alias(*map(
+                    torch.from_numpy, _row_tables(self._weights64)))}
+            else:
+                tables = dict(zip(_PAIR_TABLES,
+                                  map(torch.from_numpy,
+                                      _pair_tables(self._weights64))))
+            for k, v in tables.items():
+                self._tables[k] = v.to(self.device)
         return self._tables[name]
 
-    row_prob = property(lambda self: self._table("row_prob"))
-    row_alias = property(lambda self: self._table("row_alias"))
+    row_pack = property(lambda self: self._table("row_pack"))
+    row_prob = property(
+        lambda self: self.row_pack[..., 0].view(torch.float32))
+    row_alias = property(lambda self: self.row_pack[..., 1])
     pair_a = property(lambda self: self._table("pair_a"))
     pair_b = property(lambda self: self._table("pair_b"))
     pair_prob = property(lambda self: self._table("pair_prob"))
     pair_alias = property(lambda self: self._table("pair_alias"))
-
-    @property
-    def row_pack(self) -> torch.Tensor:
-        if "row_pack" not in self._tables:
-            if "row_prob" in self._tables or self._weights64 is None:
-                pack = pack_alias(self.row_prob, self.row_alias)
-            else:         # packed on the host; the tables are not kept
-                pack = pack_alias(*map(torch.from_numpy,
-                                       _row_tables(self._weights64)))
-            self._tables["row_pack"] = pack.to(self.device)
-        return self._tables["row_pack"]
 
     @property
     def nbr_pack(self) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -307,9 +302,11 @@ def graph_from_numpy(arrays: Mapping[str, np.ndarray], *, D: int, psi: float,
     ``MatchGraph``'s leaves, ``{f: np.asarray(getattr(g, f))}`` for ``W``,
     ``row_sum``, ``row_prob``, ``row_alias``, ``pair_a``, ``pair_b``,
     ``pair_prob`` and ``pair_alias`` — so both compute on the same tables.
-    ``W`` and ``row_sum`` are required; every table is taken as given."""
+    Every array is required and taken as given; the row tables are kept
+    packed (``MatchGraph.row_pack``)."""
     device = resolve_device(device)
-    missing = {"W", "row_sum", *_ROW_TABLES, *_PAIR_TABLES} - set(arrays)
+    missing = {"W", "row_sum", "row_prob", "row_alias",
+               *_PAIR_TABLES} - set(arrays)
     if missing:
         raise ValueError(f"graph_from_numpy needs arrays {sorted(missing)}")
     dtypes = {"W": torch.float32, "row_sum": torch.float32,
@@ -318,6 +315,7 @@ def graph_from_numpy(arrays: Mapping[str, np.ndarray], *, D: int, psi: float,
               "pair_b": torch.int32, "pair_alias": torch.int32}
     t = {k: torch.tensor(np.asarray(arrays[k])).to(device, dtypes[k])
          for k in dtypes}
+    t["row_pack"] = pack_alias(t.pop("row_prob"), t.pop("row_alias"))
     return MatchGraph(W=t.pop("W"), D=D, psi=psi, L=L, delta=delta,
                       row_sum=t.pop("row_sum"), tables=t)
 

@@ -61,6 +61,7 @@ __all__ = [
     "min_gibbs_select",
     "gumbel",
     "gibbs_draws",
+    "mgpmh_rate",
     "mgpmh_draws",
     "min_gibbs_draws",
     "double_min_draws",
@@ -106,9 +107,10 @@ def init_state(gen: torch.Generator, graph: MatchGraph, n_chains: int, *,
 
 
 def gumbel(shape, gen: torch.Generator, device) -> torch.Tensor:
-    """Standard Gumbel noise ``-log(-log u)`` from ``gen``."""
+    """Standard Gumbel noise ``-log(-log u)`` from ``gen`` (in place in the
+    one buffer ``torch.rand`` returns)."""
     u = torch.rand(shape, generator=gen, device=device).clamp_min_(_TINY)
-    return -torch.log(-torch.log(u))
+    return u.log_().neg_().log_().neg_()
 
 
 def gibbs_select(eps: torch.Tensor, gumbel_noise: torch.Tensor) -> torch.Tensor:
@@ -143,22 +145,29 @@ def gibbs_draws(gen, C: int, S: int, n: int, D: int, device):
     return i, gumbel((C, S, D), gen, device)
 
 
-def mgpmh_draws(gen, graph: MatchGraph, C: int, S: int, lam: float,
+def mgpmh_rate(graph: MatchGraph, lam: float) -> torch.Tensor:
+    """The per-site Poisson rate ``(lam / L) * L_i`` (n,) of MGPMH's local
+    minibatch totals (the same float32 products the draws take per site)."""
+    return (lam / graph.L) * graph.row_sum
+
+
+def mgpmh_draws(gen, graph: MatchGraph, C: int, S: int, rate: torch.Tensor,
                 capacity: int):
     """The pre-drawn inputs of one MGPMH sweep call, in the sweep's draw
     order: sites (C, S) int32; Poisson totals
     ``B = min(Poisson(lam * L_i / L), capacity)`` (footnote 7 on the local
     minibatch over A[i]) int32; alias index uniforms (C, S, K); alias accept
-    uniforms (C, S, K); Gumbels (C, S, D); log MH uniforms (C, S)."""
+    uniforms (C, S, K); Gumbels (C, S, D); log MH uniforms (C, S).
+    ``rate`` is ``mgpmh_rate(graph, lam)``, made once by the caller."""
     dev, K = graph.device, capacity
     i = torch.randint(0, graph.n, (C, S), generator=gen, device=dev,
                       dtype=torch.int32)
-    lam_i = (lam / graph.L) * graph.row_sum[i.long()]
+    lam_i = rate.index_select(0, i.view(-1)).view(C, S)
     B = torch.poisson(lam_i, generator=gen).clamp_(max=K).to(torch.int32)
     u_idx = torch.rand((C, S, K), generator=gen, device=dev)
     u_alias = torch.rand((C, S, K), generator=gen, device=dev)
     g = gumbel((C, S, graph.D), gen, dev)
-    logu = torch.log(torch.rand((C, S), generator=gen, device=dev))
+    logu = torch.rand((C, S), generator=gen, device=dev).log_()
     return i, B, u_idx, u_alias, g, logu
 
 
@@ -458,18 +467,21 @@ def _build_local_gibbs_sweep(graph: MatchGraph, batch_size: int,
 def _build_mgpmh_sweep(graph: MatchGraph, lam: float, capacity: int,
                        sweep_len: int):
     """``sweep_len`` sequential MGPMH updates (Algorithm 4 per sub-step) per
-    call, one fused launch for all chains, fed by :func:`mgpmh_draws`.
+    call, one fused launch for all chains, fed by :func:`mgpmh_draws`; it
+    reads the row alias tables as packed records (``graph.row_pack``).
     Distributionally identical to ``sweep_len`` single-site MGPMH steps —
-    Theorems 3/4 apply unchanged."""
+    Theorems 3/4 apply unchanged.  The per-site Poisson rate is made once
+    here."""
     D = graph.D
     scale = float(graph.L / lam)
-    W, row_prob, row_alias = graph.W, graph.row_prob, graph.row_alias
+    W, row_pack = graph.W, graph.row_pack
+    rate = mgpmh_rate(graph, lam)
 
     def sweep(state: ChainState) -> ChainState:
         draws = mgpmh_draws(state.gen, graph, state.x.shape[0], sweep_len,
-                            lam, capacity)
-        x, acc = kernel_ops.mgpmh_sweep(state.x, W, row_prob, row_alias,
-                                        *draws, D=D, scale=scale)
+                            rate, capacity)
+        x, acc = kernel_ops.mgpmh_sweep(state.x, W, row_pack, *draws, D=D,
+                                        scale=scale)
         return state._replace(x=x, accepts=state.accepts + acc)
 
     return sweep

@@ -35,16 +35,17 @@ _c_int, _c_ptr, _c_float = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
 _SIGNATURES = {
     # x, W, i_sites, gumbel, x_out, C, n, S, D, stream
     "gibbs_sweep_launch": [_c_ptr] * 5 + [_c_int] * 4 + [_c_ptr],
-    # n, D, out (3 int32: chunk, chunks, shared-memory bytes)
-    "gibbs_sweep_plan": [_c_int, _c_int, _c_ptr],
+    # n, D, mgpmh (0: the Gibbs ring), out (3 int32: chunk, chunks,
+    # shared-memory bytes)
+    "sweep_ring_plan": [_c_int, _c_int, _c_int, _c_ptr],
     # x (in place), offsets, records, sites, gumbel, C, n, m, D, stream
     "gibbs_class_sweep_launch": [_c_ptr] * 5 + [_c_int] * 4 + [_c_ptr],
-    # x, W, row_prob, row_alias, i_sites, B, u_idx, u_alias, gumbel, logu,
-    # x_out, accepts, C, n, S, K, D, scale, stream
-    "mgpmh_sweep_launch": [_c_ptr] * 12 + [_c_int] * 5 + [_c_float, _c_ptr],
-    # x, W, row_prob, row_alias, i_sites, B, seed, x_out, accepts,
-    # C, n, S, K, D, scale, stream
-    "mgpmh_sweep_rng_launch": [_c_ptr] * 9 + [_c_int] * 5 + [_c_float, _c_ptr],
+    # x, W, row_pack, i_sites, B, u_idx, u_alias, gumbel, logu, x_out,
+    # accepts, C, n, S, K, D, scale, stream
+    "mgpmh_sweep_launch": [_c_ptr] * 11 + [_c_int] * 5 + [_c_float, _c_ptr],
+    # x, W, row_pack, i_sites, B, seed, x_out, accepts, C, n, S, K, D,
+    # scale, stream
+    "mgpmh_sweep_rng_launch": [_c_ptr] * 8 + [_c_int] * 5 + [_c_float, _c_ptr],
     # x, node_pack, row_pack, i_sites, B, u_node, u_nacc, u_row, u_racc,
     # gumbel, cache, x_out, cache_out, C, n, S, K, D, lscale, stream
     "min_gibbs_sweep_launch": [_c_ptr] * 13 + [_c_int] * 5 + [_c_float,

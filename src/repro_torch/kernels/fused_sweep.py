@@ -19,10 +19,12 @@ memory, and a one-hot product would do n times the work of a gather, so the
 kernels gather straight from global memory: per sub-step and chain one W
 row (4n bytes) and the alias entries the draws land on.  One block per
 chain keeps the chain's state in shared memory across all S sub-steps, so
-x never round-trips to global memory inside a sweep.  MIN-Gibbs and
-DoubleMIN take four consecutive draw lanes per thread and read the node
-and row alias tables as packed 8-byte records
-(``core.factor_graph.pack_alias``): a draw's random row entry is one memory
+x never round-trips to global memory inside a sweep.  Gibbs and MGPMH
+stream each sub-step's W row into shared memory with TMA one sub-step
+ahead (one producer warp, one row ring).  MGPMH, MIN-Gibbs and DoubleMIN
+read the alias tables as packed 8-byte records
+(``core.factor_graph.pack_alias``; MIN-Gibbs and DoubleMIN take four
+consecutive draw lanes per thread): a draw's random row entry is one memory
 sector where the two tables cost two.  ``chip_smoke.py`` computes each
 kernel's bound for its run.
 
@@ -39,7 +41,8 @@ import torch
 
 from ._build import load_library
 
-__all__ = ["gibbs_sweep_cuda", "gibbs_ring_plan", "mgpmh_sweep_cuda", "mgpmh_sweep_rng_cuda",
+__all__ = ["gibbs_sweep_cuda", "gibbs_ring_plan", "mgpmh_ring_plan",
+           "mgpmh_sweep_cuda", "mgpmh_sweep_rng_cuda",
            "min_gibbs_sweep_cuda", "min_gibbs_sweep_rng_cuda",
            "double_min_sweep_cuda", "double_min_sweep_rng_cuda",
            "reset_launch_counts"]
@@ -105,11 +108,6 @@ def _sites(i_sites) -> int:
     return i_sites.shape[1] if i_sites.dim() == 2 else -1
 
 
-def _check_row_tables(row_prob, row_alias, n):
-    _check(row_prob, "row_prob", torch.float32, (n, n))
-    _check(row_alias, "row_alias", torch.int32, (n, n))
-
-
 def _check_packs(node_pack, row_pack, n):
     _check(node_pack, "node_pack", torch.int32, (n, 2))
     _check(row_pack, "row_pack", torch.int32, (n, n, 2))
@@ -139,9 +137,7 @@ def gibbs_sweep_cuda(x, W, i_sites, gumbel, *, D: int):
     _check(gumbel, "gumbel", torch.float32, (C, S, D))
     _check_cuda([x, W, i_sites, gumbel])
     _check_smem(n, D)
-    if W.data_ptr() % 16:
-        raise ValueError("W must start 16-byte aligned (the kernel copies "
-                         "its rows with TMA)")
+    _check_tma(W)
     out = torch.empty_like(x)
     if C == 0:
         return out
@@ -150,63 +146,99 @@ def gibbs_sweep_cuda(x, W, i_sites, gumbel, *, D: int):
     return out
 
 
-def gibbs_ring_plan(n: int, D: int) -> dict:
-    """The two-stage ring ``gibbs_sweep_cuda`` plans at (n, D): ``chunk``
-    (floats of a row per stage), ``chunks`` (per row; 1 = whole rows) and
-    ``smem`` (bytes per block).  Builds the library at first use."""
+def _ring_plan(n: int, D: int, mgpmh: bool) -> dict:
     out = (ctypes.c_int * 3)()
     info = load_library()
-    err = info.fns["gibbs_sweep_plan"](int(n), int(D), ctypes.addressof(out))
+    err = info.fns["sweep_ring_plan"](int(n), int(D), int(mgpmh),
+                                      ctypes.addressof(out))
     if err != 0:
-        raise RuntimeError(f"no Gibbs ring fits n={n}, D={D}: "
+        raise RuntimeError(f"no ring fits n={n}, D={D}: "
                            f"{info.lib.cuda_error_string(err).decode()}")
     return dict(zip(("chunk", "chunks", "smem"), out))
 
 
-def mgpmh_sweep_cuda(x, W, row_prob, row_alias, i_sites, B, u_idx, u_alias,
-                     gumbel, logu, *, D: int, scale: float):
-    """S fused MGPMH site updates per chain (``ref.mgpmh_sweep_ref``).
+def gibbs_ring_plan(n: int, D: int) -> dict:
+    """The two-stage ring ``gibbs_sweep_cuda`` plans at (n, D): ``chunk``
+    (floats of a row per stage), ``chunks`` (per row; 1 = whole rows) and
+    ``smem`` (bytes per block).  Builds the library at first use."""
+    return _ring_plan(n, D, False)
 
-    x (C, n) int32; W/row_prob (n, n) float32; row_alias (n, n) int32;
-    i_sites/B (C, S) int32; logu (C, S) float32; u_idx/u_alias (C, S, K)
-    float32; gumbel (C, S, D) float32.  ``scale`` = L/lambda.
+
+def mgpmh_ring_plan(n: int, D: int) -> dict:
+    """``gibbs_ring_plan`` for ``mgpmh_sweep_cuda`` (and its Philox form),
+    whose blocks also hold three buffers of D counts."""
+    return _ring_plan(n, D, True)
+
+
+def _check_tma(W):
+    if W.data_ptr() % 16:
+        raise ValueError("W must start 16-byte aligned (the kernel copies "
+                         "its rows with TMA)")
+
+
+def _mgpmh_checks(x, W, row_pack, i_sites, B, D, streams=()):
+    """The MGPMH wrappers' checks of x, the tables, the sites and totals,
+    and (host form) the four streams; returns (C, n, S, K)."""
+    C, n = x.shape
+    S = _sites(i_sites)
+    K = streams[0][0].shape[-1] if streams else None
+    _check(x, "x", torch.int32, (C, n))
+    _check(W, "W", torch.float32, (n, n))
+    _check(row_pack, "row_pack", torch.int32, (n, n, 2))
+    _check(i_sites, "i_sites", torch.int32, (C, S))
+    _check(B, "B", torch.int32, (C, S))
+    shapes = {"u_idx": (C, S, K), "u_alias": (C, S, K), "gumbel": (C, S, D),
+              "logu": (C, S)}
+    for t, name in streams:
+        _check(t, name, torch.float32, shapes[name])
+    _check_smem(n, D)
+    _check_tma(W)
+    return C, n, S, K
+
+
+def mgpmh_sweep_cuda(x, W, row_pack, i_sites, B, u_idx, u_alias, gumbel,
+                     logu, *, D: int, scale: float):
+    """S fused MGPMH site updates per chain (``ref.mgpmh_sweep_ref``, which
+    reads the two row tables; here they come as one packed record each).
+
+    x (C, n) int32; W (n, n) float32, 16-byte aligned; row_pack (n, n, 2)
+    int32, row i's alias table packed by ``core.factor_graph.pack_alias``
+    (``MatchGraph.row_pack``); i_sites/B (C, S) int32; logu (C, S) float32;
+    u_idx/u_alias (C, S, K) float32; gumbel (C, S, D) float32.
+    ``scale`` = L/lambda.  The sites' values must lie in [0, D).
     Returns (x_out (C, n) int32, accepts (C,) int32).
 
     Replaces ``mgpmh_sweep_pallas`` (``src/repro/kernels/fused_sweep.py:505``).
-    Bound by bytes: per sub-step and chain, B alias draws (two uniforms and
-    two table entries each) and one W row for the exact pass.  The draws
-    count into integer buckets in shared memory (order-free, exact), the
-    energies are scaled once, and the exact pass sums only the two values
-    the acceptance ratio reads.
+    Bound by its sub-steps' latency chain, not by bytes (PERF.md): each
+    sub-step reads one W row (the Gibbs kernel's row ring stages it with
+    TMA one sub-step ahead) and makes B alias draws, each a dependent
+    chain of a uniform, a random 8-byte row record and a state lookup.  One
+    pass of 256 consumer threads per sub-step sums the row into D value
+    buckets in registers and makes the draws (their record loads issued
+    before the row loop, their uniforms one sub-step ahead), counting them
+    into integer buckets (order-free, exact); one block barrier, then every
+    warp takes the proposal, the exact energies at v and x_i and the
+    accept in the first kernel's float order, so the decisions equal the
+    plain version's.
     """
-    C, n = x.shape
-    S = _sites(i_sites)
-    K = u_idx.shape[-1]
-    _check(x, "x", torch.int32, (C, n))
-    _check(W, "W", torch.float32, (n, n))
-    _check_row_tables(row_prob, row_alias, n)
-    _check(i_sites, "i_sites", torch.int32, (C, S))
-    _check(B, "B", torch.int32, (C, S))
-    _check(u_idx, "u_idx", torch.float32, (C, S, K))
-    _check(u_alias, "u_alias", torch.float32, (C, S, K))
-    _check(gumbel, "gumbel", torch.float32, (C, S, D))
-    _check(logu, "logu", torch.float32, (C, S))
-    _check_cuda([x, W, row_prob, row_alias, i_sites, B, u_idx, u_alias,
-                 gumbel, logu])
-    _check_smem(n, D)
+    C, n, S, K = _mgpmh_checks(
+        x, W, row_pack, i_sites, B, D,
+        ((u_idx, "u_idx"), (u_alias, "u_alias"), (gumbel, "gumbel"),
+         (logu, "logu")))
+    _check_cuda([x, W, row_pack, i_sites, B, u_idx, u_alias, gumbel, logu])
     out = torch.empty_like(x)
     acc = torch.empty((C,), dtype=torch.int32, device=x.device)
     if C == 0:
         return out, acc
     _launch("mgpmh_sweep_launch", x,
-            (x, W, row_prob, row_alias, i_sites, B, u_idx, u_alias, gumbel,
-             logu, out, acc, C, n, S, K, D, float(scale)))
+            (x, W, row_pack, i_sites, B, u_idx, u_alias, gumbel, logu, out,
+             acc, C, n, S, K, D, float(scale)))
     mgpmh_sweep_cuda.launches += 1
     return out, acc
 
 
-def mgpmh_sweep_rng_cuda(x, W, row_prob, row_alias, i_sites, B, seed, *,
-                         D: int, scale: float, K: int):
+def mgpmh_sweep_rng_cuda(x, W, row_pack, i_sites, B, seed, *, D: int,
+                         scale: float, K: int):
     """``mgpmh_sweep_cuda`` with in-kernel Philox uniforms
     (``ref.mgpmh_sweep_rng_ref``): ``seed`` (1,) int32 on the card replaces
     u_idx, u_alias, gumbel and logu; K is the capacity.
@@ -214,28 +246,21 @@ def mgpmh_sweep_rng_cuda(x, W, row_prob, row_alias, i_sites, B, seed, *,
 
     Replaces ``mgpmh_sweep_pallas_rng``
     (``src/repro/kernels/fused_sweep.py:542``).  The MGPMH body of
-    ``mgpmh_sweep_cuda`` instantiated with the Philox source: the byte
-    bound loses the 8 bytes of uniforms per live draw and gains one
-    Philox4x32-10 call (~100 int32 operations) per uniform, so at K=201
-    the operations and the gathers bound it about equally.
+    ``mgpmh_sweep_cuda`` instantiated with the Philox source: each
+    uniform, Gumbel and log-uniform is one Philox4x32-10 call (~100 int32
+    operations), computed a sub-step ahead where the host form loads it;
+    like the host form it is bound by its sub-steps' latency chain.
     """
-    C, n = x.shape
-    S = _sites(i_sites)
-    _check(x, "x", torch.int32, (C, n))
-    _check(W, "W", torch.float32, (n, n))
-    _check_row_tables(row_prob, row_alias, n)
-    _check(i_sites, "i_sites", torch.int32, (C, S))
-    _check(B, "B", torch.int32, (C, S))
+    C, n, S, _ = _mgpmh_checks(x, W, row_pack, i_sites, B, D)
     _check(seed, "seed", torch.int32, (1,))
-    _check_cuda([x, W, row_prob, row_alias, i_sites, B, seed])
-    _check_smem(n, D)
+    _check_cuda([x, W, row_pack, i_sites, B, seed])
     out = torch.empty_like(x)
     acc = torch.empty((C,), dtype=torch.int32, device=x.device)
     if C == 0:
         return out, acc
     _launch("mgpmh_sweep_rng_launch", x,
-            (x, W, row_prob, row_alias, i_sites, B, seed, out, acc, C, n, S,
-             int(K), D, float(scale)))
+            (x, W, row_pack, i_sites, B, seed, out, acc, C, n, S, int(K), D,
+             float(scale)))
     mgpmh_sweep_rng_cuda.launches += 1
     return out, acc
 

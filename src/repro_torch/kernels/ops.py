@@ -65,20 +65,22 @@ def flash_attention(q, k, v, *, window: int = 0, causal: bool = True):
     return flash_attention_cuda(q, k, v, window=window, causal=causal)
 
 
-def mgpmh_sweep(x, W, row_prob, row_alias, i_sites, B, u_idx, u_alias,
-                gumbel, logu, *, D: int, scale: float):
+def mgpmh_sweep(x, W, row_pack, i_sites, B, u_idx, u_alias, gumbel, logu,
+                *, D: int, scale: float):
     """S fused sequential MGPMH site updates per chain (see
     ``ref.mgpmh_sweep_ref`` for exact semantics).
 
-    x (C, n) i32; W/row_prob/row_alias (n, n); i_sites/B/logu (C, S);
-    u_idx/u_alias (C, S, K) f32 uniforms; gumbel (C, S, D) f32.
-    ``scale`` = L/lambda.  Returns (x_out (C, n) i32, accepts (C,) i32).
+    x (C, n) i32; W (n, n) f32; row_pack (n, n, 2) i32, the row alias
+    tables as one record per entry (``MatchGraph.row_pack``): the kernel
+    reads the records, the plain version the two tables as views of them.
+    i_sites/B/logu (C, S); u_idx/u_alias (C, S, K) f32 uniforms; gumbel
+    (C, S, D) f32.  ``scale`` = L/lambda.
+    Returns (x_out (C, n) i32, accepts (C,) i32).
     """
-    args = (x, W, row_prob, row_alias, i_sites, B, u_idx, u_alias, gumbel,
-            logu)
+    rest = (i_sites, B, u_idx, u_alias, gumbel, logu)
     if _route(x, "mgpmh_sweep") == "cpu":
-        return mgpmh_sweep_ref(*args, D, scale)
-    return mgpmh_sweep_cuda(*args, D=D, scale=scale)
+        return mgpmh_sweep_ref(x, W, *_unpack(row_pack), *rest, D, scale)
+    return mgpmh_sweep_cuda(x, W, row_pack, *rest, D=D, scale=scale)
 
 
 def gibbs_sweep(x, W, i_sites, gumbel, *, D: int):

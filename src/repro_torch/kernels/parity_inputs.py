@@ -14,9 +14,10 @@ from ..core.factor_graph import (build_alias_table, make_pair_ising,
                                  pack_alias, pair_colors)
 
 __all__ = ["alias_rows", "node_table", "gibbs_inputs", "mgpmh_inputs",
+           "mgpmh_edge_inputs",
            "min_gibbs_inputs", "double_min_inputs", "edge_totals",
-           "packed_args", "local_gibbs_inputs", "class_graph",
-           "gibbs_class_inputs"]
+           "packed_args", "packed_mgpmh_args", "local_gibbs_inputs",
+           "class_graph", "gibbs_class_inputs"]
 
 
 def _symmetric(rng, n):
@@ -65,6 +66,42 @@ def mgpmh_inputs(C, S, K, D, n):
     g = rng.gumbel(size=(C, S, D)).astype(np.float32)
     lu = np.log(rng.uniform(size=(C, S))).astype(np.float32)
     return (x, W, rp, ra, i, B, u1, u2, g, lu)
+
+
+# above it the edge inputs' tables are drawn on the device: the Python Vose
+# build of an (n, n) table would take minutes to hours
+VOSE_MAX_N = 2048
+
+
+def mgpmh_edge_inputs(C, S, K, D, n, device):
+    """``mgpmh_inputs``' tuple as torch tensors on ``device``, at the edges
+    of the MGPMH kernels: x[:, :3] outside [0, D) (-1, D, D + 5) at sites no
+    sub-step updates (i_sites in [3, n); the updated sites must hold values
+    in [0, D)), and Poisson totals at 0 and at K (``edge_totals``).  Up to
+    ``VOSE_MAX_N`` the row tables are Vose tables of a random symmetric
+    matrix (``alias_rows``); above it W, prob and alias are uniform draws on
+    the device (any prob in [0, 1) and alias in [0, n) is a valid input of
+    the draw's formula).  Needs n >= 4 and C >= 2."""
+    import torch
+    rng = np.random.default_rng(C * 100 + S * 10 + K + D + n + 7)
+    if n <= VOSE_MAX_N:
+        tables = [torch.from_numpy(a).to(device) for a in alias_rows(rng, n)]
+    else:
+        gen = torch.Generator(device=device).manual_seed(n + D)
+        tables = [torch.rand((n, n), generator=gen, device=device),
+                  torch.rand((n, n), generator=gen, device=device),
+                  torch.randint(0, n, (n, n), generator=gen, device=device,
+                                dtype=torch.int32)]
+    x = rng.integers(0, D, (C, n)).astype(np.int32)
+    x[:, :3] = (-1, D, D + 5)
+    i = rng.integers(3, n, (C, S)).astype(np.int32)
+    B = edge_totals(rng.integers(0, K + 1, (C, S)).astype(np.int32), K)
+    u1 = rng.uniform(size=(C, S, K)).astype(np.float32)
+    u2 = rng.uniform(size=(C, S, K)).astype(np.float32)
+    g = rng.gumbel(size=(C, S, D)).astype(np.float32)
+    lu = np.log(rng.uniform(size=(C, S))).astype(np.float32)
+    t = lambda *a: [torch.from_numpy(v).to(device) for v in a]
+    return (*t(x), *tables, *t(i, B, u1, u2, g, lu))
 
 
 def min_gibbs_inputs(C, S, K, D, n):
@@ -122,6 +159,13 @@ def packed_args(args):
     at positions 1-4 packed into records, as the engines hand them over."""
     return (args[0], pack_alias(args[1], args[2]),
             pack_alias(args[3], args[4]), *args[5:])
+
+
+def packed_mgpmh_args(args):
+    """An MGPMH kernel's arguments from its plain version's (tensors, host
+    or Philox form): the row tables at positions 2-3 packed into one
+    record per entry, as the engine hands them over."""
+    return (args[0], args[1], pack_alias(args[2], args[3]), *args[4:])
 
 
 def local_gibbs_inputs(C, S, D, n, weights="real"):

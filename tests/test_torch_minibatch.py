@@ -57,6 +57,10 @@ SEEDS = [0, 1, 2 ** 31 - 1]
 # block's 512 threads (2048 lanes a pass) take three passes over each row
 SPLIT_MIN = (3, 4, 1031, 5, 300)                    # (C, S, K, D, n)
 SPLIT_DMIN = (3, 4, 33, 4099, 4, 300)               # (C, S, K1, K2, D, n)
+# the MGPMH kernels' edge shapes (C, S, K, D, n): tests/test_torch_sweep.py
+MGPMH_EDGE_SHAPES = [(3, 6, 17, 10, 1001), (2, 3, 9, 33, 7),
+                     (3, 4, 600, 5, 301), (2, 3, 17, 10, 23301),
+                     (2, 2, 9, 33, 23301)]
 
 
 def _torch(arrays, device="cpu"):
@@ -451,7 +455,7 @@ def test_new_cuda_wrappers_refuse_cpu_tensors_and_bad_inputs():
             lscale2=0.31, K1=17, K2=9)
     W = torch.zeros((11, 11))
     with pytest.raises(ValueError, match="CUDA tensors"):
-        fused_sweep.mgpmh_sweep_rng_cuda(x, W, rp, ra, i,
+        fused_sweep.mgpmh_sweep_rng_cuda(x, W, tfg.pack_alias(rp, ra), i,
                                          B[..., 0].contiguous(), seed, D=3,
                                          scale=0.7, K=17)
     assert all(fn.launches == 0 for fn in fused_sweep.WRAPPERS)
@@ -648,18 +652,25 @@ def test_double_min_kernels_at_long_lane_rows_equal_plain_versions(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("C,S,K,D,n", [(4, 5, 17, 3, 11), (8, 8, 128, 10, 40),
-                                       (2, 3, 9, 129, 7)])
+                                       (2, 3, 9, 129, 7)] + MGPMH_EDGE_SHAPES)
 def test_mgpmh_rng_kernel_equals_plain_version(cuda, C, S, K, D, n):
-    rng = np.random.default_rng(C + S + K + D + n)
-    _, rp, ra = pin.alias_rows(rng, n)
-    W = rng.uniform(size=(n, n)).astype(np.float32)
-    x = rng.integers(0, D, (C, n)).astype(np.int32)
-    i = rng.integers(0, n, (C, S)).astype(np.int32)
-    B = rng.integers(0, K + 1, (C, S)).astype(np.int32)
-    args = _torch((x, W, rp, ra, i, B), cuda)
+    """The Philox form, reading the packed row records, equals its plain
+    version for three seeds, also at the edge shapes of the host form's
+    test (``parity_inputs.mgpmh_edge_inputs``)."""
+    if (C, S, K, D, n) in MGPMH_EDGE_SHAPES:
+        args = pin.mgpmh_edge_inputs(C, S, K, D, n, cuda)[:6]
+    else:
+        rng = np.random.default_rng(C + S + K + D + n)
+        _, rp, ra = pin.alias_rows(rng, n)
+        W = rng.uniform(size=(n, n)).astype(np.float32)
+        x = rng.integers(0, D, (C, n)).astype(np.int32)
+        i = rng.integers(0, n, (C, S)).astype(np.int32)
+        B = rng.integers(0, K + 1, (C, S)).astype(np.int32)
+        args = _torch((x, W, rp, ra, i, B), cuda)
+    kargs = pin.packed_mgpmh_args(args)
     for seed in SEEDS:
         s = torch.tensor([seed], dtype=torch.int32, device=cuda)
-        out = fused_sweep.mgpmh_sweep_rng_cuda(*args, s, D=D, scale=0.7, K=K)
+        out = fused_sweep.mgpmh_sweep_rng_cuda(*kargs, s, D=D, scale=0.7, K=K)
         want = tref.mgpmh_sweep_rng_ref(*args, s, D, 0.7, K)
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(out, want)), seed

@@ -41,6 +41,14 @@ MGPMH_SHAPES = [          # (C, S, K, D, n), as tests/test_sweep.py:53-59
     (5, 12, 33, 6, 20),
     (2, 3, 9, 129, 7),
 ]
+# the MGPMH kernel's edges (C, S, K, D, n), with x outside [0, D) at sites
+# no sub-step updates and Poisson totals at 0 and at K
+# (``parity_inputs.mgpmh_edge_inputs``): an odd n, D above the register
+# width, K above the block (several rounds of draws per sub-step), and an
+# odd n whose rows stream through the ring in chunks, at D = 10 and D = 33
+MGPMH_EDGE_SHAPES = [(3, 6, 17, 10, 1001), (2, 3, 9, 33, 7),
+                     (3, 4, 600, 5, 301), (2, 3, 17, 10, 23301),
+                     (2, 2, 9, 33, 23301)]
 GIBBS_SHAPES = [(4, 5, 3, 11), (8, 8, 10, 40), (3, 1, 2, 5)]   # (C, S, D, n)
 # the Gibbs kernel's ring (C, S, D, n): D above the register width, a ragged
 # n (not a multiple of the block, the chunk or 4: rows start anywhere), a
@@ -113,7 +121,7 @@ def test_select_and_accept_primitives_equal_jax():
 
 def test_ops_send_cpu_tensors_to_the_plain_versions():
     args = _torch(pin.mgpmh_inputs(4, 5, 17, 3, 11))
-    x0, a0 = ops.mgpmh_sweep(*args, D=3, scale=0.7)
+    x0, a0 = ops.mgpmh_sweep(*pin.packed_mgpmh_args(args), D=3, scale=0.7)
     x1, a1 = tref.mgpmh_sweep_ref(*args, 3, 0.7)
     assert torch.equal(x0, x1) and torch.equal(a0, a1)
     x, W, i, g = _torch(pin.gibbs_inputs(4, 5, 3, 11))
@@ -133,12 +141,12 @@ def test_cuda_wrappers_refuse_cpu_tensors_and_bad_inputs():
     with pytest.raises(ValueError, match="i_sites must be contiguous"):
         it = i.t().contiguous().t()
         fused_sweep.gibbs_sweep_cuda(x, W, it, g, D=3)
-    args = _torch(pin.mgpmh_inputs(4, 5, 17, 3, 11))
+    args = pin.packed_mgpmh_args(_torch(pin.mgpmh_inputs(4, 5, 17, 3, 11)))
     with pytest.raises(ValueError, match="CUDA tensors"):
         fused_sweep.mgpmh_sweep_cuda(*args, D=3, scale=0.7)
     with pytest.raises(ValueError, match="B must be torch.int32"):
         bad = list(args)
-        bad[5] = bad[5].long()
+        bad[4] = bad[4].long()
         fused_sweep.mgpmh_sweep_cuda(*bad, D=3, scale=0.7)
     assert fused_sweep.gibbs_sweep_cuda.launches == 0
     assert fused_sweep.mgpmh_sweep_cuda.launches == 0
@@ -320,16 +328,31 @@ def cuda():
     return torch.device("cuda")
 
 
+def _mgpmh_args(shape, dev):
+    """The plain version's inputs at a test shape or an edge shape."""
+    if shape in MGPMH_EDGE_SHAPES:
+        return pin.mgpmh_edge_inputs(*shape, dev)
+    return _torch(pin.mgpmh_inputs(*shape), dev)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("C,S,K,D,n", MGPMH_SHAPES)
+@pytest.mark.parametrize("C,S,K,D,n", MGPMH_SHAPES + MGPMH_EDGE_SHAPES)
 def test_mgpmh_kernel_equals_plain_version(cuda, C, S, K, D, n):
-    args = _torch(pin.mgpmh_inputs(C, S, K, D, n), cuda)
+    """The kernel, reading the packed row records, equals the plain version
+    (the two tables) bit for bit, twice; at n = 23301 the ring streams each
+    row in chunks."""
+    args = _mgpmh_args((C, S, K, D, n), cuda)
+    plan = fused_sweep.mgpmh_ring_plan(n, D)
+    assert (plan["chunks"] > 1) == (n >= CHUNKED_N)
+    kargs = pin.packed_mgpmh_args(args)
     before = fused_sweep.mgpmh_sweep_cuda.launches
-    xk, ak = fused_sweep.mgpmh_sweep_cuda(*args, D=D, scale=0.7)
+    outs = [fused_sweep.mgpmh_sweep_cuda(*kargs, D=D, scale=0.7)
+            for _ in range(2)]
     xr, ar = tref.mgpmh_sweep_ref(*args, D, 0.7)
     torch.cuda.synchronize()
-    assert fused_sweep.mgpmh_sweep_cuda.launches == before + 1
-    assert torch.equal(xk, xr) and torch.equal(ak, ar)
+    assert fused_sweep.mgpmh_sweep_cuda.launches == before + 2
+    for xk, ak in outs:
+        assert torch.equal(xk, xr) and torch.equal(ak, ar)
 
 
 @pytest.mark.gpu

@@ -116,13 +116,43 @@ Phases, each printed as it ends; any failure exits non-zero:
      then h2o-danube-3-4b (B=1, S=8192, hd 120) and gemma3-12b (B=1,
      S=4096, hd 256) at full width, weights from a seed, one warm-up and
      one counted prefill call each (one flash launch per layer, finite
-     logits, ms and tokens/s), each model freed before the next.
+     logits, ms and tokens/s), each model freed before the next;
+  8. diagnostics at full width, every sampling loop under
+     ``torch.cuda.set_sync_debug_mode("error")`` (a host sync raises) with
+     the launch counts reset before and read after each run (one sweep
+     launch per call, as in phase 4: telemetry and the adaptive schedule
+     add none): (a) mgpmh on potts-64x64 (C=256, S=64, 200 calls) through
+     ``run_marginal_experiment(..., telemetry=True)``, replayed to the same
+     bits (chains, errors, every telemetry field) and equal to the run
+     without telemetry; its ``summarize``, ``health_report``,
+     ``freshness_report`` and ``empirical_spectral_gap``; the telemetry's
+     cost as host wall time of the 200-call run with and without it (in
+     turns), per call as a stream, as the profiler's device busy time per
+     call, and the update alone; then gibbs, min-gibbs, doublemin (phase-4
+     shapes, 20 calls), local-gibbs B=32 and chromatic gibbs on
+     lattice-ising-64x64, each with telemetry; (b) ``telemetry_update`` of
+     one (C=256, n=4096) trajectory of 32 steps from a seed on the card and
+     on the CPU, every field within rtol 1e-6 / atol 1e-6; (c) gibbs on
+     hetero-pairs-1024 uniform against AdaptiveScan at the reference
+     bench's settings (S=256, C=32, 96 snapshots x 8 calls, worst-site TV
+     0.25, ``benchmarks/diagnostics_bench.py:80-110``), both reaching the
+     target, and adaptive mgpmh, min-gibbs and doublemin on potts-64x64 at
+     their phase-4 shapes, each replayed to the same bits (mgpmh's error
+     falling); (d) 10% of sites observed (from a seed) on potts-64x64
+     (gibbs, mgpmh and doublemin at C=256 S=64, min-gibbs at its phase-4
+     C=128 S=8; 50 calls) and lattice-ising-64x64 (chromatic): after
+     ``clamp`` no observed site differs from its evidence in any chain
+     after any call, and 10^7 draws from ``evidence_cdf`` and from the
+     masked adaptive table land on no observed site; (e)
+     ``autotune_lambda("mgpmh", potts-64x64, target=(0.9, 0.96))``: its
+     rounds, landing lambda and wall time.
 
 Prints the kernels' JSON record and the card's name and power limit, then
 as its last line ``{"ok": true, "device": {...}}``.  Also writes the full
 record to ``chiprun_out/chip_smoke.json``.  Needs one CUDA card; imports
 nothing of JAX.
 """
+import contextlib
 import importlib.metadata
 import json
 import math
@@ -258,6 +288,18 @@ PREFILL_B, PREFILL_S, PREFILL_CALLS = 8, 2048, 4
 # exclude keys at these lengths
 WIDE_PREFILL = [("h2o-danube-3-4b", 1, 8192), ("gemma3-12b", 1, 4096)]
 DECODE_B, DECODE_STEPS = 8, 32
+# phase 8: diagnostics
+DIAG_SNAPSHOTS = 10
+DIAG_CALLS = 20                               # the other engines' runs
+TEL_STEPS = 32                                # phase 8b trajectory
+TEL_TOL = dict(rtol=1e-6, atol=1e-6)          # tests/test_torch_telemetry.py
+# the reference bench's adaptive-vs-uniform cell at paper scale
+# (benchmarks/diagnostics_bench.py:80-110): S, C, snapshots, calls per
+# snapshot, worst-site TV target
+ADA_S, ADA_C, ADA_SNAPSHOTS, ADA_CALLS, ADA_TARGET = 256, 32, 96, 8, 0.25
+EV_CALLS, EV_FRACTION = 50, 0.10
+LANDING_DRAWS = 10_000_000
+AUTOTUNE_TARGET = (0.9, 0.96)
 CHECK_S = 32                                  # decode vs forward, B = 1
 # the reference's decode-vs-forward criterion (tests/test_models.py:92-99)
 SELF_TOL, SELF_AGREE = 0.15, 0.9
@@ -2304,6 +2346,439 @@ def phase_wide_prefill(dev, smi):
     torch.cuda.empty_cache()
     return recs
 
+# ---------------------------------------------------------------------------
+# phase 8: diagnostics
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def no_host_sync():
+    """The body runs under ``torch.cuda.set_sync_debug_mode("error")``: a
+    call that would make the host wait for the device raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def diag_run(name, eng, C, calls, expect, *, seed=0, state=None,
+             n_snapshots=DIAG_SNAPSHOTS, **kw):
+    """``run_marginal_experiment`` over ``calls`` sweep calls from
+    ``eng.init(seed, C)`` (or ``state``) under ``no_host_sync``, the launch
+    counts set to 0 just before and read just after: ``expect(calls)``
+    names the engine's launches, every other kernel must have none.
+    Returns (trace, host wall s to a synchronize, launches)."""
+    from repro_torch.core import chains
+    st = eng.init(seed, C) if state is None else state
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with no_host_sync():
+        tr = chains.run_marginal_experiment(
+            eng, st, n_iters=calls * eng.updates_per_call,
+            n_snapshots=n_snapshots, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(expect(calls))
+    for kernel, n in want.items():
+        check(launches[kernel] == n,
+              f"8 {name}: {kernel} launched {launches[kernel]} times, "
+              f"expected {n}")
+    x = tr.final.x
+    check(int(x.min()) >= 0 and int(x.max()) < eng.graph.D
+          and bool(torch.isfinite(tr.error).all()),
+          f"8 {name}: final state out of domain or error not finite")
+    return tr, wall, {k: v for k, v in launches.items() if v}
+
+
+def tel_fields(tel):
+    from repro_torch.diagnostics import telemetry_to_numpy
+    return telemetry_to_numpy(tel)
+
+
+def same_telemetry(a, b):
+    ta, tb = tel_fields(a), tel_fields(b)
+    return all(np.array_equal(ta[f], tb[f]) for f in ta)
+
+
+def same_run(a, b):
+    """Two traces end in the same bits: chains, errors and (when both
+    carry one) every telemetry field."""
+    same = torch.equal(a.final.x, b.final.x) and torch.equal(a.error,
+                                                              b.error)
+    if a.telemetry is not None:
+        same = same and same_telemetry(a.telemetry, b.telemetry)
+    return same
+
+
+def telemetry_cost(eng):
+    """The telemetry's cost on the engine's sweep call: ms per call with and
+    without the carry as a stream of 10 calls in turns (CUDA events), the
+    device's busy time per call over such a stream (torch.profiler), and
+    the update alone (stream ms, host issue ms, device ms)."""
+    from repro_torch import diagnostics as diag
+    box = {"st": eng.init(1, C_FULL), "plain": eng.init(1, C_FULL)}
+    box["tel"] = eng.init_telemetry(box["st"])
+
+    def with_tel():
+        box["st"], box["tel"] = eng.sweep(box["st"], box["tel"])
+
+    def without():
+        box["plain"] = eng.sweep(box["plain"])
+
+    rec = {}
+    rec["call_ms"], rec["plain_call_ms"] = alternating_per_launch_ms(
+        with_tel, without, 10, reps=7)
+    busy_t = device_busy(lambda: [with_tel() for _ in range(10)])
+    busy_p = device_busy(lambda: [without() for _ in range(10)])
+    rec["device_busy_ms"] = busy_t["device_busy_ms"] / 10
+    rec["plain_device_busy_ms"] = busy_p["device_busy_ms"] / 10
+    rec["top_device_ops_ms"] = {k: v / 10 for k, v in
+                                busy_t["top_device_ops_ms"].items()}
+    old, new = box["plain"], eng.sweep(box["plain"])
+    stats = eng.sweep_stats_fn(old)[1]
+    args = (old.x, new.x, eng.updates_per_call, new.accepts - old.accepts,
+            stats)
+    kw = dict(cache=new.cache, n_values=eng.graph.D)
+
+    def update():
+        box["tel"] = diag.telemetry_update(box["tel"], *args, **kw)
+
+    rec["update_ms"] = per_launch_ms(update, 10)
+    rec["update_host_ms"] = host_ms(update, 20)
+    rec["update_device_ms"] = device_busy(
+        lambda: [update() for _ in range(10)])["device_busy_ms"] / 10
+    rec["overhead_call"] = rec["call_ms"] / rec["plain_call_ms"] - 1.0
+    rec["overhead_device"] = (rec["device_busy_ms"]
+                              / rec["plain_device_busy_ms"] - 1.0)
+    return rec
+
+
+def phase_diag_main(potts, lattice, smi):
+    """8a: telemetry on the main path and beside every engine."""
+    from repro_torch.core import engine
+    from repro_torch import diagnostics as diag
+    out = {}
+    eng = engine.make("mgpmh", potts, sweep=S_FULL)
+    expect = lambda calls: {"mgpmh_sweep": calls}
+    runs = {"plain": [], "telemetry": []}
+    # a warm-up run, then three of each in turns
+    for label in ("plain", "plain", "telemetry", "telemetry", "plain",
+                  "plain", "telemetry"):
+        tr, wall, launches = diag_run(f"mgpmh {label}", eng, C_FULL, SWEEPS,
+                                      expect,
+                                      telemetry=label == "telemetry")
+        runs[label].append((tr, wall))
+    runs["plain"].pop(0)
+    (tr, wall), (again, _), _ = runs["telemetry"]
+    plain = runs["plain"][0][0]
+    check(same_run(tr, again), "8a mgpmh: a telemetry'd replay from seed 0 "
+          "ended elsewhere")
+    check(torch.equal(tr.final.x, plain.final.x)
+          and torch.equal(tr.error, plain.error),
+          "8a mgpmh: telemetry changed the chains")
+    tel = tr.telemetry
+    fields = tel_fields(tel)
+    check(all(np.isfinite(v).all() for v in fields.values()),
+          "8a mgpmh: a telemetry field is not finite")
+    summary = diag.summarize(tel, eng.exact_accept, elapsed_sec=wall)
+    health = diag.health_report(tel, eng.exact_accept)
+    fresh = diag.freshness_report(tel, diag.FreshnessPolicy(),
+                                  include_health=True)
+    gap = diag.empirical_spectral_gap(tel)
+    check(summary["samples"] == SWEEPS
+          and summary["updates"] == SWEEPS * S_FULL
+          and not health["bad_state"] and 0.0 < gap < 1.0,
+          f"8a mgpmh: summary {summary}, health {health}, gap {gap}")
+    cost = telemetry_cost(eng)
+    walls = {f"{k}_s": [w for _, w in v] for k, v in runs.items()}
+    walls["overhead"] = (statistics.median(walls["telemetry_s"])
+                         / statistics.median(walls["plain_s"]) - 1.0)
+    out["mgpmh"] = dict(summary=summary, health=health, freshness=fresh,
+                        spectral_gap=gap, launches=launches, walls=walls,
+                        cost=cost, replay_bit_identical=True, card=smi)
+    say("8a telemetry", f"mgpmh potts-64x64 C={C_FULL} S={S_FULL} "
+        f"{SWEEPS} calls, telemetry=True, no host sync, replay and the run "
+        f"without telemetry bit-identical; launches {launches}; summarize "
+        f"{json.dumps(summary)}; health {json.dumps(health)}; freshness "
+        f"{json.dumps(fresh)}; empirical spectral gap {gap:.6g}")
+    fmt = lambda ws: ", ".join(f"{w:.4f}" for w in ws)
+    say("8a telemetry", f"on {smi}: 200-call run wall (to a synchronize, "
+        f"in turns after a warm-up) with telemetry "
+        f"{fmt(walls['telemetry_s'])} s, without {fmt(walls['plain_s'])} s "
+        f"(medians: overhead {walls['overhead']:+.3f}); per call as a "
+        f"stream of 10: {cost['call_ms']:.4f} ms with, "
+        f"{cost['plain_call_ms']:.4f} without (overhead "
+        f"{cost['overhead_call']:+.3f}); device busy per call "
+        f"{cost['device_busy_ms']:.4f} with, "
+        f"{cost['plain_device_busy_ms']:.4f} without (overhead "
+        f"{cost['overhead_device']:+.3f}); the update alone "
+        f"{cost['update_ms']:.4f} ms as a stream (host issue "
+        f"{cost['update_host_ms']:.4f}, device {cost['update_device_ms']:.4f})"
+        f"; top device ops per call with telemetry "
+        + ", ".join(f"{k} {v:.4f}" for k, v in
+                    cost["top_device_ops_ms"].items()))
+    others = [
+        ("gibbs", engine.make("gibbs", potts, sweep=S_FULL), C_FULL,
+         lambda calls: {"gibbs_sweep": calls}),
+        ("min-gibbs", engine.make("min-gibbs", potts, sweep=S_MIN), C_MIN,
+         lambda calls: {"min_gibbs_sweep": calls}),
+        ("doublemin", engine.make("doublemin", potts, sweep=S_DMIN), C_DMIN,
+         lambda calls: {"double_min_sweep": calls}),
+        (f"local-gibbs B={LOCAL_MAIN}",
+         engine.make("local-gibbs", potts, sweep=S_FULL,
+                     batch_size=LOCAL_MAIN), C_FULL,
+         lambda calls: {"local_gibbs_sweep": calls}),
+        ("chromatic gibbs lattice-ising-64x64",
+         engine.make("gibbs", lattice.graph,
+                     schedule=engine.ChromaticBlocks(lattice.colors)),
+         C_FULL, lambda calls: {"gibbs_class_sweep": 2 * calls})]
+    for name, e, C, exp in others:
+        tr, wall, launches = diag_run(name, e, C, DIAG_CALLS, exp,
+                                      telemetry=True)
+        s = diag.summarize(tr.telemetry, e.exact_accept, elapsed_sec=wall)
+        check(s["samples"] == DIAG_CALLS
+              and not diag.health_report(tr.telemetry)["bad_state"],
+              f"8a {name}: telemetry {s}")
+        out[name] = dict(summary=s, launches=launches, seconds=wall)
+        say("8a telemetry", f"{name} C={C}: {DIAG_CALLS} calls with "
+            f"telemetry, no host sync, launches {launches}; max split-rhat "
+            f"{s['max_split_rhat']:.4f}, min ESS {s['ess_min_site']:.2f}, "
+            f"flip rate {s['flip_rate']:.6f}, acceptance "
+            f"{s['mean_acceptance']:.4f} ({wall:.3f} s)")
+    return out
+
+
+def phase_diag_card_vs_cpu(dev):
+    """8b: one trajectory through telemetry_update on the card and on the
+    CPU; every field within the CPU tests' tolerance."""
+    from repro_torch import diagnostics as diag
+    C, n, D = C_FULL, 4096, 10
+    rng = np.random.default_rng(8)
+    xs = [rng.integers(0, D, size=(C, n), dtype=np.int32)]
+    for _ in range(TEL_STEPS):
+        fresh = rng.integers(0, D, size=(C, n), dtype=np.int32)
+        xs.append(np.where(rng.random((C, n)) < 0.8, xs[-1], fresh))
+    acc = rng.integers(0, S_FULL, size=(TEL_STEPS, C), dtype=np.int32)
+    prop = rng.integers(0, 9, size=(TEL_STEPS, n)).astype(np.float32)
+    sacc = np.minimum(prop, rng.integers(0, 9, size=(TEL_STEPS, n))).astype(
+        np.float32)
+    cache = rng.normal(size=(TEL_STEPS, C)).astype(np.float32)
+    card, cpu = [], []
+    for device, fields in ((dev, card), (torch.device("cpu"), cpu)):
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        tel = diag.telemetry_init(t(xs[0]), half_at=TEL_STEPS // 2)
+        for s in range(TEL_STEPS):
+            tel = diag.telemetry_update(
+                tel, t(xs[s]), t(xs[s + 1]), S_FULL, t(acc[s]),
+                diag.SweepStats(t(prop[s]), t(sacc[s])), cache=t(cache[s]),
+                n_values=D)
+        fields.append(tel_fields(tel))
+    errs = {}
+    for f, want in cpu[0].items():
+        got = card[0][f]
+        errs[f] = float(np.abs(got - want).max())
+        check(np.allclose(got, want, **TEL_TOL),
+              f"8b telemetry field {f}: card and CPU differ by {errs[f]}")
+    say("8b telemetry", f"C={C} n={n} K=8, {TEL_STEPS} steps: every field "
+        f"of the card's carry within rtol 1e-6 / atol 1e-6 of the CPU's; "
+        f"max abs differences {json.dumps(errs)}")
+    return dict(max_abs_err=errs)
+
+
+def first_hit(tr, target):
+    err, iters = tr.error.cpu().numpy(), tr.iters.numpy()
+    hit = err < target
+    return int(iters[np.argmax(hit)]) if hit.any() else None
+
+
+def phase_diag_adaptive(potts):
+    """8c: AdaptiveScan against uniform at the reference bench's cell, and
+    the adaptive minibatch engines at full width."""
+    from repro_torch import diagnostics as diag
+    from repro_torch.core import engine
+    dev = potts.device
+    out = {}
+    g = engine.make_workload("hetero-pairs-1024", device=dev).graph
+    ref = torch.full((g.n, g.D), 0.5, device=dev)
+    calls = ADA_CALLS * ADA_SNAPSHOTS
+    firsts = {}
+    for label, eng in (
+            ("uniform", engine.make("gibbs", g, sweep=ADA_S)),
+            ("adaptive", engine.make("gibbs", g, schedule=engine.AdaptiveScan(
+                sweep_len=ADA_S, refresh_every=4, uniform_mix=0.15)))):
+        tr, wall, launches = diag_run(
+            f"gibbs {label} hetero-pairs-1024", eng, ADA_C, calls,
+            lambda c: {"gibbs_sweep": c}, n_snapshots=ADA_SNAPSHOTS,
+            telemetry=True, ref_marginals=ref, site_reduce="max")
+        first = firsts[label] = first_hit(tr, ADA_TARGET)
+        check(first is not None, f"8c gibbs {label}: worst-site TV never "
+              f"fell below {ADA_TARGET} (last {float(tr.error[-1]):.4f})")
+        s = diag.summarize(tr.telemetry, True, elapsed_sec=wall)
+        out[label] = dict(updates_to_target=first, seconds=wall,
+                          launches=launches, final_tv=float(tr.error[-1]),
+                          max_split_rhat=s["max_split_rhat"])
+        say("8c adaptive", f"gibbs {label} hetero-pairs-1024 S={ADA_S} "
+            f"C={ADA_C} {calls} calls: worst-site TV < {ADA_TARGET} after "
+            f"{first} updates per chain (final TV "
+            f"{out[label]['final_tv']:.4f}, max split-rhat "
+            f"{s['max_split_rhat']:.4f}); launches {launches}; {wall:.3f} s")
+    out["update_ratio"] = firsts["adaptive"] / firsts["uniform"]
+    say("8c adaptive", f"adaptive / uniform updates to the target: "
+        f"{out['update_ratio']:.4f} (reference bench 0.407)")
+    sched = lambda S: engine.AdaptiveScan(sweep_len=S)
+    for name, S, C, calls, falling in (
+            ("mgpmh", S_FULL, C_FULL, SWEEPS, True),
+            ("min-gibbs", S_MIN, C_MIN, DIAG_CALLS, False),
+            ("doublemin", S_DMIN, C_DMIN, DIAG_CALLS, False)):
+        eng = engine.make(name, potts, schedule=sched(S))
+        kernel = name.replace("-", "_").replace("doublemin", "double_min")
+        exp = lambda c, k=kernel: {f"{k}_sweep": c}
+        tr, wall, launches = diag_run(f"adaptive {name}", eng, C, calls, exp)
+        again, _, _ = diag_run(f"adaptive {name} replay", eng, C, calls, exp)
+        fin, fin2 = tr.final, again.final
+        check(same_run(tr, again) and torch.equal(fin.cdf, fin2.cdf)
+              and torch.equal(fin.accepts, fin2.accepts)
+              and same_telemetry(fin.tel, fin2.tel),
+              f"8c adaptive {name}: a replay from seed 0 ended elsewhere")
+        errs = [float(e) for e in tr.error]
+        if falling:
+            check(errs[-1] < errs[0], f"8c adaptive {name}: marginal error "
+                  f"did not fall: {errs}")
+        acc = (1.0 if eng.exact_accept else
+               float(fin.accepts.double().sum()) / (C * calls * S))
+        out[name] = dict(marg_err=errs, acceptance=acc, launches=launches,
+                         seconds=wall, updates_per_s=C * calls * S / wall,
+                         replay_bit_identical=True)
+        say("8c adaptive", f"adaptive {name} potts-64x64 C={C} S={S} "
+            f"{calls} calls, no host sync: marg_err {errs[0]:.6f} -> "
+            f"{errs[-1]:.6f}; acc={acc:.4f}; launches {launches}; "
+            f"{C * calls * S / wall / 1e6:.3f}M updates/s; replay "
+            f"bit-identical (chains, table, telemetry)")
+        if name == "mgpmh":
+            out["mgpmh_table"] = fin.cdf
+    return out
+
+
+def landings(cdf, observed, seed):
+    """Observed sites hit by LANDING_DRAWS inverse-CDF draws (read once)."""
+    from repro_torch.core import samplers
+    gen = torch.Generator(device=cdf.device).manual_seed(seed)
+    u = torch.rand(LANDING_DRAWS, generator=gen, device=cdf.device)
+    return int(observed[samplers.inverse_cdf_sites(cdf, u).long()].sum())
+
+
+def phase_diag_evidence(potts, lattice, table):
+    """8d: evidence clamping at full width, and draws that must miss every
+    observed site."""
+    from repro_torch.core import engine, samplers
+    from repro_torch.diagnostics import adaptive
+    dev = potts.device
+    rng = np.random.default_rng(10)
+
+    def evidence(g):
+        obs = np.sort(rng.choice(g.n, int(EV_FRACTION * g.n), replace=False))
+        idx = torch.from_numpy(obs).to(dev)
+        mask = torch.zeros(g.n, device=dev).index_fill_(0, idx, 1.0)
+        vals = torch.zeros(g.n, dtype=torch.int32, device=dev)
+        vals[idx] = torch.from_numpy(
+            rng.integers(0, g.D, size=obs.size, dtype=np.int32)).to(dev)
+        return (mask, vals), idx
+
+    out = {}
+    for name, eng, C, kernel, per_call in (
+            ("gibbs", engine.make("gibbs", potts, sweep=S_FULL), C_FULL,
+             "gibbs_sweep", 1),
+            ("mgpmh", engine.make("mgpmh", potts, sweep=S_FULL), C_FULL,
+             "mgpmh_sweep", 1),
+            ("min-gibbs", engine.make("min-gibbs", potts, sweep=S_MIN),
+             C_MIN, "min_gibbs_sweep", 1),
+            ("doublemin", engine.make("doublemin", potts, sweep=S_DMIN),
+             C_DMIN, "double_min_sweep", 1),
+            ("chromatic gibbs lattice-ising-64x64",
+             engine.make("gibbs", lattice.graph,
+                         schedule=engine.ChromaticBlocks(lattice.colors)),
+             C_FULL, "gibbs_class_sweep", 2)):
+        ev, idx = evidence(eng.graph)
+        want = ev[1][idx]
+        st = eng.clamp(eng.init(0, C), ev)
+        x0 = st.x.clone()
+        violations = torch.zeros((), dtype=torch.int64, device=dev)
+        torch.cuda.synchronize()
+        reset_launches()
+        with no_host_sync():
+            for _ in range(EV_CALLS):
+                st = eng.sweep(st, evidence=ev)
+                violations += (st.x[:, idx] != want).sum()
+        torch.cuda.synchronize()
+        launches = read_launches()
+        moved = int((st.x != x0).sum())
+        n_viol = int(violations)
+        check(launches[kernel] == per_call * EV_CALLS
+              and sum(launches.values()) == per_call * EV_CALLS,
+              f"8d {name}: launches {launches}")
+        check(n_viol == 0, f"8d {name}: {n_viol} observed (chain, site, "
+              f"call) values differ from their evidence")
+        check(moved > 0, f"8d {name}: no unobserved site moved")
+        out[name] = dict(observed=int(idx.numel()), violations=n_viol,
+                         values_changed=moved, calls=EV_CALLS, chains=C)
+        say("8d evidence", f"{name} C={C}: {idx.numel()} of {eng.graph.n} "
+            f"sites observed, {EV_CALLS} calls with evidence, no host sync: "
+            f"{n_viol} violations; {moved} unobserved values changed; "
+            f"launches {kernel} {launches[kernel]}")
+    (mask, _), _ = evidence(potts)
+    observed = mask > 0.0
+    hits = {"evidence_cdf": landings(samplers.evidence_cdf(mask), observed,
+                                     11),
+            "masked_adaptive_table": landings(
+                adaptive.masked_cdf(table, mask), observed, 12)}
+    check(all(h == 0 for h in hits.values()),
+          f"8d draws landed on observed sites: {hits}")
+    out["landings"] = hits
+    say("8d evidence", f"{LANDING_DRAWS} draws each at n={potts.n} "
+        f"({int(observed.sum())} observed) landing on observed sites: "
+        f"{json.dumps(hits)}")
+    return out
+
+
+def phase_diag_autotune(potts, smi):
+    """8e: the lambda auto-tuner on potts-64x64."""
+    from repro_torch.diagnostics import adaptive
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng, hist = adaptive.autotune_lambda("mgpmh", potts,
+                                         target=AUTOTUNE_TARGET)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lo, hi = AUTOTUNE_TARGET
+    check(lo <= hist[-1]["acceptance"] <= hi
+          and eng.params["lam"] == hist[-1]["lam"],
+          f"8e autotune_lambda did not land in {AUTOTUNE_TARGET}: {hist}")
+    say("8e autotune", f"autotune_lambda mgpmh potts-64x64 target "
+        f"{AUTOTUNE_TARGET} on {smi}: {len(hist)} rounds "
+        + " -> ".join(f"lam {h['lam']:.3f} acc {h['acceptance']:.4f}"
+                      for h in hist) + f"; {wall:.3f} s")
+    return dict(rounds=len(hist), history=hist, lam=hist[-1]["lam"],
+                seconds=wall, card=smi)
+
+
+def phase_diagnostics(potts, lattice, smi):
+    t0 = time.perf_counter()
+    rec = {"main": phase_diag_main(potts, lattice, smi),
+           "card_vs_cpu": phase_diag_card_vs_cpu(potts.device)}
+    ada = phase_diag_adaptive(potts)
+    table = ada.pop("mgpmh_table")
+    rec["adaptive"] = ada
+    rec["evidence"] = phase_diag_evidence(potts, lattice, table)
+    rec["autotune"] = phase_diag_autotune(potts, smi)
+    rec["seconds"] = time.perf_counter() - t0
+    say("8 diagnostics", f"{rec['seconds']:.1f} s")
+    torch.cuda.empty_cache()
+    return rec
+
 
 REPLACES = {
     "gibbs_sweep": "src/repro/kernels/fused_sweep.py:577",
@@ -2355,6 +2830,8 @@ def main():
     record["serve"] = serve = phase_serve(dev, record["device"]["nvidia_smi"])
     record["wide_prefill"] = phase_wide_prefill(
         dev, record["device"]["nvidia_smi"])
+    record["diagnostics"] = phase_diagnostics(
+        potts, lattice, record["device"]["nvidia_smi"])
 
     src = "src/repro_torch/kernels/csrc/fused_sweep.cu"
     kernels = []

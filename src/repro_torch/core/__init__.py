@@ -2,7 +2,8 @@
 
 Public API:
   Engine API:     engine.make(name, graph, sweep=S, device=...), Engine,
-                  UniformSites, ChromaticBlocks, make_workload, WORKLOADS
+                  UniformSites, ChromaticBlocks, AdaptiveScan, make_workload,
+                  WORKLOADS
   Factor graphs:  MatchGraph, TabularPairwiseGraph, graph_from_numpy,
                   make_ising_graph, make_potts_graph, make_lattice_ising,
                   lattice_colors, make_pair_ising, pair_colors
@@ -29,6 +30,6 @@ from .samplers import (ChainState, init_state, make_gibbs_step,
                        init_min_gibbs_cache, init_double_min_cache)
 from . import engine
 from .engine import (Engine, Schedule, UniformSites, ChromaticBlocks,
-                     Workload, WORKLOADS, make_workload)
+                     AdaptiveScan, Workload, WORKLOADS, make_workload)
 from .chains import MarginalTrace, run_marginal_experiment, marginal_error
 from . import spectral

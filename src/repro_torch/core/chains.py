@@ -4,8 +4,11 @@ The paper evaluates convergence by the running average of per-variable
 marginals against the fully-mixed (uniform) marginal: the "average
 l2-distance error in the estimated marginals" (Figs 1-2).
 `run_marginal_experiment` reproduces that trajectory for any
-:class:`~repro_torch.core.engine.Engine`.  The (C, n, D) marginal sums stay
-on the engine's device; the host reads the snapshot errors once, at the end.
+:class:`~repro_torch.core.engine.Engine`.  The (C, n, D) marginal sums, the
+snapshot errors and the optional telemetry carry stay on the engine's
+device: the run makes no host sync (it runs under
+``torch.cuda.set_sync_debug_mode("error")``); the caller reads what it
+needs after it.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ class MarginalTrace(NamedTuple):
     final: Any           # final batched ChainState
     marg: torch.Tensor   # (C, n, D) final one-hot sums (marginal estimate =
     #                      marg / (iters[-1] / updates_per_call))
+    telemetry: Any = None  # Telemetry carry when telemetry=True
 
 
 def marginal_error(marg_sum: torch.Tensor, count) -> torch.Tensor:
@@ -40,7 +44,7 @@ def marginal_error(marg_sum: torch.Tensor, count) -> torch.Tensor:
 
 def run_marginal_experiment(engine: Engine, state, *, n_iters: int,
                             n_snapshots: int, D: int | None = None,
-                            ref_marginals=None,
+                            telemetry: bool = False, ref_marginals=None,
                             site_reduce: str = "mean") -> MarginalTrace:
     """Run ``n_iters`` site updates over C chains, collecting the
     marginal-error trajectory at ``n_snapshots`` evenly spaced points.
@@ -48,9 +52,14 @@ def run_marginal_experiment(engine: Engine, state, *, n_iters: int,
     One ``sweep`` call advances ``updates_per_call`` site updates and
     contributes one marginal sample.  ``n_iters`` is rounded DOWN to a whole
     number of sweep calls per snapshot; ``iters`` reports the updates that
-    ran.  ``ref_marginals`` ((n, D)) switches ``error`` from the paper's
-    l2-to-uniform proxy to the total-variation distance to those marginals,
-    aggregated over sites by ``site_reduce`` ("mean" or "max").
+    ran.  ``error`` stays on the device.  ``telemetry=True`` threads a
+    streaming :class:`~repro_torch.diagnostics.telemetry.Telemetry` carry
+    through the run (split-halved at the middle snapshot, so split-R-hat
+    is exact) and returns it in ``trace.telemetry``.  ``ref_marginals``
+    ((n, D); pass a tensor on the engine's device to keep the run free of
+    host copies) switches ``error`` from the paper's l2-to-uniform proxy
+    to the total-variation distance to those marginals, aggregated over
+    sites by ``site_reduce`` ("mean" or "max").
     """
     if not isinstance(engine, Engine):
         raise TypeError(
@@ -77,12 +86,17 @@ def run_marginal_experiment(engine: Engine, state, *, n_iters: int,
     dev = state.x.device
     ref = None if ref_marginals is None else torch.as_tensor(
         ref_marginals, dtype=torch.float32, device=dev)
+    tel = (engine.init_telemetry(state, half_at=(n_snapshots * calls) // 2)
+           if telemetry else None)
     marg = torch.zeros((C, n, D), dtype=torch.float32, device=dev)
     ones = torch.ones((C, n, 1), dtype=torch.float32, device=dev)
     errors = []
     for k in range(n_snapshots):
         for _ in range(calls):
-            state = engine.sweep(state)
+            if tel is None:
+                state = engine.sweep(state)
+            else:
+                state, tel = engine.sweep(state, tel)
             marg.scatter_add_(2, state.x.long().unsqueeze(-1), ones)
         cnt = (k + 1.0) * calls                  # samples accumulated
         if ref is None:
@@ -93,5 +107,5 @@ def run_marginal_experiment(engine: Engine, state, *, n_iters: int,
             errors.append(per_site.max() if site_reduce == "max"
                           else per_site.mean())
     iters = (torch.arange(n_snapshots) + 1) * calls * updates
-    return MarginalTrace(iters=iters, error=torch.stack(errors).cpu(),
-                         final=state, marg=marg)
+    return MarginalTrace(iters=iters, error=torch.stack(errors),
+                         final=state, marg=marg, telemetry=tel)

@@ -13,15 +13,20 @@ Schedules decide *which sites* a call updates:
   * :class:`UniformSites(S)` — S sequentially composed i.i.d.-uniform site
     updates per call (the paper's update loop, fused S at a time);
   * :class:`ChromaticBlocks(colors)` — one full sweep per call: each color
-    class updated as a block through the fused Gibbs kernel.
+    class updated as a block through the fused Gibbs kernel;
+  * :class:`AdaptiveScan(S)` — S fused updates per call at sites drawn from
+    a table learned from the sweep's own telemetry
+    (``repro_torch.diagnostics.adaptive``).
 
 The backend follows the device: ``"cuda"`` runs the hand-written kernels
 (``kernels/csrc``), ``"torch"`` their plain PyTorch versions on the CPU.
 ``make`` runs on the card unless given ``device="cpu"``.
 
 Engines: ``gibbs`` (uniform + chromatic), ``mgpmh``, ``min-gibbs``,
-``doublemin`` and ``local-gibbs`` (uniform) — every engine of the JAX
-package.
+``doublemin`` (these four also adaptive, and with evidence clamping) and
+``local-gibbs`` (uniform) — every engine of the JAX package.  ``sweep``
+threads a streaming :class:`~repro_torch.diagnostics.telemetry.Telemetry`
+carry when given one, on the device with no host sync.
 """
 from __future__ import annotations
 
@@ -37,9 +42,10 @@ from .factor_graph import (MatchGraph, make_ising_graph, make_potts_graph,
                            make_pair_ising, pair_colors)
 from .estimators import recommended_capacity
 from . import samplers as S
+from ..diagnostics.telemetry import telemetry_init, telemetry_update
 
 __all__ = [
-    "Engine", "Schedule", "UniformSites", "ChromaticBlocks",
+    "Engine", "Schedule", "UniformSites", "ChromaticBlocks", "AdaptiveScan",
     "make", "names", "backends", "register",
     "Workload", "WORKLOADS", "make_workload", "workload_names",
 ]
@@ -93,6 +99,40 @@ class ChromaticBlocks(Schedule):
         return f"chromatic-blocks(k={self.n_colors}, n={len(self.colors)})"
 
 
+@dataclasses.dataclass(frozen=True)
+class AdaptiveScan(Schedule):
+    """``sweep_len`` fused updates per call at sites drawn from a *learned*
+    non-uniform distribution (gibbs / mgpmh / min-gibbs / doublemin).
+
+    The selection table is driven by the per-site telemetry the sweep
+    collects: sites that rarely change value per update ("sticky") are
+    upweighted in proportion to their estimated persistence, equalizing
+    *independent* samples per site instead of raw updates.  The cumulative
+    table is refreshed every ``refresh_every`` sweeps (a host-side call
+    counter decides; the refresh itself runs on the device, no host sync),
+    mixed with ``uniform_mix`` of the uniform distribution so every site
+    keeps positive probability — each inter-refresh segment is a valid
+    random-scan chain with the target stationary distribution.
+    ``smoothing`` regularizes the inverse-flip-rate weight.  Construction
+    lives in ``repro_torch.diagnostics.adaptive``; ``make`` routes there.
+    """
+    sweep_len: int = 16
+    refresh_every: int = 8
+    uniform_mix: float = 0.25
+    smoothing: float = 0.05
+
+    def __post_init__(self):
+        if self.sweep_len < 1 or self.refresh_every < 1:
+            raise ValueError("sweep_len and refresh_every must be >= 1")
+        if not (0.0 < self.uniform_mix <= 1.0):
+            raise ValueError("uniform_mix must be in (0, 1] (a zero floor "
+                             "can starve sites and break ergodicity)")
+
+    def describe(self) -> str:
+        return (f"adaptive-scan(S={self.sweep_len}, K={self.refresh_every}, "
+                f"mix={self.uniform_mix})")
+
+
 # ---------------------------------------------------------------------------
 # Engine
 # ---------------------------------------------------------------------------
@@ -109,10 +149,21 @@ class Engine:
                                   versions, on the CPU).
     ``exact_accept``              True for Gibbs-type engines whose every
                                   update is accepted by construction.
+    ``init_fn``                   ``(gen, n_chains, start=...) -> state``,
+                                  run by ``init``.
+    ``sweep_stats_fn``            the instrumented sweep, ``state ->
+                                  (state, SweepStats)``; None where the
+                                  engine has none (local-gibbs,
+                                  AdaptiveScan) — telemetry then counts
+                                  state diffs only.
+    ``supports_evidence``         True when the sweeps take ``evidence=``
+                                  (the gibbs family; not local-gibbs).
     ``cache_init``                ``state -> state`` that seeds the
                                   augmented-energy cache (MIN-Gibbs,
-                                  DoubleMIN) from ``state.gen``; run by
-                                  ``init``.
+                                  DoubleMIN) from ``state.gen`` at the
+                                  current x; run by ``init`` and by
+                                  ``clamp`` (the JAX package's
+                                  ``refresh_cache_fn``).
     """
     name: str
     backend: str
@@ -122,10 +173,20 @@ class Engine:
     marginal_samples_per_call: int
     graph: MatchGraph
     params: Dict[str, Any] = dataclasses.field(repr=False)
+    init_fn: Callable = dataclasses.field(repr=False)
     sweep_fn: Callable = dataclasses.field(repr=False)
+    sweep_stats_fn: Optional[Callable] = dataclasses.field(default=None,
+                                                           repr=False)
     exact_accept: bool = False
+    supports_evidence: bool = False
     cache_init: Optional[Callable] = dataclasses.field(default=None,
                                                        repr=False)
+
+    @property
+    def refresh_cache_fn(self) -> Optional[Callable]:
+        """Re-draws the cached energy estimate at the current x (the JAX
+        package's field): ``cache_init``, which draws from ``state.gen``."""
+        return self.cache_init
 
     def init(self, seed, n_chains: int, *, start: str = "constant"):
         """Batched initial state for ``n_chains`` chains.  ``seed`` is an
@@ -141,14 +202,75 @@ class Engine:
         else:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(int(seed))
-        state = S.init_state(gen, self.graph, n_chains, start=start)
-        if self.cache_init is not None:
-            state = self.cache_init(state)
-        return state
+        return self.init_fn(gen, n_chains, start=start)
 
-    def sweep(self, state):
-        """Advance every chain by ``updates_per_call`` site updates."""
-        return self.sweep_fn(state)
+    def init_telemetry(self, state, half_at: Optional[int] = None,
+                       lags: int = 8):
+        """Zeroed :class:`~repro_torch.diagnostics.telemetry.Telemetry`
+        sized for ``state``, on its device (``half_at=total_snapshots //
+        2`` for split-R-hat; ``lags`` is the depth of the ESS ring)."""
+        return telemetry_init(state.x, half_at=half_at, lags=lags)
+
+    def sweep(self, state, telemetry=None, evidence=None):
+        """Advance every chain by ``updates_per_call`` site updates.
+
+        With ``telemetry=`` (a carry from :meth:`init_telemetry`) the call
+        returns ``(state, telemetry)``: the streaming statistics are
+        updated from the instrumented sweep where there is one and from
+        state diffs otherwise, on the device with no host sync.  The carry
+        passed in is CONSUMED (updated in place): rebind it.
+
+        With ``evidence=`` (an ``(ev_mask (n,) float32, ev_vals (n,)
+        int32)`` pair of tensors on the engine's device) the sweep samples
+        the CONDITIONAL chain given ``x[i] = ev_vals[i]`` wherever
+        ``ev_mask[i] == 1``: sites are drawn from the masked inverse-CDF
+        (the chromatic schedule re-clamps after every color class instead).
+        Evidence is data: an all-zero mask is the unconditional chain.  The
+        state must already be clamped at the observed sites
+        (:meth:`clamp`).  Raises for engines without ``supports_evidence``.
+        """
+        if evidence is not None and not self.supports_evidence:
+            raise ValueError(
+                f"engine {self.name!r} (schedule "
+                f"{self.schedule.describe()}) does not support evidence "
+                f"clamping; serve conditioned queries from a gibbs-family "
+                f"engine")
+        kw = {} if evidence is None else {"evidence": evidence}
+        if telemetry is None:
+            return self.sweep_fn(state, **kw)
+        if self.sweep_stats_fn is not None:
+            new, stats = self.sweep_stats_fn(state, **kw)
+        else:
+            new, stats = self.sweep_fn(state, **kw), None
+        # the state's cached energy and the site domain feed the health
+        # guards riding the carry (bad_state flag, windowed acceptance)
+        telemetry = telemetry_update(
+            telemetry, state.x, new.x, self.updates_per_call,
+            new.accepts - state.accepts, stats,
+            cache=getattr(new, "cache", None), n_values=self.graph.D)
+        return new, telemetry
+
+    def clamp(self, state, evidence):
+        """Overwrite the observed sites of every chain with their evidence
+        values and return the clamped state.
+
+        ``evidence = (ev_mask (n,) float32, ev_vals (n,) int32)``; sites
+        with ``ev_mask == 1`` are set to ``ev_vals``, the rest keep their
+        current value.  For engines with a cached energy estimate (MIN-Gibbs
+        eps, DoubleMIN xi) the cache is re-drawn at the clamped
+        configuration by ``cache_init``, from ``state.gen`` (the JAX
+        package draws it from a key): the old cache estimates the
+        pre-clamp energy and would bias the first accepts.  Handles the
+        AdaptiveScan state transparently.
+        """
+        ev_mask, ev_vals = evidence
+        inner = getattr(state, "inner", None)
+        st = state if inner is None else inner
+        x = torch.where(ev_mask > 0.0, ev_vals.to(st.x.dtype), st.x)
+        st = st._replace(x=x)
+        if self.cache_init is not None:
+            st = self.cache_init(st)
+        return st if inner is None else state._replace(inner=st)
 
     def describe(self) -> Dict[str, Any]:
         """Machine-readable identity."""
@@ -192,9 +314,11 @@ def make(name: str, graph: MatchGraph, *, sweep: Optional[int] = None,
 
     ``sweep=S`` is shorthand for ``schedule=UniformSites(S)``; pass a
     :class:`Schedule` for anything else (:class:`ChromaticBlocks`, gibbs
-    only).  ``device`` defaults to the card and raises without one; the
-    graph is moved there.  Algorithm parameters (lam, capacity) are keyword
-    ``params`` with paper-recipe defaults.
+    only; :class:`AdaptiveScan`, gibbs / mgpmh / min-gibbs / doublemin,
+    whose state carries its own telemetry).  ``device`` defaults to the
+    card and raises without one; the graph is moved there.  Algorithm
+    parameters (lam, capacity) are keyword ``params`` with paper-recipe
+    defaults.
     """
     if name not in _BUILDERS:
         raise KeyError(f"unknown engine {name!r}; available: {list(names())}")
@@ -205,10 +329,6 @@ def make(name: str, graph: MatchGraph, *, sweep: Optional[int] = None,
         raise ValueError("pass either sweep= or schedule=, not both")
     if not isinstance(schedule, Schedule):
         raise TypeError(f"schedule must be a Schedule, got {schedule!r}")
-    if not isinstance(schedule, (UniformSites, ChromaticBlocks)):
-        raise NotImplementedError(
-            f"schedule {schedule.describe()} is not ported to repro_torch "
-            f"yet; ported: UniformSites, ChromaticBlocks")
     device = resolve_device(device)
     backend = "cuda" if device.type == "cuda" else "torch"
     if backend not in supported:
@@ -218,13 +338,35 @@ def make(name: str, graph: MatchGraph, *, sweep: Optional[int] = None,
                    **params)
 
 
+def _chain_init(graph, cache_init=None):
+    """``init_fn`` of a plain ChainState: the start state, then the cache
+    seeded from the same generator when the algorithm has one."""
+    def init(gen, n_chains: int, *, start: str = "constant"):
+        state = S.init_state(gen, graph, n_chains, start=start)
+        return state if cache_init is None else cache_init(state)
+    return init
+
+
 def _engine(name, backend, schedule, upd, graph, params, sweep_fn,
-            exact_accept=False, cache_init=None):
+            stats_fn=None, exact_accept=False, supports_evidence=False,
+            cache_init=None):
     return Engine(name=name, backend=backend, device=graph.device,
                   schedule=schedule, updates_per_call=upd,
                   marginal_samples_per_call=1, graph=graph, params=params,
-                  sweep_fn=sweep_fn, exact_accept=exact_accept,
-                  cache_init=cache_init)
+                  init_fn=_chain_init(graph, cache_init), sweep_fn=sweep_fn,
+                  sweep_stats_fn=stats_fn, exact_accept=exact_accept,
+                  supports_evidence=supports_evidence, cache_init=cache_init)
+
+
+def _adaptive(name, graph, schedule, backend, build, params,
+              exact_accept=False, cache_init=None):
+    """The AdaptiveScan engine around ``build(True)``, the instrumented
+    sweep at given sites (``repro_torch.diagnostics.adaptive``)."""
+    from ..diagnostics.adaptive import make_adaptive_engine
+    return make_adaptive_engine(
+        name, graph, schedule, backend, core=build(True),
+        chain_init=_chain_init(graph, cache_init), params=params,
+        exact_accept=exact_accept, cache_init=cache_init)
 
 
 def _reject_unknown(name, params):
@@ -237,19 +379,28 @@ def _reject_unknown(name, params):
 def _gibbs_builder(graph, *, schedule, backend, **params):
     _reject_unknown("gibbs", params)
     if isinstance(schedule, ChromaticBlocks):
-        sweep_fn = S._build_chromatic_gibbs_sweep(graph,
-                                                  schedule.colors_array)
+        build = lambda cs: S._build_chromatic_gibbs_sweep(
+            graph, schedule.colors_array, collect_stats=cs)
         upd = graph.n
     else:
-        sweep_fn = S._build_gibbs_sweep(graph, schedule.sweep_len)
+        build = lambda cs: S._build_gibbs_sweep(graph, schedule.sweep_len,
+                                                collect_stats=cs)
         upd = schedule.sweep_len
-    return _engine("gibbs", backend, schedule, upd, graph, {}, sweep_fn,
-                   exact_accept=True)
+    if isinstance(schedule, AdaptiveScan):
+        return _adaptive("gibbs", graph, schedule, backend, build, {},
+                         exact_accept=True)
+    return _engine("gibbs", backend, schedule, upd, graph, {}, build(False),
+                   stats_fn=build(True), exact_accept=True,
+                   supports_evidence=True)
 
 
-def _require_uniform(name, schedule):
-    if not isinstance(schedule, UniformSites):
-        raise ValueError(f"engine {name!r} supports only the UniformSites "
+def _require_uniform(name, schedule, adaptive: bool = False):
+    """Refuse every schedule but UniformSites (and AdaptiveScan where the
+    engine takes it)."""
+    ok = (UniformSites, AdaptiveScan) if adaptive else (UniformSites,)
+    if not isinstance(schedule, ok):
+        names = " or ".join(k.__name__ for k in ok)
+        raise ValueError(f"engine {name!r} supports only the {names} "
                          f"schedule, got {schedule.describe()}")
 
 
@@ -264,46 +415,64 @@ def _global_lam(graph) -> float:
 def _mgpmh_builder(graph, *, schedule, backend, lam=None, capacity=None,
                    **params):
     _reject_unknown("mgpmh", params)
-    _require_uniform("mgpmh", schedule)
+    _require_uniform("mgpmh", schedule, adaptive=True)
     lam = float(4.0 * graph.L ** 2) if lam is None else float(lam)
     capacity = recommended_capacity(lam) if capacity is None else capacity
-    sweep_fn = S._build_mgpmh_sweep(graph, lam, capacity, schedule.sweep_len)
+    build = lambda cs: S._build_mgpmh_sweep(graph, lam, capacity,
+                                            schedule.sweep_len,
+                                            collect_stats=cs)
+    params = dict(lam=lam, capacity=capacity)
+    if isinstance(schedule, AdaptiveScan):
+        return _adaptive("mgpmh", graph, schedule, backend, build, params)
     return _engine("mgpmh", backend, schedule, schedule.sweep_len, graph,
-                   dict(lam=lam, capacity=capacity), sweep_fn)
+                   params, build(False), stats_fn=build(True),
+                   supports_evidence=True)
 
 
 @register("min-gibbs", backends=("torch", "cuda"))
 def _min_gibbs_builder(graph, *, schedule, backend, lam=None, capacity=None,
                        **params):
     _reject_unknown("min-gibbs", params)
-    _require_uniform("min-gibbs", schedule)
+    _require_uniform("min-gibbs", schedule, adaptive=True)
     lam = _global_lam(graph) if lam is None else float(lam)
     capacity = recommended_capacity(lam) if capacity is None else capacity
-    sweep_fn = S._build_min_gibbs_sweep(graph, lam, capacity,
-                                        schedule.sweep_len)
+    build = lambda cs: S._build_min_gibbs_sweep(graph, lam, capacity,
+                                                schedule.sweep_len,
+                                                collect_stats=cs)
     cache_init = lambda st: S.init_min_gibbs_cache(st.gen, graph, st, lam,
                                                    capacity)
+    params = dict(lam=lam, capacity=capacity)
+    if isinstance(schedule, AdaptiveScan):
+        return _adaptive("min-gibbs", graph, schedule, backend, build,
+                         params, exact_accept=True, cache_init=cache_init)
     return _engine("min-gibbs", backend, schedule, schedule.sweep_len, graph,
-                   dict(lam=lam, capacity=capacity), sweep_fn,
-                   exact_accept=True, cache_init=cache_init)
+                   params, build(False), stats_fn=build(True),
+                   exact_accept=True, supports_evidence=True,
+                   cache_init=cache_init)
 
 
 @register("doublemin", backends=("torch", "cuda"))
 def _doublemin_builder(graph, *, schedule, backend, lam1=None,
                        capacity1=None, lam2=None, capacity2=None, **params):
     _reject_unknown("doublemin", params)
-    _require_uniform("doublemin", schedule)
+    _require_uniform("doublemin", schedule, adaptive=True)
     lam1 = float(4.0 * graph.L ** 2) if lam1 is None else float(lam1)
     lam2 = _global_lam(graph) if lam2 is None else float(lam2)
     capacity1 = recommended_capacity(lam1) if capacity1 is None else capacity1
     capacity2 = recommended_capacity(lam2) if capacity2 is None else capacity2
-    sweep_fn = S._build_double_min_sweep(graph, lam1, capacity1, lam2,
-                                         capacity2, schedule.sweep_len)
+    build = lambda cs: S._build_double_min_sweep(
+        graph, lam1, capacity1, lam2, capacity2, schedule.sweep_len,
+        collect_stats=cs)
     cache_init = lambda st: S.init_double_min_cache(st.gen, graph, st, lam2,
                                                     capacity2)
+    params = dict(lam1=lam1, capacity1=capacity1, lam2=lam2,
+                  capacity2=capacity2)
+    if isinstance(schedule, AdaptiveScan):
+        return _adaptive("doublemin", graph, schedule, backend, build,
+                         params, cache_init=cache_init)
     return _engine("doublemin", backend, schedule, schedule.sweep_len, graph,
-                   dict(lam1=lam1, capacity1=capacity1, lam2=lam2,
-                        capacity2=capacity2), sweep_fn, cache_init=cache_init)
+                   params, build(False), stats_fn=build(True),
+                   supports_evidence=True, cache_init=cache_init)
 
 
 @register("local-gibbs", backends=("torch", "cuda"))

@@ -22,6 +22,29 @@ sweeps the Engine API assembles.
     seed up front; its subsets and Gumbels are drawn in the call (in-kernel
     on the card).
 
+The four fused builders of Gibbs, MGPMH, MIN-Gibbs and DoubleMIN take the
+JAX package's three extensions of the ``sweep(state) -> state`` contract:
+
+  * ``collect_stats=True`` (build time): the sweep also returns a
+    :class:`~repro_torch.diagnostics.telemetry.SweepStats` of per-site
+    proposal/acceptance counters (Gibbs and MIN-Gibbs: hits; MGPMH and
+    DoubleMIN, whose kernels keep acceptance inside: accepted moves, a
+    lower bound), the instrumented variant ``Engine.sweep`` uses when it
+    threads telemetry;
+  * ``sites=`` (call time): a (C, sweep_len) int32 site array in place of
+    the uniform draw, which is then skipped — the hook AdaptiveScan drives;
+  * ``evidence=`` (call time): an ``(ev_mask (n,) float32, ev_vals (n,)
+    int32)`` pair of data tensors; the sites are drawn uniformly over the
+    unobserved sites through the masked inverse-CDF (:func:`evidence_cdf`),
+    so observed sites are never resampled.  The caller must have clamped
+    ``state.x`` at the observed sites (``Engine.clamp``); the chromatic
+    sweep re-clamps x after every color class instead.
+
+With one sequential generator, skipping the site draw (``sites=``) or
+replacing it (``evidence=``: one uniform per site) shifts the draws after
+it: the JAX package keeps its default streams by splitting keys, so the
+two agree in distribution, not in bits.
+
 RNG contract: every state carries ONE ``torch.Generator`` on its device
 (``state.gen``), and a step or sweep draws everything it needs from it, in
 a fixed order, advancing it in place.  The state it returns shares that
@@ -45,6 +68,7 @@ import torch
 from .estimators import (draw_global_minibatch, draw_local_minibatch,
                          min_gibbs_estimate, min_gibbs_lscale)
 from .factor_graph import MatchGraph, build_alias_table, pack_alias
+from ..diagnostics.telemetry import SweepStats
 from ..kernels import ops as kernel_ops
 
 __all__ = [
@@ -67,6 +91,8 @@ __all__ = [
     "double_min_draws",
     "init_min_gibbs_cache",
     "init_double_min_cache",
+    "evidence_cdf",
+    "inverse_cdf_sites",
     "validate_coloring",
 ]
 
@@ -137,11 +163,20 @@ def min_gibbs_select(eps, cache, xi, gumbel_noise, rows):
     return v, eps[rows, v.long()]
 
 
-def gibbs_draws(gen, C: int, S: int, n: int, D: int, device):
+def _uniform_sites(gen, C: int, S: int, n: int, device, sites):
+    """``sites`` if given (the draw is skipped), else (C, S) int32 sites
+    drawn uniformly from ``gen``."""
+    if sites is not None:
+        return sites
+    return torch.randint(0, n, (C, S), generator=gen, device=device,
+                         dtype=torch.int32)
+
+
+def gibbs_draws(gen, C: int, S: int, n: int, D: int, device, sites=None):
     """The pre-drawn inputs of one Gibbs sweep call, in the sweep's draw
-    order: sites (C, S) int32, then Gumbels (C, S, D)."""
-    i = torch.randint(0, n, (C, S), generator=gen, device=device,
-                      dtype=torch.int32)
+    order: sites (C, S) int32 (skipped when ``sites`` is given), then
+    Gumbels (C, S, D)."""
+    i = _uniform_sites(gen, C, S, n, device, sites)
     return i, gumbel((C, S, D), gen, device)
 
 
@@ -152,16 +187,16 @@ def mgpmh_rate(graph: MatchGraph, lam: float) -> torch.Tensor:
 
 
 def mgpmh_draws(gen, graph: MatchGraph, C: int, S: int, rate: torch.Tensor,
-                capacity: int):
+                capacity: int, sites=None):
     """The pre-drawn inputs of one MGPMH sweep call, in the sweep's draw
-    order: sites (C, S) int32; Poisson totals
+    order: sites (C, S) int32 (skipped when ``sites`` is given); Poisson
+    totals
     ``B = min(Poisson(lam * L_i / L), capacity)`` (footnote 7 on the local
     minibatch over A[i]) int32; alias index uniforms (C, S, K); alias accept
     uniforms (C, S, K); Gumbels (C, S, D); log MH uniforms (C, S).
     ``rate`` is ``mgpmh_rate(graph, lam)``, made once by the caller."""
     dev, K = graph.device, capacity
-    i = torch.randint(0, graph.n, (C, S), generator=gen, device=dev,
-                      dtype=torch.int32)
+    i = _uniform_sites(gen, C, S, graph.n, dev, sites)
     lam_i = rate.index_select(0, i.view(-1)).view(C, S)
     B = torch.poisson(lam_i, generator=gen).clamp_(max=K).to(torch.int32)
     u_idx = torch.rand((C, S, K), generator=gen, device=dev)
@@ -172,15 +207,15 @@ def mgpmh_draws(gen, graph: MatchGraph, C: int, S: int, rate: torch.Tensor,
 
 
 def min_gibbs_draws(gen, graph: MatchGraph, C: int, S: int, lam: float,
-                    capacity: int):
+                    capacity: int, sites=None):
     """The pre-drawn inputs of one MIN-Gibbs sweep call, in the sweep's draw
-    order: sites (C, S) int32; per-candidate Poisson totals
+    order: sites (C, S) int32 (skipped when ``sites`` is given);
+    per-candidate Poisson totals
     ``B = min(Poisson(lam), capacity)`` (C, S, D) int32; the four two-stage
     pair-draw uniform streams u_node, u_nacc, u_row, u_racc (C, S, D, K);
     Gumbels (C, S, D)."""
     dev, D, K = graph.device, graph.D, capacity
-    i = torch.randint(0, graph.n, (C, S), generator=gen, device=dev,
-                      dtype=torch.int32)
+    i = _uniform_sites(gen, C, S, graph.n, dev, sites)
     rate = torch.full((C, S, D), float(lam), device=dev)
     B = torch.poisson(rate, generator=gen).clamp_(max=K).to(torch.int32)
     u4 = [torch.rand((C, S, D, K), generator=gen, device=dev)
@@ -189,15 +224,16 @@ def min_gibbs_draws(gen, graph: MatchGraph, C: int, S: int, lam: float,
 
 
 def double_min_draws(gen, graph: MatchGraph, C: int, S: int, lam1: float,
-                     capacity1: int, lam2: float, capacity2: int):
+                     capacity1: int, lam2: float, capacity2: int,
+                     sites=None):
     """The pre-drawn inputs of one DoubleMIN sweep call, in the sweep's draw
-    order: sites (C, S) int32; ``B1 = min(Poisson(lam1 * L_i / L), K1)``;
+    order: sites (C, S) int32 (skipped when ``sites`` is given);
+    ``B1 = min(Poisson(lam1 * L_i / L), K1)``;
     u_idx, u_alias (C, S, K1); Gumbels (C, S, D);
     ``B2 = min(Poisson(lam2), K2)`` (C, S); u_node, u_nacc, u_row, u_racc
     (C, S, K2); log MH uniforms (C, S)."""
     dev, K1, K2 = graph.device, capacity1, capacity2
-    i = torch.randint(0, graph.n, (C, S), generator=gen, device=dev,
-                      dtype=torch.int32)
+    i = _uniform_sites(gen, C, S, graph.n, dev, sites)
     lam_i = (lam1 / graph.L) * graph.row_sum[i.long()]
     B1 = torch.poisson(lam_i, generator=gen).clamp_(max=K1).to(torch.int32)
     u_idx = torch.rand((C, S, K1), generator=gen, device=dev)
@@ -427,15 +463,73 @@ def _node_alias_table(graph: MatchGraph):
             torch.from_numpy(alias).to(graph.device))
 
 
-def _build_gibbs_sweep(graph: MatchGraph, sweep_len: int):
+def _site_hits(i: torch.Tensor, n: int) -> torch.Tensor:
+    """(C, S) site indices -> (n,) float32 visit counts over all chains (an
+    ``index_add_`` of ones: exact below 2^24, no host sync)."""
+    i = i.reshape(-1).long()
+    ones = torch.ones(i.shape, device=i.device)
+    return torch.zeros(n, device=i.device).index_add_(0, i, ones)
+
+
+def _moves(old_x: torch.Tensor, new_x: torch.Tensor) -> torch.Tensor:
+    """(n,) float32 value changes per site over all chains: the accepted
+    moves an MH kernel that keeps its acceptances inside reports as its
+    per-site acceptances (a lower bound)."""
+    return (old_x != new_x).sum(0, dtype=torch.float32)
+
+
+def evidence_cdf(ev_mask: torch.Tensor) -> torch.Tensor:
+    """(n,) cumulative site-selection table, uniform over UNOBSERVED sites.
+
+    ``ev_mask`` is (n,) float32 with 1.0 at observed (clamped) sites.  The
+    partial sums are integers below 2^24, exact in any summation order
+    (also the card's parallel scan), so an observed site keeps an exact tie
+    with its predecessor and the last entry is exactly 1.0: a
+    ``searchsorted(cdf, u, right=True)`` draw with u in [0, 1) never lands
+    on an observed site.  An all-zero mask gives the uniform table."""
+    c = torch.cumsum(1.0 - ev_mask, 0)
+    return c / c[-1].clamp_min(1e-30)
+
+
+def inverse_cdf_sites(cdf: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Site of each uniform in ``u`` under the cumulative table ``cdf``
+    ((n,)): the first index whose entry exceeds u, at most n - 1; int32,
+    u's shape."""
+    i = torch.searchsorted(cdf, u, right=True, out_int32=True)
+    return i.clamp_max_(cdf.shape[0] - 1)
+
+
+def _draw_sites(gen, C: int, S: int, n: int, sites, evidence, device):
+    """The (C, S) int32 sites chosen for one sweep call, or None.  Explicit
+    ``sites`` win (AdaptiveScan); with ``evidence`` one uniform per (chain,
+    sub-step) goes through the masked inverse-CDF (:func:`evidence_cdf`);
+    with neither it returns None and the ``*_draws`` function makes the
+    uniform draw in the same place of the draw order."""
+    if sites is not None or evidence is None:
+        return sites
+    u = torch.rand((C, S), generator=gen, device=device)
+    return inverse_cdf_sites(evidence_cdf(evidence[0]), u)
+
+
+def _build_gibbs_sweep(graph: MatchGraph, sweep_len: int, *,
+                       collect_stats: bool = False):
     """``sweep_len`` sequential vanilla-Gibbs updates per call, one fused
-    kernel launch (or its plain version on the CPU) for all chains."""
+    kernel launch (or its plain version on the CPU) for all chains.
+    Returns ``sweep(state, sites=None, evidence=None)`` (see the module
+    docstring); with ``collect_stats`` it returns (state, SweepStats) with
+    the site hits as proposals and acceptances (exact accept)."""
     n, D, dev = graph.n, graph.D, graph.device
 
-    def sweep(state: ChainState) -> ChainState:
-        i, g = gibbs_draws(state.gen, state.x.shape[0], sweep_len, n, D, dev)
+    def sweep(state: ChainState, sites=None, evidence=None):
+        C = state.x.shape[0]
+        i = _draw_sites(state.gen, C, sweep_len, n, sites, evidence, dev)
+        i, g = gibbs_draws(state.gen, C, sweep_len, n, D, dev, sites=i)
         x = kernel_ops.gibbs_sweep(state.x, graph.W, i, g, D=D)
-        return state._replace(x=x)
+        new = state._replace(x=x)
+        if not collect_stats:
+            return new
+        hits = _site_hits(i, n)
+        return new, SweepStats(site_prop=hits, site_acc=hits)
 
     return sweep
 
@@ -465,72 +559,95 @@ def _build_local_gibbs_sweep(graph: MatchGraph, batch_size: int,
 
 
 def _build_mgpmh_sweep(graph: MatchGraph, lam: float, capacity: int,
-                       sweep_len: int):
+                       sweep_len: int, *, collect_stats: bool = False):
     """``sweep_len`` sequential MGPMH updates (Algorithm 4 per sub-step) per
     call, one fused launch for all chains, fed by :func:`mgpmh_draws`; it
     reads the row alias tables as packed records (``graph.row_pack``).
     Distributionally identical to ``sweep_len`` single-site MGPMH steps —
     Theorems 3/4 apply unchanged.  The per-site Poisson rate is made once
-    here."""
-    D = graph.D
+    here.  ``sites=`` / ``evidence=`` / ``collect_stats`` as in the module
+    docstring (per-site acceptances: accepted moves)."""
+    n, D, dev = graph.n, graph.D, graph.device
     scale = float(graph.L / lam)
     W, row_pack = graph.W, graph.row_pack
     rate = mgpmh_rate(graph, lam)
 
-    def sweep(state: ChainState) -> ChainState:
-        draws = mgpmh_draws(state.gen, graph, state.x.shape[0], sweep_len,
-                            rate, capacity)
+    def sweep(state: ChainState, sites=None, evidence=None):
+        C = state.x.shape[0]
+        i = _draw_sites(state.gen, C, sweep_len, n, sites, evidence, dev)
+        draws = mgpmh_draws(state.gen, graph, C, sweep_len, rate, capacity,
+                            sites=i)
         x, acc = kernel_ops.mgpmh_sweep(state.x, W, row_pack, *draws, D=D,
                                         scale=scale)
-        return state._replace(x=x, accepts=state.accepts + acc)
+        new = state._replace(x=x, accepts=state.accepts + acc)
+        if not collect_stats:
+            return new
+        return new, SweepStats(site_prop=_site_hits(draws[0], n),
+                               site_acc=_moves(state.x, x))
 
     return sweep
 
 
 def _build_min_gibbs_sweep(graph: MatchGraph, lam: float, capacity: int,
-                           sweep_len: int):
+                           sweep_len: int, *, collect_stats: bool = False):
     """``sweep_len`` sequential MIN-Gibbs updates (Algorithm 2 per sub-step)
     per call, one fused launch for all chains, fed by
     :func:`min_gibbs_draws`; the cached estimate rides ``state.cache``.
     The global minibatches use the two-stage pair draw (node table, then
     row table), so the sweep never reads the flat factor table; it reads
-    both tables as packed records (``graph.row_pack``)."""
-    D = graph.D
+    both tables as packed records (``graph.row_pack``).  ``sites=`` /
+    ``evidence=`` / ``collect_stats`` as in the module docstring (per-site
+    acceptances: hits, exact accept)."""
+    n, D, dev = graph.n, graph.D, graph.device
     lscale = min_gibbs_lscale(graph.psi, lam)
     node_pack = pack_alias(*_node_alias_table(graph))
     row_pack = graph.row_pack
 
-    def sweep(state: ChainState) -> ChainState:
-        draws = min_gibbs_draws(state.gen, graph, state.x.shape[0],
-                                sweep_len, lam, capacity)
+    def sweep(state: ChainState, sites=None, evidence=None):
+        C = state.x.shape[0]
+        i = _draw_sites(state.gen, C, sweep_len, n, sites, evidence, dev)
+        draws = min_gibbs_draws(state.gen, graph, C, sweep_len, lam,
+                                capacity, sites=i)
         x, cache = kernel_ops.min_gibbs_sweep(
             state.x, node_pack, row_pack, *draws, state.cache, D=D,
             lscale=lscale)
-        return state._replace(x=x, cache=cache)
+        new = state._replace(x=x, cache=cache)
+        if not collect_stats:
+            return new
+        hits = _site_hits(draws[0], n)
+        return new, SweepStats(site_prop=hits, site_acc=hits)
 
     return sweep
 
 
 def _build_double_min_sweep(graph: MatchGraph, lam1: float, capacity1: int,
-                            lam2: float, capacity2: int, sweep_len: int):
+                            lam2: float, capacity2: int, sweep_len: int, *,
+                            collect_stats: bool = False):
     """``sweep_len`` sequential DoubleMIN updates (Algorithm 5 per
     sub-step) per call: MGPMH proposal plus a second global minibatch in
     the acceptance test, one fused launch fed by :func:`double_min_draws`.
     The cached xi_x rides ``state.cache``; accepts add to
-    ``state.accepts``."""
-    D = graph.D
+    ``state.accepts``.  ``sites=`` / ``evidence=`` / ``collect_stats`` as
+    in the module docstring (per-site acceptances: accepted moves)."""
+    n, D, dev = graph.n, graph.D, graph.device
     scale1 = float(graph.L / lam1)
     lscale2 = min_gibbs_lscale(graph.psi, lam2)
     node_pack = pack_alias(*_node_alias_table(graph))
     row_pack = graph.row_pack
 
-    def sweep(state: ChainState) -> ChainState:
-        draws = double_min_draws(state.gen, graph, state.x.shape[0],
-                                 sweep_len, lam1, capacity1, lam2, capacity2)
+    def sweep(state: ChainState, sites=None, evidence=None):
+        C = state.x.shape[0]
+        i = _draw_sites(state.gen, C, sweep_len, n, sites, evidence, dev)
+        draws = double_min_draws(state.gen, graph, C, sweep_len, lam1,
+                                 capacity1, lam2, capacity2, sites=i)
         x, cache, acc = kernel_ops.double_min_sweep(
             state.x, row_pack, node_pack, *draws, state.cache, D=D,
             scale1=scale1, lscale2=lscale2)
-        return state._replace(x=x, cache=cache, accepts=state.accepts + acc)
+        new = state._replace(x=x, cache=cache, accepts=state.accepts + acc)
+        if not collect_stats:
+            return new
+        return new, SweepStats(site_prop=_site_hits(draws[0], n),
+                               site_acc=_moves(state.x, x))
 
     return sweep
 
@@ -555,7 +672,8 @@ def validate_coloring(graph: MatchGraph, colors) -> list:
     return classes
 
 
-def _build_chromatic_gibbs_sweep(graph: MatchGraph, colors):
+def _build_chromatic_gibbs_sweep(graph: MatchGraph, colors, *,
+                                 collect_stats: bool = False):
     """One full chromatic Gibbs sweep per call: every color class updated as
     a block, one class-kernel launch per class.
 
@@ -566,18 +684,34 @@ def _build_chromatic_gibbs_sweep(graph: MatchGraph, colors):
     writes the class in place into the call's one copy of the state.  Per
     class, in color order, the sweep draws Gumbels (C, |class|, D) from
     ``state.gen``.  ``updates_per_call`` is n.
+
+    ``evidence=`` (an ``(ev_mask, ev_vals)`` pair) re-clamps x after every
+    class launch: the class kernel resamples whole classes, observed sites
+    included, and later classes condition on earlier ones, so the clamp is
+    restored between classes, not once at the end (a resampled observed
+    site is never read by its own class).  ``collect_stats``: every site
+    is updated once per chain and call, all exact block-Gibbs updates.
     """
-    D, dev = graph.D, graph.device
+    n, D, dev = graph.n, graph.D, graph.device
     classes = [torch.as_tensor(s, dtype=torch.int32, device=dev)
                for s in validate_coloring(graph, colors)]
     W, nbr = graph.W, graph.nbr_pack
 
-    def sweep(state: ChainState) -> ChainState:
+    def sweep(state: ChainState, evidence=None):
         C = state.x.shape[0]
         x = state.x.clone()
+        if evidence is not None:
+            observed = evidence[0] > 0.0
+            values = evidence[1].to(x.dtype)
         for sites in classes:
             g = gumbel((C, sites.shape[0], D), state.gen, dev)
             kernel_ops.gibbs_class_sweep(x, W, nbr, sites, g, D=D)
-        return state._replace(x=x)
+            if evidence is not None:
+                x.copy_(torch.where(observed, values, x))
+        new = state._replace(x=x)
+        if not collect_stats:
+            return new
+        hits = torch.full((n,), float(C), device=dev)
+        return new, SweepStats(site_prop=hits, site_acc=hits)
 
     return sweep

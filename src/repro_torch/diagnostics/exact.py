@@ -7,8 +7,8 @@ estimated marginals to them, and the exact spectral gap of random-scan
 Gibbs via the transition-matrix validators of ``core/spectral.py``.
 
 Host-side numpy (exactness over speed), on the port's graphs; a copy of the
-JAX package's ``diagnostics/exact.py``.  Its telemetry-based
-``empirical_spectral_gap`` arrives with the port's telemetry.
+JAX package's ``diagnostics/exact.py``, with its telemetry-based
+:func:`empirical_spectral_gap` reading the port's carry.
 """
 from __future__ import annotations
 
@@ -16,9 +16,10 @@ import numpy as np
 
 from ..core.factor_graph import MatchGraph, TabularPairwiseGraph
 from ..core import spectral
+from .telemetry import Telemetry, _lag1_stats
 
 __all__ = ["exact_marginals", "exact_conditional_marginals", "tv_to_exact",
-           "exact_gibbs_gap"]
+           "exact_gibbs_gap", "empirical_spectral_gap"]
 
 
 def exact_marginals(graph: MatchGraph, max_states: int = 1 << 22
@@ -144,3 +145,30 @@ def exact_gibbs_gap(graph: MatchGraph) -> float:
     tg = TabularPairwiseGraph.from_match_graph(graph)
     T, pi, _ = spectral.gibbs_transition_matrix(tg)
     return spectral.spectral_gap(T, pi)
+
+
+def empirical_spectral_gap(tel: Telemetry) -> float:
+    """Spectral-gap estimate (per site update) from streaming telemetry.
+
+    The slowest site's lag-1 *snapshot* autocorrelation rho satisfies
+    rho ~ (1 - gamma)^u for a chain with gap gamma and u site updates per
+    snapshot, so gamma ~ 1 - rho^(1/u).  A crude slowest-mode estimate —
+    compare against :func:`exact_gibbs_gap` on enumerable graphs; expect
+    order-of-magnitude agreement, not digits.  Returns NaN with too little
+    data.  One host read of the carry.
+    """
+    stats = _lag1_stats(tel)
+    if stats is None:
+        return float("nan")
+    cnt, cn, var, cov1 = stats
+    if cnt <= 2.0 or cn <= 1.0:
+        return float("nan")
+    with np.errstate(divide="ignore", invalid="ignore"):
+        rho = np.where(var > 0.0, cov1 / np.maximum(var, 1e-300), np.nan)
+    rho = rho[np.isfinite(rho)]
+    if rho.size == 0:
+        return float("nan")
+    rho_max = float(np.clip(rho.max(), 1e-6, 1.0 - 1e-6))
+    # site updates per snapshot, per chain
+    u = float(tel.updates.cpu()) / cnt
+    return 1.0 - rho_max ** (1.0 / u)

@@ -6,10 +6,16 @@
       --engine min-gibbs --steps 200 --chains 128 --sweep 8
   PYTHONPATH=src python -m repro_torch.launch.gibbs \
       --config lattice-ising-64x64 --engine gibbs --chromatic --steps 20
+  PYTHONPATH=src python -m repro_torch.launch.gibbs \
+      --config hetero-pairs-1024 --engine gibbs --adaptive --telemetry \
+      --sweep 64
 
 Engines (gibbs, mgpmh, min-gibbs, doublemin, local-gibbs) and workloads
-come from the registries in ``repro_torch.core.engine``.  Runs on the card unless
-``--device cpu``.
+come from the registries in ``repro_torch.core.engine``.  Runs on the card
+unless ``--device cpu``.  ``--adaptive`` switches to the telemetry-driven
+``AdaptiveScan`` site selection (gibbs, mgpmh, min-gibbs, doublemin);
+``--telemetry`` threads the streaming diagnostics carry through the run
+and logs the max split-R-hat and ESS per second too.
 Each log line reports the running-marginal error, the acceptance rate and
 the throughput in site updates per second (host clock; the log line's host
 read waits for the device).
@@ -21,14 +27,18 @@ import time
 
 import torch
 
+from .. import diagnostics as diag
 from ..core import engine as engine_lib
 
 __all__ = ["run", "main"]
 
+ADAPTIVE_ENGINES = ("gibbs", "mgpmh", "min-gibbs", "doublemin")
+
 
 def run(config: str, engine: str, steps: int, chains: int, *,
         log_every: int = 2000, seed: int = 0, sweep: int = 0,
-        chromatic: bool = False, device=None):
+        chromatic: bool = False, adaptive: bool = False,
+        telemetry: bool = False, device=None):
     """Advance ``chains`` chains by ``steps`` sweep calls, logging at every
     ``log_every`` calls and at the end.  Returns the final state."""
     wl = engine_lib.make_workload(config, device=device)
@@ -37,6 +47,8 @@ def run(config: str, engine: str, steps: int, chains: int, *,
             raise ValueError(f"workload {config!r} has no coloring for "
                              f"--chromatic")
         schedule = engine_lib.ChromaticBlocks(wl.colors)
+    elif adaptive:
+        schedule = engine_lib.AdaptiveScan(sweep_len=max(sweep, 1))
     else:
         schedule = engine_lib.UniformSites(max(sweep, 1))
     eng = engine_lib.make(engine, wl.graph, schedule=schedule, device=device)
@@ -44,22 +56,33 @@ def run(config: str, engine: str, steps: int, chains: int, *,
     upd_per_step = eng.updates_per_call
 
     st = eng.init(seed, chains)
+    tel = eng.init_telemetry(st) if telemetry else None
     marg = torch.zeros((chains, g.n, g.D), dtype=torch.float32,
                        device=eng.device)
     ones = torch.ones((chains, g.n, 1), dtype=torch.float32,
                       device=eng.device)
     t0 = time.time()
     for s in range(steps):
-        st = eng.sweep(st)
+        if tel is None:
+            st = eng.sweep(st)
+        else:
+            st, tel = eng.sweep(st, tel)
         marg.scatter_add_(2, st.x.long().unsqueeze(-1), ones)
         if (s + 1) % log_every == 0 or s == steps - 1:
             m = marg.sum(0) / ((s + 1) * chains)
             err = float(torch.sqrt(((m - 1 / g.D) ** 2).sum(-1)).mean())
             acc = 1.0 if eng.exact_accept else (
                 float(st.accepts.double().mean()) / ((s + 1) * upd_per_step))
-            rate = (s + 1) * chains * upd_per_step / (time.time() - t0)
-            print(f"[gibbs] step {s+1:7d} marg_err={err:.4f} "
-                  f"acc={acc:.3f} {rate/1e3:.1f}k updates/s", flush=True)
+            elapsed = time.time() - t0
+            rate = (s + 1) * chains * upd_per_step / elapsed
+            line = (f"[gibbs] step {s+1:7d} marg_err={err:.4f} "
+                    f"acc={acc:.3f} {rate/1e3:.1f}k updates/s")
+            if tel is not None:
+                ts = diag.summarize(tel, eng.exact_accept,
+                                    elapsed_sec=elapsed)
+                line += (f" rhat={ts['max_split_rhat']:.3f} "
+                         f"ess/s={ts.get('ess_per_sec', 0.0):.1f}")
+            print(line, flush=True)
     return st
 
 
@@ -76,13 +99,26 @@ def main(argv=None):
     ap.add_argument("--chromatic", action="store_true",
                     help="ChromaticBlocks schedule (gibbs on a colorable "
                          "workload): one full sweep per call")
+    ap.add_argument("--adaptive", action="store_true",
+                    help="AdaptiveScan schedule (gibbs/mgpmh/min-gibbs/"
+                         "doublemin): telemetry-driven non-uniform site "
+                         "selection")
+    ap.add_argument("--telemetry", action="store_true",
+                    help="thread streaming convergence telemetry and log "
+                         "split-R-hat / ESS per second")
     ap.add_argument("--device", default=None,
                     help="torch device; default the card ('cuda')")
     args = ap.parse_args(argv)
     if args.chromatic and args.engine != "gibbs":
         ap.error("--chromatic runs the gibbs engine only")
+    if args.adaptive and args.engine not in ADAPTIVE_ENGINES:
+        ap.error(f"--adaptive supports the {'/'.join(ADAPTIVE_ENGINES)} "
+                 f"engines, not {args.engine!r}")
+    if args.adaptive and args.chromatic:
+        ap.error("--adaptive and --chromatic are two schedules; pick one")
     run(args.config, args.engine, args.steps, args.chains, sweep=args.sweep,
-        chromatic=args.chromatic, device=args.device)
+        chromatic=args.chromatic, adaptive=args.adaptive,
+        telemetry=args.telemetry, device=args.device)
 
 
 if __name__ == "__main__":

@@ -7,7 +7,8 @@ Phases, each printed as it ends; any failure exits non-zero:
   1. device and toolchain (card, power limit, torch/CUDA, nvcc, triton);
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
      per source, all started together; ``-Xptxas -v`` registers / shared
-     memory for every kernel: the ten sampling kernels (the Gibbs sweep
+     memory for every kernel: the telemetry update, the ten sampling
+     kernels (the Gibbs sweep
      and both MGPMH forms one instance per register width, 2/4/8/10/16
      buckets, the chromatic class kernel one per 2/4/8/16), flash
      attention's three bf16
@@ -120,19 +121,22 @@ Phases, each printed as it ends; any failure exits non-zero:
   8. diagnostics at full width, every sampling loop under
      ``torch.cuda.set_sync_debug_mode("error")`` (a host sync raises) with
      the launch counts reset before and read after each run (one sweep
-     launch per call, as in phase 4: telemetry and the adaptive schedule
-     add none): (a) mgpmh on potts-64x64 (C=256, S=64, 200 calls) through
+     launch per call, as in phase 4, and one telemetry-kernel launch per
+     call for each telemetry carry: the runner's and an AdaptiveScan
+     engine's own): (a) mgpmh on potts-64x64 (C=256, S=64, 200 calls) through
      ``run_marginal_experiment(..., telemetry=True)``, replayed to the same
      bits (chains, errors, every telemetry field) and equal to the run
      without telemetry; its ``summarize``, ``health_report``,
      ``freshness_report`` and ``empirical_spectral_gap``; the telemetry's
      cost as host wall time of the 200-call run with and without it (in
      turns), per call as a stream, as the profiler's device busy time per
-     call, and the update alone; then gibbs, min-gibbs, doublemin (phase-4
+     call, and the update alone against its bound; adaptive mgpmh's
+     updates/s beside uniform's (c); then gibbs, min-gibbs, doublemin (phase-4
      shapes, 20 calls), local-gibbs B=32 and chromatic gibbs on
      lattice-ising-64x64, each with telemetry; (b) ``telemetry_update`` of
-     one (C=256, n=4096) trajectory of 32 steps from a seed on the card and
-     on the CPU, every field within rtol 1e-6 / atol 1e-6; (c) gibbs on
+     one (C=256, n=4096) trajectory of 32 steps from a seed on the card
+     (the kernel) and on the CPU (the plain version), every field within
+     rtol 1e-6 / atol 1e-6; (c) gibbs on
      hetero-pairs-1024 uniform against AdaptiveScan at the reference
      bench's settings (S=256, C=32, 96 snapshots x 8 calls, worst-site TV
      0.25, ``benchmarks/diagnostics_bench.py:80-110``), both reaching the
@@ -145,7 +149,30 @@ Phases, each printed as it ends; any failure exits non-zero:
      after any call, and 10^7 draws from ``evidence_cdf`` and from the
      masked adaptive table land on no observed site; (e)
      ``autotune_lambda("mgpmh", potts-64x64, target=(0.9, 0.96))``: its
-     rounds, landing lambda and wall time.
+     rounds, landing lambda and wall time; (f) run first: the fused
+     telemetry kernel (``csrc/telemetry_update.cu``, what every
+     telemetry'd call of (a)-(e) launches, one per carry and call) against
+     ``telemetry_update_plain`` on the card, every field bit for bit after
+     every call, over 2K + 4 calls (the split crossed, the ring wrapped) at
+     C=256 n=4096 K=8, without accept deltas, without stats, without a
+     cache, at K=1 (the adaptive carry), at C=96, with a value out of
+     [0, D) and with a NaN cache entry; then at the main path's shape (one
+     mgpmh call's arguments, both halves) per launch as a stream, device
+     time and host issue against its byte bound, beside the plain update's;
+     (g) the reference's telemetry contract at its own shape
+     (``benchmarks/diagnostics_bench.py:47-65``): mgpmh on potts-20x20,
+     C=64, S=64, 48 calls in 4 snapshots through ``run_marginal_experiment``
+     with and without telemetry, 7 runs each in turns, the medians'
+     overhead against 10%; (h) observability: the mgpmh call at
+     potts-64x64 (with and without telemetry) under an active ``Recorder``
+     (a ``sweep_chunk`` span, the engine's annotations) against the
+     ``NullRecorder``, 15 streams of 10 in turns, the median of the turns'
+     ratios against 5%, and one span alone (host time); the active loop
+     under ``set_sync_debug_mode("error")`` with the null loop's launches;
+     the launcher (potts-20x20) with ``--metrics-dir``, ``--trace`` and
+     ``--profile``: its files parse, count every call, and the profile's
+     ``repro.sweep/mgpmh/cuda`` range holds the sweep kernel and its
+     ``repro.sweep/telemetry`` range the telemetry kernel.
 
 Prints the kernels' JSON record and the card's name and power limit, then
 as its last line ``{"ok": true, "device": {...}}``.  Also writes the full
@@ -212,12 +239,12 @@ PARITY_LOCAL = [(4, 5, 3, 3, 11), (8, 8, 10, 10, 40), (3, 1, 1, 2, 5),
 KERNELS = ("gibbs_sweep", "gibbs_class_sweep", "mgpmh_sweep",
            "mgpmh_sweep_rng", "min_gibbs_sweep", "min_gibbs_sweep_rng",
            "double_min_sweep", "double_min_sweep_rng", "bucket_energy",
-           "local_gibbs_sweep", "flash_attention")
+           "local_gibbs_sweep", "flash_attention", "telemetry_update")
 # ptxas entry functions: one per kernel, but flash attention has three bf16
 # instances (padded head dims 64, 128, 256) and four float32 ones (head
 # dims 16, 32, 64, 128), the Gibbs sweep and both MGPMH forms one per
 # register width (2, 4, 8, 10, 16 buckets) and the class kernel one per
-# width (2, 4, 8, 16)
+# width (2, 4, 8, 16); the telemetry update one
 PTXAS_ENTRIES = len(KERNELS) - 5 + (3 + 4) + 3 * 5 + 4
 # the Gibbs ring kernel's new shapes (C, S, D, n): tests/test_torch_sweep.py
 # GIBBS_RING_SHAPES (D > the register width, a ragged n, S = 1, an odd n
@@ -300,6 +327,34 @@ ADA_S, ADA_C, ADA_SNAPSHOTS, ADA_CALLS, ADA_TARGET = 256, 32, 96, 8, 0.25
 EV_CALLS, EV_FRACTION = 50, 0.10
 LANDING_DRAWS = 10_000_000
 AUTOTUNE_TARGET = (0.9, 0.96)
+# phase 8f: the telemetry kernel against its plain version on the card, bit
+# for bit, each case over 2K + 4 calls (the split at call 9 crossed, the
+# ring wrapped twice): (C, n, K, half_at, inputs left out, a bad state,
+# the sweep's stats: "moves" / "hits", a SiteDraws of C x 64 sites, as the
+# engines hand them over, or "counts", a SweepStats)
+TEL_N, TEL_D = 4096, 10                       # potts-64x64's sites, values
+TEL_CASES = {
+    "C=256 K=8, site draws (moves)": (256, TEL_N, 8, 9, (), None, "moves"),
+    "site draws (hits)": (256, TEL_N, 8, 9, (), None, "hits"),
+    "counters (SweepStats)": (256, TEL_N, 8, 9, (), None, "counts"),
+    "no accept_delta": (256, TEL_N, 8, 9, ("accept_delta",), None, "moves"),
+    "no stats": (256, TEL_N, 8, 9, ("stats",), None, "moves"),
+    "no cache": (256, TEL_N, 8, 9, ("cache",), None, "moves"),
+    "K=1 (the adaptive carry)": (256, TEL_N, 1, 2, (), None, "moves"),
+    "C=96": (96, TEL_N, 8, 9, (), None, "moves"),
+    "a value out of [0, D)": (256, TEL_N, 8, 9, (), "x", "counts"),
+    "a NaN cache entry": (256, TEL_N, 8, 9, (), "cache", "moves"),
+}
+# 8g: the reference's telemetry contract at its own shape
+# (benchmarks/diagnostics_bench.py:47-65): mgpmh on potts-20x20, C=64,
+# S=64, 48 calls in 4 snapshots, overhead < 10%
+REF_C, REF_S, REF_CALLS, REF_SNAPSHOTS, REF_LIMIT = 64, 64, 48, 4, 0.10
+REF_REPS = 7
+# 8h: observability's contract (src/repro/obs/recorder.py:1-15): an
+# active recorder within 5% of the null one
+OBS_LIMIT = 0.05
+OBS_CALLS = 20
+OBS_REPS = 15
 CHECK_S = 32                                  # decode vs forward, B = 1
 # the reference's decode-vs-forward criterion (tests/test_models.py:92-99)
 SELF_TOL, SELF_AGREE = 0.15, 0.9
@@ -365,8 +420,10 @@ def wrappers():
     from repro_torch.kernels import fused_sweep as fs, minibatch_energy as me
     from repro_torch.kernels import flash_attention as fa, local_sweep as ls
     from repro_torch.kernels import chromatic_sweep as chs
+    from repro_torch.kernels import telemetry_update as tu
     return fs.WRAPPERS + (chs.gibbs_class_sweep_cuda, me.bucket_energy_cuda,
-                          ls.local_gibbs_sweep_cuda, fa.flash_attention_cuda)
+                          ls.local_gibbs_sweep_cuda, fa.flash_attention_cuda,
+                          tu.telemetry_update_cuda)
 
 
 def reset_launches():
@@ -1635,7 +1692,7 @@ def bucket_times(dev):
               f"beyond float32 summation error")
         # the kernel and scatter_add_ in turns, so the host's load falls on
         # both alike
-        ms, lms = alternating_per_launch_ms(
+        ms, lms, _ = alternating_per_launch_ms(
             lambda: me.bucket_energy_cuda(w, v, D), library, 100)
         pms = per_launch_ms(lambda: ref.bucket_energy_ref(w, v, D), 20)
         dev_ms = kernel_device_ms(lambda: me.bucket_energy_cuda(w, v, D), 100,
@@ -1656,13 +1713,16 @@ def bucket_times(dev):
 
 def alternating_per_launch_ms(fn_a, fn_b, n, reps=5):
     """Per-launch ms of two functions timed as ``per_launch_ms`` does, in
-    turns (a, b, a, b, ...), median of ``reps`` turns each."""
+    turns (a, b, a, b, ...): (median of ``reps`` turns of a, of b, median
+    over turns of a / b; the ratio of neighbouring turns is steadier than
+    the ratio of medians where the host's pace drifts)."""
     ta, tb = [], []
     fn_a(), fn_b()
     for _ in range(reps):
         ta.append(per_launch_ms(fn_a, n, reps=1))
         tb.append(per_launch_ms(fn_b, n, reps=1))
-    return statistics.median(ta), statistics.median(tb)
+    return (statistics.median(ta), statistics.median(tb),
+            statistics.median(a / b for a, b in zip(ta, tb)))
 
 
 def device_events(run, cpu=False, tries=3):
@@ -1696,7 +1756,8 @@ def kernel_device_ms(fn, n, name=None):
     fn()
     dev, _ = device_events(run)
     total = sum(e.self_device_time_total for e in dev
-                if name is None or name in e.key)
+                if (name is None or name in e.key)
+                and not e.key.startswith("repro."))
     check(total > 0, f"torch.profiler saw no device time for {name or fn}")
     return total / 1e3 / n
 
@@ -1872,7 +1933,9 @@ def device_busy(fn):
     """One call of ``fn`` under torch.profiler: wall ms (host clock, to a
     synchronize; the profiler's own cost included), device ms (the summed
     time of the device's kernels, memcpys and memsets; one stream) and the
-    five of them with the most time."""
+    five of them with the most time.  The ``repro.`` ranges of
+    ``obs.annotate``, which the profiler also lists on the device, span
+    kernels already counted and are left out."""
     def run():
         t0 = time.perf_counter()
         fn()
@@ -1882,7 +1945,8 @@ def device_busy(fn):
     dev, wall = device_events(run, cpu=True)
     name = lambda key: key.replace("(anonymous namespace)::", "").split(
         "(")[0].split("<")[0].split(" ")[-1]
-    ops = [(name(e.key), e.self_device_time_total / 1e3) for e in dev]
+    ops = [(name(e.key), e.self_device_time_total / 1e3) for e in dev
+           if not e.key.startswith("repro.")]
     ops = sorted((o for o in ops if o[1] > 0), key=lambda o: -o[1])
     check(bool(ops), f"torch.profiler saw no device time for {fn}")
     return dict(profiled_wall_ms=1e3 * wall,
@@ -2367,9 +2431,11 @@ def diag_run(name, eng, C, calls, expect, *, seed=0, state=None,
     """``run_marginal_experiment`` over ``calls`` sweep calls from
     ``eng.init(seed, C)`` (or ``state``) under ``no_host_sync``, the launch
     counts set to 0 just before and read just after: ``expect(calls)``
-    names the engine's launches, every other kernel must have none.
-    Returns (trace, host wall s to a synchronize, launches)."""
-    from repro_torch.core import chains
+    names the engine's launches, the telemetry kernel must have one per
+    call for each carry the run threads (the runner's with
+    ``telemetry=True``, an AdaptiveScan engine's own), every other kernel
+    none.  Returns (trace, host wall s to a synchronize, launches)."""
+    from repro_torch.core import chains, engine
     st = eng.init(seed, C) if state is None else state
     torch.cuda.synchronize()
     reset_launches()
@@ -2383,6 +2449,9 @@ def diag_run(name, eng, C, calls, expect, *, seed=0, state=None,
     launches = read_launches()
     want = dict.fromkeys(KERNELS, 0)
     want.update(expect(calls))
+    want["telemetry_update"] = calls * (
+        int(bool(kw.get("telemetry"))) + int(isinstance(
+            eng.schedule, engine.AdaptiveScan)))
     for kernel, n in want.items():
         check(launches[kernel] == n,
               f"8 {name}: {kernel} launched {launches[kernel]} times, "
@@ -2430,7 +2499,7 @@ def telemetry_cost(eng):
         box["plain"] = eng.sweep(box["plain"])
 
     rec = {}
-    rec["call_ms"], rec["plain_call_ms"] = alternating_per_launch_ms(
+    rec["call_ms"], rec["plain_call_ms"], _ = alternating_per_launch_ms(
         with_tel, without, 10, reps=7)
     busy_t = device_busy(lambda: [with_tel() for _ in range(10)])
     busy_p = device_busy(lambda: [without() for _ in range(10)])
@@ -2451,9 +2520,376 @@ def telemetry_cost(eng):
     rec["update_host_ms"] = host_ms(update, 20)
     rec["update_device_ms"] = device_busy(
         lambda: [update() for _ in range(10)])["device_busy_ms"] / 10
+    C, n = old.x.shape
+    rec["update_bound_ms"] = bound(telemetry_bytes(
+        C, n, box["tel"].cross.shape[0], box["tel"].count >= box[
+            "tel"].split, eng.updates_per_call), 0)[0]
     rec["overhead_call"] = rec["call_ms"] / rec["plain_call_ms"] - 1.0
     rec["overhead_device"] = (rec["device_busy_ms"]
                               / rec["plain_device_busy_ms"] - 1.0)
+    return rec
+
+
+def telemetry_bytes(C, n, K, second, S):
+    """Bytes one telemetry update must move: x_old and x_new, the accept
+    deltas, the sweep's C x S site draws and the cache read once; the
+    Welford pair (both pairs in the second half), the K lag sums, the
+    counters and the scalars read and written; the K ring slots read and
+    two written."""
+    per_elem = 8 + 16 + (16 if second else 0) + 4 * K + 8 * K + 8
+    return (C * n * per_elem + 4 * C + 4 * C * S + 4 * C   # inputs
+            + 8 * C + 24 * n + 8 * K + 6 * 8)              # counters
+
+
+def update_args(eng, seed):
+    """One mgpmh call's telemetry-update arguments at the engine's shape:
+    (old_x, new_x, updates, accept_delta, stats), cache and D."""
+    old = eng.init(seed, C_FULL, start="random")
+    new, stats = eng.sweep_stats_fn(old)
+    args = (old.x, new.x, eng.updates_per_call, new.accepts - old.accepts,
+            stats)
+    return args, dict(cache=new.cache, n_values=eng.graph.D)
+
+
+def telemetry_kernel_times(eng):
+    """The telemetry kernel on one mgpmh call's arguments at potts-64x64
+    (C=256, n=4096, K=8), in each half: ms per launch as a stream of 20,
+    device ms (torch.profiler), host issue ms, against its byte bound;
+    beside the plain (eager) update's stream, host issue and device ms."""
+    from repro_torch import diagnostics as diag
+    args, kw = update_args(eng, 5)
+    C, n = args[0].shape
+    rec = {}
+    for half, half_at in (("first", None), ("second", 0)):
+        box = {"tel": eng.init_telemetry(eng.init(1, C_FULL),
+                                         half_at=half_at)}
+
+        def update():
+            box["tel"] = diag.telemetry_update(box["tel"], *args, **kw)
+
+        K = box["tel"].cross.shape[0]
+        nbytes = telemetry_bytes(C, n, K, half == "second", S_FULL)
+        bms, by = bound(nbytes, 0)
+        rec[half] = dict(
+            ms=per_launch_ms(update, 20), host_ms=host_ms(update, 20),
+            device_ms=kernel_device_ms(update, 20, "telemetry_update"),
+            bound_ms=bms, bound_by=by, bytes=nbytes)
+        check(box["tel"].count > 0 and (box["tel"].split <= box["tel"].count)
+              == (half == "second"), f"8f telemetry kernel {half} half: "
+              f"the carry's split {box['tel'].split} count "
+              f"{box['tel'].count}")
+    box = {"tel": eng.init_telemetry(eng.init(1, C_FULL), half_at=0)}
+
+    def plain():
+        box["tel"] = diag.telemetry_update_plain(box["tel"], *args, **kw)
+
+    rec["plain"] = dict(
+        ms=per_launch_ms(plain, 20), host_ms=host_ms(plain, 20),
+        device_ms=device_busy(lambda: [plain() for _ in range(10)])[
+            "device_busy_ms"] / 10)
+    sec = rec["second"]
+    rec.update(ms=sec["ms"], device_ms=sec["device_ms"],
+               plain_ms=rec["plain"]["ms"], bound_ms=sec["bound_ms"],
+               bound_by=sec["bound_by"], library_ms=None,
+               shape=f"potts-64x64 mgpmh C={C} n={n} K=8, second half")
+    for half in ("first", "second"):
+        r = rec[half]
+        say("8f telemetry kernel", f"{half} half: {r['ms']:.4f} ms per "
+            f"launch as a stream (host issue {r['host_ms']:.4f}), device "
+            f"{r['device_ms']:.4f} against its bound {r['bound_ms']:.4f} "
+            f"({r['bytes'] / 2 ** 20:.1f} MiB, {r['bound_by']}): "
+            f"{r['device_ms'] / r['bound_ms']:.2f}x the bound")
+    pl = rec["plain"]
+    say("8f telemetry kernel", f"plain (eager) update, second half: "
+        f"{pl['ms']:.4f} ms as a stream, host issue {pl['host_ms']:.4f}, "
+        f"device {pl['device_ms']:.4f}")
+    return rec
+
+
+def same_bits(a, b):
+    """(equal, first differing flat index or None) of two float32 tensors,
+    compared as their bits (NaN equals NaN)."""
+    ai, bi = a.view(torch.int32), b.view(torch.int32)
+    if torch.equal(ai, bi):
+        return True, None
+    return False, int((ai != bi).flatten().nonzero()[0])
+
+
+def phase_telemetry_kernel(potts):
+    """8f: the telemetry kernel against the plain version on the card, bit
+    for bit, every field after every call, in every TEL_CASES case; on a
+    mismatch the field, the call and the first differing element are
+    printed and the run fails.  Then its times at the main path's shape
+    (``telemetry_kernel_times``)."""
+    from repro_torch import diagnostics as diag
+    from repro_torch.core import engine
+    from repro_torch.kernels import parity_inputs as pin
+    from repro_torch.kernels import telemetry_update as tu
+    T = 2 * 8 + 4
+    host = pin.telemetry_inputs(T, 256, TEL_N, TEL_D, seed=21, S=S_FULL)
+    data = {k: torch.from_numpy(v).to(potts.device)
+            for k, v in host.items()}
+    out = {}
+    for case, (C, n, K, half_at, drop, bad, form) in TEL_CASES.items():
+        steps = 2 * K + 4
+        xs, cache = data["xs"][:steps + 1, :C], data["cache"][:steps, :C]
+        if bad == "x":
+            xs = xs.clone()
+            xs[K + 1, 1, 2] = TEL_D
+        elif bad == "cache":
+            cache = cache.clone()
+            cache[K + 1, 1] = float("nan")
+        kern = diag.telemetry_init(xs[0], half_at=half_at, lags=K)
+        plain = diag.telemetry_init(xs[0], half_at=half_at, lags=K)
+        tu.telemetry_update_cuda.launches = 0
+        for s in range(steps):
+            stats = (diag.SweepStats(data["prop"][s], data["site_acc"][s])
+                     if form == "counts" else
+                     diag.SiteDraws(data["sites"][s, :C],
+                                    moves=form == "moves"))
+            kw = dict(accept_delta=data["acc"][s, :C].contiguous(),
+                      stats=stats, cache=cache[s].contiguous(),
+                      n_values=TEL_D)
+            for name in drop:
+                kw[name] = None
+            x_old, x_new = xs[s].contiguous(), xs[s + 1].contiguous()
+            kern = diag.telemetry_update(kern, x_old, x_new, S_FULL, **kw)
+            plain = diag.telemetry_update_plain(plain, x_old, x_new, S_FULL,
+                                                **kw)
+            check((kern.head, kern.count) == (plain.head, plain.count),
+                  f"8f {case}: call {s} host copies {kern.head, kern.count} "
+                  f"!= {plain.head, plain.count}")
+            for f in tu.CARRY_FIELDS:
+                a, b = getattr(kern, f), getattr(plain, f)
+                same, at = same_bits(a, b)
+                if not same:
+                    fail(f"8f telemetry kernel {case}: field {f} differs "
+                         f"from the plain version after call {s}, first at "
+                         f"flat index {at}: kernel "
+                         f"{a.flatten()[at].item()!r}, plain "
+                         f"{b.flatten()[at].item()!r}")
+        launches = tu.telemetry_update_cuda.launches
+        check(launches == steps, f"8f {case}: {launches} kernel launches in "
+              f"{steps} calls")
+        flag = float(kern.bad_state)
+        check(flag == (0.0 if bad is None else 1.0),
+              f"8f {case}: bad_state {flag}")
+        out[case] = dict(C=C, n=n, K=K, half_at=half_at, calls=steps,
+                         left_out=list(drop), bad=bad, stats=form,
+                         bad_state=flag, bit_equal=True)
+        say("8f telemetry kernel", f"{case} (C={C} n={n} K={K}, split at "
+            f"{half_at}, {steps} calls): all {len(tu.CARRY_FIELDS)} fields "
+            f"bit-equal to the plain version after every call; "
+            f"{launches} launches; bad_state {flag}")
+    del data
+    torch.cuda.empty_cache()
+    times = telemetry_kernel_times(engine.make("mgpmh", potts, sweep=S_FULL))
+    return dict(cases=out, max_abs_err=0.0, times=times)
+
+
+def phase_reference_contract(dev, smi):
+    """8g: the reference's telemetry contract at its own shape: mgpmh on
+    potts-20x20 (C=64, S=64, 48 calls in 4 snapshots) through
+    ``run_marginal_experiment`` with and without ``telemetry=True``, host
+    wall to a synchronize, in turns after a warm-up; medians against 10%."""
+    from repro_torch.core import engine, factor_graph
+    g = factor_graph.make_potts_graph(20, 4.6, 10, device=dev)
+    eng = engine.make("mgpmh", g, sweep=REF_S)
+    expect = lambda calls: {"mgpmh_sweep": calls}
+    walls = {"plain": [], "telemetry": []}
+    order = ["plain", "telemetry"] + ["plain", "telemetry",
+                                      "telemetry", "plain"] * (REF_REPS // 2)
+    order += ["plain", "telemetry"] * (REF_REPS % 2)
+    for k, label in enumerate(order):
+        _, wall, _ = diag_run(f"reference shape {label}", eng, REF_C,
+                              REF_CALLS, expect, n_snapshots=REF_SNAPSHOTS,
+                              telemetry=label == "telemetry")
+        if k >= 2:                       # the first pair warms both up
+            walls[label].append(wall)
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    low = {k: min(v) for k, v in walls.items()}
+    rec = dict(walls_s=walls, median_s=med, min_s=low,
+               overhead=med["telemetry"] / med["plain"] - 1.0,
+               overhead_min=low["telemetry"] / low["plain"] - 1.0,
+               limit=REF_LIMIT, card=smi)
+    rec["within_limit"] = rec["overhead"] < REF_LIMIT
+    say("8g reference contract", f"mgpmh potts-20x20 C={REF_C} S={REF_S} "
+        f"{REF_CALLS} calls in {REF_SNAPSHOTS} snapshots on {smi}: "
+        f"{REF_REPS} runs each in turns, median {med['telemetry']:.5f} s "
+        f"with telemetry, {med['plain']:.5f} without: overhead "
+        f"{100 * rec['overhead']:+.2f}% (min-of-runs "
+        f"{100 * rec['overhead_min']:+.2f}%) against the reference's < "
+        f"{100 * REF_LIMIT:.0f}%: "
+        + ("within" if rec["within_limit"] else "MISSED"))
+    return rec
+
+
+def phase_obs(potts, smi):
+    """8h: observability on the card.  The mgpmh call at potts-64x64 (with
+    telemetry, and without) under an active Recorder (a ``sweep_chunk``
+    span around each call, the engine's annotations) against the
+    NullRecorder, per call as streams of 10 in turns (the median of the
+    turns' ratios), and one span's host time alone; the active loop
+    under ``set_sync_debug_mode("error")`` with the same launches per call
+    as the null one; then the launcher with ``--metrics-dir``, ``--trace``
+    and ``--profile`` (potts-20x20), its files parsed and the profile's
+    ranges holding the telemetry kernel."""
+    from repro_torch import obs
+    from repro_torch.core import engine
+    eng = engine.make("mgpmh", potts, sweep=S_FULL)
+    active = obs.Recorder()
+    labels = active.register_engine(eng, workload="potts-64x64",
+                                    chains=C_FULL)
+    null = obs.NullRecorder()
+    rec = dict(card=smi, limit=OBS_LIMIT)
+    for mode in ("telemetry", "plain"):
+        boxes = {}
+        for name in ("active", "null"):
+            st = eng.init(1, C_FULL)
+            boxes[name] = {"st": st, "tel": (eng.init_telemetry(st)
+                                             if mode == "telemetry"
+                                             else None)}
+
+        def call(r, box):
+            with r.span("sweep_chunk", **labels):
+                if box["tel"] is None:
+                    box["st"] = eng.sweep(box["st"])
+                else:
+                    box["st"], box["tel"] = eng.sweep(box["st"], box["tel"])
+
+        ms_a, ms_n, ratio = alternating_per_launch_ms(
+            lambda: call(active, boxes["active"]),
+            lambda: call(null, boxes["null"]), 10, OBS_REPS)
+        launches = {}
+        for name, r in (("active", active), ("null", null)):
+            torch.cuda.synchronize()
+            reset_launches()
+            with obs.using(r), no_host_sync():
+                for _ in range(OBS_CALLS):
+                    call(r, boxes[name])
+            torch.cuda.synchronize()
+            launches[name] = {k: v for k, v in read_launches().items() if v}
+        want = {"mgpmh_sweep": OBS_CALLS}
+        if mode == "telemetry":
+            want["telemetry_update"] = OBS_CALLS
+        check(launches["active"] == launches["null"] == want,
+              f"8h obs {mode}: launches {launches}, expected {want} in "
+              f"{OBS_CALLS} calls")
+        overhead = ratio - 1.0
+        rec[mode] = dict(active_ms=ms_a, null_ms=ms_n, overhead=overhead,
+                         within_limit=overhead <= OBS_LIMIT,
+                         launches=launches["active"])
+        say("8h obs", f"mgpmh call potts-64x64 C={C_FULL} S={S_FULL} "
+            f"({mode}) on {smi}: {ms_a:.4f} ms per call under an active "
+            f"Recorder, {ms_n:.4f} under the NullRecorder (medians of "
+            f"{OBS_REPS} streams of 10 each, in turns): overhead "
+            f"{100 * overhead:+.2f}% (median of the turns' ratios) against "
+            f"{100 * OBS_LIMIT:.0f}%: "
+            + ("within" if overhead <= OBS_LIMIT else "MISSED")
+            + f"; no host sync in {OBS_CALLS} active calls, launches "
+            f"{launches['active']} (null {launches['null']})")
+    rec["span_host_ms"], rec["null_span_host_ms"] = (
+        host_ms(lambda: _empty_span(active, labels), 2000),
+        host_ms(lambda: _empty_span(null, labels), 2000))
+    say("8h obs", f"one sweep_chunk span alone: {rec['span_host_ms']:.5f} "
+        f"ms of host time (NullRecorder {rec['null_span_host_ms']:.5f})")
+    check(active.metrics.value("span_calls_total", span="sweep_chunk") > 0,
+          "8h obs: the active recorder counted no span")
+    rec["launcher"] = obs_launcher()
+    return rec
+
+
+def _empty_span(rec, labels):
+    with rec.span("sweep_chunk", **labels):
+        pass
+
+
+def _profile_ranges(path):
+    """The profiler trace's ``repro.`` ranges and the kernels launched
+    inside each: {range name: (count, {kernel names})}, matched by the
+    launch's correlation id."""
+    doc = json.loads(Path(path).read_text())
+    evs = [e for e in doc["traceEvents"] if e.get("ph") == "X"]
+    ranges = [e for e in evs if str(e.get("name", "")).startswith("repro.")
+              and e.get("cat") == "user_annotation"]
+    launches = [e for e in evs if e.get("cat") in ("cuda_runtime",
+                                                   "cuda_driver")
+                and "correlation" in e.get("args", {})]
+    kernels = {e["args"]["correlation"]: e["name"] for e in evs
+               if e.get("cat") == "kernel" and "correlation" in e.get(
+                   "args", {})}
+    out = {}
+    for r in ranges:
+        t0, t1 = float(r["ts"]), float(r["ts"]) + float(r["dur"])
+        inside = {kernels[e["args"]["correlation"]] for e in launches
+                  if t0 <= float(e["ts"]) <= t1
+                  and e["args"]["correlation"] in kernels}
+        n, names = out.get(r["name"], (0, set()))
+        out[r["name"]] = (n + 1, names | inside)
+    return out, len(kernels)
+
+
+def obs_launcher(tries=3):
+    """The launcher on the card with --metrics-dir, --trace and --profile:
+    metrics.jsonl, metrics.prom and trace.json parse and count every call;
+    the profile holds the sweep and telemetry ranges, the telemetry kernel
+    inside the latter (a capture that recorded no kernel is taken again,
+    up to ``tries`` times: CUPTI drops a window now and then)."""
+    from repro_torch import obs
+    from repro_torch.launch import gibbs as launcher
+    steps = 8
+    for attempt in range(tries):
+        out = ROOT / "chiprun_out" / "obs" / f"run{attempt}"
+        args = ["--config", "potts-20x20", "--engine", "mgpmh", "--steps",
+                str(steps), "--chains", str(REF_C), "--sweep", str(REF_S),
+                "--telemetry", "--device", "cuda", "--metrics-dir",
+                str(out), "--trace", str(out / "trace.json"), "--profile",
+                str(out / "prof")]
+        torch.cuda.synchronize()
+        reset_launches()
+        launcher.main(args)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in read_launches().items() if v}
+        obs.set_recorder(obs.NullRecorder())      # main() configured one
+        ranges, n_kernels = _profile_ranges(out / "prof" /
+                                            "profile_trace.json")
+        if n_kernels:
+            break
+    check(launches == {"mgpmh_sweep": steps, "telemetry_update": steps},
+          f"8h launcher: launches {launches}")
+    series = json.loads((out / "metrics.jsonl").read_text().splitlines()[-1]
+                        )["series"]
+    by_name = {x["name"]: x for x in series}
+    prom = (out / "metrics.prom").read_text()
+    spans = [e for e in json.loads((out / "trace.json").read_text())[
+        "traceEvents"] if e["ph"] == "X"]
+    check(by_name["sweeps_total"]["value"] == steps
+          and by_name["updates_total"]["value"] == steps * REF_C * REF_S
+          and by_name["sweeps_total"]["labels"]["backend"] == "cuda"
+          and "# TYPE repro_sweeps_total counter" in prom
+          and [e["name"] for e in spans] == ["sweep_chunk"] * steps,
+          f"8h launcher files: {by_name.get('sweeps_total')}, "
+          f"{len(spans)} spans")
+    sweep = ranges.get("repro.sweep/mgpmh/cuda", (0, set()))
+    tel = ranges.get("repro.sweep/telemetry", (0, set()))
+    check(n_kernels > 0 and sweep[0] == steps and tel[0] == steps
+          and any("telemetry_update" in k for k in tel[1])
+          and any("mgpmh_sweep" in k for k in sweep[1])
+          and not any("mgpmh_sweep" in k for k in tel[1]),
+          f"8h profile: {n_kernels} kernels; ranges "
+          f"{ {k: (v[0], sorted(v[1])) for k, v in ranges.items()} }")
+    rec = dict(files=sorted(p.name for p in out.iterdir()),
+               series=sorted(by_name), spans=len(spans),
+               ranges={k: dict(count=v[0], kernels=sorted(v[1]))
+                       for k, v in ranges.items()},
+               kernels_in_profile=n_kernels, attempts=attempt + 1)
+    say("8h obs", f"launcher potts-20x20 mgpmh C={REF_C} S={REF_S} {steps} "
+        f"calls --telemetry --metrics-dir --trace --profile: files "
+        f"{rec['files']}, {len(series)} series parsed (sweeps_total "
+        f"{by_name['sweeps_total']['value']:.0f}), {len(spans)} sweep_chunk "
+        f"spans; profile ranges " + "; ".join(
+            f"{k} x{v['count']}: {', '.join(v['kernels'])}"
+            for k, v in rec["ranges"].items()))
     return rec
 
 
@@ -2517,7 +2953,8 @@ def phase_diag_main(potts, lattice, smi):
         f"{cost['plain_device_busy_ms']:.4f} without (overhead "
         f"{cost['overhead_device']:+.3f}); the update alone "
         f"{cost['update_ms']:.4f} ms as a stream (host issue "
-        f"{cost['update_host_ms']:.4f}, device {cost['update_device_ms']:.4f})"
+        f"{cost['update_host_ms']:.4f}, device {cost['update_device_ms']:.4f}"
+        f", bound {cost['update_bound_ms']:.4f})"
         f"; top device ops per call with telemetry "
         + ", ".join(f"{k} {v:.4f}" for k, v in
                     cost["top_device_ops_ms"].items()))
@@ -2660,6 +3097,15 @@ def phase_diag_adaptive(potts):
             f"bit-identical (chains, table, telemetry)")
         if name == "mgpmh":
             out["mgpmh_table"] = fin.cdf
+            # uniform mgpmh at the same shape, twice, beside the adaptive
+            uni = [C * calls * S / diag_run(
+                "uniform mgpmh", engine.make(name, potts, sweep=S), C,
+                calls, exp)[1] for _ in range(2)]
+            out[name]["uniform_updates_per_s"] = uni
+            say("8c adaptive", f"mgpmh potts-64x64 C={C} S={S} {calls} "
+                f"calls: adaptive {out[name]['updates_per_s'] / 1e6:.3f}M "
+                f"updates/s, uniform "
+                + ", ".join(f"{u / 1e6:.3f}M" for u in uni))
     return out
 
 
@@ -2767,13 +3213,16 @@ def phase_diag_autotune(potts, smi):
 
 def phase_diagnostics(potts, lattice, smi):
     t0 = time.perf_counter()
-    rec = {"main": phase_diag_main(potts, lattice, smi),
-           "card_vs_cpu": phase_diag_card_vs_cpu(potts.device)}
+    rec = {"telemetry_kernel": phase_telemetry_kernel(potts)}
+    rec["main"] = phase_diag_main(potts, lattice, smi)
+    rec["card_vs_cpu"] = phase_diag_card_vs_cpu(potts.device)
     ada = phase_diag_adaptive(potts)
     table = ada.pop("mgpmh_table")
     rec["adaptive"] = ada
     rec["evidence"] = phase_diag_evidence(potts, lattice, table)
     rec["autotune"] = phase_diag_autotune(potts, smi)
+    rec["reference_contract"] = phase_reference_contract(potts.device, smi)
+    rec["obs"] = phase_obs(potts, smi)
     rec["seconds"] = time.perf_counter() - t0
     say("8 diagnostics", f"{rec['seconds']:.1f} s")
     torch.cuda.empty_cache()
@@ -2794,13 +3243,17 @@ REPLACES = {
     # bucket_energy_pallas on the local path (src/repro/core/samplers.py:161)
     "local_gibbs_sweep": "src/repro/kernels/minibatch_energy.py:54",
     "flash_attention": "src/repro/kernels/flash_attention.py:79",
+    # no Pallas kernel: the JAX package's update is jnp, fused by XLA
+    "telemetry_update": "src/repro/diagnostics/telemetry.py:125 (jnp)",
 }
 SOURCES = {"bucket_energy": "src/repro_torch/kernels/csrc/bucket_energy.cu",
            "gibbs_class_sweep":
                "src/repro_torch/kernels/csrc/chromatic_sweep.cu",
            "local_gibbs_sweep": "src/repro_torch/kernels/csrc/local_sweep.cu",
            "flash_attention":
-               "src/repro_torch/kernels/csrc/flash_attention.cu"}
+               "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "telemetry_update":
+               "src/repro_torch/kernels/csrc/telemetry_update.cu"}
 
 
 def main():
@@ -2834,6 +3287,8 @@ def main():
         potts, lattice, record["device"]["nvidia_smi"])
 
     src = "src/repro_torch/kernels/csrc/fused_sweep.cu"
+    diag = record["diagnostics"]
+    times["telemetry_update"] = diag["telemetry_kernel"]["times"]
     kernels = []
     for k in KERNELS:
         if k.endswith("_rng"):
@@ -2843,6 +3298,8 @@ def main():
         elif k == "bucket_energy":       # the single-site steps' energy
             launches = sum(r["bucket_energy_launches"]
                            for r in record["steps"].values())
+        elif k == "telemetry_update":    # the telemetry'd main path (8a)
+            launches = diag["main"]["mgpmh"]["launches"][k]
         else:
             launches = sum(run["launches"].get(k, 0) for run in main.values())
         check(launches > 0, f"{k} was not launched on its path")
@@ -2850,6 +3307,8 @@ def main():
         err = (full[k][1] if k in full
                else record["flash_parity"]["max_abs_err"]
                if k == "flash_attention"
+               else diag["telemetry_kernel"]["max_abs_err"]
+               if k == "telemetry_update"
                else record["bucket_parity"]["max_abs_err"])
         kernels.append(dict(
             name=k, route="cuda", source=SOURCES.get(k, src),

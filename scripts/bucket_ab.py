@@ -71,7 +71,7 @@ def time_tree(tree):
         names = sorted({e.key for e in dev_events})
         rounds = []
         for _ in range(ROUNDS):
-            ms, lms = cs.alternating_per_launch_ms(kernel, library, 100)
+            ms, lms, _ = cs.alternating_per_launch_ms(kernel, library, 100)
             rounds.append(dict(
                 device_ms=cs.kernel_device_ms(kernel, 100, "bucket_energy"),
                 ms=ms, library_ms=lms))

@@ -43,6 +43,7 @@ from .factor_graph import (MatchGraph, make_ising_graph, make_potts_graph,
 from .estimators import recommended_capacity
 from . import samplers as S
 from ..diagnostics.telemetry import telemetry_init, telemetry_update
+from ..obs.recorder import annotate
 
 __all__ = [
     "Engine", "Schedule", "UniformSites", "ChromaticBlocks", "AdaptiveScan",
@@ -152,8 +153,8 @@ class Engine:
     ``init_fn``                   ``(gen, n_chains, start=...) -> state``,
                                   run by ``init``.
     ``sweep_stats_fn``            the instrumented sweep, ``state ->
-                                  (state, SweepStats)``; None where the
-                                  engine has none (local-gibbs,
+                                  (state, SiteDraws | SweepStats)``; None
+                                  where the engine has none (local-gibbs,
                                   AdaptiveScan) — telemetry then counts
                                   state diffs only.
     ``supports_evidence``         True when the sweeps take ``evidence=``
@@ -236,19 +237,22 @@ class Engine:
                 f"clamping; serve conditioned queries from a gibbs-family "
                 f"engine")
         kw = {} if evidence is None else {"evidence": evidence}
-        if telemetry is None:
-            return self.sweep_fn(state, **kw)
-        if self.sweep_stats_fn is not None:
-            new, stats = self.sweep_stats_fn(state, **kw)
-        else:
-            new, stats = self.sweep_fn(state, **kw), None
-        # the state's cached energy and the site domain feed the health
-        # guards riding the carry (bad_state flag, windowed acceptance)
-        telemetry = telemetry_update(
-            telemetry, state.x, new.x, self.updates_per_call,
-            new.accepts - state.accepts, stats,
-            cache=getattr(new, "cache", None), n_values=self.graph.D)
-        return new, telemetry
+        # profiler ranges (obs.annotate): free unless a profiler records
+        with annotate(f"repro.sweep/{self.name}/{self.backend}"):
+            if telemetry is None:
+                return self.sweep_fn(state, **kw)
+            if self.sweep_stats_fn is not None:
+                new, stats = self.sweep_stats_fn(state, **kw)
+            else:
+                new, stats = self.sweep_fn(state, **kw), None
+            # the state's cached energy and the site domain feed the health
+            # guards riding the carry (bad_state flag, windowed acceptance)
+            with annotate("repro.sweep/telemetry"):
+                telemetry = telemetry_update(
+                    telemetry, state.x, new.x, self.updates_per_call,
+                    new.accepts - state.accepts, stats,
+                    cache=getattr(new, "cache", None), n_values=self.graph.D)
+            return new, telemetry
 
     def clamp(self, state, evidence):
         """Overwrite the observed sites of every chain with their evidence

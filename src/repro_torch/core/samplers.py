@@ -26,11 +26,12 @@ The four fused builders of Gibbs, MGPMH, MIN-Gibbs and DoubleMIN take the
 JAX package's three extensions of the ``sweep(state) -> state`` contract:
 
   * ``collect_stats=True`` (build time): the sweep also returns a
-    :class:`~repro_torch.diagnostics.telemetry.SweepStats` of per-site
-    proposal/acceptance counters (Gibbs and MIN-Gibbs: hits; MGPMH and
-    DoubleMIN, whose kernels keep acceptance inside: accepted moves, a
-    lower bound), the instrumented variant ``Engine.sweep`` uses when it
-    threads telemetry;
+    :class:`~repro_torch.diagnostics.telemetry.SiteDraws`, its per-site
+    proposal/acceptance counters left to the telemetry update to count
+    (the sites it updated; acceptances: Gibbs and MIN-Gibbs the hits,
+    MGPMH and DoubleMIN, whose kernels keep acceptance inside, the
+    accepted moves, a lower bound), the instrumented variant
+    ``Engine.sweep`` uses when it threads telemetry;
   * ``sites=`` (call time): a (C, sweep_len) int32 site array in place of
     the uniform draw, which is then skipped — the hook AdaptiveScan drives;
   * ``evidence=`` (call time): an ``(ev_mask (n,) float32, ev_vals (n,)
@@ -68,7 +69,7 @@ import torch
 from .estimators import (draw_global_minibatch, draw_local_minibatch,
                          min_gibbs_estimate, min_gibbs_lscale)
 from .factor_graph import MatchGraph, build_alias_table, pack_alias
-from ..diagnostics.telemetry import SweepStats
+from ..diagnostics.telemetry import SiteDraws, SweepStats
 from ..kernels import ops as kernel_ops
 
 __all__ = [
@@ -463,21 +464,6 @@ def _node_alias_table(graph: MatchGraph):
             torch.from_numpy(alias).to(graph.device))
 
 
-def _site_hits(i: torch.Tensor, n: int) -> torch.Tensor:
-    """(C, S) site indices -> (n,) float32 visit counts over all chains (an
-    ``index_add_`` of ones: exact below 2^24, no host sync)."""
-    i = i.reshape(-1).long()
-    ones = torch.ones(i.shape, device=i.device)
-    return torch.zeros(n, device=i.device).index_add_(0, i, ones)
-
-
-def _moves(old_x: torch.Tensor, new_x: torch.Tensor) -> torch.Tensor:
-    """(n,) float32 value changes per site over all chains: the accepted
-    moves an MH kernel that keeps its acceptances inside reports as its
-    per-site acceptances (a lower bound)."""
-    return (old_x != new_x).sum(0, dtype=torch.float32)
-
-
 def evidence_cdf(ev_mask: torch.Tensor) -> torch.Tensor:
     """(n,) cumulative site-selection table, uniform over UNOBSERVED sites.
 
@@ -516,8 +502,8 @@ def _build_gibbs_sweep(graph: MatchGraph, sweep_len: int, *,
     """``sweep_len`` sequential vanilla-Gibbs updates per call, one fused
     kernel launch (or its plain version on the CPU) for all chains.
     Returns ``sweep(state, sites=None, evidence=None)`` (see the module
-    docstring); with ``collect_stats`` it returns (state, SweepStats) with
-    the site hits as proposals and acceptances (exact accept)."""
+    docstring); with ``collect_stats`` it returns (state, SiteDraws): the
+    site hits as proposals and acceptances (exact accept)."""
     n, D, dev = graph.n, graph.D, graph.device
 
     def sweep(state: ChainState, sites=None, evidence=None):
@@ -528,8 +514,7 @@ def _build_gibbs_sweep(graph: MatchGraph, sweep_len: int, *,
         new = state._replace(x=x)
         if not collect_stats:
             return new
-        hits = _site_hits(i, n)
-        return new, SweepStats(site_prop=hits, site_acc=hits)
+        return new, SiteDraws(i)
 
     return sweep
 
@@ -582,8 +567,7 @@ def _build_mgpmh_sweep(graph: MatchGraph, lam: float, capacity: int,
         new = state._replace(x=x, accepts=state.accepts + acc)
         if not collect_stats:
             return new
-        return new, SweepStats(site_prop=_site_hits(draws[0], n),
-                               site_acc=_moves(state.x, x))
+        return new, SiteDraws(draws[0], moves=True)
 
     return sweep
 
@@ -614,8 +598,7 @@ def _build_min_gibbs_sweep(graph: MatchGraph, lam: float, capacity: int,
         new = state._replace(x=x, cache=cache)
         if not collect_stats:
             return new
-        hits = _site_hits(draws[0], n)
-        return new, SweepStats(site_prop=hits, site_acc=hits)
+        return new, SiteDraws(draws[0])
 
     return sweep
 
@@ -646,8 +629,7 @@ def _build_double_min_sweep(graph: MatchGraph, lam1: float, capacity1: int,
         new = state._replace(x=x, cache=cache, accepts=state.accepts + acc)
         if not collect_stats:
             return new
-        return new, SweepStats(site_prop=_site_hits(draws[0], n),
-                               site_acc=_moves(state.x, x))
+        return new, SiteDraws(draws[0], moves=True)
 
     return sweep
 

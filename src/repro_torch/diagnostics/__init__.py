@@ -16,15 +16,17 @@ Only :mod:`.telemetry` (no ``repro_torch.core`` imports) loads eagerly;
 the rest resolve lazily, so ``repro_torch.core`` can import the telemetry
 types without an import cycle.
 """
-from .telemetry import (Telemetry, SweepStats, telemetry_init,
-                        telemetry_update, telemetry_from_numpy,
+from .telemetry import (Telemetry, SweepStats, SiteDraws, telemetry_init,
+                        telemetry_update, telemetry_update_plain,
+                        telemetry_from_numpy,
                         telemetry_to_numpy, split_rhat, ess_per_site,
                         acceptance_rate, summarize, state_health,
                         health_report, clear_health)
 
 __all__ = [
-    "Telemetry", "SweepStats", "telemetry_init", "telemetry_update",
-    "telemetry_from_numpy", "telemetry_to_numpy",
+    "Telemetry", "SweepStats", "SiteDraws", "telemetry_init",
+    "telemetry_update", "telemetry_update_plain", "telemetry_from_numpy",
+    "telemetry_to_numpy",
     "split_rhat", "ess_per_site", "acceptance_rate", "summarize",
     "state_health", "health_report", "clear_health",
     # lazy (see __getattr__): adaptive control + exact references

@@ -101,7 +101,7 @@ def make_adaptive_engine(name: str, graph, schedule: AdaptiveScan,
     """Assemble the AdaptiveScan :class:`Engine` for a gibbs-family sampler.
 
     ``core`` is the instrumented fused sweep ``(state, sites=...) ->
-    (state, SweepStats)`` (``collect_stats=True``); ``chain_init`` the
+    (state, SiteDraws)`` (``collect_stats=True``); ``chain_init`` the
     plain state's ``init_fn``.  The sweep draws one uniform per (chain,
     sub-step) from ``state.gen`` for the sites, then ``core`` draws the
     rest; it threads the control telemetry and refreshes the table every

@@ -27,6 +27,11 @@ from the host which lags and which half a snapshot feeds: no Python
 ``if`` reads a device tensor.  The scalar fields stay 0-d or (K,) float32
 tensors on the device, exact counting below 2^24.
 
+On the card the update is one launch of a fused kernel
+(``kernels/csrc/telemetry_update.cu``), which gets those host-side
+decisions as arguments and gives the plain version's bits; on the CPU it is
+the plain version's ~30 eager operations (:func:`telemetry_update_plain`).
+
 Summaries (:func:`split_rhat`, :func:`ess_per_site`, :func:`summarize`,
 :func:`health_report`) are host-side numpy, as in the JAX package: call
 them after the run, not inside it.
@@ -40,10 +45,12 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..kernels.telemetry_update import telemetry_update_cuda
 
 __all__ = [
-    "Telemetry", "SweepStats", "telemetry_init", "telemetry_update",
-    "telemetry_from_numpy", "telemetry_to_numpy", "TELEMETRY_FIELDS",
+    "Telemetry", "SweepStats", "SiteDraws", "telemetry_init",
+    "telemetry_update", "telemetry_update_plain", "telemetry_from_numpy",
+    "telemetry_to_numpy", "TELEMETRY_FIELDS",
     "split_rhat", "ess_per_site", "acceptance_rate", "summarize",
     "state_health", "health_report", "clear_health", "HEALTH_DECAY",
 ]
@@ -71,6 +78,30 @@ class SweepStats(NamedTuple):
     """
     site_prop: torch.Tensor   # (n,) float32
     site_acc: torch.Tensor    # (n,) float32
+
+
+class SiteDraws(NamedTuple):
+    """An instrumented sweep's per-site counters before they are counted:
+    the sites its sub-steps updated and whether its acceptances are the
+    hits themselves (exact-accept samplers) or the sites' value changes
+    (``moves``: the MGPMH and DoubleMIN kernels keep acceptance inside).
+
+    :func:`telemetry_update` counts them: the card's kernel from ``sites``
+    in the same launch, the plain version through :meth:`counters`, which
+    gives the :class:`SweepStats` the sweep would otherwise have made (the
+    same values: counts below 2^24 are exact in any order)."""
+    sites: torch.Tensor       # (C, S) int32 site of each sub-step
+    moves: bool = False
+
+    def counters(self, old_x: torch.Tensor, new_x: torch.Tensor,
+                 n: int) -> SweepStats:
+        """The per-site proposal and acceptance counts ((n,) float32)."""
+        i = self.sites.reshape(-1).long()
+        hits = torch.zeros(n, device=i.device).index_add_(
+            0, i, torch.ones(i.shape, device=i.device))
+        acc = ((old_x != new_x).sum(0, dtype=torch.float32) if self.moves
+               else hits)
+        return SweepStats(site_prop=hits, site_acc=acc)
 
 
 class Telemetry(NamedTuple):
@@ -145,11 +176,43 @@ def telemetry_init(x: torch.Tensor, half_at: Optional[float] = None,
 def telemetry_update(tel: Telemetry, old_x: torch.Tensor,
                      new_x: torch.Tensor, updates: int,
                      accept_delta: Optional[torch.Tensor] = None,
-                     stats: Optional[SweepStats] = None,
+                     stats=None,
                      cache: Optional[torch.Tensor] = None,
                      n_values: Optional[int] = None) -> Telemetry:
     """One streaming update from a sweep call that advanced ``old_x`` to
     ``new_x`` (both (C, n) int) in ``updates`` site updates per chain.
+
+    Dispatched by the carry's device: a CPU carry goes to
+    :func:`telemetry_update_plain`; a carry on the card to the fused kernel
+    (``kernels/telemetry_update.py``, one launch, the plain version's bits;
+    x int32, ``accept_delta`` int32 or float32, every input float32 or
+    int32 on the carry's device), which launches or raises.  Nothing falls
+    back from one to the other.  CONSUMES ``tel`` either way (see
+    :func:`telemetry_update_plain`).  ``stats`` is a :class:`SweepStats`
+    or a :class:`SiteDraws` (what the engines' instrumented sweeps emit:
+    the kernel counts the sites itself).
+    """
+    device = tel.mean.device.type
+    if device == "cpu":
+        return telemetry_update_plain(tel, old_x, new_x, updates,
+                                      accept_delta, stats, cache, n_values)
+    if device != "cuda":
+        raise ValueError(f"telemetry_update runs a carry on 'cpu' or "
+                         f"'cuda', got {tel.mean.device}")
+    plan = telemetry_update_cuda(tel, old_x, new_x, updates, accept_delta,
+                                 stats, cache, n_values, decay=HEALTH_DECAY)
+    return tel._replace(head=plan.new_head, count=plan.count_new)
+
+
+def telemetry_update_plain(tel: Telemetry, old_x: torch.Tensor,
+                           new_x: torch.Tensor, updates: int,
+                           accept_delta: Optional[torch.Tensor] = None,
+                           stats=None,
+                           cache: Optional[torch.Tensor] = None,
+                           n_values: Optional[int] = None) -> Telemetry:
+    """The plain PyTorch version of :func:`telemetry_update` (eager
+    operations on any device; the CPU path, and the card kernel's yardstick
+    in the tests and ``chip_smoke.py``).
 
     CONSUMES ``tel``: its tensors are updated in place and the returned
     carry shares them (rebind: ``tel = telemetry_update(tel, ...)``).
@@ -166,6 +229,8 @@ def telemetry_update(tel: Telemetry, old_x: torch.Tensor,
     Thm. 2) shows long before the cumulative rate moves.
     """
     K = _lags(tel)
+    if isinstance(stats, SiteDraws):
+        stats = stats.counters(old_x, new_x, tel.mean.shape[1])
     xf = new_x.to(torch.float32)
     tel.samples.add_(1.0)
     d = xf - tel.mean

@@ -72,6 +72,12 @@ _SIGNATURES = {
     # stream
     "flash_attention_launch": [_c_ptr] * 4 + [_c_int] * 9 + [_c_float,
                                                              _c_ptr],
+    # 17 carry fields (kernels/telemetry_update.py CARRY_FIELDS), x_old,
+    # x_new, accept_delta, stat_prop, stat_acc, sites, cache, C, n, K,
+    # head, new_head, live, count_new, second, count_h_new, hi, delta_kind,
+    # stats_kind, S, upd, decay, stream
+    "telemetry_update_launch": [_c_ptr] * 24 + [_c_int] * 13
+                               + [_c_float] * 2 + [_c_ptr],
     # hd -> the bf16 block's dynamic shared memory in bytes
     "flash_attention_bf16_smem": [_c_int],
 }

@@ -17,7 +17,7 @@ __all__ = ["alias_rows", "node_table", "gibbs_inputs", "mgpmh_inputs",
            "mgpmh_edge_inputs",
            "min_gibbs_inputs", "double_min_inputs", "edge_totals",
            "packed_args", "packed_mgpmh_args", "local_gibbs_inputs",
-           "class_graph", "gibbs_class_inputs"]
+           "class_graph", "gibbs_class_inputs", "telemetry_inputs"]
 
 
 def _symmetric(rng, n):
@@ -254,3 +254,26 @@ def gibbs_class_inputs(C, D, n, sites, seed):
     sites = np.asarray(sites, np.int32)
     return (rng.integers(-1, D + 1, (C, n)).astype(np.int32), sites,
             rng.gumbel(size=(C, sites.size, D)).astype(np.float32))
+
+
+def telemetry_inputs(T, C, n, D, seed, *, stay=0.8, S=64):
+    """T steps of the telemetry update's inputs: a sticky (T + 1, C, n)
+    int32 x trajectory (each value kept with probability ``stay``), and per
+    step accept deltas (T, C) int32 in [0, S), per-site proposal and
+    acceptance counts (T, n) float32 (acceptances <= proposals), caches
+    (T, C) float32 from N(0, 1) and the sites of S sub-steps (T, C, S)
+    int32 in [0, n) (a ``SiteDraws``).  Returns a dict of numpy arrays."""
+    rng = np.random.default_rng(seed)
+    xs = [rng.integers(0, D, size=(C, n), dtype=np.int32)]
+    for _ in range(T):
+        fresh = rng.integers(0, D, size=(C, n), dtype=np.int32)
+        xs.append(np.where(rng.random((C, n)) < stay, xs[-1], fresh))
+    prop = rng.integers(0, 9, size=(T, n)).astype(np.float32)
+    return dict(
+        xs=np.stack(xs).astype(np.int32),
+        acc=rng.integers(0, S, size=(T, C), dtype=np.int32),
+        prop=prop,
+        site_acc=np.minimum(prop, rng.integers(0, 9, size=(T, n))).astype(
+            np.float32),
+        cache=rng.normal(size=(T, C)).astype(np.float32),
+        sites=rng.integers(0, n, size=(T, C, S), dtype=np.int32))

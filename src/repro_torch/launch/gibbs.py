@@ -9,6 +9,9 @@
   PYTHONPATH=src python -m repro_torch.launch.gibbs \
       --config hetero-pairs-1024 --engine gibbs --adaptive --telemetry \
       --sweep 64
+  PYTHONPATH=src python -m repro_torch.launch.gibbs --config potts-64x64 \
+      --engine mgpmh --steps 200 --chains 256 --sweep 64 --telemetry \
+      --metrics-dir out/m --trace out/m/trace.json --profile out/prof
 
 Engines (gibbs, mgpmh, min-gibbs, doublemin, local-gibbs) and workloads
 come from the registries in ``repro_torch.core.engine``.  Runs on the card
@@ -16,6 +19,14 @@ unless ``--device cpu``.  ``--adaptive`` switches to the telemetry-driven
 ``AdaptiveScan`` site selection (gibbs, mgpmh, min-gibbs, doublemin);
 ``--telemetry`` threads the streaming diagnostics carry through the run
 and logs the max split-R-hat and ESS per second too.
+``--metrics-dir`` writes ``metrics.jsonl`` (one snapshot per log line) and
+``metrics.prom`` there, ``--trace`` a Chrome trace-event JSON of the
+``sweep_chunk`` spans (one per sweep call), and ``--profile`` a
+``torch.profiler`` capture of the run (CPU, and CUDA on the card) into a
+directory, as ``profile_trace.json``, where the ``repro.sweep/...`` ranges
+hold each call's kernels (``obs``).  The metrics (``sweeps_total``,
+``updates_total``, ``acceptance``, ``marginal_err``) are taken at the log
+line's existing host read: the observability adds no host sync.
 Each log line reports the running-marginal error, the acceptance rate and
 the throughput in site updates per second (host clock; the log line's host
 read waits for the device).
@@ -28,6 +39,7 @@ import time
 import torch
 
 from .. import diagnostics as diag
+from .. import obs
 from ..core import engine as engine_lib
 
 __all__ = ["run", "main"]
@@ -54,6 +66,8 @@ def run(config: str, engine: str, steps: int, chains: int, *,
     eng = engine_lib.make(engine, wl.graph, schedule=schedule, device=device)
     g = eng.graph
     upd_per_step = eng.updates_per_call
+    rec = obs.get_recorder()
+    labels = rec.register_engine(eng, workload=config, chains=chains)
 
     st = eng.init(seed, chains)
     tel = eng.init_telemetry(st) if telemetry else None
@@ -62,12 +76,16 @@ def run(config: str, engine: str, steps: int, chains: int, *,
     ones = torch.ones((chains, g.n, 1), dtype=torch.float32,
                       device=eng.device)
     t0 = time.time()
+    last_logged = 0
     for s in range(steps):
-        if tel is None:
-            st = eng.sweep(st)
-        else:
-            st, tel = eng.sweep(st, tel)
-        marg.scatter_add_(2, st.x.long().unsqueeze(-1), ones)
+        # one span per sweep call (dispatch only: the log line's host read
+        # below is the loop's only sync)
+        with rec.span("sweep_chunk", **labels):
+            if tel is None:
+                st = eng.sweep(st)
+            else:
+                st, tel = eng.sweep(st, tel)
+            marg.scatter_add_(2, st.x.long().unsqueeze(-1), ones)
         if (s + 1) % log_every == 0 or s == steps - 1:
             m = marg.sum(0) / ((s + 1) * chains)
             err = float(torch.sqrt(((m - 1 / g.D) ** 2).sum(-1)).mean())
@@ -83,6 +101,15 @@ def run(config: str, engine: str, steps: int, chains: int, *,
                 line += (f" rhat={ts['max_split_rhat']:.3f} "
                          f"ess/s={ts.get('ess_per_sec', 0.0):.1f}")
             print(line, flush=True)
+            # piggyback the log line's host read for metric export
+            rec.count("sweeps_total", s + 1 - last_logged, **labels)
+            rec.count("updates_total",
+                      (s + 1 - last_logged) * chains * upd_per_step,
+                      **labels)
+            last_logged = s + 1
+            rec.gauge("acceptance", acc, **labels)
+            rec.gauge("marginal_err", err, **labels)
+            rec.snapshot()
     return st
 
 
@@ -108,6 +135,12 @@ def main(argv=None):
                          "split-R-hat / ESS per second")
     ap.add_argument("--device", default=None,
                     help="torch device; default the card ('cuda')")
+    ap.add_argument("--metrics-dir", default="",
+                    help="write metrics.jsonl / metrics.prom here")
+    ap.add_argument("--trace", default="",
+                    help="write a Chrome/Perfetto trace-event JSON here")
+    ap.add_argument("--profile", default="",
+                    help="capture a torch.profiler trace into this dir")
     args = ap.parse_args(argv)
     if args.chromatic and args.engine != "gibbs":
         ap.error("--chromatic runs the gibbs engine only")
@@ -116,9 +149,16 @@ def main(argv=None):
                  f"engines, not {args.engine!r}")
     if args.adaptive and args.chromatic:
         ap.error("--adaptive and --chromatic are two schedules; pick one")
-    run(args.config, args.engine, args.steps, args.chains, sweep=args.sweep,
-        chromatic=args.chromatic, adaptive=args.adaptive,
-        telemetry=args.telemetry, device=args.device)
+    rec = obs.configure(metrics_dir=args.metrics_dir or None,
+                        trace_path=args.trace or None,
+                        profile_dir=args.profile or None,
+                        process_name="repro.gibbs")
+    with rec.profile():
+        run(args.config, args.engine, args.steps, args.chains,
+            sweep=args.sweep, chromatic=args.chromatic,
+            adaptive=args.adaptive, telemetry=args.telemetry,
+            device=args.device)
+    rec.close()
 
 
 if __name__ == "__main__":

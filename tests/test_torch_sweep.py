@@ -157,7 +157,8 @@ def test_kernel_build_command_targets_sm_90a():
     assert [p.name for p in sources] == ["bucket_energy.cu",
                                          "chromatic_sweep.cu",
                                          "flash_attention.cu",
-                                         "fused_sweep.cu", "local_sweep.cu"]
+                                         "fused_sweep.cu", "local_sweep.cu",
+                                         "telemetry_update.cu"]
     for src in sources:                  # one nvcc process per source
         cmd = _build.nvcc_command("nvcc", src, _build.BUILD_DIR / "k.o")
         assert cmd[:3] == ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a"]

@@ -35,6 +35,8 @@ from repro_torch.core import factor_graph as tfg  # noqa: E402
 from repro_torch.diagnostics import exact as texact  # noqa: E402
 from repro_torch.diagnostics import freshness as tfresh  # noqa: E402
 from repro_torch.diagnostics import telemetry as ttel  # noqa: E402
+from repro_torch.kernels import parity_inputs as pin  # noqa: E402
+from repro_torch.kernels import telemetry_update as ktel  # noqa: E402
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 SUMMARY_TOL = dict(rtol=1e-6, atol=0.0)
@@ -137,6 +139,170 @@ def test_bad_state_stays_clear_until_the_nan():
     assert float(cleared.bad_state) == 0.0
     assert ttel.health_report(cleared) == {"bad_state": False,
                                            "win_acceptance": 1.0}
+
+
+# ---------------------------------------------------------------------------
+# the fused kernel's host side and its dispatch
+# ---------------------------------------------------------------------------
+
+def _steps(tel, traj, s, device="cpu", drop=(), stats="counts"):
+    """The update arguments of step s of a ``parity_inputs`` trajectory,
+    without the optional inputs named in ``drop``; ``stats`` "counts" (a
+    SweepStats), "hits" or "moves" (a SiteDraws of the step's sites)."""
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    kw = dict(accept_delta=t(traj["acc"][s]),
+              stats=(ttel.SweepStats(t(traj["prop"][s]),
+                                     t(traj["site_acc"][s]))
+                     if stats == "counts" else
+                     ttel.SiteDraws(t(traj["sites"][s]),
+                                    moves=stats == "moves")),
+              cache=t(traj["cache"][s]), n_values=D)
+    for name in drop:
+        kw[name] = None
+    return (tel, t(traj["xs"][s]), t(traj["xs"][s + 1]), 64), kw
+
+
+@pytest.mark.parametrize("lags, half_at", [(8, 9), (1, 4), (8, None)])
+def test_update_plan_matches_the_plain_update(lags, half_at):
+    """Over 2K + 6 steps (crossing the split, wrapping the ring), the
+    kernel wrapper's host-side arguments are the plain update's decisions:
+    the new sample count, whether and how far the second half grows, the
+    ring slots written and the lags whose pair counts grow."""
+    T = 2 * lags + 6
+    traj = pin.telemetry_inputs(T, C, N, D, seed=4, S=64)
+    tel = ttel.telemetry_init(torch.from_numpy(traj["xs"][0]),
+                              half_at=half_at, lags=lags)
+    seconds, slots = 0, []
+    for s in range(T):
+        plan = ktel.update_plan(tel.head, tel.count, tel.split, lags)
+        before = {f: getattr(tel, f).clone()
+                  for f in ("samples_h", "cross_n", "mean_h")}
+        args, kw = _steps(tel, traj, s)
+        tel = ttel.telemetry_update_plain(*args, **kw)
+        assert (tel.count, tel.head) == (plan.count_new, plan.new_head)
+        assert float(tel.samples) == plan.count_new
+        grew = float(tel.samples_h) != float(before["samples_h"])
+        assert grew == plan.second
+        if plan.second:
+            seconds += 1
+            assert float(tel.samples_h) == plan.count_h_new
+        else:
+            assert torch.equal(tel.mean_h, before["mean_h"])
+        slots.append(plan.new_head)
+        step = tel.cross_n - before["cross_n"]
+        assert step.tolist() == [1.0] * plan.live + [0.0] * (
+            lags - plan.live)
+        x = torch.from_numpy(traj["xs"][s + 1]).float()
+        assert torch.equal(tel.prev[plan.new_head], x)
+        assert torch.equal(tel.prev[plan.new_head + lags], x)
+    assert seconds == (0 if half_at is None else T - half_at)
+    # the ring wrapped twice: every slot written, in descending order
+    assert slots == [(-1 - s) % lags for s in range(T)]
+    assert plan.live == lags
+
+
+def test_cpu_carry_routes_to_the_plain_version(monkeypatch):
+    """A CPU carry never reaches the kernel wrapper, and gives the plain
+    version's bits."""
+    def refuse(*a, **k):
+        raise AssertionError("the kernel wrapper was called for a CPU carry")
+
+    monkeypatch.setattr(ttel, "telemetry_update_cuda", refuse)
+    traj = pin.telemetry_inputs(5, C, N, D, seed=5)
+    carries = []
+    for update in (ttel.telemetry_update, ttel.telemetry_update_plain):
+        tel = ttel.telemetry_init(torch.from_numpy(traj["xs"][0]), 2, 3)
+        for s in range(5):
+            args, kw = _steps(tel, traj, s)
+            tel = update(*args, **kw)
+        carries.append(ttel.telemetry_to_numpy(tel))
+    for f in ttel.TELEMETRY_FIELDS:
+        np.testing.assert_array_equal(carries[0][f], carries[1][f],
+                                      err_msg=f)
+
+
+@pytest.mark.parametrize("moves", [False, True])
+def test_site_draws_count_as_the_sweep_stats(moves):
+    """A SiteDraws counts to the per-site hits (numpy's bincount) and, with
+    ``moves``, the per-site value changes; the plain update reads it as
+    that SweepStats."""
+    traj = pin.telemetry_inputs(3, C, N, D, seed=8, S=5)
+    old, new = (torch.from_numpy(traj["xs"][k]) for k in (0, 1))
+    draws = ttel.SiteDraws(torch.from_numpy(traj["sites"][0]), moves=moves)
+    got = draws.counters(old, new, N)
+    hits = np.bincount(traj["sites"][0].ravel(), minlength=N)
+    np.testing.assert_array_equal(got.site_prop.numpy(), hits)
+    want = ((traj["xs"][0] != traj["xs"][1]).sum(0) if moves else hits)
+    np.testing.assert_array_equal(got.site_acc.numpy(), want)
+    carries = []
+    for stats in (draws, got):
+        tel = ttel.telemetry_init(old)
+        carries.append(ttel.telemetry_to_numpy(ttel.telemetry_update_plain(
+            tel, old, new, 5, stats=stats)))
+    for f in ttel.TELEMETRY_FIELDS:
+        np.testing.assert_array_equal(carries[0][f], carries[1][f],
+                                      err_msg=f)
+
+
+def test_kernel_wrapper_refuses_a_cpu_carry():
+    traj = pin.telemetry_inputs(1, C, N, D, seed=6)
+    tel = ttel.telemetry_init(torch.from_numpy(traj["xs"][0]))
+    args, kw = _steps(tel, traj, 0)
+    launches = ktel.telemetry_update_cuda.launches
+    with pytest.raises(ValueError, match="carry on the card"):
+        ktel.telemetry_update_cuda(*args, **kw, decay=ttel.HEALTH_DECAY)
+    assert ktel.telemetry_update_cuda.launches == launches
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: torch.cuda.is_available() is False")
+    return torch.device("cuda")
+
+
+# (C, n, K, half_at, inputs left out, a bad state, stats form): the kernel
+# against the plain version on the card over 2K + 2 steps or more
+KERNEL_CASES = {
+    "every input": (64, 300, 8, 9, (), None, "counts"),
+    "site draws, hits": (64, 300, 8, 9, (), None, "hits"),
+    "site draws, moves": (64, 300, 8, 9, (), None, "moves"),
+    "C=96": (96, 257, 8, 9, (), None, "moves"),
+    "no accept_delta": (16, 40, 8, 9, ("accept_delta",), None, "counts"),
+    "no stats": (16, 40, 8, 9, ("stats",), None, "counts"),
+    "no cache": (16, 40, 8, 9, ("cache",), None, "counts"),
+    "K=1": (32, 70, 1, 2, (), None, "hits"),
+    "out of domain": (16, 40, 4, 5, (), "x", "counts"),
+    "NaN cache": (16, 40, 4, 5, (), "cache", "counts"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(KERNEL_CASES))
+def test_telemetry_kernel_equals_plain_bit_for_bit(cuda, case):
+    """Every carry field of the fused kernel equals the plain version's
+    bits on the card, after every step."""
+    Cc, n, K, half_at, drop, bad, form = KERNEL_CASES[case]
+    T = 2 * K + 4
+    traj = pin.telemetry_inputs(T, Cc, n, D, seed=7, S=64)
+    if bad == "x":
+        traj["xs"][K + 1, 1, 2] = D
+    elif bad == "cache":
+        traj["cache"][K + 1, 1] = np.nan
+    x0 = torch.from_numpy(traj["xs"][0]).to(cuda)
+    kern = ttel.telemetry_init(x0, half_at=half_at, lags=K)
+    plain = ttel.telemetry_init(x0, half_at=half_at, lags=K)
+    launches = ktel.telemetry_update_cuda.launches
+    for s in range(T):
+        args, kw = _steps(kern, traj, s, cuda, drop, form)
+        kern = ttel.telemetry_update(*args, **kw)
+        args, kw = _steps(plain, traj, s, cuda, drop, form)
+        plain = ttel.telemetry_update_plain(*args, **kw)
+        a, b = ttel.telemetry_to_numpy(kern), ttel.telemetry_to_numpy(plain)
+        for f in ttel.TELEMETRY_FIELDS:
+            np.testing.assert_array_equal(a[f], b[f], err_msg=f"{f} {s}")
+    assert ktel.telemetry_update_cuda.launches == launches + T
+    assert float(kern.bad_state) == (0.0 if bad is None else 1.0)
 
 
 def test_converters_round_trip():

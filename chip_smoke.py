@@ -172,7 +172,29 @@ Phases, each printed as it ends; any failure exits non-zero:
      the launcher (potts-20x20) with ``--metrics-dir``, ``--trace`` and
      ``--profile``: its files parse, count every call, and the profile's
      ``repro.sweep/mgpmh/cuda`` range holds the sweep kernel and its
-     ``repro.sweep/telemetry`` range the telemetry kernel.
+     ``repro.sweep/telemetry`` range the telemetry kernel;
+  9. the dist backend (``runtime/dist_gibbs.py``, no kernel of its own):
+     (a) this process as one rank on NCCL, a (1, 1) ``DeviceMesh``,
+     through ``engine.make(..., mesh=)``: gibbs and mgpmh on potts-64x64 at
+     C=256, S=64, 200 calls (marginal error falling, mgpmh acceptance above
+     0.9), min-gibbs at C=128, S=8 when the reckoning of its transient
+     bytes fits the card (else C=32) and doublemin at C=32, S=8, 10 calls
+     each, and all four at the JAX bench's dist shape (potts-20x20, C=32,
+     S=8, 20 calls, lambda 128); every loop under
+     ``set_sync_debug_mode("error")``, one all-reduce per call, each run
+     replayed from its seed to the same bits; ms per call and updates/s
+     beside phase 4's, and for gibbs and mgpmh one call's device ops,
+     device busy share (``torch.profiler``) and host issue, the
+     all-reduce's time at their payload (CUDA events) and the
+     ``psum_footprint`` bytes; chromatic gibbs on lattice-ising-64x64 at
+     C=256 bit-equal to ``make_chromatic_gibbs_step`` for 2 sweeps; the
+     launcher's ``run(backend="dist")``; (b) two spawned processes sharing
+     the card on gloo (NCCL refuses two ranks on one device), meshes 1x2 and
+     2x1: all four algorithms within 0.05 of the exact marginals on potts
+     2x2 D=3 (C=64, S=4, 800 calls) with one all-reduce per call, and on
+     the 1x2 mesh chromatic lattice-ising-64x64 at C=2 bit-equal to the
+     dense reference; a rank that fails or passes its join timeout fails
+     the run.
 
 Prints the kernels' JSON record and the card's name and power limit, then
 as its last line ``{"ok": true, "device": {...}}``.  Also writes the full
@@ -358,6 +380,24 @@ OBS_REPS = 15
 CHECK_S = 32                                  # decode vs forward, B = 1
 # the reference's decode-vs-forward criterion (tests/test_models.py:92-99)
 SELF_TOL, SELF_AGREE = 0.15, 0.9
+# phase 9: the dist backend.  (a) gibbs and mgpmh at the main path's shape
+# (C_FULL, S_FULL), 200 calls in 10 segments; min-gibbs at its phase-4
+# shape, doublemin at C_DIST_SMALL x S_DIST_SMALL, DIST_SHORT_CALLS
+# calls each; the JAX bench's dist shape (benchmarks/sweep_bench.py:208-219:
+# workload, C, S, calls, min-gibbs' lam and doublemin's lam2)
+DIST_CALLS, DIST_SNAPSHOTS, DIST_SHORT_CALLS = 200, 10, 10
+C_DIST_SMALL, S_DIST_SMALL = 32, 8
+DIST_BENCH = ("potts-20x20", 32, 8, 20, 128.0)
+# (b) two processes on the one card: NCCL refuses two ranks on one device
+# (ncclInvalidUsage, "Duplicate GPU detected", NCCL 2.28.9 on the H100,
+# found by a one-off probe of two NCCL ranks on device 0); gloo stages CUDA
+# tensors through the host.  The exact-marginals check of
+# tests/test_distributed.py:28-62 (C, S, calls) and its tolerance, and the
+# tolerance of the exact edge agreements (which depend on W: a sampler that
+# ignores the couplings misses them by 0.042; tests/test_torch_dist.py)
+DIST_TWO_RANK_BACKEND = "gloo"
+DIST_SMALL, DIST_SMALL_TOL, DIST_AGREE_TOL = (64, 4, 800), 0.05, 0.015
+DIST_JOIN_S = 300
 
 
 def fail(msg):
@@ -3229,6 +3269,394 @@ def phase_diagnostics(potts, lattice, smi):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the dist backend (runtime/dist_gibbs.py) on torch.distributed
+# ---------------------------------------------------------------------------
+
+def dist_mesh(shape):
+    from repro_torch.launch.mesh import make_auto_mesh
+    return make_auto_mesh(shape, ("data", "model"), device_type="cuda")
+
+
+def dist_state_bits(st):
+    inner = getattr(st, "inner", st)
+    return [inner.x, inner.cache, inner.accepts, inner.marg]
+
+
+def dist_run(eng, C, calls, snapshots=1, seed=0):
+    """``calls`` sweep calls of a dist engine from ``seed`` in
+    ``snapshots`` segments, each under ``set_sync_debug_mode("error")``;
+    after each segment (outside it) the gathered marginals' error.  Returns
+    (state, errors, wall s of the calls alone, all-reduces per call)."""
+    from repro_torch.core.chains import marginal_error
+    from repro_torch.runtime import dist_gibbs as DG
+    st = eng.init(seed, C)
+    errs, wall, colls = [], 0.0, 0
+    for _ in range(snapshots):
+        before = DG.all_reduce.calls
+        t0 = time.perf_counter()
+        with no_host_sync():
+            for _ in range(calls // snapshots):
+                st = eng.sweep(st)
+        torch.cuda.synchronize()
+        wall += time.perf_counter() - t0
+        colls += DG.all_reduce.calls - before
+        marg, _ = DG.gather_marginals(st, eng.mesh)
+        errs.append(float(marginal_error(marg, st.count).mean()))
+    return st, errs, wall, colls / calls
+
+
+def dist_replayed(eng, C, calls, st, seed=0):
+    """Whether a second run from ``seed`` ends in the same bits as ``st``."""
+    again = eng.init(seed, C)
+    for _ in range(calls):
+        again = eng.sweep(again)
+    return all(torch.equal(a, b) for a, b in
+               zip(dist_state_bits(again), dist_state_bits(st)))
+
+
+def dist_call_profile(eng, st):
+    """One sweep call of a dist engine under torch.profiler: the device
+    ops it ran (kernels, memcpys, memsets), the device's busy ms and its
+    share of the call's wall (host clock to a synchronize, the profiler's
+    cost included); and the host's issue ms per call over a stream of 10
+    calls."""
+    box = [st]
+
+    def call():
+        box[0] = eng.sweep(box[0])
+
+    def run():
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    call()
+    dev, wall = device_events(run, cpu=True)
+    evs = [e for e in dev if not e.key.startswith("repro.")
+           and e.self_device_time_total > 0]
+    check(bool(evs), "9 dist: torch.profiler saw no device time")
+    busy = sum(e.self_device_time_total for e in evs) / 1e3
+    return dict(device_ops=sum(e.count for e in evs), device_busy_ms=busy,
+                profiled_wall_ms=1e3 * wall, busy_share=busy / (1e3 * wall),
+                host_issue_ms=host_ms(call, 10))
+
+
+def allreduce_ms(nbytes, group):
+    """CUDA-event median ms of one all-reduce of ``nbytes`` of float32
+    over ``group`` (timed apart from the engines' counted calls)."""
+    import torch.distributed as dist
+    buf = torch.zeros(max(nbytes // 4, 1), device="cuda")
+    return median_ms(lambda: dist.all_reduce(buf, group=group), 20, 3)
+
+
+def dist_engine_run(name, eng, C, calls, smi, main_path=None, snapshots=1,
+                    profile=False):
+    """Drive one dist engine: the run (no host sync), one all-reduce per
+    call, a replay to the same bits, finite and in-domain state; with
+    ``profile`` the call's device ops, busy share and host issue, and the
+    all-reduce's time at the engine's payload."""
+    from repro_torch.runtime import dist_gibbs as DG
+    torch.cuda.synchronize()
+    st, errs, wall, per_call = dist_run(eng, C, calls, snapshots)
+    S = eng.updates_per_call
+    check(per_call == 1.0, f"9 {name}: {per_call} all-reduces per call")
+    check(all(np.isfinite(errs)), f"9 {name}: non-finite marginal error")
+    check(int(st.x.min()) >= 0 and int(st.x.max()) < eng.graph.D
+          and bool(torch.isfinite(st.inner.cache if hasattr(st, "inner")
+                                  else st.cache).all()),
+          f"9 {name}: state out of domain or cache not finite")
+    check(dist_replayed(eng, C, calls, st),
+          f"9 {name}: a replay from seed 0 ended elsewhere")
+    acc = (1.0 if eng.exact_accept else
+           float(DG.gather_marginals(st, eng.mesh)[1].sum())
+           / (calls * S * C))
+    fp = DG.psum_footprint(eng.name, C=C, D=eng.graph.D, S=S)
+    rec = dict(chains=C, sweep=S, calls=calls, params=eng.params,
+               marg_err=errs, acceptance=acc, seconds=wall,
+               ms_per_call=1e3 * wall / calls,
+               updates_per_s=calls * S * C / wall, allreduce_per_call=per_call,
+               moved=int((st.x != 0).sum()), psum_footprint=fp,
+               replay_bit_identical=True, card=smi)
+    if main_path is not None:
+        rec["single_device_updates_per_s"] = main_path["updates_per_s"]
+    if profile:
+        rec.update(dist_call_profile(eng, st))
+        rec["busy_share_of_call"] = rec["device_busy_ms"] / rec["ms_per_call"]
+        rec["allreduce_ms"] = allreduce_ms(fp["psum_payload_bytes"],
+                                           DG.MeshShard.of(eng.mesh)
+                                           .model_group)
+    extra = ("" if main_path is None else
+             f" (single device, phase 4: "
+             f"{main_path['updates_per_s'] / 1e6:.3f}M)")
+    say("9a dist", f"{name} C={C} S={S}: {calls} calls, no host sync, "
+        f"{per_call:.0f} all-reduce per call, replay bit-identical; "
+        f"marg_err {errs[0]:.6f} -> {errs[-1]:.6f}; acc={acc:.4f}; "
+        f"{rec['ms_per_call']:.3f} ms per call, "
+        f"{rec['updates_per_s'] / 1e6:.3f}M updates/s{extra}; payload "
+        f"{fp['psum_payload_bytes']} B per call; on {smi}")
+    if profile:
+        say("9a dist", f"{name}: one call under torch.profiler: "
+            f"{rec['device_ops']} device ops, device busy "
+            f"{rec['device_busy_ms']:.4f} ms of {rec['profiled_wall_ms']:.4f}"
+            f" ms (busy share {rec['busy_share']:.4f}; "
+            f"{rec['busy_share_of_call']:.4f} of the unprofiled call); "
+            f"host issue "
+            f"{rec['host_issue_ms']:.4f} ms per call (stream of 10); the "
+            f"all-reduce alone {rec['allreduce_ms']:.4f} ms at its "
+            f"{fp['psum_payload_bytes']} B (CUDA events); on {smi}")
+    return rec
+
+
+def dist_chromatic(lattice, mesh, C, seed=3, sweeps=2):
+    """Chromatic gibbs on lattice-ising-64x64 through the dist engine
+    against the dense reference on the same shared generator: x the same
+    bits after every sweep; two all-reduces per call."""
+    from repro_torch.core import engine
+    from repro_torch.runtime import dist_gibbs as DG
+    g = lattice.graph
+    eng = engine.make("gibbs", g, mesh=mesh,
+                      schedule=engine.ChromaticBlocks(lattice.colors))
+    dense = DG.make_chromatic_gibbs_step(g, lattice.colors)
+    gen = torch.Generator(device=g.device)
+    gen.manual_seed(DG.shard_seeds(seed, 0, 0)[0])
+    st = eng.init(seed, C)
+    x_ref = torch.zeros_like(st.x)
+    before = DG.all_reduce.calls
+    for sweep in range(sweeps):
+        for c in range(2):
+            x_ref = dense(x_ref, gen, c)
+        st = eng.sweep(st)
+        check(torch.equal(st.x, x_ref), f"9 chromatic: sweep {sweep} differs "
+              f"from the dense reference")
+    per_call = (DG.all_reduce.calls - before) / sweeps
+    check(per_call == 2.0, f"9 chromatic: {per_call} all-reduces per call")
+    return eng, st
+
+
+def phase_dist_one_rank(potts, lattice, smi, main_path):
+    """9a: one rank on NCCL, a (1, 1) mesh, full width."""
+    from repro_torch.core import engine
+    from repro_torch.launch import gibbs as launcher
+    from repro_torch.runtime import dist_gibbs as DG
+    mesh = dist_mesh((1, 1))
+    # NCCL makes its communicator at the first collective: outside the
+    # no-sync loops
+    DG.all_reduce(torch.zeros(1, device="cuda"), mesh.get_group("model"))
+    torch.cuda.synchronize()
+    out = {}
+    for name in ("gibbs", "mgpmh"):
+        eng = engine.make(name, potts, sweep=S_FULL, mesh=mesh)
+        check(eng.backend == "dist", f"9 {name}: backend {eng.backend}")
+        rec = dist_engine_run(name, eng, C_FULL, DIST_CALLS, smi,
+                              main_path[name], DIST_SNAPSHOTS, profile=True)
+        check(rec["marg_err"][-1] < rec["marg_err"][0],
+              f"9 {name}: marginal error not falling {rec['marg_err']}")
+        out[name] = rec
+    check(out["mgpmh"]["acceptance"] > 0.9,
+          f"9 mgpmh: acceptance {out['mgpmh']['acceptance']} <= 0.9")
+    builds, engines = {}, {}
+    for name, S in (("min-gibbs", S_MIN), ("doublemin", S_DIST_SMALL)):
+        t0 = time.perf_counter()
+        engines[name] = engine.make(name, potts, sweep=S, mesh=mesh)
+        builds[name] = time.perf_counter() - t0
+    # min-gibbs at its phase-4 shape
+    for name, C in (("min-gibbs", C_MIN), ("doublemin", C_DIST_SMALL)):
+        eng, build = engines.pop(name), builds[name]
+        torch.cuda.reset_peak_memory_stats()
+        rec = dist_engine_run(name, eng, C, DIST_SHORT_CALLS, smi)
+        rec.update(engine_build_s=build,
+                   peak_bytes=torch.cuda.max_memory_allocated())
+        check(rec["moved"] > 0 or name == "doublemin",
+              f"9 {name}: no chain moved")
+        say("9a dist", f"{name}: engine built in {build:.2f} s (sharded "
+            f"tables on the host); peak device memory "
+            f"{rec['peak_bytes'] / 2 ** 30:.2f} GiB; on {smi}")
+        out[name] = rec
+    config, C, S, calls, lam = DIST_BENCH
+    bench = engine.make_workload(config, device="cuda").graph
+    for name, kw in (("gibbs", {}), ("mgpmh", {}), ("min-gibbs",
+                     dict(lam=lam)), ("doublemin", dict(lam2=lam))):
+        eng = engine.make(name, bench, sweep=S, mesh=mesh, **kw)
+        out[f"{name} {config}"] = dist_engine_run(
+            f"{name} {config} (the JAX bench's dist shape)", eng, C, calls,
+            smi)
+    t0 = time.perf_counter()
+    eng, st = dist_chromatic(lattice, mesh, C_FULL)
+    prof = dist_call_profile(eng, st)
+    out["chromatic"] = dict(prof, bit_equal_sweeps=2, chains=C_FULL,
+                            seconds=time.perf_counter() - t0, card=smi)
+    say("9a dist", f"chromatic gibbs lattice-ising-64x64 C={C_FULL}: 2 "
+        f"sweeps bit-equal to make_chromatic_gibbs_step, 2 all-reduces per "
+        f"call; one call: {prof['device_ops']} device ops, busy "
+        f"{prof['device_busy_ms']:.4f} ms of {prof['profiled_wall_ms']:.4f}"
+        f" ms, host issue {prof['host_issue_ms']:.4f} ms; on {smi}")
+    # the launcher's run, as torchrun would drive it on this rank
+    t0 = time.perf_counter()
+    before = DG.all_reduce.calls
+    st = launcher.run("potts-64x64", "gibbs", DIST_CALLS, C_FULL,
+                      sweep=S_FULL, log_every=DIST_CALLS // 2,
+                      backend="dist", mp_shards=1, device="cuda")
+    wall = time.perf_counter() - t0
+    colls = DG.all_reduce.calls - before
+    check(st.count == DIST_CALLS and colls == DIST_CALLS + 2,
+          f"9 launcher: {st.count} samples, {colls} all-reduces")
+    out["launcher"] = dict(seconds=wall, allreduces=colls, card=smi)
+    say("9a dist", f"launcher run(backend='dist') gibbs potts-64x64 "
+        f"C={C_FULL} S={S_FULL}: {DIST_CALLS} calls + 2 log-line gathers = "
+        f"{colls} all-reduces, {wall:.2f} s with the workload build; on "
+        f"{smi}")
+    return out
+
+
+def dist_child(rank, world, store, shape, out):
+    """9b rank body: one of two processes sharing the card, on
+    DIST_TWO_RANK_BACKEND."""
+    import torch.distributed as dist
+    try:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group(DIST_TWO_RANK_BACKEND,
+                                init_method=f"file://{store}", rank=rank,
+                                world_size=world)
+        from repro_torch.core import engine
+        from repro_torch.core.factor_graph import (TabularPairwiseGraph,
+                                                   make_potts_graph)
+        from repro_torch.launch.mesh import mesh_coords
+        from repro_torch.runtime import dist_gibbs as DG
+        mesh = dist_mesh(shape)
+        g = make_potts_graph(grid=2, beta=0.8, D=3, device="cuda")
+        tg = TabularPairwiseGraph.from_match_graph(g)
+        # the factors {a, b}; marginals and edge agreements by enumeration
+        a, b = torch.nonzero(torch.triu(g.W, 1) > 0, as_tuple=True)
+        exact = np.zeros((g.n, g.D))
+        exact_agree = np.zeros(len(a))
+        for p, s in zip(tg.pi(), tg.all_states()):
+            exact[np.arange(g.n), s] += p
+            exact_agree += p * (s[a.cpu().numpy()] == s[b.cpu().numpy()])
+        mp_index = mesh_coords(mesh)[2]
+        C, S, calls = DIST_SMALL
+        res = {}
+        t0 = time.perf_counter()
+        for name in ("gibbs", "mgpmh", "min-gibbs", "doublemin"):
+            kw = dict(lam=float(2 * g.psi ** 2)) if name == "min-gibbs" \
+                else {}
+            eng = engine.make(name, g, mesh=mesh, sweep=S, **kw)
+            st = eng.init(0, C)
+            agree = torch.zeros(len(a), device="cuda")
+            before = DG.all_reduce.calls
+            for _ in range(calls):
+                st = eng.sweep(st)
+                agree += (st.x[:, a] == st.x[:, b]).sum(0)
+            per_call = (DG.all_reduce.calls - before) / calls
+            marg, _ = DG.gather_marginals(st, mesh)
+            err = float(np.abs(marg.sum(0).cpu().numpy() / (st.count * C)
+                               - exact).max())
+            # model shards hold the same chains: model shard 0 counts them
+            agree *= float(mp_index == 0)
+            dist.all_reduce(agree)                 # outside the counts
+            res[name] = dict(err=err, per_call=per_call, agree_err=float(
+                np.abs(agree.cpu().numpy() / (calls * C)
+                       - exact_agree).max()))
+        res["seconds"] = time.perf_counter() - t0
+        if shape == (1, 2):
+            lattice = engine.make_workload("lattice-ising-64x64",
+                                           device="cuda")
+            dist_chromatic(lattice, mesh, 2)
+            res["chromatic_bit_equal"] = True
+        dist.destroy_process_group()
+        out.put((rank, True, res))
+    except BaseException:                  # reported to the parent, which
+        import traceback                   # fails the phase
+        out.put((rank, False, traceback.format_exc()))
+        raise
+
+
+def phase_dist_two_ranks(smi):
+    """9b: two processes on the one card, meshes 1x2 and 2x1."""
+    import multiprocessing as mp
+    import queue as queue_lib
+    import tempfile
+    out = {}
+    ctx = mp.get_context("spawn")
+    for shape in ((1, 2), (2, 1)):
+        q = ctx.Queue()
+        with tempfile.TemporaryDirectory() as tmp:
+            procs = [ctx.Process(target=dist_child,
+                                 args=(r, 2, f"{tmp}/store", shape, q))
+                     for r in range(2)]
+            t0 = time.perf_counter()
+            for p in procs:
+                p.start()
+            results, deadline = {}, time.monotonic() + DIST_JOIN_S
+            try:
+                while len(results) < 2:
+                    try:
+                        rank, ok, value = q.get(timeout=1.0)
+                    except queue_lib.Empty:
+                        dead = [p.exitcode for p in procs
+                                if p.exitcode not in (None, 0)]
+                        check(not dead, f"9b {shape}: a rank died {dead}")
+                        check(time.monotonic() < deadline,
+                              f"9b {shape}: ranks passed {DIST_JOIN_S} s")
+                        continue
+                    check(ok, f"9b {shape}: rank {rank} failed:\n{value}")
+                    results[rank] = value
+            finally:
+                for p in procs:
+                    p.join(timeout=max(deadline - time.monotonic(), 5.0))
+                    if p.is_alive():
+                        p.kill()
+                        p.join()
+            wall = time.perf_counter() - t0
+        for rank, res in sorted(results.items()):
+            for name in ("gibbs", "mgpmh", "min-gibbs", "doublemin"):
+                r = res[name]
+                check(r["err"] < DIST_SMALL_TOL and r["per_call"] == 1.0
+                      and r["agree_err"] < DIST_AGREE_TOL,
+                      f"9b {shape} rank {rank} {name}: {r}")
+        key = f"{shape[0]}x{shape[1]}"
+        out[key] = dict(ranks=[results[0], results[1]], seconds=wall,
+                        backend=DIST_TWO_RANK_BACKEND, card=smi)
+        errs = {n: max(results[r][n]["err"] for r in results)
+                for n in ("gibbs", "mgpmh", "min-gibbs", "doublemin")}
+        agree = {n: max(results[r][n]["agree_err"] for r in results)
+                 for n in ("gibbs", "mgpmh", "min-gibbs", "doublemin")}
+        say("9b two ranks", f"mesh {key} on {DIST_TWO_RANK_BACKEND}, two "
+            f"processes on one card: potts 2x2 D=3 C={DIST_SMALL[0]} "
+            f"S={DIST_SMALL[1]} {DIST_SMALL[2]} calls, max error "
+            + ", ".join(f"{n} {e:.4f}" for n, e in errs.items())
+            + f" (< {DIST_SMALL_TOL}), max edge-agreement error "
+            + ", ".join(f"{n} {e:.4f}" for n, e in agree.items())
+            + f" (< {DIST_AGREE_TOL}), one all-reduce per call"
+            + ("; chromatic lattice-ising-64x64 C=2 bit-equal to the dense "
+               "reference" if shape == (1, 2) else "")
+            + f"; {wall:.1f} s with the processes' start; on {smi}")
+    return out
+
+
+def phase_dist(potts, lattice, smi, main_path):
+    """9: the dist backend, (a) one NCCL rank in this process, (b) two
+    processes sharing the card."""
+    import tempfile
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            rec = {"one_rank": phase_dist_one_rank(potts, lattice, smi,
+                                                   main_path)}
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    rec["two_ranks"] = phase_dist_two_ranks(smi)
+    rec["seconds"] = time.perf_counter() - t0
+    say("9 dist", f"{rec['seconds']:.1f} s; on {smi}")
+    return rec
+
+
 REPLACES = {
     "gibbs_sweep": "src/repro/kernels/fused_sweep.py:577",
     # gibbs_sweep_pallas on the chromatic path (one launch per color class)
@@ -3285,6 +3713,8 @@ def main():
         dev, record["device"]["nvidia_smi"])
     record["diagnostics"] = phase_diagnostics(
         potts, lattice, record["device"]["nvidia_smi"])
+    record["dist"] = phase_dist(potts, lattice,
+                                record["device"]["nvidia_smi"], main)
 
     src = "src/repro_torch/kernels/csrc/fused_sweep.cu"
     diag = record["diagnostics"]

@@ -3,7 +3,7 @@ NVIDIA GPU.
 
 The JAX package ``repro`` is the reference; this package mirrors its layout
 (``core``, ``diagnostics``, ``kernels``, ``configs``, ``models``,
-``launch``) and never imports it.  Entry points run
+``launch``, ``obs``, ``runtime``) and never imports it.  Entry points run
 on the card unless the caller passes ``device="cpu"``, where the kernels'
 plain PyTorch versions run instead.
 """

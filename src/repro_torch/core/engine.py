@@ -20,7 +20,11 @@ Schedules decide *which sites* a call updates:
 
 The backend follows the device: ``"cuda"`` runs the hand-written kernels
 (``kernels/csrc``), ``"torch"`` their plain PyTorch versions on the CPU.
-``make`` runs on the card unless given ``device="cpu"``.
+``make`` runs on the card unless given ``device="cpu"``.  Given a
+``mesh=`` (a ``DeviceMesh`` over ("data", "model"), ``launch/mesh.py``) it
+builds the ``"dist"`` backend instead (``runtime/dist_gibbs.py``): the
+graph column-sharded over "model", the chains over "data", one all-reduce
+per sweep call, on the mesh's device.
 
 Engines: ``gibbs`` (uniform + chromatic), ``mgpmh``, ``min-gibbs``,
 ``doublemin`` (these four also adaptive, and with evidence clamping) and
@@ -40,7 +44,8 @@ from .._device import resolve_device
 from .factor_graph import (MatchGraph, make_ising_graph, make_potts_graph,
                            make_lattice_ising, lattice_colors,
                            make_pair_ising, pair_colors)
-from .estimators import recommended_capacity
+from .estimators import (draw_global_minibatch, min_gibbs_estimate,
+                         recommended_capacity)
 from . import samplers as S
 from ..diagnostics.telemetry import telemetry_init, telemetry_update
 from ..obs.recorder import annotate
@@ -147,7 +152,8 @@ class Engine:
     ``marginal_samples_per_call`` snapshot samples one call contributes to a
                                   running marginal estimate.
     ``backend``                   'cuda' (the kernels) | 'torch' (the plain
-                                  versions, on the CPU).
+                                  versions, on the CPU) | 'dist' (sharded
+                                  over ``mesh``).
     ``exact_accept``              True for Gibbs-type engines whose every
                                   update is accepted by construction.
     ``init_fn``                   ``(gen, n_chains, start=...) -> state``,
@@ -165,6 +171,8 @@ class Engine:
                                   current x; run by ``init`` and by
                                   ``clamp`` (the JAX package's
                                   ``refresh_cache_fn``).
+    ``mesh``                      the dist backend's ``DeviceMesh``; None
+                                  on the others.
     """
     name: str
     backend: str
@@ -182,6 +190,7 @@ class Engine:
     supports_evidence: bool = False
     cache_init: Optional[Callable] = dataclasses.field(default=None,
                                                        repr=False)
+    mesh: Any = dataclasses.field(default=None, repr=False)
 
     @property
     def refresh_cache_fn(self) -> Optional[Callable]:
@@ -194,7 +203,9 @@ class Engine:
         int (seeds a new generator on the engine's device) or a
         ``torch.Generator`` on that device, which the state then owns.
         Engines with a cache seed it with one estimator draw per chain,
-        from the same generator, after the start state is drawn."""
+        from the same generator, after the start state is drawn.  A dist
+        engine derives its rank's generators from the seed
+        (``dist_gibbs.shard_seeds``) and holds this rank's chains only."""
         if isinstance(seed, torch.Generator):
             gen = seed
             if gen.device.type != self.device.type:
@@ -229,6 +240,10 @@ class Engine:
         Evidence is data: an all-zero mask is the unconditional chain.  The
         state must already be clamped at the observed sites
         (:meth:`clamp`).  Raises for engines without ``supports_evidence``.
+
+        A dist engine's state holds this rank's chains and columns; its
+        running marginals (``state.marg``) are updated in place: rebind,
+        don't reuse (``st = eng.sweep(st)``).
         """
         if evidence is not None and not self.supports_evidence:
             raise ValueError(
@@ -294,7 +309,7 @@ _BUILDERS: Dict[str, Tuple[Callable, Tuple[str, ...]]] = {}
 def register(name: str, *, backends: Tuple[str, ...]):
     """Register an engine builder under ``name``.  The builder is called as
     ``builder(graph, schedule=..., backend=..., **params)`` with the graph
-    already on the engine's device."""
+    already on the engine's device (and ``mesh=`` on the dist backend)."""
     def deco(builder):
         _BUILDERS[name] = (builder, tuple(backends))
         return builder
@@ -312,7 +327,7 @@ def backends(name: str) -> Tuple[str, ...]:
 
 
 def make(name: str, graph: MatchGraph, *, sweep: Optional[int] = None,
-         schedule: Optional[Schedule] = None, device=None,
+         schedule: Optional[Schedule] = None, device=None, mesh=None,
          **params) -> Engine:
     """Build an :class:`Engine` by registry name.
 
@@ -322,7 +337,11 @@ def make(name: str, graph: MatchGraph, *, sweep: Optional[int] = None,
     whose state carries its own telemetry).  ``device`` defaults to the
     card and raises without one; the graph is moved there.  Algorithm
     parameters (lam, capacity) are keyword ``params`` with paper-recipe
-    defaults.
+    defaults.  ``mesh`` (a ``DeviceMesh`` with a "model" dimension) builds
+    the dist backend on the mesh's device: gibbs, mgpmh, min-gibbs and
+    doublemin on UniformSites and AdaptiveScan, gibbs on ChromaticBlocks.
+    Its ``Engine.graph`` is a host copy of the graph; only this rank's
+    shard of it goes to the device.
     """
     if name not in _BUILDERS:
         raise KeyError(f"unknown engine {name!r}; available: {list(names())}")
@@ -333,6 +352,17 @@ def make(name: str, graph: MatchGraph, *, sweep: Optional[int] = None,
         raise ValueError("pass either sweep= or schedule=, not both")
     if not isinstance(schedule, Schedule):
         raise TypeError(f"schedule must be a Schedule, got {schedule!r}")
+    if mesh is not None:
+        if "dist" not in supported:
+            raise _dist_unsupported(name, schedule)
+        mesh_dev = _mesh_device(mesh)
+        if device is not None and torch.device(device).type != mesh_dev.type:
+            raise ValueError(f"device {device} is not the mesh's "
+                             f"{mesh.device_type!r}")
+        # the full graph stays on the host: the card holds this rank's
+        # shard only
+        return builder(graph.to("cpu"), schedule=schedule,
+                       backend="dist", mesh=mesh, **params)
     device = resolve_device(device)
     backend = "cuda" if device.type == "cuda" else "torch"
     if backend not in supported:
@@ -340,6 +370,15 @@ def make(name: str, graph: MatchGraph, *, sweep: Optional[int] = None,
                          f"got {backend!r} (device {device})")
     return builder(graph.to(device), schedule=schedule, backend=backend,
                    **params)
+
+
+def _mesh_device(mesh) -> torch.device:
+    """The device this rank's part of ``mesh`` lives on: its current card
+    on a ``cuda`` mesh."""
+    dev = resolve_device(mesh.device_type)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
 
 
 def _chain_init(graph, cache_init=None):
@@ -379,9 +418,11 @@ def _reject_unknown(name, params):
                         f"{sorted(params)}")
 
 
-@register("gibbs", backends=("torch", "cuda"))
-def _gibbs_builder(graph, *, schedule, backend, **params):
+@register("gibbs", backends=("torch", "cuda", "dist"))
+def _gibbs_builder(graph, *, schedule, backend, mesh=None, **params):
     _reject_unknown("gibbs", params)
+    if backend == "dist":
+        return _dist_engine("gibbs", graph, schedule, mesh, {})
     if isinstance(schedule, ChromaticBlocks):
         build = lambda cs: S._build_chromatic_gibbs_sweep(
             graph, schedule.colors_array, collect_stats=cs)
@@ -415,12 +456,15 @@ def _global_lam(graph) -> float:
     return float(min(2.0 * graph.psi ** 2, 16384.0))
 
 
-@register("mgpmh", backends=("torch", "cuda"))
-def _mgpmh_builder(graph, *, schedule, backend, lam=None, capacity=None,
-                   **params):
+@register("mgpmh", backends=("torch", "cuda", "dist"))
+def _mgpmh_builder(graph, *, schedule, backend, mesh=None, lam=None,
+                   capacity=None, **params):
     _reject_unknown("mgpmh", params)
-    _require_uniform("mgpmh", schedule, adaptive=True)
     lam = float(4.0 * graph.L ** 2) if lam is None else float(lam)
+    if backend == "dist":
+        return _dist_engine("mgpmh", graph, schedule, mesh,
+                            dict(lam=lam, capacity=capacity))
+    _require_uniform("mgpmh", schedule, adaptive=True)
     capacity = recommended_capacity(lam) if capacity is None else capacity
     build = lambda cs: S._build_mgpmh_sweep(graph, lam, capacity,
                                             schedule.sweep_len,
@@ -433,12 +477,15 @@ def _mgpmh_builder(graph, *, schedule, backend, lam=None, capacity=None,
                    supports_evidence=True)
 
 
-@register("min-gibbs", backends=("torch", "cuda"))
-def _min_gibbs_builder(graph, *, schedule, backend, lam=None, capacity=None,
-                       **params):
+@register("min-gibbs", backends=("torch", "cuda", "dist"))
+def _min_gibbs_builder(graph, *, schedule, backend, mesh=None, lam=None,
+                       capacity=None, **params):
     _reject_unknown("min-gibbs", params)
-    _require_uniform("min-gibbs", schedule, adaptive=True)
     lam = _global_lam(graph) if lam is None else float(lam)
+    if backend == "dist":
+        return _dist_engine("min-gibbs", graph, schedule, mesh,
+                            dict(lam=lam, capacity=capacity))
+    _require_uniform("min-gibbs", schedule, adaptive=True)
     capacity = recommended_capacity(lam) if capacity is None else capacity
     build = lambda cs: S._build_min_gibbs_sweep(graph, lam, capacity,
                                                 schedule.sweep_len,
@@ -455,13 +502,17 @@ def _min_gibbs_builder(graph, *, schedule, backend, lam=None, capacity=None,
                    cache_init=cache_init)
 
 
-@register("doublemin", backends=("torch", "cuda"))
-def _doublemin_builder(graph, *, schedule, backend, lam1=None,
+@register("doublemin", backends=("torch", "cuda", "dist"))
+def _doublemin_builder(graph, *, schedule, backend, mesh=None, lam1=None,
                        capacity1=None, lam2=None, capacity2=None, **params):
     _reject_unknown("doublemin", params)
-    _require_uniform("doublemin", schedule, adaptive=True)
     lam1 = float(4.0 * graph.L ** 2) if lam1 is None else float(lam1)
     lam2 = _global_lam(graph) if lam2 is None else float(lam2)
+    if backend == "dist":
+        return _dist_engine("doublemin", graph, schedule, mesh,
+                            dict(lam1=lam1, capacity1=capacity1, lam2=lam2,
+                                 capacity2=capacity2))
+    _require_uniform("doublemin", schedule, adaptive=True)
     capacity1 = recommended_capacity(lam1) if capacity1 is None else capacity1
     capacity2 = recommended_capacity(lam2) if capacity2 is None else capacity2
     build = lambda cs: S._build_double_min_sweep(
@@ -495,6 +546,125 @@ def _local_gibbs_builder(graph, *, schedule, backend, batch_size=None,
                    S._build_local_gibbs_sweep(graph, batch_size,
                                               schedule.sweep_len),
                    exact_accept=True)
+
+
+# ---------------------------------------------------------------------------
+# Distributed backend (torch.distributed over a (data, model) mesh)
+# ---------------------------------------------------------------------------
+
+def _dist_unsupported(name: str, schedule: Schedule) -> ValueError:
+    """The ONE error the dist backend raises for an unsupported request,
+    always naming the full supported (engine, schedule) table (the JAX
+    package's message, word for word)."""
+    return ValueError(
+        f"backend='dist' supports (engine, schedule) combinations: "
+        f"gibbs/mgpmh/min-gibbs/doublemin x UniformSites(S >= 1), "
+        f"gibbs/mgpmh/min-gibbs/doublemin x AdaptiveScan, and "
+        f"gibbs x ChromaticBlocks; got engine {name!r} with schedule "
+        f"{schedule.describe()}")
+
+
+def _dist_engine(name: str, graph: MatchGraph, schedule: Schedule, mesh,
+                 params: Dict[str, Any]) -> Engine:
+    """The ``runtime/dist_gibbs`` sweep template as an Engine: this rank's
+    column shard of the graph over the mesh's "model" dimension, its data
+    shard's chains, state and marginals in a ``DistState``
+    (``DistAdaptiveState`` under AdaptiveScan).  One all-reduce per call
+    on the uniform and adaptive schedules, one per color class on the
+    chromatic one.  ``start='constant'`` only; no evidence clamping.
+    ``graph`` is on the host and stays there: the device holds the shard's
+    tables only."""
+    from ..runtime import dist_gibbs as DG
+
+    chromatic = isinstance(schedule, ChromaticBlocks)
+    adaptive = isinstance(schedule, AdaptiveScan)
+    if (name not in DG.DIST_ALGOS or (chromatic and name != "gibbs")
+            or not (chromatic or adaptive
+                    or isinstance(schedule, UniformSites))):
+        raise _dist_unsupported(name, schedule)
+    shard = DG.MeshShard.of(mesh)
+    if graph.n % shard.mp:
+        raise ValueError(f"graph.n={graph.n} must divide into "
+                         f"mp={shard.mp} column shards")
+
+    # shard only the tables this algorithm reads
+    dev = _mesh_device(mesh)
+    gs = DG.ShardedMatchGraph.from_graph(
+        graph, shard.mp, shard.mp_index,
+        row_tables=name in ("mgpmh", "doublemin"),
+        pair_tables=name in ("min-gibbs", "doublemin"), device=dev)
+
+    # paper-recipe defaults; capacities sized for the WORST shard's thinned
+    # rate (shard ownership can be skewed: sizing for the uniform lam/mp
+    # would truncate the hot shard's Poisson draws and bias the estimator)
+    def cap_rows(lam, explicit):
+        if explicit is not None:
+            return explicit
+        frac = gs.row_sum_max / graph.L
+        return recommended_capacity(max(lam * frac, 1.0)) + 8
+
+    def cap_pairs(lam, explicit):
+        if explicit is not None:
+            return explicit
+        frac = gs.psi_loc_max / graph.psi
+        return recommended_capacity(max(lam * frac, 1.0)) + 8
+
+    def global_cache_fn(lam_g):
+        # seed the cached eps / xi with one full-rate estimator draw per
+        # chain (the estimator the per-shard thinned sum realizes), on the
+        # host from the host graph, with a generator every model shard of
+        # the data shard seeds alike: every model shard holds the same cache
+        cap_full = recommended_capacity(lam_g)
+
+        def cache_fn(gen, x):
+            idx, B = draw_global_minibatch(gen, graph, lam_g, cap_full,
+                                           (x.shape[0],))
+            return min_gibbs_estimate(graph, x.cpu(), idx, B,
+                                      lam_g).to(x.device)
+        return cache_fn
+
+    cache_fn = None
+    if name == "gibbs":
+        resolved, algo_params = {}, {}
+    elif name in ("mgpmh", "min-gibbs"):
+        lam = params["lam"]
+        cap = (cap_rows if name == "mgpmh" else cap_pairs)(
+            lam, params.get("capacity"))
+        resolved = algo_params = dict(lam=lam, capacity=cap)
+        if name == "min-gibbs":
+            cache_fn = global_cache_fn(lam)
+    else:  # doublemin
+        lam1, lam2 = params["lam1"], params["lam2"]
+        c1 = cap_rows(lam1, params.get("capacity1"))
+        c2 = cap_pairs(lam2, params.get("capacity2"))
+        resolved = dict(lam1=lam1, capacity1=c1, lam2=lam2, capacity2=c2)
+        algo_params = dict(lam=lam1, capacity=c1, lam2=lam2, capacity2=c2)
+        cache_fn = global_cache_fn(lam2)
+
+    if chromatic:
+        S.validate_coloring(graph, schedule.colors_array)
+        step = DG.make_dist_chromatic_sweep(gs, schedule.colors_array, shard)
+        upd = graph.n
+    elif adaptive:
+        step = DG.make_dist_adaptive_sweep(gs, name, schedule, shard,
+                                           **algo_params)
+        upd = schedule.sweep_len
+    else:
+        step = DG.make_dist_sweep(gs, name, schedule.sweep_len, shard,
+                                  **algo_params)
+        upd = schedule.sweep_len
+
+    def init_fn(gen, n_chains: int, *, start: str = "constant"):
+        if start != "constant":
+            raise ValueError("dist engines support start='constant' only")
+        return DG.dist_init_state(gen.initial_seed(), n_chains, gs, shard,
+                                  cache_fn=cache_fn, adaptive=adaptive)
+
+    return Engine(name=name, backend="dist", device=dev,
+                  schedule=schedule, updates_per_call=upd,
+                  marginal_samples_per_call=1, graph=graph, params=resolved,
+                  init_fn=init_fn, sweep_fn=step,
+                  exact_accept=name in ("gibbs", "min-gibbs"), mesh=mesh)
 
 
 # ---------------------------------------------------------------------------

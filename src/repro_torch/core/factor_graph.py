@@ -37,6 +37,7 @@ __all__ = [
     "MatchGraph",
     "TabularPairwiseGraph",
     "build_alias_table",
+    "build_alias_tables",
     "alias_draw",
     "pack_alias",
     "graph_from_numpy",
@@ -82,6 +83,50 @@ def build_alias_table(p: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     for i in small:
         prob[i] = 1.0
     return prob.astype(np.float32), alias.astype(np.int32)
+
+
+def build_alias_tables(P: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Vose alias tables of every row of ``P`` (R, m), all rows advanced
+    together: the same float64 arithmetic and the same stack order as
+    :func:`build_alias_table` row by row, so the tables are bit-identical
+    to it, in at most m vectorised steps instead of R * m Python ones.
+    Returns ``(prob, alias)``, float32 and int32, each (R, m)."""
+    P = np.asarray(P, dtype=np.float64)
+    R, m = P.shape
+    total = np.array([row.sum() for row in P])   # each row's own sum, as
+    live = total > 0                             # build_alias_table's
+    q = P * (m / np.where(live, total, 1.0))[:, None]
+    prob = np.zeros((R, m), np.float64)
+    alias = np.zeros((R, m), np.int32)
+    # each row's small and large stacks, ascending, popped from the top
+    is_small = q < 1.0
+    small = np.argsort(~is_small, axis=1, kind="stable")
+    large = np.argsort(is_small, axis=1, kind="stable")
+    ns = is_small.sum(1)
+    nl = m - ns
+    while True:
+        r = np.flatnonzero((ns > 0) & (nl > 0) & live)
+        if r.size == 0:
+            break
+        ns[r] -= 1
+        nl[r] -= 1
+        s, l = small[r, ns[r]], large[r, nl[r]]
+        prob[r, s] = q[r, s]
+        alias[r, s] = l
+        q[r, l] = (q[r, l] + q[r, s]) - 1.0
+        back = q[r, l] < 1.0
+        rs, rl = r[back], r[~back]
+        small[rs, ns[rs]] = l[back]
+        ns[rs] += 1
+        large[rl, nl[rl]] = l[~back]
+        nl[rl] += 1
+    cols = np.arange(m)
+    for stack, top in ((small, ns), (large, nl)):
+        rows, k = np.nonzero(cols[None, :] < top[:, None])
+        prob[rows, stack[rows, k]] = 1.0
+    prob[~live] = 1.0                            # degenerate: uniform
+    alias[~live] = cols
+    return prob.astype(np.float32), alias
 
 
 def alias_draw(gen: torch.Generator, prob: torch.Tensor, alias: torch.Tensor,
@@ -187,7 +232,7 @@ class MatchGraph:
                                  f"without host weights to build it from")
             if name == "row_pack":      # packed on the host; only it kept
                 tables = {name: pack_alias(*map(
-                    torch.from_numpy, _row_tables(self._weights64)))}
+                    torch.from_numpy, build_alias_tables(self._weights64)))}
             else:
                 tables = dict(zip(_PAIR_TABLES,
                                   map(torch.from_numpy,
@@ -279,15 +324,6 @@ class MatchGraph:
             psi=psi, L=L, delta=delta,
             row_sum=torch.from_numpy(row_sum.astype(np.float32)).to(device),
             weights64=W)
-
-
-def _row_tables(W: np.ndarray):
-    n = W.shape[0]
-    row_prob = np.zeros((n, n), np.float32)
-    row_alias = np.zeros((n, n), np.int32)
-    for i in range(n):
-        row_prob[i], row_alias[i] = build_alias_table(W[i])
-    return row_prob, row_alias
 
 
 def _pair_tables(W: np.ndarray):

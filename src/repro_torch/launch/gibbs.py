@@ -1,4 +1,5 @@
-"""Gibbs-engine launcher: the paper's sampling loop end to end on one device.
+"""Gibbs-engine launcher: the paper's sampling loop end to end, on one
+device or sharded over a mesh of ranks.
 
   PYTHONPATH=src python -m repro_torch.launch.gibbs --config potts-64x64 \
       --engine mgpmh --steps 200 --chains 256 --sweep 64
@@ -12,13 +13,21 @@
   PYTHONPATH=src python -m repro_torch.launch.gibbs --config potts-64x64 \
       --engine mgpmh --steps 200 --chains 256 --sweep 64 --telemetry \
       --metrics-dir out/m --trace out/m/trace.json --profile out/prof
+  torchrun --nproc-per-node P -m repro_torch.launch.gibbs \
+      --config potts-64x64 --engine mgpmh --steps 200 --chains 256 \
+      --sweep 64 --backend dist --mp-shards M
 
 Engines (gibbs, mgpmh, min-gibbs, doublemin, local-gibbs) and workloads
 come from the registries in ``repro_torch.core.engine``.  Runs on the card
 unless ``--device cpu``.  ``--adaptive`` switches to the telemetry-driven
 ``AdaptiveScan`` site selection (gibbs, mgpmh, min-gibbs, doublemin);
 ``--telemetry`` threads the streaming diagnostics carry through the run
-and logs the max split-R-hat and ESS per second too.
+and logs the max split-R-hat and ESS per second too.  ``--backend dist``
+runs the engine sharded (``runtime/dist_gibbs.py``) over a (data, model)
+mesh of the world's ranks, dp = world / ``--mp-shards``: one process per
+rank under ``torchrun``, NCCL on the card and gloo on the CPU, one
+all-reduce per sweep call; the running marginals are gathered (one more
+all-reduce) only at log lines, and only rank 0 logs and writes metrics.
 ``--metrics-dir`` writes ``metrics.jsonl`` (one snapshot per log line) and
 ``metrics.prom`` there, ``--trace`` a Chrome trace-event JSON of the
 ``sweep_chunk`` spans (one per sweep call), and ``--profile`` a
@@ -37,23 +46,34 @@ import argparse
 import time
 
 import torch
+import torch.distributed as dist
 
 from .. import diagnostics as diag
 from .. import obs
+from .._device import resolve_device
 from ..core import engine as engine_lib
+from ..runtime.dist_gibbs import gather_marginals
+from .mesh import init_distributed, make_device_mesh
 
-__all__ = ["run", "main"]
+__all__ = ["run", "main", "engine_factory"]
 
 ADAPTIVE_ENGINES = ("gibbs", "mgpmh", "min-gibbs", "doublemin")
 
 
-def run(config: str, engine: str, steps: int, chains: int, *,
-        log_every: int = 2000, seed: int = 0, sweep: int = 0,
-        chromatic: bool = False, adaptive: bool = False,
-        telemetry: bool = False, device=None):
-    """Advance ``chains`` chains by ``steps`` sweep calls, logging at every
-    ``log_every`` calls and at the end.  Returns the final state."""
-    wl = engine_lib.make_workload(config, device=device)
+def engine_factory(config: str, sweep: int = 0, *, chromatic: bool = False,
+                   adaptive: bool = False, backend: str = "auto",
+                   mp_shards: int = 0, device=None):
+    """``(make_engine, graph)``: ``make_engine(name, ranks, **params)``
+    builds the engine, on ``backend == "dist"`` over a (len(ranks) /
+    mp_shards, mp_shards) mesh of the given ranks (every rank of the world
+    calls it), else (``"auto"``) on one device, the device's backend
+    (``ranks`` unused).  The launcher's one construction hook (the
+    supervisor rebuilds its engine through it over the surviving ranks).
+    On ``"dist"`` the workload's graph is built on the host, and each
+    rank's engine takes its shard of it to ``device``."""
+    dev = resolve_device(device)
+    wl = engine_lib.make_workload(
+        config, device="cpu" if backend == "dist" else dev)
     if chromatic:
         if wl.colors is None:
             raise ValueError(f"workload {config!r} has no coloring for "
@@ -63,18 +83,50 @@ def run(config: str, engine: str, steps: int, chains: int, *,
         schedule = engine_lib.AdaptiveScan(sweep_len=max(sweep, 1))
     else:
         schedule = engine_lib.UniformSites(max(sweep, 1))
-    eng = engine_lib.make(engine, wl.graph, schedule=schedule, device=device)
+
+    def make_engine(name, ranks, **params):
+        if backend == "dist":
+            mp = mp_shards or 1
+            dp = max(len(ranks) // mp, 1)
+            mesh = make_device_mesh((dp, mp), ("data", "model"), ranks,
+                                    device_type=dev.type)
+            return engine_lib.make(name, wl.graph, schedule=schedule,
+                                   mesh=mesh, **params)
+        return engine_lib.make(name, wl.graph, schedule=schedule,
+                               device=dev, **params)
+    return make_engine, wl.graph
+
+
+def run(config: str, engine: str, steps: int, chains: int, *,
+        log_every: int = 2000, seed: int = 0, sweep: int = 0,
+        chromatic: bool = False, adaptive: bool = False,
+        telemetry: bool = False, device=None, backend: str = "auto",
+        mp_shards: int = 0):
+    """Advance ``chains`` chains by ``steps`` sweep calls, logging at every
+    ``log_every`` calls and at the end.  Returns the final state (on
+    ``backend="dist"`` this rank's part of it; the process group must be
+    up, as :func:`main` makes it)."""
+    dist_run = backend == "dist"
+    if dist_run:
+        device = init_distributed(device)
+    make_engine, _ = engine_factory(
+        config, sweep, chromatic=chromatic, adaptive=adaptive,
+        backend=backend, mp_shards=mp_shards, device=device)
+    ranks = list(range(dist.get_world_size())) if dist_run else []
+    eng = make_engine(engine, ranks)
     g = eng.graph
     upd_per_step = eng.updates_per_call
     rec = obs.get_recorder()
     labels = rec.register_engine(eng, workload=config, chains=chains)
+    lead = not dist_run or dist.get_rank() == 0
 
     st = eng.init(seed, chains)
     tel = eng.init_telemetry(st) if telemetry else None
-    marg = torch.zeros((chains, g.n, g.D), dtype=torch.float32,
-                       device=eng.device)
-    ones = torch.ones((chains, g.n, 1), dtype=torch.float32,
-                      device=eng.device)
+    if not dist_run:        # a dist state keeps its own running marginals
+        marg = torch.zeros((chains, g.n, g.D), dtype=torch.float32,
+                           device=eng.device)
+        ones = torch.ones((chains, g.n, 1), dtype=torch.float32,
+                          device=eng.device)
     t0 = time.time()
     last_logged = 0
     for s in range(steps):
@@ -85,12 +137,19 @@ def run(config: str, engine: str, steps: int, chains: int, *,
                 st = eng.sweep(st)
             else:
                 st, tel = eng.sweep(st, tel)
-            marg.scatter_add_(2, st.x.long().unsqueeze(-1), ones)
+            if not dist_run:
+                marg.scatter_add_(2, st.x.long().unsqueeze(-1), ones)
         if (s + 1) % log_every == 0 or s == steps - 1:
-            m = marg.sum(0) / ((s + 1) * chains)
+            if dist_run:    # every rank takes part in the gather
+                m, accepts = gather_marginals(st, eng.mesh)
+            else:
+                m, accepts = marg, st.accepts
+            if not lead:
+                continue
+            m = m.sum(0) / ((s + 1) * chains)
             err = float(torch.sqrt(((m - 1 / g.D) ** 2).sum(-1)).mean())
             acc = 1.0 if eng.exact_accept else (
-                float(st.accepts.double().mean()) / ((s + 1) * upd_per_step))
+                float(accepts.double().mean()) / ((s + 1) * upd_per_step))
             elapsed = time.time() - t0
             rate = (s + 1) * chains * upd_per_step / elapsed
             line = (f"[gibbs] step {s+1:7d} marg_err={err:.4f} "
@@ -135,6 +194,14 @@ def main(argv=None):
                          "split-R-hat / ESS per second")
     ap.add_argument("--device", default=None,
                     help="torch device; default the card ('cuda')")
+    ap.add_argument("--backend", default="auto", choices=["auto", "dist"],
+                    help="'auto': one device, the kernels on the card; "
+                         "'dist': the engine sharded over the world's "
+                         "ranks (run under torchrun; NCCL on the card, "
+                         "gloo on the CPU)")
+    ap.add_argument("--mp-shards", type=int, default=0,
+                    help="model shards of the dist mesh (graph columns); "
+                         "dp = world / mp-shards")
     ap.add_argument("--metrics-dir", default="",
                     help="write metrics.jsonl / metrics.prom here")
     ap.add_argument("--trace", default="",
@@ -149,16 +216,32 @@ def main(argv=None):
                  f"engines, not {args.engine!r}")
     if args.adaptive and args.chromatic:
         ap.error("--adaptive and --chromatic are two schedules; pick one")
-    rec = obs.configure(metrics_dir=args.metrics_dir or None,
-                        trace_path=args.trace or None,
-                        profile_dir=args.profile or None,
+    if args.mp_shards and args.backend != "dist":
+        ap.error("--mp-shards needs --backend dist")
+    joined = False
+    if args.backend == "dist":
+        if "dist" not in engine_lib.backends(args.engine):
+            ap.error(f"engine {args.engine!r} has no dist backend")
+        joined = not dist.is_initialized()
+        init_distributed(args.device)
+    # only rank 0 writes metrics, traces and profiles
+    lead = args.backend != "dist" or dist.get_rank() == 0
+    out = (lambda path: path or None) if lead else (lambda path: None)
+    rec = obs.configure(metrics_dir=out(args.metrics_dir),
+                        trace_path=out(args.trace),
+                        profile_dir=out(args.profile),
                         process_name="repro.gibbs")
-    with rec.profile():
-        run(args.config, args.engine, args.steps, args.chains,
-            sweep=args.sweep, chromatic=args.chromatic,
-            adaptive=args.adaptive, telemetry=args.telemetry,
-            device=args.device)
-    rec.close()
+    try:
+        with rec.profile():
+            run(args.config, args.engine, args.steps, args.chains,
+                sweep=args.sweep, chromatic=args.chromatic,
+                adaptive=args.adaptive, telemetry=args.telemetry,
+                device=args.device, backend=args.backend,
+                mp_shards=args.mp_shards)
+        rec.close()
+    finally:
+        if joined:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -29,9 +29,9 @@ S fused updates per call):
   per-color masking does not change the dominant term).
 
 Distributed backends do the same arithmetic sharded; their *extra*
-cost is the collective payload, which the JAX package accounts separately
-via ``dist_gibbs.psum_footprint`` (the ``psum_payload_bytes`` gauge; the
-port has no distributed backend yet, so the gauge reads 0), not folded in
+cost is the collective payload, which both packages account separately
+via ``runtime/dist_gibbs.psum_footprint`` (the ``psum_payload_bytes`` and
+``collectives_per_sweep`` gauges, 0 off the dist backend), not folded in
 here.
 """
 from __future__ import annotations

@@ -274,9 +274,20 @@ def _sweep_cost(eng, chains: int, n: int) -> Dict[str, float]:
 
 
 def _psum_footprint(eng, chains: int, n: int) -> Dict[str, float]:
-    """Collectives and their payload per sweep call: none for every engine
-    of the port, which has no distributed backend yet."""
-    return {"collectives_per_sweep": 0, "psum_payload_bytes": 0}
+    """Collectives and their payload per sweep call: none off the dist
+    backend; on it ``dist_gibbs.psum_footprint``'s numbers."""
+    if eng.backend != "dist":
+        return {"collectives_per_sweep": 0, "psum_payload_bytes": 0}
+    try:
+        from ..runtime.dist_gibbs import psum_footprint
+        desc = eng.schedule.describe()
+        if desc.startswith("chromatic"):
+            return psum_footprint("chromatic", C=chains, D=eng.graph.D,
+                                  n=n, n_colors=eng.schedule.n_colors)
+        sweep = getattr(eng.schedule, "sweep_len", eng.updates_per_call)
+        return psum_footprint(eng.name, C=chains, D=eng.graph.D, S=sweep)
+    except Exception:
+        return {"collectives_per_sweep": 0, "psum_payload_bytes": 0}
 
 
 # -- module-level active recorder ------------------------------------------

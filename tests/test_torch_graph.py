@@ -100,6 +100,34 @@ def test_build_alias_table_equals_jax():
             np.testing.assert_array_equal(a, b)
 
 
+def _alias_rows(case):
+    rng = np.random.default_rng(7)
+    if case == "sparse":                # zeros, an all-zero row, ties at 1
+        P = rng.uniform(size=(40, 37))
+        P[rng.uniform(size=P.shape) < 0.4] = 0.0
+        P[3] = 0.0
+        P[4] = 1.0
+        return P
+    if case == "integers":
+        return rng.integers(0, 3, (30, 16)).astype(np.float64)
+    # potts-64x64's float32 W rows, a column block, as the dist shards
+    W = tfg.gaussian_kernel_interactions(16) * 4.6
+    return W.astype(np.float32)[:, 64:128]
+
+
+@pytest.mark.parametrize("case", ["sparse", "integers", "potts-block"])
+def test_build_alias_tables_equals_the_row_loop(case):
+    """The vectorised Vose pass gives every row the table
+    ``build_alias_table`` gives it alone, bit for bit."""
+    P = _alias_rows(case)
+    prob, alias = tfg.build_alias_tables(P)
+    for r in range(P.shape[0]):
+        p1, a1 = tfg.build_alias_table(P[r])
+        np.testing.assert_array_equal(prob[r].view(np.int32),
+                                      p1.view(np.int32), err_msg=str(r))
+        np.testing.assert_array_equal(alias[r], a1, err_msg=str(r))
+
+
 def test_alias_draw_distribution():
     p = np.array([0.1, 0.5, 0.0, 0.4])
     prob, alias = (torch.from_numpy(t) for t in tfg.build_alias_table(p))

@@ -44,7 +44,7 @@ def _graph(name):
 def _separate_tables(graph):
     """The row tables as the parent kept them: two (n, n) tensors built
     from the host weights, independent of the packed records."""
-    rp, ra = tfg._row_tables(graph._weights64)
+    rp, ra = tfg.build_alias_tables(graph._weights64)
     return torch.from_numpy(rp), torch.from_numpy(ra)
 
 

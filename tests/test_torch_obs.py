@@ -6,8 +6,10 @@
     ``using`` — and the same call sequence gives the JAX package's
     Prometheus text, JSONL series and trace JSON (timestamps normalised);
   * ``register_engine``'s identity and cost gauges on every port engine
-    (no collective payload), equal to the JAX engine's at hetero-pairs-24,
-    sweep 8, chains 4; ``sweep_cost`` equal for every engine name;
+    (no collective payload off the dist backend), equal to the JAX
+    engine's at hetero-pairs-24, sweep 8, chains 4; on dist engines (a
+    spawned gloo rank) the collective gauges are ``psum_footprint``'s;
+    ``sweep_cost`` equal for every engine name;
   * no added work: the aten operations of a CPU sweep chunk are the same
     under the null and an active recorder, and ``annotate`` dispatches no
     operation (the port's counterpart of the reference's jaxpr-equality
@@ -15,7 +17,8 @@
     ``repro.sweep`` ranges;
   * the launcher's ``--metrics-dir`` / ``--trace`` files parse, count
     every sweep call, and carry the JAX launcher's metric names and label
-    keys.
+    keys; under ``--backend dist --mp-shards 2`` on two gloo ranks, rank 0
+    logs and writes them, rank 1 neither.
 """
 import json
 import re
@@ -37,6 +40,8 @@ from repro_torch.core import engine  # noqa: E402
 from repro_torch.launch import gibbs as tlaunch  # noqa: E402
 from repro_torch.obs import costmodel as tcost  # noqa: E402
 from repro_torch.obs import recorder as trecorder  # noqa: E402
+
+import torch_dist_workers as dist_workers  # noqa: E402
 
 WORKLOAD = "hetero-pairs-24"
 GRAPH = engine.make_workload(WORKLOAD, device="cpu").graph
@@ -189,9 +194,21 @@ def test_register_engine_publishes_identity_and_cost_gauges(name):
     assert rec.metrics.value("engine_updates_per_call", **labels) == 8
     assert rec.metrics.value("sweep_flops_per_call", **labels) > 0
     assert rec.metrics.value("sweep_bytes_per_call", **labels) > 0
-    # the port has no distributed backend: no collective, no payload
+    # a single-device engine: no collective, no payload
     assert rec.metrics.value("psum_payload_bytes", **labels) == 0
     assert rec.metrics.value("collectives_per_sweep", **labels) == 0
+
+
+def test_register_engine_dist_gauges_equal_psum_footprint(tmp_path):
+    """Dist engines on a world of one gloo rank: the collective gauges are
+    ``psum_footprint``'s (one per call, or one per color class)."""
+    out = dist_workers.run_ranks(dist_workers.gauges_rank, 1, tmp_path,
+                                 (1, 1))[0]
+    assert [name for name, *_ in out] == [*dist_workers.ENGINES, "gibbs"]
+    for name, backend, got, want in out:
+        assert backend == "dist"
+        assert got == want and got["psum_payload_bytes"] > 0, name
+    assert out[-1][2]["collectives_per_sweep"] == 2       # chromatic
 
 
 @pytest.mark.parametrize("name", ENGINES)
@@ -334,3 +351,32 @@ def test_launcher_writes_metrics_and_trace_like_jax(tmp_path):
                  "engine_updates_per_call", "sweep_flops_per_call",
                  "sweep_bytes_per_call", "psum_payload_bytes"):
         assert by_name[name]["value"] == jby[name]["value"], name
+
+
+def test_launcher_dist_backend_logs_and_writes_on_rank_0_only(tmp_path):
+    """``--backend dist --mp-shards 2`` on two gloo ranks: rank 0 prints
+    the log lines and writes ``metrics.jsonl`` (one snapshot per log line
+    and one at close) and the trace; rank 1 prints nothing and writes
+    nothing."""
+    steps, chains, sweep = 4, 4, 4
+    mdir, trace, capture = tmp_path / "m", tmp_path / "t.json", tmp_path / "o"
+    argv = ["--config", WORKLOAD, "--engine", "mgpmh", "--steps", str(steps),
+            "--chains", str(chains), "--sweep", str(sweep), "--device",
+            "cpu", "--backend", "dist", "--mp-shards", "2",
+            "--metrics-dir", str(mdir), "--trace", str(trace)]
+    dist_workers.run_ranks(dist_workers.launcher_rank, 2, tmp_path, argv,
+                           str(capture))
+    lines = [ln for ln in (tmp_path / "o.0").read_text().splitlines()
+             if ln.startswith("[gibbs] step")]
+    assert len(lines) == 1 and f"step {steps:7d}" in lines[0], lines
+    assert (tmp_path / "o.1").read_text() == ""
+    snaps = (mdir / "metrics.jsonl").read_text().splitlines()
+    assert len(snaps) == 2
+    by_name = {s["name"]: s for s in json.loads(snaps[-1])["series"]}
+    assert by_name["sweeps_total"]["value"] == steps
+    assert by_name["sweeps_total"]["labels"]["backend"] == "dist"
+    assert by_name["collectives_per_sweep"]["value"] == 1
+    assert 0.0 < by_name["acceptance"]["value"] <= 1.0
+    spans = [e for e in json.loads(trace.read_text())["traceEvents"]
+             if e["ph"] == "X"]
+    assert [e["name"] for e in spans] == ["sweep_chunk"] * steps

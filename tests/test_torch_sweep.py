@@ -266,7 +266,10 @@ def test_registry_round_trip_and_errors():
     assert engine.names() == ("doublemin", "gibbs", "local-gibbs", "mgpmh",
                               "min-gibbs")
     for name in engine.names():
-        assert engine.backends(name) == ("torch", "cuda")
+        # the dist backend serves every engine but local-gibbs
+        assert engine.backends(name) == (
+            ("torch", "cuda") if name == "local-gibbs"
+            else ("torch", "cuda", "dist"))
         eng = engine.make(name, g, sweep=5, device="cpu")
         d = eng.describe()
         assert d == {"engine": name, "backend": "torch", "device": "cpu",

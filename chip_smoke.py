@@ -205,6 +205,7 @@ import contextlib
 import importlib.metadata
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -398,6 +399,26 @@ DIST_BENCH = ("potts-20x20", 32, 8, 20, 128.0)
 DIST_TWO_RANK_BACKEND = "gloo"
 DIST_SMALL, DIST_SMALL_TOL, DIST_AGREE_TOL = (64, 4, 800), 0.05, 0.015
 DIST_JOIN_S = 300
+# the supervisor's nan-x fault code (src/repro/runtime/faultinject.py:198)
+OOD_CODE = int(np.iinfo(np.int32).min // 2)
+# phase 10: the supervised runtime at the main path's shape (C_FULL,
+# S_FULL), SUP_OUTER outer steps of SUP_CHUNK calls; the JAX dist test's
+# plan (tests/test_distributed.py:307-310)
+SUP_CHUNK = 16
+SUP_OUTER = 8
+SUP_DIST_OUTER = 5                     # 10d on NCCL: the plan's last step
+SUP_PLAN = [dict(step=2, kind="corrupt", target="arrays"),
+            dict(step=2, kind="preempt"),
+            dict(step=4, kind="nan", target="x")]
+# 10b: a lambda far under potts-64x64's 4 L^2, the floor it falls under
+# and the band the re-tune aims for
+SUP_RETUNE = dict(lam=0.1, floor=0.3, target=(0.6, 0.9))
+# 10c: the launcher as a subprocess (config, chains, sweep, calls)
+SUP_LAUNCHER = ("potts-20x20", 64, 64, 128)
+# 10d (b): two gloo processes, potts 2x2 D=3 (C, S, outer steps x calls)
+SUP_ELASTIC = (1024, 4, 60, 8)
+SUP_ELASTIC_BURN = 10
+SUP_TIME_REPS = 2                      # turns of bare / ckpt_every 1 / 8
 
 
 def fail(msg):
@@ -646,6 +667,7 @@ def phase_parity(dev):
                            *a, sd, B, D, scale),
                        t(pin.local_gibbs_inputs(C, S, D, n, weights)), (2,),
                        shape, dev)
+    ood_parity(dev)
     torch.cuda.synchronize()
     say("3a parity", f"{len(PARITY_MGPMH)} mgpmh + {len(PARITY_MGPMH_EDGE)} "
         f"mgpmh edge shapes {PARITY_MGPMH_EDGE} (both forms, twice) + "
@@ -661,6 +683,77 @@ def phase_parity(dev):
         f"local_gibbs_sweep == its "
         f"plain version exactly at {len(PARITY_LOCAL)} shapes (C,S,B,D,n) "
         f"{PARITY_LOCAL}, real and integer weights, seeds {list(SEEDS)}")
+
+
+def ood_parity(dev):
+    """Every sampling kernel against its plain version on a state holding
+    codes outside [0, D) at sites the first sub-step updates (chain 0 the
+    supervisor's nan-x code, chain 1 D + 3): exactly equal.  A code counts
+    nowhere, and the site keeps it unless it takes a proposal."""
+    from repro_torch.kernels import fused_sweep as fs, local_sweep as ls
+    from repro_torch.kernels import parity_inputs as pin, ref
+    t = lambda arrays: tuple(torch.from_numpy(a).to(dev) for a in arrays)
+
+    def corrupt(args, at, D):
+        x, i = args[0].clone(), args[at]
+        x[0, int(i[0, 0])] = OOD_CODE
+        x[1, int(i[1, 0])] = D + 3
+        return (x,) + tuple(args[1:])
+
+    C, S, K, D, n = PARITY_MGPMH[0]
+    args = corrupt(t(pin.mgpmh_inputs(C, S, K, D, n)), 4, D)
+    check(_equal(fs.mgpmh_sweep_cuda(*packed_mgpmh(args), D=D, scale=0.7),
+                 ref.mgpmh_sweep_ref(*args, D, 0.7)),
+          "mgpmh kernel != plain version with codes outside [0, D)")
+    rng_parity("mgpmh_sweep_rng (codes outside [0, D))",
+               lambda a, sd: fs.mgpmh_sweep_rng_cuda(
+                   *packed_mgpmh(a), sd, D=D, scale=0.7, K=K),
+               lambda a, sd: ref.mgpmh_sweep_rng_ref(*a, sd, D, 0.7, K),
+               tuple(args[:6]), (4, 5), (C, S, K, D, n), dev)
+    C, S, D, n = PARITY_GIBBS[0]
+    args = corrupt(t(pin.gibbs_inputs(C, S, D, n)), 2, D)
+    check(_equal(fs.gibbs_sweep_cuda(*args, D=D),
+                 ref.gibbs_sweep_ref(*args, D)),
+          "gibbs kernel != plain version with codes outside [0, D)")
+    shape = PARITY_MIN[0]
+    C, S, K, D, n = shape
+    args = corrupt(t(pin.min_gibbs_inputs(*shape)), 5, D)
+    check(_equal(fs.min_gibbs_sweep_cuda(*packed(args), D=D, lscale=0.37),
+                 ref.min_gibbs_sweep_ref(*args, D, 0.37)),
+          "min_gibbs kernel != plain version with codes outside [0, D)")
+    rng_parity("min_gibbs_sweep_rng (codes outside [0, D))",
+               lambda a, sd: fs.min_gibbs_sweep_rng_cuda(
+                   *packed(a), sd, D=D, lscale=0.37, K=K),
+               lambda a, sd: ref.min_gibbs_sweep_rng_ref(*a, sd, D, 0.37,
+                                                         K),
+               args[:7] + (args[-1],), (5, 6), shape, dev)
+    shape = PARITY_DMIN[0]
+    C, S, K1, K2, D, n = shape
+    args = corrupt(t(pin.double_min_inputs(*shape)), 5, D)
+    check(_equal(fs.double_min_sweep_cuda(*packed(args), D=D, scale1=0.7,
+                                          lscale2=0.31),
+                 ref.double_min_sweep_ref(*args, D, 0.7, 0.31)),
+          "double_min kernel != plain version with codes outside [0, D)")
+    rng_parity("double_min_sweep_rng (codes outside [0, D))",
+               lambda a, sd: fs.double_min_sweep_rng_cuda(
+                   *packed(a), sd, D=D, scale1=0.7, lscale2=0.31, K1=K1,
+                   K2=K2),
+               lambda a, sd: ref.double_min_sweep_rng_ref(
+                   *a, sd, D, 0.7, 0.31, K1, K2),
+               args[:7] + (args[10], args[-1]), (5, 6, 7), shape, dev)
+    C, S, B, D, n = PARITY_LOCAL[0]
+    rng_parity("local_gibbs_sweep (codes outside [0, D))",
+               lambda a, sd: ls.local_gibbs_sweep_cuda(
+                   *a, sd, B=B, D=D, scale=(n - 1) / B),
+               lambda a, sd: ref.local_gibbs_sweep_ref(*a, sd, B, D,
+                                                       (n - 1) / B),
+               corrupt(t(pin.local_gibbs_inputs(C, S, D, n)), 2, D), (2,),
+               (C, S, B, D, n), dev)
+    torch.cuda.synchronize()
+    say("3a parity", f"codes outside [0, D) ({OOD_CODE} and D + 3) at "
+        f"sites the first sub-step updates: mgpmh (both forms), gibbs, "
+        f"min-gibbs and doublemin (both forms), local-gibbs == their plain "
+        f"versions exactly")
 
 
 def ring_inputs(C, S, D, n, dev):
@@ -2118,9 +2211,26 @@ def sweep_parts(potts, lattice):
     lam = 4.0 * potts.L ** 2
     K = recommended_capacity(lam)
     rate = samplers.mgpmh_rate(potts, lam)
+    from repro_torch.core.chains import accumulate_marginals
     marg = torch.zeros((C_FULL, potts.n, potts.D), device=potts.device)
+    weight = torch.empty((C_FULL, potts.n), device=potts.device)
     ones = torch.ones((C_FULL, potts.n, 1), device=potts.device)
-    x = torch.zeros((C_FULL, potts.n), dtype=torch.long, device=potts.device)
+    x = torch.randint(0, potts.D, (C_FULL, potts.n), generator=gen,
+                      dtype=torch.int32, device=potts.device)
+    x_long = x.long()
+    # the runner's accumulation per sweep call in two forms, timed in
+    # turns: an int64 conversion of the state and a scatter of ones (which
+    # a code outside [0, D) breaks), and accumulate_marginals (an int32
+    # clamp, the in-domain mask, a scatter of the mask)
+    accumulate = {
+        "marginal_accumulate_int64_ones": lambda: marg.scatter_add_(
+            2, x.long().unsqueeze(-1), ones),
+        "marginal_accumulate_masked": lambda: accumulate_marginals(
+            marg, x, weight)}
+    turns = {k: [] for k in accumulate}
+    for _ in range(21):
+        for k, fn in accumulate.items():
+            turns[k].append(median_ms(fn, 1))
     half = lattice.graph.n // 2
     lam2 = min(2.0 * potts.psi ** 2, 16384.0)
     K2 = recommended_capacity(lam2)
@@ -2135,8 +2245,10 @@ def sweep_parts(potts, lattice):
             gen, C_FULL, S_FULL, potts.n, potts.D, potts.device), 20),
         "chromatic_draws_per_class": median_ms(lambda: samplers.gumbel(
             (C_FULL, half, 2), gen, potts.device), 20),
+        # the scatter alone, of a state already in int64
         "marginal_accumulate": median_ms(lambda: marg.scatter_add_(
-            2, x.unsqueeze(-1), ones), 20),
+            2, x_long.unsqueeze(-1), ones), 20),
+        **{k: statistics.median(v) for k, v in turns.items()},
     }
     say("6 times", "per sweep call, besides the kernel: " + ", ".join(
         f"{k} {v:.4f} ms" for k, v in parts.items()))
@@ -3657,6 +3769,496 @@ def phase_dist(potts, lattice, smi, main_path):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the supervised runtime (runtime/supervisor.py)
+# ---------------------------------------------------------------------------
+
+def guarded_run_class():
+    """``SupervisedRun`` with each chunk under
+    ``set_sync_debug_mode("error")`` and each health read under "warn",
+    its host syncs counted (``health_syncs``, one per read expected), and
+    the host times of each chunk's dispatch and each health read kept."""
+    import warnings
+    from repro_torch.runtime.supervisor import SupervisedRun
+
+    class GuardedRun(SupervisedRun):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.health_syncs, self.chunk_s, self.health_s = [], [], []
+
+        def _outer_step(self, bundle, tel):
+            t0 = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return super()._outer_step(bundle, tel)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                self.chunk_s.append(time.perf_counter() - t0)
+
+        def _healthy(self, bundle, tel, step):
+            t0 = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with warnings.catch_warnings(record=True) as seen:
+                    warnings.simplefilter("always")
+                    out = super()._healthy(bundle, tel, step)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            self.health_s.append(time.perf_counter() - t0)
+            self.health_syncs.append(sum(
+                "synchroniz" in str(w.message) for w in seen))
+            return out
+    return GuardedRun
+
+
+def sup_config(ckpt_dir, outer=SUP_OUTER, **kw):
+    from repro_torch.runtime.supervisor import SupervisorConfig
+    return SupervisorConfig(outer_steps=outer, sweeps_per_outer=SUP_CHUNK,
+                            chains=C_FULL, seed=0, ckpt_dir=ckpt_dir,
+                            backoff_base=0.0, workload="potts-64x64", **kw)
+
+
+def sup_drive(name, factory, cfg, plan=None, ranks=None):
+    """One guarded supervised run, launch counts reset before and read
+    after: ``(result, run, wall s, launches, commit times)``."""
+    from repro_torch.runtime.faultinject import Fault, FaultPlan
+    commits = []
+    run = guarded_run_class()(
+        name, factory, cfg,
+        None if plan is None else FaultPlan([Fault(**f) for f in plan]),
+        ranks=ranks, sleep_fn=lambda s: None,
+        on_step=lambda step, *a: commits.append((time.time(), step)))
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = run.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    check(all(k == 1 for k in run.health_syncs),
+          f"10 {name}: host syncs per health read {run.health_syncs}")
+    return res, run, wall, launches, commits
+
+
+def sup_check_faulted(tag, clean, res, run, launches, kernel):
+    """10a / 10d: the faulted run bit-equal to the clean one, a restart, a
+    rollback, a bad_state health incident and no restart from the nan
+    fault; one sweep launch and one telemetry launch per call of every
+    chunk run."""
+    check(torch.equal(res.state.x, clean.state.x)
+          and np.array_equal(res.marginals, clean.marginals)
+          and torch.equal(res.state.accepts, clean.state.accepts),
+          f"{tag}: faulted run differs from the clean run")
+    check(res.restarts >= 1 and res.rollbacks >= 1,
+          f"{tag}: restarts {res.restarts}, rollbacks {res.rollbacks}")
+    kinds = [i["kind"] for i in res.incidents]
+    check(any(i["kind"] == "health" and i["guard"] == "bad_state"
+              for i in res.incidents), f"{tag}: no bad_state incident "
+          f"{kinds}")
+    restarts = [i for i in res.incidents if i["kind"] == "restart"]
+    check(all("Preemption" in i["error"] for i in restarts),
+          f"{tag}: a restart not caused by the preemption: {restarts}")
+    calls = SUP_CHUNK * run._watchdog.total_steps
+    if kernel is not None:
+        check(launches[kernel] == calls
+              and launches["telemetry_update"] == calls,
+              f"{tag}: launches {launches}, {calls} calls")
+    return kinds
+
+
+def fault_to_commit(res, commits, kind):
+    """Seconds from the first fault of ``kind`` to the next committed
+    outer step."""
+    t_f = next(i["time"] for i in res.incidents if i["kind"] == "fault"
+               and i["fault"]["kind"] == kind)
+    return next(t for t, _ in commits if t > t_f) - t_f
+
+
+def sup_single(potts, smi, tmp):
+    """10a and 10b on one device."""
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.core import engine
+    from repro_torch.core.chains import accumulate_marginals
+    from repro_torch.runtime.supervisor import SupervisedRun
+
+    def factory(**fixed):
+        return lambda name, ranks, **p: engine.make(
+            name, potts, sweep=S_FULL, device=potts.device,
+            **{**fixed, **p})
+
+    out = {}
+    # 10a: crash-resume
+    clean, crun, clean_wall, cl, _ = sup_drive(
+        "mgpmh", factory(), sup_config(f"{tmp}/clean"))
+    check(clean.outer_steps == SUP_OUTER and clean.restarts == 0,
+          f"10a clean: {clean.incidents}")
+    res, run, wall, launches, commits = sup_drive(
+        "mgpmh", factory(), sup_config(f"{tmp}/fault"), SUP_PLAN)
+    kinds = sup_check_faulted("10a", clean, res, run, launches,
+                              "mgpmh_sweep")
+    out["crash_resume"] = dict(
+        kinds=kinds, restarts=res.restarts, rollbacks=res.rollbacks,
+        launches=launches, clean_launches=cl, chunks=run._watchdog.total_steps,
+        wall_s=wall, clean_wall_s=clean_wall,
+        outer_step_ms=1e3 * statistics.median(
+            c + h for c, h in zip(crun.chunk_s, crun.health_s)),
+        chunk_dispatch_ms=1e3 * statistics.median(crun.chunk_s),
+        health_wait_ms=1e3 * statistics.median(crun.health_s),
+        preempt_to_commit_s=fault_to_commit(res, commits, "preempt"),
+        rollback_to_commit_s=fault_to_commit(res, commits, "nan"))
+    # the pieces, on the clean run's final bundle
+    bundle = crun._init_bundle()._replace(st=clean.state)
+    tel = clean.telemetry
+    torch.cuda.synchronize()
+    health = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        crun._healthy(bundle, tel, SUP_OUTER)
+        health.append(time.perf_counter() - t0)
+    host_ms, write_ms, verify_ms, restore_ms = [], [], [], []
+    for k in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = ckpt.to_host(bundle)
+        t1 = time.perf_counter()
+        ckpt._write(f"{tmp}/pieces", 100 + k, host, {})
+        t2 = time.perf_counter()
+        check(ckpt.verify(f"{tmp}/pieces", 100 + k) == [],
+              "10a: a written checkpoint does not verify")
+        t3 = time.perf_counter()
+        back = ckpt.restore(f"{tmp}/pieces", 100 + k, crun._init_bundle())
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        check(torch.equal(back.st.x, clean.state.x),
+              "10a: restore differs from the saved state")
+        host_ms.append(t1 - t0)
+        write_ms.append(t2 - t1)
+        verify_ms.append(t3 - t2)
+        restore_ms.append(t4 - t3)
+    nbytes = sum(v.nbytes for v in host.values())
+    med = lambda v: 1e3 * statistics.median(v)
+    out["pieces"] = dict(health_read_ms=med(health), host_copy_ms=med(
+        host_ms), write_ms=med(write_ms), verify_ms=med(verify_ms),
+        restore_ms=med(restore_ms), bundle_bytes=nbytes)
+    del back, host
+    # supervised updates/s against the bare runner's, in turns
+    upd = SUP_OUTER * SUP_CHUNK * C_FULL * S_FULL
+
+    def bare():
+        eng = engine.make("mgpmh", potts, sweep=S_FULL, device=potts.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = eng.init(0, C_FULL)
+        marg = torch.zeros((C_FULL, potts.n, potts.D), device=potts.device)
+        w = torch.empty((C_FULL, potts.n), device=potts.device)
+        for _ in range(SUP_OUTER * SUP_CHUNK):
+            st = eng.sweep(st)
+            accumulate_marginals(marg, st.x, w)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def supervised(every, k):
+        r = SupervisedRun("mgpmh", factory(),
+                          sup_config(f"{tmp}/every{every}-{k}",
+                                     ckpt_every=every),
+                          sleep_fn=lambda s: None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r.run()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    walls = {"bare": [], "ckpt_every_1": [], "ckpt_every_8": []}
+    for k in range(SUP_TIME_REPS):
+        walls["bare"].append(bare())
+        walls["ckpt_every_1"].append(supervised(1, k))
+        walls["ckpt_every_8"].append(supervised(8, k))
+    out["updates_per_s"] = {k: upd / min(v) for k, v in walls.items()}
+    out["walls_s"] = walls
+    # 10b: escalation
+    deg, drun, _, dl, _ = sup_drive(
+        "mgpmh", factory(), sup_config(f"{tmp}/degrade", outer=4,
+                                       acceptance_floor=2.0, floor_after=0,
+                                       max_strikes=1, retune=False))
+    check(deg.engine.name == "gibbs" and deg.outer_steps == 4
+          and dl["gibbs_sweep"] > 0
+          and any(i["kind"] == "degrade" for i in deg.incidents),
+          f"10b degrade: engine {deg.engine.name}, launches {dl}")
+    again, _, _, _, _ = sup_drive("mgpmh", factory(),
+                                  sup_config(f"{tmp}/degrade", outer=6))
+    check(again.engine.name == "gibbs" and again.outer_steps == 6,
+          f"10b: a second run over the directory runs "
+          f"{again.engine.name}")
+    rt, rrun, rwall, rl, _ = sup_drive(
+        "mgpmh", factory(lam=SUP_RETUNE["lam"]),
+        sup_config(f"{tmp}/retune", outer=4,
+                   acceptance_floor=SUP_RETUNE["floor"], floor_after=0,
+                   max_strikes=1, retune_target=SUP_RETUNE["target"]))
+    retunes = [i for i in rt.incidents if i["kind"] == "retune"]
+    acc = float(rt.state.accepts.double().mean()) / (
+        4 * SUP_CHUNK * S_FULL)
+    check(retunes and rt.engine.name == "mgpmh"
+          and rt.engine.params["lam"] == retunes[-1]["lam"] and acc >= 0.5,
+          f"10b retune: {retunes}, acceptance {acc}")
+    low = [i["win_acceptance"] for i in rt.incidents
+           if i["kind"] == "health"]
+    out["escalation"] = dict(
+        degrade_kinds=[i["kind"] for i in deg.incidents],
+        degrade_launches=dl, resumed_engine=again.engine.name,
+        retune_lams=[i["lam"] for i in retunes], retune_acceptance=acc,
+        floor_readings=low, retune_wall_s=rwall, retune_launches=rl)
+    c = out["crash_resume"]
+    p = out["pieces"]
+    u = out["updates_per_s"]
+    say("10a supervisor", f"mgpmh potts-64x64 C={C_FULL} S={S_FULL}, "
+        f"{SUP_OUTER} outer steps x {SUP_CHUNK}, plan {SUP_PLAN}: "
+        f"bit-equal to the clean run (x, marginals, accepts); incidents "
+        f"{c['kinds']}; {c['chunks']} chunks, launches {c['launches']}; "
+        f"one host sync per health read, none in a chunk; outer step "
+        f"{c['outer_step_ms']:.3f} ms (dispatch {c['chunk_dispatch_ms']:.3f}"
+        f", health read with the device's wait {c['health_wait_ms']:.3f}); "
+        f"preempt to next commit {c['preempt_to_commit_s']:.4f} s, rollback "
+        f"{c['rollback_to_commit_s']:.4f} s; on {smi}")
+    say("10a pieces", f"health read alone {p['health_read_ms']:.4f} ms; "
+        f"save: device-to-host copy {p['host_copy_ms']:.3f} ms, the write "
+        f"{p['write_ms']:.3f} ms ({p['bundle_bytes'] / 2 ** 20:.2f} MiB); "
+        f"verify {p['verify_ms']:.3f} ms; restore {p['restore_ms']:.3f} ms;"
+        f" updates/s bare {u['bare'] / 1e6:.3f}M, supervised ckpt_every 1 "
+        f"{u['ckpt_every_1'] / 1e6:.3f}M, ckpt_every 8 "
+        f"{u['ckpt_every_8'] / 1e6:.3f}M; on {smi}")
+    say("10b escalation", f"degrade: {out['escalation']['degrade_kinds']}, "
+        f"gibbs_sweep launches {dl['gibbs_sweep']}; a second run adopts "
+        f"{again.engine.name}; retune from lambda {SUP_RETUNE['lam']}: "
+        f"windowed acceptance {low} under {SUP_RETUNE['floor']}, lambda "
+        f"{out['escalation']['retune_lams']}, acceptance {acc:.4f}; "
+        f"{rwall:.2f} s; on {smi}")
+    out["launches"] = {k: c["launches"].get(k, 0) + dl.get(k, 0)
+                       for k in ("mgpmh_sweep", "gibbs_sweep",
+                                 "telemetry_update")}
+    return out
+
+
+def sup_launcher(smi, tmp, device="cuda"):
+    """10c: the launcher as a subprocess on the card."""
+    config, C, S, calls = SUP_LAUNCHER
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    base = [sys.executable, "-m", "repro_torch.launch.gibbs", "--config",
+            config, "--engine", "mgpmh", "--chains", str(C), "--sweep",
+            str(S), "--device", device]
+    plan = json.dumps({"faults": SUP_PLAN})
+    sup = base + ["--steps", str(calls), "--supervise", "--supervise-chunk",
+                  str(SUP_CHUNK), "--ckpt-dir", f"{tmp}/sup",
+                  "--fault-plan", plan]
+    first = base + ["--steps", str(calls // 2), "--ckpt-dir", f"{tmp}/plain"]
+    second = base + ["--steps", str(calls), "--ckpt-dir", f"{tmp}/plain"]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, env=env,
+                              cwd=str(ROOT)) for cmd in (sup, first)]
+    outs = []
+    for p in procs:
+        try:
+            o, e = p.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            fail("10c: the launcher passed 300 s")
+        outs.append((p.returncode, o, e))
+    done = subprocess.run(second, capture_output=True, text=True,
+                          timeout=300, env=env, cwd=str(ROOT))
+    outs.append((done.returncode, done.stdout, done.stderr))
+    wall = time.perf_counter() - t0
+    for rc, o, e in outs:
+        check(rc == 0, f"10c: launcher exit {rc}: {e[-2000:]}")
+    summary = [l for l in outs[0][1].splitlines()
+               if l.startswith("[gibbs] supervised done:")]
+    check(len(summary) == 1 and "restarts=1 rollbacks=1" in summary[0],
+          f"10c: summary {summary}")
+    resumed = f"[gibbs] resumed at step {calls // 2}"
+    check(resumed in outs[2][1] and "resumed" not in outs[1][1],
+          f"10c: no '{resumed}' in {outs[2][1][-500:]}")
+    say("10c launcher", f"{config} mgpmh C={C} S={S}: --supervise "
+        f"--fault-plan {plan}: exit 0, '{summary[0]}'; --ckpt-dir twice: "
+        f"'{resumed}'; {wall:.1f} s for the three processes; on {smi}")
+    return dict(summary=summary[0], resumed=resumed, seconds=wall)
+
+
+def sup_elastic_child(rank, world, store, tmp, out, device="cuda"):
+    """10d (b) rank body: potts 2x2 D=3 on a 2x1 mesh of two gloo
+    processes sharing the card, a device loss keeping rank 0."""
+    import torch.distributed as dist
+    try:
+        if device == "cuda":
+            torch.cuda.set_device(0)
+        # every process group ends in a store barrier over the ranks that
+        # must make it (a group the whole world had to make would wait for
+        # the rank that left)
+        os.environ["TORCH_DIST_INIT_BARRIER"] = "1"
+        dist.init_process_group(DIST_TWO_RANK_BACKEND,
+                                init_method=f"file://{store}", rank=rank,
+                                world_size=world)
+        from repro_torch.core import engine
+        from repro_torch.core.factor_graph import (TabularPairwiseGraph,
+                                                   make_potts_graph)
+        from repro_torch.launch.mesh import make_device_mesh
+        from repro_torch.runtime.faultinject import Fault, FaultPlan
+        from repro_torch.runtime.supervisor import (SupervisedRun,
+                                                    SupervisorConfig)
+        C, S, outer, calls = SUP_ELASTIC
+        g = make_potts_graph(grid=2, beta=0.8, D=3, device=device)
+        tg = TabularPairwiseGraph.from_match_graph(g)
+        # marginals and edge agreements P(x_a == x_b) by enumeration (the
+        # marginals are 1/D by colour symmetry; the agreements depend on W)
+        a, b = torch.nonzero(torch.triu(g.W, 1) > 0, as_tuple=True)
+        exact = np.zeros((g.n, g.D))
+        exact_agree = np.zeros(len(a))
+        for p, s in zip(tg.pi(), tg.all_states()):
+            exact[np.arange(g.n), s] += p
+            exact_agree += p * (s[a.cpu().numpy()] == s[b.cpu().numpy()])
+        agree = torch.zeros(len(a), device=device)
+        seen = []
+
+        def on_step(step, bundle, tel, eng):     # this rank's chains, on
+            x = bundle.st.x                       # every committed step
+            if step > SUP_ELASTIC_BURN:           # past the burn-in
+                agree.add_((x[:, a] == x[:, b]).sum(0))
+                seen.append(x.shape[0])
+
+        def make_engine(name, ranks, **params):
+            mesh = make_device_mesh((len(ranks), 1), ("data", "model"),
+                                    ranks, device_type=device)
+            if mesh is None:
+                return None
+            return engine.make(name, g, mesh=mesh, sweep=S, **params)
+        cfg = SupervisorConfig(outer_steps=outer, sweeps_per_outer=calls,
+                               chains=C, ckpt_dir=f"{tmp}/elastic",
+                               backoff_base=0.0)
+        t0 = time.perf_counter()
+        res = SupervisedRun(
+            "mgpmh", make_engine, cfg,
+            FaultPlan([Fault(step=3, kind="device-loss", keep=1)]),
+            sleep_fn=lambda s: None, on_step=on_step).run()
+        rec = dict(left=res.left, outer_steps=res.outer_steps,
+                   seconds=time.perf_counter() - t0,
+                   incidents=[{k: v for k, v in i.items() if k != "time"}
+                              for i in res.incidents])
+        if not res.left:
+            rec["err"] = float(np.abs(res.marginals - exact).max())
+            rec["agree_err"] = float(np.abs(
+                agree.cpu().numpy() / sum(seen) - exact_agree).max())
+            rec["snapshots"] = sum(seen)
+        dist.destroy_process_group()
+        out.put((rank, True, rec))
+    except BaseException:
+        import traceback
+        out.put((rank, False, traceback.format_exc()))
+        raise
+
+
+def sup_elastic(smi, tmp, device="cuda"):
+    """10d (b): two spawned processes, joined with a deadline."""
+    import multiprocessing as mp
+    import queue as queue_lib
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=sup_elastic_child,
+                         args=(r, 2, f"{tmp}/store", tmp, q, device))
+             for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    results, deadline = {}, time.monotonic() + DIST_JOIN_S
+    try:
+        while len(results) < 2:
+            try:
+                rank, ok, value = q.get(timeout=1.0)
+            except queue_lib.Empty:
+                dead = [p.exitcode for p in procs
+                        if p.exitcode not in (None, 0)]
+                check(not dead, f"10d: a rank died {dead}")
+                check(time.monotonic() < deadline,
+                      f"10d: ranks passed {DIST_JOIN_S} s")
+                continue
+            check(ok, f"10d: rank {rank} failed:\n{value}")
+            results[rank] = value
+    finally:
+        for p in procs:
+            p.join(timeout=max(deadline - time.monotonic(), 5.0))
+            if p.is_alive():
+                p.kill()
+                p.join()
+    wall = time.perf_counter() - t0
+    lead, gone = results[0], results[1]
+    C, S, outer, calls = SUP_ELASTIC
+    check(gone["left"] and not lead["left"] and lead["outer_steps"] == outer
+          and any(i["kind"] == "elastic" and i["ranks"] == 1
+                  for i in lead["incidents"]) and lead["err"] < 0.05
+          and lead["agree_err"] < DIST_AGREE_TOL,
+          f"10d elastic: {results}")
+    say("10d elastic", f"potts 2x2 D=3 mgpmh C={C} S={S}, mesh 2x1 of two "
+        f"{DIST_TWO_RANK_BACKEND} processes on the card, device loss "
+        f"keep=1 at outer step 3: rank 1 left, rank 0 ran {outer} outer "
+        f"steps x {calls} on 1x1, marginal error {lead['err']:.4f} (< "
+        f"0.05), edge-agreement error {lead['agree_err']:.4f} (< "
+        f"{DIST_AGREE_TOL}, {lead['snapshots']} chain snapshots of the "
+        f"committed steps); {wall:.1f} s with the processes' start; on "
+        f"{smi}")
+    return dict(lead=lead, gone=gone, seconds=wall)
+
+
+def sup_nccl(potts, smi, tmp):
+    """10d (a): this process as one NCCL rank, a (1, 1) mesh, 10a's shape
+    and plan, bit-equal to its clean run."""
+    import torch.distributed as dist
+    from repro_torch.core import engine
+    from repro_torch.launch.mesh import make_device_mesh
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl",
+                            rank=0, world_size=1)
+    try:
+        dist.all_reduce(torch.zeros(1, device="cuda"))   # the communicator
+        torch.cuda.synchronize()
+
+        def factory(name, ranks, **p):
+            mesh = make_device_mesh((len(ranks), 1), ("data", "model"),
+                                    ranks, device_type="cuda")
+            return engine.make(name, potts, sweep=S_FULL, mesh=mesh, **p)
+        clean, _, cwall, _, _ = sup_drive(
+            "mgpmh", factory, sup_config(f"{tmp}/dclean",
+                                         outer=SUP_DIST_OUTER), ranks=[0])
+        res, run, wall, launches, commits = sup_drive(
+            "mgpmh", factory, sup_config(f"{tmp}/dfault",
+                                         outer=SUP_DIST_OUTER),
+            SUP_PLAN, ranks=[0])
+        kinds = sup_check_faulted("10d NCCL", clean, res, run, launches,
+                                  None)
+    finally:
+        dist.destroy_process_group()
+    say("10d NCCL", f"one rank, mgpmh potts-64x64 C={C_FULL} S={S_FULL}, "
+        f"{SUP_DIST_OUTER} outer steps x {SUP_CHUNK}, plan {SUP_PLAN}: "
+        f"bit-equal to the clean run; incidents {kinds}; clean "
+        f"{cwall:.2f} s, faulted {wall:.2f} s; on {smi}")
+    return dict(kinds=kinds, clean_s=cwall, fault_s=wall,
+                preempt_to_commit_s=fault_to_commit(res, commits, "preempt"),
+                rollback_to_commit_s=fault_to_commit(res, commits, "nan"))
+
+
+def phase_supervisor(potts, smi):
+    """10: the supervised runtime on the card."""
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        rec = sup_single(potts, smi, tmp)
+        rec["launcher"] = sup_launcher(smi, tmp)
+        torch.cuda.empty_cache()
+        rec["nccl"] = sup_nccl(potts, smi, tmp)
+        torch.cuda.empty_cache()
+        rec["elastic"] = sup_elastic(smi, tmp)
+    rec["seconds"] = time.perf_counter() - t0
+    rec["card"] = smi
+    say("10 supervisor", f"{rec['seconds']:.1f} s; on {smi}")
+    return rec
+
+
 REPLACES = {
     "gibbs_sweep": "src/repro/kernels/fused_sweep.py:577",
     # gibbs_sweep_pallas on the chromatic path (one launch per color class)
@@ -3715,6 +4317,8 @@ def main():
         potts, lattice, record["device"]["nvidia_smi"])
     record["dist"] = phase_dist(potts, lattice,
                                 record["device"]["nvidia_smi"], main)
+    record["supervisor"] = sup = phase_supervisor(
+        potts, record["device"]["nvidia_smi"])
 
     src = "src/repro_torch/kernels/csrc/fused_sweep.cu"
     diag = record["diagnostics"]
@@ -3732,6 +4336,8 @@ def main():
             launches = diag["main"]["mgpmh"]["launches"][k]
         else:
             launches = sum(run["launches"].get(k, 0) for run in main.values())
+        # the supervised path's launches (phase 10)
+        launches += sup["launches"].get(k, 0)
         check(launches > 0, f"{k} was not launched on its path")
         t = times[k]
         err = (full[k][1] if k in full

@@ -24,8 +24,9 @@ from fixed seeds (the same in every checkout):
   * runs that engine as phase 4 of ``chip_smoke.py`` does (200 sweep
     calls, 10 snapshots, through ``run_marginal_experiment``) from seed 0,
     after a warm-up run: updates/s (host clock to a synchronize),
-    acceptance and a hash of the final chains and accepts, which must be
-    the same in every checkout (the draws are the same);
+    acceptance and a hash of the final chains and accepts and one of the
+    marginal sums, which must be the same in every checkout (the draws are
+    the same); then the Gibbs engine the same way;
   * prints the kernels' registers, spills and shared memory
     (``-Xptxas -v``) and a random-gather probe (``chip_smoke.gather_probe``)
     at the kernel's live draws.
@@ -162,23 +163,29 @@ def time_tree(tree):
         "kernel": lambda: fs.mgpmh_sweep_cuda(st.x, W, *tables, *dr, D=D,
                                               scale=scale)})
     del dr
-    chains.run_marginal_experiment(eng, eng.init(1, C), n_iters=20 * S,
-                                   n_snapshots=1)        # warm-up
-    st = eng.init(0, C)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    tr = chains.run_marginal_experiment(eng, st, n_iters=CALLS * S,
-                                        n_snapshots=10)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    acc = float(tr.final.accepts.double().sum()) / (CALLS * S * C)
-    run = dict(calls=CALLS, seconds=wall,
-               updates_per_s=CALLS * S * C / wall, acceptance=acc,
-               marg_err=float(tr.error[-1]),
-               chains=digest(tr.final.x, tr.final.accepts))
+
+    def phase4(eng):
+        chains.run_marginal_experiment(eng, eng.init(1, C), n_iters=20 * S,
+                                       n_snapshots=1)    # warm-up
+        st = eng.init(0, C)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr = chains.run_marginal_experiment(eng, st, n_iters=CALLS * S,
+                                            n_snapshots=10)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        acc = (1.0 if eng.exact_accept else
+               float(tr.final.accepts.double().sum()) / (CALLS * S * C))
+        return dict(calls=CALLS, seconds=wall,
+                    updates_per_s=CALLS * S * C / wall, acceptance=acc,
+                    marg_err=float(tr.error[-1]),
+                    chains=digest(tr.final.x, tr.final.accepts),
+                    marginals=digest(tr.marg))
+    run = phase4(eng)
+    gibbs_run = phase4(engine.make("gibbs", graph, sweep=S))
     return dict(tree=str(tree), module=fs.__file__, packed=packed,
                 ptxas=ptxas(built.log) if built.log else "reused",
-                kernels=out, call=trace, engine=run)
+                kernels=out, call=trace, engine=run, gibbs_engine=gibbs_run)
 
 
 def main():
@@ -216,14 +223,19 @@ def main():
                                     ["outputs"]),
         gibbs_outputs_same=same(lambda r: r["kernels"]["gibbs_sweep"]
                                 ["outputs"]),
-        engine_chains_same=same(lambda r: r["engine"]["chains"]),
+        engine_chains_same=same(lambda r: (r["engine"]["chains"],
+                                           r["engine"]["marginals"])),
+        gibbs_engine_chains_same=same(lambda r: (
+            r["gibbs_engine"]["chains"], r["gibbs_engine"]["marginals"])),
         per_run=[dict(
             tree=r["tree"], mgpmh_ms=r["kernels"]["mgpmh_sweep"]["ms"],
             mgpmh_rng_ms=r["kernels"]["mgpmh_sweep_rng"]["ms"],
             gibbs_ms=r["kernels"]["gibbs_sweep"]["ms"],
             call_ms=r["call"]["stream_call_ms"],
             idle=r["call"]["device_idle_share"],
-            updates_per_s=r["engine"]["updates_per_s"]) for r in runs])
+            updates_per_s=r["engine"]["updates_per_s"],
+            gibbs_updates_per_s=r["gibbs_engine"]["updates_per_s"])
+            for r in runs])
     print(json.dumps(checks))
     print(smi)
     (ROOT / "chiprun_out").mkdir(exist_ok=True)

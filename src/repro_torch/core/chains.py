@@ -18,7 +18,8 @@ import torch
 
 from .engine import Engine
 
-__all__ = ["MarginalTrace", "run_marginal_experiment", "marginal_error"]
+__all__ = ["MarginalTrace", "run_marginal_experiment", "marginal_error",
+           "accumulate_marginals"]
 
 
 class MarginalTrace(NamedTuple):
@@ -40,6 +41,21 @@ def marginal_error(marg_sum: torch.Tensor, count) -> torch.Tensor:
     D = marg_sum.shape[-1]
     p = marg_sum / count
     return torch.sqrt(torch.sum((p - 1.0 / D) ** 2, dim=-1)).mean(dim=-1)
+
+
+def accumulate_marginals(marg: torch.Tensor, x: torch.Tensor,
+                         weight: torch.Tensor) -> torch.Tensor:
+    """``marg[c, j, x[c, j]] += 1`` in place for every site value in
+    [0, D), D = ``marg.shape[-1]``; a value outside [0, D) (a corrupt
+    state, which the health guard reports) counts nowhere.  ``weight`` is
+    a (C, n) float32 scratch buffer the caller keeps.  No host sync.
+
+    Two elementwise passes before the scatter, as many as a conversion of
+    ``x`` to int64 and a scatter of ones took: the clamp, which keeps
+    ``x``'s dtype (``scatter_add_`` takes an int32 index), and the mask."""
+    idx = x.clamp(0, marg.shape[-1] - 1)
+    torch.eq(idx, x, out=weight)
+    return marg.scatter_add_(2, idx.unsqueeze(-1), weight.unsqueeze(-1))
 
 
 def run_marginal_experiment(engine: Engine, state, *, n_iters: int,
@@ -89,7 +105,7 @@ def run_marginal_experiment(engine: Engine, state, *, n_iters: int,
     tel = (engine.init_telemetry(state, half_at=(n_snapshots * calls) // 2)
            if telemetry else None)
     marg = torch.zeros((C, n, D), dtype=torch.float32, device=dev)
-    ones = torch.ones((C, n, 1), dtype=torch.float32, device=dev)
+    weight = torch.empty((C, n), dtype=torch.float32, device=dev)
     errors = []
     for k in range(n_snapshots):
         for _ in range(calls):
@@ -97,7 +113,7 @@ def run_marginal_experiment(engine: Engine, state, *, n_iters: int,
                 state = engine.sweep(state)
             else:
                 state, tel = engine.sweep(state, tel)
-            marg.scatter_add_(2, state.x.long().unsqueeze(-1), ones)
+            accumulate_marginals(marg, state.x, weight)
         cnt = (k + 1.0) * calls                  # samples accumulated
         if ref is None:
             errors.append(marginal_error(marg, cnt).mean())

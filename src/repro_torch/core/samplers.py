@@ -84,6 +84,7 @@ __all__ = [
     "gibbs_select",
     "mh_accept",
     "min_gibbs_select",
+    "at_code",
     "gumbel",
     "gibbs_draws",
     "mgpmh_rate",
@@ -157,11 +158,22 @@ def min_gibbs_select(eps, cache, xi, gumbel_noise, rows):
     """Alg 2's augmented-state recursion at one sub-step: overwrite the
     current-value slot with the cached estimate, Gumbel-argmax, cache the
     winner's estimate.  eps (C, D); cache (C,); xi (C,) current values.
-    Returns ``(v (C,) int32, new_cache (C,))``; ``eps`` is not modified."""
-    eps = eps.clone()
-    eps[rows, xi.long()] = cache
+    Returns ``(v (C,) int32, new_cache (C,))``; ``eps`` is not modified.
+    A current value outside [0, D) owns no slot (as in the kernels)."""
+    slot = torch.arange(eps.shape[-1], device=eps.device) == xi[:, None]
+    eps = torch.where(slot, cache[:, None], eps)
     v = gibbs_select(eps, gumbel_noise)
     return v, eps[rows, v.long()]
+
+
+def at_code(t: torch.Tensor, code: torch.Tensor) -> torch.Tensor:
+    """``t[c, code[c]]`` for every row c of a (C, D) table, and 0 where
+    ``code[c]`` lies outside [0, D): a corrupt site value indexes nothing
+    (the kernels' convention; the health guard reports it)."""
+    D = t.shape[-1]
+    idx = code.long().clamp(0, D - 1)
+    return torch.where(idx == code, t.gather(1, idx[:, None])[:, 0],
+                       torch.zeros((), dtype=t.dtype, device=t.device))
 
 
 def _uniform_sites(gen, C: int, S: int, n: int, device, sites):
@@ -404,8 +416,8 @@ def make_mgpmh_step(graph: MatchGraph, lam: float, capacity: int):
         exact = kernel_ops.bucket_energy(graph.W[i], x, graph.D)
         xi = _at(x, i)
         logu = torch.log(torch.rand((C,), generator=gen, device=dev))
-        accept = mh_accept(logu, _at(exact, v) - _at(exact, xi),
-                           _at(eps, xi), _at(eps, v))
+        accept = mh_accept(logu, _at(exact, v) - at_code(exact, xi),
+                           at_code(eps, xi), _at(eps, v))
         return state._replace(
             x=_set_sites(x, i, torch.where(accept, v, xi)),
             accepts=state.accepts + accept.to(torch.int32))
@@ -431,8 +443,8 @@ def make_double_min_step(graph: MatchGraph, lam1: float, capacity1: int,
         idx, B = draw_global_minibatch(gen, graph, lam2, capacity2, (C,))
         xi_y = min_gibbs_estimate(graph, y, idx, B, lam2)
         logu = torch.log(torch.rand((C,), generator=gen, device=dev))
-        accept = mh_accept(logu, xi_y - state.cache, _at(eps, _at(x, i)),
-                           _at(eps, v))
+        accept = mh_accept(logu, xi_y - state.cache,
+                           at_code(eps, _at(x, i)), _at(eps, v))
         return state._replace(
             x=torch.where(accept[:, None], y, x),
             cache=torch.where(accept, xi_y, state.cache),

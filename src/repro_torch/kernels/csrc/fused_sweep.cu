@@ -603,9 +603,9 @@ gibbs_sweep_kernel(const int* __restrict__ x_in, const float* __restrict__ W,
 // `(x_j == u) ? w : 0` in the same order (a skipped term is its +0, which
 // leaves a sum that starts at +0 unchanged), then the same warp tree and
 // warp order, so exact_v and exact_xi are the same floats.  The updated
-// sites must hold values in [0, D) (the samplers' states do); other sites
-// may hold anything, and a value outside [0, D) matches no draw and no
-// bucket and is written back unchanged.
+// sites may hold anything: a value outside [0, D) matches no draw and no
+// bucket (an updated site's current value then has energies 0 and 0) and
+// is written back unchanged unless the site takes a proposal.
 // ---------------------------------------------------------------------------
 template <class Src, int kD>
 __global__ void __launch_bounds__(kConsumerThreads + 32)
@@ -736,7 +736,9 @@ mgpmh_sweep_kernel(const int* __restrict__ x_in, const float* __restrict__ W,
       ++pc;
     }
     t0 += per_s;
-    const float eps_xi = __fmul_rn(scale, static_cast<float>(cs[xi]));
+    // a current value outside [0, D) (loaded as -1) counts no draw
+    const float eps_xi =
+        __fmul_rn(scale, static_cast<float>(xi >= 0 ? cs[xi] : 0));
     const float eps_v = __fmul_rn(scale, static_cast<float>(cs[v]));
     const float log_a = __fadd_rn(__fsub_rn(ev, ex), __fsub_rn(eps_xi, eps_v));
     if (logu < log_a) {
@@ -947,7 +949,9 @@ double_min_sweep_kernel(const int* __restrict__ x_in,
     if (threadIdx.x == 0) {
       const int xi = xs[i];
       const float xi_y = __fmul_rn(lscale2, static_cast<float>(m));
-      const float eps_xi = __fmul_rn(scale1, static_cast<float>(cnt[xi]));
+      // a current value outside [0, D) counts no draw
+      const float eps_xi = __fmul_rn(
+          scale1, static_cast<float>(xi >= 0 && xi < D ? cnt[xi] : 0));
       const float eps_v = __fmul_rn(scale1, static_cast<float>(cnt[v]));
       const float log_a = __fadd_rn(__fsub_rn(xi_y, cache),
                                     __fsub_rn(eps_xi, eps_v));

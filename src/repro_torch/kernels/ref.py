@@ -54,6 +54,15 @@ def _onehot(v: torch.Tensor, D: int) -> torch.Tensor:
     return (v[..., None] == torch.arange(D, device=v.device)).to(torch.float32)
 
 
+def _at_code(t: torch.Tensor, code: torch.Tensor) -> torch.Tensor:
+    """``t[c, code[c]]`` per row of a (C, D) table; 0 where ``code[c]``
+    lies outside [0, D), where the kernels read no bucket."""
+    D = t.shape[-1]
+    idx = code.clamp(0, D - 1)
+    return torch.where(idx == code, t.gather(1, idx[:, None])[:, 0],
+                       torch.zeros((), dtype=t.dtype, device=t.device))
+
+
 def bucket_energy_ref(w: torch.Tensor, v: torch.Tensor, D: int) -> torch.Tensor:
     """E[c, u] = sum_k w[c, k] * 1[v[c, k] == u] for u in [0, D).
 
@@ -188,8 +197,11 @@ def mgpmh_sweep_ref(x, W, row_prob, row_alias, i_sites, B, u_idx, u_alias,
         xi = x[rows, i].long()
         w_row = W[i]                                           # (C, n)
         exact_v = torch.sum(w_row * (x == v[:, None]), dim=1)
-        exact_xi = torch.sum(w_row * (x == xi[:, None]), dim=1)
-        log_a = (exact_v - exact_xi) + (eps[rows, xi] - eps[rows, v])
+        # a current value outside [0, D) matches no bucket and no draw
+        exact_xi = torch.where((xi >= 0) & (xi < D),
+                               torch.sum(w_row * (x == xi[:, None]), dim=1),
+                               0.0)
+        log_a = (exact_v - exact_xi) + (_at_code(eps, xi) - eps[rows, v])
         accept = logu[:, s] < log_a
         x[rows, i] = torch.where(accept, v, xi).to(x.dtype)
         acc += accept.to(torch.int32)
@@ -248,7 +260,9 @@ def min_gibbs_sweep_ref(x, node_prob, node_alias, row_prob, row_alias,
         m = ((xa == xb) & live[:, s]).sum(-1).to(torch.float32)
         eps = lscale_f * m                                   # (C, D)
         xi = x[rows, i[:, 0, 0]].long()
-        eps[rows, xi] = cache
+        # the current value's slot takes the cache (none outside [0, D))
+        eps = torch.where(u_cand[:, :, 0] == xi[:, None], cache[:, None],
+                          eps)
         v = torch.argmax(eps + gumbel[:, s], dim=-1)
         x[rows, i[:, 0, 0]] = v.to(x.dtype)
         cache = eps[rows, v]
@@ -308,7 +322,7 @@ def double_min_sweep_ref(x, row_prob, row_alias, node_prob, node_alias,
                          torch.gather(x, 1, b_s).long())
         m = ((ya == yb) & live2[:, s]).sum(-1).to(torch.float32)
         xi_y = lscale2_f * m
-        log_a = (xi_y - cache) + (eps[rows, xi] - eps[rows, v])
+        log_a = (xi_y - cache) + (_at_code(eps, xi) - eps[rows, v])
         accept = logu[:, s] < log_a
         x[rows, i] = torch.where(accept, v, xi).to(x.dtype)
         cache = torch.where(accept, xi_y, cache)

@@ -5,8 +5,8 @@ One process per rank.  A mesh is a ``torch.distributed.device_mesh.
 DeviceMesh`` with named dimensions, ``("data", "model")`` or ``("pod",
 "data", "model")``: the chains are split over the data dimensions, the
 graph's columns over ``"model"`` (``runtime/dist_gibbs.py``).  Building a
-mesh makes its process groups, which every rank of the world takes part
-in, so every rank calls the same builder with the same arguments.
+mesh makes the process groups this rank belongs to, which only their
+members take part in, so a rank a mesh leaves out need not build it.
 
 The JAX package's ``compat_shard_map`` and ``auto_axis_types`` exist only
 to cope with JAX versions; they have no counterpart here.  Nothing in this
@@ -53,10 +53,11 @@ def init_distributed(device=None) -> torch.device:
 
 def make_device_mesh(shape: Sequence[int], axes: Tuple[str, ...],
                      ranks: Sequence[int], device_type: str = "cuda"):
-    """A mesh of ``shape`` over the first ``prod(shape)`` of ``ranks`` —
-    the elastic-restart path: after a rank is lost the supervisor rebuilds
-    its dist engine over the survivors.  Every rank of the world calls it;
-    a rank outside the mesh gets one it holds no coordinate in."""
+    """A mesh of ``shape`` over the first ``prod(shape)`` of ``ranks``, or
+    None on a rank it leaves out.  The elastic-restart path builds one over
+    the surviving ranks, maybe several times: each group of the mesh is
+    made by its members alone, once per set of ranks, so the ranks a mesh
+    leaves out need not call this at all."""
     from torch.distributed.device_mesh import DeviceMesh
     need = int(np.prod(shape))
     if len(ranks) < need:
@@ -64,7 +65,37 @@ def make_device_mesh(shape: Sequence[int], axes: Tuple[str, ...],
                          f"got {len(ranks)}")
     grid = torch.tensor(list(ranks[:need]), dtype=torch.int64).reshape(
         tuple(shape))
-    return DeviceMesh(device_type, grid, mesh_dim_names=tuple(axes))
+    here = (grid == dist.get_rank()).nonzero()
+    if len(here) == 0:
+        return None
+    coord = here[0].tolist()
+    groups = []
+    for k in range(grid.ndim):        # this rank's line along each dimension
+        line = list(coord)
+        line[k] = slice(None)
+        groups.append(_group(grid[tuple(line)].tolist()))
+    return DeviceMesh.from_group(groups, device_type, mesh=grid,
+                                 mesh_dim_names=tuple(axes))
+
+
+# the groups made so far over a set of ranks, for the world they were made in
+_GROUPS = {"world": None, "by_ranks": {}}
+
+
+def _group(ranks: Sequence[int]):
+    """The process group over ``ranks``: the world's when they are all of
+    it, else one that only its members make (the first time they ask for
+    it in this world; later meshes over the same ranks reuse it)."""
+    world = dist.group.WORLD
+    if _GROUPS["world"] is not world:     # a new world: forget the old one's
+        _GROUPS.update(world=world, by_ranks={})
+    key = tuple(sorted(int(r) for r in ranks))
+    if len(key) == dist.get_world_size():
+        return world
+    if key not in _GROUPS["by_ranks"]:
+        _GROUPS["by_ranks"][key] = dist.new_group(
+            list(key), use_local_synchronization=True)
+    return _GROUPS["by_ranks"][key]
 
 
 def make_auto_mesh(shape: Sequence[int], axes: Tuple[str, ...],
@@ -114,7 +145,5 @@ def mesh_coords(mesh) -> Tuple[int, int, int, int]:
 
 def mesh_group(mesh):
     """The process group over every rank of ``mesh``: the world's when the
-    mesh covers it, else the mesh flattened to one dimension."""
-    if mesh.size() == dist.get_world_size():
-        return dist.group.WORLD
-    return mesh._flatten().get_group()
+    mesh covers it, else one its ranks alone make."""
+    return _group(mesh.mesh.flatten().tolist())

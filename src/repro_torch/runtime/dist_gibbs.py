@@ -66,18 +66,20 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..checkpoint import checkpoint as ckpt
 from ..core.estimators import min_gibbs_lscale
 from ..core.factor_graph import (MatchGraph, build_alias_table,
                                  build_alias_tables)
-from ..core.samplers import (gibbs_select, gumbel, inverse_cdf_sites,
-                             mh_accept, min_gibbs_select)
+from ..core.samplers import (at_code, gibbs_select, gumbel,
+                             inverse_cdf_sites, mh_accept, min_gibbs_select)
 from ..launch.mesh import MP_AXIS, mesh_coords, mesh_group
 
 __all__ = ["ShardedMatchGraph", "MeshShard", "DistState",
            "DistAdaptiveState", "make_dist_sweep",
            "make_dist_chromatic_sweep", "make_dist_adaptive_sweep",
            "make_chromatic_gibbs_step", "dist_init_state", "shard_seeds",
-           "gather_marginals", "psum_footprint", "all_reduce", "DIST_ALGOS"]
+           "gather_marginals", "psum_footprint", "all_reduce", "DIST_ALGOS",
+           "dist_to_host", "dist_restore", "reshard_dp"]
 
 DIST_ALGOS = ("gibbs", "mgpmh", "min-gibbs", "doublemin")
 
@@ -386,6 +388,161 @@ def gather_marginals(state, mesh) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 # ---------------------------------------------------------------------------
+# Checkpoints of dist states: global arrays, each rank its slice
+# ---------------------------------------------------------------------------
+
+# the per-rank layout of a dist state's leaves, by field name: chains split
+# over data (rows), marginal columns over model too, generators per data
+# shard or per rank, adaptive counters per data shard; the rest replicated
+_ROWS = ("x", "cache", "accepts")
+_PER_DP = ("gen", "flips", "hits")
+
+
+def _layout(key: str, leaf, coords):
+    """How ``leaf`` (at checkpoint path ``key``) of this rank's dist state
+    sits in the global array: ``(global shape, index of this rank's block,
+    whether this rank writes it)``; None for a replicated leaf."""
+    dp_index, dp, mp_index, mp = coords
+    name = key.split("/")[-1]
+    if isinstance(leaf, torch.Generator):
+        size = leaf.get_state().numel()
+        if name == "local_gen":       # one per rank, in mesh order
+            return (dp * mp, size), (dp_index * mp + mp_index,), True
+        return (dp, size), (dp_index,), mp_index == 0
+    if not isinstance(leaf, torch.Tensor):
+        return None
+    if name in _ROWS:
+        c = leaf.shape[0]
+        return ((c * dp,) + tuple(leaf.shape[1:]),
+                (slice(dp_index * c, (dp_index + 1) * c),), mp_index == 0)
+    if name == "marg":
+        c, n_loc = leaf.shape[:2]
+        return ((c * dp, n_loc * mp) + tuple(leaf.shape[2:]),
+                (slice(dp_index * c, (dp_index + 1) * c),
+                 slice(mp_index * n_loc, (mp_index + 1) * n_loc)), True)
+    if name in _PER_DP:
+        return (dp,) + tuple(leaf.shape), (dp_index,), mp_index == 0
+    return None
+
+
+def dist_to_host(tree, mesh, lead: int):
+    """A dist state tree as global numpy arrays on rank ``lead`` (the
+    leaves are None elsewhere): chains gathered over data, marginal
+    columns over model, generator states stacked (the data shards' shared
+    ones on a leading dp axis, every rank's own on a leading world axis).
+    One all-reduce over the mesh per split leaf; every rank of the mesh
+    calls it."""
+    coords, group = mesh_coords(mesh), mesh_group(mesh)
+    is_lead = dist.get_rank() == lead
+    # the collectives' device: the state's (NCCL sums on the card)
+    device = next(v.device for v in ckpt.flatten(tree).values()
+                  if isinstance(v, torch.Tensor))
+
+    def one(key, leaf):
+        lay = _layout(key, leaf, coords)
+        if lay is None:
+            if not is_lead:
+                return None
+            return (leaf.detach().cpu().numpy().copy()
+                    if isinstance(leaf, torch.Tensor) else leaf)
+        shape, block, writes = lay
+        gen = isinstance(leaf, torch.Generator)
+        part = leaf.get_state().to(torch.int32) if gen else leaf.detach()
+        buf = torch.zeros(shape, dtype=part.dtype, device=device)
+        if writes:
+            buf[block] = part.to(buf.device)
+        dist.all_reduce(buf, group=group)   # gloo reduces card tensors
+        #                                     with all-reduce only
+        if not is_lead:
+            return None
+        out = buf.cpu().numpy()
+        return out.astype(np.uint8) if gen else out
+    return ckpt.map_leaves(one, tree)
+
+
+def _dist_host_template(template, mesh):
+    """Global-shape numpy stand-ins for the dist ``template``: the dtype
+    donors of ``checkpoint.restore`` and the shape donors of
+    :func:`reshard_dp`."""
+    coords = mesh_coords(mesh)
+
+    def one(key, leaf):
+        lay = _layout(key, leaf, coords)
+        if isinstance(leaf, torch.Generator):
+            return np.zeros(lay[0], np.uint8)
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        dtype = torch.empty((), dtype=leaf.dtype).numpy().dtype
+        return np.zeros(tuple(leaf.shape) if lay is None else lay[0], dtype)
+    return ckpt.map_leaves(one, template)
+
+
+def _dist_from_host(host, template, mesh):
+    """This rank's slice of the global ``host`` arrays, in ``template``'s
+    structure (its generators take their states from ``host``)."""
+    coords, flat = mesh_coords(mesh), ckpt.flatten(host)
+
+    def one(key, leaf):
+        arr, lay = flat[key], _layout(key, leaf, coords)
+        if lay is not None:
+            arr = arr[lay[1]]
+        if isinstance(leaf, torch.Generator):
+            leaf.set_state(torch.from_numpy(
+                np.ascontiguousarray(arr, np.uint8)))
+            return leaf
+        if isinstance(leaf, torch.Tensor):
+            return torch.from_numpy(np.ascontiguousarray(arr)).to(
+                device=leaf.device, dtype=leaf.dtype)
+        return arr
+    return ckpt.map_leaves(one, template)
+
+
+def dist_restore(directory: str, step: int, template, mesh):
+    """Restore a checkpoint of global arrays onto this rank of ``mesh``:
+    the stacked per-shard leaves re-binned to the mesh's shape
+    (:func:`reshard_dp`), then this rank's slice."""
+    like = _dist_host_template(template, mesh)
+    host = reshard_dp(ckpt.restore(directory, step, like), like)
+    return _dist_from_host(host, template, mesh)
+
+
+def reshard_dp(tree, like):
+    """Re-bin restored leaves whose leading (data-parallel) axis no longer
+    matches the template's -- the elastic-restart path, where a checkpoint
+    written on dp shards restores onto dp' != dp.  Leaves are numpy arrays
+    or tensors; other leaves pass through.
+
+    Global (mesh-independent) shapes pass through untouched.  Shrinking:
+    float counters (adaptive flip/hit tables) are group-summed so no
+    statistics are lost; integer leaves (per-shard generator states) take
+    the first dp' rows -- the surviving shards keep their streams.
+    Growing: rows repeat cyclically.  The JAX package's rules."""
+    flat = ckpt.flatten(tree)
+    return ckpt.map_leaves(lambda k, b: _reshard_leaf(flat[k], b), like)
+
+
+def _reshard_leaf(a, b):
+    if not (hasattr(a, "shape") and hasattr(b, "shape")):
+        return a
+    if tuple(a.shape) == tuple(b.shape):
+        return a
+    if (tuple(a.shape[1:]) != tuple(b.shape[1:]) or a.ndim == 0
+            or b.ndim == 0):
+        raise ValueError(f"cannot reshard leaf {tuple(a.shape)} -> "
+                         f"{tuple(b.shape)}")
+    new, old = b.shape[0], a.shape[0]
+    floating = (b.dtype.is_floating_point if isinstance(b, torch.Tensor)
+                else np.issubdtype(b.dtype, np.floating))
+    if new <= old:
+        if floating and old % new == 0:
+            return a.reshape((new, old // new) + tuple(a.shape[1:])).sum(1)
+        return a[:new]
+    reps = -(-new // old)
+    cat = torch.cat if isinstance(a, torch.Tensor) else np.concatenate
+    return cat([a] * reps, 0)[:new]
+
+
+# ---------------------------------------------------------------------------
 # Shard-local partials: everything the one all-reduce carries
 # ---------------------------------------------------------------------------
 
@@ -531,11 +688,15 @@ def _global_partials(gs: ShardedMatchGraph, x0, i, draws):
     m0 = (live & ~a_in & ~b_in & (x0a == x0b)).sum(-1, dtype=torch.float32)
     base = torch.arange(C * S * U, device=dev).view(C, S, U, 1) * S
     ta, tb = ta.clamp(min=0).long(), tb.clamp(min=0).long()
+    # a free endpoint's value outside [0, D) counts in no value slot
+    da, db = x0a.clamp(0, D - 1), x0b.clamp(0, D - 1)
     n1 = torch.zeros(C * S * U * S * D, dtype=torch.int32, device=dev)
-    n1.scatter_add_(0, ((base + ta) * D + x0b).view(-1),
-                    (live & a_in & ~b_in).view(-1).to(torch.int32))
-    n1.scatter_add_(0, ((base + tb) * D + x0a).view(-1),
-                    (live & b_in & ~a_in).view(-1).to(torch.int32))
+    n1.scatter_add_(0, ((base + ta) * D + db).view(-1),
+                    (live & a_in & ~b_in & (db == x0b)).view(-1).to(
+                        torch.int32))
+    n1.scatter_add_(0, ((base + tb) * D + da).view(-1),
+                    (live & b_in & ~a_in & (da == x0a)).view(-1).to(
+                        torch.int32))
     n2 = torch.zeros(C * S * U * S * S, dtype=torch.int32, device=dev)
     n2.scatter_add_(0, ((base + ta) * S + tb).view(-1),
                     (live & a_in & b_in).view(-1).to(torch.int32))
@@ -685,8 +846,9 @@ def _recursion(algo, parts, x0, i, cache, g, logu, D, lscale):
             eps_s = delta_correct(parts["eps0"][:, s], parts["cp"][:, s],
                                   vals)
             v = gibbs_select(eps_s, g[:, s])
-            accept = mh_accept(logu[:, s], at(exact_s, v) - at(exact_s, xi),
-                               at(eps_s, xi), at(eps_s, v))
+            accept = mh_accept(logu[:, s],
+                               at(exact_s, v) - at_code(exact_s, xi),
+                               at_code(eps_s, xi), at(eps_s, v))
             new_v = torch.where(accept, v, xi)
         elif algo == "min-gibbs":
             # vals_sub[c,u,t]: slot values with candidate u at site i_s
@@ -704,8 +866,8 @@ def _recursion(algo, parts, x0, i, cache, g, logu, D, lscale):
             xi_y = lscale * _global_matches(
                 parts["m0"][:, s, 0], parts["n1"][:, s, 0],
                 parts["n2"][:, s, 0], vals_sub)
-            accept = mh_accept(logu[:, s], xi_y - cache, at(eps_s, xi),
-                               at(eps_s, v))
+            accept = mh_accept(logu[:, s], xi_y - cache,
+                               at_code(eps_s, xi), at(eps_s, v))
             new_v = torch.where(accept, v, xi)
             cache = torch.where(accept, xi_y, cache)
         x.scatter_(1, i_s, new_v[:, None])

@@ -19,7 +19,17 @@ package and the exact marginals, on the CPU under gloo.
     all-reduce per color class; AdaptiveScan on 2x2 as
     ``tests/test_distributed.py:213-247``; telemetry at dp = 1 within the
     bounds of ``tests/test_distributed.py:250-289``; replays bit-equal;
-  * the dist backend's refusals carry the JAX package's message.
+  * the dist backend's refusals carry the JAX package's message;
+  * the supervised runtime over gloo ranks: on a 2x2 mesh the launcher's
+    ``run_supervised`` under the JAX dist test's plan (arrays corrupt +
+    preempt at outer step 2, ``nan`` x at 4) ends bit-equal (marginals
+    and every rank's x) to the clean run, with a restart and a ``health``
+    rollback; a device loss keeping 2 of the 4 ranks rebuilds the engine
+    on a 1x2 mesh (an ``elastic`` incident, ranks 2 and 3 leave) and the
+    run reaches the exact marginals and edge agreements of potts 2x2; a
+    loss keeping 1 rank of a 1x2 mesh raises a ``ValueError`` on both
+    ranks; the launcher's factory lets rank 1 of a 2x1 mesh leave; the
+    launcher's ``--ckpt-dir`` rerun on a 1x2 mesh resumes bit-exactly.
 """
 import numpy as np
 import pytest
@@ -452,3 +462,101 @@ def test_dist_backends_listed():
     for name in W.ENGINES:
         assert "dist" in engine.backends(name)
     assert "dist" not in engine.backends("local-gibbs")
+
+
+# -- the supervised runtime over gloo ranks ------------------------------------
+
+@pytest.fixture(scope="module")
+def supervised4(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("sup4")
+    return W.run_ranks(W.supervised_rank, 4, tmp, (2, 2), str(tmp))
+
+
+@pytest.fixture(scope="module")
+def supervised2(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("sup2")
+    return W.run_ranks(W.supervised_pair_rank, 2, tmp, str(tmp))
+
+
+def test_supervised_dist_crash_resume_bit_exact_2x2(supervised4):
+    for r in supervised4:
+        clean, fault = r["clean"], r["fault"]
+        assert fault["restarts"] >= 1 and fault["rollbacks"] >= 1
+        assert np.array_equal(clean["marginals"], fault["marginals"])
+        assert np.array_equal(clean["x"], fault["x"])
+        assert fault["outer_steps"] == clean["outer_steps"] == 6
+        health = [i for i in fault["incidents"] if i["kind"] == "health"]
+        assert health and health[0]["guard"] == "bad_state"
+        # the nan fault is a rollback, the one restart is the preemption
+        restarts = [i for i in fault["incidents"] if i["kind"] == "restart"]
+        assert len(restarts) == 1 and "Preemption" in restarts[0]["error"]
+    assert len({r["fault"]["marginals"].tobytes() for r in supervised4}) == 1
+
+
+def test_supervised_dist_elastic_2x2_to_1x2(supervised4):
+    stay, gone = supervised4[:2], supervised4[2:]
+    for r in gone:
+        assert r["elastic"]["left"] and r["elastic"]["x"] is None
+    for r in stay:
+        e = r["elastic"]
+        assert not e["left"] and e["outer_steps"] == 100
+        assert any(i["kind"] == "elastic" and i["ranks"] == 2
+                   for i in e["incidents"])
+        assert e["err"] < 0.05, e["err"]
+        assert e["agree_err"] < 2 * AGREE_TOL, e["agree_err"]
+        assert e["x"].shape == (64, 4)          # all 64 chains on dp = 1
+
+
+def test_supervised_dist_degrade_after_a_shrink_completes(supervised4):
+    """2x2, a loss keeping 2 ranks, then an acceptance-floor degrade on the
+    1x2 mesh: the survivors rebuild their engine without the ranks that
+    left and finish on gibbs."""
+    for r in supervised4[2:]:
+        assert r["shrink_degrade"]["left"]
+    for r in supervised4[:2]:
+        e = r["shrink_degrade"]
+        assert not e["left"] and e["outer_steps"] == 6
+        assert e["engine"] == "gibbs" and e["x"].shape == (8, 4)
+        swaps = [(i["kind"], i["ranks"]) for i in e["incidents"]
+                 if i["kind"] in ("elastic", "degrade")]
+        assert swaps == [("elastic", 2), ("degrade", 2)], swaps
+    assert np.array_equal(supervised4[0]["shrink_degrade"]["marginals"],
+                          supervised4[1]["shrink_degrade"]["marginals"])
+
+
+def test_supervised_dist_two_losses_in_a_row_complete(supervised4):
+    """4x1, a loss keeping 2 ranks, then one keeping 1: rank 0 finishes
+    alone with every chain, the others leave."""
+    for r in supervised4[1:]:
+        assert r["two_losses"]["left"]
+    e = supervised4[0]["two_losses"]
+    assert not e["left"] and e["outer_steps"] == 6
+    assert [i["ranks"] for i in e["incidents"]
+            if i["kind"] == "elastic"] == [2, 1]
+    assert e["x"].shape == (8, 4) and np.isfinite(e["marginals"]).all()
+
+
+def test_supervised_dist_refuses_a_loss_that_splits_the_model(supervised2):
+    for r in supervised2:
+        assert "multiple of the 2 model shards" in r["refusal"]
+
+
+def test_launcher_dist_ckpt_dir_rerun_resumes_bit_exact(supervised2):
+    """``--ckpt-dir`` on the dist backend: rank 0 writes the global arrays,
+    the rerun resumes on every rank, and 6 + 6 calls log the same marginal
+    error as 12 straight; only rank 0 logs."""
+    first, second, straight = supervised2[0]["plain"]
+    assert "resumed" not in first
+    assert "[gibbs] resumed at step 6" in second
+    last = lambda log: log.strip().splitlines()[-1].split("marg_err=")[1]
+    assert last(second).split()[0] == last(straight).split()[0]
+    assert supervised2[1]["plain"] == ["", "", ""]
+
+
+def test_supervised_dist_launcher_rank_leaves(supervised2):
+    lead, gone = supervised2[0]["launcher"], supervised2[1]["launcher"]
+    assert gone["left"] and not lead["left"]
+    assert lead["outer_steps"] == 4 and lead["engine"] == "gibbs"
+    assert any(i["kind"] == "elastic" and i["ranks"] == 1
+               for i in lead["incidents"])
+    assert lead["x"].shape == (8, 24)

@@ -18,7 +18,10 @@
   * the launcher's ``--metrics-dir`` / ``--trace`` files parse, count
     every sweep call, and carry the JAX launcher's metric names and label
     keys; under ``--backend dist --mp-shards 2`` on two gloo ranks, rank 0
-    logs and writes them, rank 1 neither.
+    logs and writes them, rank 1 neither;
+  * the supervised runtime's golden files (``tests/test_obs.py:229-305``):
+    its trace spans and labels, its Prometheus series, its ``events.jsonl``
+    incident stream, and the checkpoint spans and counters.
 """
 import json
 import re
@@ -380,3 +383,93 @@ def test_launcher_dist_backend_logs_and_writes_on_rank_0_only(tmp_path):
     spans = [e for e in json.loads(trace.read_text())["traceEvents"]
              if e["ph"] == "X"]
     assert [e["name"] for e in spans] == ["sweep_chunk"] * steps
+
+
+# -- supervised runtime golden files ------------------------------------------
+
+def _supervised_with_recorder(tmp_path, plan=None):
+    from repro_torch.runtime.supervisor import SupervisedRun, SupervisorConfig
+
+    def make_engine(name, ranks, **params):
+        return engine.make(name, GRAPH, sweep=4, device="cpu", **params)
+
+    cfg = SupervisorConfig(outer_steps=6, sweeps_per_outer=4, chains=8,
+                           seed=0, ckpt_dir=str(tmp_path / "ckpt"),
+                           backoff_base=0.0, workload=WORKLOAD)
+    rec = obs.Recorder(metrics_dir=str(tmp_path / "metrics"),
+                       trace_path=str(tmp_path / "trace.json"))
+    with obs.using(rec):
+        res = SupervisedRun("mgpmh", make_engine, cfg, plan,
+                            sleep_fn=lambda s: None).run()
+        rec.close()
+    return res
+
+
+REQUIRED_LABELS = ("engine", "backend", "schedule", "workload")
+
+
+def test_supervised_trace_and_metrics_golden(tmp_path):
+    from repro_torch.runtime.faultinject import Fault, FaultPlan
+    res = _supervised_with_recorder(
+        tmp_path, FaultPlan([Fault(step=2, kind="nan", target="x")]))
+    assert res.rollbacks >= 1
+    doc = json.loads((tmp_path / "trace.json").read_text())
+    evs = doc["traceEvents"]
+    assert evs[0]["ph"] == "M"
+    names = {}
+    for e in evs[1:]:
+        names.setdefault(e["name"], []).append(e)
+    for name in ("sweep_chunk", "checkpoint/save", "rollback_recover",
+                 "health", "fault"):
+        assert name in names, name
+    for e in names["sweep_chunk"]:
+        assert e["ph"] == "X" and e["dur"] >= 0
+        for k in REQUIRED_LABELS:
+            assert k in e["args"], (k, e)
+        assert e["args"]["engine"] == "mgpmh"
+        assert e["args"]["workload"] == WORKLOAD
+    prom = (tmp_path / "metrics" / "metrics.prom").read_text()
+    for series in ("repro_acceptance", "repro_sweeps_total",
+                   "repro_updates_total", "repro_rollbacks_total",
+                   "repro_heartbeat_step", "repro_psum_payload_bytes",
+                   "repro_checkpoint_saves_total",
+                   "repro_checkpoint_bytes_total", "repro_events_total"):
+        assert series in prom, series
+    acc = [line for line in prom.splitlines()
+           if line.startswith("repro_acceptance{")]
+    assert acc and all(f'{k}="' in acc[0] for k in REQUIRED_LABELS)
+    lines = (tmp_path / "metrics" / "metrics.jsonl").read_text().splitlines()
+    snap = json.loads(lines[-1])
+    assert {s["name"] for s in snap["series"]} >= {"sweeps_total",
+                                                   "rollbacks_total"}
+
+
+def test_events_jsonl_is_the_incident_stream(tmp_path):
+    from repro_torch.runtime.faultinject import Fault, FaultPlan
+    res = _supervised_with_recorder(
+        tmp_path, FaultPlan([Fault(step=2, kind="nan", target="x")]))
+    ev_kinds = [json.loads(line)["kind"] for line in
+                (tmp_path / "metrics" / "events.jsonl").read_text()
+                .splitlines()]
+    assert not (tmp_path / "ckpt" / "incidents.jsonl").exists()
+    assert ev_kinds == [i["kind"] for i in res.incidents]
+    assert "fault" in ev_kinds and "health" in ev_kinds
+
+
+def test_checkpoint_save_restore_emit_spans_and_counters(tmp_path):
+    from repro_torch.checkpoint import checkpoint as ckpt
+    gen = torch.Generator().manual_seed(0)
+    tree = {"x": torch.arange(12, dtype=torch.int32).reshape(3, 4),
+            "k": gen}
+    rec = obs.Recorder(trace_path=str(tmp_path / "trace.json"))
+    with obs.using(rec):
+        ckpt.save(str(tmp_path / "c"), 1, tree)
+        assert ckpt.verify(str(tmp_path / "c"), 1) == []
+        out = ckpt.restore(str(tmp_path / "c"), 1, tree)
+    assert torch.equal(out["x"], tree["x"])
+    assert rec.metrics.value("checkpoint_saves_total") == 1
+    nbytes = rec.metrics.value("checkpoint_bytes_total")
+    assert nbytes >= tree["x"].numel() * 4 + gen.get_state().numel()
+    spans = {e.get("name") for e in rec.trace.events()}
+    assert {"checkpoint/save", "checkpoint/verify",
+            "checkpoint/restore"} <= spans

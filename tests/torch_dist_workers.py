@@ -313,3 +313,154 @@ def launcher_rank(rank, world, argv, capture):
     with open(f"{capture}.{rank}", "w") as f, contextlib.redirect_stdout(f):
         gibbs.main(argv)
     return rank
+
+
+# -- the supervised runtime on the dist backend ------------------------------
+
+# the JAX package's dist crash-resume plan (tests/test_distributed.py:307-310)
+CRASH_PLAN = ('{"faults": [{"step": 2, "kind": "corrupt", "target": '
+              '"arrays"}, {"step": 2, "kind": "preempt"}, {"step": 4, '
+              '"kind": "nan", "target": "x"}]}')
+
+
+def potts_factory(mp, sweep=4):
+    """``make_engine(name, ranks, **params)`` over potts 2x2 D=3 on a
+    (len(ranks) / mp, mp) mesh, as the launcher's ``engine_factory`` builds
+    it (the graph is no registered workload): None on a rank outside
+    ``ranks``."""
+    from repro_torch.core import engine
+    from repro_torch.launch.mesh import make_device_mesh
+    g, _ = exact_potts_marginals()
+
+    def make_engine(name, ranks, **params):
+        mesh = make_device_mesh((max(len(ranks) // mp, 1), mp),
+                                ("data", "model"), ranks, device_type="cpu")
+        if mesh is None:
+            return None
+        return engine.make(name, g, mesh=mesh, sweep=sweep, **params)
+    return make_engine
+
+
+def _summary(res):
+    """The picklable parts of a RunResult."""
+    return dict(left=res.left, restarts=res.restarts,
+                rollbacks=res.rollbacks, outer_steps=res.outer_steps,
+                kinds=[i["kind"] for i in res.incidents],
+                incidents=[{k: v for k, v in i.items() if k != "time"}
+                           for i in res.incidents],
+                marginals=res.marginals,
+                x=None if res.state is None else res.state.x.clone().numpy(),
+                engine=None if res.engine is None else res.engine.name)
+
+
+def supervised_rank(rank, world, shape, ckpt_root):
+    """The supervised runtime on a (data, model) = ``shape`` mesh of gloo
+    ranks: (a) the launcher's ``run_supervised`` on hetero-pairs-24 mgpmh
+    clean and under :data:`CRASH_PLAN` (tests/test_distributed.py:292-317);
+    (b) on potts 2x2 D=3, a device loss at outer step 3 keeping the first
+    half of the ranks, 800 calls in all; the survivors' marginals and, from
+    the committed steps' states, the edge agreements; (c) the survivors'
+    later engine swaps, which the ranks that left take no part in: a
+    shrink to half the ranks, then an acceptance-floor degrade to gibbs on
+    the smaller mesh; and, on a (world, 1) mesh, two losses in a row."""
+    import os
+    from repro_torch.launch.gibbs import run_supervised
+    from repro_torch.runtime.faultinject import Fault, FaultPlan
+    from repro_torch.runtime.supervisor import SupervisedRun, SupervisorConfig
+    # every group made from here on ends in a store barrier over the ranks
+    # that must make it: a group that the whole world had to make would
+    # wait for the ranks that left
+    os.environ["TORCH_DIST_INIT_BARRIER"] = "1"
+    dp, mp = shape
+    kw = dict(steps=24, chains=16, mp_shards=mp, backend="dist", chunk=4,
+              device="cpu")
+    clean = run_supervised("hetero-pairs-24", "mgpmh",
+                           ckpt_dir=os.path.join(ckpt_root, "clean"), **kw)
+    fault = run_supervised("hetero-pairs-24", "mgpmh",
+                           ckpt_dir=os.path.join(ckpt_root, "fault"),
+                           fault_plan=CRASH_PLAN, **kw)
+    g, exact, exact_agree = exact_potts()
+    a, b = edges(g)
+    agree, seen = torch.zeros(len(a)), []
+
+    def on_step(step, bundle, tel, eng):
+        nonlocal agree
+        agree += (bundle.st.x[:, a] == bundle.st.x[:, b]).sum(0)
+        seen.append(bundle.st.x.shape[0])
+
+    keep = world // 2
+    cfg = SupervisorConfig(outer_steps=100, sweeps_per_outer=8, chains=64,
+                           seed=0, ckpt_dir=os.path.join(ckpt_root, "el"),
+                           backoff_base=0.0)
+    res = SupervisedRun("mgpmh", potts_factory(mp), cfg,
+                        FaultPlan([Fault(step=3, kind="device-loss",
+                                         keep=keep)]),
+                        sleep_fn=lambda s: None, on_step=on_step).run()
+    out = dict(clean=_summary(clean), fault=_summary(fault),
+               elastic=_summary(res))
+    if not res.left:
+        from repro_torch.launch.mesh import mesh_coords
+        mesh = res.engine.mesh
+        out["elastic"]["err"] = float(np.abs(res.marginals - exact).max())
+        out["elastic"]["agree_err"] = float(np.abs(
+            agreement(agree, mesh, sum(seen) * mesh_coords(mesh)[1])
+            - exact_agree).max())
+    cfg = SupervisorConfig(outer_steps=6, sweeps_per_outer=2, chains=8,
+                           ckpt_dir=os.path.join(ckpt_root, "shrink-degrade"),
+                           backoff_base=0.0, acceptance_floor=2.0,
+                           floor_after=2, max_strikes=1, retune=False)
+    out["shrink_degrade"] = _summary(SupervisedRun(
+        "mgpmh", potts_factory(mp), cfg,
+        FaultPlan([Fault(step=1, kind="device-loss", keep=keep)]),
+        sleep_fn=lambda s: None).run())
+    cfg = SupervisorConfig(outer_steps=6, sweeps_per_outer=2, chains=8,
+                           ckpt_dir=os.path.join(ckpt_root, "two-losses"),
+                           backoff_base=0.0)
+    out["two_losses"] = _summary(SupervisedRun(
+        "mgpmh", potts_factory(1), cfg,
+        FaultPlan([Fault(step=1, kind="device-loss", keep=world // 2),
+                   Fault(step=3, kind="device-loss", keep=1)]),
+        sleep_fn=lambda s: None).run())
+    return out
+
+
+def supervised_pair_rank(rank, world, ckpt_root):
+    """On two ranks: (a) a 1x2 mesh losing a rank (keep=1 with mp=2): the
+    error the run raises; (b) the launcher's ``run_supervised`` on a 2x1
+    mesh (hetero-pairs-24 gibbs) losing rank 1: this rank's result; (c)
+    the launcher's plain ``--ckpt-dir`` run on a 1x2 mesh, then rerun with
+    more steps, and the same steps straight: this rank's output of each."""
+    import contextlib
+    import io
+    import os
+    from repro_torch.launch import gibbs
+    from repro_torch.launch.gibbs import run_supervised
+    from repro_torch.runtime.faultinject import Fault, FaultPlan
+    from repro_torch.runtime.supervisor import SupervisedRun, SupervisorConfig
+    cfg = SupervisorConfig(outer_steps=4, sweeps_per_outer=2, chains=8,
+                           ckpt_dir=os.path.join(ckpt_root, "mp2"),
+                           backoff_base=0.0)
+    try:
+        SupervisedRun("mgpmh", potts_factory(2), cfg,
+                      FaultPlan([Fault(step=1, kind="device-loss", keep=1)]),
+                      sleep_fn=lambda s: None).run()
+        refusal = None
+    except ValueError as e:
+        refusal = str(e)
+    plan = '{"faults": [{"step": 1, "kind": "device-loss", "keep": 1}]}'
+    res = run_supervised("hetero-pairs-24", "gibbs", steps=16, chains=8,
+                         sweep=4, chunk=4, mp_shards=1, backend="dist",
+                         device="cpu", fault_plan=plan,
+                         ckpt_dir=os.path.join(ckpt_root, "leave"))
+    argv = ["--config", "hetero-pairs-24", "--engine", "mgpmh", "--chains",
+            "8", "--sweep", "4", "--backend", "dist", "--mp-shards", "2",
+            "--device", "cpu"]
+    ck = ["--ckpt-dir", os.path.join(ckpt_root, "plain")]
+    logs = []
+    for extra in (ck + ["--steps", "6"], ck + ["--steps", "12"],
+                  ["--steps", "12"]):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            gibbs.main(argv + extra)
+        logs.append(buf.getvalue())
+    return dict(refusal=refusal, launcher=_summary(res), plain=logs)

@@ -194,7 +194,24 @@ Phases, each printed as it ends; any failure exits non-zero:
      2x2 D=3 (C=64, S=4, 800 calls) with one all-reduce per call, and on
      the 1x2 mesh chromatic lattice-ising-64x64 at C=2 bit-equal to the
      dense reference; a rank that fails or passes its join timeout fails
-     the run.
+     the run;
+ 10. the supervised runtime (``runtime/supervisor.py``): crash-resume at
+     potts-64x64 bit-equal to the clean run, escalation, the launcher,
+     one NCCL rank and an elastic 2x1 -> 1x1 gloo pair (phase 10's
+     functions say what each holds);
+ 11. serving (``serving/pool.py``, ``launch/serve.py``): (a) gibbs and
+     mgpmh pools at potts-64x64 C=256 S=64 under the launcher's demo
+     traffic -- chunk and publish-copy times, every lane's chunk launching
+     16 sweep and 16 telemetry kernels under
+     ``set_sync_debug_mode("error")``, one clamped chunk held against the
+     plain versions, the answer path's overhead, the freshness gate's run;
+     (b) hetero-pairs-1024: fresh clamped answers against exact
+     conditionals, the exact rung, the resident bit-equal to an unserved
+     control (gibbs, min-gibbs), the chaos drill; (c) supervised serving
+     under phase 10's plan bit-equal to a clean run; (d) answer latency
+     with the background driver stopped and running; (e) the serve
+     launcher as subprocesses; (f) the profiler's device ops of a resident
+     and a clamped chunk, equal; the kernel library not rebuilt.
 
 Prints the kernels' JSON record and the card's name and power limit, then
 as its last line ``{"ok": true, "device": {...}}``.  Also writes the full
@@ -419,6 +436,38 @@ SUP_LAUNCHER = ("potts-20x20", 64, 64, 128)
 SUP_ELASTIC = (1024, 4, 60, 8)
 SUP_ELASTIC_BURN = 10
 SUP_TIME_REPS = 2                      # turns of bare / ckpt_every 1 / 8
+# phase 11: serving (serving/pool.py, launch/serve.py).  (a) potts-64x64
+# at the main path's width (C_FULL, S_FULL), gibbs and mgpmh, chunks of
+# POOL_CHUNK sweeps, the default FreshnessPolicy, the launcher's demo
+# traffic (_demo_queries(seed=0, n=POOL_DEMO)) twice, each lane at most
+# POOL_BUDGET extra sweeps per batch (a gate read per chunk, ~0.5 s at
+# potts-64x64, sets the phase's time); the freshness gate on the resident
+# until it passes or POOL_GATE_S pass, a gate read every POOL_GATE_EVERY
+# chunks; the resilience overhead min of POOL_REPS in turns
+# (tests/test_resilience.py:332-364's measurement).  (b)-(e) on
+# POOL_PAIRS, whose components are pairs (exact conditionals are cheap):
+# the bounds of tests/test_serving.py:140-146 and the chaos drill of
+# tests/test_resilience.py:375-426 (its policy, admission, breaker,
+# tolerance), POOL_DRIVER_BATCHES batches of POOL_DRIVER_DEMO demo queries
+# (one unclamped, one clamped) under the background driver.
+# MIN-Gibbs' plain version holds (C, S, D, K) pair indices: it is held on
+# the first POOL_PLAIN_CHAINS chains of each call
+POOL_CHUNK = 16
+POOL_DEMO = 8
+POOL_BUDGET = 2 * POOL_CHUNK
+POOL_GATE_S = 20.0
+POOL_GATE_EVERY = 8
+POOL_REPS = 7
+POOL_PAIRS = "hetero-pairs-1024"
+POOL_FRESH_BUDGET = 30_000           # tests/test_serving.py:135
+POOL_MIN_BUDGET = 8 * POOL_CHUNK     # min-gibbs' sweeps to try for fresh
+POOL_TV = (0.06, 0.25)               # mean / max TV to the exact ones
+POOL_CHAOS = dict(policy=dict(max_rhat=1.15, min_ess_per_site=32.0,
+                              min_samples=128),
+                  max_pending=3, open_after=2, tol=0.16, rounds=4)
+POOL_DRIVER_BATCHES = 50
+POOL_DRIVER_DEMO = 2
+POOL_PLAIN_CHAINS = 32
 
 
 def fail(msg):
@@ -4259,6 +4308,692 @@ def phase_supervisor(potts, smi):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: serving (serving/pool.py, launch/serve.py)
+# ---------------------------------------------------------------------------
+
+def pool_make(graph, name, wl, C, S, **kw):
+    """A ``ChainPool`` with one registered workload on the card:
+    ``(pool, workload)``; ``kw`` takes the pool's policies."""
+    from repro_torch.diagnostics.freshness import FreshnessPolicy
+    from repro_torch.serving import ChainPool
+    pool = ChainPool(policy=kw.pop("policy", FreshnessPolicy()), seed=0,
+                     **kw)
+    w = pool.register(wl, graph=graph, engine=name, chains=C, sweep=S,
+                      sweeps_per_chunk=POOL_CHUNK)
+    return pool, w
+
+
+def pool_lanes(w):
+    return [((), w.resident), *w.lanes.items()]
+
+
+def pool_traffic(pool, queries, **kw):
+    """One batch through ``submit``, launch counts reset before and read
+    after: ``(answers, host seconds, launches)``."""
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    answers = pool.submit(queries, **kw)
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return answers, wall, {k: v for k, v in read_launches().items() if v}
+
+
+def pool_chunk_launches(tag, pool, w, kernel):
+    """One chunk of every lane under ``set_sync_debug_mode("error")``, each
+    lane's launches counted: POOL_CHUNK sweep-kernel and POOL_CHUNK
+    telemetry-kernel launches and nothing else, clamped or not."""
+    want = {kernel: POOL_CHUNK, "telemetry_update": POOL_CHUNK}
+    per_lane = {}
+    for sig, lane in pool_lanes(w):
+        torch.cuda.synchronize()
+        reset_launches()
+        with no_host_sync():
+            pool._advance_lane(w, lane, 1)
+        torch.cuda.synchronize()
+        got = {k: v for k, v in read_launches().items() if v}
+        check(got == want, f"{tag}: lane {sig} launched {got}, want {want}")
+        per_lane[json.dumps(sig)] = got
+    return per_lane
+
+
+PLAIN_SWEEPS = {
+    "gibbs_sweep": lambda ref, ops, x, W, i, g, *, D: ref.gibbs_sweep_ref(
+        x, W, i, g, D),
+    "mgpmh_sweep": lambda ref, ops, x, W, rp, *rest, D, scale:
+        ref.mgpmh_sweep_ref(x, W, *ops._unpack(rp), *rest, D, scale),
+    "min_gibbs_sweep": lambda ref, ops, x, npk, rpk, *rest, D, lscale:
+        ref.min_gibbs_sweep_ref(x, *ops._unpack(npk), *ops._unpack(rpk),
+                                *rest, D, lscale),
+}
+# the chain-indexed arguments of each sweep (ops.py's argument order)
+PER_CHAIN = {"gibbs_sweep": (0, 2, 3),
+             "mgpmh_sweep": (0, 3, 4, 5, 6, 7, 8),
+             "min_gibbs_sweep": (0, 3, 4, 5, 6, 7, 8, 9, 10)}
+
+
+def pool_chunk_vs_plain(tag, pool, w, lane, kernel, exact, chains=None):
+    """One chunk of a clamped lane with each launch held against its plain
+    version on the card, on the same inputs: every sweep call's outputs
+    through ``compare`` (over the first ``chains`` chains, all when None),
+    and every telemetry update against the plain update on a copy of the
+    carry taken just before it, bit for bit."""
+    from repro_torch.diagnostics import telemetry as T
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serving.pool import _copy
+    kept, tel_equal = [], []
+    orig_sweep, orig_tel = getattr(ops, kernel), T.telemetry_update_cuda
+
+    def sweep(*args, **kw):
+        out = orig_sweep(*args, **kw)
+        c = chains or args[0].shape[0]
+        part = [a[:c] if j in PER_CHAIN[kernel] else a
+                for j, a in enumerate(args)]
+        plain = PLAIN_SWEEPS[kernel](ref, ops, *part, **kw)
+        outs = out if isinstance(out, tuple) else (out,)
+        kept.append((tuple(o[:c] for o in outs),
+                     plain if isinstance(plain, tuple) else (plain,)))
+        return out
+
+    def tel_update(tel, *args, **kw):
+        before = _copy(tel)
+        plan = orig_tel(tel, *args, **kw)
+        after = _copy(tel)._replace(head=plan.new_head, count=plan.count_new)
+        kw.pop("decay", None)
+        plain = T.telemetry_update_plain(before, *args, **kw)
+        a, b = tel_fields(after), tel_fields(plain)
+        tel_equal.append(all(np.array_equal(a[f].view(np.int32),
+                                            b[f].view(np.int32))
+                             for f in a))
+        return plan
+
+    setattr(ops, kernel, sweep)
+    T.telemetry_update_cuda = tel_update
+    try:
+        pool._advance_lane(w, lane, 1)
+        torch.cuda.synchronize()
+    finally:
+        setattr(ops, kernel, orig_sweep)
+        T.telemetry_update_cuda = orig_tel
+    check(len(kept) == len(tel_equal) == POOL_CHUNK,
+          f"{tag}: {len(kept)} sweep and {len(tel_equal)} telemetry "
+          f"launches held, want {POOL_CHUNK}")
+    C = kept[0][0][0].shape[0]
+    out_k = tuple(o for k, _ in kept for o in k)
+    out_p = tuple(o for _, p in kept for o in p)
+    n_diff, err = compare(f"{kernel} ({POOL_CHUNK} calls of a clamped "
+                          f"lane's chunk)", out_k, out_p, C, exact=exact,
+                          phase=tag)
+    check(all(tel_equal), f"{tag}: telemetry kernel != plain update at "
+          f"calls {[k for k, e in enumerate(tel_equal) if not e]}")
+    say(tag, f"telemetry_update: {POOL_CHUNK} launches bit-equal to the "
+        f"plain update")
+    return dict(chains=C, chains_differ=n_diff, max_abs_err=err,
+                telemetry_bit_equal=True)
+
+
+def pool_overhead(pool, w, sig):
+    """The resilience policies' cost on the answer path (the reference's
+    ``test_resilience_answer_overhead_within_budget`` measurement, not a
+    gate): the armed ``submit`` of one query against the bare freshness
+    read + marginal extraction it wraps, min of POOL_REPS each, in turns,
+    on a lane that serves stale (no sweeping)."""
+    from repro_torch.serving import Query
+    lane = w.lanes[sig] if sig else w.resident
+
+    def bare():
+        pool._lane_report(w, lane, lane.snap)
+        return pool._snap_marginals(lane.snap)
+
+    def armed():
+        return pool.submit([Query(w.name, evidence=sig)], max_extra_sweeps=0,
+                           serve_stale=True)[0]
+
+    times = {"bare": [], "armed": []}
+    for fn in (bare, armed):
+        fn()
+    for _ in range(POOL_REPS):
+        for k, fn in (("bare", bare), ("armed", armed)):
+            t0 = time.perf_counter()
+            fn()
+            times[k].append(time.perf_counter() - t0)
+    bare_ms, armed_ms = (1e3 * min(times[k]) for k in ("bare", "armed"))
+    return dict(bare_ms=bare_ms, armed_ms=armed_ms,
+                ratio=armed_ms / bare_ms)
+
+
+def pool_gate(pool, w):
+    """The freshness gate on the resident: POOL_GATE_EVERY chunks between
+    gate reads until it passes or POOL_GATE_S pass."""
+    lane = w.resident
+    t0 = time.perf_counter()
+    reads = []
+    while True:
+        pool._advance_lane(w, lane, POOL_GATE_EVERY)
+        tr = time.perf_counter()
+        rep = pool._lane_report(w, lane, lane.snap)
+        reads.append(time.perf_counter() - tr)
+        if rep["fresh"] or time.perf_counter() - t0 > POOL_GATE_S:
+            break
+    return dict(fresh=rep["fresh"], reason=rep["reason"],
+                chunks=lane.sweeps // POOL_CHUNK, samples=rep["samples"],
+                max_rhat=rep["max_rhat"], min_ess=rep["min_ess"],
+                seconds=time.perf_counter() - t0,
+                gate_read_ms=1e3 * statistics.median(reads))
+
+
+def pool_full_width(potts, smi):
+    """11a: potts-64x64 at the main path's width."""
+    from repro_torch.launch.serve import _demo_queries
+    from repro_torch.serving import pool as P
+    wl = "potts-64x64"
+    out, launches = {}, {}
+    for name, kernel in (("gibbs", "gibbs_sweep"), ("mgpmh", "mgpmh_sweep")):
+        tag = f"11a {name}"
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        pool, w = pool_make(potts, name, wl, C_FULL, S_FULL)
+        lane = w.resident
+        pool.advance(wl, chunks=1)               # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pool.advance(wl, chunks=1)
+        dispatch_ms = 1e3 * (time.perf_counter() - t0)
+        chunk_ms = median_ms(lambda: pool.advance(wl, chunks=1), 5)
+        publish_ms = median_ms(lambda: P._publish(lane.work, lane.sweeps), 5)
+        copy_bytes = sum(t.numel() * t.element_size()
+                         for t in (lane.work.marg, *[
+                             v for v in (*lane.work.st, *lane.work.tel)
+                             if isinstance(v, torch.Tensor)]))
+        queries = _demo_queries(wl, potts, POOL_DEMO, 0)
+        batches = []
+        for k in range(2):
+            answers, wall, got = pool_traffic(pool, queries,
+                                              max_extra_sweeps=POOL_BUDGET)
+            for kk, v in got.items():
+                launches[kk] = launches.get(kk, 0) + v
+            check(all(a.status == "ok" for a in answers)
+                  and all(np.isfinite(a.marginals).all() for a in answers),
+                  f"{tag} batch {k}: {[a.report for a in answers]}")
+            for a in answers:            # observed sites are deltas
+                for s, v in a.query.evidence:
+                    check(a.marginals[s][v] == 1.0, f"{tag}: site {s} of "
+                          f"{a.query.evidence} is not a delta")
+            batches.append(dict(
+                seconds=wall, queries_per_s=len(queries) / wall,
+                rungs=[a.source for a in answers],
+                fresh=[a.fresh for a in answers],
+                samples=[a.report["samples"] for a in answers],
+                launches=got))
+        check(pool.compiled_cache_size(wl) == 1,
+              f"{tag}: {pool.compiled_cache_size(wl)} chunk signatures")
+        per_lane = pool_chunk_launches(tag, pool, w, kernel)
+        clamped = next(sig for sig, _ in pool_lanes(w) if sig)
+        held = pool_chunk_vs_plain(f"{tag} plain", pool, w, w.lanes[clamped],
+                                   kernel, exact=False)
+        overhead = pool_overhead(pool, w, clamped)
+        gate = pool_gate(pool, w) if name == "mgpmh" else None
+        torch.cuda.synchronize()
+        rec = dict(chunk_ms=chunk_ms, chunk_dispatch_ms=dispatch_ms,
+                   publish_ms=publish_ms, publish_bytes=copy_bytes,
+                   batches=batches, lanes=len(per_lane),
+                   launches_per_chunk=per_lane, plain=held,
+                   overhead=overhead, gate=gate,
+                   pool_bytes=torch.cuda.memory_allocated() - base,
+                   peak_bytes=torch.cuda.max_memory_allocated() - base)
+        out[name] = rec
+        b1, b2 = batches
+        say(tag, f"potts-64x64 C={C_FULL} S={S_FULL}, chunks of "
+            f"{POOL_CHUNK}: chunk {chunk_ms:.3f} ms (host dispatch "
+            f"{dispatch_ms:.3f}), publish copy {publish_ms:.4f} ms "
+            f"({copy_bytes / 2 ** 20:.1f} MiB); {len(per_lane)} lanes, each "
+            f"chunk {per_lane[json.dumps([])]} clamped or not, no host "
+            f"sync; batch 1 {b1['seconds']:.3f} s ({b1['queries_per_s']:.1f}"
+            f" q/s) rungs {b1['rungs']}, batch 2 {b2['seconds']:.3f} s "
+            f"({b2['queries_per_s']:.1f} q/s) rungs {b2['rungs']}; answer "
+            f"path armed {overhead['armed_ms']:.3f} ms vs bare "
+            f"{overhead['bare_ms']:.3f} ms ({overhead['ratio']:.3f}x); pool "
+            f"{rec['pool_bytes'] / 2 ** 30:.3f} GiB, peak "
+            f"{rec['peak_bytes'] / 2 ** 30:.3f} GiB; on {smi}")
+        if gate is not None:
+            say(f"{tag} gate", f"resident after {gate['chunks']} chunks "
+                f"({gate['samples']} samples, {gate['seconds']:.1f} s): "
+                f"fresh {gate['fresh']}, max R-hat {gate['max_rhat']}, min "
+                f"ESS {gate['min_ess']} ({gate['reason']}); gate read "
+                f"{gate['gate_read_ms']:.1f} ms; on {smi}")
+        if name == "mgpmh":
+            out["profiled"] = (pool, w)
+        del pool, w, lane
+    out["launches"] = launches
+    return out
+
+
+def pool_state_bits(snap, carry=True):
+    """What of a snapshot must repeat bit for bit: the state, its
+    generator, the sums and (``carry``) the telemetry carry."""
+    tel = [t for t in snap.tel if isinstance(t, torch.Tensor)] * carry
+    return [snap.st.x, snap.st.cache, snap.st.accepts, snap.marg,
+            snap.st.gen.get_state(), *tel]
+
+
+def pool_same(a, b, carry=True):
+    return a.count == b.count and all(
+        torch.equal(x, y) for x, y in zip(pool_state_bits(a, carry),
+                                           pool_state_bits(b, carry)))
+
+
+def pool_exact(g, sig):
+    from repro_torch.diagnostics import exact_conditional_marginals
+    return exact_conditional_marginals(g, [s for s, _ in sig],
+                                       [v for _, v in sig])
+
+
+def pool_pairs(g, smi):
+    """11b: POOL_PAIRS at C=C_FULL S=S_FULL, gibbs and min-gibbs."""
+    from repro_torch.serving import Query
+    wl = POOL_PAIRS
+    out, launches = {}, {}
+    for name, kernel, budget in (("gibbs", "gibbs_sweep", POOL_FRESH_BUDGET),
+                                 ("min-gibbs", "min_gibbs_sweep",
+                                  POOL_MIN_BUDGET)):
+        tag = f"11b {name}"
+        pool, w = pool_make(g, name, wl, C_FULL, S_FULL)
+        sig = ((0, 1),)
+        (ans,), wall, got = pool_traffic(pool, [Query(wl, evidence=sig)],
+                                         max_extra_sweeps=budget)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        exact = pool_exact(g, sig)
+        rec = dict(fresh=ans.fresh, source=ans.source, seconds=wall,
+                   sweeps=ans.sweeps, report=ans.report, launches=got)
+        if ans.marginals is not None:
+            tv = 0.5 * np.abs(ans.marginals - exact).sum(-1)
+            rec.update(tv_mean=float(tv.mean()), tv_max=float(tv.max()))
+            check(ans.marginals[0].tolist() == [0.0, 1.0],
+                  f"{tag}: observed site not a delta")
+        if name == "gibbs" or ans.fresh:
+            check(ans.fresh and rec["tv_mean"] < POOL_TV[0]
+                  and rec["tv_max"] < POOL_TV[1],
+                  f"{tag}: fresh {ans.fresh}, {rec}")
+        # a cold lane's exact rung
+        cold_sig = ((5, 0), (g.n - 3, 1))
+        cold = pool.submit([Query(wl, evidence=cold_sig)],
+                           max_extra_sweeps=0)[0]
+        cold_err = float(np.abs(cold.marginals - pool_exact(g, cold_sig))
+                         .max())
+        check(cold.source == "exact" and cold_err <= 1e-12,
+              f"{tag}: cold lane {cold.source}, error {cold_err}")
+        rec["cold_exact_err"] = cold_err
+        rec["plain"] = pool_chunk_vs_plain(
+            f"{tag} plain", pool, w, w.lanes[sig], kernel, exact=True,
+            chains=POOL_PLAIN_CHAINS if name == "min-gibbs" else None)
+        # the resident against an unserved control pool
+        served, ws = pool_make(g, name, wl, C_FULL, S_FULL)
+        control, _ = pool_make(g, name, wl, C_FULL, S_FULL)
+        for k in range(3):
+            served.advance(wl, chunks=2)
+            served.submit([Query(wl), Query(wl, evidence=((2 * k, 1),))],
+                          max_extra_sweeps=0, serve_stale=True)
+        control.advance(wl, chunks=ws.resident.sweeps // POOL_CHUNK)
+        torch.cuda.synchronize()
+        same = pool_same(served.snapshot(wl), control.snapshot(wl))
+        check(same and len(ws.lanes) == 3,
+              f"{tag}: the served resident differs from the control")
+        rec["resident_equal_control"] = same
+        say(tag, f"{wl} C={C_FULL} S={S_FULL}: a lane clamped at {sig}: "
+            f"{ans.source} after {ans.sweeps} sweeps ({wall:.2f} s), TV to "
+            f"exact mean {rec.get('tv_mean')} max {rec.get('tv_max')}; cold "
+            f"lane exact rung error {cold_err}; resident bit-equal to an "
+            f"unserved control (x, cache, accepts, marg, generator, carry) "
+            f"after 6 chunks with 3 forks; on {smi}")
+        out[name] = rec
+        del pool, w, served, control, ws
+        torch.cuda.empty_cache()
+    out["chaos"], got = pool_chaos(g, smi)
+    for k, v in got.items():
+        launches[k] = launches.get(k, 0) + v
+    out["launches"] = launches
+    return out
+
+
+def pool_chaos(g, smi):
+    """11b: the chaos drill of tests/test_resilience.py:375-426 on the card,
+    plus a cold lane under an expired deadline every round (the exact
+    rung)."""
+    from repro_torch.diagnostics.freshness import FreshnessPolicy
+    from repro_torch.serving import (AdmissionPolicy, BreakerPolicy,
+                                     CircuitBreaker, Query)
+    wl, cfg = POOL_PAIRS, POOL_CHAOS
+    pool, w = pool_make(
+        g, "gibbs", wl, C_FULL, S_FULL,
+        policy=FreshnessPolicy(**cfg["policy"]),
+        admission=AdmissionPolicy(max_pending=cfg["max_pending"]),
+        breaker=BreakerPolicy(open_after=cfg["open_after"], cooldown_s=0.0))
+    sig, cold = ((7, 1),), ((11, 0),)
+    base = [Query(wl), Query(wl, evidence=sig, priority=1)]
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    warm = pool.submit(base, max_extra_sweeps=POOL_FRESH_BUDGET)
+    check(all(a.fresh for a in warm), f"11b chaos: warm-up not fresh: "
+          f"{[a.report for a in warm]}")
+    exact = {(): pool_exact(g, ()), sig: pool_exact(g, sig),
+             cold: pool_exact(g, cold)}
+    pool.inject_lane_fault(wl, sig, target="cache")
+    pool.advance(wl, chunks=1)
+    statuses, sources, worst = set(), set(), 0.0
+    for _ in range(cfg["rounds"]):
+        batch = base + [Query(wl, deadline_ms=0.0), Query(wl, evidence=sig),
+                        Query(wl, sites=(0, 1), kind="map"),
+                        Query(wl, evidence=cold, deadline_ms=0.0,
+                              priority=1)]
+        answers = pool.submit(batch, max_extra_sweeps=0)
+        check(len(answers) == len(batch), "11b chaos: answers missing")
+        for a in answers:
+            check(a.status in ("ok", "shed", "refused", "error"),
+                  f"11b chaos: status {a.status}")
+            statuses.add(a.status)
+            if a.source:
+                sources.add(a.source)
+            if a.marginals is not None:
+                ref = exact[a.query.signature]
+                if a.query.sites is not None:
+                    ref = ref[list(a.query.sites)]
+                check(np.isfinite(a.marginals).all(), "11b chaos: not finite")
+                worst = max(worst, float(np.abs(a.marginals - ref).max()))
+    lane = w.lanes[sig]
+    opens = lane.breaker.open_count
+    recovered = pool.submit([Query(wl, evidence=sig)])[0]
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    got = {k: v for k, v in read_launches().items() if v}
+    check({"ok", "shed"} <= statuses and {"stale", "exact"} <= sources
+          and worst <= cfg["tol"] and opens >= 1
+          and recovered.status == "ok"
+          and lane.breaker.state == CircuitBreaker.CLOSED
+          and pool.admission.in_flight == 0,
+          f"11b chaos: statuses {statuses}, sources {sources}, worst "
+          f"{worst}, opens {opens}, recovered {recovered.status}, breaker "
+          f"{lane.breaker.state}, in flight {pool.admission.in_flight}")
+    say("11b chaos", f"{wl} gibbs C={C_FULL}: {cfg['rounds']} rounds under "
+        f"a poisoned lane, max_pending {cfg['max_pending']}, expired "
+        f"deadlines: statuses {sorted(statuses)}, rungs {sorted(sources)}, "
+        f"every estimate within {worst:.4f} of exact (<= {cfg['tol']}); "
+        f"breaker opened {opens}x, the probe closed it "
+        f"({recovered.source}); in flight 0; {wall:.2f} s; on {smi}")
+    return dict(statuses=sorted(statuses), sources=sorted(sources),
+                worst=worst, opens=opens, recovered=recovered.source,
+                seconds=wall), got
+
+
+def pool_supervised(g, smi, tmp):
+    """11c: ``serve_batch(supervise=True)`` on POOL_PAIRS under phase 10's
+    plan against a clean supervised run: the last published snapshots and
+    the answers bit-equal, the epoch fences, fault to the next published
+    snapshot."""
+    from repro_torch import obs
+    from repro_torch.launch.serve import _demo_queries, serve_batch
+    from repro_torch.runtime.faultinject import Fault, FaultPlan
+    from repro_torch.serving import ChainPool
+    wl = POOL_PAIRS
+    queries = _demo_queries(wl, g, POOL_DEMO, 0)
+    runs = {}
+    for label, plan in (("clean", None), ("fault", SUP_PLAN)):
+        rec = obs.Recorder()
+        pool = ChainPool(seed=0)
+        published = []
+
+        def on_publish(*a, _pub=pool.publish, _out=published, _pool=pool,
+                       _rec=rec):
+            _pub(*a)
+            _out.append((_rec.now_us(), _pool.snapshot(wl)))
+        pool.publish = on_publish
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        with obs.using(rec):
+            res = serve_batch(
+                wl, queries, engine="gibbs", chains=C_FULL, sweep=S_FULL,
+                chunk=SUP_CHUNK, supervise=True,
+                ckpt_dir=f"{tmp}/serve-{label}", outer_steps=SUP_OUTER,
+                pool=pool, max_extra_sweeps=POOL_BUDGET,
+                fault_plan=None if plan is None
+                else FaultPlan([Fault(**f) for f in plan]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        events = [e for e in rec.trace.events() if e.get("ph") == "i"]
+        runs[label] = dict(res=res, published=published, wall=wall,
+                           events=events,
+                           launches={k: v for k, v in
+                                     read_launches().items() if v})
+    clean, fault = runs["clean"], runs["fault"]
+    a, b = fault["published"][-1][1], clean["published"][-1][1]
+    # the supervisor restarts the carry at every recovery: state, generator
+    # and sums must agree, the carry need not
+    same = (pool_same(a, b, carry=False)
+            and a.sweeps == b.sweeps == SUP_OUTER * SUP_CHUNK)
+    same_answers = all(
+        x["marginals"] == y["marginals"] and x["source"] == y["source"]
+        for x, y in zip(fault["res"]["answers"], clean["res"]["answers"]))
+    fences = [e for e in fault["events"] if e["name"] == "epoch_fence"]
+    faults = [e["ts"] for e in fault["events"] if e["name"] == "fault"]
+    to_publish = [min(t for t, _ in fault["published"] if t > f) - f
+                  for f in faults]
+    check(same and same_answers and len(fences) == 2
+          and all(r["status"] == "ok" for r in fault["res"]["answers"]),
+          f"11c: snapshot equal {same}, answers equal {same_answers}, "
+          f"fences {len(fences)}")
+    say("11c supervised", f"{wl} gibbs C={C_FULL} S={S_FULL}, {SUP_OUTER} "
+        f"outer steps x {SUP_CHUNK}, plan {SUP_PLAN}: the last published "
+        f"snapshot (step {SUP_OUTER}: x, cache, accepts, marg, generator) "
+        f"and all {len(queries)} answers "
+        f"bit-equal to the clean run's; {len(fences)} epoch fences; fault "
+        f"to the next published snapshot "
+        f"{[round(t / 1e6, 4) for t in to_publish]} s; rungs "
+        f"{fault['res']['source_counts']}; {fault['wall']:.2f} s (clean "
+        f"{clean['wall']:.2f} s); on {smi}")
+    launches = {}
+    for r in runs.values():
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return dict(equal=same, answers_equal=same_answers, fences=len(fences),
+                fault_to_publish_s=[t / 1e6 for t in to_publish],
+                sources=fault["res"]["source_counts"],
+                seconds=fault["wall"], clean_seconds=clean["wall"],
+                launches=launches)
+
+
+def pool_driver(g, smi):
+    """11d: POOL_DRIVER_BATCHES batches of the demo traffic with the
+    background driver stopped, then running: answer latency and the
+    driver's sweeps."""
+    from repro_torch.launch.serve import _demo_queries
+    wl = POOL_PAIRS
+    pool, w = pool_make(g, "gibbs", wl, C_FULL, S_FULL)
+    queries = _demo_queries(wl, g, POOL_DRIVER_DEMO, 0)
+    pool.submit(queries, max_extra_sweeps=POOL_BUDGET)     # fork the lane
+
+    def batches():
+        lat = []
+        for _ in range(POOL_DRIVER_BATCHES):
+            t0 = time.perf_counter()
+            answers = pool.submit(queries, max_extra_sweeps=0,
+                                  serve_stale=True)
+            lat.append(time.perf_counter() - t0)
+            check(all(a.status == "ok" for a in answers),
+                  f"11d: {[a.report for a in answers]}")
+        return lat
+
+    def sweeps():
+        return sum(lane.sweeps for _, lane in pool_lanes(w))
+
+    torch.cuda.synchronize()
+    stopped = batches()
+    before = sweeps()
+    pool.start()
+    t0 = time.perf_counter()
+    try:
+        running = batches()
+    finally:
+        pool.stop()
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    made = sweeps() - before
+    check(made > 0 and pool.driver is None,
+          f"11d: the driver made {made} sweeps")
+    q = lambda v, p: 1e3 * float(np.percentile(v, p))
+    rec = dict(stopped_ms=dict(p50=q(stopped, 50), p90=q(stopped, 90)),
+               running_ms=dict(p50=q(running, 50), p90=q(running, 90)),
+               driver_sweeps=made, driver_sweeps_per_s=made / wall,
+               lanes=len(pool_lanes(w)), seconds=wall)
+    say("11d driver", f"{wl} gibbs C={C_FULL} S={S_FULL}, {len(queries)} "
+        f"queries per batch over {rec['lanes']} lanes, "
+        f"{POOL_DRIVER_BATCHES} batches each: latency p50/p90 driver "
+        f"stopped {rec['stopped_ms']['p50']:.2f}/"
+        f"{rec['stopped_ms']['p90']:.2f} ms, running "
+        f"{rec['running_ms']['p50']:.2f}/{rec['running_ms']['p90']:.2f} ms;"
+        f" the driver made {made} sweeps ({made / wall:.0f}/s) in "
+        f"{wall:.2f} s; on {smi}")
+    return rec
+
+
+def pool_launcher(smi, tmp, device="cuda"):
+    """11e: the launcher as subprocesses: plain, and supervised under
+    phase 10's plan (its restart restores a checkpoint)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    base = [sys.executable, "-m", "repro_torch.launch.serve", "--workload",
+            POOL_PAIRS, "--engine", "gibbs", "--chains", str(C_FULL),
+            "--sweep", str(S_FULL), "--chunk", str(POOL_CHUNK), "--demo",
+            str(POOL_DEMO), "--max-extra-sweeps", str(POOL_BUDGET),
+            "--device", device]
+    cmds = {"plain": base + ["--out", f"{tmp}/serve.json"],
+            "supervised": base + [
+                "--out", f"{tmp}/serve-sup.json", "--supervise",
+                "--ckpt-dir", f"{tmp}/serve-ck", "--outer-steps",
+                str(SUP_OUTER), "--fault-plan",
+                json.dumps({"faults": SUP_PLAN})]}
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen(c, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True, env=env,
+                                 cwd=str(ROOT)) for k, c in cmds.items()}
+    outs = {}
+    for k, p in procs.items():
+        try:
+            o, e = p.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            for q in procs.values():
+                q.kill()
+            fail("11e: the serve launcher passed 300 s")
+        check(p.returncode == 0, f"11e {k}: exit {p.returncode}: "
+              f"{e[-2000:]}")
+        outs[k] = o
+    wall = time.perf_counter() - t0
+    rec = {}
+    for k, path in (("plain", "serve.json"), ("supervised",
+                                              "serve-sup.json")):
+        res = json.loads(Path(f"{tmp}/{path}").read_text())
+        deltas = all(a["marginals"][s][v] == 1.0 for a in res["answers"]
+                     for s, v in a["evidence"])
+        check(res["compiled_traces"] == 1 and deltas
+              and res["n_queries"] == POOL_DEMO,
+              f"11e {k}: traces {res['compiled_traces']}, deltas {deltas}")
+        rec[k] = dict(compiled_traces=res["compiled_traces"],
+                      status_counts=res["status_counts"],
+                      source_counts=res["source_counts"],
+                      queries_per_s=res["queries_per_sec"])
+    resumed = [ln for ln in outs["supervised"].splitlines()
+               if ln.startswith("[supervisor] restore:")
+               and '"source": "step_' in ln]
+    check(resumed, f"11e: no restore from a checkpoint in "
+          f"{outs['supervised'][-1500:]}")
+    summary = [ln for ln in outs["plain"].splitlines()
+               if ln.startswith("[serve]")][0]
+    say("11e launcher", f"{' '.join(base[1:])}: exit 0, '{summary}'; with "
+        f"--supervise --fault-plan: resumed, '{resumed[0]}'; compiled_traces "
+        f"{rec['plain']['compiled_traces']} and "
+        f"{rec['supervised']['compiled_traces']}, observed sites delta; "
+        f"{wall:.1f} s for both processes; on {smi}")
+    rec.update(resumed=resumed, seconds=wall)
+    return rec
+
+
+def pool_profiled(pool, w, smi):
+    """11f: the kernels one chunk launches, by name from ``torch.profiler``,
+    the same for the resident and a clamped lane (last: a capture slows
+    the host for the rest of the process).  Each lane's chunk is the
+    active step after a warm-up step: CUPTI has dropped records of a
+    window's first launches (every count one or two short), so the names
+    are held equal here and the counts are read from the wrappers (11a)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    names = {}
+
+    def keep(prof, sig):
+        names[sig] = {e.key: e.count for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and not e.key.startswith("repro.")}
+
+    for sig, lane in pool_lanes(w)[:2]:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p, s=json.dumps(sig): keep(p, s)
+                     ) as prof:
+            for _ in range(2):
+                pool._advance_lane(w, lane, 1)
+                torch.cuda.synchronize()
+                prof.step()
+    check(len(names) == 2, f"11f: profiled {list(names)}")
+    (_, a), (c, b) = names.items()
+    kernels = {k: v for k, v in a.items()
+               if "mgpmh_sweep_kernel" in k or "telemetry_update_kernel" in k}
+    check(set(a) == set(b) and len(kernels) == 2,
+          f"11f: resident {sorted(a)} vs clamped {sorted(b)}")
+    say("11f profile", f"mgpmh potts-64x64: one chunk of the resident and "
+        f"of the lane clamped at {c}: the same {len(a)} device op names "
+        f"(counts equal: {a == b}); the two kernels seen "
+        f"{list(kernels.values())} times; on {smi}")
+    return dict(ops=a, clamped_ops=b, kernels=kernels, counts_equal=a == b)
+
+
+def phase_serving(potts, smi):
+    """11: serving on the card."""
+    import tempfile
+    from repro_torch.core import engine
+    t0 = time.perf_counter()
+
+    def libs():
+        return sorted((p.name, p.stat().st_mtime_ns) for p in
+                      (ROOT / "build" / "repro_torch").glob(
+                          "libkernels-*.so"))
+    before = libs()
+    rec = {"full_width": pool_full_width(potts, smi)}
+    pool, w = rec["full_width"].pop("profiled")
+    torch.cuda.empty_cache()
+    pairs = engine.make_workload(POOL_PAIRS, device=potts.device).graph
+    rec["pairs"] = pool_pairs(pairs, smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        rec["supervised"] = pool_supervised(pairs, smi, tmp)
+        rec["driver"] = pool_driver(pairs, smi)
+        rec["launcher"] = pool_launcher(smi, tmp)
+    rec["profile"] = pool_profiled(pool, w, smi)
+    del pool, w
+    check(libs() == before, f"11: the kernel library was rebuilt: "
+          f"{before} -> {libs()}")
+    launches = {}
+    for part in (rec["full_width"], rec["pairs"], rec["supervised"]):
+        for k, v in part["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    rec["launches"] = launches
+    rec["seconds"] = time.perf_counter() - t0
+    rec["card"] = smi
+    say("11 serving", f"{rec['seconds']:.1f} s, launches {launches}; the "
+        f"kernel library not rebuilt; on {smi}")
+    return rec
+
+
 REPLACES = {
     "gibbs_sweep": "src/repro/kernels/fused_sweep.py:577",
     # gibbs_sweep_pallas on the chromatic path (one launch per color class)
@@ -4319,6 +5054,8 @@ def main():
                                 record["device"]["nvidia_smi"], main)
     record["supervisor"] = sup = phase_supervisor(
         potts, record["device"]["nvidia_smi"])
+    record["serving"] = pool = phase_serving(
+        potts, record["device"]["nvidia_smi"])
 
     src = "src/repro_torch/kernels/csrc/fused_sweep.cu"
     diag = record["diagnostics"]
@@ -4336,8 +5073,8 @@ def main():
             launches = diag["main"]["mgpmh"]["launches"][k]
         else:
             launches = sum(run["launches"].get(k, 0) for run in main.values())
-        # the supervised path's launches (phase 10)
-        launches += sup["launches"].get(k, 0)
+        # the supervised and serving paths' launches (phases 10, 11)
+        launches += sup["launches"].get(k, 0) + pool["launches"].get(k, 0)
         check(launches > 0, f"{k} was not launched on its path")
         t = times[k]
         err = (full[k][1] if k in full

@@ -473,3 +473,71 @@ def test_checkpoint_save_restore_emit_spans_and_counters(tmp_path):
     spans = {e.get("name") for e in rec.trace.events()}
     assert {"checkpoint/save", "checkpoint/verify",
             "checkpoint/restore"} <= spans
+
+
+# -- serving metrics (tests/test_obs.py:330-359) ------------------------------
+
+def test_serving_emits_query_spans_and_freshness_metrics(tmp_path):
+    from repro_torch.diagnostics.freshness import FreshnessPolicy
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.serving import Query
+
+    rec = obs.Recorder(metrics_dir=str(tmp_path / "m"),
+                       trace_path=str(tmp_path / "trace.json"))
+    queries = [Query(WORKLOAD), Query(WORKLOAD, evidence=((0, 1),)),
+               Query(WORKLOAD)]
+    with obs.using(rec):
+        res = serve_batch(
+            WORKLOAD, queries, engine="gibbs", device="cpu",
+            chains=8, sweep=12, chunk=4, max_extra_sweeps=200,
+            policy=FreshnessPolicy(max_rhat=10.0, min_ess_per_site=1.0,
+                                   min_samples=2))
+    assert res["n_queries"] == 3
+    labels = dict(engine="gibbs", backend="torch",
+                  schedule=res["engine"]["schedule"], workload=WORKLOAD)
+    assert rec.metrics.value("queries_total", fresh=True, **labels) >= 1
+    assert rec.metrics.value("pool_lanes", **labels) == 2
+    assert rec.metrics.value("sweeps_to_fresh_count", **labels) >= 1
+    assert rec.metrics.value("sweeps_total", **labels) > 0
+    names = {e.get("name") for e in rec.trace.events()}
+    assert {"query", "queue_wait", "freshness_sweeps",
+            "lane_fork", "admission", "sweep_chunk"} <= names
+    for e in rec.trace.events():
+        if e.get("name") in ("query", "freshness_sweeps", "sweep_chunk"):
+            for k in REQUIRED_LABELS:
+                assert k in e["args"], (k, e)
+    prom = (tmp_path / "m" / "metrics.prom").read_text()
+    for series in ("repro_queries_total", "repro_sweeps_to_fresh_total",
+                   "repro_sweeps_to_fresh_count", "repro_pool_lanes",
+                   "repro_queue_wait_seconds", "repro_serving_latency_seconds",
+                   "repro_sweeps_total"):
+        assert series in prom, series
+
+
+def test_serving_trace_and_metric_names_equal_jax():
+    """The same batch through both packages' fronts records the same span
+    and event names and the same metric series names."""
+    from repro.diagnostics.freshness import FreshnessPolicy as JPolicy
+    from repro.launch.serve import serve_batch as jserve_batch
+    from repro.serving import Query as JQuery
+    from repro_torch.diagnostics.freshness import FreshnessPolicy
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.serving import Query
+
+    kw = dict(engine="gibbs", chains=8, sweep=12, chunk=4,
+              max_extra_sweeps=200)
+    policy = dict(max_rhat=10.0, min_ess_per_site=1.0, min_samples=2)
+    got, want = obs.Recorder(), jobs.Recorder()
+    with obs.using(got):
+        serve_batch(WORKLOAD, [Query(WORKLOAD),
+                               Query(WORKLOAD, evidence=((0, 1),))],
+                    device="cpu", policy=FreshnessPolicy(**policy), **kw)
+    with jobs.using(want):
+        jserve_batch(WORKLOAD, [JQuery(WORKLOAD),
+                                JQuery(WORKLOAD, evidence=((0, 1),))],
+                     backend="jnp", policy=JPolicy(**policy), **kw)
+
+    def names(rec):
+        return ({e.get("name") for e in rec.trace.events()},
+                {s["name"] for s in rec.metrics.snapshot()})
+    assert names(got) == names(want)

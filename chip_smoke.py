@@ -11,10 +11,12 @@ Phases, each printed as it ends; any failure exits non-zero:
      kernels (the Gibbs sweep
      and both MGPMH forms one instance per register width, 2/4/8/10/16
      buckets, the chromatic class kernel one per 2/4/8/16), flash
-     attention's three bf16
-     instances (padded head dims 64, 128, 256; their registers, spills and
-     launch shared memory printed apart, and no wgmma serialised) and its
-     four float32 ones);
+     attention's six bf16
+     instances (padded head dims 64, 128, 256, each without and with the
+     row log-sum-exp output; their registers, spills and launch shared
+     memory printed apart, and no wgmma serialised) and its four float32
+     ones, and the flash backward's seven (D; dK/dV and dQ
+     at padded head dims 64, 128, 256));
   3. each kernel against its plain PyTorch version on the card, on the same
      tensors: (a) at the parity shapes of the tests, exactly equal (the
      in-kernel-RNG kernels, the local-gibbs sweep among them, with seeds
@@ -211,7 +213,30 @@ Phases, each printed as it ends; any failure exits non-zero:
      under phase 10's plan bit-equal to a clean run; (d) answer latency
      with the background driver stopped and running; (e) the serve
      launcher as subprocesses; (f) the profiler's device ops of a resident
-     and a clamped chunk, equal; the kernel library not rebuilt.
+     and a clamped chunk, equal; the kernel library not rebuilt;
+ 12. training (``launch/train.py``, ``launch/steps.py``, ``optim/``, the
+     flash backward kernel ``csrc/flash_attention_bwd.cu``): (a) the
+     backward kernel's registers, spills and shared memory; against its
+     plain float32 version at tinyllama-1.1b's training attention (B=8,
+     S=2048, 32/4 heads, hd 64, causal), h2o-danube-3-4b's window (S=8192,
+     hd 120, window 4096), gemma3-12b's local layer (hd 256, window 1024),
+     a ragged bidirectional shape of every head dim, a causal Sk > Sq and
+     rows with no valid key: dq, dk, dv each within 1e-2 relative
+     (Frobenius), the same bits on a second launch; at tinyllama's shape
+     its time per call (three launches) and each kernel's device time,
+     the plain version, the FLOP bound (2.5 times the forward's products)
+     and scaled_dot_product_attention's backward (fwd + bwd minus fwd);
+     (b) ``launch.train.train`` on tinyllama-1.1b at full width (weights
+     from a seed, B=8, S=2048) for two steps into a temporary ckpt_dir,
+     every launch count reset before and read after: the backward kernel
+     once per layer and step, the forward twice (its rematerialisation),
+     nothing else, the plain backward never called, losses and grad norms
+     finite; then ``make_train_step`` timed (CUDA events), tokens/s, the
+     model-FLOPs share, peak memory and one step under torch.profiler
+     (device busy, idle, top ops, the backward's share); (c) crash-resume:
+     a run killed by ``fail_at_step`` and resumed ends bit-equal to an
+     uninterrupted one (loss, parameters, AdamW state); (d) the examples
+     (``examples/torch_*.py``) as subprocesses, exit 0.
 
 Prints the kernels' JSON record and the card's name and power limit, then
 as its last line ``{"ok": true, "device": {...}}``.  Also writes the full
@@ -279,13 +304,16 @@ PARITY_LOCAL = [(4, 5, 3, 3, 11), (8, 8, 10, 10, 40), (3, 1, 1, 2, 5),
 KERNELS = ("gibbs_sweep", "gibbs_class_sweep", "mgpmh_sweep",
            "mgpmh_sweep_rng", "min_gibbs_sweep", "min_gibbs_sweep_rng",
            "double_min_sweep", "double_min_sweep_rng", "bucket_energy",
-           "local_gibbs_sweep", "flash_attention", "telemetry_update")
-# ptxas entry functions: one per kernel, but flash attention has three bf16
-# instances (padded head dims 64, 128, 256) and four float32 ones (head
-# dims 16, 32, 64, 128), the Gibbs sweep and both MGPMH forms one per
-# register width (2, 4, 8, 10, 16 buckets) and the class kernel one per
-# width (2, 4, 8, 16); the telemetry update one
-PTXAS_ENTRIES = len(KERNELS) - 5 + (3 + 4) + 3 * 5 + 4
+           "local_gibbs_sweep", "flash_attention", "telemetry_update",
+           "flash_attention_bwd")
+# ptxas entry functions: one per kernel, but flash attention has six bf16
+# instances (padded head dims 64, 128, 256, each without and with the
+# lse2 output) and four float32 ones (head dims 16, 32, 64, 128), the
+# Gibbs sweep and both MGPMH forms one per register width (2, 4, 8, 10,
+# 16 buckets) and the class kernel one per width (2, 4, 8, 16); the
+# telemetry update one; the flash backward seven (D, then dK/dV and dQ at
+# padded head dims 64, 128, 256)
+PTXAS_ENTRIES = len(KERNELS) - 6 + (6 + 4) + 3 * 5 + 4 + 7
 # the Gibbs ring kernel's new shapes (C, S, D, n): tests/test_torch_sweep.py
 # GIBBS_RING_SHAPES (D > the register width, a ragged n, S = 1, an odd n
 # that takes the chunked ring)
@@ -355,6 +383,38 @@ PREFILL_B, PREFILL_S, PREFILL_CALLS = 8, 2048, 4
 # exclude keys at these lengths
 WIDE_PREFILL = [("h2o-danube-3-4b", 1, 8192), ("gemma3-12b", 1, 4096)]
 DECODE_B, DECODE_STEPS = 8, 32
+# phase 12: training.  tinyllama-1.1b at full width through launch.train
+TRAIN_ARCH, TRAIN_SEED, TRAIN_B, TRAIN_S = "tinyllama-1.1b", 0, 8, 2048
+TRAIN_STEPS = 2        # train(): steps, then its final checkpoint (13 GB)
+TRAIN_TIMED = 3        # make_train_step steps timed after a warm-up step
+# tests/test_torch_flash_bwd.py's tolerance (relative Frobenius error per
+# gradient against the plain float32 backward), derived there
+BWD_REL_TOL = 1e-2
+# (B, Sq, Sk, H, KVH, hd, window, causal): tinyllama-1.1b's training
+# attention, h2o-danube-3-4b's window (4096 at S=8192), gemma3-12b's local
+# layer, a ragged bidirectional shape of every head dim, a causal Sk > Sq
+# (key tiles no query sees) and rows with no valid key
+BWD_SHAPES = [(8, 2048, 2048, 32, 4, 64, 0, True),
+              (1, 8192, 8192, 32, 8, 120, 4096, True),
+              (1, 4096, 4096, 16, 8, 256, 1024, True),
+              *((1, 200, 333, 4, 2, hd, 0, False)
+                for hd in (16, 32, 64, 120, 128, 256)),
+              (1, 70, 300, 4, 2, 64, 0, True),
+              (1, 150, 20, 2, 1, 16, 5, True)]
+# 12c: the examples' ~100M config (examples/torch_train_lm.py) cut to four
+# layers; six steps, checkpoints every three, killed at step four
+RESUME_CFG = dict(name="demo-100m", family="dense", num_layers=4,
+                  d_model=768, num_heads=12, num_kv_heads=4, head_dim=64,
+                  d_ff=2048, vocab_size=32000, rope_theta=1e4)
+RESUME_STEPS, RESUME_EVERY, RESUME_FAIL = 6, 3, 4
+# 12d: the port's examples, default sizes but the trainer's few steps
+EXAMPLE_RUNS = [["examples/torch_train_lm.py", "--steps", "4", "--seq", "256",
+                 "--global-batch", "4", "--ckpt-dir", "{tmp}/lm"],
+                ["examples/torch_quickstart.py"],
+                ["examples/torch_ising_min_gibbs.py"],
+                ["examples/torch_potts_mgpmh.py"],
+                ["examples/torch_adaptive_scan.py"]]
+EXAMPLE_TIMEOUT_S = 300
 # phase 8: diagnostics
 DIAG_SNAPSHOTS = 10
 DIAG_CALLS = 20                               # the other engines' runs
@@ -533,7 +593,8 @@ def wrappers():
     from repro_torch.kernels import telemetry_update as tu
     return fs.WRAPPERS + (chs.gibbs_class_sweep_cuda, me.bucket_energy_cuda,
                           ls.local_gibbs_sweep_cuda, fa.flash_attention_cuda,
-                          tu.telemetry_update_cuda)
+                          tu.telemetry_update_cuda,
+                          fa.flash_attention_bwd_cuda)
 
 
 def reset_launches():
@@ -558,10 +619,12 @@ def phase_build():
     say("2 build", f"{built.path.name}: {len(entries)} kernels, nvcc "
         f"{built.seconds:.1f} s, load {wall:.1f} s")
     flash = flash_bf16_ptxas(built.log)
-    for hdp, info in flash.items():
-        flash[hdp] = (f"{info}; dynamic shared memory "
-                      f"{built.lib.flash_attention_bf16_smem(hdp)} bytes")
-        say("2 build", f"flash bf16 HDP={hdp}: {flash[hdp]}")
+    for (hdp, lse), info in flash.items():
+        flash[hdp, lse] = (f"{info}; dynamic shared memory "
+                           f"{built.lib.flash_attention_bf16_smem(hdp)} "
+                           f"bytes")
+        say("2 build", f"flash bf16 HDP={hdp}{' with lse2' * lse}: "
+            f"{flash[hdp, lse]}")
     serialized = [ln.strip() for ln in built.log.splitlines()
                   if "wgmma" in ln and "serialized" in ln]
     for ln in serialized:
@@ -570,23 +633,27 @@ def phase_build():
         check(len(entries) == PTXAS_ENTRIES,
               f"ptxas compiled {len(entries)} kernels, expected "
               f"{PTXAS_ENTRIES}")
-        check(len(flash) == 3 and not serialized,
+        check(len(flash) == 6 and not serialized,
               f"flash bf16 instances {sorted(flash)}; wgmma serialized: "
               f"{serialized}")
     return dict(nvcc_seconds=built.seconds, load_seconds=wall, ptxas=ptxas,
-                flash_bf16=flash)
+                flash_bf16={f"{h}{' lse2' * l}": v
+                            for (h, l), v in flash.items()})
 
 
 def flash_bf16_ptxas(log):
-    """{padded head dim: "registers, shared memory, spills"} of the flash
-    kernel's bf16 instances, from the -Xptxas -v log."""
+    """{(padded head dim, writes lse2): "registers, shared memory,
+    spills"} of the flash kernel's bf16 instances, from the -Xptxas -v
+    log."""
     lines, out = log.splitlines(), {}
     for n, ln in enumerate(lines):
         if "entry function" in ln and "flash_bf16_kernel" in ln:
-            hdp = int(ln.split("flash_bf16_kernelILi")[1].split("E")[0])
-            out[hdp] = "; ".join(x.strip().replace("ptxas info    : ", "")
-                                 for x in lines[n + 1:n + 4]
-                                 if "spill" in x or "registers" in x)
+            args = ln.split("flash_bf16_kernelILi")[1]
+            hdp = int(args.split("E")[0])
+            out[hdp, "ELb1E" in args] = "; ".join(
+                x.strip().replace("ptxas info    : ", "")
+                for x in lines[n + 1:n + 4]
+                if "spill" in x or "registers" in x)
     return out
 
 
@@ -4994,6 +5061,391 @@ def phase_serving(potts, smi):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 12: training on the card
+# ---------------------------------------------------------------------------
+
+def bwd_ptxas(log):
+    """{kernel: "registers, spills, shared memory"} of the backward's seven
+    entry functions (D; dK/dV and dQ at padded head dims 64, 128, 256),
+    from the -Xptxas -v log; the dynamic shared memory of a block is its
+    64-row tiles (2 resident, 2 stages of 2 streamed, plus 1024 bytes of
+    the stages' row statistics for dK/dV)."""
+    lines, out = log.splitlines(), {}
+    for n, ln in enumerate(lines):
+        if "entry function" not in ln or "flash_bwd_" not in ln:
+            continue
+        name = ln.split("flash_bwd_")[1].split("_kernel")[0]
+        smem = 0
+        if "_kernelILi" in ln:
+            hdp = int(ln.split("_kernelILi")[1].split("E")[0])
+            smem = 6 * 64 * (hdp + 8) * 2 + 1024 * (name == "dkdv")
+            name = f"{name}<{hdp}>"
+        out[name] = "; ".join(
+            [x.strip().replace("ptxas info    : ", "")
+             for x in lines[n + 1:n + 4] if "spill" in x or "registers" in x]
+            + [f"dynamic shared memory {smem} bytes"])
+    return out
+
+
+def bwd_bound(B, Sq, Sk, H, KVH, hd, w, causal):
+    """(ms, term, {term: ms}): the larger of the backward's tensor-core
+    FLOPs (2.5 times the forward's two products: 10 hd per attended pair,
+    the causal mask halving the pairs) at the bf16 dense peak, and its
+    bytes (q, k, v, o, dO read once, dq, dk, dv written once, bf16) at the
+    HBM rate."""
+    pairs = B * H * attended_pairs(Sq, Sk, w, causal)
+    terms = {"operations": 10 * hd * pairs / BF16_TC_FLOPS_PER_S,
+             "bytes": 2 * (4 * B * Sq * H * hd + 4 * B * Sk * KVH * hd)
+             / HBM_BYTES_PER_S}
+    term = max(terms, key=terms.get)
+    return 1e3 * terms[term], term, {k: 1e3 * v for k, v in terms.items()}
+
+
+def rel_err(got, want):
+    return float((got.float() - want.float()).norm()
+                 / want.float().norm().clamp_min(1e-30))
+
+
+def bwd_parity(dev):
+    """12a: the backward kernel against its plain version at BWD_SHAPES, on
+    the forward kernel's row statistics (lse2): each gradient within
+    BWD_REL_TOL (relative Frobenius), finite, and the same bits on a second
+    launch; the forward's output the same bits with and without lse2."""
+    from repro_torch.kernels import flash_attention as fa, ref
+    errs, rels = {}, {}
+    for n, (B, Sq, Sk, H, KVH, hd, w, causal) in enumerate(BWD_SHAPES):
+        q, k, v = flash_inputs(B, Sq, Sk, H, KVH, hd, torch.bfloat16, dev,
+                               seed=200 + n)
+        dout = flash_inputs(B, Sq, Sq, H, H, hd, torch.bfloat16, dev,
+                            seed=300 + n)[0]
+        shape = (B, Sq, Sk, H, KVH, hd, w, causal)
+        out = fa.flash_attention_cuda(q, k, v, window=w, causal=causal)
+        out2, lse2 = fa.flash_attention_cuda(q, k, v, window=w,
+                                             causal=causal, lse=True)
+        check(torch.equal(out, out2), f"flash forward at {shape}: lse=True "
+              f"changed the output")
+        want = ref.flash_attention_bwd_ref(q, k, v, out, dout, window=w,
+                                           causal=causal)
+        got = fa.flash_attention_bwd_cuda(q, k, v, out, dout, lse2,
+                                          window=w, causal=causal)
+        again = fa.flash_attention_bwd_cuda(q, k, v, out, dout, lse2,
+                                            window=w, causal=causal)
+        torch.cuda.synchronize()
+        for name, g, a, p in zip(("dq", "dk", "dv"), got, again, want):
+            key = f"{shape} {name}"
+            check(torch.equal(g, a), f"flash backward {key}: two launches "
+                  f"gave different bits")
+            check(bool(torch.isfinite(g).all()),
+                  f"flash backward {key}: not finite")
+            rels[key] = r = rel_err(g, p)
+            errs[key] = float((g.float() - p.float()).abs().max())
+            check(r < BWD_REL_TOL, f"flash backward {key} off the plain "
+                  f"version: relative error {r:.3g} (< {BWD_REL_TOL})")
+        del q, k, v, dout, out, out2, lse2, want, got, again
+    torch.cuda.empty_cache()
+    say("12a backward parity", f"{len(BWD_SHAPES)} shapes (B, Sq, Sk, H, "
+        f"KVH, hd, window, causal) {BWD_SHAPES}: dq, dk, dv within "
+        f"{BWD_REL_TOL} relative (Frobenius) of the plain float32 backward "
+        f"(max {max(rels.values()):.3g}; max abs err "
+        f"{max(errs.values()):.3g}), "
+        f"finite, the same bits on a second launch; the forward's output "
+        f"the same bits with lse=True")
+    return dict(max_abs_err=max(errs.values()), max_rel_err=max(rels.values()),
+                rel_errors=rels)
+
+
+def bwd_times(dev):
+    """12a at tinyllama-1.1b's training attention: the wrapper's three
+    launches per call (CUDA events over a stream of calls), each kernel's
+    device time (torch.profiler), the plain version, the bound and
+    scaled_dot_product_attention's backward (fwd + bwd minus fwd, timed,
+    never called by the port); the forward with and without lse2."""
+    from repro_torch.kernels import flash_attention as fa, ref
+    B, Sq, Sk, H, KVH, hd, w, causal = BWD_SHAPES[0]
+    q, k, v = flash_inputs(B, Sq, Sk, H, KVH, hd, torch.bfloat16, dev, 60)
+    dout = flash_inputs(B, Sq, Sq, H, H, hd, torch.bfloat16, dev, 61)[0]
+    out, lse2 = fa.flash_attention_cuda(q, k, v, window=w, causal=causal,
+                                        lse=True)
+    bwd = lambda: fa.flash_attention_bwd_cuda(q, k, v, out, dout, lse2,
+                                              window=w, causal=causal)
+    ms = per_launch_ms(bwd, 5, reps=5)
+    fwd_plain = per_launch_ms(lambda: fa.flash_attention_cuda(
+        q, k, v, window=w, causal=causal), 10)
+    fwd_lse = per_launch_ms(lambda: fa.flash_attention_cuda(
+        q, k, v, window=w, causal=causal, lse=True), 10)
+    dev_ev, _ = device_events(lambda: [bwd() for _ in range(3)])
+    parts = {part: sum(e.self_device_time_total for e in dev_ev
+                       if f"flash_bwd_{part}_kernel" in e.key) / 1e3 / 3
+             for part in ("prep", "dkdv", "dq")}       # prep: D
+    pms = median_ms(lambda: ref.flash_attention_bwd_ref(
+        q, k, v, out, dout, window=w, causal=causal), 1, warmup=1)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    dt = dout.transpose(1, 2)
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal, enable_gqa=True)
+    fwd_ms = per_launch_ms(sdpa, 5)
+    both_ms = per_launch_ms(
+        lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dt), 5)
+    lib_ms = both_ms - fwd_ms
+    bound_ms, term, terms = bwd_bound(B, Sq, Sk, H, KVH, hd, w, causal)
+    flops = 10 * hd * B * H * attended_pairs(Sq, Sk, w, causal)
+    rec = dict(ms=ms, forward_ms=fwd_plain, forward_lse_ms=fwd_lse,
+               kernel_device_ms=parts, plain_ms=pms,
+               library_ms=lib_ms, library_fwd_bwd_ms=both_ms,
+               library_fwd_ms=fwd_ms, bound_ms=bound_ms, bound_by=term,
+               bound_terms_ms=terms, flops=flops,
+               tflops_per_s=flops / ms / 1e9,
+               shape=f"B={B} Sq={Sq} Sk={Sk} H={H} KVH={KVH} hd={hd} "
+                     f"window={w} causal bf16 (dq, dk, dv)")
+    say("12a backward times", f"[{rec['shape']}] kernel {ms:.4f} ms per "
+        f"call of three launches ({rec['tflops_per_s']:.1f} TFLOP/s of the "
+        f"bound's FLOPs); the forward {fwd_plain:.4f} ms, with lse2 "
+        f"{fwd_lse:.4f} ms; device: D "
+        f"{parts['prep']:.4f}, dK/dV "
+        f"{parts['dkdv']:.4f}, dQ {parts['dq']:.4f} ms; plain {pms:.2f} ms; "
+        f"scaled_dot_product_attention backward {lib_ms:.4f} ms (fwd+bwd "
+        f"{both_ms:.4f} - fwd {fwd_ms:.4f}); bound {bound_ms:.4f} ms set by "
+        f"{term} (" + ", ".join(f"{k} {v:.4f}" for k, v in terms.items())
+        + " ms)")
+    return rec
+
+
+def train_step_times(cfg, dev):
+    """12b: make_train_step at full width on fresh weights: one warm-up
+    step, TRAIN_TIMED steps timed with CUDA events (each to a synchronize),
+    the peak memory over them, and one more step under torch.profiler
+    (device busy, idle share, top ops, the backward kernels' share)."""
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import adamw_init
+    model = T.init_params(cfg, TRAIN_SEED, device=dev, master=True)
+    opt = adamw_init(model)
+    step = steps.make_train_step(cfg, base_lr=3e-4, total_steps=100,
+                                 loss_chunk=min(2048, TRAIN_S))
+    data = SyntheticTokens(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=TRAIN_SEED)
+    state = {"model": model, "opt": opt, "i": 0}
+
+    def one():
+        state["model"], state["opt"], m = step(
+            state["model"], state["opt"], data.batch(state["i"]))
+        state["i"] += 1
+        return m
+    one()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for _ in range(TRAIN_TIMED):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        m = one()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    def traced():
+        t1 = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t1
+    ev, wall_s = device_events(traced, cpu=True)
+    name = lambda key: key.replace("(anonymous namespace)::", "").split(
+        "(")[0].split("<")[0].split(" ")[-1]
+    ops = {}
+    for e in ev:
+        if e.self_device_time_total > 0 and not e.key.startswith("repro."):
+            ops[name(e.key)] = ops.get(name(e.key), 0.0) \
+                + e.self_device_time_total / 1e3
+    busy = sum(ops.values())
+    bwd_ms = sum(t for k, t in ops.items() if k.startswith("flash_bwd_"))
+    fwd_ms = sum(t for k, t in ops.items() if k.startswith("flash_bf16"))
+    del state, model, opt
+    torch.cuda.empty_cache()
+    step_ms = statistics.median(times)
+    tokens_s = TRAIN_B * TRAIN_S / step_ms * 1e3
+    mfu = (T.model_flops_per_token(cfg, TRAIN_S, "train") * tokens_s
+           / BF16_TC_FLOPS_PER_S)
+    top = dict(sorted(ops.items(), key=lambda o: -o[1])[:6])
+    return dict(step_ms=step_ms, step_ms_all=times, losses=losses,
+                tokens_per_s=tokens_s, model_flops_share=mfu,
+                peak_memory_gb=peak, busy_ms=busy,
+                traced_wall_ms=1e3 * wall_s, idle=1 - busy / (1e3 * wall_s),
+                top_device_ops_ms=top,
+                flash_bwd_device_ms=bwd_ms, flash_fwd_device_ms=fwd_ms,
+                flash_bwd_share=bwd_ms / busy)
+
+
+def train_full_width(dev, smi):
+    """12b: launch.train.train on tinyllama-1.1b at full width (weights
+    from a seed) for TRAIN_STEPS steps into a temporary ckpt_dir, every
+    launch count reset before and read after: the backward kernel once per
+    layer and step, the forward kernel twice (the forward and its
+    rematerialisation), no other kernel, and the plain backward never
+    called; losses and grad norms finite; then the step's figures."""
+    import tempfile
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_lib
+    cfg = get_arch(TRAIN_ARCH)
+    plain_calls = []
+    real_plain = ops.flash_attention_bwd_ref
+
+    def counted_plain(*a, **kw):
+        plain_calls.append(1)
+        return real_plain(*a, **kw)
+    ops.flash_attention_bwd_ref = counted_plain
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            reset_launches()
+            wall, (loss, hist) = _sync_ms(lambda: train_lib.train(
+                cfg, steps=TRAIN_STEPS, global_batch=TRAIN_B, seq=TRAIN_S,
+                ckpt_dir=os.path.join(tmp, "ck"), ckpt_every=10_000,
+                lr=3e-4, seed=TRAIN_SEED, log_every=1, device=dev))
+            launches = read_launches()
+            saved = train_lib.ckpt.latest_step(os.path.join(tmp, "ck"))
+        torch.cuda.empty_cache()
+        L = cfg.num_layers
+        check(launches["flash_attention_bwd"] == L * TRAIN_STEPS,
+              f"12b: {launches['flash_attention_bwd']} backward launches in "
+              f"{TRAIN_STEPS} steps, expected {L} per step")
+        check(launches["flash_attention"] == 2 * L * TRAIN_STEPS,
+              f"12b: {launches['flash_attention']} forward launches, "
+              f"expected {2 * L} per step (forward + rematerialisation)")
+        check(all(n == 0 for k, n in launches.items()
+                  if not k.startswith("flash_attention")),
+              f"12b: training launched other kernels: {launches}")
+        check(not plain_calls, f"12b: the plain backward was called "
+              f"{len(plain_calls)} times")
+        check(len(hist) == TRAIN_STEPS and saved == TRAIN_STEPS
+              and all(math.isfinite(h["loss"]) and math.isfinite(
+                  h["grad_norm"]) for h in hist),
+              f"12b: history {hist}, checkpoint at step {saved}")
+        step = train_step_times(cfg, dev)
+    finally:
+        ops.flash_attention_bwd_ref = real_plain
+    check(all(math.isfinite(x) for x in step["losses"]),
+          f"12b: timed steps' losses {step['losses']}")
+    rec = dict(arch=TRAIN_ARCH, B=TRAIN_B, S=TRAIN_S, steps=TRAIN_STEPS,
+               train_wall_ms=wall, history=hist, launches=launches,
+               plain_backward_calls=len(plain_calls), card=smi, **step)
+    say("12b training", f"{TRAIN_ARCH} full width (weights from seed "
+        f"{TRAIN_SEED}), B={TRAIN_B} S={TRAIN_S}, on {smi}: train() "
+        f"{TRAIN_STEPS} steps + the final checkpoint {wall / 1e3:.1f} s, "
+        f"losses {[round(h['loss'], 4) for h in hist]}, grad norms "
+        f"{[round(h['grad_norm'], 4) for h in hist]}; launches {launches}, "
+        f"plain backward calls 0")
+    say("12b training", f"step {step['step_ms']:.1f} ms (median of "
+        f"{[round(t, 1) for t in step['step_ms_all']]}), "
+        f"{step['tokens_per_s']:.0f} tokens/s, model-FLOPs share "
+        f"{step['model_flops_share']:.4f} of {BF16_TC_FLOPS_PER_S / 1e12:.0f}"
+        f" TFLOP/s, peak memory {step['peak_memory_gb']:.2f} GB; traced "
+        f"step: device busy {step['busy_ms']:.1f} ms, flash backward "
+        f"{step['flash_bwd_device_ms']:.1f} ms ({step['flash_bwd_share']:.3f}"
+        f" of busy), flash forward {step['flash_fwd_device_ms']:.1f} ms, "
+        f"wall {step['traced_wall_ms']:.1f} ms (idle {step['idle']:.3f}); top "
+        "device ops " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                  step["top_device_ops_ms"].items()))
+    return rec
+
+
+def train_resume(dev):
+    """12c: crash-resume on the card: RESUME_CFG trained RESUME_STEPS steps
+    uninterrupted, and again killed by fail_at_step and resumed from its
+    checkpoint, end with the same loss, parameters and AdamW state, bit for
+    bit."""
+    import tempfile
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models import transformer as T
+    cfg = ModelConfig(**RESUME_CFG)
+    kw = dict(steps=RESUME_STEPS, global_batch=4, seq=512,
+              ckpt_every=RESUME_EVERY, lr=1e-3, log_every=1, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        a, b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+        t0 = time.perf_counter()
+        loss_a, hist_a = train_lib.train(cfg, ckpt_dir=a, **kw)
+        try:
+            train_lib.train(cfg, ckpt_dir=b, fail_at_step=RESUME_FAIL,
+                            **kw)
+            fail("12c: fail_at_step did not raise")
+        except RuntimeError as e:
+            check("injected failure" in str(e), f"12c: {e}")
+        loss_b, hist_b = train_lib.train(cfg, ckpt_dir=b, **kw)
+        states = []
+        for d in (a, b):
+            model = T.init_params(cfg, 0, device=dev, master=True)
+            opt = train_lib._restore(d, RESUME_STEPS, model)
+            states.append((dict(model.named_parameters()), opt))
+        seconds = time.perf_counter() - t0
+    (pa, oa), (pb, ob) = states
+    same = (loss_a == loss_b and oa.step == ob.step == RESUME_STEPS
+            and all(torch.equal(pa[k], pb[k]) and torch.equal(oa.m[k], ob.m[k])
+                    and torch.equal(oa.v[k], ob.v[k]) for k in pa)
+            and [h["loss"] for h in hist_a[RESUME_EVERY:]]
+            == [h["loss"] for h in hist_b])
+    check(same, f"12c: the resumed run differs from the uninterrupted one "
+          f"(losses {loss_a} / {loss_b})")
+    del states, pa, pb, oa, ob
+    torch.cuda.empty_cache()
+    say("12c crash-resume", f"{cfg.name} cut to "
+        f"{cfg.num_layers} layers, B=4 S=512, {RESUME_STEPS} steps, "
+        f"killed at step {RESUME_FAIL}, resumed from step {RESUME_EVERY}: "
+        f"loss {loss_b:.6f}, parameters and AdamW state bit-equal to the "
+        f"uninterrupted run ({seconds:.1f} s)")
+    return dict(loss=loss_a, bit_equal=True, seconds=seconds)
+
+
+def run_examples():
+    """12d: the port's examples as subprocesses on the card, all started
+    together: each exits 0 (its last line kept)."""
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {}
+        for args in EXAMPLE_RUNS:
+            args = [a.replace("{tmp}", tmp) for a in args]
+            procs[args[0]] = subprocess.Popen(
+                [sys.executable, *args], cwd=ROOT, env=env, text=True,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        t0 = time.perf_counter()
+        for name, p in procs.items():
+            try:
+                text = p.communicate(timeout=EXAMPLE_TIMEOUT_S)[0]
+            except subprocess.TimeoutExpired:
+                for q in procs.values():
+                    q.kill()
+                fail(f"12d: {name} overran {EXAMPLE_TIMEOUT_S} s")
+            check(p.returncode == 0, f"12d: {name} exited {p.returncode}:\n"
+                  f"{text[-3000:]}")
+            out[name] = text.strip().splitlines()[-1]
+        seconds = time.perf_counter() - t0
+    for name, last in out.items():
+        say("12d examples", f"{name}: exit 0; {last}")
+    return dict(last_lines=out, seconds=seconds)
+
+
+def phase_training(dev, smi):
+    """12: training on the card."""
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    ptx = bwd_ptxas(_build.load_library().log)
+    for k, v in ptx.items():
+        say("12a backward build", f"flash_bwd_{k}: {v}")
+    rec = dict(ptxas=ptx, parity=bwd_parity(dev), times=bwd_times(dev))
+    rec["times"]["max_abs_err"] = rec["parity"]["max_abs_err"]
+    rec["train"] = train_full_width(dev, smi)
+    rec["resume"] = train_resume(dev)
+    rec["examples"] = run_examples()
+    rec["seconds"] = time.perf_counter() - t0
+    say("12 training", f"{rec['seconds']:.1f} s")
+    return rec
+
+
 REPLACES = {
     "gibbs_sweep": "src/repro/kernels/fused_sweep.py:577",
     # gibbs_sweep_pallas on the chromatic path (one launch per color class)
@@ -5010,6 +5462,8 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:79",
     # no Pallas kernel: the JAX package's update is jnp, fused by XLA
     "telemetry_update": "src/repro/diagnostics/telemetry.py:125 (jnp)",
+    # no Pallas kernel: jax.grad of the JAX package's jnp attention scan
+    "flash_attention_bwd": "src/repro/models/attention.py:44 (jnp, jax.grad)",
 }
 SOURCES = {"bucket_energy": "src/repro_torch/kernels/csrc/bucket_energy.cu",
            "gibbs_class_sweep":
@@ -5018,7 +5472,9 @@ SOURCES = {"bucket_energy": "src/repro_torch/kernels/csrc/bucket_energy.cu",
            "flash_attention":
                "src/repro_torch/kernels/csrc/flash_attention.cu",
            "telemetry_update":
-               "src/repro_torch/kernels/csrc/telemetry_update.cu"}
+               "src/repro_torch/kernels/csrc/telemetry_update.cu",
+           "flash_attention_bwd":
+               "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"}
 
 
 def main():
@@ -5056,16 +5512,22 @@ def main():
         potts, record["device"]["nvidia_smi"])
     record["serving"] = pool = phase_serving(
         potts, record["device"]["nvidia_smi"])
+    record["training"] = training = phase_training(
+        dev, record["device"]["nvidia_smi"])
 
     src = "src/repro_torch/kernels/csrc/fused_sweep.cu"
     diag = record["diagnostics"]
     times["telemetry_update"] = diag["telemetry_kernel"]["times"]
+    times["flash_attention_bwd"] = training["times"]
     kernels = []
     for k in KERNELS:
         if k.endswith("_rng"):
             launches = record["rng_path"]["launches"][k]
-        elif k == "flash_attention":
-            launches = serve["flash_launches"]
+        elif k == "flash_attention":     # prefill (7) and training (12b)
+            launches = (serve["flash_launches"]
+                        + training["train"]["launches"][k])
+        elif k == "flash_attention_bwd":  # training (12b), the main path
+            launches = training["train"]["launches"][k]
         elif k == "bucket_energy":       # the single-site steps' energy
             launches = sum(r["bucket_energy_launches"]
                            for r in record["steps"].values())
@@ -5082,6 +5544,8 @@ def main():
                if k == "flash_attention"
                else diag["telemetry_kernel"]["max_abs_err"]
                if k == "telemetry_update"
+               else training["parity"]["max_abs_err"]
+               if k == "flash_attention_bwd"
                else record["bucket_parity"]["max_abs_err"])
         kernels.append(dict(
             name=k, route="cuda", source=SOURCES.get(k, src),

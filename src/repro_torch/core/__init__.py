@@ -13,7 +13,7 @@ Public API:
                   init_state, init_min_gibbs_cache, init_double_min_cache
   Estimators:     lemma2_lambda, recommended_capacity, draw_global_minibatch,
                   draw_local_minibatch, min_gibbs_estimate
-  Runner:         run_marginal_experiment, marginal_error
+  Runner:         init_chains, run_marginal_experiment, marginal_error
   Exact theory:   spectral (transition matrices, gaps, theorem checks)
 """
 from .factor_graph import (MatchGraph, TabularPairwiseGraph, graph_from_numpy,
@@ -31,5 +31,6 @@ from .samplers import (ChainState, init_state, make_gibbs_step,
 from . import engine
 from .engine import (Engine, Schedule, UniformSites, ChromaticBlocks,
                      AdaptiveScan, Workload, WORKLOADS, make_workload)
-from .chains import MarginalTrace, run_marginal_experiment, marginal_error
+from .chains import (MarginalTrace, init_chains, run_marginal_experiment,
+                     marginal_error)
 from . import spectral

@@ -12,14 +12,16 @@ needs after it.
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+from typing import Any, Callable, NamedTuple
 
 import torch
 
 from .engine import Engine
+from .factor_graph import MatchGraph
+from .samplers import ChainState
 
-__all__ = ["MarginalTrace", "run_marginal_experiment", "marginal_error",
-           "accumulate_marginals"]
+__all__ = ["MarginalTrace", "init_chains", "run_marginal_experiment",
+           "marginal_error", "accumulate_marginals"]
 
 
 class MarginalTrace(NamedTuple):
@@ -30,6 +32,27 @@ class MarginalTrace(NamedTuple):
     marg: torch.Tensor   # (C, n, D) final one-hot sums (marginal estimate =
     #                      marg / (iters[-1] / updates_per_call))
     telemetry: Any = None  # Telemetry carry when telemetry=True
+
+
+def init_chains(gen: torch.Generator, graph: MatchGraph, n_chains: int,
+                init_fn: Callable[[torch.Generator, MatchGraph], ChainState]
+                ) -> ChainState:
+    """Batched chain init from a single-chain ``init_fn`` (prefer
+    ``Engine.init``, which also seeds estimator caches).
+
+    The reference vmaps ``init_fn`` over ``n_chains`` split keys; here
+    ``init_fn(gen, graph)`` is called ``n_chains`` times with the one
+    explicit generator, each call drawing the next values of its stream,
+    and returns a state of one chain (``x`` (1, n) or (n,), ``cache`` and
+    ``accepts`` of one entry).  The chains are stacked in call order into
+    ``Engine.init``'s layout: x (C, n) int32, cache (C,) float32, accepts
+    (C,) int32, the state owning ``gen``."""
+    parts = [init_fn(gen, graph) for _ in range(n_chains)]
+    return ChainState(
+        x=torch.cat([p.x.reshape(1, graph.n) for p in parts]),
+        cache=torch.cat([p.cache.reshape(1) for p in parts]),
+        gen=gen,
+        accepts=torch.cat([p.accepts.reshape(1) for p in parts]))
 
 
 def marginal_error(marg_sum: torch.Tensor, count) -> torch.Tensor:

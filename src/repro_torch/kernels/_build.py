@@ -68,9 +68,9 @@ _SIGNATURES = {
     # x, W, i_sites, seed, x_out, C, n, S, B, D, scale, stream
     "local_gibbs_sweep_launch": [_c_ptr] * 5 + [_c_int] * 5 + [_c_float,
                                                                _c_ptr],
-    # q, k, v, out, B, Sq, Sk, H, KVH, hd, window, causal, is_bf16, scale,
-    # stream
-    "flash_attention_launch": [_c_ptr] * 4 + [_c_int] * 9 + [_c_float,
+    # q, k, v, out, lse2 (or null), B, Sq, Sk, H, KVH, hd, window, causal,
+    # is_bf16, scale, stream
+    "flash_attention_launch": [_c_ptr] * 5 + [_c_int] * 9 + [_c_float,
                                                              _c_ptr],
     # 17 carry fields (kernels/telemetry_update.py CARRY_FIELDS), x_old,
     # x_new, accept_delta, stat_prop, stat_acc, sites, cache, C, n, K,
@@ -80,6 +80,10 @@ _SIGNATURES = {
                                + [_c_float] * 2 + [_c_ptr],
     # hd -> the bf16 block's dynamic shared memory in bytes
     "flash_attention_bf16_smem": [_c_int],
+    # q, k, v, out, dout, dq, dk, dv, lse2, dsum, B, Sq, Sk, H, KVH, hd,
+    # window, causal, scale, stream
+    "flash_attention_bwd_launch": [_c_ptr] * 10 + [_c_int] * 8
+                                  + [_c_float, _c_ptr],
 }
 
 

@@ -36,7 +36,9 @@
 //
 // Two kernels:
 //  * bf16 (the model's type), one template per padded head dim HDP in
-//    {64, 128, 256} (hd 16, 32, 64 -> 64; 120, 128 -> 128; 256 -> 256).
+//    {64, 128, 256} (hd 16, 32, 64 -> 64; 120, 128 -> 128; 256 -> 256),
+//    each in two instances: without and with the row log-sum-exp output
+//    (training's), so the serve path runs the code it ran before.
 //    Persistent: one block per SM walks the work items blockIdx.x,
 //    + gridDim.x, ...; the longest-first order balances the blocks' shares
 //    to within one item, and the next item's Q and first K/V tiles load
@@ -63,7 +65,9 @@
 //      FFMA per score on interior tiles); only the tiles that cross the
 //      diagonal, the window edge or Sk are masked.
 //    - Epilogue: normalise in registers, store the rows < Sq and columns
-//      < hd directly (bf16 pairs).
+//      < hd directly (bf16 pairs); optionally each row's log-sum-exp for
+//      the backward kernel (flash_attention_bwd.cu), which leaves the
+//      output's arithmetic as it is.
 //  * float32 (the tests' type; hd 16, 32, 64, 128): one thread per query
 //    row, q in shared memory (rows padded by one word), K and V tiles
 //    broadcast from shared memory, the dot products and PV sums in float32
@@ -92,6 +96,7 @@
 #include <cuda_runtime.h>
 
 #include <atomic>
+#include <cmath>
 #include <cstdint>
 
 extern __shared__ __align__(16) unsigned char flash_smem[];
@@ -452,13 +457,16 @@ __device__ __forceinline__ Item item(int w, int nq, int H, int B,
   return {(causal ? nq - 1 - tile : tile) * kBM, hb % H, hb / H};
 }
 
-template <int HDP>
+// kLse: also write each row's log-sum-exp (a separate instance, so the
+// serve path's kernel is the one without it)
+template <int HDP, bool kLse>
 __global__ void __launch_bounds__(kThreads16, 1)
 flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                   const __grid_constant__ CUtensorMap tk,
                   const __grid_constant__ CUtensorMap tv,
-                  __nv_bfloat16* __restrict__ out, int B, int Sq, int Sk,
-                  int H, int KVH, int hd, int window, int causal, float c) {
+                  __nv_bfloat16* __restrict__ out,
+                  float* __restrict__ lse2, int B, int Sq, int Sk, int H,
+                  int KVH, int hd, int window, int causal, float c) {
   using T = Tiles<HDP>;
   constexpr int BK = T::BK, ST = T::ST;
   // shared memory: Q | K stages | V stages | barriers, 1024-aligned
@@ -651,6 +659,12 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
         // a row that saw no valid key is written as zeros
         const bool none = m[r] == kNegInf;
         const float inv = 1.0f / fmaxf(l[r], 1e-30f);
+        // the row's log-sum-exp of the scaled scores, base 2, for the
+        // backward kernel (+inf: no valid key); outside the output's
+        // arithmetic, which is the same with or without it
+        if (kLse && t4 == 0)
+          lse2[(static_cast<size_t>(x.b) * H + x.h) * Sq + i] =
+              none ? INFINITY : m[r] + log2f(l[r]);
         __nv_bfloat16* dst = out
                              + (static_cast<size_t>(x.b) * Sq + i) * stride
                              + static_cast<size_t>(x.h) * hd;
@@ -810,11 +824,11 @@ bool tensor_map(CUtensorMap* map, const void* base, int B, int S, int heads,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HDP>
-cudaError_t launch_bf16(cudaStream_t stream, const void* q, const void* k,
-                        const void* v, void* out, int B, int Sq, int Sk,
-                        int H, int KVH, int hd, int window, int causal,
-                        float scale) {
+template <int HDP, bool kLse>
+cudaError_t launch_bf16_as(cudaStream_t stream, const void* q, const void* k,
+                           const void* v, void* out, float* lse2, int B,
+                           int Sq, int Sk, int H, int KVH, int hd, int window,
+                           int causal, float scale) {
   using T = Tiles<HDP>;
   CUtensorMap tq, tk, tv;
   if (!tensor_map(&tq, q, B, Sq, H, hd, kBM)
@@ -830,7 +844,7 @@ cudaError_t launch_bf16(cudaStream_t stream, const void* q, const void* k,
   if (err != cudaSuccess) return err;
   if (device < kMaxDevices) sms = sms_of[device].load();
   if (sms == 0) {
-    err = cudaFuncSetAttribute(flash_bf16_kernel<HDP>,
+    err = cudaFuncSetAttribute(flash_bf16_kernel<HDP, kLse>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                T::kSmem);
     if (err == cudaSuccess)
@@ -842,10 +856,24 @@ cudaError_t launch_bf16(cudaStream_t stream, const void* q, const void* k,
   const long long items =
       static_cast<long long>((Sq + kBM - 1) / kBM) * B * H;
   const int grid = static_cast<int>(items < sms ? items : sms);
-  flash_bf16_kernel<HDP><<<grid, kThreads16, T::kSmem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), B, Sq, Sk, H, KVH, hd,
-      window, causal, scale * 1.4426950408889634f);   // scale * log2(e)
+  flash_bf16_kernel<HDP, kLse><<<grid, kThreads16, T::kSmem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), lse2, B, Sq, Sk, H, KVH,
+      hd, window, causal, scale * 1.4426950408889634f);   // scale * log2(e)
   return cudaGetLastError();
+}
+
+template <int HDP>
+cudaError_t launch_bf16(cudaStream_t stream, const void* q, const void* k,
+                        const void* v, void* out, float* lse2, int B, int Sq,
+                        int Sk, int H, int KVH, int hd, int window,
+                        int causal, float scale) {
+  return lse2 == nullptr
+             ? launch_bf16_as<HDP, false>(stream, q, k, v, out, lse2, B, Sq,
+                                          Sk, H, KVH, hd, window, causal,
+                                          scale)
+             : launch_bf16_as<HDP, true>(stream, q, k, v, out, lse2, B, Sq,
+                                         Sk, H, KVH, hd, window, causal,
+                                         scale);
 }
 
 template <int HD>
@@ -874,24 +902,30 @@ extern "C" {
 // contiguous on the card, 16-byte aligned, of one type: bfloat16 when
 // is_bf16, else float32.  B, Sq, Sk >= 1; H % KVH == 0; float32:
 // B <= 65535, H <= 65535; bf16: ceil(Sq / 128) * B * H < 2^31.  window <= 0:
-// no window.  scale: hd^-0.5 as float32.
+// no window.  scale: hd^-0.5 as float32.  lse2: null, or (bf16 only) a
+// (B, H, Sq) float32 output of each row's log-sum-exp of the scaled scores
+// in base 2 (+inf for a row with no valid key), which the backward kernel
+// (flash_attention_bwd.cu) takes instead of recomputing it.
 int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* out, int B, int Sq, int Sk, int H, int KVH,
-                           int hd, int window, int causal, int is_bf16,
-                           float scale, cudaStream_t stream) {
+                           void* out, void* lse2, int B, int Sq, int Sk,
+                           int H, int KVH, int hd, int window, int causal,
+                           int is_bf16, float scale, cudaStream_t stream) {
   cudaError_t err = cudaErrorInvalidValue;
   if (is_bf16) {
     switch (hd) {
       case 16: case 32: case 64:
-        err = launch_bf16<64>(stream, q, k, v, out, B, Sq, Sk, H, KVH, hd,
+        err = launch_bf16<64>(stream, q, k, v, out,
+                              static_cast<float*>(lse2), B, Sq, Sk, H, KVH, hd,
                               window, causal, scale);
         break;
       case 120: case 128:
-        err = launch_bf16<128>(stream, q, k, v, out, B, Sq, Sk, H, KVH, hd,
+        err = launch_bf16<128>(stream, q, k, v, out,
+                              static_cast<float*>(lse2), B, Sq, Sk, H, KVH, hd,
                                window, causal, scale);
         break;
       case 256:
-        err = launch_bf16<256>(stream, q, k, v, out, B, Sq, Sk, H, KVH, hd,
+        err = launch_bf16<256>(stream, q, k, v, out,
+                              static_cast<float*>(lse2), B, Sq, Sk, H, KVH, hd,
                                window, causal, scale);
         break;
     }

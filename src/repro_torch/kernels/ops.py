@@ -3,10 +3,11 @@
 A CPU tensor goes to the plain PyTorch version (``ref.py``); a CUDA tensor
 goes to the hand-written kernel (``fused_sweep.py``,
 ``chromatic_sweep.py``, ``minibatch_energy.py``, ``local_sweep.py``,
-``flash_attention.py``), which launches or raises.  Nothing falls back from one to the other.  The
-in-kernel-RNG forms of the fused sweeps have no entry here (as in the JAX
-package): they are called through ``fused_sweep`` directly.  The
-local-gibbs sweep draws in-kernel only, and has its entry here.
+``flash_attention.py``, forward and backward), which launches or raises.
+Nothing falls back from one to the other.  The in-kernel-RNG forms of the
+fused sweeps have no entry here (as in the JAX package): they are called
+through ``fused_sweep`` directly.  The local-gibbs sweep draws in-kernel
+only, and has its entry here.
 """
 from __future__ import annotations
 
@@ -15,15 +16,16 @@ import torch
 from .chromatic_sweep import gibbs_class_sweep_cuda
 from .fused_sweep import (double_min_sweep_cuda, gibbs_sweep_cuda,
                           mgpmh_sweep_cuda, min_gibbs_sweep_cuda)
-from .flash_attention import flash_attention_cuda
+from .flash_attention import flash_attention_bwd_cuda, flash_attention_cuda
 from .local_sweep import local_gibbs_sweep_cuda
 from .minibatch_energy import bucket_energy_cuda
 from .ref import (bucket_energy_ref, double_min_sweep_ref,
-                  flash_attention_ref, gibbs_class_sweep_ref, gibbs_sweep_ref,
+                  flash_attention_bwd_ref, flash_attention_ref,
+                  gibbs_class_sweep_ref, gibbs_sweep_ref,
                   local_gibbs_sweep_ref, mgpmh_sweep_ref, min_gibbs_sweep_ref)
 
-__all__ = ["bucket_energy", "flash_attention", "gibbs_sweep",
-           "gibbs_class_sweep", "mgpmh_sweep",
+__all__ = ["bucket_energy", "flash_attention", "flash_attention_bwd",
+           "gibbs_sweep", "gibbs_class_sweep", "mgpmh_sweep",
            "min_gibbs_sweep", "double_min_sweep", "local_gibbs_sweep"]
 
 
@@ -49,20 +51,50 @@ def bucket_energy(w, v, D: int):
     return bucket_energy_cuda(w, v, D)
 
 
-def flash_attention(q, k, v, *, window: int = 0, causal: bool = True):
+def flash_attention(q, k, v, *, window: int = 0, causal: bool = True,
+                    lse: bool = False):
     """Online-softmax attention over grouped-query heads (see
     ``ref.flash_attention_ref``).
 
     q (B, Sq, H, hd), k and v (B, Sk, KVH, hd), float32 or bfloat16 (one
     dtype), H % KVH == 0; ``window <= 0`` is full attention; causal masking
     is top-left aligned.  Any Sq and Sk, no padding and no head repeat.
-    Returns (B, Sq, H, hd) in q's dtype.
+    Returns (B, Sq, H, hd) in q's dtype; with ``lse=True`` (out, lse2),
+    lse2 the kernel's row statistics for ``flash_attention_bwd`` (bf16 on
+    the card; None on the CPU, whose plain backward recomputes them).
     """
     route = _route(q, "flash_attention")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if route == "cpu":
-        return flash_attention_ref(q, k, v, window=window, causal=causal)
-    return flash_attention_cuda(q, k, v, window=window, causal=causal)
+        out = flash_attention_ref(q, k, v, window=window, causal=causal)
+        return (out, None) if lse else out
+    return flash_attention_cuda(q, k, v, window=window, causal=causal,
+                                lse=lse)
+
+
+def flash_attention_bwd(q, k, v, out, dout, *, window: int = 0,
+                        causal: bool = True, lse2=None):
+    """(dq, dk, dv) of ``flash_attention(q, k, v)`` = ``out`` for the output
+    gradient ``dout`` (see ``ref.flash_attention_bwd_ref``).
+
+    Shapes and mask as ``flash_attention``; on the card bf16 only, at the
+    bf16 forward's head dims (``flash_attention.HEAD_DIMS``), with
+    ``lse2`` the forward kernel's row statistics
+    (``flash_attention(..., lse=True)``);
+    the plain version recomputes them in float32 and takes none.  Returns
+    gradients in the inputs' dtypes, shaped as q, k, v.
+    """
+    route = _route(q, "flash_attention_bwd")
+    q, k, v, out, dout = (t.contiguous() for t in (q, k, v, out, dout))
+    if route == "cpu":
+        return flash_attention_bwd_ref(q, k, v, out, dout, window=window,
+                                       causal=causal)
+    if lse2 is None:
+        raise ValueError("the flash-attention backward kernel takes the "
+                         "forward kernel's row statistics: "
+                         "flash_attention(..., lse=True)")
+    return flash_attention_bwd_cuda(q, k, v, out, dout, lse2, window=window,
+                                    causal=causal)
 
 
 def mgpmh_sweep(x, W, row_pack, i_sites, B, u_idx, u_alias, gumbel, logu,

@@ -43,7 +43,8 @@ __all__ = ["bucket_energy_ref", "gibbs_sweep_ref", "gibbs_class_sweep_ref",
            "min_gibbs_sweep_ref", "double_min_sweep_ref",
            "mgpmh_sweep_rng_ref", "min_gibbs_sweep_rng_ref",
            "double_min_sweep_rng_ref", "local_gibbs_subsets",
-           "local_gibbs_sweep_ref", "flash_attention_ref"]
+           "local_gibbs_sweep_ref", "flash_attention_ref",
+           "flash_attention_bwd_ref"]
 
 NEG_INF = -1e30     # the masked score of the TPU kernel (not -inf)
 
@@ -119,6 +120,54 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         o = o.masked_fill(~mask.any(dim=-1)[None, :, None], 0.0)
         out[b] = o.transpose(0, 1).to(q.dtype)
     return out
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, out: torch.Tensor,
+                            dout: torch.Tensor, *, window: int = 0,
+                            causal: bool = True):
+    """(dq, dk, dv) of ``flash_attention_ref(q, k, v)`` = ``out`` for the
+    output gradient ``dout``: the plain version of the backward kernel
+    (``csrc/flash_attention_bwd.cu``), recomputed in float32 from the same
+    inputs.
+
+    With s = q k^T * hd^-0.5 (masked as the forward masks it), P =
+    softmax(s) and D_i = sum_d dout_id out_id: dv = P^T dout, dS = P (dout
+    v^T - D), dq = dS k * hd^-0.5, dk = dS^T q * hd^-0.5; dk and dv sum the
+    G query heads of each KV head.  A row with no valid key has P = 0.
+    Returns the gradients in the inputs' dtypes.  One (batch element, KV
+    head) at a time: its (G, Sq, Sk) float32 scores are the largest
+    transient.  P and dS stay float32 here (the kernel rounds them to
+    bf16 for its products).
+    """
+    B, Sq, H, hd = q.shape
+    Sk, KVH = k.shape[1], k.shape[2]
+    G, scale = H // KVH, hd ** -0.5
+    i = torch.arange(Sq, device=q.device)[:, None]
+    j = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= i >= j
+    if window > 0:
+        mask &= (i - j) < window
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    f32 = torch.float32
+    for b in range(B):
+        for kh in range(KVH):
+            heads = slice(kh * G, (kh + 1) * G)
+            qb, ob, dob = (t[b, :, heads].to(f32).transpose(0, 1)
+                           for t in (q, out, dout))             # (G, Sq, hd)
+            kb, vb = k[b, :, kh].to(f32), v[b, :, kh].to(f32)   # (Sk, hd)
+            s = (qb @ kb.T * scale).masked_fill(~mask, -torch.inf)
+            lse = torch.logsumexp(s, dim=-1, keepdim=True)
+            p = torch.where(mask, torch.exp(s - lse), 0.0)      # (G, Sq, Sk)
+            dsum = (dob * ob).sum(dim=-1, keepdim=True)
+            ds = p * (dob @ vb.T - dsum)
+            dv[b, :, kh] = (p.transpose(1, 2) @ dob).sum(dim=0).to(v.dtype)
+            dk[b, :, kh] = ((ds.transpose(1, 2) @ qb).sum(dim=0)
+                            * scale).to(k.dtype)
+            dq[b, :, heads] = (ds @ kb * scale).transpose(0, 1).to(q.dtype)
+    return dq, dk, dv
 
 
 def gibbs_sweep_ref(x, W, i_sites, gumbel, D: int):

@@ -4,7 +4,11 @@ counterpart of ``repro/models/attention.py``; MLA is not ported yet.
 
 Prefill never materialises the (Sq, Sk) scores: ``flash_attention`` runs
 the online-softmax kernel (``kernels/csrc/flash_attention.cu`` on the card,
-its plain version on the CPU).  The JAX package's model-level
+its plain version on the CPU).  Where a gradient is wanted (training),
+``FlashAttention`` wraps the same forward, and its backward is the
+hand-written ``kernels/csrc/flash_attention_bwd.cu`` on the card (the plain
+backward on the CPU); prefill, under ``torch.no_grad``, calls the forward
+alone.  The JAX package's model-level
 ``flash_attention`` is a jnp scan over ``kv_chunk`` blocks computing the
 same function; its ``kv_chunk`` is a TPU-memory knob the port drops, since
 the kernel tiles itself.  Decode (q_len == 1) computes its (B, H, S) scores
@@ -17,9 +21,10 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..kernels import ops
+from ..kernels.flash_attention import HEAD_DIMS
 
-__all__ = ["flash_attention", "decode_attention", "KVCache", "gqa_attend",
-           "apply_rope_bshd", "NEG_INF"]
+__all__ = ["flash_attention", "FlashAttention", "decode_attention",
+           "KVCache", "gqa_attend", "apply_rope_bshd", "NEG_INF"]
 
 NEG_INF = -1e30
 
@@ -40,9 +45,47 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     attention.  Returns (B, Sq, H, hd) in q's dtype.  The scale hd^-0.5
     multiplies the float32 score, as in the TPU kernel (the JAX oracle
     scales q in bf16 first: the same for hd 16, 64 and 256, one bf16
-    rounding of q apart for 32, 120 and 128).
+    rounding of q apart for 32, 120 and 128).  Differentiable
+    (``FlashAttention``) when grad mode is on and an input requires grad.
     """
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, int(window), causal)
     return ops.flash_attention(q, k, v, window=int(window), causal=causal)
+
+
+class FlashAttention(torch.autograd.Function):
+    """``ops.flash_attention`` with its gradient ``ops.flash_attention_bwd``:
+    on the card the forward and backward kernels, on the CPU their plain
+    versions.  Saves q, k, v, the output and, on the card, the forward
+    kernel's row log-sum-exp (B H Sq floats; no (Sq, Sk) tensor), which
+    the backward kernel reads instead of recomputing it.  On the card the
+    backward kernel takes bf16 at ``HEAD_DIMS[torch.bfloat16]`` only: other
+    inputs are refused here, before any launch."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window: int, causal: bool):
+        dims = HEAD_DIMS[torch.bfloat16]
+        if q.device.type == "cuda" and (q.dtype != torch.bfloat16
+                                        or q.shape[-1] not in dims):
+            raise ValueError(
+                f"the flash-attention backward kernel takes bfloat16 at head "
+                f"dims {dims}; got {q.dtype}, head dim "
+                f"{q.shape[-1]} (ROADMAP.md Queue 1 item 10)")
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        out, lse2 = ops.flash_attention(q, k, v, window=window,
+                                        causal=causal, lse=True)
+        ctx.save_for_backward(q, k, v, out, lse2)
+        ctx.window, ctx.causal = window, causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse2 = ctx.saved_tensors
+        dq, dk, dv = ops.flash_attention_bwd(q, k, v, out, dout,
+                                             window=ctx.window,
+                                             causal=ctx.causal, lse2=lse2)
+        return dq, dk, dv, None, None
 
 
 def decode_attention(q: torch.Tensor, cache: KVCache,

@@ -1,11 +1,10 @@
-"""The dense GQA transformer family — init, forward, decode — in PyTorch:
-the serve path of ``repro/models/transformer.py``.
+"""The dense GQA transformer family — init, forward, loss, decode — in
+PyTorch: the counterpart of ``repro/models/transformer.py``.
 
 Covers every dense config of the registry (tinyllama-1.1b,
 h2o-danube-3-4b, gemma3-12b, starcoder2-7b): swiglu or gelu MLP, any
 ``window_pattern``, tied or untied embeddings.  The other families (MoE,
 MLA, SSM, hybrid, encoder-decoder, VLM stub) raise ``NotImplementedError``.
-Training (``loss_fn``, remat) is not ported yet.
 
 Design notes
 ------------
@@ -16,9 +15,20 @@ Design notes
   copy.  Layer ``g * P + p`` is the reference's stacked leaf ``[g, p]``
   (P = ``len(cfg.window_pattern)``) and has window ``window_pattern[p]``.
 * **Mixed precision**, as the reference's ``_cast_params``: weights of two
-  or more dimensions are stored in bf16 (cast once at load: the same bits
-  as its per-call cast), 1-D norm scales stay float32, the residual stream
-  is bf16, and logits are the bf16 product widened to float32.
+  or more dimensions compute in bf16, 1-D norm scales in float32, the
+  residual stream is bf16, and logits are the bf16 product widened to
+  float32.  Two forms of the same model: the **serve form** stores those
+  weights in bf16 (cast once at load: the same bits as the reference's
+  per-call cast), every parameter with ``requires_grad=False``; the
+  **master form** (``master=True``, the trainer's) stores every parameter
+  in float32 with ``requires_grad=True`` and casts per call, so its
+  gradients are float32, as the reference's.
+* **Training** (``loss_fn``): the chunked next-token cross entropy with
+  each chunk rematerialised, over a forward whose every group of
+  ``len(window_pattern)`` layers is rematerialised
+  (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of its
+  scan body; ``remat_policy`` "full").  The attention gradient is the
+  flash backward kernel (``models/attention.py``, ``FlashAttention``).
 * **Decode caches** are ring buffers of ``min(window, seq)`` slots with an
   absolute-position array (``pos``) for masking, laid out as the
   reference's: per slot p, ``k``/``v`` (G, B, KVH, S_w, hd) and ``pos``
@@ -36,6 +46,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..configs.base import ModelConfig
@@ -43,7 +54,9 @@ from . import attention as attn_lib
 from .layers import rms_norm, rope, truncated_normal_init
 
 __all__ = ["Transformer", "init_params", "params_from_jax", "forward",
-           "init_cache", "decode_step", "param_count", "COMPUTE_DTYPE"]
+           "loss_fn", "init_cache", "decode_step", "param_count",
+           "active_param_count", "model_flops_per_token", "decay_mask",
+           "COMPUTE_DTYPE"]
 
 COMPUTE_DTYPE = torch.bfloat16
 
@@ -100,13 +113,44 @@ def param_count(cfg: ModelConfig) -> int:
     return sum(math.prod(s) for s in _param_shapes(cfg).values())
 
 
+def active_param_count(cfg: ModelConfig) -> int:
+    """Parameters touched per token: all of them in the dense family (the
+    reference subtracts the inactive experts of a MoE config, a family the
+    port refuses)."""
+    return param_count(cfg)
+
+
+def model_flops_per_token(cfg: ModelConfig, seq_len: int,
+                          kind: str = "train") -> float:
+    """MODEL_FLOPS: 6 N_active per token for train, 2 N_active for
+    forward, plus the attention term 6 (2 forward) L H hd S_eff, S_eff the
+    mean over the window pattern of min(window, S) (the reference's
+    formula)."""
+    N = active_param_count(cfg)
+    mult = 6.0 if kind == "train" else 2.0
+    eff = sum(min(w if w > 0 else seq_len, seq_len)
+              for w in cfg.window_pattern) / cfg.period
+    return mult * N + mult * cfg.num_layers * cfg.num_heads * cfg.head_dim \
+        * eff
+
+
 # ===========================================================================
 # Modules
 # ===========================================================================
 
-def _weight(shape, dtype, device) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
-                        requires_grad=False)
+def _weight(shape, dtype, device, master: bool = False) -> nn.Parameter:
+    """A parameter of the serve form (``dtype``, no grad) or of the master
+    form (float32, grad)."""
+    return nn.Parameter(torch.empty(shape, dtype=torch.float32 if master
+                                    else dtype, device=device),
+                        requires_grad=master)
+
+
+def _compute(w: torch.Tensor) -> torch.Tensor:
+    """The weight as the layer computes with it: bf16 for two or more
+    dimensions (the reference's ``_cast_params``; no copy when the serve
+    form stores it so), as stored otherwise."""
+    return w.to(COMPUTE_DTYPE) if w.dim() >= 2 else w
 
 
 def _mlp_apply(cfg: ModelConfig, h, p):
@@ -120,18 +164,19 @@ def _mlp_apply(cfg: ModelConfig, h, p):
 class Attention(nn.Module):
     """GQA projections: wq (d, H*hd), wk/wv (d, KVH*hd), wo (H*hd, d)."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None, master: bool = False):
         super().__init__()
         d, H, KVH, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                          cfg.head_dim)
         self.cfg = cfg
-        self.wq = _weight((d, H * hd), COMPUTE_DTYPE, device)
-        self.wk = _weight((d, KVH * hd), COMPUTE_DTYPE, device)
-        self.wv = _weight((d, KVH * hd), COMPUTE_DTYPE, device)
-        self.wo = _weight((H * hd, d), COMPUTE_DTYPE, device)
+        self.wq = _weight((d, H * hd), COMPUTE_DTYPE, device, master)
+        self.wk = _weight((d, KVH * hd), COMPUTE_DTYPE, device, master)
+        self.wv = _weight((d, KVH * hd), COMPUTE_DTYPE, device, master)
+        self.wo = _weight((H * hd, d), COMPUTE_DTYPE, device, master)
 
     def weights(self) -> Dict[str, torch.Tensor]:
-        return {"wq": self.wq, "wk": self.wk, "wv": self.wv, "wo": self.wo}
+        return {"wq": _compute(self.wq), "wk": _compute(self.wk),
+                "wv": _compute(self.wv), "wo": _compute(self.wo)}
 
     def forward(self, h, rope_cs, window: int, causal: bool = True):
         cfg = self.cfg
@@ -146,29 +191,31 @@ class Attention(nn.Module):
 class MLP(nn.Module):
     """swiglu (w_gate, w_up, w_down) or gelu (w_up, w_down)."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None, master: bool = False):
         super().__init__()
         d, f = cfg.d_model, cfg.d_ff
         self.cfg = cfg
         if cfg.mlp_type == "swiglu":
-            self.w_gate = _weight((d, f), COMPUTE_DTYPE, device)
-        self.w_up = _weight((d, f), COMPUTE_DTYPE, device)
-        self.w_down = _weight((f, d), COMPUTE_DTYPE, device)
+            self.w_gate = _weight((d, f), COMPUTE_DTYPE, device, master)
+        self.w_up = _weight((d, f), COMPUTE_DTYPE, device, master)
+        self.w_down = _weight((f, d), COMPUTE_DTYPE, device, master)
 
     def forward(self, h):
-        return _mlp_apply(self.cfg, h, dict(self.named_parameters()))
+        return _mlp_apply(self.cfg, h, {k: _compute(w) for k, w
+                                        in self.named_parameters()})
 
 
 class Layer(nn.Module):
     """Pre-norm block: x + attn(norm(x)), then + mlp(norm(x))."""
 
-    def __init__(self, cfg: ModelConfig, window: int, device=None):
+    def __init__(self, cfg: ModelConfig, window: int, device=None,
+                 master: bool = False):
         super().__init__()
         self.cfg, self.window = cfg, window
-        self.ln1 = _weight((cfg.d_model,), torch.float32, device)
-        self.ln2 = _weight((cfg.d_model,), torch.float32, device)
-        self.attn = Attention(cfg, device)
-        self.mlp = MLP(cfg, device)
+        self.ln1 = _weight((cfg.d_model,), torch.float32, device, master)
+        self.ln2 = _weight((cfg.d_model,), torch.float32, device, master)
+        self.attn = Attention(cfg, device, master)
+        self.mlp = MLP(cfg, device, master)
 
     def forward(self, x, rope_cs):
         h = rms_norm(x, self.ln1, self.cfg.norm_eps)
@@ -186,23 +233,32 @@ class Layer(nn.Module):
         return x + self.mlp(h2)
 
 
+def _run_group(layers, x, rope_cs):
+    for layer in layers:
+        x = layer(x, rope_cs)
+    return x
+
+
 class Transformer(nn.Module):
     """The dense GQA model; parameters are allocated empty on ``device`` and
-    filled by ``init_params`` (from a seed) or ``params_from_jax``."""
+    filled by ``init_params`` (from a seed) or ``params_from_jax``.
+    ``master=True`` gives the trainer's float32 form (module docstring)."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None, master: bool = False):
         super().__init__()
         _require_dense(cfg)
         device = resolve_device(device)
-        self.cfg = cfg
+        self.cfg, self.master = cfg, master
         vp = _pad_vocab(cfg.vocab_size)
-        self.embed = _weight((vp, cfg.d_model), COMPUTE_DTYPE, device)
+        self.embed = _weight((vp, cfg.d_model), COMPUTE_DTYPE, device, master)
         self.layers = nn.ModuleList(
-            Layer(cfg, cfg.window_pattern[i % cfg.period], device)
+            Layer(cfg, cfg.window_pattern[i % cfg.period], device, master)
             for i in range(cfg.num_layers))
-        self.final_norm = _weight((cfg.d_model,), torch.float32, device)
+        self.final_norm = _weight((cfg.d_model,), torch.float32, device,
+                                  master)
         if not cfg.tie_embeddings:
-            self.lm_head = _weight((cfg.d_model, vp), COMPUTE_DTYPE, device)
+            self.lm_head = _weight((cfg.d_model, vp), COMPUTE_DTYPE, device,
+                                   master)
 
     @property
     def device(self) -> torch.device:
@@ -210,16 +266,38 @@ class Transformer(nn.Module):
 
     def head(self) -> torch.Tensor:
         """The (d, vocab_padded) output projection, bf16."""
-        return self.embed.T if self.cfg.tie_embeddings else self.lm_head
+        return _compute(self.embed.T if self.cfg.tie_embeddings
+                        else self.lm_head)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens (B, S) int -> final hidden states (B, S, d), bf16."""
+    def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The bf16 embeddings of ``tokens`` (rows gathered, then cast: the
+        values of the reference's cast-then-gather; the master form's
+        gradient scatters in float32)."""
+        return F.embedding(tokens, self.embed).to(COMPUTE_DTYPE)
+
+    def forward(self, tokens: torch.Tensor, remat: bool = False
+                ) -> torch.Tensor:
+        """tokens (B, S) int -> final hidden states (B, S, d), bf16.
+        ``remat``: rematerialise each group of ``len(window_pattern)``
+        layers in the backward (``remat_policy`` "full"); only the group
+        boundaries are kept."""
         cfg = self.cfg
-        x = self.embed[tokens]
+        if remat and cfg.remat_policy != "full":
+            raise NotImplementedError(
+                f"{cfg.name}: remat_policy {cfg.remat_policy!r} is not "
+                f"ported (the port rematerialises whole groups, 'full'; "
+                f"ROADMAP.md Queue 1 item 10)")
+        x = self.embed_tokens(tokens)
         rope_cs = _rope_tables(cfg, torch.arange(x.shape[1],
                                                  device=x.device))
-        for layer in self.layers:
-            x = layer(x, rope_cs)
+        P = cfg.period
+        for g0 in range(0, len(self.layers), P):
+            group = self.layers[g0:g0 + P]
+            if remat:
+                x = checkpoint(_run_group, group, x, rope_cs,
+                               use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = _run_group(group, x, rope_cs)
         return rms_norm(x, self.final_norm, cfg.norm_eps)
 
 
@@ -238,13 +316,16 @@ def _layer_leaves(model: Transformer, i: int) -> Dict[str, torch.Tensor]:
     return out
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Transformer:
+def init_params(cfg: ModelConfig, seed: int = 0, device=None,
+                master: bool = False) -> Transformer:
     """A model with the reference's initialisation drawn from ``seed``:
     norm scales zero, every weight std * N(0, 1) truncated to [-3, 3] with
     std = fan_in^-0.5 (``init_params`` in the reference; jax.random gives
     other numbers from the same seed).  Drawn on ``device`` (the card
-    unless told otherwise) in float32, one leaf at a time, then cast."""
-    model = Transformer(cfg, device)
+    unless told otherwise) in float32, one leaf at a time, then cast (the
+    serve form) or kept (``master=True``): both forms of one seed compute
+    with the same bf16 weights."""
+    model = Transformer(cfg, device, master)
     dev = model.device
     gen = torch.Generator(device=dev).manual_seed(seed)
     d, H, hd, f = cfg.d_model, cfg.num_heads, cfg.head_dim, cfg.d_ff
@@ -278,14 +359,16 @@ def _flatten(tree, prefix="") -> Dict[str, Any]:
     return {prefix[:-1]: tree}
 
 
-def params_from_jax(cfg: ModelConfig, tree, device=None) -> Transformer:
-    """The port's model holding the reference's parameters.
+def params_from_jax(cfg: ModelConfig, tree, device=None,
+                    master: bool = False) -> Transformer:
+    """The port's model holding the reference's parameters (the serve
+    form, or the float32 master form with ``master=True``).
 
     ``tree``: the reference's ``init_params`` tree as nested dicts of numpy
     arrays (layer leaves stacked (G, P, ...); layer g * P + p is leaf
     [g, p]).  Raises ValueError for a missing or extra leaf or a wrong
-    shape.  Weights of two or more dimensions are cast to bf16 here, as the
-    reference casts them per call."""
+    shape.  In the serve form, weights of two or more dimensions are cast to
+    bf16 here, as the reference casts them per call."""
     want = _param_shapes(cfg)
     leaves = _flatten(tree)
     missing, extra = sorted(set(want) - set(leaves)), sorted(
@@ -298,7 +381,7 @@ def params_from_jax(cfg: ModelConfig, tree, device=None) -> Transformer:
         if arrays[k].shape != shape:
             raise ValueError(f"{cfg.name}: leaf {k} has shape "
                              f"{arrays[k].shape}, expected {shape}")
-    model = Transformer(cfg, device)
+    model = Transformer(cfg, device, master)
     P = cfg.period
 
     def put(p: torch.Tensor, a: np.ndarray):
@@ -325,12 +408,63 @@ def _rope_tables(cfg: ModelConfig, positions: torch.Tensor):
     return rope(positions, cfg.head_dim, cfg.rope_theta)
 
 
-def forward(cfg: ModelConfig, params: Transformer,
-            tokens: torch.Tensor) -> torch.Tensor:
+def forward(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor,
+            remat: bool = False) -> torch.Tensor:
     """Final hidden states (B, S, d) in COMPUTE_DTYPE; tokens (B, S) on the
-    model's device."""
+    model's device.  ``remat`` as ``Transformer.forward``."""
     _check_cfg(cfg, params)
-    return params(tokens)
+    return params(tokens, remat=remat)
+
+
+def decay_mask(params: Transformer) -> Dict[str, bool]:
+    """Which parameters take AdamW's decoupled weight decay, by name: the
+    reference decays leaves of two or more dimensions, and its layer leaves
+    are stacked (G, P, ...), so every layer parameter (the norm scales
+    too) is decayed and only ``final_norm`` is not."""
+    return {name: p.dim() >= 2 or name.startswith("layers.")
+            for name, p in params.named_parameters()}
+
+
+def _chunk_loss(h: torch.Tensor, labels: torch.Tensor,
+                lm_head: torch.Tensor):
+    """(sum of the masked next-token NLL, count of labels >= 0) of one
+    sequence chunk; the (B, chunk, vocab) float32 logits live only here."""
+    logits = (h @ lm_head).to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+    mask = (labels >= 0).to(torch.float32)
+    return ((lse - gold) * mask).sum(), mask.sum()
+
+
+def loss_fn(cfg: ModelConfig, params: Transformer, batch: Dict[str, Any],
+            loss_chunk: int = 2048) -> torch.Tensor:
+    """Next-token cross entropy (a 0-d float32 tensor), computed in
+    sequence chunks so the (S, V) logits never materialise whole: each
+    chunk's logits are rematerialised in the backward, as the reference
+    ``jax.checkpoint``s each; the forward rematerialises each layer group.
+    batch: tokens (B, S), labels (B, S) with -1 = ignore."""
+    if batch.get("frontend_embeds") is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: frontend embeddings (VLM / audio) are not ported "
+            f"yet (ROADMAP.md Queue 1 item 10)")
+    h = forward(cfg, params, batch["tokens"], remat=True)
+    labels = batch["labels"]
+    B, S, _ = h.shape
+    n_chunks = max(1, S // loss_chunk)
+    size = S // n_chunks
+    if size * n_chunks != S:
+        raise ValueError(f"sequence length {S} is not a multiple of its "
+                         f"{n_chunks} loss chunks (loss_chunk={loss_chunk})")
+    lm_head = params.head()
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(n_chunks):
+        part = slice(c * size, (c + 1) * size)
+        nll, n = checkpoint(_chunk_loss, h[:, part], labels[:, part],
+                            lm_head, use_reentrant=False,
+                            preserve_rng_state=False)
+        tot, cnt = tot + nll, cnt + n
+    return tot / torch.clamp(cnt, min=1.0)
 
 
 def _check_cfg(cfg: ModelConfig, params: Transformer) -> None:
@@ -420,7 +554,7 @@ def decode_step(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor,
     call) advances by one."""
     _check_cfg(cfg, params)
     q_pos = int(cache["length"])
-    x = params.embed[tokens]
+    x = params.embed_tokens(tokens)
     P = cfg.period
     for i, layer in enumerate(params.layers):
         g, p = divmod(i, P)

@@ -157,6 +157,7 @@ def test_kernel_build_command_targets_sm_90a():
     assert [p.name for p in sources] == ["bucket_energy.cu",
                                          "chromatic_sweep.cu",
                                          "flash_attention.cu",
+                                         "flash_attention_bwd.cu",
                                          "fused_sweep.cu", "local_sweep.cu",
                                          "telemetry_update.cu"]
     for src in sources:                  # one nvcc process per source

@@ -464,3 +464,21 @@ def supervised_pair_rank(rank, world, ckpt_root):
             gibbs.main(argv + extra)
         logs.append(buf.getvalue())
     return dict(refusal=refusal, launcher=_summary(res), plain=logs)
+
+
+# -- gradient compression (test_torch_optim.py) ----------------------------
+
+def compressed_rank(rank, world, xs, errs):
+    """Two ``compressed_psum_mean`` calls, the second on x / 2 with the
+    first's error feedback; returns (mean, err, mean2, err2) as numpy and
+    whether a length the ranks do not divide was refused by name."""
+    from repro_torch.runtime.compression import compressed_psum_mean
+    mean, err = compressed_psum_mean(torch.from_numpy(xs[rank]),
+                                     torch.from_numpy(errs[rank]))
+    mean2, err2 = compressed_psum_mean(torch.from_numpy(xs[rank]) * 0.5, err)
+    try:
+        compressed_psum_mean(torch.zeros(5), torch.zeros(5))
+        refused = False
+    except ValueError as e:
+        refused = "divide" in str(e)
+    return [t.numpy() for t in (mean, err, mean2, err2)], refused

@@ -216,16 +216,18 @@ Phases, each printed as it ends; any failure exits non-zero:
      and a clamped chunk, equal; the kernel library not rebuilt;
  12. training (``launch/train.py``, ``launch/steps.py``, ``optim/``, the
      flash backward kernel ``csrc/flash_attention_bwd.cu``): (a) the
-     backward kernel's registers, spills and shared memory; against its
-     plain float32 version at tinyllama-1.1b's training attention (B=8,
-     S=2048, 32/4 heads, hd 64, causal), h2o-danube-3-4b's window (S=8192,
-     hd 120, window 4096), gemma3-12b's local layer (hd 256, window 1024),
+     backward kernels' registers, spills (none in the wgmma ones) and
+     shared memory; against its plain float32 version at tinyllama-1.1b's
+     training attention (B=8, S=2048, 32/4 heads, hd 64, causal),
+     h2o-danube-3-4b's window (S=8192, hd 120, window 4096), gemma3-12b's
+     local layer (hd 256, window 1024),
      a ragged bidirectional shape of every head dim, a causal Sk > Sq and
      rows with no valid key: dq, dk, dv each within 1e-2 relative
-     (Frobenius), the same bits on a second launch; at tinyllama's shape
-     its time per call (three launches) and each kernel's device time,
-     the plain version, the FLOP bound (2.5 times the forward's products)
-     and scaled_dot_product_attention's backward (fwd + bwd minus fwd);
+     (Frobenius), the same bits on a second launch; at the three model
+     shapes its time per call (three launches) and each kernel's device
+     time, the FLOP bound (2.5 times the forward's products) and
+     scaled_dot_product_attention's backward (fwd + bwd minus fwd, a band
+     mask at the windowed shapes), at tinyllama's also the plain version;
      (b) ``launch.train.train`` on tinyllama-1.1b at full width (weights
      from a seed, B=8, S=2048) for two steps into a temporary ckpt_dir,
      every launch count reset before and read after: the backward kernel
@@ -5065,12 +5067,12 @@ def phase_serving(potts, smi):
 # phase 12: training on the card
 # ---------------------------------------------------------------------------
 
-def bwd_ptxas(log):
+def bwd_ptxas(log, lib):
     """{kernel: "registers, spills, shared memory"} of the backward's seven
-    entry functions (D; dK/dV and dQ at padded head dims 64, 128, 256),
-    from the -Xptxas -v log; the dynamic shared memory of a block is its
-    64-row tiles (2 resident, 2 stages of 2 streamed, plus 1024 bytes of
-    the stages' row statistics for dK/dV)."""
+    entry functions (prep; dK/dV and dQ on wgmma, ``*_wg``, at padded head
+    dims 64 and 128; the mma.sync dK/dV and dQ at 256), from the -Xptxas -v
+    log, each block's dynamic shared memory from the library
+    (``flash_attention_bwd_smem``)."""
     lines, out = log.splitlines(), {}
     for n, ln in enumerate(lines):
         if "entry function" not in ln or "flash_bwd_" not in ln:
@@ -5079,7 +5081,8 @@ def bwd_ptxas(log):
         smem = 0
         if "_kernelILi" in ln:
             hdp = int(ln.split("_kernelILi")[1].split("E")[0])
-            smem = 6 * 64 * (hdp + 8) * 2 + 1024 * (name == "dkdv")
+            smem = lib.flash_attention_bwd_smem(
+                hdp, 0 if name.startswith("dkdv") else 1)
             name = f"{name}<{hdp}>"
         out[name] = "; ".join(
             [x.strip().replace("ptxas info    : ", "")
@@ -5155,61 +5158,94 @@ def bwd_parity(dev):
                 rel_errors=rels)
 
 
+def bwd_kernel_ms(dev_ev, calls):
+    """{kernel: device ms per call} of the backward's kernels in
+    ``device_events`` output over ``calls`` calls (prep; dkdv and dq, with
+    ``_wg`` for the wgmma kernels)."""
+    out = {}
+    for e in dev_ev:
+        if "flash_bwd_" in e.key:
+            name = e.key.split("flash_bwd_")[1].split("_kernel")[0]
+            out[name] = out.get(name, 0.0) + e.self_device_time_total / 1e3 \
+                / calls
+    return out
+
+
 def bwd_times(dev):
-    """12a at tinyllama-1.1b's training attention: the wrapper's three
-    launches per call (CUDA events over a stream of calls), each kernel's
-    device time (torch.profiler), the plain version, the bound and
-    scaled_dot_product_attention's backward (fwd + bwd minus fwd, timed,
-    never called by the port); the forward with and without lse2."""
+    """12a at the model shapes of BWD_SHAPES (tinyllama-1.1b's training
+    attention, h2o-danube-3-4b's window, gemma3-12b's local layer): the
+    wrapper's three launches per call (CUDA events over a stream of calls),
+    each kernel's device time (torch.profiler), the bound and
+    scaled_dot_product_attention's backward (fwd + bwd minus fwd; a boolean
+    band mask where a window is set, as phase 6 gives the forward; timed,
+    never called by the port); at tinyllama's shape also the plain version
+    and the forward with and without lse2.  The record is tinyllama's,
+    every shape's under "shapes"."""
     from repro_torch.kernels import flash_attention as fa, ref
-    B, Sq, Sk, H, KVH, hd, w, causal = BWD_SHAPES[0]
-    q, k, v = flash_inputs(B, Sq, Sk, H, KVH, hd, torch.bfloat16, dev, 60)
-    dout = flash_inputs(B, Sq, Sq, H, H, hd, torch.bfloat16, dev, 61)[0]
-    out, lse2 = fa.flash_attention_cuda(q, k, v, window=w, causal=causal,
-                                        lse=True)
-    bwd = lambda: fa.flash_attention_bwd_cuda(q, k, v, out, dout, lse2,
-                                              window=w, causal=causal)
-    ms = per_launch_ms(bwd, 5, reps=5)
-    fwd_plain = per_launch_ms(lambda: fa.flash_attention_cuda(
-        q, k, v, window=w, causal=causal), 10)
-    fwd_lse = per_launch_ms(lambda: fa.flash_attention_cuda(
-        q, k, v, window=w, causal=causal, lse=True), 10)
-    dev_ev, _ = device_events(lambda: [bwd() for _ in range(3)])
-    parts = {part: sum(e.self_device_time_total for e in dev_ev
-                       if f"flash_bwd_{part}_kernel" in e.key) / 1e3 / 3
-             for part in ("prep", "dkdv", "dq")}       # prep: D
-    pms = median_ms(lambda: ref.flash_attention_bwd_ref(
-        q, k, v, out, dout, window=w, causal=causal), 1, warmup=1)
-    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
-                  for x in (q, k, v))
-    dt = dout.transpose(1, 2)
-    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=causal, enable_gqa=True)
-    fwd_ms = per_launch_ms(sdpa, 5)
-    both_ms = per_launch_ms(
-        lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dt), 5)
-    lib_ms = both_ms - fwd_ms
-    bound_ms, term, terms = bwd_bound(B, Sq, Sk, H, KVH, hd, w, causal)
-    flops = 10 * hd * B * H * attended_pairs(Sq, Sk, w, causal)
-    rec = dict(ms=ms, forward_ms=fwd_plain, forward_lse_ms=fwd_lse,
-               kernel_device_ms=parts, plain_ms=pms,
-               library_ms=lib_ms, library_fwd_bwd_ms=both_ms,
-               library_fwd_ms=fwd_ms, bound_ms=bound_ms, bound_by=term,
-               bound_terms_ms=terms, flops=flops,
-               tflops_per_s=flops / ms / 1e9,
-               shape=f"B={B} Sq={Sq} Sk={Sk} H={H} KVH={KVH} hd={hd} "
-                     f"window={w} causal bf16 (dq, dk, dv)")
-    say("12a backward times", f"[{rec['shape']}] kernel {ms:.4f} ms per "
-        f"call of three launches ({rec['tflops_per_s']:.1f} TFLOP/s of the "
-        f"bound's FLOPs); the forward {fwd_plain:.4f} ms, with lse2 "
-        f"{fwd_lse:.4f} ms; device: D "
-        f"{parts['prep']:.4f}, dK/dV "
-        f"{parts['dkdv']:.4f}, dQ {parts['dq']:.4f} ms; plain {pms:.2f} ms; "
-        f"scaled_dot_product_attention backward {lib_ms:.4f} ms (fwd+bwd "
-        f"{both_ms:.4f} - fwd {fwd_ms:.4f}); bound {bound_ms:.4f} ms set by "
-        f"{term} (" + ", ".join(f"{k} {v:.4f}" for k, v in terms.items())
-        + " ms)")
-    return rec
+    shapes = {}
+    for n, (B, Sq, Sk, H, KVH, hd, w, causal) in enumerate(BWD_SHAPES[:3]):
+        q, k, v = flash_inputs(B, Sq, Sk, H, KVH, hd, torch.bfloat16, dev,
+                               60 + 2 * n)
+        dout = flash_inputs(B, Sq, Sq, H, H, hd, torch.bfloat16, dev,
+                            61 + 2 * n)[0]
+        out, lse2 = fa.flash_attention_cuda(q, k, v, window=w, causal=causal,
+                                            lse=True)
+        bwd = lambda: fa.flash_attention_bwd_cuda(q, k, v, out, dout, lse2,
+                                                  window=w, causal=causal)
+        ms = per_launch_ms(bwd, 5, reps=5)
+        dev_ev, _ = device_events(lambda: [bwd() for _ in range(3)])
+        parts = bwd_kernel_ms(dev_ev, 3)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        dt = dout.transpose(1, 2)
+        mask = None
+        if w > 0:                # the band as a boolean mask (True: attended)
+            i = torch.arange(Sq, device=dev)[:, None]
+            j = torch.arange(Sk, device=dev)[None, :]
+            mask = i - j < w
+            if causal:
+                mask &= i >= j
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=True)
+        fwd_ms = per_launch_ms(sdpa, 5)
+        both_ms = per_launch_ms(
+            lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dt), 5)
+        bound_ms, term, terms = bwd_bound(B, Sq, Sk, H, KVH, hd, w, causal)
+        flops = 10 * hd * B * H * attended_pairs(Sq, Sk, w, causal)
+        rec = dict(ms=ms, kernel_device_ms=parts,
+                   library_ms=both_ms - fwd_ms, library_fwd_bwd_ms=both_ms,
+                   library_fwd_ms=fwd_ms, bound_ms=bound_ms, bound_by=term,
+                   bound_terms_ms=terms, flops=flops,
+                   tflops_per_s=flops / ms / 1e9,
+                   shape=f"B={B} Sq={Sq} Sk={Sk} H={H} KVH={KVH} hd={hd} "
+                         f"window={w} {'causal' if causal else 'bidirectional'}"
+                         f" bf16 (dq, dk, dv)")
+        if n == 0:
+            rec["plain_ms"] = median_ms(lambda: ref.flash_attention_bwd_ref(
+                q, k, v, out, dout, window=w, causal=causal), 1, warmup=1)
+            rec["forward_ms"] = per_launch_ms(lambda: fa.flash_attention_cuda(
+                q, k, v, window=w, causal=causal), 10)
+            rec["forward_lse_ms"] = per_launch_ms(
+                lambda: fa.flash_attention_cuda(q, k, v, window=w,
+                                                causal=causal, lse=True), 10)
+        shapes[rec["shape"]] = rec
+        say("12a backward times", f"[{rec['shape']}] kernel {ms:.4f} ms per "
+            f"call of three launches ({rec['tflops_per_s']:.1f} TFLOP/s of "
+            f"the bound's FLOPs); device: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+            + f" ms; scaled_dot_product_attention backward "
+            f"{rec['library_ms']:.4f} ms (fwd+bwd {both_ms:.4f} - fwd "
+            f"{fwd_ms:.4f}{', band mask' if mask is not None else ''}); "
+            f"bound {bound_ms:.4f} ms set by {term} ("
+            + ", ".join(f"{k} {v:.4f}" for k, v in terms.items()) + " ms)"
+            + (f"; plain {rec['plain_ms']:.2f} ms; the forward "
+               f"{rec['forward_ms']:.4f} ms, with lse2 "
+               f"{rec['forward_lse_ms']:.4f} ms" if n == 0 else ""))
+        del q, k, v, dout, out, lse2, qt, kt, vt, dt, mask
+        torch.cuda.empty_cache()
+    first = next(iter(shapes.values()))
+    return dict(first, shapes=shapes)
 
 
 def train_step_times(cfg, dev):
@@ -5433,9 +5469,15 @@ def phase_training(dev, smi):
     """12: training on the card."""
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    ptx = bwd_ptxas(_build.load_library().log)
+    built = _build.load_library()
+    ptx = bwd_ptxas(built.log, built.lib)
     for k, v in ptx.items():
         say("12a backward build", f"flash_bwd_{k}: {v}")
+    if built.seconds > 0:            # a reused library printed no log
+        check(len(ptx) == 7 and all(" 0 bytes spill stores" in v
+                                    for k, v in ptx.items() if "_wg" in k),
+              f"12a: the backward's kernels {ptx}: expected seven, the "
+              f"wgmma ones without spills")
     rec = dict(ptxas=ptx, parity=bwd_parity(dev), times=bwd_times(dev))
     rec["times"]["max_abs_err"] = rec["parity"]["max_abs_err"]
     rec["train"] = train_full_width(dev, smi)

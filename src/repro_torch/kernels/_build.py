@@ -80,10 +80,12 @@ _SIGNATURES = {
                                + [_c_float] * 2 + [_c_ptr],
     # hd -> the bf16 block's dynamic shared memory in bytes
     "flash_attention_bf16_smem": [_c_int],
-    # q, k, v, out, dout, dq, dk, dv, lse2, dsum, B, Sq, Sk, H, KVH, hd,
-    # window, causal, scale, stream
-    "flash_attention_bwd_launch": [_c_ptr] * 10 + [_c_int] * 8
+    # q, k, v, out, dout, dq, dk, dv, lse2, float32 scratch, int32
+    # scratch, B, Sq, Sk, H, KVH, hd, window, causal, scale, stream
+    "flash_attention_bwd_launch": [_c_ptr] * 11 + [_c_int] * 8
                                   + [_c_float, _c_ptr],
+    # hd, kernel (0: dK/dV, 1: dQ) -> a block's dynamic shared memory
+    "flash_attention_bwd_smem": [_c_int, _c_int],
 }
 
 

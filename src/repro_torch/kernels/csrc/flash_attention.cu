@@ -99,14 +99,17 @@
 #include <cmath>
 #include <cstdint>
 
+#include "hopper.cuh"
+
 extern __shared__ __align__(16) unsigned char flash_smem[];
 
 namespace {
 
+using namespace hopper;
+
 constexpr float kNegInf = -1e30f;
 constexpr int kBQ = 64;          // query rows per block, float32 kernel
 constexpr int kBKF = 16;         // keys per tile, float32 kernel
-constexpr int kRowBytes = 128;   // one swizzled smem row: 64 bf16 columns
 constexpr int kMaxDevices = 64;  // bf16 launch settings cached per device
 
 // [*t0, *t1): the key tiles that hold a valid key for some row of
@@ -148,205 +151,6 @@ struct Tiles {
                                + (2 + 4 * ST) * 8;
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-// arrive and add `bytes` to the transactions the phase waits for
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(bar) : "memory");
-}
-
-// wait until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-
-// one box of a 4-D tensor map into shared memory, completing on `bar`
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
-         "r"(c2), "r"(c3), "r"(bar)
-      : "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
-}
-
-template <int N>
-__device__ __forceinline__ void setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
-}
-
-// wgmma shared-memory matrix descriptor, 128-byte swizzle (layout type 1):
-// start address, leading and stride byte offsets, all in 16-byte units
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
-         | static_cast<uint64_t>(lbo >> 4) << 16
-         | static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-
-// keep the compiler from moving reads or writes of registers that an
-// in-flight wgmma owns across the fence, commit and wait instructions
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void pin(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
-}
-
-// wgmma m64nNk16, bf16 x bf16 -> f32, per warpgroup; d holds the N/2
-// accumulators of this thread.  ss: A and B from shared memory, both
-// K-major; d = A B (accumulate == 0) or d += A B.  rs: A from registers
-// (four bf16 pairs), B MN-major in shared memory (transpose bit); d += A B.
-#define WG_F8(i)                                                            \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),               \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define WG_F32(i) WG_F8(i), WG_F8(i + 8), WG_F8(i + 16), WG_F8(i + 24)
-#define WG_D32                                                              \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
-  "%30, %31"
-#define WG_D64                                                              \
-  WG_D32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "   \
-  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
-  "%58, %59, %60, %61, %62, %63"
-#define WG_D128                                                             \
-  WG_D64 ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, "   \
-  "%76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, "  \
-  "%90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, "    \
-  "%103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, " \
-  "%115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, " \
-  "%127"
-
-template <int N>
-struct Wgmma;
-
-template <>
-struct Wgmma<64> {
-  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a,
-                                            uint64_t b, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{" WG_D32 "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-        : WG_F32(0)
-        : "l"(a), "l"(b), "r"(accumulate));
-  }
-  static __device__ __forceinline__ void rs(float (&d)[32],
-                                            const uint32_t* a, uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{" WG_D32 "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : WG_F32(0)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-
-template <>
-struct Wgmma<128> {
-  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a,
-                                            uint64_t b, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{" WG_D64 "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-        : WG_F32(0), WG_F32(32)
-        : "l"(a), "l"(b), "r"(accumulate));
-  }
-  static __device__ __forceinline__ void rs(float (&d)[64],
-                                            const uint32_t* a, uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{" WG_D64 "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : WG_F32(0), WG_F32(32)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-
-template <>
-struct Wgmma<256> {
-  static __device__ __forceinline__ void rs(float (&d)[128],
-                                            const uint32_t* a, uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-        "{" WG_D128 "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-        : WG_F32(0), WG_F32(32), WG_F32(64), WG_F32(96)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-
-#undef WG_F8
-#undef WG_F32
-#undef WG_D32
-#undef WG_D64
-#undef WG_D128
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// named barriers 1, 2 order the consumer warpgroups' wgmma issue
-__device__ __forceinline__ void bar_sync(int id) {
-  asm volatile("bar.sync %0, 256;\n" :: "r"(id) : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(int id) {
-  asm volatile("bar.arrive %0, 256;\n" :: "r"(id) : "memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 // S = Q K^T for the warpgroup's 64 rows x BK keys.  Q and K tiles are
 // HDP / 64 column chunks of 128-byte swizzled rows; a k16 step moves 32
@@ -775,54 +579,6 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
-
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-// the CUDA driver's cuTensorMapEncodeTiled, found through the runtime (so
-// the library needs no -lcuda); null if the CUDA driver has none
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// (B, S, heads, hd) bf16, contiguous: a 4-D map (hd, heads, S, B) read in
-// boxes of 64 columns x `rows` positions of one head, 128-byte swizzle;
-// out-of-bounds elements (past S of a batch element, past hd) read as 0
-bool tensor_map(CUtensorMap* map, const void* base, int B, int S, int heads,
-                int hd, int rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
-                              static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {dims[0] * 2, dims[0] * dims[1] * 2,
-                                 dims[0] * dims[1] * dims[2] * 2};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(base), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 template <int HDP, bool kLse>
 cudaError_t launch_bf16_as(cudaStream_t stream, const void* q, const void* k,

@@ -2,9 +2,9 @@
 plain backward (``ref.flash_attention_bwd_ref``) against autograd through
 the plain forward on the CPU, the ``FlashAttention`` function's routing and
 refusals, and, on a machine with a CUDA card, the hand-written backward
-kernel (``csrc/flash_attention_bwd.cu``) against its plain version.  (The
-JAX comparison, ``jax.grad`` of the JAX package's attention, is in
-``tests/test_torch_train.py``.)
+kernel (``csrc/flash_attention_bwd.cu``) against its plain version, also
+beside other work on the card.  (The JAX comparison, ``jax.grad`` of the
+JAX package's attention, is in ``tests/test_torch_train.py``.)
 
 Card tolerance, per tensor, as a relative Frobenius error against the
 float32 plain backward on the same bf16 inputs: the kernel rounds P and dS
@@ -50,6 +50,18 @@ CARD_SHAPES = SHAPES + [(1, 200, 333, 4, 2, hd, 0, False)
     (1, 70, 300, 4, 2, 64, 0, True),
     (1, 150, 20, 2, 1, 16, 5, True),
     (2, 512, 512, 32, 4, 64, 0, True),
+]
+# the wgmma kernels' schedule: many 128-key items per query tile (G = 8
+# query heads on one KV head, Sq = Sk = 1024) at both padded head dims, a
+# causal Sk > Sq, a window narrower than a 128-key item, and Sq, Sk that
+# are multiples of neither 64 nor 128 (with a window, and bidirectional)
+LOAD_SHAPES = [
+    (1, 1024, 1024, 8, 1, 64, 0, True),
+    (1, 1024, 1024, 8, 1, 128, 0, True),
+    (1, 96, 400, 4, 2, 64, 0, True),
+    (2, 300, 300, 4, 1, 64, 40, True),
+    (1, 190, 450, 4, 2, 32, 100, True),
+    (1, 200, 333, 4, 2, 120, 0, False),
 ]
 
 
@@ -138,6 +150,13 @@ def test_backward_wrapper_refuses_what_the_kernel_does_not_take():
         tflash.flash_attention_cuda(qf, qf[:, :, :1], qf[:, :, :1], lse=True)
 
 
+def test_backward_scratch_pads_rows_to_whole_dq_items():
+    """The (lse2, D) scratch holds Sq rounded up to the dQ kernel's
+    128-row items (it reads whole items' rows)."""
+    assert [tflash._bwd_rows(s) for s in (1, 127, 128, 129, 2048, 8191)] \
+        == [128, 128, 128, 256, 2048, 8192]
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -177,6 +196,60 @@ def test_backward_kernel_equals_plain_version(cuda, B, Sq, Sk, H, KVH, hd,
         assert torch.equal(g, a), f"d{name}: two launches differ"
         assert bool(torch.isfinite(g).all()), f"d{name} not finite"
         assert _rel(g, w) < BWD_REL_TOL, (f"d{name}", _rel(g, w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Sq,Sk,H,KVH,hd,window,causal", LOAD_SHAPES)
+def test_backward_kernel_same_bits_beside_other_work(cuda, B, Sq, Sk, H, KVH,
+                                                      hd, window, causal):
+    """The persistent kernels' schedule (items from a work counter, in any
+    order over the SMs) leaves the sums' order fixed: within the tolerance
+    of the plain version, and the same bits on a second launch and on a
+    third made while another stream runs large matrix products."""
+    q, k, v, dout = (t.to(cuda) for t in _inputs(
+        B, Sq, Sk, H, KVH, hd, 7 * Sk + hd, torch.bfloat16))
+    out, lse2 = tflash.flash_attention_cuda(q, k, v, window=window,
+                                            causal=causal, lse=True)
+    want = tref.flash_attention_bwd_ref(q, k, v, out, dout, window=window,
+                                        causal=causal)
+    bwd = lambda: tflash.flash_attention_bwd_cuda(  # noqa: E731
+        q, k, v, out, dout, lse2, window=window, causal=causal)
+    first, second = bwd(), bwd()
+    a = torch.randn((8192, 8192), device=cuda).to(torch.bfloat16)
+    side = torch.cuda.Stream(cuda)
+    torch.cuda.synchronize()
+    with torch.cuda.stream(side):
+        for _ in range(4):
+            a = a @ a.T * 8192 ** -0.5
+    third = bwd()
+    torch.cuda.synchronize()
+    for name, f, s, th, w in zip("qkv", first, second, third, want):
+        assert torch.equal(f, s), f"d{name}: two launches differ"
+        assert torch.equal(f, th), f"d{name}: a launch beside a matmul differs"
+        assert bool(torch.isfinite(f).all()), f"d{name} not finite"
+        assert _rel(f, w) < BWD_REL_TOL, (f"d{name}", _rel(f, w))
+
+
+@pytest.mark.gpu
+def test_backward_kernel_from_a_fresh_thread(cuda):
+    """autograd runs the backward on a thread of its own, which may have
+    made no CUDA call before the kernel's: the launch makes the device's
+    context current there before it encodes its tensor maps."""
+    import threading
+    q, k, v, dout = (t.to(cuda) for t in _inputs(
+        1, 130, 130, 4, 2, 64, 2, torch.bfloat16))
+    out, lse2 = tflash.flash_attention_cuda(q, k, v, causal=True, lse=True)
+    want = tflash.flash_attention_bwd_cuda(q, k, v, out, dout, lse2)
+    got = []
+    thread = threading.Thread(target=lambda: got.append(
+        tflash.flash_attention_bwd_cuda(q, k, v, out, dout, lse2)))
+    thread.start()
+    thread.join(timeout=120)
+    assert not thread.is_alive()
+    torch.cuda.synchronize()
+    assert len(got) == 1, "the launch on a fresh thread raised"
+    for g, w in zip(got[0], want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.gpu

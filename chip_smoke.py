@@ -220,14 +220,15 @@ Phases, each printed as it ends; any failure exits non-zero:
      shared memory; against its plain float32 version at tinyllama-1.1b's
      training attention (B=8, S=2048, 32/4 heads, hd 64, causal),
      h2o-danube-3-4b's window (S=8192, hd 120, window 4096), gemma3-12b's
-     local layer (hd 256, window 1024),
+     local and global layers (hd 256, window 1024 and none),
      a ragged bidirectional shape of every head dim, a causal Sk > Sq and
      rows with no valid key: dq, dk, dv each within 1e-2 relative
-     (Frobenius), the same bits on a second launch; at the three model
+     (Frobenius), the same bits on a second launch; at the four model
      shapes its time per call (three launches) and each kernel's device
      time, the FLOP bound (2.5 times the forward's products) and
      scaled_dot_product_attention's backward (fwd + bwd minus fwd, a band
-     mask at the windowed shapes), at tinyllama's also the plain version;
+     mask at the windowed shapes, its fused causal path at the others), at
+     tinyllama's also the plain version;
      (b) ``launch.train.train`` on tinyllama-1.1b at full width (weights
      from a seed, B=8, S=2048) for two steps into a temporary ckpt_dir,
      every launch count reset before and read after: the backward kernel
@@ -238,7 +239,17 @@ Phases, each printed as it ends; any failure exits non-zero:
      (device busy, idle, top ops, the backward's share); (c) crash-resume:
      a run killed by ``fail_at_step`` and resumed ends bit-equal to an
      uninterrupted one (loss, parameters, AdamW state); (d) the examples
-     (``examples/torch_*.py``) as subprocesses, exit 0.
+     (``examples/torch_*.py``) as subprocesses, exit 0; (e) gemma3-12b at
+     full width (d 3840, 16/8 heads, hd 256, d_ff 15360, vocab 262144,
+     tied embeddings) cut to one 5:1 period (6 of 48 layers: the full
+     depth's float32 training state does not fit one card), weights from a
+     seed, B=1 S=4096: ``make_train_step`` for a warm-up and timed steps,
+     every launch count reset before and read after -- per step the
+     backward kernel once per layer (5 local, 1 global, all at hd 256) and
+     the forward twice, nothing else, the plain backward never called,
+     losses and grad norms finite; ms per step, tokens/s, the model-FLOPs
+     share, peak memory, and one step under torch.profiler (idle share, the
+     backward's device time and share of busy).
 
 Prints the kernels' JSON record and the card's name and power limit, then
 as its last line ``{"ok": true, "device": {...}}``.  Also writes the full
@@ -392,13 +403,16 @@ TRAIN_TIMED = 3        # make_train_step steps timed after a warm-up step
 # tests/test_torch_flash_bwd.py's tolerance (relative Frobenius error per
 # gradient against the plain float32 backward), derived there
 BWD_REL_TOL = 1e-2
-# (B, Sq, Sk, H, KVH, hd, window, causal): tinyllama-1.1b's training
-# attention, h2o-danube-3-4b's window (4096 at S=8192), gemma3-12b's local
-# layer, a ragged bidirectional shape of every head dim, a causal Sk > Sq
-# (key tiles no query sees) and rows with no valid key
+# (B, Sq, Sk, H, KVH, hd, window, causal): the first BWD_MODEL_SHAPES are
+# tinyllama-1.1b's training attention, h2o-danube-3-4b's window (4096 at
+# S=8192), gemma3-12b's local and global layers; then a ragged
+# bidirectional shape of every head dim, a causal Sk > Sq (key tiles no
+# query sees) and rows with no valid key
+BWD_MODEL_SHAPES = 4
 BWD_SHAPES = [(8, 2048, 2048, 32, 4, 64, 0, True),
               (1, 8192, 8192, 32, 8, 120, 4096, True),
               (1, 4096, 4096, 16, 8, 256, 1024, True),
+              (1, 4096, 4096, 16, 8, 256, 0, True),
               *((1, 200, 333, 4, 2, hd, 0, False)
                 for hd in (16, 32, 64, 120, 128, 256)),
               (1, 70, 300, 4, 2, 64, 0, True),
@@ -409,6 +423,11 @@ RESUME_CFG = dict(name="demo-100m", family="dense", num_layers=4,
                   d_model=768, num_heads=12, num_kv_heads=4, head_dim=64,
                   d_ff=2048, vocab_size=32000, rope_theta=1e4)
 RESUME_STEPS, RESUME_EVERY, RESUME_FAIL = 6, 3, 4
+# 12e: gemma3-12b at full width, depth cut from 48 layers to one period
+# of its window pattern (five local layers, one global): 2.35B parameters,
+# ~38 GB of float32 training state (the full depth's ~188 GB does not fit
+# one 80 GB card); B=1 at the trained length S=4096
+GEMMA_ARCH, GEMMA_LAYERS, GEMMA_B, GEMMA_S = "gemma3-12b", 6, 1, 4096
 # 12d: the port's examples, default sizes but the trainer's few steps
 EXAMPLE_RUNS = [["examples/torch_train_lm.py", "--steps", "4", "--seq", "256",
                  "--global-batch", "4", "--ckpt-dir", "{tmp}/lm"],
@@ -5070,7 +5089,7 @@ def phase_serving(potts, smi):
 def bwd_ptxas(log, lib):
     """{kernel: "registers, spills, shared memory"} of the backward's seven
     entry functions (prep; dK/dV and dQ on wgmma, ``*_wg``, at padded head
-    dims 64 and 128; the mma.sync dK/dV and dQ at 256), from the -Xptxas -v
+    dims 64, 128 and 256), from the -Xptxas -v
     log, each block's dynamic shared memory from the library
     (``flash_attention_bwd_smem``)."""
     lines, out = log.splitlines(), {}
@@ -5173,17 +5192,19 @@ def bwd_kernel_ms(dev_ev, calls):
 
 def bwd_times(dev):
     """12a at the model shapes of BWD_SHAPES (tinyllama-1.1b's training
-    attention, h2o-danube-3-4b's window, gemma3-12b's local layer): the
-    wrapper's three launches per call (CUDA events over a stream of calls),
-    each kernel's device time (torch.profiler), the bound and
-    scaled_dot_product_attention's backward (fwd + bwd minus fwd; a boolean
-    band mask where a window is set, as phase 6 gives the forward; timed,
-    never called by the port); at tinyllama's shape also the plain version
-    and the forward with and without lse2.  The record is tinyllama's,
-    every shape's under "shapes"."""
+    attention, h2o-danube-3-4b's window, gemma3-12b's local and global
+    layers): the wrapper's three launches per call (CUDA events over a
+    stream of calls), each kernel's device time (torch.profiler), the
+    bound, the plain version and scaled_dot_product_attention's backward
+    (fwd + bwd minus fwd; a boolean band mask where a window is set, as
+    phase 6 gives the forward, else its fused causal path; timed, never
+    called by the port); at tinyllama's shape also the forward with and
+    without lse2.  The record is tinyllama's, every shape's under
+    "shapes"."""
     from repro_torch.kernels import flash_attention as fa, ref
     shapes = {}
-    for n, (B, Sq, Sk, H, KVH, hd, w, causal) in enumerate(BWD_SHAPES[:3]):
+    for n, (B, Sq, Sk, H, KVH, hd, w, causal) in enumerate(
+            BWD_SHAPES[:BWD_MODEL_SHAPES]):
         q, k, v = flash_inputs(B, Sq, Sk, H, KVH, hd, torch.bfloat16, dev,
                                60 + 2 * n)
         dout = flash_inputs(B, Sq, Sq, H, H, hd, torch.bfloat16, dev,
@@ -5221,9 +5242,9 @@ def bwd_times(dev):
                    shape=f"B={B} Sq={Sq} Sk={Sk} H={H} KVH={KVH} hd={hd} "
                          f"window={w} {'causal' if causal else 'bidirectional'}"
                          f" bf16 (dq, dk, dv)")
+        rec["plain_ms"] = median_ms(lambda: ref.flash_attention_bwd_ref(
+            q, k, v, out, dout, window=w, causal=causal), 1, warmup=1)
         if n == 0:
-            rec["plain_ms"] = median_ms(lambda: ref.flash_attention_bwd_ref(
-                q, k, v, out, dout, window=w, causal=causal), 1, warmup=1)
             rec["forward_ms"] = per_launch_ms(lambda: fa.flash_attention_cuda(
                 q, k, v, window=w, causal=causal), 10)
             rec["forward_lse_ms"] = per_launch_ms(
@@ -5239,8 +5260,8 @@ def bwd_times(dev):
             f"{fwd_ms:.4f}{', band mask' if mask is not None else ''}); "
             f"bound {bound_ms:.4f} ms set by {term} ("
             + ", ".join(f"{k} {v:.4f}" for k, v in terms.items()) + " ms)"
-            + (f"; plain {rec['plain_ms']:.2f} ms; the forward "
-               f"{rec['forward_ms']:.4f} ms, with lse2 "
+            + f"; plain {rec['plain_ms']:.2f} ms"
+            + (f"; the forward {rec['forward_ms']:.4f} ms, with lse2 "
                f"{rec['forward_lse_ms']:.4f} ms" if n == 0 else ""))
         del q, k, v, dout, out, lse2, qt, kt, vt, dt, mask
         torch.cuda.empty_cache()
@@ -5248,11 +5269,13 @@ def bwd_times(dev):
     return dict(first, shapes=shapes)
 
 
-def train_step_times(cfg, dev):
-    """12b: make_train_step at full width on fresh weights: one warm-up
-    step, TRAIN_TIMED steps timed with CUDA events (each to a synchronize),
-    the peak memory over them, and one more step under torch.profiler
-    (device busy, idle share, top ops, the backward kernels' share)."""
+def train_step_times(cfg, dev, B=TRAIN_B, S=TRAIN_S):
+    """12b, 12e: make_train_step at full width on fresh weights: one
+    warm-up step, TRAIN_TIMED steps timed with CUDA events (each to a
+    synchronize), the peak memory over them, and one more step under
+    torch.profiler (device busy, idle share, top ops, the backward
+    kernels' share); ``steps_run``, the steps run (TRAIN_TIMED + 2), and
+    the grad norms of all of them."""
     from repro_torch.data.pipeline import SyntheticTokens
     from repro_torch.launch import steps
     from repro_torch.models import transformer as T
@@ -5260,14 +5283,16 @@ def train_step_times(cfg, dev):
     model = T.init_params(cfg, TRAIN_SEED, device=dev, master=True)
     opt = adamw_init(model)
     step = steps.make_train_step(cfg, base_lr=3e-4, total_steps=100,
-                                 loss_chunk=min(2048, TRAIN_S))
-    data = SyntheticTokens(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=TRAIN_SEED)
+                                 loss_chunk=min(2048, S))
+    data = SyntheticTokens(cfg.vocab_size, S, B, seed=TRAIN_SEED)
     state = {"model": model, "opt": opt, "i": 0}
+    grad_norms = []
 
     def one():
         state["model"], state["opt"], m = step(
             state["model"], state["opt"], data.batch(state["i"]))
         state["i"] += 1
+        grad_norms.append(m["grad_norm"])
         return m
     one()
     torch.cuda.synchronize()
@@ -5299,14 +5324,16 @@ def train_step_times(cfg, dev):
     busy = sum(ops.values())
     bwd_ms = sum(t for k, t in ops.items() if k.startswith("flash_bwd_"))
     fwd_ms = sum(t for k, t in ops.items() if k.startswith("flash_bf16"))
+    n_steps = state["i"]
     del state, model, opt
     torch.cuda.empty_cache()
     step_ms = statistics.median(times)
-    tokens_s = TRAIN_B * TRAIN_S / step_ms * 1e3
-    mfu = (T.model_flops_per_token(cfg, TRAIN_S, "train") * tokens_s
+    tokens_s = B * S / step_ms * 1e3
+    mfu = (T.model_flops_per_token(cfg, S, "train") * tokens_s
            / BF16_TC_FLOPS_PER_S)
     top = dict(sorted(ops.items(), key=lambda o: -o[1])[:6])
-    return dict(step_ms=step_ms, step_ms_all=times, losses=losses,
+    return dict(steps_run=n_steps, grad_norms=[float(g) for g in grad_norms],
+                step_ms=step_ms, step_ms_all=times, losses=losses,
                 tokens_per_s=tokens_s, model_flops_share=mfu,
                 peak_memory_gb=peak, busy_ms=busy,
                 traced_wall_ms=1e3 * wall_s, idle=1 - busy / (1e3 * wall_s),
@@ -5465,6 +5492,79 @@ def run_examples():
     return dict(last_lines=out, seconds=seconds)
 
 
+def train_gemma3(dev, smi):
+    """12e: make_train_step on gemma3-12b at full width, cut to
+    GEMMA_LAYERS layers (one period of its window pattern), weights from a
+    seed, B=GEMMA_B S=GEMMA_S: every launch count reset before and read
+    after the steps -- per step the backward kernel once per layer (hd 256)
+    and the forward twice (its rematerialisation), no other kernel, the
+    plain backward never called; losses and grad norms finite; the step's
+    figures as 12b's."""
+    import dataclasses
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    full = get_arch(GEMMA_ARCH)
+    cfg = dataclasses.replace(full, num_layers=GEMMA_LAYERS)
+    L = cfg.num_layers
+    windows = [cfg.window_pattern[i % cfg.period] for i in range(L)]
+    plain_calls = []
+    real_plain = ops.flash_attention_bwd_ref
+
+    def counted_plain(*a, **kw):
+        plain_calls.append(1)
+        return real_plain(*a, **kw)
+    ops.flash_attention_bwd_ref = counted_plain
+    try:
+        reset_launches()
+        step = train_step_times(cfg, dev, GEMMA_B, GEMMA_S)
+        launches = read_launches()
+    finally:
+        ops.flash_attention_bwd_ref = real_plain
+    torch.cuda.empty_cache()
+    n = step["steps_run"]
+    check(launches["flash_attention_bwd"] == L * n,
+          f"12e: {launches['flash_attention_bwd']} backward launches in {n} "
+          f"steps, expected {L} per step")
+    check(launches["flash_attention"] == 2 * L * n,
+          f"12e: {launches['flash_attention']} forward launches in {n} "
+          f"steps, expected {2 * L} per step (forward + rematerialisation)")
+    check(all(c == 0 for k, c in launches.items()
+              if not k.startswith("flash_attention")),
+          f"12e: training launched other kernels: {launches}")
+    check(not plain_calls, f"12e: the plain backward was called "
+          f"{len(plain_calls)} times")
+    check(all(math.isfinite(x) for x in step["losses"] + step["grad_norms"]),
+          f"12e: losses {step['losses']}, grad norms {step['grad_norms']}")
+    cut = (f"depth cut from {full.num_layers} to {L} layers (windows "
+           f"{windows}; the full depth's float32 training state, "
+           f"{16 * T.param_count(full) / 1e9:.0f} GB, does not fit one card)")
+    rec = dict(arch=GEMMA_ARCH, layers=L, B=GEMMA_B, S=GEMMA_S,
+               params=T.param_count(cfg), cut=cut, launches=launches,
+               plain_backward_calls=len(plain_calls), card=smi, **step)
+    say("12e gemma3 training", f"{GEMMA_ARCH} full width (d {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads, hd {cfg.head_dim}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, tied), {cut}; "
+        f"{rec['params'] / 1e9:.3f}B parameters, weights from seed "
+        f"{TRAIN_SEED}, B={GEMMA_B} S={GEMMA_S}, on {smi}: {n} steps, "
+        f"launches {launches}, plain backward calls 0, losses "
+        f"{[round(x, 4) for x in step['losses']]}, grad norms "
+        f"{[round(x, 4) for x in step['grad_norms']]}")
+    say("12e gemma3 training", f"step {step['step_ms']:.1f} ms (median of "
+        f"{[round(t, 1) for t in step['step_ms_all']]}), "
+        f"{step['tokens_per_s']:.0f} tokens/s, model-FLOPs share "
+        f"{step['model_flops_share']:.4f} of {BF16_TC_FLOPS_PER_S / 1e12:.0f}"
+        f" TFLOP/s, peak memory {step['peak_memory_gb']:.2f} GB; traced "
+        f"step: device busy {step['busy_ms']:.1f} ms, wall "
+        f"{step['traced_wall_ms']:.1f} ms (idle {step['idle']:.3f}), the "
+        f"hd-256 backward {step['flash_bwd_device_ms']:.2f} ms "
+        f"({step['flash_bwd_share']:.4f} of busy), the forward "
+        f"{step['flash_fwd_device_ms']:.2f} ms; top device ops "
+        + ", ".join(f"{k} {v:.1f}" for k, v in
+                    step["top_device_ops_ms"].items()))
+    return rec
+
+
 def phase_training(dev, smi):
     """12: training on the card."""
     from repro_torch.kernels import _build
@@ -5483,6 +5583,7 @@ def phase_training(dev, smi):
     rec["train"] = train_full_width(dev, smi)
     rec["resume"] = train_resume(dev)
     rec["examples"] = run_examples()
+    rec["gemma3"] = train_gemma3(dev, smi)
     rec["seconds"] = time.perf_counter() - t0
     say("12 training", f"{rec['seconds']:.1f} s")
     return rec
@@ -5565,11 +5666,13 @@ def main():
     for k in KERNELS:
         if k.endswith("_rng"):
             launches = record["rng_path"]["launches"][k]
-        elif k == "flash_attention":     # prefill (7) and training (12b)
+        elif k == "flash_attention":     # prefill (7), training (12b, 12e)
             launches = (serve["flash_launches"]
-                        + training["train"]["launches"][k])
-        elif k == "flash_attention_bwd":  # training (12b), the main path
-            launches = training["train"]["launches"][k]
+                        + training["train"]["launches"][k]
+                        + training["gemma3"]["launches"][k])
+        elif k == "flash_attention_bwd":  # training (12b, 12e), main paths
+            launches = (training["train"]["launches"][k]
+                        + training["gemma3"]["launches"][k])
         elif k == "bucket_energy":       # the single-site steps' energy
             launches = sum(r["bucket_energy_launches"]
                            for r in record["steps"].values())

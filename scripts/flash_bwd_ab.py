@@ -7,12 +7,14 @@ Each checkout (a directory holding ``src/repro_torch``) runs in a process
 of its own, in the order parent, change, change, parent, builds its
 kernels from its own sources and times its ``flash_attention_bwd_cuda`` at
 the model shapes of ``chip_smoke.BWD_SHAPES`` (tinyllama-1.1b's training
-attention, h2o-danube-3-4b's window, gemma3-12b's local layer) on the same
+attention, h2o-danube-3-4b's window, gemma3-12b's local and global
+layers) on the same
 seeded inputs and the checkout's own forward row statistics (lse2): the
 CUDA-event median per call of ``chip_smoke.py`` phase 12a and each
 kernel's device time (``torch.profiler``).  Each run also times
 ``scaled_dot_product_attention``'s backward (fwd + bwd minus fwd, a band
-mask where a window is set), which no checkout calls.  Prints one JSON
+mask where a window is set, else its fused causal path), which no checkout
+calls.  Prints one JSON
 line per run, the card's name and power limit, and writes them all to
 ``chiprun_out/flash_bwd_ab.json``.  Needs one CUDA card; imports nothing
 of JAX.
@@ -37,7 +39,7 @@ def time_tree(tree):
     dev = torch.device("cuda")
     out = {}
     for n, (B, Sq, Sk, H, KVH, hd, w, causal) in enumerate(
-            cs.BWD_SHAPES[:3]):
+            cs.BWD_SHAPES[:cs.BWD_MODEL_SHAPES]):
         q, k, v = cs.flash_inputs(B, Sq, Sk, H, KVH, hd, torch.bfloat16, dev,
                                   seed=70 + 2 * n)
         dout = cs.flash_inputs(B, Sq, Sq, H, H, hd, torch.bfloat16, dev,

@@ -586,6 +586,13 @@ cudaError_t launch_bf16_as(cudaStream_t stream, const void* q, const void* k,
                            int Sq, int Sk, int H, int KVH, int hd, int window,
                            int causal, float scale) {
   using T = Tiles<HDP>;
+  // the device's context current in this thread before the tensor maps
+  // are encoded (a thread that has made no CUDA call yet has none, and the
+  // encode then fails)
+  int device, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
   CUtensorMap tq, tk, tv;
   if (!tensor_map(&tq, q, B, Sq, H, hd, kBM)
       || !tensor_map(&tk, k, B, Sk, KVH, hd, T::BK)
@@ -595,9 +602,6 @@ cudaError_t launch_bf16_as(cudaStream_t stream, const void* q, const void* k,
   // count, and the shared-memory allowance a block above 48 KB needs, are
   // set once per device and template, at its first launch
   static std::atomic<int> sms_of[kMaxDevices];
-  int device, sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
   if (device < kMaxDevices) sms = sms_of[device].load();
   if (sms == 0) {
     err = cudaFuncSetAttribute(flash_bf16_kernel<HDP, kLse>,

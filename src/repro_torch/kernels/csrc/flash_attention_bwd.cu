@@ -30,8 +30,8 @@
 // a zero gradient.  Three launches per call: prep, dK/dV, dQ (the
 // FlashAttention-2 split).
 //
-// Head dims 16, 32, 64 (padded to 64 columns) and 120, 128 (padded to
-// 128): wgmma and TMA, the forward's Hopper machinery (hopper.cuh).  Both
+// Head dims 16, 32, 64 (padded to 64 columns), 120, 128 (padded to 128)
+// and 256: wgmma and TMA, the forward's Hopper machinery (hopper.cuh).  Both
 // kernels are persistent blocks of three warpgroups: one producer thread
 // issues every copy (TMA through 4-D tensor maps with 128-byte swizzle,
 // whose zero fill gives the ragged edges; prep writes each query row's
@@ -59,23 +59,25 @@
 //    column.  Blocks take items from an int32 work counter (zeroed by
 //    prep) in ascending order, key tiles slowest, so causal items (key
 //    tile 0 sees every query) go longest first.
+//    At 256 columns the dK and dV of 64 keys (2 x 64 x 256 float32, 128
+//    registers a thread each) do not both fit in one warpgroup, so an item
+//    is 64 keys that both consumers share (the pair form, no ping-pong):
+//    consumer 0 forms S^T and P^T and sums dV, consumer 1 forms dP^T and
+//    dS^T and sums dK, every column; P^T passes from 0 to 1 as float32
+//    through shared memory (8 KB a step, two buffers under named
+//    barriers), so dS is formed from the unrounded P as at the other head
+//    dims, and each of S and dP is still formed once per pair.
 //  * dQ: an item is 128 query rows of one head and batch element (the
 //    forward's items, longest first, a static round robin), 64 rows per
 //    consumer; Q and dO load once (at 64 columns into registers, as K and
-//    V above), the K and V tiles of the 64-key tiles the rows can see
-//    stream through a 3-stage ring.  Per tile: S = Q K^T, dP = dO V^T, P
-//    and dS in registers, dQ += dS K with K read MN-major.
+//    V above), the K and V tiles of the 64-key tiles (32 at 256 columns)
+//    the rows can see stream through a 3-stage ring.  Per tile: S = Q K^T,
+//    dP = dO V^T, P and dS in registers, dQ += dS K with K read MN-major.
 // Products per attended pair: 7 (S and dP in both kernels), against the
 // bound's 5.  A one-pass form (dQ's part of each step in the dK/dV kernel,
 // summed over the key tiles in a fixed order through a float32 buffer in
 // global memory) was slower on the card (PERF.md, the flash backward
 // row).
-//
-// Head dim 256: the mma.sync kernels (m16n8k16 from ldmatrix fragments,
-// two cp.async stages, 64 x 64 tiles, output in 64-column chunks).  At 256
-// columns the dK and dV of 64 keys (2 x 64 x 256 float32) do not fit in a
-// warpgroup's registers beside S^T and dP^T, so the wgmma design does not
-// carry over; here S and dP are recomputed per 64-column chunk.
 //
 // Bound: the tensor cores, 2.5 times the forward's products (S, dP, dV, dK,
 // dQ: 5 x 2 hd FLOPs per attended pair) at the bf16 dense rate.
@@ -105,25 +107,11 @@ using namespace hopper;
 typedef __nv_bfloat16 bf16;
 
 // ---------------------------------------------------------------------------
-// mma.sync kernels (padded head dim 256) and the prep kernel
+// 1. prep: (lse2, D) per query row
 // ---------------------------------------------------------------------------
 
-constexpr int kTile = 64;              // query rows and keys per tile
-constexpr int kWarps = 4;              // 16 rows (or keys) of a tile each
-constexpr int kThreads = 32 * kWarps;
-constexpr int kCols = 64;              // output columns per block
-constexpr int kN = kCols / 8;          // n-tiles of 8 over a 64-wide span
-
-template <int HDP>
-struct Layout {
-  static constexpr int kStride = HDP + 8;       // bf16 per shared row
-  static constexpr int kTileElems = kTile * kStride;
-  static constexpr int kTileBytes = kTileElems * 2;
-  // two resident tiles and two stages of two streamed tiles (dK/dV: each
-  // stage also holds its 64 rows' lse2 and D)
-  static constexpr int kDkdvSmem = 6 * kTileBytes + 2 * 2 * kTile * 4;
-  static constexpr int kDqSmem = 6 * kTileBytes;
-};
+constexpr int kTile = 64;              // prep: query rows per block
+constexpr int kThreads = 128;          // prep: 16 rows per warp
 
 __device__ __forceinline__ bool valid(int i, int j, int Sq, int Sk,
                                       int window, int causal) {
@@ -131,168 +119,8 @@ __device__ __forceinline__ bool valid(int i, int j, int Sq, int Sk,
          && (window <= 0 || i - j < window);
 }
 
-// (every (query, key) pair of a 64 x 64 tile valid: no per-entry mask)
-__device__ __forceinline__ bool full_tile(int i0, int j0, int Sq, int Sk,
-                                          int window, int causal) {
-  return i0 + kTile <= Sq && j0 + kTile <= Sk
-         && (!causal || i0 >= j0 + kTile - 1)
-         && (window <= 0 || i0 + kTile - 1 - j0 < window);
-}
-
-// four 8x8 bf16 matrices from shared memory, lanes 8j..8j+7 giving the row
-// addresses of matrix j: register j holds matrix j in the mma fragment
-// layout (row lane / 4, columns 2 (lane % 4) and + 1); .trans holds it
-// transposed (rows 2 (lane % 4) and + 1, column lane / 4)
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
-      : "memory");
-}
-
-// two bf16 (lo at the lower k index) as one 32-bit fragment register
-__device__ __forceinline__ uint32_t pack2(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo))
-         | (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-__device__ __forceinline__ uint32_t pack_f2(float lo, float hi) {
-  return pack2(__float2bfloat16_rn(lo), __float2bfloat16_rn(hi));
-}
-
-// d += a b: A 16x16 row-major (4 registers), B 16x8 column-major (2),
-// C/D 16x8 float32 (4): lane (g = lane / 4, t = lane % 4) holds
-// a: (g, 2t..2t+1), (g+8, 2t..), (g, 2t+8..), (g+8, 2t+8..);
-// b: (2t..2t+1, g), (2t+8..2t+9, g);  d: (g, 2t..2t+1), (g+8, 2t..2t+1).
-__device__ __forceinline__ void mma(float (&d)[4], uint32_t a0, uint32_t a1,
-                                    uint32_t a2, uint32_t a3, uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// cp.async: `bytes` from global `src` into shared `dst` without the
-// registers, or zeros when `full` is false (src then is not read)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool full) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(full ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool full) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(full ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most one group (the newest) is still in flight
-__device__ __forceinline__ void cp_async_wait_all_but_newest() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// rows [r0, r0 + kTile) of head `head` of a (B, S, heads, hd) tensor into
-// shared rows of kStride bf16, asynchronously (cp.async, 16 bytes a
-// thread); zeros past S and past hd (hd % 8 == 0)
-template <int HDP>
-__device__ void load_tile(bf16* dst, const bf16* __restrict__ src, int b,
-                          int r0, int S, int heads, int head, int hd) {
-  constexpr int kVec = HDP / 8;                    // 16-byte vectors per row
-  for (int idx = threadIdx.x; idx < kTile * kVec; idx += kThreads) {
-    const int r = idx / kVec, c = (idx % kVec) * 8;
-    const bool in = r0 + r < S && c < hd;
-    cp_async16(dst + r * Layout<HDP>::kStride + c,
-               in ? src + ((static_cast<size_t>(b) * S + r0 + r) * heads
-                           + head) * hd + c
-                  : src,
-               in);
-  }
-}
-
-// acc[n] += A (16 rows of `a` from row r0) . B^T over HDP columns, for
-// n-tiles of 8 rows of `bt` (n * 8 + g): the S = Q K^T pattern, both
-// operands with the contraction axis contiguous in shared memory.  One
-// ldmatrix.x4 gives A's fragment of a k-step, one more the B fragments of
-// two n-tiles.
-template <int HDP>
-__device__ __forceinline__ void rows_dot_rows(float (&acc)[kN][4],
-                                              const bf16* a, int r0,
-                                              const bf16* bt, int lane) {
-  constexpr int S = Layout<HDP>::kStride;
-  const int m = lane >> 3, rr = lane & 7;
-  const bf16* pa = a + (r0 + (m & 1) * 8 + rr) * S + (m >> 1) * 8;
-  const bf16* pb = bt + ((m >> 1) * 8 + rr) * S + (m & 1) * 8;
-#pragma unroll
-  for (int kk = 0; kk < HDP / 16; ++kk) {
-    uint32_t af[4];
-    ldsm_x4(af, pa + kk * 16);
-#pragma unroll
-    for (int n = 0; n < kN; n += 2) {
-      uint32_t bf[4];
-      ldsm_x4(bf, pb + n * 8 * S + kk * 16);
-      mma(acc[n], af[0], af[1], af[2], af[3], bf[0], bf[1]);
-      mma(acc[n + 1], af[0], af[1], af[2], af[3], bf[2], bf[3]);
-    }
-  }
-}
-
-// acc[n] += A . B[:, c0 + 8n ..], A = x (16 x 64 in accumulator layout,
-// rounded to bf16 here), B = the 64 rows of `rows` over columns c0..c0+63:
-// the dV += P^T dO pattern, B's fragments of two n-tiles by one transposed
-// ldmatrix.x4
-template <int HDP>
-__device__ __forceinline__ void acc_times_rows(float (&acc)[kN][4],
-                                               const float (&x)[kN][4],
-                                               const bf16* rows, int c0,
-                                               int lane) {
-  constexpr int S = Layout<HDP>::kStride;
-  const int m = lane >> 3, rr = lane & 7;
-  const bf16* base = rows + ((m & 1) * 8 + rr) * S + c0 + (m >> 1) * 8;
-#pragma unroll
-  for (int kk = 0; kk < kTile / 16; ++kk) {
-    const uint32_t a0 = pack_f2(x[2 * kk][0], x[2 * kk][1]);
-    const uint32_t a1 = pack_f2(x[2 * kk][2], x[2 * kk][3]);
-    const uint32_t a2 = pack_f2(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-    const uint32_t a3 = pack_f2(x[2 * kk + 1][2], x[2 * kk + 1][3]);
-#pragma unroll
-    for (int n = 0; n < kN; n += 2) {
-      uint32_t bf[4];
-      ldsm_x4_t(bf, base + kk * 16 * S + n * 8);
-      mma(acc[n], a0, a1, a2, a3, bf[0], bf[1]);
-      mma(acc[n + 1], a0, a1, a2, a3, bf[2], bf[3]);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// 1. prep: D per query row
-// ---------------------------------------------------------------------------
-
 // D_i = rowsum(dO o): a warp per row, lanes over column pairs, a fixed
-// shuffle tree; 64 rows per block.  For the mma.sync kernels into dsum
-// (B, H, Sq); for the wgmma kernels into rows (B, H, Sqp) as (lse2_i, D_i)
+// shuffle tree; 64 rows per block; into rows (B, H, Sqp) as (lse2_i, D_i)
 // pairs beside the forward's lse2, the rows from Sq to Sqp as (+inf, 0)
 // (P = 0 there), so a tile of them is one bulk copy.  Also zeroes the
 // dK/dV launch's work counter (launched after this one)
@@ -300,16 +128,13 @@ __global__ void __launch_bounds__(kThreads)
 flash_bwd_prep_kernel(const bf16* __restrict__ o,
                       const bf16* __restrict__ dout,
                       const float* __restrict__ lse2,
-                      float* __restrict__ dsum, float2* __restrict__ rows,
-                      int* __restrict__ work, int Sq, int Sqp, int H,
-                      int hd) {
+                      float2* __restrict__ rows, int* __restrict__ work,
+                      int Sq, int Sqp, int H, int hd) {
   const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  if (work != nullptr && (blockIdx.x | blockIdx.y | blockIdx.z) == 0
-      && threadIdx.x == 0)
+  if ((blockIdx.x | blockIdx.y | blockIdx.z) == 0 && threadIdx.x == 0)
     *work = 0;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const size_t row0 = static_cast<size_t>(b) * H + h;   // (b, h) row block
-  const int end = rows != nullptr ? Sqp : Sq;
   // four rows at a time: their loads are in flight together
   for (int r0 = q0 + warp * 16; r0 < q0 + warp * 16 + 16; r0 += 4) {
     float acc[4];
@@ -334,248 +159,20 @@ flash_bwd_prep_kernel(const bf16* __restrict__ o,
       for (int off = 16; off > 0; off >>= 1)
         acc[u] += __shfl_xor_sync(0xffffffffu, acc[u], off);
       const int i = r0 + u;
-      if (lane != 0 || i >= end) continue;
-      if (rows == nullptr)
-        dsum[row0 * Sq + i] = acc[u];
-      else
-        rows[row0 * Sqp + i] = i < Sq ? make_float2(lse2[row0 * Sq + i], acc[u])
-                                      : make_float2(INFINITY, 0.0f);
+      if (lane != 0 || i >= Sqp) continue;
+      rows[row0 * Sqp + i] = i < Sq ? make_float2(lse2[row0 * Sq + i], acc[u])
+                                    : make_float2(INFINITY, 0.0f);
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// 2. dK, dV
-// ---------------------------------------------------------------------------
-
-template <int HDP>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v,
-                      const bf16* __restrict__ dout,
-                      const float* __restrict__ lse2,
-                      const float* __restrict__ dsum, bf16* __restrict__ dk,
-                      bf16* __restrict__ dv, int Sq, int Sk, int H, int KVH,
-                      int hd, int window, int causal, float scale,
-                      float scale_log2) {
-  constexpr int E = Layout<HDP>::kTileElems;
-  bf16* sk = reinterpret_cast<bf16*>(bwd_smem);
-  bf16* sv = sk + E;
-  bf16* stage_tiles = sv + E;            // stage st: Q at + 2E st, dO + E
-  float* stage_rows = reinterpret_cast<float*>(stage_tiles + 4 * E);
-  constexpr int kChunks = HDP / kCols;
-  const int j0 = blockIdx.x * kTile, kh = blockIdx.y;
-  const int b = blockIdx.z / kChunks, c0 = (blockIdx.z % kChunks) * kCols;
-  const int G = H / KVH;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3, r0 = warp * 16;
-
-  // the query tiles that can see a key of [j0, j0 + kTile): nq per head,
-  // from tile t0; iteration it is head kh G + it / nq, tile t0 + it % nq
-  const int qlo = causal ? j0 : 0;
-  const int qhi = window > 0 ? min(Sq, j0 + kTile - 1 + window) : Sq;
-  const int t0 = qlo / kTile;
-  const int nq = qhi > t0 * kTile ? (qhi - t0 * kTile + kTile - 1) / kTile
-                                  : 0;
-  const int n_it = G * nq;
-  // stage it & 1: the Q and dO tiles, then lse2 (threads 0-63) and D
-  // (64-127) of the tile's 64 rows, all by cp.async
-  auto fetch = [&](int it) {
-    const int h = kh * G + it / nq, i0 = (t0 + it % nq) * kTile;
-    bf16* tiles = stage_tiles + (it & 1) * 2 * E;
-    load_tile<HDP>(tiles, q, b, i0, Sq, H, h, hd);
-    load_tile<HDP>(tiles + E, dout, b, i0, Sq, H, h, hd);
-    const int r = threadIdx.x % kTile;
-    const bool in = i0 + r < Sq;
-    const size_t at = (static_cast<size_t>(b) * H + h) * Sq + i0 + r;
-    cp_async4(stage_rows + (it & 1) * 2 * kTile + threadIdx.x,
-              threadIdx.x < kTile ? lse2 + (in ? at : 0)
-                                  : dsum + (in ? at : 0), in);
-  };
-
-  load_tile<HDP>(sk, k, b, j0, Sk, KVH, kh, hd);
-  load_tile<HDP>(sv, v, b, j0, Sk, KVH, kh, hd);
-  if (n_it > 0) fetch(0);
-  cp_async_commit();
-  float dk_acc[kN][4] = {}, dv_acc[kN][4] = {};
-  for (int it = 0; it < n_it; ++it) {
-    if (it + 1 < n_it) fetch(it + 1);    // the next tiles load meanwhile
-    cp_async_commit();
-    cp_async_wait_all_but_newest();
-    __syncthreads();                     // this stage is in for every thread
-    const int i0 = (t0 + it % nq) * kTile;
-    const bf16* sq = stage_tiles + (it & 1) * 2 * E;
-    const bf16* sdo = sq + E;
-    const float* s_lse = stage_rows + (it & 1) * 2 * kTile;
-    const float* s_d = s_lse + kTile;
-    // S^T = K Q^T and dP^T = V dO^T: 16 keys x 64 queries per warp
-    float st[kN][4] = {}, dpt[kN][4] = {};
-    rows_dot_rows<HDP>(st, sk, r0, sq, lane);
-    rows_dot_rows<HDP>(dpt, sv, r0, sdo, lane);
-    const bool full = full_tile(i0, j0, Sq, Sk, window, causal);
-#pragma unroll
-    for (int n = 0; n < kN; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = j0 + r0 + g + 8 * (e >> 1);
-        const int c = n * 8 + 2 * t + (e & 1);            // query in tile
-        const float p = full || valid(i0 + c, j, Sq, Sk, window, causal)
-                            ? exp2f(st[n][e] * scale_log2 - s_lse[c])
-                            : 0.f;
-        st[n][e] = p;
-        dpt[n][e] = p * (dpt[n][e] - s_d[c]);
-      }
-    acc_times_rows<HDP>(dv_acc, st, sdo, c0, lane);
-    acc_times_rows<HDP>(dk_acc, dpt, sq, c0, lane);
-    __syncthreads();                     // read before it + 2 overwrites it
-  }
-#pragma unroll
-  for (int n = 0; n < kN; ++n)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int j = j0 + r0 + g + 8 * half;
-      const int d = c0 + n * 8 + 2 * t;      // even; hd even
-      if (j >= Sk || d >= hd) continue;
-      const size_t at = ((static_cast<size_t>(b) * Sk + j) * KVH + kh) * hd
-                        + d;
-      *reinterpret_cast<__nv_bfloat162*>(dk + at) = __floats2bfloat162_rn(
-          dk_acc[n][2 * half] * scale, dk_acc[n][2 * half + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + at) = __floats2bfloat162_rn(
-          dv_acc[n][2 * half], dv_acc[n][2 * half + 1]);
-    }
-}
-
-// ---------------------------------------------------------------------------
-// 3. dQ
-// ---------------------------------------------------------------------------
-
-template <int HDP>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v,
-                    const bf16* __restrict__ dout,
-                    const float* __restrict__ lse2,
-                    const float* __restrict__ dsum, bf16* __restrict__ dq,
-                    int Sq, int Sk, int H, int KVH, int hd, int window,
-                    int causal, float scale, float scale_log2) {
-  constexpr int E = Layout<HDP>::kTileElems;
-  bf16* sq = reinterpret_cast<bf16*>(bwd_smem);
-  bf16* sdo = sq + E;
-  bf16* stage_tiles = sdo + E;           // stage st: K at + 2E st, V + E
-  constexpr int kChunks = HDP / kCols;
-  const int q0 = blockIdx.x * kTile, h = blockIdx.y;
-  const int b = blockIdx.z / kChunks, c0 = (blockIdx.z % kChunks) * kCols;
-  const int kh = h / (H / KVH);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3, r0 = warp * 16;
-  const size_t row0 = (static_cast<size_t>(b) * H + h) * Sq;
-
-  float lse_r[2], d_r[2];
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int i = q0 + r0 + g + 8 * half;
-    lse_r[half] = i < Sq ? lse2[row0 + i] : INFINITY;
-    d_r[half] = i < Sq ? dsum[row0 + i] : 0.f;
-  }
-  // the key tiles that hold a valid key for these rows: n_it from t0
-  const int hi = causal ? min(Sk, q0 + kTile) : Sk;
-  const int lo = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int t0 = lo / kTile;
-  const int n_it = hi > t0 * kTile ? (hi - t0 * kTile + kTile - 1) / kTile
-                                   : 0;
-  auto fetch = [&](int it) {
-    bf16* tiles = stage_tiles + (it & 1) * 2 * E;
-    load_tile<HDP>(tiles, k, b, (t0 + it) * kTile, Sk, KVH, kh, hd);
-    load_tile<HDP>(tiles + E, v, b, (t0 + it) * kTile, Sk, KVH, kh, hd);
-  };
-
-  load_tile<HDP>(sq, q, b, q0, Sq, H, h, hd);
-  load_tile<HDP>(sdo, dout, b, q0, Sq, H, h, hd);
-  if (n_it > 0) fetch(0);
-  cp_async_commit();
-  float dq_acc[kN][4] = {};
-  for (int it = 0; it < n_it; ++it) {
-    if (it + 1 < n_it) fetch(it + 1);    // the next tiles load meanwhile
-    cp_async_commit();
-    cp_async_wait_all_but_newest();
-    __syncthreads();                     // this stage is in for every thread
-    const int j0 = (t0 + it) * kTile;
-    const bf16* sk = stage_tiles + (it & 1) * 2 * E;
-    const bf16* sv = sk + E;
-    // S = Q K^T and dP = dO V^T: 16 queries x 64 keys per warp
-    float s[kN][4] = {}, dp[kN][4] = {};
-    rows_dot_rows<HDP>(s, sq, r0, sk, lane);
-    rows_dot_rows<HDP>(dp, sdo, r0, sv, lane);
-    const bool full = full_tile(q0, j0, Sq, Sk, window, causal);
-#pragma unroll
-    for (int n = 0; n < kN; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int half = e >> 1;
-        const int i = q0 + r0 + g + 8 * half;
-        const int j = j0 + n * 8 + 2 * t + (e & 1);
-        const float p = full || valid(i, j, Sq, Sk, window, causal)
-                            ? exp2f(s[n][e] * scale_log2 - lse_r[half])
-                            : 0.f;
-        dp[n][e] = p * (dp[n][e] - d_r[half]);
-      }
-    acc_times_rows<HDP>(dq_acc, dp, sk, c0, lane);
-    __syncthreads();                     // read before it + 2 overwrites it
-  }
-#pragma unroll
-  for (int n = 0; n < kN; ++n)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int i = q0 + r0 + g + 8 * half;
-      const int d = c0 + n * 8 + 2 * t;
-      if (i >= Sq || d >= hd) continue;
-      const size_t at = ((static_cast<size_t>(b) * Sq + i) * H + h) * hd + d;
-      *reinterpret_cast<__nv_bfloat162*>(dq + at) = __floats2bfloat162_rn(
-          dq_acc[n][2 * half] * scale, dq_acc[n][2 * half + 1] * scale);
-    }
-}
-
-template <int HDP>
-cudaError_t launch_bwd(cudaStream_t stream, const bf16* q, const bf16* k,
-                       const bf16* v, const bf16* o, const bf16* dout,
-                       bf16* dq, bf16* dk, bf16* dv, const float* lse2,
-                       float* dsum, int B, int Sq, int Sk, int H, int KVH,
-                       int hd, int window, int causal, float scale) {
-  typedef Layout<HDP> L;
-  constexpr int kChunks = HDP / kCols;
-  // grid y holds the heads and grid z the (batch, 64-column chunk) pairs
-  if (H > 65535 || B > 65535 / kChunks) return cudaErrorInvalidConfiguration;
-  const float scale_log2 = scale * 1.4426950408889634f;   // scale * log2(e)
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkdv_kernel<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      L::kDkdvSmem);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(flash_bwd_dq_kernel<HDP>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               L::kDqSmem);
-  if (err != cudaSuccess) return err;
-  const int qt = (Sq + kTile - 1) / kTile, kt = (Sk + kTile - 1) / kTile;
-  flash_bwd_prep_kernel<<<dim3(qt, H, B), kThreads, 0, stream>>>(
-      o, dout, lse2, dsum, nullptr, nullptr, Sq, Sq, H, hd);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  flash_bwd_dkdv_kernel<HDP><<<dim3(kt, KVH, B * kChunks), kThreads,
-                               L::kDkdvSmem, stream>>>(
-      q, k, v, dout, lse2, dsum, dk, dv, Sq, Sk, H, KVH, hd, window, causal,
-      scale, scale_log2);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  flash_bwd_dq_kernel<HDP><<<dim3(qt, H, B * kChunks), kThreads, L::kDqSmem,
-                             stream>>>(q, k, v, dout, lse2, dsum, dq, Sq, Sk,
-                                       H, KVH, hd, window, causal, scale,
-                                       scale_log2);
-  return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// 4. dK/dV and dQ on wgmma and TMA (padded head dims 64 and 128)
+// 2. dK/dV and dQ on wgmma and TMA
 // ---------------------------------------------------------------------------
 
 constexpr int kWgThreads = 384;        // producer warpgroup + two consumers
-// setmaxnreg: 128 x 40 + 256 x 232 <= 65536 registers of the SM
+// setmaxnreg: the consumers take the 128 x (168 - 40) registers the
+// producer frees (168 a thread at launch: 65536 / 384, rounded down to 8)
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 constexpr int kMaxDevices = 64;        // launch settings cached per device
 
@@ -585,22 +182,32 @@ struct Wg {
   // and dO in dQ) are loaded into registers once per item: register A
   // operands halve the shared-memory reads of those products, which at
   // 64-wide tiles with both operands in shared memory take as many bytes
-  // a clock as shared memory gives.  At 128 columns the registers are
-  // taken by the 64 x 128 accumulators
+  // a clock as shared memory gives.  At 128 and 256 columns the registers
+  // are taken by the accumulators
   static constexpr bool kRegA = HDP == 64;
-  // dK/dV: an item is BN keys (64 per consumer warpgroup) of one KV head
-  // and batch element; a step streams BQ queries of one query head
-  static constexpr int BN = 128, BQ = HDP == 64 ? 64 : 32, ST = 4;
+  // dK/dV at 256 columns: the two consumers share one 64-key tile (kPair;
+  // the dK and dV of 64 keys, 2 x 64 x 256 float32, fill both warpgroups'
+  // registers), one forming P^T and dV, the other dS^T and dK
+  static constexpr bool kPair = HDP == 256;
+  // dK/dV: an item is BN keys (64 per consumer warpgroup, or 64 shared) of
+  // one KV head and batch element; a step streams BQ queries of one query
+  // head
+  static constexpr int BN = kPair ? 64 : 128, BQ = HDP == 64 ? 64 : 32;
+  static constexpr int ST = 4;
   static constexpr int kKVBytes = BN * HDP * 2;    // the K (or V) tile
   static constexpr int kQBytes = BQ * HDP * 2;     // a stage's Q (or dO)
   static constexpr int kStatBytes = BQ * 8;        // its rows' (lse2, D)
-  // K, V | Q stages | dO stages | (lse2, D) rows | mbarriers | item slot,
-  // +1024 for the alignment the 128-byte swizzle needs
+  // kPair: two buffers of a step's P^T (64 x BQ float32)
+  static constexpr int kXBytes = kPair ? 2 * 64 * BQ * 4 : 0;
+  // K, V | Q stages | dO stages | (lse2, D) rows | P^T buffers | mbarriers
+  // | item slot, +1024 for the alignment the 128-byte swizzle needs
   static constexpr int kDkdvSmem = 1024 + 2 * kKVBytes + 2 * ST * kQBytes
-                                   + ST * kStatBytes + (2 + 2 * ST) * 8 + 16;
+                                   + ST * kStatBytes + kXBytes
+                                   + (2 + 2 * ST) * 8 + 16;
   // dQ: an item is BM query rows (64 per consumer) of one query head and
-  // batch element; a step streams BK keys of its KV head
-  static constexpr int BM = 128, BK = 64, STQ = 3;
+  // batch element; a step streams BK keys of its KV head (32 at 256
+  // columns: two 128 x 256 resident tiles and three stages fill 227 KB)
+  static constexpr int BM = 128, BK = HDP == 256 ? 32 : 64, STQ = 3;
   static constexpr int kRowsBytes = BM * HDP * 2;  // the Q (or dO) tile
   static constexpr int kKBytes = BK * HDP * 2;     // a stage's K (or V)
   static constexpr int kDqSmem = 1024 + 2 * kRowsBytes + 2 * STQ * kKBytes
@@ -733,7 +340,8 @@ flash_bwd_dkdv_wg_kernel(const __grid_constant__ CUtensorMap tq,
   const uint32_t qs = vs + T::kKVBytes;            // stage st: + st kQBytes
   const uint32_t dos = qs + ST * T::kQBytes;
   const uint32_t rows = dos + ST * T::kQBytes;     // stage st: (lse2, D)
-  const uint32_t bars = rows + ST * T::kStatBytes;
+  const uint32_t xs = rows + ST * T::kStatBytes;   // kPair: P^T buffers
+  const uint32_t bars = xs + T::kXBytes;
   // kv_full, kv_empty, then full and empty per stage
   const uint32_t kv_full = bars, kv_empty = bars + 8;
   auto full = [&](int st) { return bars + 16 + 8 * st; };
@@ -801,6 +409,140 @@ flash_bwd_dkdv_wg_kernel(const __grid_constant__ CUtensorMap tq,
         }
       }
     }
+  } else if constexpr (T::kPair) {
+    // ---- consumers on the same 64 keys: consumer 0 forms S^T = K Q^T and
+    // P^T and sums dV += P^T dO, consumer 1 forms dP^T = V dO^T and dS^T =
+    // P^T (dP^T - D) and sums dK += dS^T Q, each over all HDP columns.  P^T
+    // passes from 0 to 1 as float32 through two shared-memory buffers
+    // (step s in buffer s % 2; named barrier 1 + s % 2: it is written, 3 +
+    // s % 2: it was read); S^T and dP^T have the same accumulator layout,
+    // so thread t passes its entries to thread t.  Per step, the first
+    // product (S^T or dP^T) runs beside the step before's second (dV or
+    // dK), and no product is in flight across the loop's back edge
+    setmaxnreg_inc<kConsumerRegs>();
+    const int w = wg - 1, tid = threadIdx.x % 128;
+    const int wi = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t4 = lane % 4;   // accumulator row group, pair
+    // the resident A operand of the first product, the streamed B operands
+    // of the first and the second
+    const uint32_t a1 = w == 0 ? ks : vs;
+    const uint32_t b1 = w == 0 ? qs : dos, b2 = w == 0 ? dos : qs;
+    float4* xbuf = reinterpret_cast<float4*>(bwd_smem + (xs - raw));
+    int it = 0;                              // steps consumed so far
+    for (int j = 0;; ++j) {
+      mbar_wait(kv_full, j & 1);
+      const int wk = *slot;
+      if (wk < 0) break;
+      const KvItem x = kv_item<BN, BQ>(wk, Sq, KVH, B, window, causal);
+      const int ja = x.j0 + 16 * wi + g;     // this thread's keys ja, ja + 8
+      float acc[HDP / 2];                    // dV (consumer 0) or dK (1)
+#pragma unroll
+      for (int y = 0; y < HDP / 2; ++y) acc[y] = 0.0f;
+      // S^T, then P^T (consumer 0); dP^T, then dS^T (1): sa[4 jj + e] is
+      // key ja + 8 (e / 2), query i0 + 8 jj + 2 t4 + e % 2
+      float sa[BQ / 2];
+      uint32_t pa[BQ / 4];                   // bf16 P^T (0) or dS^T (1)
+      uint32_t af[HDP / 16][4];              // (no register A operand)
+      auto wait_full = [&](int i) {
+        mbar_wait(full((it + i) % ST), ((it + i) / ST) & 1);
+      };
+      auto issue_first = [&](int i) {
+        issue_rows<HDP, BQ>(sa, a1, BN, b1 + ((it + i) % ST) * T::kQBytes,
+                            af);
+      };
+      auto issue_second = [&](int i) {
+        issue_reg<HDP, BQ>(acc, pa, b2 + ((it + i) % ST) * T::kQBytes);
+      };
+      auto elementwise = [&](int i) {
+        const int s = it + i, i0 = (x.t0 + i % x.nq) * BQ;
+        const float* s_rows = rows_p + (s % ST) * 2 * BQ;   // (lse2, D)
+        float4* buf = xbuf + (s & 1) * (BQ / 8) * 128;
+        if (w == 0) {
+          // a step that holds a masked (query, key) pair sets its scores to
+          // -inf first (P = 0, and so dS = 0); the rest skip the mask
+          if (x.j0 + 64 > Sk || (causal && i0 < x.j0 + 63)
+              || (window > 0 && i0 + BQ - 1 - x.j0 >= window)) {
+#pragma unroll
+            for (int jj = 0; jj < BQ / 8; ++jj)
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                if (!valid(i0 + 8 * jj + 2 * t4 + (e & 1), ja + 8 * (e >> 1),
+                           Sq, Sk, window, causal))
+                  sa[4 * jj + e] = -INFINITY;
+          }
+#pragma unroll
+          for (int jj = 0; jj < BQ / 8; ++jj) {
+            // queries 8 jj + 2 t4 and + 1: lse2, D, lse2, D
+            const float4 r =
+                *reinterpret_cast<const float4*>(s_rows + 16 * jj + 4 * t4);
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              sa[4 * jj + e] =
+                  ex2(fmaf(sa[4 * jj + e], c, -((e & 1) ? r.z : r.x)));
+          }
+          if (s >= 2) bar_sync(3 + (s & 1));   // step s - 2's P^T was read
+#pragma unroll
+          for (int jj = 0; jj < BQ / 8; ++jj)
+            buf[jj * 128 + tid] = make_float4(sa[4 * jj], sa[4 * jj + 1],
+                                              sa[4 * jj + 2], sa[4 * jj + 3]);
+          bar_arrive(1 + (s & 1));
+        } else {
+          bar_sync(1 + (s & 1));               // step s's P^T is written
+#pragma unroll
+          for (int jj = 0; jj < BQ / 8; ++jj) {
+            const float4 p = buf[jj * 128 + tid];
+            const float4 r =
+                *reinterpret_cast<const float4*>(s_rows + 16 * jj + 4 * t4);
+            sa[4 * jj] = p.x * (sa[4 * jj] - r.y);
+            sa[4 * jj + 1] = p.y * (sa[4 * jj + 1] - r.w);
+            sa[4 * jj + 2] = p.z * (sa[4 * jj + 2] - r.y);
+            sa[4 * jj + 3] = p.w * (sa[4 * jj + 3] - r.w);
+          }
+          bar_arrive(3 + (s & 1));
+        }
+      };
+      auto pack = [&]() {
+#pragma unroll
+        for (int y = 0; y < BQ / 4; ++y)
+          pa[y] = pack_bf16(sa[2 * y], sa[2 * y + 1]);
+      };
+      const int n_it = G * x.nq;
+      if (n_it > 0) {
+        wait_full(0);
+        issue_first(0);
+        wgmma_wait<0>();
+        pin(sa);
+        elementwise(0);
+        pack();
+        for (int i = 1; i < n_it; ++i) {
+          wait_full(i);
+          issue_first(i);
+          issue_second(i - 1);
+          wgmma_wait<1>();                  // step i's S^T (dP^T)
+          pin(sa);
+          elementwise(i);
+          wgmma_wait<0>();                  // step i - 1's dV (dK)
+          pin(acc);
+          pin(pa);
+          if (lane == 0) mbar_arrive(empty((it + i - 1) % ST));
+          pack();
+        }
+        issue_second(n_it - 1);
+        wgmma_wait<0>();
+        pin(acc);
+        pin(pa);
+        if (lane == 0) mbar_arrive(empty((it + n_it - 1) % ST));
+      }
+      it += n_it;
+      if (lane == 0) mbar_arrive(kv_empty);    // K and V read
+      if (w == 0)
+        store_rows<HDP>(dv, acc, 1.0f, x.b, ja, Sk, KVH, x.kh, hd, t4);
+      else
+        store_rows<HDP>(dk, acc, scale, x.b, ja, Sk, KVH, x.kh, hd, t4);
+    }
+    // consumer 1's last two "read" arrivals have no write to wait: take them
+    if (w == 0)
+      for (int s = it < 2 ? 0 : it - 2; s < it; ++s) bar_sync(3 + (s & 1));
   } else {
     // ---- consumers: 64 keys each
     setmaxnreg_inc<kConsumerRegs>();
@@ -1069,11 +811,20 @@ flash_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap tq,
       auto wait_full = [&](int i) {
         mbar_wait(full((it + i) % ST), ((it + i) / ST) & 1);
       };
-      // S = Q K^T and dP = dO V^T of tile i
+      // S = Q K^T and dP = dO V^T of tile i.  At 256 columns the A
+      // addresses are made opaque at each issue, so that their descriptors
+      // are formed there: the compiler would otherwise hold the 2 x 16
+      // descriptors, invariant over the item, in registers that the
+      // 64 x 256 dQ accumulators leave no room for (they spilled)
       auto issue_sdp = [&](int i) {
         const int st = (it + i) % ST;
-        issue_rows<HDP, BK>(sa, qw, BM, ks + st * T::kKBytes, qf);
-        issue_rows<HDP, BK>(dpa, dow, BM, vs + st * T::kKBytes, dof);
+        uint32_t qa = qw, da = dow;
+        if constexpr (HDP == 256) {
+          asm volatile("" : "+r"(qa));
+          asm volatile("" : "+r"(da));
+        }
+        issue_rows<HDP, BK>(sa, qa, BM, ks + st * T::kKBytes, qf);
+        issue_rows<HDP, BK>(dpa, da, BM, vs + st * T::kKBytes, dof);
       };
       // dQ += dS K of tile i
       auto issue_dq = [&](int i) {
@@ -1222,7 +973,7 @@ cudaError_t launch_wg(cudaStream_t stream, const bf16* q, const bf16* k,
   const int Sqp = (Sq + T::BM - 1) / T::BM * T::BM;
   float2* rows = reinterpret_cast<float2*>(fscratch);
   flash_bwd_prep_kernel<<<dim3(Sqp / kTile, H, B), kThreads, 0, stream>>>(
-      o, dout, lse2, nullptr, rows, work, Sq, Sqp, H, hd);
+      o, dout, lse2, rows, work, Sq, Sqp, H, hd);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   flash_bwd_dkdv_wg_kernel<HDP>
       <<<static_cast<int>(kv_items < sms ? kv_items : sms), kWgThreads,
@@ -1246,8 +997,7 @@ extern "C" {
 // forward kernel's row statistics (flash_attention.cu's optional output).
 // Scratch: fscratch, B H Sqp 2 float32 with Sqp = Sq rounded up to a
 // multiple of 128, 16-byte aligned; work, one int32.  B, Sq, Sk >= 1;
-// H % KVH == 0; H <= 65535 and B <= 65535 (hd 256: B * 4 <= 65535), and
-// fewer than 2^31 work items, else the launch is refused
+// H % KVH == 0; H <= 65535 and B <= 65535, and fewer than 2^31 work items, else the launch is refused
 // (cudaErrorInvalidConfiguration).  window <= 0: no window.  scale:
 // hd^-0.5.
 int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
@@ -1277,8 +1027,8 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                            wk, B, Sq, Sk, H, KVH, hd, window, causal, scale);
       break;
     case 256:
-      err = launch_bwd<256>(stream, qq, kk, vv, oo, dd, dqq, dkk, dvv, l, fs,
-                            B, Sq, Sk, H, KVH, hd, window, causal, scale);
+      err = launch_wg<256>(stream, qq, kk, vv, oo, dd, dqq, dkk, dvv, l, fs,
+                           wk, B, Sq, Sk, H, KVH, hd, window, causal, scale);
       break;
   }
   return static_cast<int>(err);
@@ -1293,7 +1043,7 @@ int flash_attention_bwd_smem(int hd, int kernel) {
     case 120: case 128:
       return kernel == 0 ? Wg<128>::kDkdvSmem : Wg<128>::kDqSmem;
     case 256:
-      return kernel == 0 ? Layout<256>::kDkdvSmem : Layout<256>::kDqSmem;
+      return kernel == 0 ? Wg<256>::kDkdvSmem : Wg<256>::kDqSmem;
   }
   return 0;
 }

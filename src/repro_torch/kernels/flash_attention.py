@@ -121,17 +121,17 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     each KV head in the kernel (no repeat); ``lse2`` (B, H, Sq) float32
     the forward kernel's row statistics.  Returns bf16 gradients shaped
     as q, k, v; the same bits on every launch (no float atomics).  A grid
-    too large for the card (H or B above 65535, at hd 256 B x 4) is
-    refused by the C launcher before any launch.
+    too large for the card (H or B above 65535) is refused by the C
+    launcher before any launch.
 
     Replaces no Pallas kernel: the JAX package differentiates its jnp
     attention (``src/repro/models/attention.py``, ``flash_attention``).
     Bound by the tensor cores.  Three launches: D = rowsum(dout out) with
-    each row's lse2 beside it, then dK/dV, then dQ.  At hd 16-128 the two
-    are persistent wgmma kernels fed by TMA rings (a producer thread, two
-    consumer warpgroups), 7 products per attended pair; at hd 256 they are
-    the mma.sync kernels, which recompute S and dP per 64 columns (64 keys'
-    dK and dV at 256 columns do not fit a warpgroup's registers).
+    each row's lse2 beside it, then dK/dV, then dQ: persistent wgmma
+    kernels fed by TMA rings (a producer thread, two consumer
+    warpgroups), 7 products per attended pair.  At hd 256 the two
+    consumers of dK/dV share 64 keys, one summing dV and the other dK (64
+    keys' dK and dV at 256 columns do not fit one warpgroup's registers).
     """
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"q and k must be (B, S, heads, hd), got shapes "
@@ -162,8 +162,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     if q.numel() == 0 or k.numel() == 0:     # no (query, key) pair at all
         return dq.zero_(), dk.zero_(), dv.zero_()
     # scratch: each query row's (lse2, D) pair, Sq padded to a multiple of
-    # 128 (the mma.sync form at hd 256 takes D alone, in the first B H Sq
-    # words), and the dK/dV launch's work counter
+    # 128, and the dK/dV launch's work counter
     rows = torch.empty(B * H * _bwd_rows(Sq) * 2, dtype=torch.float32,
                        device=q.device)
     work = torch.empty(1, dtype=torch.int32, device=q.device)

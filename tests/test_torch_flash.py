@@ -206,3 +206,34 @@ def test_flash_kernel_equals_plain_version(cuda):
         else:
             torch.testing.assert_close(got.float(), want.float(),
                                        rtol=BF16_RTOL, atol=BF16_ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [64, 256])
+@pytest.mark.parametrize("lse", [False, True])
+def test_flash_kernel_from_a_fresh_thread(cuda, hd, lse):
+    """A thread that has made no CUDA call has no current context: the
+    bf16 launch makes the device's current there before it encodes its
+    tensor maps, and returns the main thread's bits (each case on a new
+    thread: after its first launch a thread's context is current)."""
+    import threading
+    q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16)
+               for a in _inputs(1, 130, 130, 4, 2, hd, 5 + hd))
+    want = tflash.flash_attention_cuda(q, k, v, window=0, causal=True,
+                                       lse=lse)
+    got, errors = [], []
+
+    def run():
+        try:
+            got.append(tflash.flash_attention_cuda(q, k, v, window=0,
+                                                   causal=True, lse=lse))
+        except Exception as e:  # noqa: BLE001  (reported below)
+            errors.append(e)
+    thread = threading.Thread(target=run)
+    thread.start()
+    thread.join(timeout=120)
+    assert not thread.is_alive(), "the launch on a fresh thread hung"
+    torch.cuda.synchronize()
+    assert not errors, f"the launch on a fresh thread raised: {errors[0]}"
+    for g, w in zip(got[0] if lse else got, want if lse else [want]):
+        assert torch.equal(g, w)

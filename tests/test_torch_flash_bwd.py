@@ -51,6 +51,21 @@ CARD_SHAPES = SHAPES + [(1, 200, 333, 4, 2, hd, 0, False)
     (1, 150, 20, 2, 1, 16, 5, True),
     (2, 512, 512, 32, 4, 64, 0, True),
 ]
+# hd 256, where the dK/dV consumers share 64 keys (one sums dV, the other
+# dK) and dQ streams 32-key tiles: gemma3-12b's local and global layers
+# cut to S=512 (the local window, 1024, then masks nothing: also a window
+# of 128, across several 64-key items), ragged bidirectional, a causal
+# Sk > Sq, rows with no valid key, G = 1 and G = 2
+HD256_SHAPES = [
+    (1, 512, 512, 16, 8, 256, 1024, True),
+    (1, 512, 512, 16, 8, 256, 0, True),
+    (1, 512, 512, 16, 8, 256, 128, True),
+    (1, 200, 333, 4, 2, 256, 0, False),
+    (1, 96, 400, 4, 2, 256, 0, True),
+    (1, 150, 20, 2, 1, 256, 5, True),
+    (2, 300, 300, 4, 4, 256, 40, True),
+    (1, 260, 260, 4, 2, 256, 0, True),
+]
 # the wgmma kernels' schedule: many 128-key items per query tile (G = 8
 # query heads on one KV head, Sq = Sk = 1024) at both padded head dims, a
 # causal Sk > Sq, a window narrower than a 128-key item, and Sq, Sk that
@@ -170,7 +185,8 @@ def cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,Sq,Sk,H,KVH,hd,window,causal", CARD_SHAPES)
+@pytest.mark.parametrize("B,Sq,Sk,H,KVH,hd,window,causal",
+                         CARD_SHAPES + HD256_SHAPES)
 def test_backward_kernel_equals_plain_version(cuda, B, Sq, Sk, H, KVH, hd,
                                               window, causal):
     """The backward kernel on the forward kernel's row statistics (lse2),

@@ -413,3 +413,33 @@ def test_train_cli_on_the_cpu(tmp_path, capsys):
     assert "[train] step     2 loss=" in out and "[train] done" in out
     assert tckpt.latest_step(str(tmp_path / "ck")) == 2
     assert tckpt.latest_step(str(tmp_path / "ck" / "opt")) == 2
+
+
+def test_gemma3_training_cut_holds_the_reference_parameter_count():
+    """``chip_smoke.py`` phase 12e's configuration (gemma3-12b at full
+    width, depth cut to one period of its window pattern), from shapes
+    alone: the port's parameter count equals the JAX package's for the
+    same replaced config (an abstract init, nothing allocated or
+    compiled), the layers hold five windowed layers and one global one,
+    and the count is the ~2.35B the phase's memory reckoning takes."""
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    tcfg = dataclasses.replace(treg.get_arch(cs.GEMMA_ARCH),
+                               num_layers=cs.GEMMA_LAYERS)
+    jcfg = dataclasses.replace(jreg.get_arch(cs.GEMMA_ARCH),
+                               num_layers=cs.GEMMA_LAYERS)
+    shapes = tT._param_shapes(tcfg)
+    assert shapes["layers/attn/wq"][:2] == (1, 6)        # one group of 6
+    assert "lm_head" not in shapes                       # tied embeddings
+    n = tT.param_count(tcfg)
+    assert n == jT.param_count(jcfg)
+    assert 2.30e9 < n < 2.40e9
+    windows = [tcfg.window_pattern[i % tcfg.period]
+               for i in range(tcfg.num_layers)]
+    assert windows == [1024] * 5 + [0]
+    assert (tcfg.d_model, tcfg.num_heads, tcfg.num_kv_heads, tcfg.head_dim,
+            tcfg.d_ff, tcfg.vocab_size) == (3840, 16, 8, 256, 15360, 262144)

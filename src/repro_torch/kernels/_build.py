@@ -32,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _c_int, _c_ptr, _c_float = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
+_c_int64 = ctypes.c_longlong
 _SIGNATURES = {
     # x, W, i_sites, gumbel, x_out, C, n, S, D, stream
     "gibbs_sweep_launch": [_c_ptr] * 5 + [_c_int] * 4 + [_c_ptr],
@@ -86,6 +87,9 @@ _SIGNATURES = {
                                   + [_c_float, _c_ptr],
     # hd, kernel (0: dK/dV, 1: dQ) -> a block's dynamic shared memory
     "flash_attention_bwd_smem": [_c_int, _c_int],
+    # dt, x, z, B, C, A, D, y, bsz, S, d_inner, N, z's row stride, stream
+    "selective_scan_launch": [_c_ptr] * 8 + [_c_int] * 4 + [_c_int64,
+                                                            _c_ptr],
 }
 
 

@@ -3,7 +3,8 @@
 A CPU tensor goes to the plain PyTorch version (``ref.py``); a CUDA tensor
 goes to the hand-written kernel (``fused_sweep.py``,
 ``chromatic_sweep.py``, ``minibatch_energy.py``, ``local_sweep.py``,
-``flash_attention.py``, forward and backward), which launches or raises.
+``flash_attention.py``, forward and backward; ``selective_scan.py``), which
+launches or raises.
 Nothing falls back from one to the other.  The in-kernel-RNG forms of the
 fused sweeps have no entry here (as in the JAX package): they are called
 through ``fused_sweep`` directly.  The local-gibbs sweep draws in-kernel
@@ -22,11 +23,14 @@ from .minibatch_energy import bucket_energy_cuda
 from .ref import (bucket_energy_ref, double_min_sweep_ref,
                   flash_attention_bwd_ref, flash_attention_ref,
                   gibbs_class_sweep_ref, gibbs_sweep_ref,
-                  local_gibbs_sweep_ref, mgpmh_sweep_ref, min_gibbs_sweep_ref)
+                  local_gibbs_sweep_ref, mgpmh_sweep_ref, min_gibbs_sweep_ref,
+                  selective_scan_ref)
+from .selective_scan import selective_scan_cuda
 
 __all__ = ["bucket_energy", "flash_attention", "flash_attention_bwd",
            "gibbs_sweep", "gibbs_class_sweep", "mgpmh_sweep",
-           "min_gibbs_sweep", "double_min_sweep", "local_gibbs_sweep"]
+           "min_gibbs_sweep", "double_min_sweep", "local_gibbs_sweep",
+           "selective_scan"]
 
 
 def _route(x, op: str) -> str:
@@ -95,6 +99,24 @@ def flash_attention_bwd(q, k, v, out, dout, *, window: int = 0,
                          "flash_attention(..., lse=True)")
     return flash_attention_bwd_cuda(q, k, v, out, dout, lse2, window=window,
                                     causal=causal)
+
+
+def selective_scan(dt, x, z, B, C, A, D):
+    """The Mamba-1 block's selective scan with its D skip and gate (see
+    ``ref.selective_scan_ref``): per (batch, channel), h_t = exp(dt_t A)
+    h_{t-1} + (dt_t x_t) B_t and y_t = (C_t . h_t + D x_t) silu(z_t).
+
+    dt, x (bsz, S, di) float32; z (bsz, S, di) in the compute dtype, which
+    y takes (bf16 on the card), a row-strided view allowed (the gate half
+    of the input projection, read in place); B, C (bsz, S, N) float32,
+    views allowed (copied to contiguous on the card: S N floats each); A
+    (di, N), D (di,) float32.  On the card N in {8, 16}.
+    """
+    if _route(dt, "selective_scan") == "cpu":
+        return selective_scan_ref(dt, x, z, B, C, A, D)
+    return selective_scan_cuda(dt.contiguous(), x.contiguous(), z,
+                               B.contiguous(), C.contiguous(),
+                               A.contiguous(), D.contiguous())
 
 
 def mgpmh_sweep(x, W, row_pack, i_sites, B, u_idx, u_alias, gumbel, logu,

@@ -35,6 +35,7 @@ over the subset in draw order, as the kernel sums.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from . import philox
 
@@ -44,7 +45,7 @@ __all__ = ["bucket_energy_ref", "gibbs_sweep_ref", "gibbs_class_sweep_ref",
            "mgpmh_sweep_rng_ref", "min_gibbs_sweep_rng_ref",
            "double_min_sweep_rng_ref", "local_gibbs_subsets",
            "local_gibbs_sweep_ref", "flash_attention_ref",
-           "flash_attention_bwd_ref"]
+           "flash_attention_bwd_ref", "selective_scan_ref"]
 
 NEG_INF = -1e30     # the masked score of the TPU kernel (not -inf)
 
@@ -75,6 +76,36 @@ def bucket_energy_ref(w: torch.Tensor, v: torch.Tensor, D: int) -> torch.Tensor:
     bucket (the JAX package's padding convention).  Returns (C, D) float32.
     """
     return torch.einsum("ck,ckd->cd", w.to(torch.float32), _onehot(v, D))
+
+
+def selective_scan_ref(dt: torch.Tensor, x: torch.Tensor, z: torch.Tensor,
+                       B: torch.Tensor, C: torch.Tensor, A: torch.Tensor,
+                       D: torch.Tensor) -> torch.Tensor:
+    """The plain version of the selective-scan kernel
+    (``csrc/selective_scan.cu``): per (batch, channel), from h = 0,
+
+      h_t = exp(dt_t A) * h_{t-1} + (dt_t x_t) B_t
+      y_t = (sum_n C_t[n] h_t[n] + D x_t) * silu(z_t)
+
+    sequentially in t, in float32, the state's products and sums rounded
+    one by one in the kernel's order (the sum over n in PyTorch's order,
+    the exponential accurate); the function the JAX package's
+    ``mamba_block`` computes with an associative scan
+    (``src/repro/models/ssm.py:61-72``).
+
+    dt, x (bsz, S, di) float32; z (bsz, S, di), any strides; B, C (bsz,
+    S, N) float32; A (di, N), D (di,) float32; any N.  Returns y (bsz, S,
+    di) in z's dtype (the block's compute dtype).
+    """
+    bsz, S, di = dt.shape
+    h = torch.zeros((bsz, di, A.shape[-1]), dtype=torch.float32,
+                    device=dt.device)
+    y = torch.empty((bsz, S, di), dtype=torch.float32, device=dt.device)
+    for t in range(S):
+        decay = torch.exp(dt[:, t, :, None] * A)
+        h = decay * h + (dt[:, t] * x[:, t])[..., None] * B[:, t, None, :]
+        y[:, t] = (h * C[:, t, None, :]).sum(-1) + D * x[:, t]
+    return (y * F.silu(z.to(torch.float32))).to(z.dtype)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -38,7 +38,9 @@ def make_train_step(cfg: ModelConfig, *, base_lr: float = 3e-4,
     microbatch at a time (activations live one microbatch at a time) and
     divided by m, as is the loss.  metrics: ``loss`` and ``grad_norm`` as
     0-d float32 tensors on the model's device (nothing is read back), and
-    ``lr`` (a float)."""
+    ``lr`` (a float).  Raises NotImplementedError for the SSM and hybrid
+    families (``models.transformer.check_trainable``)."""
+    T.check_trainable(cfg)
     lr_fn = cosine_schedule(base_lr, warmup, total_steps)
 
     def train_step(params: T.Transformer, opt_state: AdamWState,
@@ -78,7 +80,8 @@ def make_train_step(cfg: ModelConfig, *, base_lr: float = 3e-4,
 def make_prefill_step(cfg: ModelConfig):
     """prefill_step(params, batch) -> next-token logits (B, vocab_padded)
     float32: one forward pass over batch['tokens'] (B, S), the last
-    position's hidden state times the lm head in bf16, widened."""
+    position's hidden state times the lm head in bf16, widened.  Any ported
+    family: dense GQA, SSM (the scan kernel on the card), hybrid."""
     def prefill_step(params: T.Transformer, batch: Dict[str, Any]):
         if batch.get("frontend_embeds") is not None:
             raise NotImplementedError(
@@ -92,8 +95,9 @@ def make_prefill_step(cfg: ModelConfig):
 
 def make_serve_step(cfg: ModelConfig):
     """serve_step(params, tokens (B, 1), cache) -> (logits (B,
-    vocab_padded) float32, cache): one decode step, the cache written in
-    place (``models.transformer.decode_step``)."""
+    vocab_padded) float32, cache): one decode step, the cache (KV ring
+    buffers, SSM conv and state) written in place
+    (``models.transformer.decode_step``)."""
     def serve_step(params: T.Transformer, tokens, cache):
         return T.decode_step(cfg, params, tokens, cache)
     return serve_step

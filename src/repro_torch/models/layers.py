@@ -14,8 +14,27 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch import nn
 
-__all__ = ["rms_norm", "rope", "apply_rope", "truncated_normal_init"]
+__all__ = ["rms_norm", "rope", "apply_rope", "truncated_normal_init",
+           "new_weight", "compute_weight", "COMPUTE_DTYPE"]
+
+COMPUTE_DTYPE = torch.bfloat16
+
+
+def new_weight(shape, dtype, device, master: bool = False) -> nn.Parameter:
+    """An empty parameter of the serve form (``dtype``, no grad) or of the
+    master form (float32, grad)."""
+    return nn.Parameter(torch.empty(shape, dtype=torch.float32 if master
+                                    else dtype, device=device),
+                        requires_grad=master)
+
+
+def compute_weight(w: torch.Tensor) -> torch.Tensor:
+    """The weight as a layer computes with it: bf16 for two or more
+    dimensions (the reference's ``_cast_params``; no copy when the serve
+    form stores it so), as stored otherwise."""
+    return w.to(COMPUTE_DTYPE) if w.dim() >= 2 else w
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,

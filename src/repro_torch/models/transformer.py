@@ -1,39 +1,51 @@
-"""The dense GQA transformer family — init, forward, loss, decode — in
-PyTorch: the counterpart of ``repro/models/transformer.py``.
+"""The dense GQA, SSM and hybrid transformer families — init, forward,
+loss, decode — in PyTorch: the counterpart of ``repro/models/transformer.py``.
 
 Covers every dense config of the registry (tinyllama-1.1b,
-h2o-danube-3-4b, gemma3-12b, starcoder2-7b): swiglu or gelu MLP, any
-``window_pattern``, tied or untied embeddings.  The other families (MoE,
-MLA, SSM, hybrid, encoder-decoder, VLM stub) raise ``NotImplementedError``.
+h2o-danube-3-4b, gemma3-12b, starcoder2-7b: swiglu or gelu MLP, any
+``window_pattern``, tied or untied embeddings), the SSM family
+(falcon-mamba-7b: mamba layers, no attention, no MLP) and the hybrid one
+(hymba-1.5b: attention and mamba heads in parallel, then the MLP).  The
+other families (MoE, MLA, encoder-decoder, VLM stub) raise
+``NotImplementedError``; so does training an SSM or hybrid config (the
+selective scan has no backward kernel yet).
 
 Design notes
 ------------
 * **Modules.** ``Transformer`` holds ``embed``, one ``Layer`` per layer
-  (``ln1``, ``ln2``, ``attn`` = ``Attention``, ``mlp`` = ``MLP``),
-  ``final_norm`` and, untied, ``lm_head``.  Weights keep the JAX package's
-  layout (``x @ w``, w of shape (d_in, d_out)), so ``params_from_jax`` is a
-  copy.  Layer ``g * P + p`` is the reference's stacked leaf ``[g, p]``
-  (P = ``len(cfg.window_pattern)``) and has window ``window_pattern[p]``.
+  (``ln1``; ``attn`` = ``Attention`` when the family has attention;
+  ``ssm`` = ``ssm.Mamba`` and, when parallel, ``ln_ssm``; ``ln2`` and
+  ``mlp`` = ``MLP`` when ``d_ff > 0``), ``final_norm`` and, untied,
+  ``lm_head``.  Weights keep the JAX package's layout (``x @ w``, w of
+  shape (d_in, d_out)), so ``params_from_jax`` is a copy.  Layer
+  ``g * P + p`` is the reference's stacked leaf ``[g, p]`` (P =
+  ``len(cfg.window_pattern)``) and has window ``window_pattern[p]``.
+* **The mix**, as the reference's ``_layer``: attention alone, mamba
+  alone, or for ``parallel_ssm`` ``(attn + ssm) * 0.5`` summed in bf16;
+  an SSM-only layer returns after the mixer.
 * **Mixed precision**, as the reference's ``_cast_params``: weights of two
-  or more dimensions compute in bf16, 1-D norm scales in float32, the
-  residual stream is bf16, and logits are the bf16 product widened to
-  float32.  Two forms of the same model: the **serve form** stores those
-  weights in bf16 (cast once at load: the same bits as the reference's
-  per-call cast), every parameter with ``requires_grad=False``; the
-  **master form** (``master=True``, the trainer's) stores every parameter
-  in float32 with ``requires_grad=True`` and casts per call, so its
-  gradients are float32, as the reference's.
+  or more dimensions compute in bf16, 1-D norm scales and biases in
+  float32, the residual stream is bf16, and logits are the bf16 product
+  widened to float32 (the SSM branch's own promotions: ``models/ssm.py``).
+  Two forms of the same model: the **serve form** stores those weights in
+  bf16 (cast once at load: the same bits as the reference's per-call
+  cast), every parameter with ``requires_grad=False``; the **master form**
+  (``master=True``, the trainer's) stores every parameter in float32 with
+  ``requires_grad=True`` and casts per call, so its gradients are float32,
+  as the reference's.
 * **Training** (``loss_fn``): the chunked next-token cross entropy with
   each chunk rematerialised, over a forward whose every group of
   ``len(window_pattern)`` layers is rematerialised
   (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of its
   scan body; ``remat_policy`` "full").  The attention gradient is the
   flash backward kernel (``models/attention.py``, ``FlashAttention``).
-* **Decode caches** are ring buffers of ``min(window, seq)`` slots with an
-  absolute-position array (``pos``) for masking, laid out as the
-  reference's: per slot p, ``k``/``v`` (G, B, KVH, S_w, hd) and ``pos``
-  (G, S_w).  ``decode_step`` writes them in place (the reference returns a
-  new tree) and returns the same dict; ``length`` is a Python int.
+* **Decode caches**, laid out as the reference's, per slot p: attention
+  ring buffers of ``min(window, seq)`` slots with an absolute-position
+  array (``pos``) for masking, ``k``/``v`` (G, B, KVH, S_w, hd) and
+  ``pos`` (G, S_w); the SSM's ``conv`` (G, B, K-1, d_inner) in the compute
+  dtype and ``state`` (G, B, d_inner, N) float32.  ``decode_step`` writes
+  them in place (the reference returns a new tree) and returns the same
+  dict; ``length`` is a Python int.
 * **Vocab padding.** Embedding / lm-head pad the vocab to a multiple of
   128, so shapes and logits equal the reference's.
 """
@@ -51,58 +63,79 @@ from torch.utils.checkpoint import checkpoint
 from .._device import resolve_device
 from ..configs.base import ModelConfig
 from . import attention as attn_lib
-from .layers import rms_norm, rope, truncated_normal_init
+from . import ssm as ssm_lib
+from .layers import (COMPUTE_DTYPE, compute_weight as _compute,
+                     new_weight as _weight, rms_norm, rope,
+                     truncated_normal_init)
 
 __all__ = ["Transformer", "init_params", "params_from_jax", "forward",
            "loss_fn", "init_cache", "decode_step", "param_count",
            "active_param_count", "model_flops_per_token", "decay_mask",
-           "COMPUTE_DTYPE"]
-
-COMPUTE_DTYPE = torch.bfloat16
+           "check_trainable", "decode_gap_by_layer", "COMPUTE_DTYPE"]
 
 
 def _pad_vocab(v: int) -> int:
     return ((v + 127) // 128) * 128
 
 
-def _require_dense(cfg: ModelConfig) -> None:
+# the attention each ported family runs
+_PORTED = {"dense": "gqa", "ssm": "none", "hybrid": "gqa"}
+
+
+def _require_ported(cfg: ModelConfig) -> None:
     """Raise for a family the port does not run yet."""
     family = None
     if cfg.is_moe:
         family = "MoE"
     elif cfg.attention == "mla":
         family = "MLA"
-    elif cfg.has_ssm:
-        family = "SSM / hybrid"
     elif cfg.encoder_layers:
         family = "encoder-decoder"
     elif cfg.num_image_tokens:
         family = "VLM"
-    elif cfg.family != "dense" or cfg.attention != "gqa":
+    elif _PORTED.get(cfg.family) != cfg.attention:
         family = f"{cfg.family} / {cfg.attention}"
     if family is not None:
         raise NotImplementedError(
             f"{cfg.name}: the {family} family is not ported yet (ROADMAP.md "
-            f"Queue 1 item 10: the port runs the dense GQA family only)")
+            f"Queue 1 item 10: the port runs the dense GQA, SSM and hybrid "
+            f"families)")
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise for a config whose training the port does not run yet."""
+    if cfg.has_ssm:
+        raise NotImplementedError(
+            f"{cfg.name}: training the SSM / hybrid family is not ported "
+            f"yet (ROADMAP.md Queue 1 item 10a-train: the selective scan's "
+            f"backward kernel)")
 
 
 def _param_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
     """The reference's parameter tree, flattened to '/'-joined paths, with
     the stacked (G, P, ...) layer shapes."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     d, H, KVH, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     G, P, vp, f = cfg.num_groups, cfg.period, _pad_vocab(cfg.vocab_size), \
         cfg.d_ff
-    shapes = {"embed": (vp, d), "final_norm": (d,),
-              "layers/ln1": (G, P, d), "layers/ln2": (G, P, d),
-              "layers/attn/wq": (G, P, d, H * hd),
-              "layers/attn/wk": (G, P, d, KVH * hd),
-              "layers/attn/wv": (G, P, d, KVH * hd),
-              "layers/attn/wo": (G, P, H * hd, d),
-              "layers/mlp/w_up": (G, P, d, f),
-              "layers/mlp/w_down": (G, P, f, d)}
-    if cfg.mlp_type == "swiglu":
-        shapes["layers/mlp/w_gate"] = (G, P, d, f)
+    shapes = {"embed": (vp, d), "final_norm": (d,), "layers/ln1": (G, P, d)}
+    if f > 0:                        # mamba-only layers carry no MLP
+        shapes["layers/ln2"] = (G, P, d)
+    if cfg.has_attention:
+        shapes.update({"layers/attn/wq": (G, P, d, H * hd),
+                       "layers/attn/wk": (G, P, d, KVH * hd),
+                       "layers/attn/wv": (G, P, d, KVH * hd),
+                       "layers/attn/wo": (G, P, H * hd, d)})
+    if cfg.has_ssm:
+        shapes.update({f"layers/ssm/{k}": (G, P, *v)
+                       for k, v in ssm_lib.Mamba.shapes(cfg).items()})
+        if cfg.parallel_ssm:
+            shapes["layers/ln_ssm"] = (G, P, d)
+    if f > 0:
+        shapes["layers/mlp/w_up"] = (G, P, d, f)
+        shapes["layers/mlp/w_down"] = (G, P, f, d)
+        if cfg.mlp_type == "swiglu":
+            shapes["layers/mlp/w_gate"] = (G, P, d, f)
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (d, vp)
     return shapes
@@ -137,21 +170,6 @@ def model_flops_per_token(cfg: ModelConfig, seq_len: int,
 # ===========================================================================
 # Modules
 # ===========================================================================
-
-def _weight(shape, dtype, device, master: bool = False) -> nn.Parameter:
-    """A parameter of the serve form (``dtype``, no grad) or of the master
-    form (float32, grad)."""
-    return nn.Parameter(torch.empty(shape, dtype=torch.float32 if master
-                                    else dtype, device=device),
-                        requires_grad=master)
-
-
-def _compute(w: torch.Tensor) -> torch.Tensor:
-    """The weight as the layer computes with it: bf16 for two or more
-    dimensions (the reference's ``_cast_params``; no copy when the serve
-    form stores it so), as stored otherwise."""
-    return w.to(COMPUTE_DTYPE) if w.dim() >= 2 else w
-
 
 def _mlp_apply(cfg: ModelConfig, h, p):
     if cfg.mlp_type == "swiglu":
@@ -206,31 +224,60 @@ class MLP(nn.Module):
 
 
 class Layer(nn.Module):
-    """Pre-norm block: x + attn(norm(x)), then + mlp(norm(x))."""
+    """Pre-norm block: x + mix(norm(x)), then + mlp(norm(x)) where the
+    layer has an MLP.  The mix is attention, mamba, or (``parallel_ssm``)
+    the mean of attention on norm(x) and mamba on its own norm."""
 
     def __init__(self, cfg: ModelConfig, window: int, device=None,
                  master: bool = False):
         super().__init__()
         self.cfg, self.window = cfg, window
-        self.ln1 = _weight((cfg.d_model,), torch.float32, device, master)
-        self.ln2 = _weight((cfg.d_model,), torch.float32, device, master)
-        self.attn = Attention(cfg, device, master)
-        self.mlp = MLP(cfg, device, master)
+        d = cfg.d_model
+        self.ln1 = _weight((d,), torch.float32, device, master)
+        self.attn = (Attention(cfg, device, master) if cfg.has_attention
+                     else None)
+        self.ssm = ssm_lib.Mamba(cfg, device, master) if cfg.has_ssm \
+            else None
+        self.ln_ssm = (_weight((d,), torch.float32, device, master)
+                       if cfg.has_ssm and cfg.parallel_ssm else None)
+        self.ln2 = (_weight((d,), torch.float32, device, master)
+                    if cfg.d_ff > 0 else None)
+        self.mlp = MLP(cfg, device, master) if cfg.d_ff > 0 else None
+
+    def _mix(self, x, attend, scan):
+        """x + the mixer's output; ``attend(h)`` and ``scan(h)`` run the
+        branches on their normed inputs."""
+        cfg = self.cfg
+        h = rms_norm(x, self.ln1, cfg.norm_eps)
+        mix = attend(h) if self.attn is not None else None
+        if self.ssm is not None:
+            hs = (rms_norm(x, self.ln_ssm, cfg.norm_eps)
+                  if self.ln_ssm is not None else h)
+            s = scan(hs)
+            mix = s if mix is None else mix + s
+            if cfg.parallel_ssm:
+                mix = mix * 0.5
+        return x + mix
+
+    def _ffn(self, x):
+        if self.mlp is None:             # ssm-only layer: no ffn
+            return x
+        return x + self.mlp(rms_norm(x, self.ln2, self.cfg.norm_eps))
 
     def forward(self, x, rope_cs):
-        h = rms_norm(x, self.ln1, self.cfg.norm_eps)
-        x = x + self.attn(h, rope_cs, self.window)
-        h2 = rms_norm(x, self.ln2, self.cfg.norm_eps)
-        return x + self.mlp(h2)
+        x = self._mix(x, lambda h: self.attn(h, rope_cs, self.window),
+                      self.ssm)
+        return self._ffn(x)
 
-    def decode(self, x, kv, q_pos: int):
-        """One token; ``kv`` is this layer's {k, v, pos} view of the cache,
+    def decode(self, x, entry, q_pos: int):
+        """One token; ``entry`` is this layer's view of its slot of the
+        cache ({k, v, pos} under "kv", {conv, state} under "ssm"),
         written in place."""
-        h = rms_norm(x, self.ln1, self.cfg.norm_eps)
-        x = x + _decode_gqa(self.cfg, h, self.attn.weights(), kv,
-                            self.window, q_pos)
-        h2 = rms_norm(x, self.ln2, self.cfg.norm_eps)
-        return x + self.mlp(h2)
+        x = self._mix(
+            x, lambda h: _decode_gqa(self.cfg, h, self.attn.weights(),
+                                     entry["kv"], self.window, q_pos),
+            lambda h: self.ssm.decode(h, entry["ssm"]))
+        return self._ffn(x)
 
 
 def _run_group(layers, x, rope_cs):
@@ -240,13 +287,13 @@ def _run_group(layers, x, rope_cs):
 
 
 class Transformer(nn.Module):
-    """The dense GQA model; parameters are allocated empty on ``device`` and
+    """The dense GQA, SSM or hybrid model; parameters are allocated empty on ``device`` and
     filled by ``init_params`` (from a seed) or ``params_from_jax``.
     ``master=True`` gives the trainer's float32 form (module docstring)."""
 
     def __init__(self, cfg: ModelConfig, device=None, master: bool = False):
         super().__init__()
-        _require_dense(cfg)
+        _require_ported(cfg)
         device = resolve_device(device)
         self.cfg, self.master = cfg, master
         vp = _pad_vocab(cfg.vocab_size)
@@ -288,8 +335,9 @@ class Transformer(nn.Module):
                 f"ported (the port rematerialises whole groups, 'full'; "
                 f"ROADMAP.md Queue 1 item 10)")
         x = self.embed_tokens(tokens)
-        rope_cs = _rope_tables(cfg, torch.arange(x.shape[1],
-                                                 device=x.device))
+        rope_cs = (_rope_tables(cfg, torch.arange(x.shape[1],
+                                                  device=x.device))
+                   if cfg.has_attention else None)
         P = cfg.period
         for g0 in range(0, len(self.layers), P):
             group = self.layers[g0:g0 + P]
@@ -308,20 +356,23 @@ class Transformer(nn.Module):
 def _layer_leaves(model: Transformer, i: int) -> Dict[str, torch.Tensor]:
     """Layer i's parameters under the reference's 'layers/...' paths."""
     layer = model.layers[i]
-    out = {"layers/ln1": layer.ln1, "layers/ln2": layer.ln2}
-    for name, p in layer.attn.named_parameters():
-        out[f"layers/attn/{name}"] = p
-    for name, p in layer.mlp.named_parameters():
-        out[f"layers/mlp/{name}"] = p
+    out = {f"layers/{name}": p for name in ("ln1", "ln2", "ln_ssm")
+           if (p := getattr(layer, name)) is not None}
+    for sub in ("attn", "ssm", "mlp"):
+        if getattr(layer, sub) is not None:
+            for name, p in getattr(layer, sub).named_parameters():
+                out[f"layers/{sub}/{name}"] = p
     return out
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None,
                 master: bool = False) -> Transformer:
     """A model with the reference's initialisation drawn from ``seed``:
-    norm scales zero, every weight std * N(0, 1) truncated to [-3, 3] with
-    std = fan_in^-0.5 (``init_params`` in the reference; jax.random gives
-    other numbers from the same seed).  Drawn on ``device`` (the card
+    norm scales and ``conv_bias`` zero, the SSM's ``A_log`` = log(1..N)
+    over every channel, ``dt_bias`` -4.6 and ``D`` one, every other weight
+    std * N(0, 1) truncated to [-3, 3] with std = fan_in^-0.5
+    (``init_params`` in the reference; jax.random gives other numbers from
+    the same seed).  Drawn on ``device`` (the card
     unless told otherwise) in float32, one leaf at a time, then cast (the
     serve form) or kept (``master=True``): both forms of one seed compute
     with the same bf16 weights."""
@@ -330,10 +381,20 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
     gen = torch.Generator(device=dev).manual_seed(seed)
     d, H, hd, f = cfg.d_model, cfg.num_heads, cfg.head_dim, cfg.d_ff
     fan_in = {"wq": d, "wk": d, "wv": d, "wo": H * hd, "w_gate": d,
-              "w_up": d, "w_down": f, "embed": d, "lm_head": d}
+              "w_up": d, "w_down": f, "embed": d, "lm_head": d,
+              "w_in": d, "conv": cfg.conv_kernel, "w_x": cfg.d_inner,
+              "w_dt": cfg.dt_rank, "w_out": cfg.d_inner}
 
     def fill(p: torch.Tensor, name: str):
-        if p.dim() == 1:
+        if name == "A_log":
+            p.copy_(torch.log(torch.arange(
+                1, cfg.ssm_state + 1, dtype=torch.float32, device=dev)
+            ).expand(p.shape))
+        elif name == "dt_bias":
+            p.fill_(-4.6)
+        elif name == "D":
+            p.fill_(1.0)
+        elif p.dim() == 1:          # norm scales, conv_bias
             p.zero_()
         else:
             p.copy_(truncated_normal_init(gen, p.shape, fan_in[name],
@@ -443,6 +504,7 @@ def loss_fn(cfg: ModelConfig, params: Transformer, batch: Dict[str, Any],
     chunk's logits are rematerialised in the backward, as the reference
     ``jax.checkpoint``s each; the forward rematerialises each layer group.
     batch: tokens (B, S), labels (B, S) with -1 = ignore."""
+    check_trainable(cfg)
     if batch.get("frontend_embeds") is not None:
         raise NotImplementedError(
             f"{cfg.name}: frontend embeddings (VLM / audio) are not ported "
@@ -486,20 +548,29 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                dtype=COMPUTE_DTYPE, device=None) -> Dict[str, Any]:
     """Empty decode cache: ``length`` 0 and, per slot p, ``kv`` with k/v
     (G, B, KVH, S_w, hd) (ring buffer of the slot's window) and ``pos``
-    (G, S_w) int32 — the reference's layout.  On the card unless told
-    otherwise."""
-    _require_dense(cfg)
+    (G, S_w) int32 where the family has attention, and ``ssm`` with
+    ``conv`` (G, B, K-1, d_inner) in ``dtype`` and ``state`` (G, B,
+    d_inner, N) float32 where it has mamba layers — the reference's
+    layout.  On the card unless told otherwise."""
+    _require_ported(cfg)
     dev = resolve_device(device)
     G, KVH, hd = cfg.num_groups, cfg.num_kv_heads, cfg.head_dim
+    zeros = lambda shape, dt: torch.zeros(shape, dtype=dt, device=dev)
     slots: List[Dict[str, Any]] = []
     for slot in range(cfg.period):
-        Sw = _cache_len(cfg, slot, seq_len)
-        slots.append({"kv": {
-            "k": torch.zeros((G, batch, KVH, Sw, hd), dtype=dtype,
-                             device=dev),
-            "v": torch.zeros((G, batch, KVH, Sw, hd), dtype=dtype,
-                             device=dev),
-            "pos": torch.zeros((G, Sw), dtype=torch.int32, device=dev)}})
+        entry: Dict[str, Any] = {}
+        if cfg.has_attention:
+            Sw = _cache_len(cfg, slot, seq_len)
+            entry["kv"] = {"k": zeros((G, batch, KVH, Sw, hd), dtype),
+                           "v": zeros((G, batch, KVH, Sw, hd), dtype),
+                           "pos": zeros((G, Sw), torch.int32)}
+        if cfg.has_ssm:
+            entry["ssm"] = {
+                "conv": zeros((G, batch, cfg.conv_kernel - 1, cfg.d_inner),
+                              dtype),
+                "state": zeros((G, batch, cfg.d_inner, cfg.ssm_state),
+                               torch.float32)}
+        slots.append(entry)
     return {"length": 0, "slots": slots}
 
 
@@ -545,6 +616,44 @@ def _decode_gqa(cfg: ModelConfig, h, pa, kv, window: int, q_pos: int):
     return o @ pa["wo"]
 
 
+def _layer_cache(cache: Dict[str, Any], i: int, P: int) -> Dict[str, Any]:
+    """Layer i's views of its slot of the cache (group i // P, slot
+    i % P): {k, v, pos} under "kv", {conv, state} under "ssm"."""
+    g, p = divmod(i, P)
+    return {name: {k: t[g] for k, t in part.items()}
+            for name, part in cache["slots"][p].items()}
+
+
+@torch.no_grad()
+def decode_gap_by_layer(cfg: ModelConfig, params: Transformer,
+                        tokens: torch.Tensor) -> List[float]:
+    """How far each layer's decode path lies from its prefill path on the
+    same input.  The forward's input to layer i (teacher forcing) goes
+    through ``Layer.forward`` (on the card the prefill kernels) and, token
+    by token from an empty cache, through ``Layer.decode``; per layer,
+    max |decode delta - forward delta| / max |forward delta|, delta = the
+    layer's output minus its input.  Rounding apart the two compute the
+    same function; unlike the end-to-end logits, the gap does not compound
+    through depth.  tokens (B, S)."""
+    _check_cfg(cfg, params)
+    x = params.embed_tokens(tokens)
+    B, S = tokens.shape
+    rope_cs = (_rope_tables(cfg, torch.arange(S, device=x.device))
+               if cfg.has_attention else None)
+    cache = init_cache(cfg, B, S, device=x.device)
+    gaps = []
+    for i, layer in enumerate(params.layers):
+        entry = _layer_cache(cache, i, cfg.period)
+        fwd = layer(x, rope_cs)
+        dec = torch.cat([layer.decode(x[:, s:s + 1], entry, s)
+                         for s in range(S)], dim=1)
+        df, dd = (fwd - x).float(), (dec - x).float()
+        gaps.append(float((df - dd).abs().max()
+                          / df.abs().max().clamp_min(1e-30)))
+        x = fwd
+    return gaps
+
+
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor,
                 cache: Dict[str, Any]):
@@ -557,10 +666,7 @@ def decode_step(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor,
     x = params.embed_tokens(tokens)
     P = cfg.period
     for i, layer in enumerate(params.layers):
-        g, p = divmod(i, P)
-        kv = cache["slots"][p]["kv"]
-        x = layer.decode(x, {"k": kv["k"][g], "v": kv["v"][g],
-                             "pos": kv["pos"][g]}, q_pos)
+        x = layer.decode(x, _layer_cache(cache, i, P), q_pos)
     cache["length"] = q_pos + 1
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     logits = (x[:, 0] @ params.head()).to(torch.float32)

@@ -1,0 +1,358 @@
+"""The port's Mamba-1 block (``models/ssm.py``) and its selective-scan kernel
+(``kernels/selective_scan.py``) on the CPU against the JAX package — and,
+on a machine with a CUDA card, the kernel against its plain version.
+
+  * the plain scan (``ref.selective_scan_ref``, the CPU route of
+    ``ops.selective_scan``) against a ``jax.lax.associative_scan`` of the
+    same float32 inputs, with the reference's C contraction, D skip and
+    gate (``src/repro/models/ssm.py:61-72``);
+  * ``_ssm_params``, ``mamba_block`` and 24 ``mamba_decode_step``s against
+    the JAX functions on the same bf16 weights and inputs (numpy from a
+    seed), at the smoke configs' SSM widths and at N=16 with a d_inner
+    that is not a power of two;
+  * ``init_ssm_cache``'s layout; the wrapper's refusals (state sizes it is
+    not built for, z's dtype and layout, CPU tensors) before any launch;
+    the training refusal of the SSM and hybrid families;
+  * (gpu) the kernel against its plain version at ragged shapes, bit-equal
+    between launches, z read in place from the input projection.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+# the suite runs in several worker processes at once: one intra-op
+# thread each keeps them from oversubscribing the cores
+torch.set_num_threads(1)
+
+from repro_torch.configs import registry as treg  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.kernels import selective_scan as tscan  # noqa: E402
+from repro_torch.launch import steps as tsteps  # noqa: E402
+from repro_torch.models import ssm as tssm  # noqa: E402
+from repro_torch.models import transformer as tT  # noqa: E402
+
+try:    # the JAX reference; a machine with the card may have no JAX, and
+    # runs only the gpu tests below, which do not read it
+    import jax
+    import jax.numpy as jnp
+    from repro.models import ssm as jssm
+except ImportError:
+    jax = None
+
+needs_jax = pytest.mark.skipif(jax is None, reason="needs the JAX package")
+
+# (bsz, S, d_inner, N): one tile of steps and less, several tiles, S = 1,
+# a ragged d_inner
+SCAN_SHAPES = [(2, 24, 32, 8), (1, 64, 16, 16), (3, 1, 8, 8),
+               (2, 200, 24, 16)]
+# The plain scan (sequential in t) against the associative scan (a tree of
+# partial products): both float32, other association orders.  Measured at
+# SCAN_SHAPES: max abs diff 1.4e-6 (|y| up to 32), relative to |y| + 1e-3
+# at most 7.8e-5.  The bound keeps about seven times that margin.
+SCAN_TOL = dict(rtol=1e-5, atol=1e-5)
+# (d_model, d_inner, N, conv_kernel, dt_rank): the SSM branch of the
+# falcon-mamba and hymba smoke configs (the same widths), and N=16 with a
+# d_inner that is not a power of two (as hymba-1.5b's 3200)
+WIDTHS = [(128, 256, 8, 4, 16), (64, 96, 16, 4, 8)]
+# Port vs JAX on the same bf16 weights.  _ssm_params: float32 GEMMs of the
+# same bf16 weights, softplus's formula apart (measured: dt within 1.7e-7
+# relative, B, C, A equal).  The bf16 GEMMs (x @ w_in, y @ w_out) round
+# their sums in another order, so a bf16 value here and there lands one ulp
+# apart and travels on.  Measured over 8 seeds at both WIDTHS: mamba_block
+# and decode outputs (|y| up to ~1.6) max abs diff 0.00195, one bf16 ulp
+# of a value in [0.25, 0.5); the decode's float32 state within 3.6e-3 of
+# |state| + 1e-3; the bf16 conv history one ulp at most.  The bounds keep
+# about twice that.
+PARAMS_TOL = dict(rtol=1e-6, atol=1e-7)
+OUT_TOL = dict(rtol=2.0 ** -7, atol=4e-3)
+BF16_ULP = dict(rtol=2.0 ** -7, atol=1e-6)
+STATE_TOL = dict(rtol=1e-2, atol=1e-5)
+
+
+def _scan_inputs(seed, bsz, S, di, N):
+    """float32 dt (softplus around the models' -4.6 bias), x, z, B, C,
+    A < 0 (log(1..N) scaled per entry), D."""
+    rng = np.random.default_rng(seed)
+    dt = np.log1p(np.exp(rng.normal(-2.6, 1.0, (bsz, S, di))))
+    A = -np.arange(1, N + 1)[None, :] * rng.uniform(0.5, 1.5, (di, N))
+    arrays = (dt, rng.normal(size=(bsz, S, di)),
+              rng.normal(size=(bsz, S, di)), rng.normal(size=(bsz, S, N)),
+              rng.normal(size=(bsz, S, N)), A, rng.normal(size=(di,)))
+    return tuple(a.astype(np.float32) for a in arrays)
+
+
+def _jax_scan(dt, x, z, B, C, A, D):
+    """The reference's scan (``mamba_block``, ``:63-72``) on given
+    inputs, in float32 (no final cast)."""
+    decay = jnp.exp(dt[..., None] * A[None, None])
+    drive = (dt * x)[..., None] * B[:, :, None, :]
+
+    def combine(a, b):
+        (da, ua), (db, ub) = a, b
+        return da * db, ua * db + ub
+
+    _, h = jax.lax.associative_scan(combine, (decay, drive), axis=1)
+    y = jnp.einsum("bsdn,bsn->bsd", h, C) + x * D
+    return y * jax.nn.silu(z)
+
+
+@needs_jax
+@pytest.mark.parametrize("shape", SCAN_SHAPES)
+def test_plain_scan_equals_associative_scan(shape):
+    ins = _scan_inputs(sum(shape), *shape)
+    want = np.asarray(_jax_scan(*map(jnp.asarray, ins)))
+    got = ops.selective_scan(*map(torch.from_numpy, ins))
+    assert got.dtype == torch.float32        # z's dtype
+    np.testing.assert_allclose(got.numpy(), want, **SCAN_TOL)
+
+
+def test_plain_scan_casts_to_z_dtype_and_reads_strided_views():
+    ins = [torch.from_numpy(a) for a in _scan_inputs(3, 2, 10, 16, 8)]
+    want = tref.selective_scan_ref(*ins)
+    dt, x, z, B, C, A, D = ins
+    # z as the gate half of an input projection, B and C as views of one
+    zz = torch.cat([torch.zeros_like(z), z], -1)[..., 16:]
+    bc = torch.cat([B, C], -1)
+    got = ops.selective_scan(dt, x, zz, bc[..., :8], bc[..., 8:], A, D)
+    # the CPU's vector paths for strided and contiguous operands may sum
+    # in other orders: float32 rounding apart
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    y16 = ops.selective_scan(dt, x, z.to(torch.bfloat16), B, C, A, D)
+    assert y16.dtype == torch.bfloat16
+    ref16 = (tref.selective_scan_ref(dt, x, z.to(torch.bfloat16).float(),
+                                     B, C, A, D)).to(torch.bfloat16)
+    assert torch.equal(y16, ref16)
+
+
+def _block_params(seed, d, di, N, K, r):
+    """The reference's leaves at the given widths: random w_in, conv,
+    w_x, w_dt, w_out (std fan_in^-0.5), conv_bias N(0, 0.1), A_log =
+    log(1..N), dt_bias -4.6, D one; numpy float32."""
+    rng = np.random.default_rng(seed)
+    fan = {"w_in": (d, (d, 2 * di)), "conv": (K, (K, di)),
+           "w_x": (di, (di, r + 2 * N)), "w_dt": (r, (r, di)),
+           "w_out": (di, (di, d))}
+    p = {k: rng.normal(size=shape) / f ** 0.5
+         for k, (f, shape) in fan.items()}
+    p["conv_bias"] = 0.1 * rng.normal(size=(di,))
+    p["A_log"] = np.log(np.arange(1, N + 1))[None, :].repeat(di, 0)
+    p["dt_bias"] = np.full((di,), -4.6)
+    p["D"] = np.ones((di,))
+    return {k: v.astype(np.float32) for k, v in p.items()}
+
+
+def _both(p):
+    """The leaves as the reference computes with them (``_cast_params``:
+    two or more dimensions in bf16), for JAX and for the port."""
+    jp = {k: jnp.asarray(v).astype(jnp.bfloat16) if v.ndim >= 2
+          else jnp.asarray(v) for k, v in p.items()}
+    tp = {k: torch.from_numpy(v).to(torch.bfloat16) if v.ndim >= 2
+          else torch.from_numpy(v) for k, v in p.items()}
+    return jp, tp
+
+
+def _f32(a):
+    return np.asarray(jnp.asarray(a).astype(jnp.float32))
+
+
+@needs_jax
+@pytest.mark.parametrize("widths", WIDTHS)
+def test_ssm_params_equal_jax(widths):
+    d, di, N, K, r = widths
+    jp, tp = _both(_block_params(1, *widths))
+    xc = np.random.default_rng(2).normal(size=(2, 24, di)).astype(
+        np.float32)
+    want = jssm._ssm_params(jnp.asarray(xc), jp, N)
+    got = tssm._ssm_params(torch.from_numpy(xc), tp, N)
+    for name, g, w in zip(("dt", "B", "C", "A"), got, want):
+        assert g.dtype == torch.float32, name
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **PARAMS_TOL,
+                                   err_msg=name)
+
+
+@needs_jax
+@pytest.mark.parametrize("widths", WIDTHS)
+def test_mamba_block_equals_jax(widths):
+    d, di, N, K, r = widths
+    jp, tp = _both(_block_params(3, *widths))
+    x = np.random.default_rng(4).normal(size=(2, 24, d)).astype(np.float32)
+    want = jssm.mamba_block(jnp.asarray(x).astype(jnp.bfloat16), jp,
+                            n_state=N, conv_kernel=K)
+    got = tssm.mamba_block(torch.from_numpy(x).to(torch.bfloat16), tp,
+                           n_state=N, conv_kernel=K)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (2, 24, d)
+    np.testing.assert_allclose(got.float().numpy(), _f32(want), **OUT_TOL)
+
+
+@needs_jax
+@pytest.mark.parametrize("widths", WIDTHS)
+def test_mamba_decode_step_equals_jax(widths):
+    """24 steps from an empty cache (conv in bf16, state in float32, as
+    the model's decode cache keeps them)."""
+    d, di, N, K, r = widths
+    jp, tp = _both(_block_params(5, *widths))
+    x = np.random.default_rng(6).normal(size=(2, 24, d)).astype(np.float32)
+    jx = jnp.asarray(x).astype(jnp.bfloat16)
+    tx = torch.from_numpy(x).to(torch.bfloat16)
+    jc = jssm.init_ssm_cache(2, di, K, N)
+    jc = jssm.SSMCache(jc.conv.astype(jnp.bfloat16), jc.state)
+    tc = tssm.SSMCache(torch.zeros((2, K - 1, di), dtype=torch.bfloat16),
+                       torch.zeros((2, di, N)))
+    for s in range(24):
+        jo, jc = jssm.mamba_decode_step(jx[:, s:s + 1], jp, jc, n_state=N,
+                                        conv_kernel=K)
+        to, tc = tssm.mamba_decode_step(tx[:, s:s + 1], tp, tc, n_state=N,
+                                        conv_kernel=K)
+        assert to.dtype == torch.bfloat16 and tuple(to.shape) == (2, 1, d)
+        assert tc.conv.dtype == torch.bfloat16
+        assert tc.state.dtype == torch.float32
+        np.testing.assert_allclose(to.float().numpy(), _f32(jo), **OUT_TOL)
+        np.testing.assert_allclose(tc.conv.float().numpy(), _f32(jc.conv),
+                                   **BF16_ULP)
+        np.testing.assert_allclose(tc.state.numpy(), np.asarray(jc.state),
+                                   **STATE_TOL)
+
+
+@needs_jax
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_init_ssm_cache_layout_equals_jax(dtype):
+    want = jssm.init_ssm_cache(3, 40, 4, 16, dtype=getattr(jnp, dtype))
+    got = tssm.init_ssm_cache(3, 40, 4, 16, dtype=getattr(torch, dtype),
+                              device="cpu")
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == w.shape
+        assert str(g.dtype).split(".")[-1] == str(w.dtype)
+        assert not bool(g.any())
+
+
+def test_mamba_decode_step_takes_one_token():
+    p = {k: torch.from_numpy(v) for k, v in
+         _block_params(0, 16, 32, 8, 4, 4).items()}
+    cache = tssm.init_ssm_cache(1, 32, 4, 8, device="cpu")
+    with pytest.raises(ValueError, match="one token"):
+        tssm.mamba_decode_step(torch.zeros((1, 2, 16)), p, cache, n_state=8)
+
+
+def test_mamba_module_holds_the_reference_leaves():
+    cfg = treg.get_arch("falcon-mamba-7b", smoke=True)
+    m = tssm.Mamba(cfg, device="cpu")
+    assert tuple(n for n, _ in m.named_parameters()) == tssm.Mamba.LEAVES
+    for name, p in m.named_parameters():
+        assert tuple(p.shape) == tssm.Mamba.shapes(cfg)[name]
+        assert p.dtype == (torch.bfloat16 if p.dim() >= 2
+                           else torch.float32), name
+    master = tssm.Mamba(cfg, device="cpu", master=True)
+    assert all(p.dtype == torch.float32 and p.requires_grad
+               for p in master.parameters())
+    assert all(w.dtype == (torch.bfloat16 if w.dim() >= 2
+                           else torch.float32)
+               for w in master.weights().values())
+
+
+# ---------------------------------------------------------------------------
+# the kernel's wrapper: refusals before any launch
+# ---------------------------------------------------------------------------
+
+def _kernel_args(bsz=2, S=5, di=12, N=8):
+    dt, x, z, B, C, A, D = (torch.from_numpy(a) for a in
+                            _scan_inputs(0, bsz, S, di, N))
+    return [dt, x, z.to(torch.bfloat16), B, C, A, D]
+
+
+@pytest.mark.parametrize("N", [4, 12, 32])
+def test_scan_kernel_refuses_state_sizes_it_is_not_built_for(N):
+    with pytest.raises(ValueError, match=f"state size N={N}"):
+        tscan.selective_scan_cuda(*_kernel_args(N=N))
+
+
+def test_scan_kernel_refusals():
+    args = _kernel_args()
+    before = tscan.selective_scan_cuda.launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tscan.selective_scan_cuda(*args)
+    bad = list(args)
+    bad[2] = args[2].float()
+    with pytest.raises(ValueError, match="z must be torch.bfloat16"):
+        tscan.selective_scan_cuda(*bad)
+    bad[2] = args[2].transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="evenly spaced rows"):
+        tscan.selective_scan_cuda(*bad)
+    bad = list(args)
+    bad[3] = torch.cat([args[3], args[4]], -1)[..., :8]   # a strided view
+    with pytest.raises(ValueError, match="B must be contiguous"):
+        tscan.selective_scan_cuda(*bad)
+    bad = list(args)
+    bad[0] = args[0].double()
+    with pytest.raises(ValueError, match="dt must be torch.float32"):
+        tscan.selective_scan_cuda(*bad)
+    with pytest.raises(ValueError, match="batch 65536"):
+        tscan.selective_scan_cuda(*_kernel_args(bsz=65536, S=1, di=2))
+    with pytest.raises(ValueError, match="d_inner 13 is odd"):
+        tscan.selective_scan_cuda(*_kernel_args(di=13))
+    bad = list(args)
+    bad[2] = torch.cat([args[2], args[2]], -1)[..., 11:23]  # odd offset
+    with pytest.raises(ValueError, match="4-byte aligned"):
+        tscan.selective_scan_cuda(*bad)
+    assert tscan.selective_scan_cuda.launches == before
+    # the gate half of an input projection is taken in place
+    zz = torch.cat([args[2], args[2]], -1)[..., 12:]
+    assert tscan._row_stride(zz, 5, 12) == 24
+
+
+@pytest.mark.parametrize("name", ["falcon-mamba-7b", "hymba-1.5b"])
+def test_ssm_training_is_refused(name):
+    """No path trains through the plain scan: loss_fn and make_train_step
+    refuse the SSM and hybrid families by name."""
+    cfg = treg.get_arch(name, smoke=True)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10a-train"):
+        tsteps.make_train_step(cfg)
+    model = tT.init_params(cfg, device="cpu", master=True)
+    toks = torch.ones((1, 8), dtype=torch.int64)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10a-train"):
+        tT.loss_fn(cfg, model, {"tokens": toks, "labels": toks})
+
+
+# ---------------------------------------------------------------------------
+# on the card
+# ---------------------------------------------------------------------------
+
+# the plain version and the kernel on the card: the same products and sums
+# of the state in the same order but the exponentials (ex2.approx against
+# expf, a few float32 ulps) and the sum over n (four partial sums against
+# PyTorch's order): one bf16 rounding of y can land on the other side (one
+# ulp, 2^-7 relative at most), near-zero y off by float32 rounding of its
+# terms
+CARD_TOL = dict(rtol=2.0 ** -7, atol=1e-4)
+# (bsz, S, d_inner, N): S = 1, S not a multiple of the 32-step tile,
+# d_inner not a multiple of the 64-channel block, N = 8 and 16, the smoke
+# width, hymba-1.5b's d_inner
+CARD_SHAPES = [(2, 1, 64, 16), (1, 100, 64, 16), (2, 70, 100, 16),
+               (3, 130, 200, 8), (2, 24, 256, 8), (1, 257, 3200, 16)]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is "
+                    "False)")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", CARD_SHAPES)
+def test_scan_kernel_equals_plain_on_the_card(cuda, shape):
+    bsz, S, di, N = shape
+    dt, x, z, B, C, A, D = (torch.from_numpy(a).to(cuda) for a in
+                            _scan_inputs(sum(shape), *shape))
+    # z read in place as the gate half of an input projection
+    z = torch.cat([z, z], -1).to(torch.bfloat16)[..., di:]
+    before = tscan.selective_scan_cuda.launches
+    got = ops.selective_scan(dt, x, z, B, C, A, D)
+    again = ops.selective_scan(dt, x, z, B, C, A, D)
+    assert tscan.selective_scan_cuda.launches - before == 2
+    want = tref.selective_scan_ref(dt, x, z, B, C, A, D)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (bsz, S, di)
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), want.float(), **CARD_TOL)

@@ -159,6 +159,7 @@ def test_kernel_build_command_targets_sm_90a():
                                          "flash_attention.cu",
                                          "flash_attention_bwd.cu",
                                          "fused_sweep.cu", "local_sweep.cu",
+                                         "selective_scan.cu",
                                          "telemetry_update.cu"]
     for src in sources:                  # one nvcc process per source
         cmd = _build.nvcc_command("nvcc", src, _build.BUILD_DIR / "k.o")

@@ -16,8 +16,8 @@ Phases, each printed as it ends; any failure exits non-zero:
      row log-sum-exp output; their registers, spills and launch shared
      memory printed apart, and no wgmma serialised) and its four float32
      ones, the flash backward's seven (D; dK/dV and dQ
-     at padded head dims 64, 128, 256) and the selective scan's two (N =
-     8, 16));
+     at padded head dims 64, 128, 256) and the selective scan's nine (N =
+     16 at 1, 2, 4, 8, 16 lanes per channel, N = 8 at 1, 2, 4, 8));
   3. each kernel against its plain PyTorch version on the card, on the same
      tensors: (a) at the parity shapes of the tests, exactly equal (the
      in-kernel-RNG kernels, the local-gibbs sweep among them, with seeds
@@ -125,10 +125,14 @@ Phases, each printed as it ends; any failure exits non-zero:
      (7f) the SSM and hybrid families: the selective-scan kernel
      (``csrc/selective_scan.cu``) against its plain version at
      falcon-mamba-7b's layer shape (bsz 1, S 4096, d_inner 8192, N 16),
-     hymba-1.5b's (8, 2048, 3200, 16) and ragged ones (S = 1, S off the
-     time tile, d_inner off the channel block, N = 8), within SCAN_TOL and
-     the same bits on a second launch, its time per launch beside the
-     plain version's and its bound; then falcon-mamba-7b (B=1, S=4096) and
+     hymba-1.5b's (8, 2048, 3200, 16) and its B=1 layer (1, 4096, 3200,
+     16), ragged ones (S = 1, S off the time tile, d_inner off the channel
+     block, N = 8) and the layout's edges (S one past a tile, d_inner off
+     the block at every lane count), within SCAN_TOL and the same bits on
+     a second launch, the library's layout equal to ``scan_layout``'s, at
+     the three layer shapes its time per launch beside its layout (lanes a
+     channel, tile, warps a scheduler), the plain version's time and its
+     bound; then falcon-mamba-7b (B=1, S=4096) and
      hymba-1.5b (B=8, S=2048) at full width and depth, weights from a
      seed, through ``make_prefill_step`` (launch counts reset before three
      calls and read after: one scan launch per layer and call, and for
@@ -347,8 +351,9 @@ KERNELS = ("gibbs_sweep", "gibbs_class_sweep", "mgpmh_sweep",
 # Gibbs sweep and both MGPMH forms one per register width (2, 4, 8, 10,
 # 16 buckets) and the class kernel one per width (2, 4, 8, 16); the
 # telemetry update one; the flash backward seven (D, then dK/dV and dQ at
-# padded head dims 64, 128, 256); the selective scan two (N = 8, 16)
-PTXAS_ENTRIES = len(KERNELS) - 7 + (6 + 4) + 3 * 5 + 4 + 7 + 2
+# padded head dims 64, 128, 256); the selective scan nine (lanes per
+# channel 1, 2, 4, 8, 16 at N = 16 and 1, 2, 4, 8 at N = 8)
+PTXAS_ENTRIES = len(KERNELS) - 7 + (6 + 4) + 3 * 5 + 4 + 7 + 9
 # the Gibbs ring kernel's new shapes (C, S, D, n): tests/test_torch_sweep.py
 # GIBBS_RING_SHAPES (D > the register width, a ragged n, S = 1, an odd n
 # that takes the chunked ring)
@@ -424,12 +429,19 @@ DECODE_B, DECODE_STEPS = 8, 32
 SSM_SERVE = [("falcon-mamba-7b", 1, 4096), ("hymba-1.5b", 8, 2048)]
 SSM_PREFILL_CALLS = 3
 # the scan kernel against its plain version (bsz, S, d_inner, N): each
-# config's layer shape, then S = 1, S off the 32-step tile, d_inner off
-# the 64-channel block, N = 8
+# config's layer shape and hymba-1.5b's B=1 layer (timed), then S = 1, S
+# off the time tile, d_inner off the 32-channel block, N = 8; then the
+# layout's edges (selective_scan.scan_layout): S one past a tile (32 steps
+# at 16 and 8 lanes, 16 at 4), d_inner off the block at every lane count
+# of both N (16: 16, 8, 4, 2, 1 lanes; 8: 8, the most, then 4, 2, 1)
 SCAN_MODEL_SHAPES = {"falcon-mamba-7b": (1, 4096, 8192, 16),
                      "hymba-1.5b": (8, 2048, 3200, 16)}
-SCAN_SHAPES = [*SCAN_MODEL_SHAPES.values(), (2, 1, 64, 16),
-               (1, 100, 64, 16), (2, 70, 100, 16), (3, 130, 200, 8)]
+SCAN_TIMED = {**SCAN_MODEL_SHAPES, "hymba-1.5b B=1": (1, 4096, 3200, 16)}
+SCAN_SHAPES = [*SCAN_TIMED.values(), (2, 1, 64, 16), (1, 100, 64, 16),
+               (2, 70, 100, 16), (3, 130, 200, 8), (1, 33, 64, 16),
+               (3, 33, 3000, 16), (5, 17, 3394, 16), (17, 5, 2002, 16),
+               (34, 3, 2000, 16), (2, 21, 4002, 8), (3, 6, 6002, 8),
+               (9, 4, 4002, 8), (40, 3, 2002, 8)]
 # tests/test_torch_ssm.py CARD_TOL: the kernel's ex2.approx against expf
 # and the sum over n in another order can put a bf16 rounding of y one ulp
 # apart (2^-7 relative at most); near-zero y within float32 rounding of
@@ -2790,12 +2802,13 @@ def scan_bound(bsz, S, di, N):
 
 def scan_parity(dev):
     """The scan kernel against its plain version on the card at
-    SCAN_SHAPES (the two configs' layer shapes, then the ragged ones),
-    within SCAN_TOL, the same bits on a second launch; at the layer shapes
-    its time per launch (a stream of 20), the plain version's and the
-    bound."""
+    SCAN_SHAPES (the SCAN_TIMED layer shapes, then the ragged ones and the
+    layout's edges), within SCAN_TOL, the same bits on a second launch, and
+    the layout the library takes equal to ``scan_layout``'s; at the
+    SCAN_TIMED shapes its time per launch (a stream of 20) beside the
+    layout, the plain version's time and the bound."""
     from repro_torch.kernels import ref, selective_scan as ss
-    errs, times = {}, {}
+    errs, times, layouts = {}, {}, {}
     for k, shape in enumerate(SCAN_SHAPES):
         ins = scan_inputs(*shape, dev, seed=300 + k)
         got = ss.selective_scan_cuda(*ins)
@@ -2809,28 +2822,38 @@ def scan_parity(dev):
         check(torch.allclose(got.float(), want.float(), **SCAN_TOL),
               f"selective_scan off the plain version at {shape}: max abs "
               f"err {errs[str(shape)]}")
-        arch = next((a for a, sh in SCAN_MODEL_SHAPES.items() if sh == shape),
-                    None)
-        if arch is not None:
+        layout = ss.scan_layout(*shape)
+        built = ss.kernel_layout(*shape)
+        check(built == {key: layout[key] for key in built},
+              f"selective_scan at {shape}: the library's layout {built}, "
+              f"scan_layout's {layout}")
+        layouts[str(shape)] = layout
+        name = next((a for a, sh in SCAN_TIMED.items() if sh == shape), None)
+        if name is not None:
             ms = per_launch_ms(lambda: ss.selective_scan_cuda(*ins), 20)
             pms = per_launch_ms(lambda: ref.selective_scan_ref(*ins), 1,
                                 reps=1)
             bms, by, terms = scan_bound(*shape)
             bsz, S, di, N = shape
-            times[arch] = dict(
+            times[name] = dict(
                 ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
-                bound_terms_ms=terms, library_ms=None,
-                shape=f"bsz={bsz} S={S} d_inner={di} N={N} ({arch} layer)")
-            say("7f ssm serve", f"selective_scan [{times[arch]['shape']}]: "
-                f"kernel {ms:.4f} ms per launch, plain {pms:.2f} ms, bound "
-                f"{bms:.4f} ms set by {by} (" + ", ".join(
+                bound_terms_ms=terms, library_ms=None, layout=layout,
+                shape=f"bsz={bsz} S={S} d_inner={di} N={N} ({name} layer)")
+            say("7f ssm serve", f"selective_scan [{times[name]['shape']}; "
+                f"{layout['lanes']} lanes a channel, {layout['tile']}-step "
+                f"tiles, {layout['warps_per_scheduler']:.2f} warps a "
+                f"scheduler]: kernel {ms:.4f} ms per launch, plain "
+                f"{pms:.2f} ms, bound {bms:.4f} ms set by {by} (" + ", ".join(
                     f"{n} {v:.4f}" for n, v in terms.items()) + " ms)")
         del ins, got, again, want, diff
     say("7f ssm serve", f"selective_scan at {len(SCAN_SHAPES)} shapes "
         f"(bsz, S, d_inner, N) {SCAN_SHAPES} within {SCAN_TOL} of the plain "
         f"version (max abs err {max(errs.values()):.3g}), the same bits on "
-        f"a second launch")
-    return dict(max_abs_err=max(errs.values()), errors=errs), times
+        f"a second launch, lanes a channel "
+        f"{[layouts[str(sh)]['lanes'] for sh in SCAN_SHAPES]} as "
+        f"scan_layout gives them")
+    return dict(max_abs_err=max(errs.values()), errors=errs,
+                layouts=layouts), times
 
 
 @contextlib.contextmanager

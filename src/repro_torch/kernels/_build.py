@@ -90,6 +90,8 @@ _SIGNATURES = {
     # dt, x, z, B, C, A, D, y, bsz, S, d_inner, N, z's row stride, stream
     "selective_scan_launch": [_c_ptr] * 8 + [_c_int] * 4 + [_c_int64,
                                                             _c_ptr],
+    # bsz, S, d_inner, N, out (4 int32: lanes, channels, threads, tile)
+    "selective_scan_layout": [_c_int] * 4 + [_c_ptr],
 }
 
 

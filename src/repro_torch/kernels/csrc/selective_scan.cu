@@ -5,7 +5,7 @@
 // dt, x (bsz, S, d_inner) float32; z (bsz, S, d_inner) bf16, rows evenly
 // spaced (the gate half of the input projection, read in place); B, C
 // (bsz, S, N) float32; A (d_inner, N), D (d_inner,) float32; y
-// (bsz, S, d_inner) bf16.  N is 8 or 16 (one instance each); d_inner even.
+// (bsz, S, d_inner) bf16.  N is 8 or 16; d_inner even.
 //
 // Replaces no Pallas kernel.  The JAX package's mamba_block
 // (src/repro/models/ssm.py:42-73) materialises decay = exp(dt A) and
@@ -17,24 +17,47 @@
 //
 // Bound: at the model shapes the exponentials (N + 1 per (b, t, d): the
 // decays and silu's) and the bytes are about even (falcon-mamba-7b's layer:
-// 0.40 GB, 571M exponentials).  Design, simple first: a thread per (b, d)
-// steps through t, its N states and the N constants A[d, :] log2(e) in
-// registers; 64 channels of one b per block.  The inputs of a tile of
-// kTile steps -- each thread's dt, x, z and the block's B_t, C_t -- are
-// copied to shared memory by cp.async, the next tile's copies in flight
-// while the current tile computes (two stages), so the step loop waits on
-// no global load and stays rolled: at one or two warps per SM (falcon's
-// 8192 channels are 256 warps) a first form that held eight steps of
-// inputs in registers, its loop unrolled (tens of KB of code), ran twice
-// as long.  What holds this form back: a scheduler has one warp
-// (falcon) or two (hymba), and no other warp covers the latencies of a
-// step's ~180 instructions (PERF.md row 11).  No
-// cross-thread arithmetic and no atomics: every launch gives the same
-// bits.  The products and sums of the state round one by one
-// (-fmad=false) in the plain version's order (decay h + (dt x) B); C . h
-// is summed in four interleaved partial sums (n mod 4), then + D x, then
-// times silu(z) (__expf and __fdividef); the exponentials are ex2.approx
-// of the argument times log2(e), within a few float32 ulps of expf.
+// 0.40 GB, 571M exponentials).  The scan is serial in t, so the card is
+// filled across channels alone, and falcon's B=1 layer has only 8192 of
+// them: a thread per channel is 256 warps for 528 schedulers, each warp
+// alone with a ~180-instruction step (the first form; PERF.md row 11).
+// Design:
+//   * States spread over lanes.  A channel's N states go to L lanes
+//     (lane l of the channel holds states l, l + L, ...), L in {1, 2, 4,
+//     8, 16} (at most N): the fewest lanes that launch kTargetLanes (14
+//     warps an SM of an H100), else N.  The layout depends on (bsz,
+//     d_inner, N) only (selective_scan_layout reports it).
+//   * The C . h sum leaves the step.  Over a group of G = max(L, 4) steps
+//     each lane keeps its partial sums C_t[n] h_t[n] (its states summed
+//     pairwise) in G registers; the L lanes of the channel then reduce
+//     them transposed, a butterfly reduce-scatter (G/2 + G/4 + ...
+//     shuffle-adds over log2 L rounds, the pairs xor L/2 first), after
+//     which lane l holds the sums of steps l G/L .. (l + 1) G/L - 1.  That
+//     lane alone adds D x, applies silu(z) and writes bf16 y: the gate's
+//     exponential and reciprocal run once per (t, d).
+//   * Staging.  A block is 32 channels x L lanes.  Each tile (32 steps at
+//     8 or 16 lanes, the next in flight; 16 steps at fewer lanes, two in
+//     flight, so that 7 blocks fit an SM) of the block's dt, x
+//     (transposed: a channel's steps contiguous), z and B, C (transposed:
+//     a state's steps contiguous) is copied to shared memory by 4-byte
+//     cp.async from offsets each thread computes once; a lane reads four
+//     steps of dt, x and each of its B, C rows with one 16-byte load.
+//     TMA (or a bulk copy) lands tiles in the global layout ([t][d],
+//     [t][n]), and the step loop then reads every step's dt, x, B[n] and
+//     C[n] apart: four times the shared loads of this loop, whose shared
+//     memory traffic is what bounds it.  y goes through a double-buffered
+//     shared tile and leaves as bf16 pairs, each warp writing whole
+//     64-byte row pieces, one tile behind the compute.
+// What holds it back (PERF.md row 11 and its lever measurements): the
+// shared memory and shuffle traffic of the step loop (the reduction's
+// shuffles, the staging copies, the B, C loads), not the MUFU.
+// No atomics, and every sum in a fixed order that depends on the shape
+// alone: every launch gives the same bits.  The products and sums of the
+// state round one by one (-fmad=false) in the plain version's order
+// (decay h + (dt x) B); C . h is summed over a lane's states pairwise,
+// then across lanes by the butterfly's tree, then + D x, then times
+// silu(z) = z rcp(1 + ex2(-z log2(e))); the exponentials are ex2.approx of
+// the argument times log2(e), within a few float32 ulps of expf.
 //
 // Plain C interface (loaded with ctypes); the launch returns
 // cudaGetLastError().
@@ -45,22 +68,58 @@
 
 namespace {
 
-constexpr int kThreads = 64;   // channels of one batch row per block
-constexpr int kTile = 32;      // time steps staged per shared-memory stage
+constexpr int kCh = 32;          // channels per block
+constexpr int kZRow = kCh + 2;   // bf16 per z / y row (odd words apart)
+constexpr int kMaxLanes = 16;
+// lanes launched to aim at: 14 warps an SM (3.5 a scheduler) of the
+// H100's 132 (PERF.md row 11: falcon-mamba-7b's layer ran fastest at 8
+// lanes, 3.9 warps a scheduler, against 16 lanes at 7.8)
+constexpr long long kTargetLanes = 14LL * 132 * 32;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// one stage: the tile's dt, x, z of the block's channels and its B, C rows
-template <int kN>
+// one stage: a tile of kT steps: dt, x of the block's channels and the B,
+// C rows, transposed (a row kT + 4 floats: 16-byte aligned, and 8 rows
+// apart in 16-byte reads hit distinct banks), and the z rows
+template <int kN, int kT>
 struct Stage {
-  float dt[kTile][kThreads];
-  float x[kTile][kThreads];
-  float B[kTile][kN];
-  float C[kTile][kN];
-  __nv_bfloat16 z[kTile][kThreads];
+  float dt[kCh][kT + 4];
+  float x[kCh][kT + 4];
+  float B[kN][kT + 4];
+  float C[kN][kT + 4];
+  __nv_bfloat16 z[kT][kZRow];
 };
 
-template <int kN>
-constexpr int smem_bytes() { return 2 * static_cast<int>(sizeof(Stage<kN>)); }
+template <int kN, int kL>
+struct Layout {
+  static constexpr int kLanes = kL;
+  static constexpr int kThreads = kCh * kL;
+  static constexpr int kNL = kN / kL;          // states per lane
+  static constexpr int kG = kL > 4 ? kL : 4;   // steps per reduction group
+  static constexpr int kOwn = kG / kL;         // of them ending on a lane
+  // 8 or 16 lanes (a few large blocks an SM): 32-step tiles, the next in
+  // flight; 1-4 lanes (many small blocks): 16-step tiles, two in flight,
+  // so that 7 blocks fit an SM's shared memory
+  static constexpr int kTile = kL >= 8 ? 32 : 16;
+  static constexpr int kStages = kL >= 8 ? 2 : 3;
+  using StageT = Stage<kN, kTile>;
+  // the stages and two tiles of y, under the 48 KB a block may take
+  // without an opt-in attribute
+  static constexpr int kSmem =
+      kStages * static_cast<int>(sizeof(StageT))
+      + 2 * kTile * kZRow * static_cast<int>(sizeof(__nv_bfloat16));
+  // register room for the blocks an SM holds at the shapes that take
+  // this lane count: 2 (16 lanes), 3 (8), 7 (shared memory's limit)
+  static constexpr int kMinBlocks = kL == 16 ? 2 : kL == 8 ? 3 : 7;
+  static_assert(kTile % kG == 0 && kN % kL == 0 && kSmem <= 48 * 1024,
+                "layout");
+};
+
+int lanes_for(int bsz, int di, int N) {
+  const long long channels = static_cast<long long>(bsz) * di;
+  for (int L = 1; L < N && L < kMaxLanes; L *= 2)
+    if (channels * L >= kTargetLanes) return L;
+  return N < kMaxLanes ? N : kMaxLanes;
+}
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -71,18 +130,15 @@ __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
                    smem_addr(smem)), "l"(gmem));
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_addr(smem)), "l"(gmem));
-}
-
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
-// wait until at most one committed group of this thread is in flight
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
+// wait until at most kPending committed groups of this thread are in
+// flight
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
 }
 
 __device__ __forceinline__ float ex2(float v) {
@@ -91,41 +147,171 @@ __device__ __forceinline__ float ex2(float v) {
   return r;
 }
 
-// rows (<= kTile) steps from row r0 = b S + t: thread i copies channel
-// d0 + i of dt and x (i < nch), thread i < nch / 2 the bf16 pair
-// (d0 + 2i, d0 + 2i + 1) of z, and the block copies the B and C rows in
-// 16-byte pieces
-template <int kN>
-__device__ __forceinline__ void stage_tile(
-    Stage<kN>& s, const float* __restrict__ dt, const float* __restrict__ x,
-    const __nv_bfloat16* __restrict__ z, const float* __restrict__ Bm,
-    const float* __restrict__ Cm, size_t r0, int rows, int di, int d0,
-    int nch, long long z_ld) {
-  const int i = threadIdx.x;
-  if (i < nch) {
-    for (int r = 0; r < rows; ++r) {
-      const size_t g = (r0 + r) * di + d0 + i;
-      cp_async4(&s.dt[r][i], dt + g);
-      cp_async4(&s.x[r][i], x + g);
+__device__ __forceinline__ float rcp(float v) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+
+// A thread's share of the copies of every tile, in offsets from the
+// tile's first row fixed at the launch.  Thread i takes the elements i,
+// i + kThreads, ... of each grid, so its k-th element lies a compile-time
+// distance from its first.  dt and x: a warp's 32 elements are 4 steps x
+// 8 channels (32-byte row pieces in global memory, 32 distinct banks in
+// the transposed rows), warp w taking steps 4 (w % kQ) and channels 8 (w /
+// kQ); B and C the same over 4 steps x 8 states; z and y: 2 steps x 16
+// channel pairs (64-byte row pieces).  An element past the tile's rows or
+// the block's channels is skipped.
+template <int kN, int kL>
+struct Copier {
+  using Lt = Layout<kN, kL>;
+  static constexpr int kThreads = Lt::kThreads, kTile = Lt::kTile;
+  static constexpr int kQ = kTile / 4;        // 4-step groups of a tile
+  static constexpr int kP = kN / 8;           // 8-state groups of B and C
+  int t0, c0;              // dt, x: first step, channel
+  int bt0, bn0, bc;        // B, C: first step, state; bt0 N + bn0
+  int zt0, zc;             // z, y: first step, channel
+  long long dx, yo, zo;    // t0 di + c0, zt0 di + zc, zt0 z_ld + zc
+
+  __device__ Copier(int di, long long z_ld) {
+    const int lane = threadIdx.x % 32, w0 = threadIdx.x / 32;
+    t0 = w0 % kQ * 4 + lane / 8;
+    c0 = w0 / kQ * 8 + lane % 8;
+    dx = static_cast<long long>(t0) * di + c0;
+    bt0 = w0 / kP * 4 + lane / 8;
+    bn0 = w0 % kP * 8 + lane % 8;
+    bc = bt0 * kN + bn0;
+    zt0 = threadIdx.x / (kCh / 2);
+    zc = 2 * (threadIdx.x % (kCh / 2));
+    yo = static_cast<long long>(zt0) * di + zc;
+    zo = zt0 * z_ld + zc;
+  }
+
+  // rows (<= kTile) steps of the tile whose first row dt, x, z, B, C
+  // point at, into stage s
+  __device__ __forceinline__ void stage(
+      typename Lt::StageT& s, const float* dt, const float* x,
+      const __nv_bfloat16* z, const float* Bm, const float* Cm, int rows,
+      int di, int nch, long long z_ld) const {
+#pragma unroll
+    for (int k = 0; k < kTile / kL; ++k) {
+      const int t = t0 + 4 * (k * kL % kQ), c = c0 + 8 * (k * kL / kQ);
+      if (t < rows && c < nch) {
+        const long long g =
+            dx + 4LL * (k * kL % kQ) * di + 8 * (k * kL / kQ);
+        cp_async4(&s.dt[c][t], dt + g);
+        cp_async4(&s.x[c][t], x + g);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < (kTile * kCh / 2 + kThreads - 1) / kThreads; ++k) {
+      const int t = zt0 + k * kThreads / (kCh / 2);
+      if (t < rows && zc < nch)                 // nch is even
+        cp_async4(&s.z[t][zc],
+                  z + zo + static_cast<long long>(k * kThreads / (kCh / 2))
+                               * z_ld);
+    }
+#pragma unroll
+    for (int k = 0; k < (kTile * kN + kThreads - 1) / kThreads; ++k) {
+      const int t = bt0 + 4 * (k * kL / kP), n = bn0 + 8 * (k * kL % kP);
+      if (t < rows) {
+        const int g = bc + 4 * (k * kL / kP) * kN + 8 * (k * kL % kP);
+        cp_async4(&s.B[n][t], Bm + g);
+        cp_async4(&s.C[n][t], Cm + g);
+      }
     }
   }
-  if (2 * i < nch) {
-    for (int r = 0; r < rows; ++r)
-      cp_async4(&s.z[r][2 * i], z + (r0 + r) * z_ld + d0 + 2 * i);
+
+  // rows steps of a tile's y from shared memory to the rows at y
+  __device__ __forceinline__ void store(const __nv_bfloat16 (*yt)[kZRow],
+                                        __nv_bfloat16* y, int rows, int di,
+                                        int nch) const {
+#pragma unroll
+    for (int k = 0; k < (kTile * kCh / 2 + kThreads - 1) / kThreads; ++k) {
+      const int t = zt0 + k * kThreads / (kCh / 2);
+      if (t < rows && zc < nch)
+        *reinterpret_cast<unsigned*>(
+            y + yo + static_cast<long long>(k * kThreads / (kCh / 2)) * di) =
+            *reinterpret_cast<const unsigned*>(&yt[t][zc]);
+    }
   }
-  const int chunks = rows * (kN / 4);
-  const float* gB = Bm + r0 * kN;
-  const float* gC = Cm + r0 * kN;
-  for (int c = i; c < 2 * chunks; c += kThreads) {
-    if (c < chunks)
-      cp_async16(&s.B[0][0] + 4 * c, gB + 4 * c);
-    else
-      cp_async16(&s.C[0][0] + 4 * (c - chunks), gC + 4 * (c - chunks));
+};
+
+// the transposed reduction of the channel's L lanes: p[0, 2 kHalf) are a
+// lane's partial sums of 2 kHalf steps; the lanes that differ in bit kM
+// swap halves and add, the lane with the bit set keeping the upper half
+template <int kHalf, int kM, int kG>
+__device__ __forceinline__ void butterfly(float (&p)[kG], int sub) {
+  if constexpr (kM > 0) {
+    const bool upper = (sub & kM) != 0;
+#pragma unroll
+    for (int i = 0; i < kHalf; ++i) {
+      const float send = upper ? p[i] : p[i + kHalf];
+      const float keep = upper ? p[i + kHalf] : p[i];
+      p[i] = keep + __shfl_xor_sync(0xffffffffu, send, kM);
+    }
+    butterfly<kHalf / 2, kM / 2, kG>(p, sub);
   }
 }
 
-template <int kN>
-__global__ void __launch_bounds__(kThreads)
+// one group of G steps from step g of the tile: the states, then the sums
+// reduced across lanes, then each step's gate and y on the lane holding it
+template <int kN, int kL>
+__device__ __forceinline__ void scan_group(
+    const typename Layout<kN, kL>::StageT& s, __nv_bfloat16 (*yt)[kZRow],
+    int g, int c, int sub,
+    float (&h)[Layout<kN, kL>::kNL], const float (&a2)[Layout<kN, kL>::kNL],
+    float dsk) {
+  using Lt = Layout<kN, kL>;
+  float p[Lt::kG];
+#pragma unroll
+  for (int q = 0; q < Lt::kG / 4; ++q) {
+    const float4 dt4 = *reinterpret_cast<const float4*>(&s.dt[c][g + 4 * q]);
+    const float4 x4 = *reinterpret_cast<const float4*>(&s.x[c][g + 4 * q]);
+    const float dtq[4] = {dt4.x, dt4.y, dt4.z, dt4.w};
+    const float xq[4] = {x4.x, x4.y, x4.z, x4.w};
+    float bq[Lt::kNL][4], cq[Lt::kNL][4];
+#pragma unroll
+    for (int j = 0; j < Lt::kNL; ++j) {
+      const float4 b4 = *reinterpret_cast<const float4*>(
+          &s.B[sub + kL * j][g + 4 * q]);
+      const float4 c4 = *reinterpret_cast<const float4*>(
+          &s.C[sub + kL * j][g + 4 * q]);
+      bq[j][0] = b4.x, bq[j][1] = b4.y, bq[j][2] = b4.z, bq[j][3] = b4.w;
+      cq[j][0] = c4.x, cq[j][1] = c4.y, cq[j][2] = c4.z, cq[j][3] = c4.w;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float dtx = dtq[u] * xq[u];
+      float ch[Lt::kNL];
+#pragma unroll
+      for (int j = 0; j < Lt::kNL; ++j) {
+        const float decay = ex2(dtq[u] * a2[j]);
+        h[j] = decay * h[j] + dtx * bq[j][u];
+        ch[j] = cq[j][u] * h[j];
+      }
+      // the lane's states summed pairwise: (0 + 1) + (2 + 3), ...
+#pragma unroll
+      for (int w = 1; w < Lt::kNL; w *= 2)
+#pragma unroll
+        for (int j = 0; j + w < Lt::kNL; j += 2 * w) ch[j] = ch[j] + ch[j + w];
+      p[4 * q + u] = ch[0];
+    }
+  }
+  butterfly<Lt::kG / 2, kL / 2, Lt::kG>(p, sub);
+#pragma unroll
+  for (int i = 0; i < Lt::kOwn; ++i) {
+    const int r = g + sub * Lt::kOwn + i;
+    const float xv = s.x[c][r];
+    const float zv = __bfloat162float(s.z[r][c]);
+    const float gate = zv * rcp(1.0f + ex2(-zv * kLog2e));
+    yt[r][c] = __float2bfloat16_rn((p[i] + dsk * xv) * gate);
+  }
+}
+
+template <int kN, int kL>
+__global__ void __launch_bounds__(Layout<kN, kL>::kThreads,
+                                  Layout<kN, kL>::kMinBlocks)
 selective_scan_kernel(const float* __restrict__ dt,
                       const float* __restrict__ x,
                       const __nv_bfloat16* __restrict__ z,
@@ -135,70 +321,86 @@ selective_scan_kernel(const float* __restrict__ dt,
                       const float* __restrict__ Dskip,
                       __nv_bfloat16* __restrict__ y, int S, int di,
                       long long z_ld) {
+  using Lt = Layout<kN, kL>;
   extern __shared__ __align__(16) unsigned char smem[];
-  Stage<kN>* stages = reinterpret_cast<Stage<kN>*>(smem);
-  const int i = threadIdx.x;
-  const int d0 = blockIdx.x * kThreads;
-  const int nch = min(kThreads, di - d0);
-  const bool live = i < nch;
-  const int ch = live ? d0 + i : di - 1;   // a lane past d_inner stores nothing
+  constexpr int kTile = Lt::kTile, kStages = Lt::kStages;
+  auto* stages = reinterpret_cast<typename Lt::StageT*>(smem);
+  auto ys = reinterpret_cast<__nv_bfloat16(*)[kTile][kZRow]>(
+      smem + kStages * sizeof(typename Lt::StageT));
+  const int c = threadIdx.x / kL, sub = threadIdx.x % kL;
+  const int d0 = blockIdx.x * kCh;
+  const int nch = min(kCh, di - d0);
+  // a channel past d_inner computes on a live channel's constants and
+  // stale shared memory, and stores nothing
+  const int ch = c < nch ? d0 + c : di - 1;
   const size_t row0 = static_cast<size_t>(blockIdx.y) * S;
 
-  float a2[kN], h[kN];
+  float a2[Lt::kNL], h[Lt::kNL];
 #pragma unroll
-  for (int n = 0; n < kN; ++n) {
-    a2[n] = A[static_cast<size_t>(ch) * kN + n] * kLog2e;
-    h[n] = 0.0f;
+  for (int j = 0; j < Lt::kNL; ++j) {
+    a2[j] = A[static_cast<size_t>(ch) * kN + sub + kL * j] * kLog2e;
+    h[j] = 0.0f;
   }
   const float dsk = Dskip[ch];
 
+  // the block's first row and channel of each array; tile k's rows start
+  // k kTile rows further
+  const Copier<kN, kL> cp(di, z_ld);
+  const float* dt_t = dt + row0 * di + d0;
+  const float* x_t = x + row0 * di + d0;
+  const __nv_bfloat16* z_t = z + static_cast<long long>(row0) * z_ld + d0;
+  const float* B_t = Bm + row0 * kN;
+  const float* C_t = Cm + row0 * kN;
+  __nv_bfloat16* y_t = y + row0 * di + d0;
+  const size_t tile_rows = static_cast<size_t>(kTile) * di;
+  const long long tile_z = kTile * z_ld;
   const int tiles = (S + kTile - 1) / kTile;
-  stage_tile<kN>(stages[0], dt, x, z, Bm, Cm, row0, min(kTile, S), di, d0,
-                 nch, z_ld);
-  cp_async_commit();
-  for (int tile = 0; tile < tiles; ++tile) {
-    const int t_tile = tile * kTile;
-    // the other stage was last read by tile - 1, which every thread has
-    // finished (the barrier closing the previous iteration)
-    if (tile + 1 < tiles)
-      stage_tile<kN>(stages[(tile + 1) & 1], dt, x, z, Bm, Cm,
-                     row0 + t_tile + kTile, min(kTile, S - t_tile - kTile),
-                     di, d0, nch, z_ld);
+  // stage the next tile (k) and step the pointers past it
+  auto stage = [&](int k) {
+    cp.stage(stages[k % kStages], dt_t, x_t, z_t, B_t, C_t,
+             min(kTile, S - k * kTile), di, nch, z_ld);
+    dt_t += tile_rows, x_t += tile_rows, z_t += tile_z;
+    B_t += kTile * kN, C_t += kTile * kN;
+  };
+  for (int k = 0; k < kStages - 1; ++k) {
+    if (k < tiles) stage(k);
     cp_async_commit();               // possibly empty: one group per tile
-    cp_async_wait_one();             // this tile's group has landed
-    __syncthreads();
-    const Stage<kN>& s = stages[tile & 1];
-    const int rows = min(kTile, S - t_tile);
-#pragma unroll 1
-    for (int r = 0; r < rows; ++r) {
-      const float dtv = s.dt[r][i];
-      const float xv = s.x[r][i];
-      const float zv = __bfloat162float(s.z[r][i]);
-      const float dtx = dtv * xv;
-      const float4* B4 = reinterpret_cast<const float4*>(s.B[r]);
-      const float4* C4 = reinterpret_cast<const float4*>(s.C[r]);
-      float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-      for (int q = 0; q < kN / 4; ++q) {
-        const float4 b4 = B4[q], c4 = C4[q];
-        const float bq[4] = {b4.x, b4.y, b4.z, b4.w};
-        const float cq[4] = {c4.x, c4.y, c4.z, c4.w};
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int n = 4 * q + j;
-          const float decay = ex2(dtv * a2[n]);
-          h[n] = decay * h[n] + dtx * bq[j];
-          part[j] = part[j] + cq[j] * h[n];
-        }
-      }
-      const float ch_sum = (part[0] + part[1]) + (part[2] + part[3]);
-      const float gate = __fdividef(zv, 1.0f + __expf(-zv));
-      const float out = (ch_sum + dsk * xv) * gate;
-      if (live)
-        y[(row0 + t_tile + r) * di + d0 + i] = __float2bfloat16_rn(out);
-    }
-    __syncthreads();                 // done with this stage before refill
   }
+  for (int tile = 0; tile < tiles; ++tile) {
+    cp_async_wait<kStages - 2>();    // this tile's group has landed
+    __syncthreads();
+    // the stage tile - 1 read is free: every thread passed the barrier
+    if (tile + kStages - 1 < tiles) stage(tile + kStages - 1);
+    cp_async_commit();
+    // the previous tile's y, written before the barrier
+    if (tile > 0) {
+      cp.store(ys[(tile - 1) & 1], y_t, kTile, di, nch);
+      y_t += tile_rows;
+    }
+    const auto& s = stages[tile % kStages];
+    const int rows = min(kTile, S - tile * kTile);
+    // whole groups: steps past S (last tile only) compute on stale
+    // shared memory after every live step and are not stored
+#pragma unroll 1
+    for (int g = 0; g < rows; g += Lt::kG)
+      scan_group<kN, kL>(s, ys[tile & 1], g, c, sub, h, a2, dsk);
+  }
+  __syncthreads();
+  cp.store(ys[(tiles - 1) & 1], y_t, S - (tiles - 1) * kTile, di, nch);
+}
+
+// f(Layout<kN, lanes>{}) for lanes in {1, 2, 4, 8, 16}, at most kN
+template <int kN, typename F>
+int with_layout(int lanes, F f) {
+  switch (lanes) {
+    case 1: return f(Layout<kN, 1>{});
+    case 2: return f(Layout<kN, 2>{});
+    case 4: return f(Layout<kN, 4>{});
+    case 8: return f(Layout<kN, 8>{});
+  }
+  if constexpr (kN >= 16)
+    if (lanes == 16) return f(Layout<kN, 16>{});
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <int kN>
@@ -206,15 +408,14 @@ int launch(const float* dt, const float* x, const __nv_bfloat16* z,
            const float* B, const float* C, const float* A, const float* D,
            __nv_bfloat16* y, int bsz, int S, int di, long long z_ld,
            cudaStream_t stream) {
-  const int smem = smem_bytes<kN>();
-  cudaError_t err = cudaFuncSetAttribute(
-      selective_scan_kernel<kN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((di + kThreads - 1) / kThreads, bsz);
-  selective_scan_kernel<kN><<<grid, kThreads, smem, stream>>>(
-      dt, x, z, B, C, A, D, y, S, di, z_ld);
-  return static_cast<int>(cudaGetLastError());
+  return with_layout<kN>(lanes_for(bsz, di, kN), [&](auto lt) {
+    using Lt = decltype(lt);
+    const dim3 grid((di + kCh - 1) / kCh, bsz);
+    selective_scan_kernel<kN, Lt::kLanes>
+        <<<grid, Lt::kThreads, Lt::kSmem, stream>>>(dt, x, z, B, C, A, D, y,
+                                                     S, di, z_ld);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 }  // namespace
@@ -223,9 +424,8 @@ extern "C" {
 
 // dt, x (bsz, S, di) float32 contiguous; z bf16 with row (b, t) at
 // z + (b S + t) z_ld, 4-byte aligned, z_ld even; B, C (bsz, S, N) float32
-// contiguous, 16-byte aligned; A (di, N), D (di,) float32; y (bsz, S, di)
-// bf16.  All on the card; N in {8, 16}; bsz, S, di >= 1, di even,
-// bsz <= 65535.
+// contiguous; A (di, N), D (di,) float32; y (bsz, S, di) bf16.  All on the
+// card; N in {8, 16}; bsz, S, di >= 1, di even, bsz <= 65535.
 int selective_scan_launch(const float* dt, const float* x, const void* z,
                           const float* B, const float* C, const float* A,
                           const float* D, void* y, int bsz, int S, int di,
@@ -237,6 +437,24 @@ int selective_scan_launch(const float* dt, const float* x, const void* z,
     return launch<16>(dt, x, zb, B, C, A, D, yb, bsz, S, di, z_ld, stream);
   if (N == 8)
     return launch<8>(dt, x, zb, B, C, A, D, yb, bsz, S, di, z_ld, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// the layout selective_scan_launch takes at (bsz, S, di, N): out = {lanes
+// per channel, channels per block, threads per block, steps per tile};
+// cudaErrorInvalidValue for an N it is not built for
+int selective_scan_layout(int bsz, int S, int di, int N, int* out) {
+  (void)S;
+  const auto describe = [out](auto lt) {
+    using Lt = decltype(lt);
+    out[0] = Lt::kLanes;
+    out[1] = kCh;
+    out[2] = Lt::kThreads;
+    out[3] = Lt::kTile;
+    return 0;
+  };
+  if (N == 16) return with_layout<16>(lanes_for(bsz, di, N), describe);
+  if (N == 8) return with_layout<8>(lanes_for(bsz, di, N), describe);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

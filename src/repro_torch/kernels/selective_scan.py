@@ -7,19 +7,64 @@ device, allocates its output with ``torch.empty``, launches on PyTorch's
 current stream without synchronising, raises if the launch was refused,
 and counts its launches in ``selective_scan_cuda.launches``.  CUDA tensors
 only: the CPU path is the plain version, chosen by ``ops.selective_scan``.
+``scan_layout`` is the layout the kernel takes at a shape (lanes per
+channel chosen from the shape alone); ``kernel_layout`` asks the built
+library for it.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
+from ._build import load_library
 from .fused_sweep import _check, _check_cuda, _launch
 
-__all__ = ["selective_scan_cuda", "STATES"]
+__all__ = ["selective_scan_cuda", "STATES", "scan_layout", "kernel_layout"]
 
 # state sizes the kernel is built for (csrc/selective_scan.cu): the smoke
 # configs' 8 and falcon-mamba-7b's and hymba-1.5b's 16
 STATES = (8, 16)
 _MAX_GRID_Y = 65535             # gridDim.y = batch
+# csrc/selective_scan.cu's layout: a block is _CHANNELS channels x L lanes,
+# L the fewest of _LANES (at most N) that launch _TARGET_LANES lanes (14
+# warps an SM, 3.5 a scheduler, of the H100's 132 SMs), else N; 8 and 16
+# lanes stage 32-step tiles, fewer lanes 16-step tiles
+_CHANNELS, _LANES, _SMS = 32, (1, 2, 4, 8, 16), 132
+_TARGET_LANES = 14 * _SMS * 32
+
+
+def scan_layout(bsz: int, S: int, di: int, N: int) -> dict:
+    """The kernel's layout at (bsz, S, d_inner, N), from the shape alone:
+    ``lanes`` per channel (each holding ``states_per_lane`` states),
+    ``channels`` and ``threads`` per block, ``tile`` (steps staged at a
+    time), ``blocks`` launched and ``warps_per_scheduler`` (launched warps
+    over the 528 schedulers of 132 SMs).  N in ``STATES``."""
+    if N not in STATES:
+        raise ValueError(f"state size N={N} is not supported by the "
+                         f"selective-scan kernel (built for {STATES})")
+    lanes = next((L for L in _LANES if L < N and bsz * di * L
+                  >= _TARGET_LANES), min(N, _LANES[-1]))
+    threads = _CHANNELS * lanes
+    blocks = -(-di // _CHANNELS) * bsz
+    return dict(lanes=lanes, states_per_lane=N // lanes,
+                channels=_CHANNELS, threads=threads,
+                tile=32 if lanes >= 8 else 16, blocks=blocks,
+                warps_per_scheduler=blocks * threads / 32 / (4 * _SMS))
+
+
+def kernel_layout(bsz: int, S: int, di: int, N: int) -> dict:
+    """The layout the built library takes at the shape (its
+    ``selective_scan_layout``): ``lanes``, ``channels``, ``threads`` and
+    ``tile``.  Builds the library at first use."""
+    out = (ctypes.c_int * 4)()
+    info = load_library()
+    err = info.fns["selective_scan_layout"](int(bsz), int(S), int(di),
+                                            int(N), ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"selective_scan_layout refused N={N}: "
+                           f"{info.lib.cuda_error_string(err).decode()}")
+    return dict(zip(("lanes", "channels", "threads", "tile"), out))
 
 
 def _row_stride(z: torch.Tensor, S: int, di: int) -> int:
@@ -45,18 +90,21 @@ def selective_scan_cuda(dt: torch.Tensor, x: torch.Tensor, z: torch.Tensor,
     dt, x (bsz, S, di) float32 contiguous, di even; z (bsz, S, di)
     bfloat16 with evenly spaced rows an even number of elements apart,
     4-byte aligned (a contiguous tensor or a row-strided view such as the
-    gate half of the input projection, read in place); B, C (bsz, S, N)
-    float32 contiguous, 16-byte aligned; A (di, N) and D (di,) float32
-    contiguous; N in ``STATES``; all on the card.  Returns y (bsz, S, di)
-    bfloat16, the same bits on every launch.
+    gate half of the input projection, read in place); B, C (bsz, S, N),
+    A (di, N) and D (di,) float32 contiguous; N in ``STATES``; all on the
+    card.  Returns y (bsz, S, di) bfloat16, the same bits on every
+    launch.
 
     Replaces no Pallas kernel: the JAX package's ``mamba_block``
     (``src/repro/models/ssm.py:42-73``) runs ``jax.lax.associative_scan``
     over (bsz, S, di, N) float32 decay and drive tensors (``:70``), jnp.
     Bound about evenly by the bytes (each input read once, y written once)
-    and the exponentials (N + 1 per (b, t, d)).  A thread per (b, d) steps
-    through t with its states in registers, each tile of 32 steps' inputs
-    staged in shared memory by cp.async while the previous tile computes.
+    and the exponentials (N + 1 per (b, t, d)).  Each channel's N states
+    are spread over ``scan_layout(...)["lanes"]`` lanes; the C . h sums of
+    a group of steps are reduced across a channel's lanes once per group,
+    and one lane gates and stores each (t, d); each tile's inputs are
+    staged in shared memory by cp.async, transposed, while the previous
+    tile computes.
     """
     if dt.dim() != 3 or A.dim() != 2:
         raise ValueError(f"dt must be (bsz, S, d_inner) and A (d_inner, N), "
@@ -85,9 +133,6 @@ def selective_scan_cuda(dt: torch.Tensor, x: torch.Tensor, z: torch.Tensor,
     _check(C, "C", torch.float32, (bsz, S, N))
     _check(A, "A", torch.float32, (di, N))
     _check(D, "D", torch.float32, (di,))
-    for name, t in (("B", B), ("C", C)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
     _check_cuda([dt, x, z, B, C, A, D])
     y = torch.empty((bsz, S, di), dtype=torch.bfloat16, device=dt.device)
     if y.numel() == 0:

@@ -13,9 +13,17 @@ on a machine with a CUDA card, the kernel against its plain version.
   * ``init_ssm_cache``'s layout; the wrapper's refusals (state sizes it is
     not built for, z's dtype and layout, CPU tensors) before any launch;
     the training refusal of the SSM and hybrid families;
-  * (gpu) the kernel against its plain version at ragged shapes, bit-equal
-    between launches, z read in place from the input projection.
+  * the kernel's layout (``scan_layout``, lanes a channel chosen from the
+    shape) at every shape the card runs it at: valid, the fewest lanes
+    that reach the launch target, every built instance reached, the
+    model layers' warps a scheduler;
+  * (gpu) the kernel against its plain version at ragged shapes and the
+    layout's edges, bit-equal between launches, z read in place from the
+    input projection; the library's layout equal to ``scan_layout``'s.
 """
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -319,16 +327,71 @@ def test_ssm_training_is_refused(name):
 
 # the plain version and the kernel on the card: the same products and sums
 # of the state in the same order but the exponentials (ex2.approx against
-# expf, a few float32 ulps) and the sum over n (four partial sums against
-# PyTorch's order): one bf16 rounding of y can land on the other side (one
-# ulp, 2^-7 relative at most), near-zero y off by float32 rounding of its
-# terms
+# expf, a few float32 ulps) and the sum over n (pairwise in a lane, then a
+# tree across lanes, against PyTorch's order): one bf16 rounding of y can
+# land on the other side (one ulp, 2^-7 relative at most), near-zero y off
+# by float32 rounding of its terms
 CARD_TOL = dict(rtol=2.0 ** -7, atol=1e-4)
-# (bsz, S, d_inner, N): S = 1, S not a multiple of the 32-step tile,
-# d_inner not a multiple of the 64-channel block, N = 8 and 16, the smoke
-# width, hymba-1.5b's d_inner
+# (bsz, S, d_inner, N): S = 1, S not a multiple of the time tile, d_inner
+# not a multiple of the 32-channel block, N = 8 and 16, the smoke width,
+# hymba-1.5b's d_inner; then the layout's edges (chip_smoke.py
+# SCAN_SHAPES): S one past a tile (32 steps at 16 and 8 lanes, 16 at 4),
+# d_inner off the block at every lane count of both N, hymba-1.5b's B=1
+# layer
 CARD_SHAPES = [(2, 1, 64, 16), (1, 100, 64, 16), (2, 70, 100, 16),
-               (3, 130, 200, 8), (2, 24, 256, 8), (1, 257, 3200, 16)]
+               (3, 130, 200, 8), (2, 24, 256, 8), (1, 257, 3200, 16),
+               (1, 33, 64, 16), (3, 33, 3000, 16), (5, 17, 3394, 16),
+               (17, 5, 2002, 16), (34, 3, 2000, 16), (2, 21, 4002, 8),
+               (3, 6, 6002, 8), (9, 4, 4002, 8), (40, 3, 2002, 8),
+               (1, 4096, 3200, 16)]
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
+_CS = _chip_smoke()
+LAYOUT_SHAPES = sorted(set(CARD_SHAPES) | set(_CS.SCAN_SHAPES))
+# the lanes the kernel aims to launch: 14 warps on each of the H100's 132
+# SMs (csrc/selective_scan.cu kTargetLanes)
+TARGET_LANES = 14 * 132 * 32
+
+
+@pytest.mark.parametrize("shape", LAYOUT_SHAPES)
+def test_scan_layout_is_valid_and_the_fewest_lanes(shape):
+    bsz, S, di, N = shape
+    lay = tscan.scan_layout(*shape)
+    L = lay["lanes"]
+    assert L in (1, 2, 4, 8, 16) and N % L == 0
+    assert lay["states_per_lane"] * L == N
+    assert lay["threads"] == 32 * L == lay["channels"] * L
+    assert lay["blocks"] == -(-di // 32) * bsz
+    assert lay["tile"] == (32 if L >= 8 else 16)
+    # the fewest lanes that reach the target, else N
+    assert L == N or bsz * di * L >= TARGET_LANES
+    assert L == 1 or bsz * di * (L // 2) < TARGET_LANES
+    assert lay["warps_per_scheduler"] == pytest.approx(
+        lay["blocks"] * L / (4 * 132))
+
+
+def test_scan_layout_reaches_every_instance_and_fills_the_card():
+    """Every built instance (N = 16 at 1-16 lanes, N = 8 at 1-8) is reached
+    by some shape the card runs; the model layers launch at least 3.5 warps
+    a scheduler (falcon-mamba-7b's at 8 lanes: 16 lanes, 7.8 warps, ran
+    slower on the H100, PERF.md row 11)."""
+    reached = {(sh[3], tscan.scan_layout(*sh)["lanes"]) for sh in CARD_SHAPES}
+    assert reached == {(16, L) for L in (1, 2, 4, 8, 16)} | {
+        (8, L) for L in (1, 2, 4, 8)}
+    for shape in _CS.SCAN_MODEL_SHAPES.values():
+        assert tscan.scan_layout(*shape)["warps_per_scheduler"] >= 3.5
+    assert tscan.scan_layout(1, 4096, 8192, 16)["lanes"] == 8
+    assert tscan.scan_layout(8, 2048, 3200, 16)["lanes"] == 4
+    with pytest.raises(ValueError, match="state size N=4"):
+        tscan.scan_layout(1, 8, 64, 4)
 
 
 @pytest.fixture
@@ -356,3 +419,11 @@ def test_scan_kernel_equals_plain_on_the_card(cuda, shape):
     assert got.dtype == torch.bfloat16 and tuple(got.shape) == (bsz, S, di)
     assert torch.equal(got, again)
     torch.testing.assert_close(got.float(), want.float(), **CARD_TOL)
+
+
+@pytest.mark.gpu
+def test_library_layout_equals_scan_layout(cuda):
+    for shape in LAYOUT_SHAPES:
+        built = tscan.kernel_layout(*shape)
+        lay = tscan.scan_layout(*shape)
+        assert built == {k: lay[k] for k in built}, shape

@@ -16,8 +16,9 @@ Phases, each printed as it ends; any failure exits non-zero:
      row log-sum-exp output; their registers, spills and launch shared
      memory printed apart, and no wgmma serialised) and its four float32
      ones, the flash backward's seven (D; dK/dV and dQ
-     at padded head dims 64, 128, 256) and the selective scan's nine (N =
-     16 at 1, 2, 4, 8, 16 lanes per channel, N = 8 at 1, 2, 4, 8));
+     at padded head dims 64, 128, 256), the selective scan's nine (N =
+     16 at 1, 2, 4, 8, 16 lanes per channel, N = 8 at 1, 2, 4, 8) and its
+     backward's three (N = 16 and 8, and the ordered sum of partials));
   3. each kernel against its plain PyTorch version on the card, on the same
      tensors: (a) at the parity shapes of the tests, exactly equal (the
      in-kernel-RNG kernels, the local-gibbs sweep among them, with seeds
@@ -240,7 +241,8 @@ Phases, each printed as it ends; any failure exits non-zero:
      launcher as subprocesses; (f) the profiler's device ops of a resident
      and a clamped chunk, equal; the kernel library not rebuilt;
  12. training (``launch/train.py``, ``launch/steps.py``, ``optim/``, the
-     flash backward kernel ``csrc/flash_attention_bwd.cu``): (a) the
+     flash backward kernel ``csrc/flash_attention_bwd.cu``, the selective
+     scan's backward in ``csrc/selective_scan.cu``): (a) the
      backward kernels' registers, spills (none in the wgmma ones) and
      shared memory; against its plain float32 version at tinyllama-1.1b's
      training attention (B=8, S=2048, 32/4 heads, hd 64, causal),
@@ -274,7 +276,27 @@ Phases, each printed as it ends; any failure exits non-zero:
      the forward twice, nothing else, the plain backward never called,
      losses and grad norms finite; ms per step, tokens/s, the model-FLOPs
      share, peak memory, and one step under torch.profiler (idle share, the
-     backward's device time and share of busy).
+     backward's device time and share of busy); (f) the SSM and hybrid
+     families: the selective scan's backward kernel (its three entries'
+     registers and spills) against its plain float32 version at
+     falcon-mamba-7b's layer (1, 4096, 8192, 16), hymba-1.5b's at B=8
+     (8, 2048, 3200, 16) and B=1, and ragged shapes (S = 1, S off the
+     16-step chunk, d_inner off the 32-channel block, N = 8), z the strided
+     gate half of a projection: every gradient within its relative
+     (Frobenius) tolerance, in its input's dtype, finite, the same bits on
+     a second launch, the library's layout equal to ``scan_bwd_layout``'s;
+     at the three layer shapes its time per call (three launches), its
+     kernels' device time, the plain version's and the bound; then
+     ``make_train_step`` on hymba-1.5b at full width and depth (B=8,
+     S=2048) and on falcon-mamba-7b at full width cut to 16 of 64 layers
+     (B=1, S=4096; the full depth's training state does not fit one
+     card), weights from a seed, every launch count reset before and read
+     after -- per step the scan's forward twice and its backward once per
+     mamba layer, hymba's flash forward twice and backward once per layer,
+     nothing else, no plain version called, losses and grad norms finite,
+     one step taken twice from the same state giving the same parameters
+     bit for bit -- and the step's figures as (e)'s with the scan's device
+     time and share of busy.
 
 Prints the kernels' JSON record and the card's name and power limit, then
 as its last line ``{"ok": true, "device": {...}}``.  Also writes the full
@@ -344,7 +366,7 @@ KERNELS = ("gibbs_sweep", "gibbs_class_sweep", "mgpmh_sweep",
            "mgpmh_sweep_rng", "min_gibbs_sweep", "min_gibbs_sweep_rng",
            "double_min_sweep", "double_min_sweep_rng", "bucket_energy",
            "local_gibbs_sweep", "flash_attention", "telemetry_update",
-           "flash_attention_bwd", "selective_scan")
+           "flash_attention_bwd", "selective_scan", "selective_scan_bwd")
 # ptxas entry functions: one per kernel, but flash attention has six bf16
 # instances (padded head dims 64, 128, 256, each without and with the
 # lse2 output) and four float32 ones (head dims 16, 32, 64, 128), the
@@ -352,8 +374,9 @@ KERNELS = ("gibbs_sweep", "gibbs_class_sweep", "mgpmh_sweep",
 # 16 buckets) and the class kernel one per width (2, 4, 8, 16); the
 # telemetry update one; the flash backward seven (D, then dK/dV and dQ at
 # padded head dims 64, 128, 256); the selective scan nine (lanes per
-# channel 1, 2, 4, 8, 16 at N = 16 and 1, 2, 4, 8 at N = 8)
-PTXAS_ENTRIES = len(KERNELS) - 7 + (6 + 4) + 3 * 5 + 4 + 7 + 9
+# channel 1, 2, 4, 8, 16 at N = 16 and 1, 2, 4, 8 at N = 8), its backward
+# three (N = 8 and 16, and the ordered sum of the partials)
+PTXAS_ENTRIES = len(KERNELS) - 8 + (6 + 4) + 3 * 5 + 4 + 7 + 9 + 3
 # the Gibbs ring kernel's new shapes (C, S, D, n): tests/test_torch_sweep.py
 # GIBBS_RING_SHAPES (D > the register width, a ragged n, S = 1, an odd n
 # that takes the chunked ring)
@@ -491,6 +514,24 @@ RESUME_STEPS, RESUME_EVERY, RESUME_FAIL = 6, 3, 4
 # ~38 GB of float32 training state (the full depth's ~188 GB does not fit
 # one 80 GB card); B=1 at the trained length S=4096
 GEMMA_ARCH, GEMMA_LAYERS, GEMMA_B, GEMMA_S = "gemma3-12b", 6, 1, 4096
+# 12f: the selective scan's backward against its plain version (bsz, S,
+# d_inner, N): the SCAN_TIMED layer shapes (timed), then S = 1, S off the
+# 16-step chunk, d_inner off the 32-channel block (at N = 8 a warp holds
+# four channels: (40, 3, 2002, 8) ends on a warp of two live and two idle
+# ones), N = 8; z the strided gate half of scan_inputs throughout
+SCAN_BWD_SHAPES = [*SCAN_TIMED.values(), (2, 1, 64, 16), (1, 100, 64, 16),
+                   (2, 70, 100, 16), (3, 130, 200, 8), (1, 33, 64, 16),
+                   (5, 17, 3394, 16), (2, 21, 4002, 8), (40, 3, 2002, 8)]
+# relative Frobenius error of each gradient against the plain float32
+# backward: the float32 gradients, and dz (one bf16 rounding more):
+# tests/test_torch_ssm.py BWD_CARD_TOL, derived there
+SCAN_BWD_REL_TOL = {"float32": 2e-5, "dz": 2e-4}
+# 12f: the SSM and hybrid families trained at full width, weights from
+# TRAIN_SEED: (arch, layers (None: all), B, S).  hymba-1.5b whole (26.6 GB
+# of float32 training state); falcon-mamba-7b cut from 64 to 16 layers
+# (35.5 GB; the full depth's 116 GB does not fit one 80 GB card); each at
+# phase 7f's prefill shape
+SSM_TRAIN = [("hymba-1.5b", None, 8, 2048), ("falcon-mamba-7b", 16, 1, 4096)]
 # 12d: the port's examples, default sizes but the trainer's few steps
 EXAMPLE_RUNS = [["examples/torch_train_lm.py", "--steps", "4", "--seq", "256",
                  "--global-batch", "4", "--ckpt-dir", "{tmp}/lm"],
@@ -680,7 +721,7 @@ def wrappers():
                           ls.local_gibbs_sweep_cuda, fa.flash_attention_cuda,
                           tu.telemetry_update_cuda,
                           fa.flash_attention_bwd_cuda,
-                          ss.selective_scan_cuda)
+                          ss.selective_scan_cuda, ss.selective_scan_bwd_cuda)
 
 
 def reset_launches():
@@ -2857,21 +2898,25 @@ def scan_parity(dev):
 
 
 @contextlib.contextmanager
-def plain_scan_calls():
-    """Counts the calls of the plain scan through ``kernels.ops`` (the
-    route a CPU tensor takes) while the body runs: on the card the main
-    path must make none."""
+def plain_calls(names):
+    """Counts the calls of the plain versions ``names`` through
+    ``kernels.ops`` (the route a CPU tensor takes) while the body runs:
+    on the card a prefill or a training step must make none."""
     from repro_torch.kernels import ops
-    real, calls = ops.selective_scan_ref, []
+    reals, calls = {n: getattr(ops, n) for n in names}, []
 
-    def counted(*args):
-        calls.append(1)
-        return real(*args)
-    ops.selective_scan_ref = counted
+    def counted(real):
+        def fn(*args, **kw):
+            calls.append(real.__name__)
+            return real(*args, **kw)
+        return fn
+    for n, real in reals.items():
+        setattr(ops, n, counted(real))
     try:
         yield calls
     finally:
-        ops.selective_scan_ref = real
+        for n, real in reals.items():
+            setattr(ops, n, real)
 
 
 def ssm_model(arch, B, S, dev, smi):
@@ -2904,7 +2949,7 @@ def ssm_model(arch, B, S, dev, smi):
     L = cfg.num_layers
     want = {"selective_scan": L * SSM_PREFILL_CALLS,
             "flash_attention": L * SSM_PREFILL_CALLS * cfg.has_attention}
-    with plain_scan_calls() as plain:
+    with plain_calls(("selective_scan_ref",)) as plain:
         reset_launches()
         times = []
         for _ in range(SSM_PREFILL_CALLS):
@@ -5691,6 +5736,9 @@ def train_step_times(cfg, dev, B=TRAIN_B, S=TRAIN_S):
     busy = sum(ops.values())
     bwd_ms = sum(t for k, t in ops.items() if k.startswith("flash_bwd_"))
     fwd_ms = sum(t for k, t in ops.items() if k.startswith("flash_bf16"))
+    scan_bwd_ms = sum(t for k, t in ops.items()
+                      if k.startswith("selective_scan_bwd"))
+    scan_fwd_ms = ops.get("selective_scan_kernel", 0.0)
     n_steps = state["i"]
     del state, model, opt
     torch.cuda.empty_cache()
@@ -5706,7 +5754,9 @@ def train_step_times(cfg, dev, B=TRAIN_B, S=TRAIN_S):
                 traced_wall_ms=1e3 * wall_s, idle=1 - busy / (1e3 * wall_s),
                 top_device_ops_ms=top,
                 flash_bwd_device_ms=bwd_ms, flash_fwd_device_ms=fwd_ms,
-                flash_bwd_share=bwd_ms / busy)
+                flash_bwd_share=bwd_ms / busy,
+                scan_bwd_device_ms=scan_bwd_ms, scan_fwd_device_ms=scan_fwd_ms,
+                scan_bwd_share=scan_bwd_ms / busy)
 
 
 def train_full_width(dev, smi):
@@ -5932,6 +5982,221 @@ def train_gemma3(dev, smi):
     return rec
 
 
+def scan_bwd_bound(bsz, S, di, N):
+    """(least ms, "bytes" or "operations", the terms) of the scan's
+    backward: dt, x read as float32, z and dy as bf16, ddt, dx written as
+    float32 and dz as bf16 (22 bytes per (b, t, d)), B, C read and dB, dC
+    written (float32), A, D read and dA, dD written, over the memory rate;
+    N + 1 exponentials per (b, t, d) (the decays, silu's sigma) over the
+    MUFU rate; 23 N + 10 float32 operations per (b, t, d) (per state: the
+    state's 3, C h 2, dh 3, ddt's term 5, dx's 2, dB's 2, dC's 2, dA's 3,
+    dt A 1) over the FP32 rate."""
+    elems = bsz * S * di
+    terms = {"bytes": (22 * elems + 16 * bsz * S * N + 8 * di * (N + 1))
+             / HBM_BYTES_PER_S,
+             "exponentials": (N + 1) * elems / EX2_PER_S,
+             "fp32": (23 * N + 10) * elems / FP32_OPS_PER_S}
+    term = max(terms, key=terms.get)
+    return (1e3 * terms[term], "bytes" if term == "bytes" else "operations",
+            {k: 1e3 * v for k, v in terms.items()})
+
+
+SCAN_GRADS = ("ddt", "dx", "dz", "dB", "dC", "dA", "dD")
+
+
+def scan_bwd_parity(dev):
+    """12f: the scan's backward kernel against its plain version at
+    SCAN_BWD_SHAPES (dy a bf16 N(0, 1) from a seed): each gradient within
+    SCAN_BWD_REL_TOL (relative Frobenius), finite, in its input's dtype
+    and shape, the same bits on a second launch, the layout the library
+    takes equal to ``scan_bwd_layout``'s; at the SCAN_TIMED shapes the
+    kernel's time per call (a stream of 5; three launches a call), its
+    kernels' device time (torch.profiler), the plain version's time and
+    the bound.  Returns (parity record, {layer: times})."""
+    from repro_torch.kernels import ref, selective_scan as ss
+    errs, rels, times = {}, {}, {}
+    for k, shape in enumerate(SCAN_BWD_SHAPES):
+        bsz, S, di, N = shape
+        ins = scan_inputs(*shape, dev, seed=500 + k)
+        gen = torch.Generator(device=dev).manual_seed(600 + k)
+        dy = torch.randn((bsz, S, di), generator=gen, device=dev).to(
+            torch.bfloat16)
+        got = ss.selective_scan_bwd_cuda(*ins, dy)
+        again = ss.selective_scan_bwd_cuda(*ins, dy)
+        want = ref.selective_scan_bwd_ref(*ins, dy)
+        torch.cuda.synchronize()
+        for name, g, a, p, x in zip(SCAN_GRADS, got, again, want,
+                                    (*ins[:5], ins[5], ins[6])):
+            key = f"{shape} {name}"
+            check(torch.equal(g, a), f"selective_scan_bwd {key}: two "
+                  f"launches gave different bits")
+            check(g.dtype == x.dtype and g.shape == x.shape,
+                  f"selective_scan_bwd {key}: {g.dtype} {tuple(g.shape)}, "
+                  f"its input {x.dtype} {tuple(x.shape)}")
+            check(bool(torch.isfinite(g).all()),
+                  f"selective_scan_bwd {key}: not finite")
+            rels[key] = r = rel_err(g, p)
+            errs[key] = float((g.float() - p.float()).abs().max())
+            tol = SCAN_BWD_REL_TOL["dz" if name == "dz" else "float32"]
+            check(r < tol, f"selective_scan_bwd {key} off the plain version: "
+                  f"relative error {r:.3g} (< {tol})")
+        layout = ss.scan_bwd_layout(*shape)
+        built = ss.kernel_bwd_layout(*shape)
+        check(built == {key: layout[key] for key in built},
+              f"selective_scan_bwd at {shape}: the library's layout "
+              f"{built}, scan_bwd_layout's {layout}")
+        name = next((a for a, sh in SCAN_TIMED.items() if sh == shape), None)
+        if name is not None:
+            call = lambda: ss.selective_scan_bwd_cuda(*ins, dy)
+            ms = per_launch_ms(call, 5)
+            dev_ev, _ = device_events(lambda: [call() for _ in range(3)])
+            parts = {}
+            for e in dev_ev:
+                if "selective_scan_bwd" in e.key:
+                    kn = ("reduce" if "reduce" in e.key else "scan")
+                    parts[kn] = parts.get(kn, 0.0) \
+                        + e.self_device_time_total / 1e3 / 3
+            pms = per_launch_ms(lambda: ref.selective_scan_bwd_ref(
+                *ins, dy), 1, reps=1)
+            bms, by, terms = scan_bwd_bound(*shape)
+            times[name] = dict(
+                ms=ms, kernel_device_ms=parts, plain_ms=pms, bound_ms=bms,
+                bound_by=by, bound_terms_ms=terms, library_ms=None,
+                layout=layout,
+                shape=f"bsz={bsz} S={S} d_inner={di} N={N} ({name} layer, "
+                      f"backward)")
+            say("12f scan backward", f"[{times[name]['shape']}; "
+                f"{layout['lanes']} lanes a channel, {layout['chunks']} "
+                f"chunks of {layout['tile']}, {layout['smem']} bytes of "
+                f"shared memory a block]: kernel {ms:.4f} ms per call of "
+                f"three launches (device: " + ", ".join(
+                    f"{n} {v:.4f}" for n, v in parts.items())
+                + f" ms), plain {pms:.2f} ms, bound {bms:.4f} ms set by "
+                f"{by} (" + ", ".join(f"{n} {v:.4f}"
+                                      for n, v in terms.items()) + " ms)")
+        del ins, dy, got, again, want
+        torch.cuda.empty_cache()
+    worst = {g: max(r for key, r in rels.items() if key.endswith(" " + g))
+             for g in SCAN_GRADS}
+    say("12f scan backward", f"selective_scan_bwd at {len(SCAN_BWD_SHAPES)} "
+        f"shapes (bsz, S, d_inner, N) {SCAN_BWD_SHAPES}: every gradient "
+        f"within {SCAN_BWD_REL_TOL} relative (Frobenius) of the plain "
+        f"float32 backward (worst per gradient: " + ", ".join(
+            f"{g} {r:.3g}" for g, r in worst.items())
+        + f"; max abs err {max(errs.values()):.3g}), finite, the same bits "
+        f"on a second launch, the library's layout equal to "
+        f"scan_bwd_layout's")
+    return dict(max_abs_err=max(errs.values()), max_rel_err=max(rels.values()),
+                worst_rel_by_gradient=worst, rel_errors=rels), times
+
+
+def same_step_twice(cfg, dev, B, S):
+    """(bit-equal, loss): make_train_step's first step taken twice, each
+    from the state init_params(TRAIN_SEED) and adamw_init give, on the same
+    batch: the parameters after the two steps compared bit for bit (the
+    first run's parameters kept, the rest freed before the second)."""
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import adamw_init
+    step = steps.make_train_step(cfg, base_lr=3e-4, total_steps=100,
+                                 loss_chunk=min(2048, S))
+    batch = SyntheticTokens(cfg.vocab_size, S, B, seed=TRAIN_SEED).batch(0)
+    runs = []
+    for _ in range(2):
+        model = T.init_params(cfg, TRAIN_SEED, device=dev, master=True)
+        model, opt, m = step(model, adamw_init(model), batch)
+        runs.append(([p.detach() for p in model.parameters()],
+                     float(m["loss"])))
+        del model, opt, m
+        torch.cuda.empty_cache()
+    (pa, la), (pb, lb) = runs
+    same = la == lb and all(torch.equal(a, b) for a, b in zip(pa, pb))
+    del runs, pa, pb
+    torch.cuda.empty_cache()
+    return same, la
+
+
+def train_ssm(dev, smi):
+    """12f: make_train_step on each SSM_TRAIN config at full width (hymba
+    whole, falcon-mamba cut in depth), weights from a seed: every launch
+    count reset before and read after the steps -- per step the scan's
+    forward twice per mamba layer (the forward and its rematerialisation)
+    and its backward once, the flash forward twice and backward once per
+    attention layer, nothing else; the plain scan, scan backward and flash
+    backward never called; losses and grad norms finite; one step taken
+    twice from the same state gives the same parameters, bit for bit; the
+    step's figures as 12b's, with the scan's device time."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import transformer as T
+    recs = {}
+    for arch, layers, B, S in SSM_TRAIN:
+        full = get_arch(arch)
+        cfg = (full if layers is None
+               else dataclasses.replace(full, num_layers=layers))
+        L = cfg.num_layers
+        with plain_calls(("selective_scan_ref", "selective_scan_bwd_ref",
+                          "flash_attention_bwd_ref")) as plain:
+            reset_launches()
+            step = train_step_times(cfg, dev, B, S)
+            launches = read_launches()
+            same, loss0 = same_step_twice(cfg, dev, B, S)
+        torch.cuda.empty_cache()
+        n = step["steps_run"]
+        attn = int(cfg.has_attention)
+        want = {"selective_scan": 2 * L * n, "selective_scan_bwd": L * n,
+                "flash_attention": 2 * L * n * attn,
+                "flash_attention_bwd": L * n * attn}
+        check(all(c == want.get(k, 0) for k, c in launches.items()),
+              f"12f {arch}: launches {launches} in {n} steps, expected "
+              f"{want} and no other")
+        check(not plain, f"12f {arch}: plain versions called: "
+              f"{sorted(set(plain))} ({len(plain)} calls)")
+        check(all(math.isfinite(x) for x in step["losses"]
+                  + step["grad_norms"] + [loss0]),
+              f"12f {arch}: losses {step['losses']}, grad norms "
+              f"{step['grad_norms']}")
+        check(same, f"12f {arch}: one step taken twice from the same state "
+              f"gave different parameters")
+        cut = ("full depth" if layers is None else
+               f"depth cut from {full.num_layers} to {L} layers (the full "
+               f"depth's float32 training state, "
+               f"{16 * T.param_count(full) / 1e9:.0f} GB, does not fit one "
+               f"card)")
+        rec = recs[arch] = dict(
+            arch=arch, layers=L, B=B, S=S, params=T.param_count(cfg),
+            cut=cut, launches=launches, plain_calls=len(plain),
+            same_bits_twice=same, card=smi, **step)
+        say("12f ssm training", f"{arch} full width (d {cfg.d_model}, "
+            f"d_inner {cfg.d_inner}, N {cfg.ssm_state}"
+            + (f", {cfg.num_heads}/{cfg.num_kv_heads} heads hd "
+               f"{cfg.head_dim} window {cfg.window_pattern[0]}, d_ff "
+               f"{cfg.d_ff}" if attn else "")
+            + f", vocab {cfg.vocab_size}), {cut}; {rec['params'] / 1e9:.3f}B "
+            f"parameters, weights from seed {TRAIN_SEED}, B={B} S={S}, on "
+            f"{smi}: {n} steps, launches {launches}, no plain version "
+            f"called, losses {[round(x, 4) for x in step['losses']]}, grad "
+            f"norms {[round(x, 4) for x in step['grad_norms']]}; one step "
+            f"twice from the same state: the same parameters, bit for bit")
+        say("12f ssm training", f"{arch} step {step['step_ms']:.1f} ms "
+            f"(median of {[round(t, 1) for t in step['step_ms_all']]}), "
+            f"{step['tokens_per_s']:.0f} tokens/s, model-FLOPs share "
+            f"{step['model_flops_share']:.4f} of "
+            f"{BF16_TC_FLOPS_PER_S / 1e12:.0f} TFLOP/s, peak memory "
+            f"{step['peak_memory_gb']:.2f} GB; traced step: device busy "
+            f"{step['busy_ms']:.1f} ms, wall {step['traced_wall_ms']:.1f} ms "
+            f"(idle {step['idle']:.3f}), the scan backward "
+            f"{step['scan_bwd_device_ms']:.2f} ms ({step['scan_bwd_share']:.4f}"
+            f" of busy), the scan forward {step['scan_fwd_device_ms']:.2f} "
+            f"ms, flash backward {step['flash_bwd_device_ms']:.2f} ms, "
+            f"forward {step['flash_fwd_device_ms']:.2f} ms; top device ops "
+            + ", ".join(f"{k} {v:.1f}" for k, v in
+                        step["top_device_ops_ms"].items()))
+    launches = {k: sum(r["launches"][k] for r in recs.values())
+                for k in next(iter(recs.values()))["launches"]}
+    return dict(configs=recs, launches=launches)
+
+
 def phase_training(dev, smi):
     """12: training on the card."""
     from repro_torch.kernels import _build
@@ -5945,12 +6210,28 @@ def phase_training(dev, smi):
                                     for k, v in ptx.items() if "_wg" in k),
               f"12a: the backward's kernels {ptx}: expected seven, the "
               f"wgmma ones without spills")
-    rec = dict(ptxas=ptx, parity=bwd_parity(dev), times=bwd_times(dev))
+    scan_ptx = {ln.split("entry function '")[1].split("'")[0]:
+                "; ".join(x.strip().replace("ptxas info    : ", "")
+                          for x in built.log.splitlines()[i + 1:i + 4]
+                          if "spill" in x or "registers" in x)
+                for i, ln in enumerate(built.log.splitlines())
+                if "entry function" in ln and "selective_scan_bwd" in ln}
+    for k, v in scan_ptx.items():
+        say("12f scan backward build", f"{k}: {v}")
+    if built.seconds > 0:
+        check(len(scan_ptx) == 3, f"12f: the scan backward's kernels "
+              f"{scan_ptx}: expected three")
+    rec = dict(ptxas=ptx, scan_ptxas=scan_ptx, parity=bwd_parity(dev),
+               times=bwd_times(dev))
     rec["times"]["max_abs_err"] = rec["parity"]["max_abs_err"]
     rec["train"] = train_full_width(dev, smi)
     rec["resume"] = train_resume(dev)
     rec["examples"] = run_examples()
     rec["gemma3"] = train_gemma3(dev, smi)
+    rec["scan_parity"], scan_times = scan_bwd_parity(dev)
+    rec["scan_times"] = dict(scan_times["falcon-mamba-7b"], configs=scan_times,
+                             max_abs_err=rec["scan_parity"]["max_abs_err"])
+    rec["ssm"] = train_ssm(dev, smi)
     rec["seconds"] = time.perf_counter() - t0
     say("12 training", f"{rec['seconds']:.1f} s")
     return rec
@@ -5977,6 +6258,8 @@ REPLACES = {
     # no Pallas kernel: the JAX package's mamba_block scans with jnp
     "selective_scan":
         "src/repro/models/ssm.py:70 (jnp, jax.lax.associative_scan)",
+    # no Pallas kernel: jax.grad through the JAX package's jnp scan
+    "selective_scan_bwd": "src/repro/models/ssm.py:61-72 (jnp, jax.grad)",
 }
 SOURCES = {"bucket_energy": "src/repro_torch/kernels/csrc/bucket_energy.cu",
            "gibbs_class_sweep":
@@ -5989,6 +6272,8 @@ SOURCES = {"bucket_energy": "src/repro_torch/kernels/csrc/bucket_energy.cu",
            "flash_attention_bwd":
                "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
            "selective_scan":
+               "src/repro_torch/kernels/csrc/selective_scan.cu",
+           "selective_scan_bwd":
                "src/repro_torch/kernels/csrc/selective_scan.cu"}
 
 
@@ -6037,19 +6322,23 @@ def main():
     times["telemetry_update"] = diag["telemetry_kernel"]["times"]
     times["flash_attention_bwd"] = training["times"]
     times["selective_scan"] = ssm["times"]
+    times["selective_scan_bwd"] = training["scan_times"]
+    ssm_train = training["ssm"]["launches"]
     kernels = []
     for k in KERNELS:
         if k.endswith("_rng"):
             launches = record["rng_path"]["launches"][k]
-        elif k == "flash_attention":  # prefill (7, 7f), training (12b, 12e)
+        elif k == "flash_attention":  # prefill (7, 7f), training (12b, e, f)
             launches = (serve["flash_launches"] + ssm["launches"][k]
                         + training["train"]["launches"][k]
-                        + training["gemma3"]["launches"][k])
-        elif k == "selective_scan":      # the SSM and hybrid prefills (7f)
-            launches = ssm["launches"][k]
-        elif k == "flash_attention_bwd":  # training (12b, 12e), main paths
+                        + training["gemma3"]["launches"][k] + ssm_train[k])
+        elif k == "selective_scan":  # SSM / hybrid prefills (7f), training
+            launches = ssm["launches"][k] + ssm_train[k]
+        elif k == "flash_attention_bwd":  # training (12b, 12e, 12f)
             launches = (training["train"]["launches"][k]
-                        + training["gemma3"]["launches"][k])
+                        + training["gemma3"]["launches"][k] + ssm_train[k])
+        elif k == "selective_scan_bwd":  # SSM / hybrid training (12f)
+            launches = ssm_train[k]
         elif k == "bucket_energy":       # the single-site steps' energy
             launches = sum(r["bucket_energy_launches"]
                            for r in record["steps"].values())
@@ -6069,6 +6358,8 @@ def main():
                else training["parity"]["max_abs_err"]
                if k == "flash_attention_bwd"
                else ssm["parity"]["max_abs_err"] if k == "selective_scan"
+               else training["scan_parity"]["max_abs_err"]
+               if k == "selective_scan_bwd"
                else record["bucket_parity"]["max_abs_err"])
         kernels.append(dict(
             name=k, route="cuda", source=SOURCES.get(k, src),

@@ -92,6 +92,13 @@ _SIGNATURES = {
                                                             _c_ptr],
     # bsz, S, d_inner, N, out (4 int32: lanes, channels, threads, tile)
     "selective_scan_layout": [_c_int] * 4 + [_c_ptr],
+    # dt, x, z, B, C, A, D, dy, ddt, dx, dz, dBC, dAD, ckpt, part_bc,
+    # part_ad, bsz, S, d_inner, N, z's row stride, stream
+    "selective_scan_bwd_launch": [_c_ptr] * 16 + [_c_int] * 4 + [_c_int64,
+                                                                 _c_ptr],
+    # bsz, S, d_inner, N, out (7 int32: lanes, channels, threads, tile,
+    # chunks, channel blocks, shared memory bytes)
+    "selective_scan_bwd_layout": [_c_int] * 4 + [_c_ptr],
 }
 
 

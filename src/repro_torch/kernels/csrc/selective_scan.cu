@@ -1,4 +1,5 @@
-// Selective scan of the Mamba-1 block for Hopper (sm_90a), forward only.
+// Selective scan of the Mamba-1 block for Hopper (sm_90a), forward and
+// backward (the backward's note is before its kernels, below).
 // Per (batch b, channel d), with the state h[N] held in registers:
 //   h_t = exp(dt_t A[d, :]) * h_{t-1} + (dt_t x_t) B_t
 //   y_t = bf16((C_t . h_t + D[d] x_t) * silu(z_t))
@@ -418,6 +419,484 @@ int launch(const float* dt, const float* x, const __nv_bfloat16* z,
   });
 }
 
+// ---------------------------------------------------------------------------
+// The backward: the gradients of the scan above for the output gradient dy
+// (bf16, the gradient of the bf16 y; the cast taken as the identity).  With
+// y_pre = C . h + D x, g = silu(z) and dy_pre = dy g:
+//   dz_t = dy_t y_pre_t silu'(z_t)
+//   dh_t = dy_pre_t C_t + exp(dt_{t+1} A) dh_{t+1}          (dh_S = 0)
+//   ddt_t = sum_n dh_t (A exp(dt_t A) h_{t-1} + x_t B_t)
+//   dx_t = D dy_pre_t + dt_t sum_n dh_t B_t
+//   dB_t = sum_d dt_t x_t dh_t,   dC_t = sum_d dy_pre_t h_t
+//   dA = sum_{b,t} dh_t dt_t exp(dt_t A) h_{t-1},   dD = sum_{b,t} dy_pre_t x_t
+// (ref.selective_scan_bwd_ref; tests hold it to jax.grad of the JAX
+// package's scan and to float64 autograd).
+//
+// Replaces no Pallas kernel: the JAX package takes this gradient by
+// jax.grad through mamba_block's associative scan
+// (src/repro/models/ssm.py:61-72), jnp.
+//
+// Bound: the bytes (dt, x, dy, z read, ddt, dx, dz written: 22 per
+// (b, t, d); falcon-mamba-7b's layer 0.74 GB, 0.22 ms) against N + 1
+// exponentials per (b, t, d) (0.14 ms).  The work is about four times the
+// forward's per state and step (the state recomputed, the reverse
+// recurrence, five gradient terms), and it issues far more than that.
+// Design:
+//   * h_{t-1} in reverse time without inverting the recurrence (dividing
+//     by the decay is unstable) and without storing every h (2.1 GB a
+//     layer at falcon's width): pass 1 writes h at the end of every
+//     16-step chunk to scratch (S / 16 x d_inner x N floats, 134 MB at
+//     falcon), then each chunk, last first, recomputes its states from
+//     the checkpoint before it, keeping decay_t h_{t-1} in registers,
+//     and runs the reverse recurrence through them (decay_t recomputed:
+//     one exponential more, a register array fewer).
+//   * Two states a lane (N / 2 lanes a channel, 32 channels a block): a
+//     step's per-channel work (dt x, the loads, dD) is shared by two
+//     states, and two independent recurrences interleave.  The sums over
+//     states (y_pre's C . h, ddt's and dx's) leave the recurrences: each
+//     lane adds its two states' terms and keeps the chunk's 16 steps, and
+//     the channel's lanes reduce them transposed once per chunk (the
+//     forward's butterfly), after which each lane finishes the steps it
+//     holds.
+//   * dt, x, B, C and dy silu(z) staged transposed by cp.async (a
+//     channel's or a state's steps contiguous, four steps a 16-byte load),
+//     one chunk ahead; steps past S and channels past d_inner zero-filled.
+//   * No float atomics: dB and dC (sums over d_inner) are summed over a
+//     warp's channels by a butterfly and over the block's warps in order
+//     into the block's partial rows; dA and dD (sums over batch and steps)
+//     stay in registers and leave as each batch row's partials; a second
+//     kernel sums the partials in a fixed order.  Every launch gives the
+//     same bits.
+// What holds it back (PERF.md row 11b): each step's per-channel work is
+// still repeated on N / 2 lanes and reduced over them by shuffles, the
+// dB / dC sums take two shuffle rounds a state, and the pass to the
+// checkpoints repeats the forward; no single term dominates (the lever
+// trees of scripts/scan_bwd_ab.py).
+// ---------------------------------------------------------------------------
+
+constexpr int kBT = 16;          // steps per chunk of the backward
+
+// one chunk of the backward's inputs: dt, x and B, C transposed (a
+// channel's, a state's steps contiguous, rows kBT + 4 floats: 16-byte
+// aligned, four steps a 16-byte load), z and dy rows [step][channel]
+template <int kN>
+struct __align__(16) BwdStage {
+  float dt[kCh][kBT + 4];
+  float x[kCh][kBT + 4];
+  float B[kN][kBT + 4];
+  float C[kN][kBT + 4];
+  __nv_bfloat16 z[kBT][kZRow];
+  __nv_bfloat16 dy[kBT][kZRow];
+};
+
+// the backward's layout: two states a lane (sub + kL j), kL lanes a
+// channel, 32 channels a block
+template <int kN>
+struct BwdLt {
+  static constexpr int kL = kN / 2;           // lanes a channel
+  static constexpr int kNL = kN / kL;         // states a lane
+  static constexpr int kThreads = kCh * kL;
+  static constexpr int kWarps = kThreads / 32;
+  static constexpr int kOwn = kBT / kL;       // steps whose sums end on a lane
+};
+
+// a chunk's working tiles: the warps' dB (0) and dC (1) terms per step,
+// dy silu(z) and dy silu'(z) (transposed as dt), and the outputs ddt, dx,
+// dz on their way out
+template <int kN>
+struct __align__(16) BwdWork {
+  float red[2][kBT][BwdLt<kN>::kWarps][kN];
+  float dyp[kCh][kBT + 4];
+  float gz[kCh][kBT + 4];
+  float ddt[kBT][kCh];
+  float dx[kBT][kCh];
+  __nv_bfloat16 dz[kBT][kCh];
+};
+
+template <int kN>
+constexpr int bwd_smem() {
+  return 2 * static_cast<int>(sizeof(BwdStage<kN>))
+         + static_cast<int>(sizeof(BwdWork<kN>));
+}
+
+// a step's dB or dC terms (one a state of the lane) summed over the warp's
+// channels (lanes kL apart, a butterfly), written by the warp's first
+// channel's lanes to row[state]
+template <int kN>
+__device__ __forceinline__ void warp_partial(
+    float* row, int lane, const float (&v)[BwdLt<kN>::kNL]) {
+  using Lt = BwdLt<kN>;
+#pragma unroll
+  for (int j = 0; j < Lt::kNL; ++j) {
+    float t = v[j];
+#pragma unroll
+    for (int m = Lt::kL; m < 32; m *= 2)
+      t = t + __shfl_xor_sync(0xffffffffu, t, m);
+    if (lane < Lt::kL) row[lane + Lt::kL * j] = t;
+  }
+}
+
+// 4 bytes from gmem to smem by cp.async, or 4 zero bytes when !valid
+// (nothing is read then)
+__device__ __forceinline__ void cp_async4_or0(void* smem, const void* gmem,
+                                              bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(smem)), "l"(gmem), "r"(valid ? 4 : 0));
+}
+
+// rows (<= kBT) steps from row `row` (b S + t) into stage s by 4-byte
+// cp.async, the steps past rows and the channels past nch zero-filled (a
+// zero step leaves h as it is and adds 0 to every gradient); all = false
+// copies dt, x and B only (the pass to the checkpoints).  dt, x, B and C
+// go 4 steps x 8 channels (or states) a warp: 32-byte row pieces in global
+// memory, 32 distinct banks in the transposed rows (the forward's pattern)
+template <int kN>
+__device__ __forceinline__ void bwd_stage(
+    BwdStage<kN>& s, const float* dt, const float* x,
+    const __nv_bfloat16* z, const __nv_bfloat16* dy, const float* Bm,
+    const float* Cm, size_t row, int rows, int di, int d0, int nch,
+    long long z_ld, bool all) {
+  constexpr int kThreads = BwdLt<kN>::kThreads;
+#pragma unroll
+  for (int e = threadIdx.x; e < kBT * kCh; e += kThreads) {
+    const int i = e / 32 % 4 * 4 + e % 32 / 8, c = e / 128 * 8 + e % 8;
+    const bool ok = i < rows && c < nch;
+    const size_t g = ok ? (row + i) * di + d0 + c : 0;
+    cp_async4_or0(&s.dt[c][i], dt + g, ok);
+    cp_async4_or0(&s.x[c][i], x + g, ok);
+  }
+#pragma unroll
+  for (int e = threadIdx.x; e < kBT * kN; e += kThreads) {
+    const int i = e / 32 % 4 * 4 + e % 32 / 8, n = e / 128 * 8 + e % 8;
+    const bool ok = i < rows;
+    const size_t g = ok ? (row + i) * kN + n : 0;
+    cp_async4_or0(&s.B[n][i], Bm + g, ok);
+    if (all) cp_async4_or0(&s.C[n][i], Cm + g, ok);
+  }
+  if (!all) return;
+#pragma unroll
+  for (int e = threadIdx.x; e < kBT * kCh / 2; e += kThreads) {
+    const int i = e / (kCh / 2), c = 2 * (e % (kCh / 2));
+    const bool ok = i < rows && c < nch;        // nch is even
+    cp_async4_or0(&s.z[i][c],
+                  z + (ok ? static_cast<long long>(row + i) * z_ld + d0 + c
+                          : 0),
+                  ok);
+    cp_async4_or0(&s.dy[i][c], dy + (ok ? (row + i) * di + d0 + c : 0), ok);
+  }
+}
+
+// One block: 32 channels of one batch row, kL = N / 2 lanes a channel, two
+// states a lane.  Pass 1 runs the recurrence forward and writes h at the
+// end of every chunk of kBT steps but the last to ckpt; pass 2 walks the
+// chunks backward: from the checkpoint before the chunk it recomputes the
+// chunk's states (keeping q_t = decay_t h_{t-1} in registers), then runs
+// the reverse recurrence of dh through the chunk (decay_t recomputed).
+// The sums over a channel's states (C . h for y_pre, and ddt's and dx's)
+// leave the recurrences: each lane adds its two states' terms and keeps
+// the chunk's kBT steps, and the channel's lanes reduce them transposed
+// once per chunk (the forward's butterfly), after which lane sub holds
+// steps sub kOwn .. sub kOwn + kOwn - 1 and finishes dz, ddt and dx there.
+// dB and dC (sums over channels) are summed over the warp by a butterfly,
+// then over the block's warps in order, into this block's partial row of
+// part_bc; dA and dD (sums over steps) stay in registers and leave as this
+// batch row's partials in part_ad.  selective_scan_bwd_reduce_kernel sums
+// both in order.
+template <int kN>
+__global__ void __launch_bounds__(BwdLt<kN>::kThreads)
+selective_scan_bwd_kernel(const float* __restrict__ dt,
+                          const float* __restrict__ x,
+                          const __nv_bfloat16* __restrict__ z,
+                          const float* __restrict__ Bm,
+                          const float* __restrict__ Cm,
+                          const float* __restrict__ A,
+                          const float* __restrict__ Dskip,
+                          const __nv_bfloat16* __restrict__ dy,
+                          float* __restrict__ ddt, float* __restrict__ dx,
+                          __nv_bfloat16* __restrict__ dz,
+                          float* __restrict__ ckpt,
+                          float* __restrict__ part_bc,
+                          float* __restrict__ part_ad, int bsz, int S,
+                          int di, long long z_ld) {
+  using Lt = BwdLt<kN>;
+  using Wk = BwdWork<kN>;
+  constexpr int kL = Lt::kL, kNL = Lt::kNL, kThreads = Lt::kThreads;
+  constexpr int kOwn = Lt::kOwn;
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto* stages = reinterpret_cast<BwdStage<kN>*>(smem);
+  Wk& w = *reinterpret_cast<Wk*>(smem + 2 * sizeof(BwdStage<kN>));
+  const int c = threadIdx.x / kL, sub = threadIdx.x % kL;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int d0 = blockIdx.x * kCh;
+  const int nch = min(kCh, di - d0);
+  const int b = blockIdx.y;
+  // a channel past d_inner reads zeros (its constants a live channel's),
+  // adds 0 to dB and dC, and stores nothing
+  const bool live = c < nch;
+  const int ch = live ? d0 + c : di - 1;
+  const size_t row0 = static_cast<size_t>(b) * S;
+  float a[kNL], a2[kNL];
+#pragma unroll
+  for (int j = 0; j < kNL; ++j) {
+    a[j] = A[static_cast<size_t>(ch) * kN + sub + kL * j];
+    a2[j] = a[j] * kLog2e;
+  }
+  const float dsk = Dskip[ch];
+  const int chunks = (S + kBT - 1) / kBT;
+  // this lane's state j in checkpoint k: ck[k ck_step + kL j]
+  const size_t ck_step = static_cast<size_t>(di) * kN;
+  float* ck = ckpt + static_cast<size_t>(b) * (chunks - 1) * ck_step
+              + static_cast<size_t>(d0 + c) * kN + sub;
+  auto stage = [&](int k, bool all) {
+    bwd_stage<kN>(stages[k & 1], dt, x, z, dy, Bm, Cm,
+                  row0 + static_cast<size_t>(k) * kBT,
+                  min(kBT, S - k * kBT), di, d0, nch, z_ld, all);
+  };
+
+  // pass 1: the states at the ends of chunks 0 .. chunks - 2
+  if (chunks > 1) {
+    float h[kNL] = {};
+    stage(0, false);
+    cp_async_commit();
+    for (int k = 0; k < chunks - 1; ++k) {
+      if (k + 1 < chunks - 1) stage(k + 1, false);
+      cp_async_commit();             // possibly empty: one group per chunk
+      cp_async_wait<1>();            // chunk k has landed
+      __syncthreads();
+      const BwdStage<kN>& s = stages[k & 1];
+#pragma unroll
+      for (int g = 0; g < kBT; g += 4) {
+        const float4 dt4 = *reinterpret_cast<const float4*>(&s.dt[c][g]);
+        const float4 x4 = *reinterpret_cast<const float4*>(&s.x[c][g]);
+        const float dtq[4] = {dt4.x, dt4.y, dt4.z, dt4.w};
+        const float xq[4] = {x4.x, x4.y, x4.z, x4.w};
+        float bq[kNL][4];
+#pragma unroll
+        for (int j = 0; j < kNL; ++j) {
+          const float4 b4 =
+              *reinterpret_cast<const float4*>(&s.B[sub + kL * j][g]);
+          bq[j][0] = b4.x, bq[j][1] = b4.y, bq[j][2] = b4.z, bq[j][3] = b4.w;
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const float dtx = dtq[u] * xq[u];
+#pragma unroll
+          for (int j = 0; j < kNL; ++j)
+            h[j] = ex2(dtq[u] * a2[j]) * h[j] + dtx * bq[j][u];
+        }
+      }
+      if (live)
+#pragma unroll
+        for (int j = 0; j < kNL; ++j) ck[k * ck_step + kL * j] = h[j];
+      __syncthreads();               // the stage is free for chunk k + 2
+    }
+  }
+
+  // pass 2: the chunks from the last to the first; steps past S are zeros
+  float dh[kNL] = {}, dnext[kNL] = {}, dA[kNL] = {};
+  float dD = 0.0f;
+  stage(chunks - 1, true);
+  cp_async_commit();
+  for (int k = chunks - 1; k >= 0; --k) {
+    const int rows = min(kBT, S - k * kBT);
+    if (k > 0) stage(k - 1, true);
+    cp_async_commit();
+    float h[kNL];
+#pragma unroll
+    for (int j = 0; j < kNL; ++j)
+      h[j] = k > 0 && live ? ck[(k - 1) * ck_step + kL * j] : 0.0f;
+    cp_async_wait<1>();
+    __syncthreads();
+    const BwdStage<kN>& s = stages[k & 1];
+    // the gate per (step, channel): dy silu(z) and dy silu'(z), with
+    // sigma(z) = rcp(1 + ex2(-z log2(e))) as the forward's
+#pragma unroll
+    for (int e = threadIdx.x; e < kBT * kCh; e += kThreads) {
+      const int i = e / 32 % 4 * 4 + e % 32 / 8, cc = e / 128 * 8 + e % 8;
+      const float zv = __bfloat162float(s.z[i][cc]);
+      const float dyv = __bfloat162float(s.dy[i][cc]);
+      const float sg = rcp(1.0f + ex2(-zv * kLog2e));
+      w.dyp[cc][i] = dyv * (zv * sg);
+      w.gz[cc][i] = dyv * (sg * (1.0f + zv * (1.0f - sg)));
+    }
+    __syncthreads();
+    // forward through the chunk: q_t = decay_t h_{t-1}, h_t; this lane's
+    // terms of C_t . h_t; dC's and dD's terms
+    float q[kBT][kNL], p1[kBT], p2[kBT];
+#pragma unroll
+    for (int g = 0; g < kBT; g += 4) {
+      const float4 dt4 = *reinterpret_cast<const float4*>(&s.dt[c][g]);
+      const float4 x4 = *reinterpret_cast<const float4*>(&s.x[c][g]);
+      const float4 y4 = *reinterpret_cast<const float4*>(&w.dyp[c][g]);
+      const float dtq[4] = {dt4.x, dt4.y, dt4.z, dt4.w};
+      const float xq[4] = {x4.x, x4.y, x4.z, x4.w};
+      const float yq[4] = {y4.x, y4.y, y4.z, y4.w};
+      float bq[kNL][4], cq[kNL][4];
+#pragma unroll
+      for (int j = 0; j < kNL; ++j) {
+        const float4 b4 =
+            *reinterpret_cast<const float4*>(&s.B[sub + kL * j][g]);
+        const float4 c4 =
+            *reinterpret_cast<const float4*>(&s.C[sub + kL * j][g]);
+        bq[j][0] = b4.x, bq[j][1] = b4.y, bq[j][2] = b4.z, bq[j][3] = b4.w;
+        cq[j][0] = c4.x, cq[j][1] = c4.y, cq[j][2] = c4.z, cq[j][3] = c4.w;
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = g + u;
+        const float dtx = dtq[u] * xq[u];
+        float ch1 = 0.0f, dc[kNL];
+#pragma unroll
+        for (int j = 0; j < kNL; ++j) {
+          q[i][j] = ex2(dtq[u] * a2[j]) * h[j];
+          h[j] = q[i][j] + dtx * bq[j][u];
+          ch1 = j == 0 ? cq[j][u] * h[j] : ch1 + cq[j][u] * h[j];
+          dc[j] = yq[u] * h[j];
+        }
+        p1[i] = ch1;
+        dD = dD + yq[u] * xq[u];
+        warp_partial<kN>(w.red[1][i][warp], lane, dc);
+      }
+    }
+    butterfly<kBT / 2, kL / 2, kBT>(p1, sub);
+#pragma unroll
+    for (int j = 0; j < kOwn; ++j) {       // y_pre, then dz, of lane's steps
+      const int i = sub * kOwn + j;
+      w.dz[i][c] = __float2bfloat16_rn((p1[j] + dsk * s.x[c][i])
+                                       * w.gz[c][i]);
+    }
+    // backward through the chunk: dh_t = dy_pre_t C_t + decay_{t+1}
+    // dh_{t+1}; this lane's terms of ddt's and dx's sums
+#pragma unroll
+    for (int g = kBT - 4; g >= 0; g -= 4) {
+      const float4 dt4 = *reinterpret_cast<const float4*>(&s.dt[c][g]);
+      const float4 x4 = *reinterpret_cast<const float4*>(&s.x[c][g]);
+      const float4 y4 = *reinterpret_cast<const float4*>(&w.dyp[c][g]);
+      const float dtq[4] = {dt4.x, dt4.y, dt4.z, dt4.w};
+      const float xq[4] = {x4.x, x4.y, x4.z, x4.w};
+      const float yq[4] = {y4.x, y4.y, y4.z, y4.w};
+      float bq[kNL][4], cq[kNL][4];
+#pragma unroll
+      for (int j = 0; j < kNL; ++j) {
+        const float4 b4 =
+            *reinterpret_cast<const float4*>(&s.B[sub + kL * j][g]);
+        const float4 c4 =
+            *reinterpret_cast<const float4*>(&s.C[sub + kL * j][g]);
+        bq[j][0] = b4.x, bq[j][1] = b4.y, bq[j][2] = b4.z, bq[j][3] = b4.w;
+        cq[j][0] = c4.x, cq[j][1] = c4.y, cq[j][2] = c4.z, cq[j][3] = c4.w;
+      }
+#pragma unroll
+      for (int u = 3; u >= 0; --u) {
+        const int i = g + u;
+        float t1 = 0.0f, t2 = 0.0f, db[kNL];
+#pragma unroll
+        for (int j = 0; j < kNL; ++j) {
+          dh[j] = yq[u] * cq[j][u] + dnext[j] * dh[j];
+          dnext[j] = ex2(dtq[u] * a2[j]);        // decay_t, recomputed
+          dA[j] = dA[j] + (dtq[u] * dh[j]) * q[i][j];
+          db[j] = (dtq[u] * xq[u]) * dh[j];
+          const float e1 = dh[j] * (a[j] * q[i][j] + xq[u] * bq[j][u]);
+          const float e2 = dh[j] * bq[j][u];
+          t1 = j == 0 ? e1 : t1 + e1;
+          t2 = j == 0 ? e2 : t2 + e2;
+        }
+        p1[i] = t1;
+        p2[i] = t2;
+        warp_partial<kN>(w.red[0][i][warp], lane, db);
+      }
+    }
+    butterfly<kBT / 2, kL / 2, kBT>(p1, sub);
+    butterfly<kBT / 2, kL / 2, kBT>(p2, sub);
+#pragma unroll
+    for (int j = 0; j < kOwn; ++j) {
+      const int i = sub * kOwn + j;
+      w.ddt[i][c] = p1[j];
+      w.dx[i][c] = dsk * w.dyp[c][i] + s.dt[c][i] * p2[j];
+    }
+    __syncthreads();
+    // the chunk's dB and dC rows: each step's warp terms summed in warp
+    // order, this block's partial
+#pragma unroll
+    for (int e = threadIdx.x; e < 2 * kBT * kN; e += kThreads) {
+      const int j = e / (kBT * kN), i = e / kN % kBT, nn = e % kN;
+      if (i < rows) {
+        float acc = w.red[j][i][0][nn];
+#pragma unroll
+        for (int v = 1; v < Lt::kWarps; ++v) acc = acc + w.red[j][i][v][nn];
+        part_bc[((static_cast<size_t>(blockIdx.x) * 2 + j) * bsz + b) * S
+                    * kN
+                + (static_cast<size_t>(k) * kBT + i) * kN + nn] = acc;
+      }
+    }
+#pragma unroll
+    for (int e = threadIdx.x; e < kBT * kCh; e += kThreads) {
+      const int i = e / kCh, cc = e % kCh;
+      if (i < rows && cc < nch) {
+        const size_t o =
+            (row0 + static_cast<size_t>(k) * kBT + i) * di + d0 + cc;
+        ddt[o] = w.ddt[i][cc];
+        dx[o] = w.dx[i][cc];
+        dz[o] = w.dz[i][cc];
+      }
+    }
+  }
+  if (live) {
+    float* ad = part_ad + static_cast<size_t>(b) * di * (kN + 1);
+#pragma unroll
+    for (int j = 0; j < kNL; ++j)
+      ad[static_cast<size_t>(ch) * kN + sub + kL * j] = dA[j];
+    if (sub == 0) ad[static_cast<size_t>(di) * kN + ch] = dD;
+  }
+}
+
+// out[i] = part[i] + part[M + i] + ... + part[(K - 1) M + i], in that
+// order: the blocks' (or batch rows') partial sums, the same bits on every
+// launch
+__global__ void __launch_bounds__(256)
+selective_scan_bwd_reduce_kernel(const float* __restrict__ part,
+                                 float* __restrict__ out, int K,
+                                 long long M) {
+  for (long long i = blockIdx.x * 256LL + threadIdx.x; i < M;
+       i += 256LL * gridDim.x) {
+    float acc = part[i];
+    for (int k = 1; k < K; ++k) acc = acc + part[k * M + i];
+    out[i] = acc;
+  }
+}
+
+int reduce_grid(long long M) {
+  const long long blocks = (M + 255) / 256;
+  return static_cast<int>(blocks < 132 * 16 ? blocks : 132 * 16);
+}
+
+template <int kN>
+int launch_bwd(const float* dt, const float* x, const __nv_bfloat16* z,
+               const float* B, const float* C, const float* A,
+               const float* D, const __nv_bfloat16* dy, float* ddt,
+               float* dx, __nv_bfloat16* dz, float* dBC, float* dAD,
+               float* ckpt, float* part_bc, float* part_ad, int bsz, int S,
+               int di, long long z_ld, cudaStream_t stream) {
+  constexpr int kSmem = bwd_smem<kN>();
+  cudaError_t err = cudaFuncSetAttribute(
+      selective_scan_bwd_kernel<kN>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (di + kCh - 1) / kCh;
+  selective_scan_bwd_kernel<kN><<<dim3(blocks, bsz), BwdLt<kN>::kThreads,
+                                  kSmem, stream>>>(
+      dt, x, z, B, C, A, D, dy, ddt, dx, dz, ckpt, part_bc, part_ad, bsz, S,
+      di, z_ld);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long m_bc = 2LL * bsz * S * kN;
+  const long long m_ad = static_cast<long long>(di) * (kN + 1);
+  selective_scan_bwd_reduce_kernel<<<reduce_grid(m_bc), 256, 0, stream>>>(
+      part_bc, dBC, blocks, m_bc);
+  selective_scan_bwd_reduce_kernel<<<reduce_grid(m_ad), 256, 0, stream>>>(
+      part_ad, dAD, bsz, m_ad);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -456,6 +935,49 @@ int selective_scan_layout(int bsz, int S, int di, int N, int* out) {
   if (N == 16) return with_layout<16>(lanes_for(bsz, di, N), describe);
   if (N == 8) return with_layout<8>(lanes_for(bsz, di, N), describe);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The backward of selective_scan_launch's scan for the output gradient dy
+// (bsz, S, di) bf16 contiguous, inputs as there.  Writes ddt, dx (bsz, S,
+// di) float32, dz (bsz, S, di) bf16, dBC (2, bsz, S, N) float32 (dB then
+// dC) and dAD (di N + di) float32 (dA (di, N) then dD); scratch: ckpt
+// (bsz, ceil(S / 16) - 1, di, N), part_bc (ceil(di / 32), 2, bsz, S, N) and
+// part_ad (bsz, di N + di) float32.  Three launches on the stream: the
+// scan's, then the two ordered sums of the partials.
+int selective_scan_bwd_launch(const float* dt, const float* x, const void* z,
+                              const float* B, const float* C, const float* A,
+                              const float* D, const void* dy, float* ddt,
+                              float* dx, void* dz, float* dBC, float* dAD,
+                              float* ckpt, float* part_bc, float* part_ad,
+                              int bsz, int S, int di, int N, long long z_ld,
+                              cudaStream_t stream) {
+  const auto* zb = static_cast<const __nv_bfloat16*>(z);
+  const auto* dyb = static_cast<const __nv_bfloat16*>(dy);
+  auto* dzb = static_cast<__nv_bfloat16*>(dz);
+  if (di % 2 || z_ld % 2) return static_cast<int>(cudaErrorInvalidValue);
+  if (N == 16)
+    return launch_bwd<16>(dt, x, zb, B, C, A, D, dyb, ddt, dx, dzb, dBC, dAD,
+                          ckpt, part_bc, part_ad, bsz, S, di, z_ld, stream);
+  if (N == 8)
+    return launch_bwd<8>(dt, x, zb, B, C, A, D, dyb, ddt, dx, dzb, dBC, dAD,
+                         ckpt, part_bc, part_ad, bsz, S, di, z_ld, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// the layout selective_scan_bwd_launch takes at (bsz, S, di, N): out =
+// {lanes per channel, channels per block, threads per block, steps per
+// chunk, chunks, channel blocks, dynamic shared memory bytes}
+int selective_scan_bwd_layout(int bsz, int S, int di, int N, int* out) {
+  (void)bsz;
+  if (N != 8 && N != 16) return static_cast<int>(cudaErrorInvalidValue);
+  out[0] = N / 2;
+  out[1] = kCh;
+  out[2] = kCh * N / 2;
+  out[3] = kBT;
+  out[4] = (S + kBT - 1) / kBT;
+  out[5] = (di + kCh - 1) / kCh;
+  out[6] = N == 16 ? bwd_smem<16>() : bwd_smem<8>();
+  return 0;
 }
 
 }  // extern "C"

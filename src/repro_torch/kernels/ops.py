@@ -3,8 +3,8 @@
 A CPU tensor goes to the plain PyTorch version (``ref.py``); a CUDA tensor
 goes to the hand-written kernel (``fused_sweep.py``,
 ``chromatic_sweep.py``, ``minibatch_energy.py``, ``local_sweep.py``,
-``flash_attention.py``, forward and backward; ``selective_scan.py``), which
-launches or raises.
+``flash_attention.py`` and ``selective_scan.py``, forward and backward),
+which launches or raises.
 Nothing falls back from one to the other.  The in-kernel-RNG forms of the
 fused sweeps have no entry here (as in the JAX package): they are called
 through ``fused_sweep`` directly.  The local-gibbs sweep draws in-kernel
@@ -24,13 +24,13 @@ from .ref import (bucket_energy_ref, double_min_sweep_ref,
                   flash_attention_bwd_ref, flash_attention_ref,
                   gibbs_class_sweep_ref, gibbs_sweep_ref,
                   local_gibbs_sweep_ref, mgpmh_sweep_ref, min_gibbs_sweep_ref,
-                  selective_scan_ref)
-from .selective_scan import selective_scan_cuda
+                  selective_scan_bwd_ref, selective_scan_ref)
+from .selective_scan import selective_scan_bwd_cuda, selective_scan_cuda
 
 __all__ = ["bucket_energy", "flash_attention", "flash_attention_bwd",
            "gibbs_sweep", "gibbs_class_sweep", "mgpmh_sweep",
            "min_gibbs_sweep", "double_min_sweep", "local_gibbs_sweep",
-           "selective_scan"]
+           "selective_scan", "selective_scan_bwd"]
 
 
 def _route(x, op: str) -> str:
@@ -117,6 +117,24 @@ def selective_scan(dt, x, z, B, C, A, D):
     return selective_scan_cuda(dt.contiguous(), x.contiguous(), z,
                                B.contiguous(), C.contiguous(),
                                A.contiguous(), D.contiguous())
+
+
+def selective_scan_bwd(dt, x, z, B, C, A, D, dy):
+    """(ddt, dx, dz, dB, dC, dA, dD): the gradients of
+    ``selective_scan(dt, x, z, B, C, A, D)`` for the output gradient dy
+    (see ``ref.selective_scan_bwd_ref``; the output's cast to z's dtype
+    taken as the identity).
+
+    Inputs as ``selective_scan``'s; dy (bsz, S, di) in y's dtype (bf16 on
+    the card).  Each gradient in its input's dtype and shape (dz in z's
+    dtype, contiguous).  On the card N in {8, 16}.
+    """
+    if _route(dt, "selective_scan_bwd") == "cpu":
+        return selective_scan_bwd_ref(dt, x, z, B, C, A, D, dy)
+    return selective_scan_bwd_cuda(dt.contiguous(), x.contiguous(), z,
+                                   B.contiguous(), C.contiguous(),
+                                   A.contiguous(), D.contiguous(),
+                                   dy.contiguous())
 
 
 def mgpmh_sweep(x, W, row_pack, i_sites, B, u_idx, u_alias, gumbel, logu,

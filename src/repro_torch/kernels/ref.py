@@ -45,7 +45,8 @@ __all__ = ["bucket_energy_ref", "gibbs_sweep_ref", "gibbs_class_sweep_ref",
            "mgpmh_sweep_rng_ref", "min_gibbs_sweep_rng_ref",
            "double_min_sweep_rng_ref", "local_gibbs_subsets",
            "local_gibbs_sweep_ref", "flash_attention_ref",
-           "flash_attention_bwd_ref", "selective_scan_ref"]
+           "flash_attention_bwd_ref", "selective_scan_ref",
+           "selective_scan_bwd_ref"]
 
 NEG_INF = -1e30     # the masked score of the TPU kernel (not -inf)
 
@@ -87,25 +88,87 @@ def selective_scan_ref(dt: torch.Tensor, x: torch.Tensor, z: torch.Tensor,
       h_t = exp(dt_t A) * h_{t-1} + (dt_t x_t) B_t
       y_t = (sum_n C_t[n] h_t[n] + D x_t) * silu(z_t)
 
-    sequentially in t, in float32, the state's products and sums rounded
-    one by one in the kernel's order (the sum over n in PyTorch's order,
-    the exponential accurate); the function the JAX package's
-    ``mamba_block`` computes with an associative scan
-    (``src/repro/models/ssm.py:61-72``).
+    sequentially in t, in float32 (in dt's dtype where that is wider:
+    float64 in the tests), the state's products and sums rounded one by
+    one in the kernel's order (the sum over n in PyTorch's order, the
+    exponential accurate); the function the JAX package's ``mamba_block``
+    computes with an associative scan (``src/repro/models/ssm.py:61-72``).
 
     dt, x (bsz, S, di) float32; z (bsz, S, di), any strides; B, C (bsz,
     S, N) float32; A (di, N), D (di,) float32; any N.  Returns y (bsz, S,
     di) in z's dtype (the block's compute dtype).
     """
     bsz, S, di = dt.shape
-    h = torch.zeros((bsz, di, A.shape[-1]), dtype=torch.float32,
-                    device=dt.device)
-    y = torch.empty((bsz, S, di), dtype=torch.float32, device=dt.device)
+    ct = torch.promote_types(dt.dtype, torch.float32)
+    h = torch.zeros((bsz, di, A.shape[-1]), dtype=ct, device=dt.device)
+    y = torch.empty((bsz, S, di), dtype=ct, device=dt.device)
     for t in range(S):
         decay = torch.exp(dt[:, t, :, None] * A)
         h = decay * h + (dt[:, t] * x[:, t])[..., None] * B[:, t, None, :]
         y[:, t] = (h * C[:, t, None, :]).sum(-1) + D * x[:, t]
-    return (y * F.silu(z.to(torch.float32))).to(z.dtype)
+    return (y * F.silu(z.to(ct))).to(z.dtype)
+
+
+def selective_scan_bwd_ref(dt: torch.Tensor, x: torch.Tensor,
+                           z: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+                           A: torch.Tensor, D: torch.Tensor, dy: torch.Tensor):
+    """The plain version of the selective-scan backward kernel
+    (``csrc/selective_scan.cu``): the gradients of ``selective_scan_ref``
+    (its final cast taken as the identity) for the output gradient dy.
+
+    One forward pass keeps h_{t-1} and y_pre_t = C_t . h_t + D x_t, then
+    one reverse pass in t, with g = silu(z) and dy_pre = dy g:
+
+      dz_t = dy_t y_pre_t silu'(z_t)
+      dh_t = dy_pre_t C_t + exp(dt_{t+1} A) dh_{t+1}          (dh_S = 0)
+      ddt_t = sum_n dh_t (A exp(dt_t A) h_{t-1} + x_t B_t)
+      dx_t = D dy_pre_t + dt_t sum_n dh_t B_t
+      dB_t = sum_d dt_t x_t dh_t,   dC_t = sum_d dy_pre_t h_t
+      dA = sum_{b,t} dh_t dt_t exp(dt_t A) h_{t-1},   dD = sum_{b,t} dy_pre_t x_t
+
+    in float32, computed as the inputs' dtype when that is wider (float64
+    in the tests).  Sums over n and d in PyTorch's order; dA summed over t
+    from the last step down per batch row, then over the rows; dD in one
+    ``sum`` over (b, t).  Same shapes as the forward, dy (bsz, S, di) in
+    any float dtype; any N.  Returns (ddt, dx, dz, dB, dC, dA, dD), each in
+    its input's dtype (dz in z's: bf16 on the card).
+    """
+    bsz, S, di = dt.shape
+    ct = torch.promote_types(dt.dtype, torch.float32)
+    f = lambda t: t.to(ct)
+    dt, x, B, C, A, D = map(f, (dt, x, B, C, A, D))
+    zf, dyf = f(z), f(dy)
+    sig = torch.sigmoid(zf)
+    dyp = dyf * zf * sig                               # dy silu(z)
+    h = torch.zeros((bsz, di, A.shape[-1]), dtype=ct, device=dt.device)
+    hprev = torch.empty((bsz, S, *h.shape[1:]), dtype=ct, device=dt.device)
+    ypre = torch.empty((bsz, S, di), dtype=ct, device=dt.device)
+    for t in range(S):
+        hprev[:, t] = h
+        h = (torch.exp(dt[:, t, :, None] * A) * h
+             + (dt[:, t] * x[:, t])[..., None] * B[:, t, None, :])
+        ypre[:, t] = (h * C[:, t, None, :]).sum(-1) + D * x[:, t]
+    dz = dyf * ypre * (sig * (1 + zf * (1 - sig)))
+    ddt, dx = torch.empty_like(dt), torch.empty_like(x)
+    dB, dC = torch.empty_like(B), torch.empty_like(C)
+    dA = torch.zeros_like(h)
+    dh = torch.zeros_like(h)
+    decay_next = torch.zeros_like(h)
+    for t in reversed(range(S)):
+        dtx = (dt[:, t] * x[:, t])[..., None]
+        decay = torch.exp(dt[:, t, :, None] * A)
+        q = decay * hprev[:, t]                        # exp(dt A) h_{t-1}
+        h_t = q + dtx * B[:, t, None, :]
+        dh = dyp[:, t, :, None] * C[:, t, None, :] + decay_next * dh
+        dC[:, t] = (dyp[:, t, :, None] * h_t).sum(1)
+        dB[:, t] = (dtx * dh).sum(1)
+        ddt[:, t] = (dh * (A * q + x[:, t, :, None] * B[:, t, None, :])
+                     ).sum(-1)
+        dx[:, t] = D * dyp[:, t] + dt[:, t] * (dh * B[:, t, None, :]).sum(-1)
+        dA += dh * dt[:, t, :, None] * q
+        decay_next = decay
+    dD = (dyp * x).sum((0, 1))
+    return (ddt, dx, dz.to(z.dtype), dB, dC, dA.sum(0), dD)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

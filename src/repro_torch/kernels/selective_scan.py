@@ -1,15 +1,18 @@
-"""PyTorch wrapper of the selective-scan kernel in ``csrc/selective_scan.cu``.
+"""PyTorch wrappers of the selective-scan kernels in
+``csrc/selective_scan.cu``, forward and backward.
 
 The Mamba-1 block's scan over the sequence, its D skip and its gate, in
-one launch (see ``ref.selective_scan_ref`` for the exact semantics).  Like
-the other wrappers (``fused_sweep.py``) it checks dtype, shape, layout and
-device, allocates its output with ``torch.empty``, launches on PyTorch's
-current stream without synchronising, raises if the launch was refused,
-and counts its launches in ``selective_scan_cuda.launches``.  CUDA tensors
-only: the CPU path is the plain version, chosen by ``ops.selective_scan``.
-``scan_layout`` is the layout the kernel takes at a shape (lanes per
-channel chosen from the shape alone); ``kernel_layout`` asks the built
-library for it.
+one launch (see ``ref.selective_scan_ref`` for the exact semantics), and
+its gradients (``ref.selective_scan_bwd_ref``).  Like the other wrappers
+(``fused_sweep.py``) each checks dtype, shape, layout and device,
+allocates its outputs and scratch with ``torch.empty``, launches on
+PyTorch's current stream without synchronising, raises if the launch was
+refused, and counts its launches (``selective_scan_cuda.launches``,
+``selective_scan_bwd_cuda.launches``).  CUDA tensors only: the CPU path is
+the plain version, chosen by ``ops``.  ``scan_layout`` and
+``scan_bwd_layout`` are the layouts the kernels take at a shape, from the
+shape alone; ``kernel_layout`` and ``kernel_bwd_layout`` ask the built
+library for them.
 """
 from __future__ import annotations
 
@@ -20,7 +23,9 @@ import torch
 from ._build import load_library
 from .fused_sweep import _check, _check_cuda, _launch
 
-__all__ = ["selective_scan_cuda", "STATES", "scan_layout", "kernel_layout"]
+__all__ = ["selective_scan_cuda", "selective_scan_bwd_cuda", "STATES",
+           "scan_layout", "kernel_layout", "scan_bwd_layout",
+           "kernel_bwd_layout"]
 
 # state sizes the kernel is built for (csrc/selective_scan.cu): the smoke
 # configs' 8 and falcon-mamba-7b's and hymba-1.5b's 16
@@ -81,31 +86,9 @@ def _row_stride(z: torch.Tensor, S: int, di: int) -> int:
     return ld
 
 
-def selective_scan_cuda(dt: torch.Tensor, x: torch.Tensor, z: torch.Tensor,
-                        B: torch.Tensor, C: torch.Tensor, A: torch.Tensor,
-                        D: torch.Tensor) -> torch.Tensor:
-    """y_t = bf16((C_t . h_t + D x_t) silu(z_t)) with h_t = exp(dt_t A)
-    h_{t-1} + (dt_t x_t) B_t from h_{-1} = 0, per (batch, channel).
-
-    dt, x (bsz, S, di) float32 contiguous, di even; z (bsz, S, di)
-    bfloat16 with evenly spaced rows an even number of elements apart,
-    4-byte aligned (a contiguous tensor or a row-strided view such as the
-    gate half of the input projection, read in place); B, C (bsz, S, N),
-    A (di, N) and D (di,) float32 contiguous; N in ``STATES``; all on the
-    card.  Returns y (bsz, S, di) bfloat16, the same bits on every
-    launch.
-
-    Replaces no Pallas kernel: the JAX package's ``mamba_block``
-    (``src/repro/models/ssm.py:42-73``) runs ``jax.lax.associative_scan``
-    over (bsz, S, di, N) float32 decay and drive tensors (``:70``), jnp.
-    Bound about evenly by the bytes (each input read once, y written once)
-    and the exponentials (N + 1 per (b, t, d)).  Each channel's N states
-    are spread over ``scan_layout(...)["lanes"]`` lanes; the C . h sums of
-    a group of steps are reduced across a channel's lanes once per group,
-    and one lane gates and stores each (t, d); each tile's inputs are
-    staged in shared memory by cp.async, transposed, while the previous
-    tile computes.
-    """
+def _check_inputs(dt, x, z, B, C, A, D):
+    """The forward's and the backward's checks of the inputs' dtypes,
+    shapes and layouts; returns (bsz, S, d_inner, N, z's row stride)."""
     if dt.dim() != 3 or A.dim() != 2:
         raise ValueError(f"dt must be (bsz, S, d_inner) and A (d_inner, N), "
                          f"got shapes {tuple(dt.shape)} and "
@@ -133,6 +116,35 @@ def selective_scan_cuda(dt: torch.Tensor, x: torch.Tensor, z: torch.Tensor,
     _check(C, "C", torch.float32, (bsz, S, N))
     _check(A, "A", torch.float32, (di, N))
     _check(D, "D", torch.float32, (di,))
+    return bsz, S, di, N, ld
+
+
+def selective_scan_cuda(dt: torch.Tensor, x: torch.Tensor, z: torch.Tensor,
+                        B: torch.Tensor, C: torch.Tensor, A: torch.Tensor,
+                        D: torch.Tensor) -> torch.Tensor:
+    """y_t = bf16((C_t . h_t + D x_t) silu(z_t)) with h_t = exp(dt_t A)
+    h_{t-1} + (dt_t x_t) B_t from h_{-1} = 0, per (batch, channel).
+
+    dt, x (bsz, S, di) float32 contiguous, di even; z (bsz, S, di)
+    bfloat16 with evenly spaced rows an even number of elements apart,
+    4-byte aligned (a contiguous tensor or a row-strided view such as the
+    gate half of the input projection, read in place); B, C (bsz, S, N),
+    A (di, N) and D (di,) float32 contiguous; N in ``STATES``; all on the
+    card.  Returns y (bsz, S, di) bfloat16, the same bits on every
+    launch.
+
+    Replaces no Pallas kernel: the JAX package's ``mamba_block``
+    (``src/repro/models/ssm.py:42-73``) runs ``jax.lax.associative_scan``
+    over (bsz, S, di, N) float32 decay and drive tensors (``:70``), jnp.
+    Bound about evenly by the bytes (each input read once, y written once)
+    and the exponentials (N + 1 per (b, t, d)).  Each channel's N states
+    are spread over ``scan_layout(...)["lanes"]`` lanes; the C . h sums of
+    a group of steps are reduced across a channel's lanes once per group,
+    and one lane gates and stores each (t, d); each tile's inputs are
+    staged in shared memory by cp.async, transposed, while the previous
+    tile computes.
+    """
+    bsz, S, di, N, ld = _check_inputs(dt, x, z, B, C, A, D)
     _check_cuda([dt, x, z, B, C, A, D])
     y = torch.empty((bsz, S, di), dtype=torch.bfloat16, device=dt.device)
     if y.numel() == 0:
@@ -144,3 +156,109 @@ def selective_scan_cuda(dt: torch.Tensor, x: torch.Tensor, z: torch.Tensor,
 
 
 selective_scan_cuda.launches = 0
+
+
+# csrc/selective_scan.cu's backward: a block is _CHANNELS channels x N / 2
+# lanes (two states a lane), walking the sequence in _BWD_TILE-step chunks
+_BWD_TILE = 16
+
+
+def scan_bwd_layout(bsz: int, S: int, di: int, N: int) -> dict:
+    """The backward kernel's layout at (bsz, S, d_inner, N), from the shape
+    alone: ``lanes`` per channel (N / 2, two states each), ``channels`` and
+    ``threads`` per block, ``tile`` (steps per chunk), ``chunks``,
+    ``channel_blocks`` (blocks along d_inner; bsz of them along the batch),
+    ``smem`` (dynamic shared memory bytes a block), and the float32
+    scratch the wrapper allocates: ``ckpt`` (the states at the chunks'
+    ends), ``part_bc`` (each channel block's dB and dC sums) and
+    ``part_ad`` (each batch row's dA and dD sums), in elements."""
+    if N not in STATES:
+        raise ValueError(f"state size N={N} is not supported by the "
+                         f"selective-scan kernel (built for {STATES})")
+    chunks = -(-S // _BWD_TILE)
+    blocks = -(-di // _CHANNELS)
+    # two stages of dt, x (transposed, rows of tile + 4 floats), B, C (the
+    # same) and z, dy (bf16 rows of 34), the dB / dC terms of the block's N
+    # warps, dy silu(z) and dy silu'(z) (as dt), and ddt, dx, dz
+    row = _BWD_TILE + 4
+    smem = (2 * (4 * row * (2 * _CHANNELS + 2 * N)
+                 + 2 * 2 * _BWD_TILE * (_CHANNELS + 2))
+            + 4 * 2 * _BWD_TILE * N * N // 2 + 4 * 2 * _CHANNELS * row
+            + 10 * _BWD_TILE * _CHANNELS)
+    return dict(lanes=N // 2, channels=_CHANNELS, threads=_CHANNELS * N // 2,
+                tile=_BWD_TILE, chunks=chunks, channel_blocks=blocks,
+                smem=smem, ckpt=bsz * max(chunks - 1, 0) * di * N,
+                part_bc=blocks * 2 * bsz * S * N,
+                part_ad=bsz * (di * N + di))
+
+
+def kernel_bwd_layout(bsz: int, S: int, di: int, N: int) -> dict:
+    """The layout the built library's backward takes at the shape (its
+    ``selective_scan_bwd_layout``).  Builds the library at first use."""
+    out = (ctypes.c_int * 7)()
+    info = load_library()
+    err = info.fns["selective_scan_bwd_layout"](int(bsz), int(S), int(di),
+                                                int(N), ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"selective_scan_bwd_layout refused N={N}: "
+                           f"{info.lib.cuda_error_string(err).decode()}")
+    return dict(zip(("lanes", "channels", "threads", "tile", "chunks",
+                     "channel_blocks", "smem"), out))
+
+
+def selective_scan_bwd_cuda(dt: torch.Tensor, x: torch.Tensor,
+                            z: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+                            A: torch.Tensor, D: torch.Tensor,
+                            dy: torch.Tensor):
+    """The gradients (ddt, dx, dz, dB, dC, dA, dD) of
+    ``selective_scan_cuda(dt, x, z, B, C, A, D)`` for the output gradient
+    dy (``ref.selective_scan_bwd_ref``, the output's bf16 cast taken as the
+    identity).
+
+    Inputs as ``selective_scan_cuda`` takes them (z may be the strided gate
+    half of the input projection), dy (bsz, S, di) bfloat16 contiguous,
+    4-byte aligned; all on the card.  Returns ddt, dx (bsz, S, di), dB, dC
+    (bsz, S, N), dA (di, N), dD (di,) float32 and dz (bsz, S, di)
+    bfloat16, the same bits on every launch: one call is three launches on
+    the current stream (counted as one), no synchronisation.
+
+    Replaces no Pallas kernel: the JAX package takes this gradient by
+    ``jax.grad`` through ``mamba_block``'s associative scan
+    (``src/repro/models/ssm.py:61-72``), jnp.  The state at every step is
+    needed in reverse time; nothing is saved by the forward: a first pass
+    writes h at the end of every 16-step chunk to scratch, then each chunk,
+    last first, recomputes its states from the checkpoint before it and
+    runs the reverse recurrence.  Bound by the bytes (dt, x, dy, z read,
+    ddt, dx, dz written: 22 per (b, t, d)) against the exponentials (N + 1
+    per (b, t, d)).  dB and dC (sums over d_inner) and dA and dD (sums over
+    batch and steps) leave as per-block partial sums that a second kernel
+    adds in a fixed order: no atomics.
+    """
+    bsz, S, di, N, ld = _check_inputs(dt, x, z, B, C, A, D)
+    if (dy.dtype != torch.bfloat16 or tuple(dy.shape) != (bsz, S, di)
+            or not dy.is_contiguous()):
+        raise ValueError(f"dy must be contiguous torch.bfloat16 of shape "
+                         f"{(bsz, S, di)}, got {dy.dtype} "
+                         f"{tuple(dy.shape)}")
+    if dy.data_ptr() % 4:
+        raise ValueError(f"dy must start 4-byte aligned, data pointer "
+                         f"{dy.data_ptr()}")
+    _check_cuda([dt, x, z, B, C, A, D, dy])
+    lay = scan_bwd_layout(bsz, S, di, N)
+    f32 = dict(dtype=torch.float32, device=dt.device)
+    ddt, dx = torch.empty_like(dt), torch.empty_like(x)
+    dz = torch.empty((bsz, S, di), dtype=torch.bfloat16, device=dt.device)
+    dBC = torch.zeros((2, bsz, S, N), **f32)
+    dAD = torch.zeros(di * N + di, **f32)
+    if dt.numel():
+        scratch = [torch.empty(lay[k], **f32)
+                   for k in ("ckpt", "part_bc", "part_ad")]
+        _launch("selective_scan_bwd_launch", dt,
+                (dt, x, z, B, C, A, D, dy, ddt, dx, dz, dBC, dAD, *scratch,
+                 bsz, S, di, N, ld))
+        selective_scan_bwd_cuda.launches += 1
+    return (ddt, dx, dz, dBC[0], dBC[1], dAD[:di * N].view(di, N),
+            dAD[di * N:])
+
+
+selective_scan_bwd_cuda.launches = 0

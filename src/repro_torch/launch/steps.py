@@ -31,16 +31,15 @@ def make_train_step(cfg: ModelConfig, *, base_lr: float = 3e-4,
                     loss_chunk: int = 2048):
     """train_step(params, opt_state, batch) -> (params, opt_state,
     metrics): the loss and its gradient (``models.transformer.loss_fn``,
-    backward through the flash backward kernel on the card), then one
-    AdamW update IN PLACE on ``params`` (a master-form ``Transformer``) and
-    ``opt_state``.  With ``cfg.microbatches`` m > 1 the batch is split
-    into m microbatches along B; their float32 gradients are summed one
-    microbatch at a time (activations live one microbatch at a time) and
-    divided by m, as is the loss.  metrics: ``loss`` and ``grad_norm`` as
-    0-d float32 tensors on the model's device (nothing is read back), and
-    ``lr`` (a float).  Raises NotImplementedError for the SSM and hybrid
-    families (``models.transformer.check_trainable``)."""
-    T.check_trainable(cfg)
+    backward through the flash and selective-scan backward kernels on the
+    card), then one AdamW update IN PLACE on ``params`` (a master-form
+    ``Transformer``) and ``opt_state``.  With ``cfg.microbatches`` m > 1
+    the batch is split into m microbatches along B; their float32
+    gradients are summed one microbatch at a time (activations live one
+    microbatch at a time) and divided by m, as is the loss.  metrics:
+    ``loss`` and ``grad_norm`` as 0-d float32 tensors on the model's
+    device (nothing is read back), and ``lr`` (a float).  Any ported
+    family: dense GQA, SSM, hybrid."""
     lr_fn = cosine_schedule(base_lr, warmup, total_steps)
 
     def train_step(params: T.Transformer, opt_state: AdamWState,

@@ -4,7 +4,8 @@ straggler watchdog and deterministic data addressing -- the counterpart of
 ``--device`` names another).
 
 Example (CPU, reduced config; ``examples/torch_train_lm.py`` drives this
-entry point):
+entry point; ``--arch`` takes any ported family, falcon-mamba-7b and
+hymba-1.5b among them):
   PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \\
       --smoke --steps 50 --global-batch 8 --seq 256 --ckpt-dir /tmp/ck \\
       --device cpu

@@ -1,12 +1,16 @@
 """Mamba-1 selective state-space block (the falcon-mamba / hymba branch) in
 PyTorch: the counterpart of ``repro/models/ssm.py``.
 
-Prefill (``mamba_block``) runs the selective scan, with its D skip and
-gate, through ``ops.selective_scan``: on the card the hand-written kernel
-(``kernels/csrc/selective_scan.cu``), on the CPU its plain version; the
-reference's associative scan over (B, S, d_inner, N) float32 tensors has
-no counterpart here.  Decode (``mamba_decode_step``) is the O(1) one-token
-recurrence on the carried (conv, state), eager on both devices.
+Prefill and training (``mamba_block``) run the selective scan, with its
+D skip and gate, through ``ops.selective_scan``: on the card the
+hand-written kernel (``kernels/csrc/selective_scan.cu``), on the CPU its
+plain version; the reference's associative scan over (B, S, d_inner, N)
+float32 tensors has no counterpart here.  With grad on, the scan is
+``SelectiveScan``, whose backward is ``ops.selective_scan_bwd`` (the
+backward kernel of the same source on the card), where the reference
+takes ``jax.grad`` through its scan.  Decode (``mamba_decode_step``) is
+the O(1) one-token recurrence on the carried (conv, state), eager on both
+devices.
 
 Mixed precision follows the reference's promotions exactly, after its
 ``_cast_params`` (every leaf of two dimensions in bf16, ``A_log`` and
@@ -34,7 +38,7 @@ from ..kernels import ops
 from .layers import COMPUTE_DTYPE, compute_weight, new_weight
 
 __all__ = ["mamba_block", "mamba_decode_step", "SSMCache", "init_ssm_cache",
-           "Mamba"]
+           "Mamba", "SelectiveScan"]
 
 
 class SSMCache(NamedTuple):
@@ -76,6 +80,23 @@ def _ssm_params(x_conv, p, n_state: int):
     return dt, Bmat, Cmat, A
 
 
+class SelectiveScan(torch.autograd.Function):
+    """``ops.selective_scan`` with its gradient ``ops.selective_scan_bwd``:
+    on the card the forward and backward kernels, on the CPU their plain
+    versions.  Saves the seven inputs (z as the view it was given, the
+    gate half of the input projection); the backward kernel recomputes the
+    states from them and keeps no (S, d_inner, N) tensor."""
+
+    @staticmethod
+    def forward(ctx, dt, x, z, B, C, A, D):
+        ctx.save_for_backward(dt, x, z, B, C, A, D)
+        return ops.selective_scan(dt, x, z, B, C, A, D)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return ops.selective_scan_bwd(*ctx.saved_tensors, dy)
+
+
 def mamba_block(x: torch.Tensor, p: Dict[str, torch.Tensor], *, n_state: int,
                 conv_kernel: int = 4) -> torch.Tensor:
     """Full-sequence selective scan.  x: (B, S, d).
@@ -99,14 +120,12 @@ def mamba_block(x: torch.Tensor, p: Dict[str, torch.Tensor], *, n_state: int,
 
     dt, Bm, Cm, A = _ssm_params(xc, p, n_state)
     ins = (dt, xc.to(torch.float32), z, Bm, Cm, A, p["D"])
-    if x.device.type == "cuda" and torch.is_grad_enabled() and any(
-            t.requires_grad for t in ins):
-        raise NotImplementedError(
-            "the selective-scan kernel has no backward yet (ROADMAP.md Queue "
-            "1 item 10a-train); run the prefill under torch.no_grad()")
     # h_t = exp(dt A) h_{t-1} + dt B_t x_t;  y_t = (C_t . h_t + D x_t)
     # silu(z_t), in z's dtype
-    y = ops.selective_scan(*ins)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
+        y = SelectiveScan.apply(*ins)
+    else:
+        y = ops.selective_scan(*ins)
     return (y.to(x.dtype) @ p["w_out"]).to(x.dtype)
 
 

@@ -7,8 +7,7 @@ h2o-danube-3-4b, gemma3-12b, starcoder2-7b: swiglu or gelu MLP, any
 (falcon-mamba-7b: mamba layers, no attention, no MLP) and the hybrid one
 (hymba-1.5b: attention and mamba heads in parallel, then the MLP).  The
 other families (MoE, MLA, encoder-decoder, VLM stub) raise
-``NotImplementedError``; so does training an SSM or hybrid config (the
-selective scan has no backward kernel yet).
+``NotImplementedError``.  Every ported family trains (``loss_fn``).
 
 Design notes
 ------------
@@ -38,7 +37,10 @@ Design notes
   ``len(window_pattern)`` layers is rematerialised
   (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of its
   scan body; ``remat_policy`` "full").  The attention gradient is the
-  flash backward kernel (``models/attention.py``, ``FlashAttention``).
+  flash backward kernel (``models/attention.py``, ``FlashAttention``),
+  the selective scan's the scan's backward kernel (``models/ssm.py``,
+  ``SelectiveScan``); each kernel's forward runs twice a step (the
+  forward and its rematerialisation), its backward once.
 * **Decode caches**, laid out as the reference's, per slot p: attention
   ring buffers of ``min(window, seq)`` slots with an absolute-position
   array (``pos``) for masking, ``k``/``v`` (G, B, KVH, S_w, hd) and
@@ -71,7 +73,7 @@ from .layers import (COMPUTE_DTYPE, compute_weight as _compute,
 __all__ = ["Transformer", "init_params", "params_from_jax", "forward",
            "loss_fn", "init_cache", "decode_step", "param_count",
            "active_param_count", "model_flops_per_token", "decay_mask",
-           "check_trainable", "decode_gap_by_layer", "COMPUTE_DTYPE"]
+           "decode_gap_by_layer", "COMPUTE_DTYPE"]
 
 
 def _pad_vocab(v: int) -> int:
@@ -100,15 +102,6 @@ def _require_ported(cfg: ModelConfig) -> None:
             f"{cfg.name}: the {family} family is not ported yet (ROADMAP.md "
             f"Queue 1 item 10: the port runs the dense GQA, SSM and hybrid "
             f"families)")
-
-
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raise for a config whose training the port does not run yet."""
-    if cfg.has_ssm:
-        raise NotImplementedError(
-            f"{cfg.name}: training the SSM / hybrid family is not ported "
-            f"yet (ROADMAP.md Queue 1 item 10a-train: the selective scan's "
-            f"backward kernel)")
 
 
 def _param_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
@@ -503,8 +496,8 @@ def loss_fn(cfg: ModelConfig, params: Transformer, batch: Dict[str, Any],
     sequence chunks so the (S, V) logits never materialise whole: each
     chunk's logits are rematerialised in the backward, as the reference
     ``jax.checkpoint``s each; the forward rematerialises each layer group.
-    batch: tokens (B, S), labels (B, S) with -1 = ignore."""
-    check_trainable(cfg)
+    batch: tokens (B, S), labels (B, S) with -1 = ignore.  Any ported
+    family: dense GQA, SSM, hybrid."""
     if batch.get("frontend_embeds") is not None:
         raise NotImplementedError(
             f"{cfg.name}: frontend embeddings (VLM / audio) are not ported "

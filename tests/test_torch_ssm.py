@@ -10,16 +10,26 @@ on a machine with a CUDA card, the kernel against its plain version.
     the JAX functions on the same bf16 weights and inputs (numpy from a
     seed), at the smoke configs' SSM widths and at N=16 with a d_inner
     that is not a power of two;
-  * ``init_ssm_cache``'s layout; the wrapper's refusals (state sizes it is
-    not built for, z's dtype and layout, CPU tensors) before any launch;
-    the training refusal of the SSM and hybrid families;
+  * ``init_ssm_cache``'s layout; the wrappers' refusals (state sizes they
+    are not built for, z's and dy's dtype and layout, CPU tensors) before
+    any launch;
   * the kernel's layout (``scan_layout``, lanes a channel chosen from the
     shape) at every shape the card runs it at: valid, the fewest lanes
     that reach the launch target, every built instance reached, the
-    model layers' warps a scheduler;
+    model layers' warps a scheduler; the backward's (``scan_bwd_layout``:
+    two states a lane, 16-step chunks) and its scratch;
+  * ``SelectiveScan`` (the scan with its gradient) on the CPU: the plain
+    backward's gradients, and no graph without grad;
   * (gpu) the kernel against its plain version at ragged shapes and the
     layout's edges, bit-equal between launches, z read in place from the
-    input projection; the library's layout equal to ``scan_layout``'s.
+    input projection; the library's layout equal to ``scan_layout``'s;
+    the backward kernel against its plain version at the model layers'
+    shapes and ragged ones, bit-equal between launches, its layout equal
+    to ``scan_bwd_layout``'s, and ``mamba_block``'s backward through it.
+
+The backward's plain version against ``jax.grad`` and float64 autograd,
+and training the SSM and hybrid families, are in
+``tests/test_torch_ssm_train.py``.
 """
 import importlib.util
 from pathlib import Path
@@ -36,9 +46,7 @@ from repro_torch.configs import registry as treg  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels import selective_scan as tscan  # noqa: E402
-from repro_torch.launch import steps as tsteps  # noqa: E402
 from repro_torch.models import ssm as tssm  # noqa: E402
-from repro_torch.models import transformer as tT  # noqa: E402
 
 try:    # the JAX reference; a machine with the card may have no JAX, and
     # runs only the gpu tests below, which do not read it
@@ -308,17 +316,57 @@ def test_scan_kernel_refusals():
     assert tscan._row_stride(zz, 5, 12) == 24
 
 
-@pytest.mark.parametrize("name", ["falcon-mamba-7b", "hymba-1.5b"])
-def test_ssm_training_is_refused(name):
-    """No path trains through the plain scan: loss_fn and make_train_step
-    refuse the SSM and hybrid families by name."""
-    cfg = treg.get_arch(name, smoke=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10a-train"):
-        tsteps.make_train_step(cfg)
-    model = tT.init_params(cfg, device="cpu", master=True)
-    toks = torch.ones((1, 8), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10a-train"):
-        tT.loss_fn(cfg, model, {"tokens": toks, "labels": toks})
+def test_scan_bwd_kernel_refusals():
+    """The backward wrapper checks its inputs as the forward's does, and
+    dy, before any launch."""
+    args = _kernel_args()
+    dy = torch.zeros((2, 5, 12), dtype=torch.bfloat16)
+    before = tscan.selective_scan_bwd_cuda.launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tscan.selective_scan_bwd_cuda(*args, dy)
+    with pytest.raises(ValueError, match="state size N=4"):
+        tscan.selective_scan_bwd_cuda(*_kernel_args(N=4), dy)
+    with pytest.raises(ValueError, match="d_inner 13 is odd"):
+        tscan.selective_scan_bwd_cuda(*_kernel_args(di=13), dy)
+    bad = list(args)
+    bad[2] = args[2].float()
+    with pytest.raises(ValueError, match="z must be torch.bfloat16"):
+        tscan.selective_scan_bwd_cuda(*bad, dy)
+    for wrong in (dy.float(), dy[:, :4],
+                  dy.transpose(1, 2).contiguous().transpose(1, 2)):
+        with pytest.raises(ValueError, match="dy must be contiguous"):
+            tscan.selective_scan_bwd_cuda(*args, wrong)
+    with pytest.raises(ValueError, match="dy must start 4-byte aligned"):
+        tscan.selective_scan_bwd_cuda(
+            *args, torch.zeros(121, dtype=torch.bfloat16)[1:].view(2, 5, 12))
+    assert tscan.selective_scan_bwd_cuda.launches == before
+
+
+def test_selective_scan_function_takes_the_plain_backward_on_the_cpu():
+    """With grad on, mamba_block's scan is ``SelectiveScan``: its gradients
+    are the plain backward's (``ops.selective_scan_bwd``) for the bf16
+    output's gradient, bit for bit, each in its input's dtype; without
+    grad no graph is built."""
+    ins = [torch.from_numpy(a) for a in _scan_inputs(7, 2, 20, 16, 8)]
+    ins[2] = torch.cat([ins[2], ins[2]], -1).to(torch.bfloat16)[..., 16:]
+    leaves = [t.detach().clone().requires_grad_() for t in ins]
+    y = tssm.SelectiveScan.apply(*leaves)
+    assert y.dtype == torch.bfloat16
+    assert torch.equal(y, ops.selective_scan(*ins))
+    dy = torch.from_numpy(np.random.default_rng(8).normal(
+        size=tuple(y.shape)).astype(np.float32)).to(torch.bfloat16)
+    y.backward(dy)
+    want = ops.selective_scan_bwd(*ins, dy)
+    for leaf, w in zip(leaves, want):
+        assert leaf.grad.dtype == leaf.dtype
+        assert torch.equal(leaf.grad, w)
+    p = {k: torch.from_numpy(v).to(torch.bfloat16) if v.ndim >= 2
+         else torch.from_numpy(v)
+         for k, v in _block_params(0, 16, 32, 8, 4, 4).items()}
+    with torch.no_grad():
+        out = tssm.mamba_block(torch.zeros((1, 4, 16), dtype=torch.bfloat16),
+                               p, n_state=8)
+    assert out.grad_fn is None
 
 
 # ---------------------------------------------------------------------------
@@ -394,6 +442,34 @@ def test_scan_layout_reaches_every_instance_and_fills_the_card():
         tscan.scan_layout(1, 8, 64, 4)
 
 
+# (bsz, S, d_inner, N) of the backward on the card: each model layer
+# (falcon-mamba-7b's, hymba-1.5b's at B=8 and B=1), S = 1, S off the
+# 16-step chunk, d_inner off the 32-channel block (a last warp of two live
+# and two idle channels at N = 8), N = 8 and 16: chip_smoke.py's
+# SCAN_BWD_SHAPES
+BWD_CARD_SHAPES = _CS.SCAN_BWD_SHAPES
+
+
+@pytest.mark.parametrize("shape", BWD_CARD_SHAPES)
+def test_scan_bwd_layout_and_scratch(shape):
+    """The backward's layout: two states a lane, 32 channels a block, 16-step
+    chunks, its shared memory within the H100's 227 KB a block, and
+    scratch for every chunk's checkpoint but the last, each channel
+    block's dB and dC rows and each batch row's dA and dD."""
+    bsz, S, di, N = shape
+    lay = tscan.scan_bwd_layout(*shape)
+    assert (lay["lanes"], lay["channels"], lay["threads"], lay["tile"]) \
+        == (N // 2, 32, 16 * N, 16)
+    assert lay["chunks"] == -(-S // 16)
+    assert lay["channel_blocks"] == -(-di // 32)
+    assert lay["smem"] <= 227 * 1024
+    assert lay["ckpt"] == bsz * (lay["chunks"] - 1) * di * N
+    assert lay["part_bc"] == lay["channel_blocks"] * 2 * bsz * S * N
+    assert lay["part_ad"] == bsz * di * (N + 1)
+    with pytest.raises(ValueError, match="state size N=4"):
+        tscan.scan_bwd_layout(bsz, S, di, 4)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -427,3 +503,84 @@ def test_library_layout_equals_scan_layout(cuda):
         built = tscan.kernel_layout(*shape)
         lay = tscan.scan_layout(*shape)
         assert built == {k: lay[k] for k in built}, shape
+
+
+# The backward kernel against the plain float32 backward, relative
+# Frobenius error per gradient.  Both run the same recurrences in float32,
+# but the kernel's exponentials are ex2.approx (a few ulps off expf) and
+# its sums over states and channels are butterflies and ordered partial
+# sums against PyTorch's order; dz is a bf16 rounding of a product of such
+# values, which lands one ulp apart here and there.  Measured on the H100
+# at BWD_CARD_SHAPES: the float32 gradients at most 2.3e-6 (dA), dz at
+# most 2.6e-5; the bounds keep about eight times that.
+BWD_CARD_TOL = {"float32": 2e-5, "dz": 2e-4}
+# mamba_block's gradients on the card against the CPU's: the block's bf16
+# GEMMs round their sums in other orders on the two devices (a bf16 ulp
+# here and there), and those values travel on through the backward.
+# Measured on the H100 over four seeds at this width and the smoke
+# configs': at most 6.9e-4 (A_log); the bound keeps about seven times that
+MAMBA_GRAD_TOL = 5e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", BWD_CARD_SHAPES)
+def test_scan_bwd_kernel_equals_plain_on_the_card(cuda, shape):
+    bsz, S, di, N = shape
+    dt, x, z, B, C, A, D = (torch.from_numpy(a).to(cuda) for a in
+                            _scan_inputs(sum(shape), *shape))
+    z = torch.cat([z, z], -1).to(torch.bfloat16)[..., di:]
+    dy = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(bsz, S, di)).astype(np.float32)).to(cuda, torch.bfloat16)
+    ins = (dt, x, z, B, C, A, D)
+    before = tscan.selective_scan_bwd_cuda.launches
+    got = ops.selective_scan_bwd(*ins, dy)
+    again = ops.selective_scan_bwd(*ins, dy)
+    assert tscan.selective_scan_bwd_cuda.launches - before == 2
+    want = tref.selective_scan_bwd_ref(*ins, dy)
+    torch.cuda.synchronize()
+    for name, g, a, w, t in zip(("ddt", "dx", "dz", "dB", "dC", "dA", "dD"),
+                                got, again, want, ins):
+        assert g.dtype == t.dtype and g.shape == t.shape, name
+        assert torch.equal(g, a), name
+        assert bool(torch.isfinite(g).all()), name
+        rel = float((g.float() - w.float()).norm()
+                    / w.float().norm().clamp_min(1e-30))
+        assert rel < BWD_CARD_TOL["dz" if name == "dz" else "float32"], (
+            name, rel)
+
+
+@pytest.mark.gpu
+def test_library_bwd_layout_equals_scan_bwd_layout(cuda):
+    for shape in BWD_CARD_SHAPES:
+        built = tscan.kernel_bwd_layout(*shape)
+        lay = tscan.scan_bwd_layout(*shape)
+        assert built == {k: lay[k] for k in built}, shape
+
+
+@pytest.mark.gpu
+def test_mamba_block_backward_on_the_card(cuda):
+    """mamba_block's gradients on the card (the scan's forward kernel once,
+    its backward kernel once) near the CPU's (the plain versions), on the
+    same bf16 weights and inputs: within the bf16 rounding of the block's
+    GEMMs, which the two devices sum in other orders."""
+    d, di, N, K, r = 64, 96, 16, 4, 8
+    p = _block_params(9, d, di, N, K, r)
+    x = np.random.default_rng(10).normal(size=(2, 40, d)).astype(np.float32)
+    grads = []
+    for dev in ("cpu", cuda):
+        tp = {k: (torch.from_numpy(v).to(dev, torch.bfloat16) if v.ndim >= 2
+                  else torch.from_numpy(v).to(dev)).requires_grad_()
+              for k, v in p.items()}
+        tx = torch.from_numpy(x).to(dev, torch.bfloat16).requires_grad_()
+        f0, b0 = (tscan.selective_scan_cuda.launches,
+                  tscan.selective_scan_bwd_cuda.launches)
+        out = tssm.mamba_block(tx, tp, n_state=N, conv_kernel=K)
+        out.float().square().sum().backward()
+        if dev != "cpu":
+            assert (tscan.selective_scan_cuda.launches - f0,
+                    tscan.selective_scan_bwd_cuda.launches - b0) == (1, 1)
+        grads.append([tx.grad.float().cpu()] + [tp[k].grad.float().cpu()
+                                                 for k in tssm.Mamba.LEAVES])
+    for name, g, w in zip(("x",) + tssm.Mamba.LEAVES, *grads):
+        rel = float((g - w).norm() / w.norm().clamp_min(1e-30))
+        assert rel < MAMBA_GRAD_TOL, (name, rel)

@@ -373,10 +373,11 @@ KERNELS = ("gibbs_sweep", "gibbs_class_sweep", "mgpmh_sweep",
 # Gibbs sweep and both MGPMH forms one per register width (2, 4, 8, 10,
 # 16 buckets) and the class kernel one per width (2, 4, 8, 16); the
 # telemetry update one; the flash backward seven (D, then dK/dV and dQ at
-# padded head dims 64, 128, 256); the selective scan nine (lanes per
-# channel 1, 2, 4, 8, 16 at N = 16 and 1, 2, 4, 8 at N = 8), its backward
-# three (N = 8 and 16, and the ordered sum of the partials)
-PTXAS_ENTRIES = len(KERNELS) - 8 + (6 + 4) + 3 * 5 + 4 + 7 + 9 + 3
+# padded head dims 64, 128, 256); the selective scan eighteen (lanes per
+# channel 1, 2, 4, 8, 16 at N = 16 and 1, 2, 4, 8 at N = 8, each without
+# and with the checkpoints), its backward five (four and two states a lane
+# at N = 8 and 16, and the ordered sum of the partials)
+PTXAS_ENTRIES = len(KERNELS) - 8 + (6 + 4) + 3 * 5 + 4 + 7 + 18 + 5
 # the Gibbs ring kernel's new shapes (C, S, D, n): tests/test_torch_sweep.py
 # GIBBS_RING_SHAPES (D > the register width, a ragged n, S = 1, an odd n
 # that takes the chunked ring)
@@ -516,16 +517,26 @@ RESUME_STEPS, RESUME_EVERY, RESUME_FAIL = 6, 3, 4
 GEMMA_ARCH, GEMMA_LAYERS, GEMMA_B, GEMMA_S = "gemma3-12b", 6, 1, 4096
 # 12f: the selective scan's backward against its plain version (bsz, S,
 # d_inner, N): the SCAN_TIMED layer shapes (timed), then S = 1, S off the
-# 16-step chunk, d_inner off the 32-channel block (at N = 8 a warp holds
-# four channels: (40, 3, 2002, 8) ends on a warp of two live and two idle
-# ones), N = 8; z the strided gate half of scan_inputs throughout
+# 16-step chunk, d_inner off the 32-channel block at both layouts
+# (selective_scan.scan_bwd_layout: two states a lane at (2, 70, 100, 16)
+# and (2, 21, 4002, 8), four at (5, 17, 3394, 16), (40, 3, 2002, 8),
+# (3, 48, 3000, 16) and (4, 17, 4002, 8); 3394 and 4002 end on a block of
+# two live channels), S = 16 k (16, 48: no partial chunk, the last
+# checkpoint one chunk before the end) and 16 k + 1 (17, 33: a last chunk
+# of one step), N = 8; z the strided gate half of scan_inputs throughout
 SCAN_BWD_SHAPES = [*SCAN_TIMED.values(), (2, 1, 64, 16), (1, 100, 64, 16),
                    (2, 70, 100, 16), (3, 130, 200, 8), (1, 33, 64, 16),
-                   (5, 17, 3394, 16), (2, 21, 4002, 8), (40, 3, 2002, 8)]
+                   (5, 17, 3394, 16), (2, 21, 4002, 8), (40, 3, 2002, 8),
+                   (2, 16, 64, 16), (3, 48, 3000, 16), (4, 17, 4002, 8)]
 # relative Frobenius error of each gradient against the plain float32
 # backward: the float32 gradients, and dz (one bf16 rounding more):
 # tests/test_torch_ssm.py BWD_CARD_TOL, derived there
 SCAN_BWD_REL_TOL = {"float32": 2e-5, "dz": 2e-4}
+# the forward kernel's checkpoints against the plain forward's states on
+# the card, relative Frobenius: the same products and sums in the same
+# order, but the decays are ex2.approx against expf (a few float32 ulps)
+# through a contracting recurrence of up to S steps
+SCAN_CKPT_REL_TOL = 1e-5
 # 12f: the SSM and hybrid families trained at full width, weights from
 # TRAIN_SEED: (arch, layers (None: all), B, S).  hymba-1.5b whole (26.6 GB
 # of float32 training state); falcon-mamba-7b cut from 64 to 16 layers
@@ -6004,25 +6015,72 @@ def scan_bwd_bound(bsz, S, di, N):
 SCAN_GRADS = ("ddt", "dx", "dz", "dB", "dC", "dA", "dD")
 
 
+def scan_device_ms(events):
+    """{kernel: device ms per call} of the scan's kernels among a profiled
+    window's device events: "forward" (one launch a call), "scan_bwd" (one)
+    and "reduce" (the backward's two ordered sums), each the mean of the
+    launches the profiler recorded times the launches a call (CUPTI drops
+    a record now and then: a window's total divided by the calls made
+    would count it as zero)."""
+    per_call = {"forward": 1, "scan_bwd": 1, "reduce": 2}
+    parts = {}
+    for e in events:
+        if "selective_scan" in e.key and e.count:
+            kn = ("reduce" if "reduce" in e.key else "scan_bwd"
+                  if "bwd" in e.key else "forward")
+            parts[kn] = (parts.get(kn, 0.0) + e.self_device_time_total
+                         / e.count / 1e3 * per_call[kn])
+    return parts
+
+
 def scan_bwd_parity(dev):
     """12f: the scan's backward kernel against its plain version at
-    SCAN_BWD_SHAPES (dy a bf16 N(0, 1) from a seed): each gradient within
-    SCAN_BWD_REL_TOL (relative Frobenius), finite, in its input's dtype
-    and shape, the same bits on a second launch, the layout the library
-    takes equal to ``scan_bwd_layout``'s; at the SCAN_TIMED shapes the
-    kernel's time per call (a stream of 5; three launches a call), its
-    kernels' device time (torch.profiler), the plain version's time and
-    the bound.  Returns (parity record, {layer: times})."""
+    SCAN_BWD_SHAPES (dy a bf16 N(0, 1) from a seed), from the checkpoints
+    the forward kernel writes: the forward with checkpoints gives the
+    serve path's y bit for bit, its checkpoints are within
+    SCAN_CKPT_REL_TOL of the plain forward's states and the same bits for
+    the first 64 channels of the first batch row taken alone (another
+    lane layout); each gradient within SCAN_BWD_REL_TOL (relative
+    Frobenius) of the plain backward, finite, in its input's dtype and
+    shape, the same bits on a second launch, the layout the library takes
+    equal to ``scan_bwd_layout``'s.  At the SCAN_TIMED shapes: the
+    backward's time per call (a stream of 5; three launches a call), its
+    kernels' device time (torch.profiler), the forward with and without
+    checkpoints (in turns), the pair of the forward with checkpoints and
+    the backward (the training path's calls of one layer), the plain
+    version's time and the bound.  Returns (parity record, {layer:
+    times})."""
     from repro_torch.kernels import ref, selective_scan as ss
-    errs, rels, times = {}, {}, {}
+    errs, rels, ck_rels, times = {}, {}, {}, {}
     for k, shape in enumerate(SCAN_BWD_SHAPES):
         bsz, S, di, N = shape
         ins = scan_inputs(*shape, dev, seed=500 + k)
         gen = torch.Generator(device=dev).manual_seed(600 + k)
         dy = torch.randn((bsz, S, di), generator=gen, device=dev).to(
             torch.bfloat16)
-        got = ss.selective_scan_bwd_cuda(*ins, dy)
-        again = ss.selective_scan_bwd_cuda(*ins, dy)
+        y, ck = ss.selective_scan_cuda(*ins, checkpoints=True)
+        d64 = min(di, 64)
+        sub = [t[:1, :, :d64].contiguous() for t in ins[:2]] + [
+            ins[2][:1, :, :d64], ins[3][:1], ins[4][:1], ins[5][:d64],
+            ins[6][:d64]]
+        ck_sub = ss.selective_scan_cuda(*sub, checkpoints=True)[1]
+        want_ck = ref.selective_scan_ref(*ins, checkpoints=True)[1]
+        torch.cuda.synchronize()
+        check(torch.equal(y, ss.selective_scan_cuda(*ins)),
+              f"selective_scan at {shape}: y with checkpoints differs from "
+              f"y without")
+        check(torch.equal(ck_sub, ck[:1, :, :d64]),
+              f"selective_scan at {shape}: the checkpoints of 64 channels "
+              f"taken alone (layout {ss.scan_layout(1, S, d64, N)['lanes']} "
+              f"lanes) differ from the whole call's "
+              f"({ss.scan_layout(*shape)['lanes']} lanes)")
+        ck_rels[str(shape)] = r = rel_err(ck, want_ck) if ck.numel() else 0.0
+        check(r < SCAN_CKPT_REL_TOL, f"selective_scan at {shape}: "
+              f"checkpoints off the plain states, relative error {r:.3g} "
+              f"(< {SCAN_CKPT_REL_TOL})")
+        del sub, ck_sub, want_ck
+        got = ss.selective_scan_bwd_cuda(*ins, dy, ck)
+        again = ss.selective_scan_bwd_cuda(*ins, dy, ck)
         want = ref.selective_scan_bwd_ref(*ins, dy)
         torch.cuda.synchronize()
         for name, g, a, p, x in zip(SCAN_GRADS, got, again, want,
@@ -6047,47 +6105,65 @@ def scan_bwd_parity(dev):
               f"{built}, scan_bwd_layout's {layout}")
         name = next((a for a, sh in SCAN_TIMED.items() if sh == shape), None)
         if name is not None:
-            call = lambda: ss.selective_scan_bwd_cuda(*ins, dy)
+            call = lambda: ss.selective_scan_bwd_cuda(*ins, dy, ck)
+            pair = lambda: ss.selective_scan_bwd_cuda(
+                *ins, dy, ss.selective_scan_cuda(*ins, checkpoints=True)[1])
             ms = per_launch_ms(call, 5)
+            pair_ms = per_launch_ms(pair, 5)
+            fwd = {"plain": [], "checkpoints": []}
+            for _ in range(3):           # the two forwards in turns
+                fwd["plain"].append(per_launch_ms(
+                    lambda: ss.selective_scan_cuda(*ins), 10, reps=3))
+                fwd["checkpoints"].append(per_launch_ms(
+                    lambda: ss.selective_scan_cuda(*ins, checkpoints=True),
+                    10, reps=3))
             dev_ev, _ = device_events(lambda: [call() for _ in range(3)])
-            parts = {}
-            for e in dev_ev:
-                if "selective_scan_bwd" in e.key:
-                    kn = ("reduce" if "reduce" in e.key else "scan")
-                    parts[kn] = parts.get(kn, 0.0) \
-                        + e.self_device_time_total / 1e3 / 3
+            parts = scan_device_ms(dev_ev)
             pms = per_launch_ms(lambda: ref.selective_scan_bwd_ref(
                 *ins, dy), 1, reps=1)
             bms, by, terms = scan_bwd_bound(*shape)
+            fwd_ms = {key: statistics.median(v) for key, v in fwd.items()}
             times[name] = dict(
-                ms=ms, kernel_device_ms=parts, plain_ms=pms, bound_ms=bms,
+                ms=ms, kernel_device_ms=parts, pair_ms=pair_ms,
+                forward_ms=fwd_ms["plain"],
+                forward_checkpoints_ms=fwd_ms["checkpoints"],
+                forward_turns_ms=fwd, plain_ms=pms, bound_ms=bms,
                 bound_by=by, bound_terms_ms=terms, library_ms=None,
                 layout=layout,
                 shape=f"bsz={bsz} S={S} d_inner={di} N={N} ({name} layer, "
                       f"backward)")
             say("12f scan backward", f"[{times[name]['shape']}; "
-                f"{layout['lanes']} lanes a channel, {layout['chunks']} "
-                f"chunks of {layout['tile']}, {layout['smem']} bytes of "
-                f"shared memory a block]: kernel {ms:.4f} ms per call of "
-                f"three launches (device: " + ", ".join(
-                    f"{n} {v:.4f}" for n, v in parts.items())
-                + f" ms), plain {pms:.2f} ms, bound {bms:.4f} ms set by "
-                f"{by} (" + ", ".join(f"{n} {v:.4f}"
-                                      for n, v in terms.items()) + " ms)")
-        del ins, dy, got, again, want
+                f"{layout['states_per_lane']} states a lane, "
+                f"{layout['lanes']} lanes a channel, "
+                f"{layout['warps_per_scheduler']:.2f} warps a scheduler, "
+                f"{layout['chunks']} chunks of {layout['tile']}, "
+                f"{layout['smem']} bytes of shared memory a block]: kernel "
+                f"{ms:.4f} ms per call of three launches (device: "
+                + ", ".join(f"{n} {v:.4f}" for n, v in parts.items())
+                + f" ms); the forward with checkpoints then the backward "
+                f"{pair_ms:.4f} ms; the forward {fwd_ms['plain']:.4f} ms, "
+                f"with checkpoints {fwd_ms['checkpoints']:.4f} ms; plain "
+                f"{pms:.2f} ms, bound {bms:.4f} ms set by {by} ("
+                + ", ".join(f"{n} {v:.4f}" for n, v in terms.items())
+                + " ms)")
+        del ins, dy, y, ck, got, again, want
         torch.cuda.empty_cache()
     worst = {g: max(r for key, r in rels.items() if key.endswith(" " + g))
              for g in SCAN_GRADS}
     say("12f scan backward", f"selective_scan_bwd at {len(SCAN_BWD_SHAPES)} "
-        f"shapes (bsz, S, d_inner, N) {SCAN_BWD_SHAPES}: every gradient "
-        f"within {SCAN_BWD_REL_TOL} relative (Frobenius) of the plain "
-        f"float32 backward (worst per gradient: " + ", ".join(
-            f"{g} {r:.3g}" for g, r in worst.items())
+        f"shapes (bsz, S, d_inner, N) {SCAN_BWD_SHAPES}, from the forward "
+        f"kernel's checkpoints (y unchanged by them, within "
+        f"{SCAN_CKPT_REL_TOL} of the plain states: worst "
+        f"{max(ck_rels.values()):.3g}; the same bits under another lane "
+        f"layout): every gradient within {SCAN_BWD_REL_TOL} relative "
+        f"(Frobenius) of the plain float32 backward (worst per gradient: "
+        + ", ".join(f"{g} {r:.3g}" for g, r in worst.items())
         + f"; max abs err {max(errs.values()):.3g}), finite, the same bits "
         f"on a second launch, the library's layout equal to "
         f"scan_bwd_layout's")
     return dict(max_abs_err=max(errs.values()), max_rel_err=max(rels.values()),
-                worst_rel_by_gradient=worst, rel_errors=rels), times
+                worst_rel_by_gradient=worst, rel_errors=rels,
+                checkpoint_rel_errors=ck_rels), times
 
 
 def same_step_twice(cfg, dev, B, S):
@@ -6219,8 +6295,8 @@ def phase_training(dev, smi):
     for k, v in scan_ptx.items():
         say("12f scan backward build", f"{k}: {v}")
     if built.seconds > 0:
-        check(len(scan_ptx) == 3, f"12f: the scan backward's kernels "
-              f"{scan_ptx}: expected three")
+        check(len(scan_ptx) == 5, f"12f: the scan backward's kernels "
+              f"{scan_ptx}: expected five")
     rec = dict(ptxas=ptx, scan_ptxas=scan_ptx, parity=bwd_parity(dev),
                times=bwd_times(dev))
     rec["times"]["max_abs_err"] = rec["parity"]["max_abs_err"]

@@ -87,12 +87,13 @@ _SIGNATURES = {
                                   + [_c_float, _c_ptr],
     # hd, kernel (0: dK/dV, 1: dQ) -> a block's dynamic shared memory
     "flash_attention_bwd_smem": [_c_int, _c_int],
-    # dt, x, z, B, C, A, D, y, bsz, S, d_inner, N, z's row stride, stream
-    "selective_scan_launch": [_c_ptr] * 8 + [_c_int] * 4 + [_c_int64,
+    # dt, x, z, B, C, A, D, y, ckpt (or null), bsz, S, d_inner, N, z's row
+    # stride, stream
+    "selective_scan_launch": [_c_ptr] * 9 + [_c_int] * 4 + [_c_int64,
                                                             _c_ptr],
     # bsz, S, d_inner, N, out (4 int32: lanes, channels, threads, tile)
     "selective_scan_layout": [_c_int] * 4 + [_c_ptr],
-    # dt, x, z, B, C, A, D, dy, ddt, dx, dz, dBC, dAD, ckpt, part_bc,
+    # dt, x, z, B, C, A, D, dy, ckpt, ddt, dx, dz, dBC, dAD, part_bc,
     # part_ad, bsz, S, d_inner, N, z's row stride, stream
     "selective_scan_bwd_launch": [_c_ptr] * 16 + [_c_int] * 4 + [_c_int64,
                                                                  _c_ptr],

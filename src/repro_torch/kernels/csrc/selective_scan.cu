@@ -36,6 +36,11 @@
 //     which lane l holds the sums of steps l G/L .. (l + 1) G/L - 1.  That
 //     lane alone adds D x, applies silu(z) and writes bf16 y: the gate's
 //     exponential and reciprocal run once per (t, d).
+//   * Checkpoints for the backward.  The training path's forward (the
+//     instance with kCkpt) also writes h after steps 15, 31, ... (each
+//     before the last step: a group of steps ends there), from which the
+//     backward restarts its 16-step chunks; the serve path's instance is
+//     the same code without them.
 //   * Staging.  A block is 32 channels x L lanes.  Each tile (32 steps at
 //     8 or 16 lanes, the next in flight; 16 steps at fewer lanes, two in
 //     flight, so that 7 blocks fit an SM) of the block's dt, x
@@ -77,6 +82,9 @@ constexpr int kMaxLanes = 16;
 // lanes, 3.9 warps a scheduler, against 16 lanes at 7.8)
 constexpr long long kTargetLanes = 14LL * 132 * 32;
 constexpr float kLog2e = 1.4426950408889634f;
+// steps between the forward's checkpoints, and per chunk of the backward
+// (a multiple of every group size kG)
+constexpr int kBT = 16;
 
 // one stage: a tile of kT steps: dt, x of the block's channels and the B,
 // C rows, transposed (a row kT + 4 floats: 16-byte aligned, and 8 rows
@@ -310,7 +318,9 @@ __device__ __forceinline__ void scan_group(
   }
 }
 
-template <int kN, int kL>
+// kCkpt: write the checkpoints (the training path's forward); the serve
+// path's instance writes none and is the same code as without them
+template <int kN, int kL, bool kCkpt>
 __global__ void __launch_bounds__(Layout<kN, kL>::kThreads,
                                   Layout<kN, kL>::kMinBlocks)
 selective_scan_kernel(const float* __restrict__ dt,
@@ -320,7 +330,8 @@ selective_scan_kernel(const float* __restrict__ dt,
                       const float* __restrict__ Cm,
                       const float* __restrict__ A,
                       const float* __restrict__ Dskip,
-                      __nv_bfloat16* __restrict__ y, int S, int di,
+                      __nv_bfloat16* __restrict__ y,
+                      float* __restrict__ ckpt, int S, int di,
                       long long z_ld) {
   using Lt = Layout<kN, kL>;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -343,6 +354,15 @@ selective_scan_kernel(const float* __restrict__ dt,
     h[j] = 0.0f;
   }
   const float dsk = Dskip[ch];
+  // the checkpoints: this lane's state j after step kBT (m + 1) - 1 at
+  // ck[m ck_step + kL j], for every m with kBT (m + 1) < S; a channel past
+  // d_inner writes none
+  const size_t ck_step = static_cast<size_t>(di) * kN;
+  float* ck = kCkpt && c < nch
+                  ? ckpt + static_cast<size_t>(blockIdx.y) * ((S - 1) / kBT)
+                               * ck_step
+                        + static_cast<size_t>(d0 + c) * kN + sub
+                  : nullptr;
 
   // the block's first row and channel of each array; tile k's rows start
   // k kTile rows further
@@ -383,8 +403,16 @@ selective_scan_kernel(const float* __restrict__ dt,
     // whole groups: steps past S (last tile only) compute on stale
     // shared memory after every live step and are not stored
 #pragma unroll 1
-    for (int g = 0; g < rows; g += Lt::kG)
+    for (int g = 0; g < rows; g += Lt::kG) {
       scan_group<kN, kL>(s, ys[tile & 1], g, c, sub, h, a2, dsk);
+      if constexpr (kCkpt) {
+        const int end = tile * kTile + g + Lt::kG;  // a multiple of kG
+        if (ck != nullptr && end % kBT == 0 && end < S)
+#pragma unroll
+          for (int j = 0; j < Lt::kNL; ++j)
+            ck[static_cast<size_t>(end / kBT - 1) * ck_step + kL * j] = h[j];
+      }
+    }
   }
   __syncthreads();
   cp.store(ys[(tiles - 1) & 1], y_t, S - (tiles - 1) * kTile, di, nch);
@@ -407,14 +435,20 @@ int with_layout(int lanes, F f) {
 template <int kN>
 int launch(const float* dt, const float* x, const __nv_bfloat16* z,
            const float* B, const float* C, const float* A, const float* D,
-           __nv_bfloat16* y, int bsz, int S, int di, long long z_ld,
-           cudaStream_t stream) {
+           __nv_bfloat16* y, float* ckpt, int bsz, int S, int di,
+           long long z_ld, cudaStream_t stream) {
   return with_layout<kN>(lanes_for(bsz, di, kN), [&](auto lt) {
     using Lt = decltype(lt);
+    static_assert(kBT % Lt::kG == 0, "checkpoints end groups");
     const dim3 grid((di + kCh - 1) / kCh, bsz);
-    selective_scan_kernel<kN, Lt::kLanes>
-        <<<grid, Lt::kThreads, Lt::kSmem, stream>>>(dt, x, z, B, C, A, D, y,
-                                                     S, di, z_ld);
+    if (ckpt != nullptr)
+      selective_scan_kernel<kN, Lt::kLanes, true>
+          <<<grid, Lt::kThreads, Lt::kSmem, stream>>>(
+              dt, x, z, B, C, A, D, y, ckpt, S, di, z_ld);
+    else
+      selective_scan_kernel<kN, Lt::kLanes, false>
+          <<<grid, Lt::kThreads, Lt::kSmem, stream>>>(
+              dt, x, z, B, C, A, D, y, ckpt, S, di, z_ld);
     return static_cast<int>(cudaGetLastError());
   });
 }
@@ -425,7 +459,7 @@ int launch(const float* dt, const float* x, const __nv_bfloat16* z,
 // y_pre = C . h + D x, g = silu(z) and dy_pre = dy g:
 //   dz_t = dy_t y_pre_t silu'(z_t)
 //   dh_t = dy_pre_t C_t + exp(dt_{t+1} A) dh_{t+1}          (dh_S = 0)
-//   ddt_t = sum_n dh_t (A exp(dt_t A) h_{t-1} + x_t B_t)
+//   ddt_t = sum_n dh_t A exp(dt_t A) h_{t-1} + x_t sum_n dh_t B_t
 //   dx_t = D dy_pre_t + dt_t sum_n dh_t B_t
 //   dB_t = sum_d dt_t x_t dh_t,   dC_t = sum_d dy_pre_t h_t
 //   dA = sum_{b,t} dh_t dt_t exp(dt_t A) h_{t-1},   dD = sum_{b,t} dy_pre_t x_t
@@ -437,75 +471,137 @@ int launch(const float* dt, const float* x, const __nv_bfloat16* z,
 // (src/repro/models/ssm.py:61-72), jnp.
 //
 // Bound: the bytes (dt, x, dy, z read, ddt, dx, dz written: 22 per
-// (b, t, d); falcon-mamba-7b's layer 0.74 GB, 0.22 ms) against N + 1
-// exponentials per (b, t, d) (0.14 ms).  The work is about four times the
-// forward's per state and step (the state recomputed, the reverse
-// recurrence, five gradient terms), and it issues far more than that.
+// (b, t, d); falcon-mamba-7b's layer 0.74 GB, 0.22 ms on an H100) against
+// N + 1 exponentials per (b, t, d) (0.14 ms) and 23 N + 10 float32
+// operations (0.19 ms).  The work per state and step is about four times
+// the forward's: the state recomputed, the reverse recurrence and five
+// gradient terms.
 // Design:
 //   * h_{t-1} in reverse time without inverting the recurrence (dividing
-//     by the decay is unstable) and without storing every h (2.1 GB a
-//     layer at falcon's width): pass 1 writes h at the end of every
-//     16-step chunk to scratch (S / 16 x d_inner x N floats, 134 MB at
-//     falcon), then each chunk, last first, recomputes its states from
-//     the checkpoint before it, keeping decay_t h_{t-1} in registers,
-//     and runs the reverse recurrence through them (decay_t recomputed:
-//     one exponential more, a register array fewer).
-//   * Two states a lane (N / 2 lanes a channel, 32 channels a block): a
-//     step's per-channel work (dt x, the loads, dD) is shared by two
-//     states, and two independent recurrences interleave.  The sums over
-//     states (y_pre's C . h, ddt's and dx's) leave the recurrences: each
-//     lane adds its two states' terms and keeps the chunk's 16 steps, and
-//     the channel's lanes reduce them transposed once per chunk (the
-//     forward's butterfly), after which each lane finishes the steps it
-//     holds.
-//   * dt, x, B, C and dy silu(z) staged transposed by cp.async (a
-//     channel's or a state's steps contiguous, four steps a 16-byte load),
-//     one chunk ahead; steps past S and channels past d_inner zero-filled.
-//   * No float atomics: dB and dC (sums over d_inner) are summed over a
-//     warp's channels by a butterfly and over the block's warps in order
-//     into the block's partial rows; dA and dD (sums over batch and steps)
-//     stay in registers and leave as each batch row's partials; a second
-//     kernel sums the partials in a fixed order.  Every launch gives the
-//     same bits.
-// What holds it back (PERF.md row 11b): each step's per-channel work is
-// still repeated on N / 2 lanes and reduced over them by shuffles, the
-// dB / dC sums take two shuffle rounds a state, and the pass to the
-// checkpoints repeats the forward; no single term dominates (the lever
-// trees of scripts/scan_bwd_ab.py).
+//     by the decay is unstable) and without storing every h (2.1 GB a layer
+//     at falcon's width): the forward kernel, asked for checkpoints (the
+//     training path's forward), writes h at the end of every 16-step chunk
+//     (S / 16 x d_inner x N floats, 134 MB at falcon); each chunk, last
+//     first, is recomputed from the checkpoint before it, keeping
+//     q_t = decay_t h_{t-1} in registers, and the reverse recurrence runs
+//     through it (decay_t recomputed: one exponential more, a register
+//     array fewer).  No pass of the backward repeats the forward.
+//   * Several contiguous states a lane (four at the model layers: N / 4
+//     lanes a channel, 32 channels a block; two where that launches too
+//     few warps, chosen by shape as selective_scan_bwd_layout reports): a
+//     step's per-channel work (the dt, x and dy silu(z) loads, dt x) is
+//     shared by the lane's states, and the lane's B_t, C_t are one 16-byte
+//     shared load each.  The sums over a channel's states (y_pre's C . h,
+//     ddt's and dx's) leave the recurrences: each lane adds its states'
+//     terms for a group of max(L, 4) steps, the channel's lanes reduce
+//     them transposed (the forward's butterfly), and each lane finishes the
+//     steps it then holds (dz, ddt, dx, dD).
+//   * dB and dC (sums over d_inner) through shared memory: every lane
+//     stores its states' terms of each step (16-byte stores), and once a
+//     chunk the block sums them over its 32 channels in a fixed order into
+//     its partial rows; dA and dD (sums over batch and steps) stay in
+//     registers and leave as each batch row's partials; a second kernel
+//     sums the partials in a fixed order.  No float atomics: every launch
+//     gives the same bits.
+//   * The state's recompute, the reverse recurrence and the gradient terms
+//     are written as fused multiply-adds (__fmaf_rn; the library's
+//     -fmad=false leaves them be): about half the instructions of the
+//     products and sums rounded one by one.  The checkpoints themselves
+//     are the forward's states, rounded as the plain version rounds them.
+//   * dt, x and dy silu(z) transposed (a channel's steps contiguous, four
+//     a 16-byte load), B, C and the checkpoint as they lie, staged by
+//     cp.async one chunk ahead from offsets each thread computes once (the
+//     forward's Copier); steps past S and channels past d_inner zero-filled
+//     (a zero step leaves h as it is and adds 0 to every gradient).
+// What holds it back (PERF.md row 11b, NVIDIA H100 80GB HBM3 at 700 W: the
+// scan kernel 1.01 ms at falcon's layer, 4.6x its bound): shared memory
+// traffic and issue, no single term.  Without the B, C loads the kernel
+// runs 12% faster, without the dB / dC terms' stores 11%, without their
+// sums over channels 13%, without the sums across lanes 4%; making the
+// exponentials a multiply gains nothing, nor do two states a lane (twice
+// the warps) or more registers (the lever trees of scripts/scan_bwd_ab.py).
 // ---------------------------------------------------------------------------
 
-constexpr int kBT = 16;          // steps per chunk of the backward
+// 16 bytes from gmem to smem by cp.async, or 16 zero bytes when !valid
+// (nothing is read then)
+__device__ __forceinline__ void cp_async16_or0(void* smem, const void* gmem,
+                                               bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(smem)), "l"(gmem), "r"(valid ? 16 : 0));
+}
 
-// one chunk of the backward's inputs: dt, x and B, C transposed (a
-// channel's, a state's steps contiguous, rows kBT + 4 floats: 16-byte
-// aligned, four steps a 16-byte load), z and dy rows [step][channel]
+// 4 bytes from gmem to smem by cp.async, or 4 zero bytes when !valid
+__device__ __forceinline__ void cp_async4_or0(void* smem, const void* gmem,
+                                              bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(smem)), "l"(gmem), "r"(valid ? 4 : 0));
+}
+
+// kV (1, 2 or 4) consecutive floats from / to an address aligned to them
+template <int kV>
+__device__ __forceinline__ void ld_vec(float (&v)[kV], const float* p) {
+  if constexpr (kV == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+  } else if constexpr (kV == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x, v[1] = t.y;
+  } else {
+    v[0] = *p;
+  }
+}
+
+template <int kV>
+__device__ __forceinline__ void st_vec(float* p, const float (&v)[kV]) {
+  if constexpr (kV == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  else if constexpr (kV == 2)
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  else
+    *p = v[0];
+}
+
+// one chunk of the backward's inputs: dt, x transposed (a channel's steps
+// contiguous, rows kBT + 4 floats: 16-byte aligned, four steps a 16-byte
+// load), B, C rows [step][state], the checkpoint before the chunk
+// [channel][state] (zeros for the first chunk), z and dy rows
+// [step][channel]
 template <int kN>
 struct __align__(16) BwdStage {
   float dt[kCh][kBT + 4];
   float x[kCh][kBT + 4];
-  float B[kN][kBT + 4];
-  float C[kN][kBT + 4];
+  float B[kBT][kN];
+  float C[kBT][kN];
+  float h0[kCh][kN];
   __nv_bfloat16 z[kBT][kZRow];
   __nv_bfloat16 dy[kBT][kZRow];
 };
 
-// the backward's layout: two states a lane (sub + kL j), kL lanes a
-// channel, 32 channels a block
-template <int kN>
+// the backward's layout: kNL contiguous states a lane (n0 = sub kNL ..),
+// kL = N / kNL lanes a channel, 32 channels a block; the sums over a
+// channel's states reduced across its lanes per group of kG steps
+template <int kN, int kNL>
 struct BwdLt {
-  static constexpr int kL = kN / 2;           // lanes a channel
-  static constexpr int kNL = kN / kL;         // states a lane
+  static constexpr int kStates = kNL;
+  static constexpr int kL = kN / kNL;           // lanes a channel
   static constexpr int kThreads = kCh * kL;
-  static constexpr int kWarps = kThreads / 32;
-  static constexpr int kOwn = kBT / kL;       // steps whose sums end on a lane
+  static constexpr int kG = kL > 4 ? kL : 4;    // steps a reduction group
+  static constexpr int kOwn = kG / kL;          // of them finished on a lane
+  // blocks an SM at the shapes that take the layout: registers for three
+  // 128-thread blocks (four states a lane), two 256-thread ones (two)
+  static constexpr int kMinBlocks = kNL == 4 ? 3 : 2;
+  static_assert(kBT % kG == 0 && kBT * kN % kThreads == 0
+                && kBT * kN / kThreads <= 2, "layout");
 };
 
-// a chunk's working tiles: the warps' dB (0) and dC (1) terms per step,
-// dy silu(z) and dy silu'(z) (transposed as dt), and the outputs ddt, dx,
-// dz on their way out
+// a chunk's working tiles: the block's dC, then dB, terms [step][channel
+// state] (a step's row padded by kN floats: the steps one warp of the sum
+// reads at once fall on distinct banks), dy silu(z) and dy silu'(z)
+// (transposed as dt), and the outputs ddt, dx, dz on their way out
 template <int kN>
 struct __align__(16) BwdWork {
-  float red[2][kBT][BwdLt<kN>::kWarps][kN];
+  static constexpr int kRow = kCh * kN + kN;
+  float red[kBT][kRow];
   float dyp[kCh][kBT + 4];
   float gz[kCh][kBT + 4];
   float ddt[kBT][kCh];
@@ -519,91 +615,141 @@ constexpr int bwd_smem() {
          + static_cast<int>(sizeof(BwdWork<kN>));
 }
 
-// a step's dB or dC terms (one a state of the lane) summed over the warp's
-// channels (lanes kL apart, a butterfly), written by the warp's first
-// channel's lanes to row[state]
-template <int kN>
-__device__ __forceinline__ void warp_partial(
-    float* row, int lane, const float (&v)[BwdLt<kN>::kNL]) {
-  using Lt = BwdLt<kN>;
-#pragma unroll
-  for (int j = 0; j < Lt::kNL; ++j) {
-    float t = v[j];
-#pragma unroll
-    for (int m = Lt::kL; m < 32; m *= 2)
-      t = t + __shfl_xor_sync(0xffffffffu, t, m);
-    if (lane < Lt::kL) row[lane + Lt::kL * j] = t;
+// A thread's share of the backward's copies, in offsets fixed at the
+// launch (the forward's Copier, for the backward's tiles): its m-th
+// element of each grid lies a compile-time distance from its first.  dt,
+// x: tiles of 4 steps x 8 channels a warp (32-byte row pieces in global
+// memory, 32 distinct banks in the transposed rows), warp w taking tiles
+// kT w .. kT w + kT - 1, tile v at steps 4 (v % 4) and channels 8 (v / 4);
+// B, C: the chunk's rows in 16-byte pieces, one a thread (B's, then C's);
+// the checkpoint likewise; z, dy and the outputs ddt, dx, dz: pairs of
+// channels, 16 pairs a step.  Steps past rows and channels past nch are
+// zero-filled (nothing is read) and not stored.
+template <int kN, int kThreads>
+struct BwdCopier {
+  static constexpr int kT = kBT * kCh / kThreads;     // dt, x a thread
+  static constexpr int kQ = kN / 4;                   // pieces a B row
+  static constexpr int kPairRows = kThreads / (kCh / 2);
+  static constexpr int kPairs = kBT / kPairRows;      // pairs a thread
+  static_assert(kT >= 2 && kT <= 8 && kThreads >= 2 * kBT * kQ
+                && kThreads >= kCh * kQ && kBT % kPairRows == 0,
+                "copier");
+  int xi, xc;          // dt, x: the first element's step and channel
+  int pi, pc;          // pairs: the first pair's step and channel
+
+  __device__ BwdCopier() {
+    const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+    xi = kT * w % 4 * 4 + lane / 8;
+    xc = kT * w / 4 * 8 + lane % 8;
+    pi = threadIdx.x / (kCh / 2);
+    pc = threadIdx.x % (kCh / 2) * 2;
   }
+
+  // rows (<= kBT) steps from row `row` (b S + t) into stage s by
+  // cp.async; h0 is the block's first channel in the checkpoint before
+  // the chunk, or null (the first chunk: zeros)
+  __device__ __forceinline__ void stage(
+      BwdStage<kN>& s, const float* dt, const float* x,
+      const __nv_bfloat16* z, const __nv_bfloat16* dy, const float* Bm,
+      const float* Cm, const float* h0, size_t row, int rows, int di,
+      int d0, int nch, long long z_ld) const {
+    const float* dt_c = dt + row * di + d0;
+    const float* x_c = x + row * di + d0;
+#pragma unroll
+    for (int m = 0; m < kT; ++m) {
+      const int i = xi + 4 * (m % 4), c = xc + 8 * (m / 4);
+      const bool ok = i < rows && c < nch;
+      const int g = ok ? i * di + c : 0;
+      cp_async4_or0(&s.dt[c][i], dt_c + g, ok);
+      cp_async4_or0(&s.x[c][i], x_c + g, ok);
+    }
+    const int t = threadIdx.x;
+    if (t < 2 * kBT * kQ) {
+      const int r = t % (kBT * kQ), i = r / kQ, n = 4 * (r % kQ);
+      const bool ok = i < rows;
+      const float* src = (t < kBT * kQ ? Bm : Cm) + row * kN;
+      cp_async16_or0(t < kBT * kQ ? &s.B[i][n] : &s.C[i][n],
+                     src + (ok ? i * kN + n : 0), ok);
+    }
+    if (t < kCh * kQ) {
+      const int c = t / kQ, n = 4 * (t % kQ);
+      const bool ok = h0 != nullptr && c < nch;
+      cp_async16_or0(&s.h0[c][n], ok ? h0 + c * kN + n : Bm, ok);
+    }
+    const __nv_bfloat16* z_c = z + static_cast<long long>(row) * z_ld + d0;
+    const __nv_bfloat16* dy_c = dy + row * di + d0;
+#pragma unroll
+    for (int m = 0; m < kPairs; ++m) {
+      const int i = pi + m * kPairRows;
+      const bool ok = i < rows && pc < nch;       // nch is even
+      cp_async4_or0(&s.z[i][pc], z_c + (ok ? i * z_ld + pc : 0), ok);
+      cp_async4_or0(&s.dy[i][pc], dy_c + (ok ? i * di + pc : 0), ok);
+    }
+  }
+
+  // the chunk's ddt, dx and dz (rows steps from row `row`) from the work
+  // tiles to global memory, a pair of channels a store
+  __device__ __forceinline__ void store(const BwdWork<kN>& w, float* ddt,
+                                        float* dx, __nv_bfloat16* dz,
+                                        size_t row, int rows, int di,
+                                        int d0, int nch) const {
+    const size_t o_c = row * di + d0;
+#pragma unroll
+    for (int m = 0; m < kPairs; ++m) {
+      const int i = pi + m * kPairRows;
+      if (i < rows && pc < nch) {
+        const size_t o = o_c + static_cast<size_t>(i) * di + pc;
+        *reinterpret_cast<float2*>(ddt + o) =
+            *reinterpret_cast<const float2*>(&w.ddt[i][pc]);
+        *reinterpret_cast<float2*>(dx + o) =
+            *reinterpret_cast<const float2*>(&w.dx[i][pc]);
+        *reinterpret_cast<__nv_bfloat162*>(dz + o) =
+            *reinterpret_cast<const __nv_bfloat162*>(&w.dz[i][pc]);
+      }
+    }
+  }
+};
+
+// out[i kN + n] = the sum over the block's channels c of red[i][c kN + n]
+// for the chunk's first rows steps: each thread sums kV states of one
+// step, the channels in four interleaved partial sums added pairwise (a
+// fixed order)
+template <int kN, int kThreads>
+__device__ __forceinline__ void red_rows(
+    const float (*red)[BwdWork<kN>::kRow], float* out, int rows) {
+  constexpr int kV = kBT * kN / kThreads;       // 1 or 2
+  constexpr int kPer = kN / kV;                 // threads a step
+  const int i = threadIdx.x / kPer, n = threadIdx.x % kPer * kV;
+  if (i >= rows) return;
+  float acc[4][kV];
+#pragma unroll
+  for (int c = 0; c < kCh; ++c) {
+    float v[kV];
+    ld_vec<kV>(v, &red[i][c * kN + n]);
+#pragma unroll
+    for (int u = 0; u < kV; ++u)
+      acc[c % 4][u] = c < 4 ? v[u] : acc[c % 4][u] + v[u];
+  }
+  float sum[kV];
+#pragma unroll
+  for (int u = 0; u < kV; ++u)
+    sum[u] = (acc[0][u] + acc[1][u]) + (acc[2][u] + acc[3][u]);
+  st_vec<kV>(out + i * kN + n, sum);
 }
 
-// 4 bytes from gmem to smem by cp.async, or 4 zero bytes when !valid
-// (nothing is read then)
-__device__ __forceinline__ void cp_async4_or0(void* smem, const void* gmem,
-                                              bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(smem)), "l"(gmem), "r"(valid ? 4 : 0));
-}
-
-// rows (<= kBT) steps from row `row` (b S + t) into stage s by 4-byte
-// cp.async, the steps past rows and the channels past nch zero-filled (a
-// zero step leaves h as it is and adds 0 to every gradient); all = false
-// copies dt, x and B only (the pass to the checkpoints).  dt, x, B and C
-// go 4 steps x 8 channels (or states) a warp: 32-byte row pieces in global
-// memory, 32 distinct banks in the transposed rows (the forward's pattern)
-template <int kN>
-__device__ __forceinline__ void bwd_stage(
-    BwdStage<kN>& s, const float* dt, const float* x,
-    const __nv_bfloat16* z, const __nv_bfloat16* dy, const float* Bm,
-    const float* Cm, size_t row, int rows, int di, int d0, int nch,
-    long long z_ld, bool all) {
-  constexpr int kThreads = BwdLt<kN>::kThreads;
-#pragma unroll
-  for (int e = threadIdx.x; e < kBT * kCh; e += kThreads) {
-    const int i = e / 32 % 4 * 4 + e % 32 / 8, c = e / 128 * 8 + e % 8;
-    const bool ok = i < rows && c < nch;
-    const size_t g = ok ? (row + i) * di + d0 + c : 0;
-    cp_async4_or0(&s.dt[c][i], dt + g, ok);
-    cp_async4_or0(&s.x[c][i], x + g, ok);
-  }
-#pragma unroll
-  for (int e = threadIdx.x; e < kBT * kN; e += kThreads) {
-    const int i = e / 32 % 4 * 4 + e % 32 / 8, n = e / 128 * 8 + e % 8;
-    const bool ok = i < rows;
-    const size_t g = ok ? (row + i) * kN + n : 0;
-    cp_async4_or0(&s.B[n][i], Bm + g, ok);
-    if (all) cp_async4_or0(&s.C[n][i], Cm + g, ok);
-  }
-  if (!all) return;
-#pragma unroll
-  for (int e = threadIdx.x; e < kBT * kCh / 2; e += kThreads) {
-    const int i = e / (kCh / 2), c = 2 * (e % (kCh / 2));
-    const bool ok = i < rows && c < nch;        // nch is even
-    cp_async4_or0(&s.z[i][c],
-                  z + (ok ? static_cast<long long>(row + i) * z_ld + d0 + c
-                          : 0),
-                  ok);
-    cp_async4_or0(&s.dy[i][c], dy + (ok ? (row + i) * di + d0 + c : 0), ok);
-  }
-}
-
-// One block: 32 channels of one batch row, kL = N / 2 lanes a channel, two
-// states a lane.  Pass 1 runs the recurrence forward and writes h at the
-// end of every chunk of kBT steps but the last to ckpt; pass 2 walks the
-// chunks backward: from the checkpoint before the chunk it recomputes the
-// chunk's states (keeping q_t = decay_t h_{t-1} in registers), then runs
-// the reverse recurrence of dh through the chunk (decay_t recomputed).
-// The sums over a channel's states (C . h for y_pre, and ddt's and dx's)
-// leave the recurrences: each lane adds its two states' terms and keeps
-// the chunk's kBT steps, and the channel's lanes reduce them transposed
-// once per chunk (the forward's butterfly), after which lane sub holds
-// steps sub kOwn .. sub kOwn + kOwn - 1 and finishes dz, ddt and dx there.
-// dB and dC (sums over channels) are summed over the warp by a butterfly,
-// then over the block's warps in order, into this block's partial row of
-// part_bc; dA and dD (sums over steps) stay in registers and leave as this
-// batch row's partials in part_ad.  selective_scan_bwd_reduce_kernel sums
-// both in order.
-template <int kN>
-__global__ void __launch_bounds__(BwdLt<kN>::kThreads)
+// One block: 32 channels of one batch row, kL lanes a channel, kNL states
+// a lane.  The chunks of kBT steps, last first: from the checkpoint before
+// the chunk (staged with its inputs) the chunk's states are recomputed,
+// q_t = decay_t h_{t-1} kept in registers, y_pre's sums reduced and dz
+// finished per group; the chunk's dC terms are summed over the block's
+// channels into this block's partial row; then the reverse recurrence of
+// dh runs through the chunk (decay_t recomputed), ddt's and dx's sums are
+// reduced and finished per group, and the dB terms are summed as the dC
+// ones.  dA and dD leave as this batch row's partials in part_ad.
+// selective_scan_bwd_reduce_kernel sums both partials in order.
+template <int kN, int kNL>
+__global__ void __launch_bounds__(BwdLt<kN, kNL>::kThreads,
+                                  BwdLt<kN, kNL>::kMinBlocks)
 selective_scan_bwd_kernel(const float* __restrict__ dt,
                           const float* __restrict__ x,
                           const __nv_bfloat16* __restrict__ z,
@@ -612,20 +758,21 @@ selective_scan_bwd_kernel(const float* __restrict__ dt,
                           const float* __restrict__ A,
                           const float* __restrict__ Dskip,
                           const __nv_bfloat16* __restrict__ dy,
+                          const float* __restrict__ ckpt,
                           float* __restrict__ ddt, float* __restrict__ dx,
                           __nv_bfloat16* __restrict__ dz,
-                          float* __restrict__ ckpt,
                           float* __restrict__ part_bc,
                           float* __restrict__ part_ad, int bsz, int S,
                           int di, long long z_ld) {
-  using Lt = BwdLt<kN>;
+  using Lt = BwdLt<kN, kNL>;
   using Wk = BwdWork<kN>;
-  constexpr int kL = Lt::kL, kNL = Lt::kNL, kThreads = Lt::kThreads;
+  constexpr int kL = Lt::kL, kThreads = Lt::kThreads, kG = Lt::kG;
   constexpr int kOwn = Lt::kOwn;
+  constexpr int kWC = 32 / kL;                  // channels a warp
   extern __shared__ __align__(16) unsigned char smem[];
   auto* stages = reinterpret_cast<BwdStage<kN>*>(smem);
   Wk& w = *reinterpret_cast<Wk*>(smem + 2 * sizeof(BwdStage<kN>));
-  const int c = threadIdx.x / kL, sub = threadIdx.x % kL;
+  const int c = threadIdx.x / kL, sub = threadIdx.x % kL, n0 = sub * kNL;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int d0 = blockIdx.x * kCh;
   const int nch = min(kCh, di - d0);
@@ -638,213 +785,160 @@ selective_scan_bwd_kernel(const float* __restrict__ dt,
   float a[kNL], a2[kNL];
 #pragma unroll
   for (int j = 0; j < kNL; ++j) {
-    a[j] = A[static_cast<size_t>(ch) * kN + sub + kL * j];
+    a[j] = A[static_cast<size_t>(ch) * kN + n0 + j];
     a2[j] = a[j] * kLog2e;
   }
   const float dsk = Dskip[ch];
   const int chunks = (S + kBT - 1) / kBT;
-  // this lane's state j in checkpoint k: ck[k ck_step + kL j]
+  // checkpoint k of this batch row at ck + k ck_step, from channel d0
   const size_t ck_step = static_cast<size_t>(di) * kN;
-  float* ck = ckpt + static_cast<size_t>(b) * (chunks - 1) * ck_step
-              + static_cast<size_t>(d0 + c) * kN + sub;
-  auto stage = [&](int k, bool all) {
-    bwd_stage<kN>(stages[k & 1], dt, x, z, dy, Bm, Cm,
-                  row0 + static_cast<size_t>(k) * kBT,
-                  min(kBT, S - k * kBT), di, d0, nch, z_ld, all);
+  const float* ck = ckpt + static_cast<size_t>(b) * (chunks - 1) * ck_step
+                    + static_cast<size_t>(d0) * kN;
+  // this block's partial rows for batch row b: dB, then dC
+  float* p_dB = part_bc
+                + (static_cast<size_t>(blockIdx.x) * 2 * bsz + b) * S * kN;
+  float* p_dC = p_dB + static_cast<size_t>(bsz) * S * kN;
+  const BwdCopier<kN, kThreads> cp;
+  auto stage = [&](int k) {
+    cp.stage(stages[k & 1], dt, x, z, dy, Bm, Cm,
+             k > 0 ? ck + static_cast<size_t>(k - 1) * ck_step : nullptr,
+             row0 + static_cast<size_t>(k) * kBT, min(kBT, S - k * kBT), di,
+             d0, nch, z_ld);
   };
 
-  // pass 1: the states at the ends of chunks 0 .. chunks - 2
-  if (chunks > 1) {
-    float h[kNL] = {};
-    stage(0, false);
-    cp_async_commit();
-    for (int k = 0; k < chunks - 1; ++k) {
-      if (k + 1 < chunks - 1) stage(k + 1, false);
-      cp_async_commit();             // possibly empty: one group per chunk
-      cp_async_wait<1>();            // chunk k has landed
-      __syncthreads();
-      const BwdStage<kN>& s = stages[k & 1];
-#pragma unroll
-      for (int g = 0; g < kBT; g += 4) {
-        const float4 dt4 = *reinterpret_cast<const float4*>(&s.dt[c][g]);
-        const float4 x4 = *reinterpret_cast<const float4*>(&s.x[c][g]);
-        const float dtq[4] = {dt4.x, dt4.y, dt4.z, dt4.w};
-        const float xq[4] = {x4.x, x4.y, x4.z, x4.w};
-        float bq[kNL][4];
-#pragma unroll
-        for (int j = 0; j < kNL; ++j) {
-          const float4 b4 =
-              *reinterpret_cast<const float4*>(&s.B[sub + kL * j][g]);
-          bq[j][0] = b4.x, bq[j][1] = b4.y, bq[j][2] = b4.z, bq[j][3] = b4.w;
-        }
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const float dtx = dtq[u] * xq[u];
-#pragma unroll
-          for (int j = 0; j < kNL; ++j)
-            h[j] = ex2(dtq[u] * a2[j]) * h[j] + dtx * bq[j][u];
-        }
-      }
-      if (live)
-#pragma unroll
-        for (int j = 0; j < kNL; ++j) ck[k * ck_step + kL * j] = h[j];
-      __syncthreads();               // the stage is free for chunk k + 2
-    }
-  }
-
-  // pass 2: the chunks from the last to the first; steps past S are zeros
   float dh[kNL] = {}, dnext[kNL] = {}, dA[kNL] = {};
   float dD = 0.0f;
-  stage(chunks - 1, true);
+  stage(chunks - 1);
   cp_async_commit();
   for (int k = chunks - 1; k >= 0; --k) {
     const int rows = min(kBT, S - k * kBT);
-    if (k > 0) stage(k - 1, true);
-    cp_async_commit();
-    float h[kNL];
-#pragma unroll
-    for (int j = 0; j < kNL; ++j)
-      h[j] = k > 0 && live ? ck[(k - 1) * ck_step + kL * j] : 0.0f;
-    cp_async_wait<1>();
+    if (k > 0) stage(k - 1);
+    cp_async_commit();                 // possibly empty: one group a chunk
+    cp_async_wait<1>();                // chunk k has landed
     __syncthreads();
     const BwdStage<kN>& s = stages[k & 1];
-    // the gate per (step, channel): dy silu(z) and dy silu'(z), with
+    // the gate of this warp's channels: dy silu(z) and dy silu'(z), with
     // sigma(z) = rcp(1 + ex2(-z log2(e))) as the forward's
 #pragma unroll
-    for (int e = threadIdx.x; e < kBT * kCh; e += kThreads) {
-      const int i = e / 32 % 4 * 4 + e % 32 / 8, cc = e / 128 * 8 + e % 8;
+    for (int m = 0; m < kBT * kWC / 32; ++m) {
+      const int e = lane + 32 * m;
+      const int i = e / kWC, cc = warp * kWC + e % kWC;
       const float zv = __bfloat162float(s.z[i][cc]);
       const float dyv = __bfloat162float(s.dy[i][cc]);
       const float sg = rcp(1.0f + ex2(-zv * kLog2e));
       w.dyp[cc][i] = dyv * (zv * sg);
-      w.gz[cc][i] = dyv * (sg * (1.0f + zv * (1.0f - sg)));
+      w.gz[cc][i] = dyv * (sg * __fmaf_rn(zv, 1.0f - sg, 1.0f));
     }
-    __syncthreads();
+    __syncwarp();
+
     // forward through the chunk: q_t = decay_t h_{t-1}, h_t; this lane's
-    // terms of C_t . h_t; dC's and dD's terms
-    float q[kBT][kNL], p1[kBT], p2[kBT];
+    // terms of C_t . h_t; the dC terms to red; per group, y_pre summed
+    // across the channel's lanes, dz and dD of the steps this lane holds
+    float h[kNL], q[kBT][kNL];
+    ld_vec<kNL>(h, &s.h0[c][n0]);
 #pragma unroll
-    for (int g = 0; g < kBT; g += 4) {
-      const float4 dt4 = *reinterpret_cast<const float4*>(&s.dt[c][g]);
-      const float4 x4 = *reinterpret_cast<const float4*>(&s.x[c][g]);
-      const float4 y4 = *reinterpret_cast<const float4*>(&w.dyp[c][g]);
-      const float dtq[4] = {dt4.x, dt4.y, dt4.z, dt4.w};
-      const float xq[4] = {x4.x, x4.y, x4.z, x4.w};
-      const float yq[4] = {y4.x, y4.y, y4.z, y4.w};
-      float bq[kNL][4], cq[kNL][4];
+    for (int g0 = 0; g0 < kBT; g0 += kG) {
+      float p[kG];
 #pragma unroll
-      for (int j = 0; j < kNL; ++j) {
-        const float4 b4 =
-            *reinterpret_cast<const float4*>(&s.B[sub + kL * j][g]);
-        const float4 c4 =
-            *reinterpret_cast<const float4*>(&s.C[sub + kL * j][g]);
-        bq[j][0] = b4.x, bq[j][1] = b4.y, bq[j][2] = b4.z, bq[j][3] = b4.w;
-        cq[j][0] = c4.x, cq[j][1] = c4.y, cq[j][2] = c4.z, cq[j][3] = c4.w;
-      }
+      for (int g = g0; g < g0 + kG; g += 4) {
+        float dtq[4], xq[4], yq[4];
+        ld_vec<4>(dtq, &s.dt[c][g]);
+        ld_vec<4>(xq, &s.x[c][g]);
+        ld_vec<4>(yq, &w.dyp[c][g]);
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int i = g + u;
-        const float dtx = dtq[u] * xq[u];
-        float ch1 = 0.0f, dc[kNL];
+        for (int u = 0; u < 4; ++u) {
+          const int i = g + u;
+          float bv[kNL], cv[kNL], dc[kNL];
+          ld_vec<kNL>(bv, &s.B[i][n0]);
+          ld_vec<kNL>(cv, &s.C[i][n0]);
+          const float dtx = dtq[u] * xq[u];
+          float yp = 0.0f;
 #pragma unroll
-        for (int j = 0; j < kNL; ++j) {
-          q[i][j] = ex2(dtq[u] * a2[j]) * h[j];
-          h[j] = q[i][j] + dtx * bq[j][u];
-          ch1 = j == 0 ? cq[j][u] * h[j] : ch1 + cq[j][u] * h[j];
-          dc[j] = yq[u] * h[j];
+          for (int j = 0; j < kNL; ++j) {
+            q[i][j] = ex2(dtq[u] * a2[j]) * h[j];
+            h[j] = __fmaf_rn(dtx, bv[j], q[i][j]);
+            yp = j == 0 ? cv[j] * h[j] : __fmaf_rn(cv[j], h[j], yp);
+            dc[j] = yq[u] * h[j];
+          }
+          p[i - g0] = yp;
+          st_vec<kNL>(&w.red[i][c * kN + n0], dc);
         }
-        p1[i] = ch1;
-        dD = dD + yq[u] * xq[u];
-        warp_partial<kN>(w.red[1][i][warp], lane, dc);
+      }
+      butterfly<kG / 2, kL / 2, kG>(p, sub);
+#pragma unroll
+      for (int o = 0; o < kOwn; ++o) {
+        const int i = g0 + sub * kOwn + o;
+        const float xv = s.x[c][i];
+        w.dz[i][c] = __float2bfloat16_rn(__fmaf_rn(dsk, xv, p[o])
+                                         * w.gz[c][i]);
+        dD = __fmaf_rn(w.dyp[c][i], xv, dD);
       }
     }
-    butterfly<kBT / 2, kL / 2, kBT>(p1, sub);
-#pragma unroll
-    for (int j = 0; j < kOwn; ++j) {       // y_pre, then dz, of lane's steps
-      const int i = sub * kOwn + j;
-      w.dz[i][c] = __float2bfloat16_rn((p1[j] + dsk * s.x[c][i])
-                                       * w.gz[c][i]);
-    }
+    __syncthreads();                   // the chunk's dC terms are in red
+    red_rows<kN, kThreads>(w.red, p_dC + static_cast<size_t>(k) * kBT * kN,
+                           rows);
+    __syncthreads();                   // red is free for the dB terms
+
     // backward through the chunk: dh_t = dy_pre_t C_t + decay_{t+1}
-    // dh_{t+1}; this lane's terms of ddt's and dx's sums
+    // dh_{t+1}; dA; this lane's terms of ddt's and dx's sums; the dB terms
+    // to red; per group, the sums across the channel's lanes, then ddt and
+    // dx of the steps this lane holds
 #pragma unroll
-    for (int g = kBT - 4; g >= 0; g -= 4) {
-      const float4 dt4 = *reinterpret_cast<const float4*>(&s.dt[c][g]);
-      const float4 x4 = *reinterpret_cast<const float4*>(&s.x[c][g]);
-      const float4 y4 = *reinterpret_cast<const float4*>(&w.dyp[c][g]);
-      const float dtq[4] = {dt4.x, dt4.y, dt4.z, dt4.w};
-      const float xq[4] = {x4.x, x4.y, x4.z, x4.w};
-      const float yq[4] = {y4.x, y4.y, y4.z, y4.w};
-      float bq[kNL][4], cq[kNL][4];
+    for (int g0 = kBT - kG; g0 >= 0; g0 -= kG) {
+      float p1[kG], p2[kG];
 #pragma unroll
-      for (int j = 0; j < kNL; ++j) {
-        const float4 b4 =
-            *reinterpret_cast<const float4*>(&s.B[sub + kL * j][g]);
-        const float4 c4 =
-            *reinterpret_cast<const float4*>(&s.C[sub + kL * j][g]);
-        bq[j][0] = b4.x, bq[j][1] = b4.y, bq[j][2] = b4.z, bq[j][3] = b4.w;
-        cq[j][0] = c4.x, cq[j][1] = c4.y, cq[j][2] = c4.z, cq[j][3] = c4.w;
-      }
+      for (int g = g0 + kG - 4; g >= g0; g -= 4) {
+        float dtq[4], xq[4], yq[4];
+        ld_vec<4>(dtq, &s.dt[c][g]);
+        ld_vec<4>(xq, &s.x[c][g]);
+        ld_vec<4>(yq, &w.dyp[c][g]);
 #pragma unroll
-      for (int u = 3; u >= 0; --u) {
-        const int i = g + u;
-        float t1 = 0.0f, t2 = 0.0f, db[kNL];
+        for (int u = 3; u >= 0; --u) {
+          const int i = g + u;
+          float bv[kNL], cv[kNL], db[kNL];
+          ld_vec<kNL>(bv, &s.B[i][n0]);
+          ld_vec<kNL>(cv, &s.C[i][n0]);
+          const float dtx = dtq[u] * xq[u];
+          float t1 = 0.0f, t2 = 0.0f;
 #pragma unroll
-        for (int j = 0; j < kNL; ++j) {
-          dh[j] = yq[u] * cq[j][u] + dnext[j] * dh[j];
-          dnext[j] = ex2(dtq[u] * a2[j]);        // decay_t, recomputed
-          dA[j] = dA[j] + (dtq[u] * dh[j]) * q[i][j];
-          db[j] = (dtq[u] * xq[u]) * dh[j];
-          const float e1 = dh[j] * (a[j] * q[i][j] + xq[u] * bq[j][u]);
-          const float e2 = dh[j] * bq[j][u];
-          t1 = j == 0 ? e1 : t1 + e1;
-          t2 = j == 0 ? e2 : t2 + e2;
+          for (int j = 0; j < kNL; ++j) {
+            dh[j] = __fmaf_rn(yq[u], cv[j], dnext[j] * dh[j]);
+            dnext[j] = ex2(dtq[u] * a2[j]);    // decay_t, recomputed
+            const float r = dh[j] * q[i][j];
+            dA[j] = __fmaf_rn(dtq[u], r, dA[j]);
+            t1 = j == 0 ? a[j] * r : __fmaf_rn(a[j], r, t1);
+            t2 = j == 0 ? dh[j] * bv[j] : __fmaf_rn(dh[j], bv[j], t2);
+            db[j] = dtx * dh[j];
+          }
+          p1[i - g0] = t1;
+          p2[i - g0] = t2;
+          st_vec<kNL>(&w.red[i][c * kN + n0], db);
         }
-        p1[i] = t1;
-        p2[i] = t2;
-        warp_partial<kN>(w.red[0][i][warp], lane, db);
+      }
+      butterfly<kG / 2, kL / 2, kG>(p1, sub);
+      butterfly<kG / 2, kL / 2, kG>(p2, sub);
+#pragma unroll
+      for (int o = 0; o < kOwn; ++o) {
+        const int i = g0 + sub * kOwn + o;
+        w.ddt[i][c] = __fmaf_rn(s.x[c][i], p2[o], p1[o]);
+        w.dx[i][c] = __fmaf_rn(s.dt[c][i], p2[o], dsk * w.dyp[c][i]);
       }
     }
-    butterfly<kBT / 2, kL / 2, kBT>(p1, sub);
-    butterfly<kBT / 2, kL / 2, kBT>(p2, sub);
-#pragma unroll
-    for (int j = 0; j < kOwn; ++j) {
-      const int i = sub * kOwn + j;
-      w.ddt[i][c] = p1[j];
-      w.dx[i][c] = dsk * w.dyp[c][i] + s.dt[c][i] * p2[j];
-    }
-    __syncthreads();
-    // the chunk's dB and dC rows: each step's warp terms summed in warp
-    // order, this block's partial
-#pragma unroll
-    for (int e = threadIdx.x; e < 2 * kBT * kN; e += kThreads) {
-      const int j = e / (kBT * kN), i = e / kN % kBT, nn = e % kN;
-      if (i < rows) {
-        float acc = w.red[j][i][0][nn];
-#pragma unroll
-        for (int v = 1; v < Lt::kWarps; ++v) acc = acc + w.red[j][i][v][nn];
-        part_bc[((static_cast<size_t>(blockIdx.x) * 2 + j) * bsz + b) * S
-                    * kN
-                + (static_cast<size_t>(k) * kBT + i) * kN + nn] = acc;
-      }
-    }
-#pragma unroll
-    for (int e = threadIdx.x; e < kBT * kCh; e += kThreads) {
-      const int i = e / kCh, cc = e % kCh;
-      if (i < rows && cc < nch) {
-        const size_t o =
-            (row0 + static_cast<size_t>(k) * kBT + i) * di + d0 + cc;
-        ddt[o] = w.ddt[i][cc];
-        dx[o] = w.dx[i][cc];
-        dz[o] = w.dz[i][cc];
-      }
-    }
+    __syncthreads();                   // the dB terms, ddt, dx and dz
+    red_rows<kN, kThreads>(w.red, p_dB + static_cast<size_t>(k) * kBT * kN,
+                           rows);
+    cp.store(w, ddt, dx, dz, row0 + static_cast<size_t>(k) * kBT, rows, di,
+             d0, nch);
   }
+  // dD: this lane's steps, then across the channel's lanes (a butterfly)
+#pragma unroll
+  for (int m = kL / 2; m > 0; m /= 2)
+    dD = dD + __shfl_xor_sync(0xffffffffu, dD, m);
   if (live) {
     float* ad = part_ad + static_cast<size_t>(b) * di * (kN + 1);
 #pragma unroll
     for (int j = 0; j < kNL; ++j)
-      ad[static_cast<size_t>(ch) * kN + sub + kL * j] = dA[j];
+      ad[static_cast<size_t>(ch) * kN + n0 + j] = dA[j];
     if (sub == 0) ad[static_cast<size_t>(di) * kN + ch] = dD;
   }
 }
@@ -869,32 +963,56 @@ int reduce_grid(long long M) {
   return static_cast<int>(blocks < 132 * 16 ? blocks : 132 * 16);
 }
 
+// lanes launched to aim at with four states a lane: 7 warps an SM of the
+// H100's 132 (falcon-mamba-7b's layer launches 7.8 at four states a lane;
+// hymba-1.5b's B=1 layer, 3.0, takes two)
+constexpr long long kBwdTargetLanes = 7LL * 132 * 32;
+
+int bwd_states_for(int bsz, int di, int N) {
+  return static_cast<long long>(bsz) * di * (N / 4) >= kBwdTargetLanes ? 4
+                                                                       : 2;
+}
+
+// f(BwdLt<kN, states>{}) for states 4 or 2
+template <int kN, typename F>
+int with_bwd_layout(int states, F f) {
+  if (states == 4) return f(BwdLt<kN, 4>{});
+  if (states == 2) return f(BwdLt<kN, 2>{});
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <int kN>
 int launch_bwd(const float* dt, const float* x, const __nv_bfloat16* z,
                const float* B, const float* C, const float* A,
-               const float* D, const __nv_bfloat16* dy, float* ddt,
-               float* dx, __nv_bfloat16* dz, float* dBC, float* dAD,
-               float* ckpt, float* part_bc, float* part_ad, int bsz, int S,
+               const float* D, const __nv_bfloat16* dy, const float* ckpt,
+               float* ddt, float* dx, __nv_bfloat16* dz, float* dBC,
+               float* dAD, float* part_bc, float* part_ad, int bsz, int S,
                int di, long long z_ld, cudaStream_t stream) {
   constexpr int kSmem = bwd_smem<kN>();
-  cudaError_t err = cudaFuncSetAttribute(
-      selective_scan_bwd_kernel<kN>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (di + kCh - 1) / kCh;
-  selective_scan_bwd_kernel<kN><<<dim3(blocks, bsz), BwdLt<kN>::kThreads,
-                                  kSmem, stream>>>(
-      dt, x, z, B, C, A, D, dy, ddt, dx, dz, ckpt, part_bc, part_ad, bsz, S,
-      di, z_ld);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long m_bc = 2LL * bsz * S * kN;
-  const long long m_ad = static_cast<long long>(di) * (kN + 1);
-  selective_scan_bwd_reduce_kernel<<<reduce_grid(m_bc), 256, 0, stream>>>(
-      part_bc, dBC, blocks, m_bc);
-  selective_scan_bwd_reduce_kernel<<<reduce_grid(m_ad), 256, 0, stream>>>(
-      part_ad, dAD, bsz, m_ad);
-  return static_cast<int>(cudaGetLastError());
+  return with_bwd_layout<kN>(bwd_states_for(bsz, di, kN), [&](auto lt) {
+    using Lt = decltype(lt);
+    auto* kernel = selective_scan_bwd_kernel<kN, Lt::kStates>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int blocks = (di + kCh - 1) / kCh;
+    kernel<<<dim3(blocks, bsz), Lt::kThreads, kSmem, stream>>>(
+        dt, x, z, B, C, A, D, dy, ckpt, ddt, dx, dz, part_bc, part_ad, bsz,
+        S, di, z_ld);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const long long m_bc = 2LL * bsz * S * kN;
+    const long long m_ad = static_cast<long long>(di) * (kN + 1);
+    selective_scan_bwd_reduce_kernel<<<reduce_grid(m_bc), 256, 0, stream>>>(
+        part_bc, dBC, blocks, m_bc);
+    selective_scan_bwd_reduce_kernel<<<reduce_grid(m_ad), 256, 0, stream>>>(
+        part_ad, dAD, bsz, m_ad);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 }  // namespace
@@ -903,19 +1021,24 @@ extern "C" {
 
 // dt, x (bsz, S, di) float32 contiguous; z bf16 with row (b, t) at
 // z + (b S + t) z_ld, 4-byte aligned, z_ld even; B, C (bsz, S, N) float32
-// contiguous; A (di, N), D (di,) float32; y (bsz, S, di) bf16.  All on the
-// card; N in {8, 16}; bsz, S, di >= 1, di even, bsz <= 65535.
+// contiguous; A (di, N), D (di,) float32; y (bsz, S, di) bf16; ckpt null,
+// or (bsz, ceil(S / 16) - 1, di, N) float32 for the states after steps 15,
+// 31, ... (the backward's checkpoints).  All on the card; N in {8, 16};
+// bsz, S, di >= 1, di even, bsz <= 65535.
 int selective_scan_launch(const float* dt, const float* x, const void* z,
                           const float* B, const float* C, const float* A,
-                          const float* D, void* y, int bsz, int S, int di,
-                          int N, long long z_ld, cudaStream_t stream) {
+                          const float* D, void* y, float* ckpt, int bsz,
+                          int S, int di, int N, long long z_ld,
+                          cudaStream_t stream) {
   const auto* zb = static_cast<const __nv_bfloat16*>(z);
   auto* yb = static_cast<__nv_bfloat16*>(y);
   if (di % 2 || z_ld % 2) return static_cast<int>(cudaErrorInvalidValue);
   if (N == 16)
-    return launch<16>(dt, x, zb, B, C, A, D, yb, bsz, S, di, z_ld, stream);
+    return launch<16>(dt, x, zb, B, C, A, D, yb, ckpt, bsz, S, di, z_ld,
+                      stream);
   if (N == 8)
-    return launch<8>(dt, x, zb, B, C, A, D, yb, bsz, S, di, z_ld, stream);
+    return launch<8>(dt, x, zb, B, C, A, D, yb, ckpt, bsz, S, di, z_ld,
+                     stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -938,29 +1061,33 @@ int selective_scan_layout(int bsz, int S, int di, int N, int* out) {
 }
 
 // The backward of selective_scan_launch's scan for the output gradient dy
-// (bsz, S, di) bf16 contiguous, inputs as there.  Writes ddt, dx (bsz, S,
-// di) float32, dz (bsz, S, di) bf16, dBC (2, bsz, S, N) float32 (dB then
-// dC) and dAD (di N + di) float32 (dA (di, N) then dD); scratch: ckpt
-// (bsz, ceil(S / 16) - 1, di, N), part_bc (ceil(di / 32), 2, bsz, S, N) and
-// part_ad (bsz, di N + di) float32.  Three launches on the stream: the
-// scan's, then the two ordered sums of the partials.
+// (bsz, S, di) bf16 contiguous, inputs as there, B and C 16-byte aligned,
+// and ckpt the checkpoints that selective_scan_launch wrote for them
+// (16-byte aligned).  Writes ddt, dx (bsz, S, di) float32, dz (bsz, S, di)
+// bf16, dBC (2, bsz, S, N) float32 (dB then dC) and dAD (di N + di)
+// float32 (dA (di, N) then dD); scratch: part_bc (ceil(di / 32), 2, bsz,
+// S, N) and part_ad (bsz, di N + di) float32.  Three launches on the
+// stream: the scan's, then the two ordered sums of the partials.
 int selective_scan_bwd_launch(const float* dt, const float* x, const void* z,
                               const float* B, const float* C, const float* A,
-                              const float* D, const void* dy, float* ddt,
-                              float* dx, void* dz, float* dBC, float* dAD,
-                              float* ckpt, float* part_bc, float* part_ad,
-                              int bsz, int S, int di, int N, long long z_ld,
+                              const float* D, const void* dy,
+                              const float* ckpt, float* ddt, float* dx,
+                              void* dz, float* dBC, float* dAD,
+                              float* part_bc, float* part_ad, int bsz, int S,
+                              int di, int N, long long z_ld,
                               cudaStream_t stream) {
   const auto* zb = static_cast<const __nv_bfloat16*>(z);
   const auto* dyb = static_cast<const __nv_bfloat16*>(dy);
   auto* dzb = static_cast<__nv_bfloat16*>(dz);
   if (di % 2 || z_ld % 2) return static_cast<int>(cudaErrorInvalidValue);
   if (N == 16)
-    return launch_bwd<16>(dt, x, zb, B, C, A, D, dyb, ddt, dx, dzb, dBC, dAD,
-                          ckpt, part_bc, part_ad, bsz, S, di, z_ld, stream);
+    return launch_bwd<16>(dt, x, zb, B, C, A, D, dyb, ckpt, ddt, dx, dzb,
+                          dBC, dAD, part_bc, part_ad, bsz, S, di, z_ld,
+                          stream);
   if (N == 8)
-    return launch_bwd<8>(dt, x, zb, B, C, A, D, dyb, ddt, dx, dzb, dBC, dAD,
-                         ckpt, part_bc, part_ad, bsz, S, di, z_ld, stream);
+    return launch_bwd<8>(dt, x, zb, B, C, A, D, dyb, ckpt, ddt, dx, dzb,
+                         dBC, dAD, part_bc, part_ad, bsz, S, di, z_ld,
+                         stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -968,16 +1095,22 @@ int selective_scan_bwd_launch(const float* dt, const float* x, const void* z,
 // {lanes per channel, channels per block, threads per block, steps per
 // chunk, chunks, channel blocks, dynamic shared memory bytes}
 int selective_scan_bwd_layout(int bsz, int S, int di, int N, int* out) {
-  (void)bsz;
-  if (N != 8 && N != 16) return static_cast<int>(cudaErrorInvalidValue);
-  out[0] = N / 2;
-  out[1] = kCh;
-  out[2] = kCh * N / 2;
-  out[3] = kBT;
-  out[4] = (S + kBT - 1) / kBT;
-  out[5] = (di + kCh - 1) / kCh;
-  out[6] = N == 16 ? bwd_smem<16>() : bwd_smem<8>();
-  return 0;
+  const auto describe = [&](auto lt) {
+    using Lt = decltype(lt);
+    out[0] = Lt::kL;
+    out[1] = kCh;
+    out[2] = Lt::kThreads;
+    out[3] = kBT;
+    out[4] = (S + kBT - 1) / kBT;
+    out[5] = (di + kCh - 1) / kCh;
+    out[6] = bwd_smem<Lt::kL * Lt::kStates>();
+    return 0;
+  };
+  if (N == 16) return with_bwd_layout<16>(bwd_states_for(bsz, di, N),
+                                          describe);
+  if (N == 8) return with_bwd_layout<8>(bwd_states_for(bsz, di, N),
+                                        describe);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

@@ -101,7 +101,7 @@ def flash_attention_bwd(q, k, v, out, dout, *, window: int = 0,
                                     causal=causal)
 
 
-def selective_scan(dt, x, z, B, C, A, D):
+def selective_scan(dt, x, z, B, C, A, D, *, checkpoints: bool = False):
     """The Mamba-1 block's selective scan with its D skip and gate (see
     ``ref.selective_scan_ref``): per (batch, channel), h_t = exp(dt_t A)
     h_{t-1} + (dt_t x_t) B_t and y_t = (C_t . h_t + D x_t) silu(z_t).
@@ -110,31 +110,39 @@ def selective_scan(dt, x, z, B, C, A, D):
     y takes (bf16 on the card), a row-strided view allowed (the gate half
     of the input projection, read in place); B, C (bsz, S, N) float32,
     views allowed (copied to contiguous on the card: S N floats each); A
-    (di, N), D (di,) float32.  On the card N in {8, 16}.
+    (di, N), D (di,) float32.  On the card N in {8, 16}.  With
+    ``checkpoints`` returns (y, ckpt): the states after steps 15, 31, ...
+    (bsz, (S - 1) // 16, di, N) float32, for ``selective_scan_bwd``.
     """
     if _route(dt, "selective_scan") == "cpu":
-        return selective_scan_ref(dt, x, z, B, C, A, D)
+        return selective_scan_ref(dt, x, z, B, C, A, D,
+                                  checkpoints=checkpoints)
     return selective_scan_cuda(dt.contiguous(), x.contiguous(), z,
                                B.contiguous(), C.contiguous(),
-                               A.contiguous(), D.contiguous())
+                               A.contiguous(), D.contiguous(),
+                               checkpoints=checkpoints)
 
 
-def selective_scan_bwd(dt, x, z, B, C, A, D, dy):
+def selective_scan_bwd(dt, x, z, B, C, A, D, dy, ckpt=None):
     """(ddt, dx, dz, dB, dC, dA, dD): the gradients of
     ``selective_scan(dt, x, z, B, C, A, D)`` for the output gradient dy
     (see ``ref.selective_scan_bwd_ref``; the output's cast to z's dtype
     taken as the identity).
 
     Inputs as ``selective_scan``'s; dy (bsz, S, di) in y's dtype (bf16 on
-    the card).  Each gradient in its input's dtype and shape (dz in z's
-    dtype, contiguous).  On the card N in {8, 16}.
+    the card); ``ckpt`` the checkpoints of ``selective_scan(...,
+    checkpoints=True)`` on the same inputs (on the card, when None, the
+    forward kernel writes them first: one more launch).  Each gradient in
+    its input's dtype and shape (dz in z's dtype, contiguous).  On the
+    card N in {8, 16}.
     """
     if _route(dt, "selective_scan_bwd") == "cpu":
-        return selective_scan_bwd_ref(dt, x, z, B, C, A, D, dy)
-    return selective_scan_bwd_cuda(dt.contiguous(), x.contiguous(), z,
-                                   B.contiguous(), C.contiguous(),
-                                   A.contiguous(), D.contiguous(),
-                                   dy.contiguous())
+        return selective_scan_bwd_ref(dt, x, z, B, C, A, D, dy, ckpt)
+    ins = (dt.contiguous(), x.contiguous(), z, B.contiguous(),
+           C.contiguous(), A.contiguous(), D.contiguous())
+    if ckpt is None:
+        ckpt = selective_scan_cuda(*ins, checkpoints=True)[1]
+    return selective_scan_bwd_cuda(*ins, dy.contiguous(), ckpt)
 
 
 def mgpmh_sweep(x, W, row_pack, i_sites, B, u_idx, u_alias, gumbel, logu,

@@ -46,9 +46,12 @@ __all__ = ["bucket_energy_ref", "gibbs_sweep_ref", "gibbs_class_sweep_ref",
            "double_min_sweep_rng_ref", "local_gibbs_subsets",
            "local_gibbs_sweep_ref", "flash_attention_ref",
            "flash_attention_bwd_ref", "selective_scan_ref",
-           "selective_scan_bwd_ref"]
+           "selective_scan_bwd_ref", "SCAN_CKPT_STEPS"]
 
 NEG_INF = -1e30     # the masked score of the TPU kernel (not -inf)
+# steps between the selective scan's checkpoints: the state after steps
+# 15, 31, ... (csrc/selective_scan.cu kBT), which the backward restarts from
+SCAN_CKPT_STEPS = 16
 
 
 def _onehot(v: torch.Tensor, D: int) -> torch.Tensor:
@@ -81,7 +84,7 @@ def bucket_energy_ref(w: torch.Tensor, v: torch.Tensor, D: int) -> torch.Tensor:
 
 def selective_scan_ref(dt: torch.Tensor, x: torch.Tensor, z: torch.Tensor,
                        B: torch.Tensor, C: torch.Tensor, A: torch.Tensor,
-                       D: torch.Tensor) -> torch.Tensor:
+                       D: torch.Tensor, *, checkpoints: bool = False):
     """The plain version of the selective-scan kernel
     (``csrc/selective_scan.cu``): per (batch, channel), from h = 0,
 
@@ -96,28 +99,42 @@ def selective_scan_ref(dt: torch.Tensor, x: torch.Tensor, z: torch.Tensor,
 
     dt, x (bsz, S, di) float32; z (bsz, S, di), any strides; B, C (bsz,
     S, N) float32; A (di, N), D (di,) float32; any N.  Returns y (bsz, S,
-    di) in z's dtype (the block's compute dtype).
+    di) in z's dtype (the block's compute dtype); with ``checkpoints``
+    (y, ckpt): ckpt (bsz, (S - 1) // SCAN_CKPT_STEPS, di, N) holds h after
+    steps 15, 31, ... (each checkpoint before the last step), in h's
+    dtype, for ``selective_scan_bwd_ref``.
     """
     bsz, S, di = dt.shape
+    K = SCAN_CKPT_STEPS
     ct = torch.promote_types(dt.dtype, torch.float32)
     h = torch.zeros((bsz, di, A.shape[-1]), dtype=ct, device=dt.device)
     y = torch.empty((bsz, S, di), dtype=ct, device=dt.device)
+    ckpt = (torch.empty((bsz, max(S - 1, 0) // K, *h.shape[1:]), dtype=ct,
+                        device=dt.device) if checkpoints else None)
     for t in range(S):
         decay = torch.exp(dt[:, t, :, None] * A)
         h = decay * h + (dt[:, t] * x[:, t])[..., None] * B[:, t, None, :]
         y[:, t] = (h * C[:, t, None, :]).sum(-1) + D * x[:, t]
-    return (y * F.silu(z.to(ct))).to(z.dtype)
+        if checkpoints and (t + 1) % K == 0 and t + 1 < S:
+            ckpt[:, (t + 1) // K - 1] = h
+    y = (y * F.silu(z.to(ct))).to(z.dtype)
+    return (y, ckpt) if checkpoints else y
 
 
 def selective_scan_bwd_ref(dt: torch.Tensor, x: torch.Tensor,
                            z: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
-                           A: torch.Tensor, D: torch.Tensor, dy: torch.Tensor):
+                           A: torch.Tensor, D: torch.Tensor, dy: torch.Tensor,
+                           ckpt: torch.Tensor = None):
     """The plain version of the selective-scan backward kernel
     (``csrc/selective_scan.cu``): the gradients of ``selective_scan_ref``
     (its final cast taken as the identity) for the output gradient dy.
 
-    One forward pass keeps h_{t-1} and y_pre_t = C_t . h_t + D x_t, then
-    one reverse pass in t, with g = silu(z) and dy_pre = dy g:
+    One forward pass keeps h_{t-1} and y_pre_t = C_t . h_t + D x_t (given
+    ``ckpt``, the checkpoints of ``selective_scan_ref(...,
+    checkpoints=True)``, it restarts h from each one, as the kernel
+    restarts each chunk: the same gradients, bit for bit, from the plain
+    forward's checkpoints), then one reverse pass in t, with g = silu(z)
+    and dy_pre = dy g:
 
       dz_t = dy_t y_pre_t silu'(z_t)
       dh_t = dy_pre_t C_t + exp(dt_{t+1} A) dh_{t+1}          (dh_S = 0)
@@ -144,6 +161,8 @@ def selective_scan_bwd_ref(dt: torch.Tensor, x: torch.Tensor,
     hprev = torch.empty((bsz, S, *h.shape[1:]), dtype=ct, device=dt.device)
     ypre = torch.empty((bsz, S, di), dtype=ct, device=dt.device)
     for t in range(S):
+        if ckpt is not None and t and t % SCAN_CKPT_STEPS == 0:
+            h = ckpt[:, t // SCAN_CKPT_STEPS - 1].to(ct)
         hprev[:, t] = h
         h = (torch.exp(dt[:, t, :, None] * A) * h
              + (dt[:, t] * x[:, t])[..., None] * B[:, t, None, :])

@@ -12,16 +12,20 @@ refused, and counts its launches (``selective_scan_cuda.launches``,
 the plain version, chosen by ``ops``.  ``scan_layout`` and
 ``scan_bwd_layout`` are the layouts the kernels take at a shape, from the
 shape alone; ``kernel_layout`` and ``kernel_bwd_layout`` ask the built
-library for them.
+library for them.  With grad on the forward also writes the states at
+every 16th step (``checkpoints=True``), from which the backward restarts
+each chunk.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from ._build import load_library
 from .fused_sweep import _check, _check_cuda, _launch
+from .ref import SCAN_CKPT_STEPS
 
 __all__ = ["selective_scan_cuda", "selective_scan_bwd_cuda", "STATES",
            "scan_layout", "kernel_layout", "scan_bwd_layout",
@@ -121,7 +125,7 @@ def _check_inputs(dt, x, z, B, C, A, D):
 
 def selective_scan_cuda(dt: torch.Tensor, x: torch.Tensor, z: torch.Tensor,
                         B: torch.Tensor, C: torch.Tensor, A: torch.Tensor,
-                        D: torch.Tensor) -> torch.Tensor:
+                        D: torch.Tensor, *, checkpoints: bool = False):
     """y_t = bf16((C_t . h_t + D x_t) silu(z_t)) with h_t = exp(dt_t A)
     h_{t-1} + (dt_t x_t) B_t from h_{-1} = 0, per (batch, channel).
 
@@ -131,7 +135,10 @@ def selective_scan_cuda(dt: torch.Tensor, x: torch.Tensor, z: torch.Tensor,
     gate half of the input projection, read in place); B, C (bsz, S, N),
     A (di, N) and D (di,) float32 contiguous; N in ``STATES``; all on the
     card.  Returns y (bsz, S, di) bfloat16, the same bits on every
-    launch.
+    launch; with ``checkpoints`` (y, ckpt), ckpt (bsz, (S - 1) // 16, di,
+    N) float32 the states after steps 15, 31, ... for
+    ``selective_scan_bwd_cuda`` (the same y; the serve path asks for
+    none and writes none).
 
     Replaces no Pallas kernel: the JAX package's ``mamba_block``
     (``src/repro/models/ssm.py:42-73``) runs ``jax.lax.associative_scan``
@@ -147,47 +154,66 @@ def selective_scan_cuda(dt: torch.Tensor, x: torch.Tensor, z: torch.Tensor,
     bsz, S, di, N, ld = _check_inputs(dt, x, z, B, C, A, D)
     _check_cuda([dt, x, z, B, C, A, D])
     y = torch.empty((bsz, S, di), dtype=torch.bfloat16, device=dt.device)
-    if y.numel() == 0:
-        return y
-    _launch("selective_scan_launch", dt,
-            (dt, x, z, B, C, A, D, y, bsz, S, di, N, ld))
-    selective_scan_cuda.launches += 1
-    return y
+    ckpt = (torch.empty(_ckpt_shape(bsz, S, di, N), dtype=torch.float32,
+                        device=dt.device) if checkpoints else None)
+    if y.numel():
+        _launch("selective_scan_launch", dt,
+                (dt, x, z, B, C, A, D, y,
+                 ckpt if ckpt is not None and ckpt.numel() else None,
+                 bsz, S, di, N, ld))
+        selective_scan_cuda.launches += 1
+    return (y, ckpt) if checkpoints else y
 
 
 selective_scan_cuda.launches = 0
 
 
-# csrc/selective_scan.cu's backward: a block is _CHANNELS channels x N / 2
-# lanes (two states a lane), walking the sequence in _BWD_TILE-step chunks
-_BWD_TILE = 16
+# csrc/selective_scan.cu's backward: a block is _CHANNELS channels x
+# N / states lanes, each lane holding 4 contiguous states where that
+# launches _BWD_TARGET_LANES lanes (7 warps an SM of 132), else 2; its
+# chunks are the SCAN_CKPT_STEPS steps between the forward's checkpoints
+_BWD_TARGET_LANES = 7 * _SMS * 32
+
+
+def _ckpt_shape(bsz: int, S: int, di: int, N: int) -> tuple:
+    """The forward's checkpoints: the states after steps 15, 31, ... (each
+    before the last step)."""
+    return (bsz, max(S - 1, 0) // SCAN_CKPT_STEPS, di, N)
 
 
 def scan_bwd_layout(bsz: int, S: int, di: int, N: int) -> dict:
     """The backward kernel's layout at (bsz, S, d_inner, N), from the shape
-    alone: ``lanes`` per channel (N / 2, two states each), ``channels`` and
-    ``threads`` per block, ``tile`` (steps per chunk), ``chunks``,
-    ``channel_blocks`` (blocks along d_inner; bsz of them along the batch),
-    ``smem`` (dynamic shared memory bytes a block), and the float32
-    scratch the wrapper allocates: ``ckpt`` (the states at the chunks'
-    ends), ``part_bc`` (each channel block's dB and dC sums) and
-    ``part_ad`` (each batch row's dA and dD sums), in elements."""
+    alone: ``states_per_lane`` (4, or 2 where 4 would launch fewer than 7
+    warps an SM), ``lanes`` per channel (N / states_per_lane),
+    ``channels`` and ``threads`` per block, ``tile`` (steps per chunk,
+    the forward's checkpoint interval), ``chunks``, ``channel_blocks``
+    (blocks along d_inner; bsz of them along the batch), ``smem`` (dynamic
+    shared memory bytes a block), ``warps_per_scheduler`` (launched warps
+    over the 528 schedulers of 132 SMs); in float32 elements the
+    checkpoints the forward writes for it (``ckpt``) and the scratch the
+    wrapper allocates: ``part_bc`` (each channel block's dB and dC sums)
+    and ``part_ad`` (each batch row's dA and dD sums)."""
     if N not in STATES:
         raise ValueError(f"state size N={N} is not supported by the "
                          f"selective-scan kernel (built for {STATES})")
-    chunks = -(-S // _BWD_TILE)
-    blocks = -(-di // _CHANNELS)
-    # two stages of dt, x (transposed, rows of tile + 4 floats), B, C (the
-    # same) and z, dy (bf16 rows of 34), the dB / dC terms of the block's N
-    # warps, dy silu(z) and dy silu'(z) (as dt), and ddt, dx, dz
-    row = _BWD_TILE + 4
-    smem = (2 * (4 * row * (2 * _CHANNELS + 2 * N)
-                 + 2 * 2 * _BWD_TILE * (_CHANNELS + 2))
-            + 4 * 2 * _BWD_TILE * N * N // 2 + 4 * 2 * _CHANNELS * row
-            + 10 * _BWD_TILE * _CHANNELS)
-    return dict(lanes=N // 2, channels=_CHANNELS, threads=_CHANNELS * N // 2,
-                tile=_BWD_TILE, chunks=chunks, channel_blocks=blocks,
-                smem=smem, ckpt=bsz * max(chunks - 1, 0) * di * N,
+    T, ch = SCAN_CKPT_STEPS, _CHANNELS
+    states = 4 if bsz * di * (N // 4) >= _BWD_TARGET_LANES else 2
+    lanes = N // states
+    chunks = -(-S // T)
+    blocks = -(-di // ch)
+    # two stages of dt, x (transposed, rows of tile + 4 floats), B, C (rows
+    # of N), the checkpoint (channels x N) and z, dy (bf16 rows of 34);
+    # then the dC / dB terms of a step (channels x N, padded by N), dy
+    # silu(z) and dy silu'(z) (as dt), and ddt, dx, dz
+    stage = 4 * (2 * ch * (T + 4) + 2 * T * N + ch * N) + 2 * 2 * T * (ch + 2)
+    work = (4 * T * (ch + 1) * N + 4 * 2 * ch * (T + 4) + 4 * 2 * T * ch
+            + 2 * T * ch)
+    return dict(states_per_lane=states, lanes=lanes, channels=ch,
+                threads=ch * lanes, tile=T, chunks=chunks,
+                channel_blocks=blocks, smem=2 * stage + work,
+                warps_per_scheduler=blocks * bsz * ch * lanes / 32
+                / (4 * _SMS),
+                ckpt=math.prod(_ckpt_shape(bsz, S, di, N)),
                 part_bc=blocks * 2 * bsz * S * N,
                 part_ad=bsz * (di * N + di))
 
@@ -209,29 +235,35 @@ def kernel_bwd_layout(bsz: int, S: int, di: int, N: int) -> dict:
 def selective_scan_bwd_cuda(dt: torch.Tensor, x: torch.Tensor,
                             z: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
                             A: torch.Tensor, D: torch.Tensor,
-                            dy: torch.Tensor):
+                            dy: torch.Tensor, ckpt: torch.Tensor):
     """The gradients (ddt, dx, dz, dB, dC, dA, dD) of
     ``selective_scan_cuda(dt, x, z, B, C, A, D)`` for the output gradient
     dy (``ref.selective_scan_bwd_ref``, the output's bf16 cast taken as the
-    identity).
+    identity), from the checkpoints that
+    ``selective_scan_cuda(..., checkpoints=True)`` wrote for the same
+    inputs.
 
     Inputs as ``selective_scan_cuda`` takes them (z may be the strided gate
-    half of the input projection), dy (bsz, S, di) bfloat16 contiguous,
-    4-byte aligned; all on the card.  Returns ddt, dx (bsz, S, di), dB, dC
-    (bsz, S, N), dA (di, N), dD (di,) float32 and dz (bsz, S, di)
-    bfloat16, the same bits on every launch: one call is three launches on
-    the current stream (counted as one), no synchronisation.
+    half of the input projection), B and C 16-byte aligned; dy (bsz, S,
+    di) bfloat16 contiguous, 4-byte aligned; ckpt (bsz, (S - 1) // 16, di,
+    N) float32 contiguous, 16-byte aligned; all on the card.  Returns ddt,
+    dx (bsz, S, di), dB, dC (bsz, S, N), dA (di, N), dD (di,) float32 and
+    dz (bsz, S, di) bfloat16, the same bits on every launch: one call is
+    three launches on the current stream (counted as one), no
+    synchronisation.
 
     Replaces no Pallas kernel: the JAX package takes this gradient by
     ``jax.grad`` through ``mamba_block``'s associative scan
-    (``src/repro/models/ssm.py:61-72``), jnp.  The state at every step is
-    needed in reverse time; nothing is saved by the forward: a first pass
-    writes h at the end of every 16-step chunk to scratch, then each chunk,
-    last first, recomputes its states from the checkpoint before it and
-    runs the reverse recurrence.  Bound by the bytes (dt, x, dy, z read,
-    ddt, dx, dz written: 22 per (b, t, d)) against the exponentials (N + 1
-    per (b, t, d)).  dB and dC (sums over d_inner) and dA and dD (sums over
-    batch and steps) leave as per-block partial sums that a second kernel
+    (``src/repro/models/ssm.py:61-72``), jnp.  Each 16-step chunk, last
+    first, is recomputed from its checkpoint and run in reverse, with
+    ``scan_bwd_layout(...)["states_per_lane"]`` contiguous states a lane,
+    the sums over a channel's states reduced across its lanes once per
+    group of steps, the state recompute and the reverse recurrence in
+    fused multiply-adds.  Bound by the bytes (dt, x, dy, z read, ddt, dx,
+    dz written: 22 per (b, t, d)) against the exponentials (N + 1 per
+    (b, t, d)).  dB and dC (sums over d_inner) are summed over each
+    block's channels in shared memory and dA and dD (sums over batch and
+    steps) in registers, and leave as partial sums that a second kernel
     adds in a fixed order: no atomics.
     """
     bsz, S, di, N, ld = _check_inputs(dt, x, z, B, C, A, D)
@@ -243,19 +275,25 @@ def selective_scan_bwd_cuda(dt: torch.Tensor, x: torch.Tensor,
     if dy.data_ptr() % 4:
         raise ValueError(f"dy must start 4-byte aligned, data pointer "
                          f"{dy.data_ptr()}")
-    _check_cuda([dt, x, z, B, C, A, D, dy])
+    _check(ckpt, "ckpt", torch.float32, _ckpt_shape(bsz, S, di, N))
+    for name, t in (("B", B), ("C", C), ("ckpt", ckpt)):
+        if t.numel() and t.data_ptr() % 16:
+            raise ValueError(f"{name} must start 16-byte aligned, data "
+                             f"pointer {t.data_ptr()}")
+    _check_cuda([dt, x, z, B, C, A, D, dy, ckpt])
     lay = scan_bwd_layout(bsz, S, di, N)
     f32 = dict(dtype=torch.float32, device=dt.device)
     ddt, dx = torch.empty_like(dt), torch.empty_like(x)
     dz = torch.empty((bsz, S, di), dtype=torch.bfloat16, device=dt.device)
-    dBC = torch.zeros((2, bsz, S, N), **f32)
-    dAD = torch.zeros(di * N + di, **f32)
+    # every element written by the ordered sums; zeros when nothing runs
+    alloc = torch.empty if dt.numel() else torch.zeros
+    dBC = alloc((2, bsz, S, N), **f32)
+    dAD = alloc(di * N + di, **f32)
     if dt.numel():
-        scratch = [torch.empty(lay[k], **f32)
-                   for k in ("ckpt", "part_bc", "part_ad")]
+        scratch = [torch.empty(lay[k], **f32) for k in ("part_bc", "part_ad")]
         _launch("selective_scan_bwd_launch", dt,
-                (dt, x, z, B, C, A, D, dy, ddt, dx, dz, dBC, dAD, *scratch,
-                 bsz, S, di, N, ld))
+                (dt, x, z, B, C, A, D, dy, ckpt if ckpt.numel() else None,
+                 ddt, dx, dz, dBC, dAD, *scratch, bsz, S, di, N, ld))
         selective_scan_bwd_cuda.launches += 1
     return (ddt, dx, dz, dBC[0], dBC[1], dAD[:di * N].view(di, N),
             dAD[di * N:])

@@ -83,18 +83,26 @@ def _ssm_params(x_conv, p, n_state: int):
 class SelectiveScan(torch.autograd.Function):
     """``ops.selective_scan`` with its gradient ``ops.selective_scan_bwd``:
     on the card the forward and backward kernels, on the CPU their plain
-    versions.  Saves the seven inputs (z as the view it was given, the
-    gate half of the input projection); the backward kernel recomputes the
-    states from them and keeps no (S, d_inner, N) tensor."""
+    versions.  The forward also writes the states after steps 15, 31, ...
+    (``checkpoints=True``: (S - 1) // 16 x d_inner x N float32 a batch
+    row, 134 MB at falcon-mamba-7b's layer, B=1 S=4096) and saves them
+    with the seven inputs (z as the view it was given, the gate half of
+    the input projection); the backward kernel restarts each 16-step chunk
+    from its checkpoint, so it repeats no pass of the forward and keeps no
+    (S, d_inner, N) tensor.  Under the trainer's rematerialisation both
+    forwards of a step write checkpoints; only the group being
+    backpropagated keeps them."""
 
     @staticmethod
     def forward(ctx, dt, x, z, B, C, A, D):
-        ctx.save_for_backward(dt, x, z, B, C, A, D)
-        return ops.selective_scan(dt, x, z, B, C, A, D)
+        y, ckpt = ops.selective_scan(dt, x, z, B, C, A, D, checkpoints=True)
+        ctx.save_for_backward(dt, x, z, B, C, A, D, ckpt)
+        return y
 
     @staticmethod
     def backward(ctx, dy):
-        return ops.selective_scan_bwd(*ctx.saved_tensors, dy)
+        *ins, ckpt = ctx.saved_tensors
+        return ops.selective_scan_bwd(*ins, dy, ckpt)
 
 
 def mamba_block(x: torch.Tensor, p: Dict[str, torch.Tensor], *, n_state: int,

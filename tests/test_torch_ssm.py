@@ -17,7 +17,11 @@ on a machine with a CUDA card, the kernel against its plain version.
     shape) at every shape the card runs it at: valid, the fewest lanes
     that reach the launch target, every built instance reached, the
     model layers' warps a scheduler; the backward's (``scan_bwd_layout``:
-    two states a lane, 16-step chunks) and its scratch;
+    four or two states a lane by shape, 16-step chunks), the forward's
+    checkpoints and the backward's scratch;
+  * the plain forward's checkpoints (every 16th state) against a float64
+    recurrence, and the plain backward handed them giving the same
+    gradients as without;
   * ``SelectiveScan`` (the scan with its gradient) on the CPU: the plain
     backward's gradients, and no graph without grad;
   * (gpu) the kernel against its plain version at ragged shapes and the
@@ -317,28 +321,41 @@ def test_scan_kernel_refusals():
 
 
 def test_scan_bwd_kernel_refusals():
-    """The backward wrapper checks its inputs as the forward's does, and
-    dy, before any launch."""
-    args = _kernel_args()
-    dy = torch.zeros((2, 5, 12), dtype=torch.bfloat16)
+    """The backward wrapper checks its inputs as the forward's does, dy,
+    and the checkpoints (the forward's shape, float32, contiguous, 16-byte
+    aligned, as B and C), before any launch."""
+    args = _kernel_args(S=40)
+    dy = torch.zeros((2, 40, 12), dtype=torch.bfloat16)
+    ck = torch.zeros((2, 2, 12, 8))
     before = tscan.selective_scan_bwd_cuda.launches
     with pytest.raises(ValueError, match="CUDA tensors"):
-        tscan.selective_scan_bwd_cuda(*args, dy)
+        tscan.selective_scan_bwd_cuda(*args, dy, ck)
     with pytest.raises(ValueError, match="state size N=4"):
-        tscan.selective_scan_bwd_cuda(*_kernel_args(N=4), dy)
+        tscan.selective_scan_bwd_cuda(*_kernel_args(N=4), dy, ck)
     with pytest.raises(ValueError, match="d_inner 13 is odd"):
-        tscan.selective_scan_bwd_cuda(*_kernel_args(di=13), dy)
+        tscan.selective_scan_bwd_cuda(*_kernel_args(di=13), dy, ck)
     bad = list(args)
     bad[2] = args[2].float()
     with pytest.raises(ValueError, match="z must be torch.bfloat16"):
-        tscan.selective_scan_bwd_cuda(*bad, dy)
+        tscan.selective_scan_bwd_cuda(*bad, dy, ck)
     for wrong in (dy.float(), dy[:, :4],
                   dy.transpose(1, 2).contiguous().transpose(1, 2)):
         with pytest.raises(ValueError, match="dy must be contiguous"):
-            tscan.selective_scan_bwd_cuda(*args, wrong)
+            tscan.selective_scan_bwd_cuda(*args, wrong, ck)
     with pytest.raises(ValueError, match="dy must start 4-byte aligned"):
         tscan.selective_scan_bwd_cuda(
-            *args, torch.zeros(121, dtype=torch.bfloat16)[1:].view(2, 5, 12))
+            *args, torch.zeros(961, dtype=torch.bfloat16)[1:].view(2, 40, 12),
+            ck)
+    for wrong in (ck[:, :1], ck.double(), ck.transpose(2, 3)):
+        with pytest.raises(ValueError, match="ckpt must"):
+            tscan.selective_scan_bwd_cuda(*args, dy, wrong)
+    with pytest.raises(ValueError, match="ckpt must start 16-byte aligned"):
+        tscan.selective_scan_bwd_cuda(
+            *args, dy, torch.zeros(385)[1:].view(2, 2, 12, 8))
+    bad = list(args)
+    bad[3] = torch.zeros(641)[1:].view(2, 40, 8)
+    with pytest.raises(ValueError, match="B must start 16-byte aligned"):
+        tscan.selective_scan_bwd_cuda(*bad, dy, ck)
     assert tscan.selective_scan_bwd_cuda.launches == before
 
 
@@ -367,6 +384,54 @@ def test_selective_scan_function_takes_the_plain_backward_on_the_cpu():
         out = tssm.mamba_block(torch.zeros((1, 4, 16), dtype=torch.bfloat16),
                                p, n_state=8)
     assert out.grad_fn is None
+
+
+def _f64_states(dt, x, B, A):
+    """h_t of every step by a float64 recurrence in numpy: (bsz, S, di,
+    N)."""
+    dt, x, B, A = (np.asarray(a, np.float64) for a in (dt, x, B, A))
+    h = np.zeros((dt.shape[0], dt.shape[2], A.shape[1]))
+    out = np.empty((dt.shape[1], *h.shape))
+    for t in range(dt.shape[1]):
+        h = (np.exp(dt[:, t, :, None] * A) * h
+             + (dt[:, t] * x[:, t])[..., None] * B[:, t, None, :])
+        out[t] = h
+    return out.transpose(1, 0, 2, 3)
+
+
+@pytest.mark.parametrize("S", [1, 16, 17, 40, 48])
+def test_plain_scan_checkpoints(S):
+    """``selective_scan_ref(..., checkpoints=True)``: the same y, and the
+    states after steps 15, 31, ... before the last step, equal to a float64
+    recurrence (float64 inputs: to its rounding; float32: within float32's
+    rounding of the recurrence); the plain backward gives the same
+    gradients, bit for bit, whether or not it is handed them."""
+    shape = (2, S, 12, 8)
+    ins = [torch.from_numpy(a) for a in _scan_inputs(S, *shape)]
+    ins[2] = ins[2].to(torch.bfloat16)
+    want = _f64_states(*(ins[k].numpy() for k in (0, 1, 3, 5)))
+    steps = list(range(15, S - 1, 16))
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        cast = [t if k == 2 else t.to(dtype) for k, t in enumerate(ins)]
+        y, ck = tref.selective_scan_ref(*cast, checkpoints=True)
+        assert torch.equal(y, tref.selective_scan_ref(*cast))
+        assert ck.dtype == dtype and tuple(ck.shape) == (
+            2, (S - 1) // 16, 12, 8) == (2, len(steps), 12, 8)
+        np.testing.assert_allclose(ck.numpy(), want[:, steps], rtol=tol,
+                                   atol=tol)
+    dy = torch.from_numpy(np.random.default_rng(S).normal(
+        size=shape[:3]).astype(np.float32)).to(torch.bfloat16)
+    plain = ops.selective_scan_bwd(*ins, dy)
+    given = ops.selective_scan_bwd(*ins, dy, ck)
+    for g, w in zip(given, plain):
+        assert torch.equal(g, w)
+    # a checkpoint off by one step moves the gradients: the backward reads
+    # them where the forward wrote them
+    if steps:
+        off = ops.selective_scan_bwd(
+            *ins, dy, torch.from_numpy(want[:, [t - 1 for t in steps]])
+            .float())
+        assert not torch.equal(off[0], plain[0])
 
 
 # ---------------------------------------------------------------------------
@@ -444,30 +509,49 @@ def test_scan_layout_reaches_every_instance_and_fills_the_card():
 
 # (bsz, S, d_inner, N) of the backward on the card: each model layer
 # (falcon-mamba-7b's, hymba-1.5b's at B=8 and B=1), S = 1, S off the
-# 16-step chunk, d_inner off the 32-channel block (a last warp of two live
-# and two idle channels at N = 8), N = 8 and 16: chip_smoke.py's
-# SCAN_BWD_SHAPES
+# 16-step chunk, S = 16 and 48 (no chunk partial), d_inner off the
+# 32-channel block at both layouts (two and four states a lane) and both
+# N, N = 8 and 16: chip_smoke.py's SCAN_BWD_SHAPES
 BWD_CARD_SHAPES = _CS.SCAN_BWD_SHAPES
 
 
 @pytest.mark.parametrize("shape", BWD_CARD_SHAPES)
 def test_scan_bwd_layout_and_scratch(shape):
-    """The backward's layout: two states a lane, 32 channels a block, 16-step
-    chunks, its shared memory within the H100's 227 KB a block, and
-    scratch for every chunk's checkpoint but the last, each channel
-    block's dB and dC rows and each batch row's dA and dD."""
+    """The backward's layout: four contiguous states a lane where that
+    launches 7 warps an SM, else two; 32 channels a block, 16-step chunks
+    (the forward's checkpoint interval), its shared memory within a third
+    of the H100's 228 KB an SM (three blocks an SM); the forward's
+    checkpoints (every chunk's end but the last) and the scratch for each
+    channel block's dB and dC rows and each batch row's dA and dD."""
     bsz, S, di, N = shape
     lay = tscan.scan_bwd_layout(*shape)
+    states = lay["states_per_lane"]
+    assert states == (4 if bsz * di * (N // 4) >= 7 * 132 * 32 else 2)
     assert (lay["lanes"], lay["channels"], lay["threads"], lay["tile"]) \
-        == (N // 2, 32, 16 * N, 16)
+        == (N // states, 32, 32 * N // states, 16)
+    assert lay["warps_per_scheduler"] == pytest.approx(
+        -(-di // 32) * bsz * N / states / (4 * 132))
     assert lay["chunks"] == -(-S // 16)
     assert lay["channel_blocks"] == -(-di // 32)
-    assert lay["smem"] <= 227 * 1024
-    assert lay["ckpt"] == bsz * (lay["chunks"] - 1) * di * N
+    assert lay["smem"] + 1024 <= 228 * 1024 // 3
+    assert lay["ckpt"] == bsz * ((S - 1) // 16) * di * N
     assert lay["part_bc"] == lay["channel_blocks"] * 2 * bsz * S * N
     assert lay["part_ad"] == bsz * di * (N + 1)
     with pytest.raises(ValueError, match="state size N=4"):
         tscan.scan_bwd_layout(bsz, S, di, 4)
+
+
+def test_scan_bwd_layout_at_the_model_layers():
+    """Four states a lane at falcon-mamba-7b's layer (7.8 warps an SM) and
+    hymba-1.5b's B=8 layer; two at hymba's B=1 layer, where four would
+    launch 3.0 warps an SM; both layouts and both N reached by
+    SCAN_BWD_SHAPES."""
+    lay = {name: tscan.scan_bwd_layout(*shape)
+           for name, shape in _CS.SCAN_TIMED.items()}
+    assert [lay[k]["states_per_lane"] for k in _CS.SCAN_TIMED] == [4, 4, 2]
+    assert lay["falcon-mamba-7b"]["warps_per_scheduler"] * 4 > 7
+    assert {(sh[3], tscan.scan_bwd_layout(*sh)["states_per_lane"])
+            for sh in BWD_CARD_SHAPES} == {(16, 4), (16, 2), (8, 4), (8, 2)}
 
 
 @pytest.fixture

@@ -33,7 +33,10 @@ Phases, each printed as it ends; any failure exits non-zero:
      hub graphs of degree 99 and 299 (the warp form, integer weights) at
      D in {2, 3, 10, 129}, against its plain version and the sequential
      plain version, twice; the local sweep also at B = 1, B = n-1, a ragged n,
-     B > 128 and D > 32; MIN-Gibbs and DoubleMIN also at shapes whose
+     B > 128, D > 32, a long sweep (S=160) and a sweep in which nearly
+     every check of its consumer fails (recompute counts not all zero, at
+     most S a chain, a second launch with the same bits); MIN-Gibbs and
+     DoubleMIN also at shapes whose
      lane rows take a block three passes and are not a multiple of 4,
      with Poisson totals at 0 and at capacity, twice each with the same
      bits); (b) at full width
@@ -48,8 +51,8 @@ Phases, each printed as it ends; any failure exits non-zero:
      DoubleMIN (C=64, S=16, K1=201, K2=17188) exactly equal (integer
      counts, no float reduction); the in-kernel-RNG kernels at those
      shapes with at most 1% of chains differing, and the local-gibbs sweep
-     (C=256, S=64, B in {8, 32, 128}) with at most 1% of chains differing
-     (``logf`` ulps in the Gumbels); (c) the bucket-energy
+     (C=256, S=64, B in {8, 32, 128}) exactly equal, with a second launch
+     giving the same bits; (c) the bucket-energy
      kernel at the eight shapes of ``tests/test_kernels.py``, the three of
      ``benchmarks/kernel_bench.py`` and the local path's (C=256, K=B in
      {8, 32, 128}, D=10): bit-equal at integer weights, within rtol 1e-5 /
@@ -96,7 +99,8 @@ Phases, each printed as it ends; any failure exits non-zero:
      version, ``scatter_add_`` and its bound, per launch as a stream of
      launches (host path included) and as device time alone
      (``torch.profiler``); the local-gibbs sweep kernel at B in {8, 32,
-     128} beside its plain version and bound, and one local-gibbs sweep
+     128} beside its plain version and bound, with the share of sub-steps
+     its consumer recomputed and its plan, and one local-gibbs sweep
      call split into the kernel and the rest (site and seed draws), with
      updates/s and the device's busy time over one call from
      ``torch.profiler``; the MGPMH engine's sweep call traced (the call,
@@ -361,7 +365,10 @@ SEEDS = (0, 1, 2 ** 31 - 1)
 # (C, S, B, D, n) of the local-gibbs sweep: tests/test_torch_local_sweep.py
 PARITY_LOCAL = [(4, 5, 3, 3, 11), (8, 8, 10, 10, 40), (3, 1, 1, 2, 5),
                 (5, 12, 19, 6, 20), (2, 3, 100, 4, 129), (3, 4, 130, 5, 200),
-                (2, 2, 199, 3, 200), (2, 3, 40, 37, 90)]
+                (2, 2, 199, 3, 200), (2, 3, 40, 37, 90), (4, 64, 12, 2, 16),
+                (2, 160, 32, 10, 1000)]
+# the parity shape at which nearly every check of the consumer fails
+PARITY_LOCAL_STALE = (4, 64, 12, 2, 16)
 KERNELS = ("gibbs_sweep", "gibbs_class_sweep", "mgpmh_sweep",
            "mgpmh_sweep_rng", "min_gibbs_sweep", "min_gibbs_sweep_rng",
            "double_min_sweep", "double_min_sweep_rng", "bucket_energy",
@@ -921,6 +928,7 @@ def phase_parity(dev):
                            *a, sd, B, D, scale),
                        t(pin.local_gibbs_inputs(C, S, D, n, weights)), (2,),
                        shape, dev)
+    stale = local_recomputes(dev)
     ood_parity(dev)
     torch.cuda.synchronize()
     say("3a parity", f"{len(PARITY_MGPMH)} mgpmh + {len(PARITY_MGPMH_EDGE)} "
@@ -936,7 +944,39 @@ def phase_parity(dev):
         f"capacity) exactly, twice; "
         f"local_gibbs_sweep == its "
         f"plain version exactly at {len(PARITY_LOCAL)} shapes (C,S,B,D,n) "
-        f"{PARITY_LOCAL}, real and integer weights, seeds {list(SEEDS)}")
+        f"{PARITY_LOCAL}, real and integer weights, seeds {list(SEEDS)}; "
+        f"at {PARITY_LOCAL_STALE} the consumer recomputed {stale} of "
+        f"{PARITY_LOCAL_STALE[0] * PARITY_LOCAL_STALE[1]} sub-steps in each "
+        f"of two launches with the same bits")
+
+
+def local_recomputes(dev):
+    """The local sweep at the shape where nearly every check of its
+    consumer fails, launched twice: the same bits (the plain version's),
+    recompute counts not all zero and at most S a chain.  Returns the two
+    launches' totals."""
+    from repro_torch.kernels import local_sweep as ls, ref
+    from repro_torch.kernels import parity_inputs as pin
+    C, S, B, D, n = PARITY_LOCAL_STALE
+    args = tuple(torch.from_numpy(a).to(dev)
+                 for a in pin.local_gibbs_inputs(C, S, D, n))
+    sd = _seed(0, dev)
+    want = ref.local_gibbs_sweep_ref(*args, sd, B, D, (n - 1) / B)
+    totals = []
+    for _ in range(2):
+        n_re = torch.full((C,), -1, dtype=torch.int32, device=dev)
+        got = ls.local_gibbs_sweep_cuda(*args, sd, B=B, D=D,
+                                        scale=(n - 1) / B, recomputed=n_re)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"local_gibbs_sweep at "
+              f"{PARITY_LOCAL_STALE}: a launch differs from the plain version")
+        check(bool(((n_re >= 0) & (n_re <= S)).all()),
+              f"local_gibbs_sweep recompute counts {n_re.tolist()} outside "
+              f"[0, S={S}]")
+        totals.append(int(n_re.sum()))
+    check(max(totals) > 0, f"local_gibbs_sweep at {PARITY_LOCAL_STALE}: no "
+          f"sub-step recomputed in two launches")
+    return totals
 
 
 def ood_parity(dev):
@@ -1423,15 +1463,20 @@ def phase_full_width(potts, lattice):
     from repro_torch.kernels import local_sweep as ls
     worst = (0, 0.0)
     for B in LOCAL_B:
+        # every chain exactly, and a second launch with the same bits
+        # (its consumer may recompute other sub-steps)
         (x, i), kw = local_inputs(potts, B, seed=14)
         sd = _seed(15, potts.device)
-        got = compare(f"local_gibbs_sweep B={B}",
-                      ls.local_gibbs_sweep_cuda(x, potts.W, i, sd, **kw),
-                      ref.local_gibbs_sweep_ref(x, potts.W, i, sd, kw["B"],
-                                                kw["D"], kw["scale"]),
-                      C_FULL)
-        out[f"local_gibbs_sweep B={B}"] = got
-        worst = max(worst, got)
+        got = ls.local_gibbs_sweep_cuda(x, potts.W, i, sd, **kw)
+        again = ls.local_gibbs_sweep_cuda(x, potts.W, i, sd, **kw)
+        diff = compare(f"local_gibbs_sweep B={B}", got,
+                       ref.local_gibbs_sweep_ref(x, potts.W, i, sd, kw["B"],
+                                                 kw["D"], kw["scale"]),
+                       C_FULL, exact=True)
+        compare(f"local_gibbs_sweep B={B}, a second launch", again, got,
+                C_FULL, exact=True)
+        out[f"local_gibbs_sweep B={B}"] = diff
+        worst = max(worst, diff)
     out["local_gibbs_sweep"] = worst
     torch.cuda.empty_cache()
     return out
@@ -2177,6 +2222,17 @@ def local_times(potts):
         sd = _seed(17, potts.device)
         kernel = lambda: ls.local_gibbs_sweep_cuda(x, potts.W, i, sd, **kw)
         ko = kernel()
+        # the sub-steps the consumer recomputed (a value a producer read
+        # had changed by its turn), over five launches
+        shares = []
+        for _ in range(5):
+            n_re = torch.zeros(C_FULL, dtype=torch.int32, device=x.device)
+            check(torch.equal(ls.local_gibbs_sweep_cuda(
+                x, potts.W, i, sd, recomputed=n_re, **kw), ko),
+                f"local_gibbs_sweep B={B}: a launch counting its recomputes "
+                f"gave other bits")
+            shares.append(float(n_re.sum()) / (C_FULL * S_FULL))
+        plan = ls.local_sweep_plan(potts.n, S_FULL, B, kw["D"])
         # a stream of launches (the host's path runs ahead of the card's
         # work), and the device time alone from torch.profiler
         ms = per_launch_ms(kernel, 20)
@@ -2189,11 +2245,14 @@ def local_times(potts):
         shape = f"potts-64x64 C={C_FULL} S={S_FULL} B={B} D={kw['D']}"
         recs[B] = dict(ms=ms, device_ms=dev_ms, plain_ms=pms, bound_ms=bms,
                        bound_by=by, library_ms=None, shape=shape,
-                       differing_chains=n_diff, max_abs_err=err)
+                       differing_chains=n_diff, max_abs_err=err,
+                       recomputed_share=shares, plan=plan)
         say("6 times", f"local_gibbs_sweep [{shape}]: kernel {ms:.4f} ms per "
             f"launch (device {dev_ms:.4f}), plain {pms:.4f} ms, bound "
             f"{bms:.6f} ms ({by}; the S dependent sub-steps keep it "
-            f"latency-bound), no library call")
+            f"latency-bound), no library call; recomputed sub-steps "
+            f"{min(shares):.4f}-{max(shares):.4f} of C*S over 5 launches; "
+            f"plan {plan}")
     return recs
 
 

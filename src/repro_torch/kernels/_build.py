@@ -66,9 +66,13 @@ _SIGNATURES = {
                                    + [_c_float] * 2 + [_c_ptr],
     # w, v, out, C, K, D, stream
     "bucket_energy_launch": [_c_ptr] * 3 + [_c_int] * 3 + [_c_ptr],
-    # x, W, i_sites, seed, x_out, C, n, S, B, D, scale, stream
-    "local_gibbs_sweep_launch": [_c_ptr] * 5 + [_c_int] * 5 + [_c_float,
+    # x, W, i_sites, seed, x_out, recomputed (or null), C, n, S, B, D,
+    # scale, stream
+    "local_gibbs_sweep_launch": [_c_ptr] * 6 + [_c_int] * 5 + [_c_float,
                                                                _c_ptr],
+    # n, S, B, D, out (6 int32: producer warps, ring slots, window, lead,
+    # summing producers, shared-memory bytes)
+    "local_gibbs_sweep_plan": [_c_int] * 4 + [_c_ptr],
     # q, k, v, out, lse2 (or null), B, Sq, Sk, H, KVH, hd, window, causal,
     # is_bf16, scale, stream
     "flash_attention_launch": [_c_ptr] * 5 + [_c_int] * 9 + [_c_float,

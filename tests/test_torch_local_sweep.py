@@ -14,7 +14,8 @@ algorithm and its Gumbels by Philox under a seed.
   * the engine draws sites then a seed from its generator, and the wrapper
     refuses what the kernel does not take;
   * (gpu) the kernel equals its plain version at the parity shapes, seeds
-    0, 1 and 2^31 - 1.
+    0, 1 and 2^31 - 1, and a repeated launch gives the same bits whatever
+    its consumer recomputed.
 """
 import numpy as np
 import pytest
@@ -40,10 +41,15 @@ except ImportError:
 
 SEEDS = (0, 1, 2 ** 31 - 1)
 # (C, S, B, D, n): B = 1, B = n - 1, ragged n, several 32-lane rounds, more
-# than one group of four rounds (B > 128), D > 32
+# than one group of four rounds (B > 128), D > 32; a sweep in which nearly
+# every sub-step the producers finish ahead reads a value that changes
+# before the consumer's turn (n = 16, B = 12, D = 2), and a long sweep in
+# which few do
 PARITY = [(4, 5, 3, 3, 11), (8, 8, 10, 10, 40), (3, 1, 1, 2, 5),
           (5, 12, 19, 6, 20), (2, 3, 100, 4, 129), (3, 4, 130, 5, 200),
-          (2, 2, 199, 3, 200), (2, 3, 40, 37, 90)]
+          (2, 2, 199, 3, 200), (2, 3, 40, 37, 90), (4, 64, 12, 2, 16),
+          (2, 160, 32, 10, 1000)]
+STALE = PARITY[-2]
 
 
 def _seed(k, device="cpu"):
@@ -122,9 +128,15 @@ def _jax_sweep(x, W, i_sites, j, g, D, scale, energy):
     return x
 
 
-@pytest.mark.parametrize("impl", ["ref", "pallas"])
-@pytest.mark.parametrize("C,S,B,D,n", [(4, 5, 3, 3, 11), (3, 4, 1, 2, 5),
-                                       (5, 6, 19, 6, 20), (2, 3, 100, 4, 129)])
+@pytest.mark.parametrize(
+    "C,S,B,D,n,impl",
+    [(C, S, B, D, n, impl)
+     for C, S, B, D, n in [(4, 5, 3, 3, 11), (3, 4, 1, 2, 5),
+                           (5, 6, 19, 6, 20), (2, 3, 100, 4, 129)]
+     for impl in ("ref", "pallas")]
+    # a long sweep, against the JAX reference energy only (one Pallas
+    # interpret-mode call per sub-step would cost seconds)
+    + [(4, 32, 12, 3, 30, "ref")])
 def test_plain_sweep_equals_jax_bucket_energy_step_by_step(C, S, B, D, n,
                                                           impl):
     """Integer weights, so every order of summation (the plain sweep's draw
@@ -224,6 +236,14 @@ def test_wrapper_refuses_cpu_tensors_and_bad_inputs():
     with pytest.raises(ValueError, match="i_sites must have shape"):
         local_sweep.local_gibbs_sweep_cuda(x, W, i[:1].contiguous(), seed,
                                            **kw)
+    with pytest.raises(ValueError, match="recomputed must be torch.int32"):
+        local_sweep.local_gibbs_sweep_cuda(
+            x, W, i, seed, recomputed=torch.zeros(2, dtype=torch.int64),
+            **kw)
+    with pytest.raises(ValueError, match="recomputed must have shape"):
+        local_sweep.local_gibbs_sweep_cuda(
+            x, W, i, seed, recomputed=torch.zeros(3, dtype=torch.int32),
+            **kw)
     meta = [t.to("meta") for t in (x, W, i, seed)]
     with pytest.raises(ValueError, match="'cpu' or 'cuda'"):
         ops.local_gibbs_sweep(*meta, **kw)
@@ -259,3 +279,38 @@ def test_local_sweep_kernel_equals_plain_version(cuda, weights):
             torch.cuda.synchronize()
             assert local_sweep.local_gibbs_sweep_cuda.launches == before + 1
             assert torch.equal(got, want), (C, S, B, D, n, k)
+
+
+@pytest.mark.gpu
+def test_local_sweep_kernel_repeats_its_bits(cuda):
+    """The consumer recomputes a sub-step whose values changed after the
+    producer read them, so a launch's states do not depend on timing: two
+    launches on the same inputs give the same bits (and the plain
+    version's).  The recompute counts may differ between the launches; at
+    the shape where nearly every check fails they are not all zero, and no
+    chain counts more than its S sub-steps."""
+    C, S, B, D, n = STALE
+    scale = (n - 1) / B
+    total = 0
+    for weights in ("real", "integer"):
+        x, W, i = _inputs(C, S, D, n, weights, device=cuda)
+        for k in SEEDS:
+            seed = _seed(k, cuda)
+            outs, counts = [], []
+            for _ in range(2):
+                rec = torch.full((C,), -1, dtype=torch.int32, device=cuda)
+                outs.append(local_sweep.local_gibbs_sweep_cuda(
+                    x, W, i, seed, B=B, D=D, scale=scale, recomputed=rec))
+                counts.append(rec)
+            want = tref.local_gibbs_sweep_ref(x, W, i, seed, B, D, scale)
+            torch.cuda.synchronize()
+            assert torch.equal(outs[0], outs[1]), (weights, k)
+            assert torch.equal(outs[0], want), (weights, k)
+            for rec in counts:
+                assert bool(((rec >= 0) & (rec <= S)).all()), rec
+                total += int(rec.sum())
+    assert total > 0
+    # the launch still takes the parent's envelope: a row of 40,000 sites
+    # with a subset of 4,600 fits (with fewer producer warps)
+    plan = local_sweep.local_sweep_plan(40_000, 64, 4_600, 2)
+    assert plan["producers"] >= 1 and plan["slots"] >= 1, plan

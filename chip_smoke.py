@@ -31,9 +31,11 @@ Phases, each printed as it ends; any failure exits non-zero:
      the Philox form for every seed; the
      chromatic class kernel on every class of lattices (4x4, 6x6) and of
      hub graphs of degree 99 and 299 (the warp form, integer weights) at
-     D in {2, 3, 10, 129}, against its plain version and the sequential
-     plain version, twice; the local sweep also at B = 1, B = n-1, a ragged n,
-     B > 128, D > 32, a long sweep (S=160) and a sweep in which nearly
+     D in {2, 3, 10, 129}, fed uniforms, against its plain version and the
+     sequential plain version fed their Gumbels, twice; its in-kernel
+     Gumbel transform against ``gumbel_from_uniform`` bit for bit over
+     every float32 in [0, 1]; the local sweep also at B = 1, B = n-1, a
+     ragged n, B > 128, D > 32, a long sweep (S=160) and a sweep in which nearly
      every check of its consumer fails (recompute counts not all zero, at
      most S a chain, a second launch with the same bits); MIN-Gibbs and
      DoubleMIN also at shapes whose
@@ -91,7 +93,11 @@ Phases, each printed as it ends; any failure exits non-zero:
      (the Gibbs ring's plan printed; the chromatic class kernel per launch
      as a stream of launches, single call and device time, beside a
      float32 ``torch.matmul`` + argmax yardstick, TF32 off, and its byte
-     bound over x, the Gumbels and the class rows' records);
+     bound over x, the uniforms and the class rows' records, and its
+     launch plan; the whole chromatic sweep call traced: its time, device
+     busy and idle, and its device ops per call, which must be five --
+     the state's copy, then per class one ``torch.rand`` and one class
+     launch);
      the timed outputs of each slice-2 kernel and its plain version are
      compared there too (host-stream kernels exactly, in-kernel-RNG kernels
      to at most 1% of chains, their plain versions run on chain slices);
@@ -378,13 +384,14 @@ KERNELS = ("gibbs_sweep", "gibbs_class_sweep", "mgpmh_sweep",
 # instances (padded head dims 64, 128, 256, each without and with the
 # lse2 output) and four float32 ones (head dims 16, 32, 64, 128), the
 # Gibbs sweep and both MGPMH forms one per register width (2, 4, 8, 10,
-# 16 buckets) and the class kernel one per width (2, 4, 8, 16); the
+# 16 buckets) and the class kernel one per width (2, 4, 8, 16) plus its
+# Gumbel transform alone (the transform check); the
 # telemetry update one; the flash backward seven (D, then dK/dV and dQ at
 # padded head dims 64, 128, 256); the selective scan eighteen (lanes per
 # channel 1, 2, 4, 8, 16 at N = 16 and 1, 2, 4, 8 at N = 8, each without
 # and with the checkpoints), its backward five (four and two states a lane
 # at N = 8 and 16, and the ordered sum of the partials)
-PTXAS_ENTRIES = len(KERNELS) - 8 + (6 + 4) + 3 * 5 + 4 + 7 + 18 + 5
+PTXAS_ENTRIES = len(KERNELS) - 8 + (6 + 4) + 3 * 5 + 4 + 1 + 7 + 18 + 5
 # the Gibbs ring kernel's new shapes (C, S, D, n): tests/test_torch_sweep.py
 # GIBBS_RING_SHAPES (D > the register width, a ragged n, S = 1, an odd n
 # that takes the chunked ring)
@@ -930,6 +937,7 @@ def phase_parity(dev):
                        shape, dev)
     stale = local_recomputes(dev)
     ood_parity(dev)
+    transform = transform_check(dev)
     torch.cuda.synchronize()
     say("3a parity", f"{len(PARITY_MGPMH)} mgpmh + {len(PARITY_MGPMH_EDGE)} "
         f"mgpmh edge shapes {PARITY_MGPMH_EDGE} (both forms, twice) + "
@@ -947,7 +955,9 @@ def phase_parity(dev):
         f"{PARITY_LOCAL}, real and integer weights, seeds {list(SEEDS)}; "
         f"at {PARITY_LOCAL_STALE} the consumer recomputed {stale} of "
         f"{PARITY_LOCAL_STALE[0] * PARITY_LOCAL_STALE[1]} sub-steps in each "
-        f"of two launches with the same bits")
+        f"of two launches with the same bits; the class kernel's Gumbel "
+        f"transform == gumbel_from_uniform on all {transform} float32 "
+        f"values in [0, 1], 0 differing")
 
 
 def local_recomputes(dev):
@@ -1128,9 +1138,9 @@ def mgpmh_edge_parity(dev):
 
 
 def class_parity(dev):
-    """The class kernel on every class of each PARITY_CLASS graph: twice
-    the same bits, equal to its plain version and to the sequential plain
-    version."""
+    """The class kernel on every class of each PARITY_CLASS graph, fed
+    uniforms: twice the same bits, equal to its plain version and to the
+    sequential plain version fed their Gumbels."""
     from repro_torch.core.factor_graph import MatchGraph
     from repro_torch.kernels import chromatic_sweep as chs, ref
     from repro_torch.kernels import parity_inputs as pin
@@ -1142,10 +1152,11 @@ def class_parity(dev):
         nbr = g.nbr_pack
         for k in range(int(colors.max()) + 1):
             sites = np.flatnonzero(colors == k)
-            x, st, gum = (torch.from_numpy(a).to(dev) for a in
-                          pin.gibbs_class_inputs(C, D, g.n, sites, k))
-            outs = [chs.gibbs_class_sweep_cuda(x.clone(), *nbr, st, gum, D=D)
+            x, st, _, u = (torch.from_numpy(a).to(dev) for a in
+                           pin.gibbs_class_inputs(C, D, g.n, sites, k))
+            outs = [chs.gibbs_class_sweep_cuda(x.clone(), *nbr, st, u, D=D)
                     for _ in range(2)]
+            gum = ref.gumbel_from_uniform(u.clone())
             want = ref.gibbs_class_sweep_ref(x, g.W, st, gum, D)
             seq = ref.gibbs_sweep_ref(x, g.W, st.expand(C, -1).contiguous(),
                                       gum, D)
@@ -1154,6 +1165,27 @@ def class_parity(dev):
                   and torch.equal(outs[0], want) and torch.equal(want, seq),
                   f"gibbs_class_sweep != plain versions on {kind} {size} "
                   f"{weights} D={D}, class {k}")
+
+
+def transform_check(dev, chunk=1 << 26):
+    """The class kernel's in-kernel Gumbel transform against
+    ``ref.gumbel_from_uniform`` (``samplers.gumbel``'s operations) on every
+    float32 bit pattern in [0, 1], in chunks: fails if any value differs in
+    a bit.  Returns the number of values compared."""
+    from repro_torch.kernels import chromatic_sweep as chs, ref
+    top = int(np.float32(1.0).view(np.int32))
+    differing = 0
+    for lo in range(0, top + 1, chunk):
+        u = torch.arange(lo, min(lo + chunk, top + 1), dtype=torch.int32,
+                         device=dev).view(torch.float32)
+        got = chs.gumbel_from_uniform_cuda(u)
+        want = ref.gumbel_from_uniform(u.clone())
+        differing += int((got.view(torch.int32)
+                          != want.view(torch.int32)).sum())
+    check(differing == 0, f"the class kernel's Gumbel transform differs "
+          f"from gumbel_from_uniform on {differing} of {top + 1} float32 "
+          f"values in [0, 1]")
+    return top + 1
 
 
 def split_parity(dev):
@@ -1484,10 +1516,10 @@ def phase_full_width(potts, lattice):
 
 def class_full_width(lattice):
     """Both classes of lattice-ising-64x64 at C=256 through the class
-    kernel, in color order, against its plain version and the sequential
-    plain version: no chain may differ (all weights are 0.8, and any order
-    of summing at most four of them gives the same float)."""
-    from repro_torch.core import samplers
+    kernel fed uniforms, in color order, against its plain version and the
+    sequential plain version fed their Gumbels: no chain may differ (all
+    weights are 0.8, and any order of summing at most four of them gives
+    the same float)."""
     from repro_torch.kernels import chromatic_sweep as chs, ref
     graph = lattice.graph
     gen = torch.Generator(device=graph.device).manual_seed(3)
@@ -1498,9 +1530,10 @@ def class_full_width(lattice):
     for k in range(2):
         sites = torch.as_tensor(np.flatnonzero(lattice.colors == k),
                                 dtype=torch.int32, device=graph.device)
-        g = samplers.gumbel((C_FULL, sites.numel(), graph.D), gen,
-                            graph.device)
-        xk = chs.gibbs_class_sweep_cuda(x.clone(), *nbr, sites, g,
+        u = torch.rand((C_FULL, sites.numel(), graph.D), generator=gen,
+                       device=graph.device)
+        g = ref.gumbel_from_uniform(u.clone())
+        xk = chs.gibbs_class_sweep_cuda(x.clone(), *nbr, sites, u,
                                         D=graph.D)
         want = ref.gibbs_class_sweep_ref(x, graph.W, sites, g, graph.D)
         seq = ref.gibbs_sweep_ref(x, graph.W,
@@ -1621,7 +1654,7 @@ def phase_main_path(potts, lattice, pair_table_s):
     out["chromatic"] = run_main_path(
         "chromatic gibbs lattice-ising-64x64", eng, C_FULL,
         20 * lattice.graph.n, 4,
-        lambda calls: {"gibbs_class_sweep": 2 * calls})
+        lambda calls: {"gibbs_class_sweep": 2 * calls}, replay=True)
     t0 = time.perf_counter()
     eng = engine.make("min-gibbs", potts, sweep=S_MIN)
     build_s = time.perf_counter() - t0
@@ -2021,19 +2054,21 @@ def phase_times(potts, lattice, rng_inputs):
     recs["local_gibbs_sweep"] = local[LOCAL_MAIN]
     recs["local_sweep_ms"] = local_split(potts)
     recs["mgpmh_call"] = mgpmh_call(potts)
+    recs["chromatic_call"] = chromatic_call(lattice)
     return recs
 
 
-def gibbs_class_bound(x, offsets, sites, g):
+def gibbs_class_bound(x, offsets, sites, u):
     """Bytes and operations one class update needs: x read and written once
-    (8*C*n), the Gumbels, the records of the class rows (8 per non-zero),
+    (8*C*n), the uniforms, the records of the class rows (8 per non-zero),
     their offsets and the sites; one compare-add per (chain, non-zero,
-    bucket)."""
+    bucket), and the two logarithms of each uniform's Gumbel counted as one
+    operation each."""
     C, n = x.shape
     idx = sites.long()
     nnz = int((offsets[idx + 1] - offsets[idx]).sum())
-    nbytes = 8 * C * n + 4 * g.numel() + 8 * nnz + 12 * sites.numel()
-    return nbytes, C * nnz * g.shape[-1]
+    nbytes = 8 * C * n + 4 * u.numel() + 8 * nnz + 12 * sites.numel()
+    return nbytes, C * nnz * u.shape[-1] + 2 * u.numel()
 
 
 def class_library(W, x, sites, g):
@@ -2053,12 +2088,12 @@ def class_library(W, x, sites, g):
 
 
 def class_times(lattice):
-    """The class kernel on class 0 of lattice-ising-64x64 at C=256: per
-    launch as a stream of launches (host path included; it writes the class
-    in place, and a repeat writes the same values), single call, device
-    time alone, beside its plain version, the ``torch.matmul`` yardstick
-    (TF32 off) and its bound."""
-    from repro_torch.core import samplers
+    """The class kernel on class 0 of lattice-ising-64x64 at C=256, fed
+    uniforms: per launch as a stream of launches (host path included; it
+    writes the class in place, and a repeat writes the same values), single
+    call, device time alone, beside its plain version (the Gumbels made
+    from the uniforms included), the ``torch.matmul`` yardstick (TF32 off;
+    the Gumbels made outside it), its bound and its launch plan."""
     from repro_torch.kernels import chromatic_sweep as chs, ref
     graph = lattice.graph
     gen = torch.Generator(device=graph.device).manual_seed(6)
@@ -2066,24 +2101,29 @@ def class_times(lattice):
                       device=graph.device, dtype=torch.int32)
     sites = torch.as_tensor(np.flatnonzero(lattice.colors == 0),
                             dtype=torch.int32, device=graph.device)
-    g = samplers.gumbel((C_FULL, sites.numel(), graph.D), gen, graph.device)
+    u = torch.rand((C_FULL, sites.numel(), graph.D), generator=gen,
+                   device=graph.device)
+    g = ref.gumbel_from_uniform(u.clone())
     nbr = graph.nbr_pack
     xk = x.clone()
-    f = lambda: chs.gibbs_class_sweep_cuda(xk, *nbr, sites, g, D=graph.D)
+    f = lambda: chs.gibbs_class_sweep_cuda(xk, *nbr, sites, u, D=graph.D)
     single = median_ms(f, 50)
     ms = per_launch_ms(f, 20)
     dms = kernel_device_ms(f, 20, "gibbs_class")
-    pms, want = timed(lambda: ref.gibbs_class_sweep_ref(x, graph.W, sites, g,
-                                                        graph.D), 5)
+    pms, want = timed(lambda: ref.gibbs_class_sweep_ref(
+        x, graph.W, sites, ref.gumbel_from_uniform(u.clone()), graph.D), 5)
     lms, v = timed(class_library(graph.W, x, sites, g), 20)
     torch.cuda.synchronize()
     check(torch.equal(xk, want), "gibbs_class_sweep != plain version in "
           "phase 6")
     check(torch.equal(v.T.to(torch.int32), want[:, sites.long()]),
           "the matmul yardstick != the plain version")
-    bms, by = bound(*gibbs_class_bound(x, nbr[0], sites, g))
+    bms, by = bound(*gibbs_class_bound(x, nbr[0], sites, u))
+    plan = chs.gibbs_class_plan(C_FULL, sites.numel(), graph.D)
+    say("6 times", f"gibbs_class_sweep: device {dms:.4f} ms a launch; plan "
+        f"{plan}")
     return dict(ms=ms, single_call_ms=single, device_ms=dms, plain_ms=pms,
-                library_ms=lms, bound_ms=bms, bound_by=by,
+                library_ms=lms, bound_ms=bms, bound_by=by, plan=plan,
                 shape=f"lattice-ising-64x64 class 0 C={C_FULL} "
                       f"m={sites.numel()} D={graph.D}")
 
@@ -2375,6 +2415,57 @@ def mgpmh_call(potts):
     return rec
 
 
+def device_ops_per_call(fn, n=10):
+    """Device ops (kernels, copies, memsets) per call of ``fn``, counted by
+    ``torch.profiler`` over n calls: the mean (CUPTI has left out one or
+    two records of 150 on the H100, so a caller rounds it)."""
+    def run():
+        for _ in range(n):
+            fn()
+
+    fn()
+    dev, _ = device_events(run)
+    ops = sum(e.count for e in dev if not e.key.startswith("repro."))
+    check(ops > 0, f"torch.profiler saw no device op for {fn}")
+    return ops / n
+
+
+def chromatic_call(lattice):
+    """The chromatic engine's sweep call on lattice-ising-64x64 at C=256
+    (phase 4's), traced as ``mgpmh_call``'s: the whole call, one class's
+    uniform draw and class launch alone, the device's busy time and idle
+    share over a stream of calls, updates/s of that stream, and the device
+    ops of a call, which must be five: the state's copy, then per class one
+    ``torch.rand`` and one class-kernel launch."""
+    from repro_torch.core import engine
+    from repro_torch.kernels import chromatic_sweep as chs
+    graph = lattice.graph
+    eng = engine.make("gibbs", graph,
+                      schedule=engine.ChromaticBlocks(lattice.colors))
+    st = eng.init(3, C_FULL, start="random")
+    sites = torch.as_tensor(np.flatnonzero(lattice.colors == 0),
+                            dtype=torch.int32, device=graph.device)
+    gen = torch.Generator(device=graph.device).manual_seed(4)
+    draw = lambda: torch.rand((C_FULL, sites.numel(), graph.D),
+                              generator=gen, device=graph.device)
+    u, xk = draw(), st.x.clone()
+    rec = call_trace(lambda: eng.sweep(st), {
+        "draws": draw,
+        "kernel": lambda: chs.gibbs_class_sweep_cuda(
+            xk, *graph.nbr_pack, sites, u, D=graph.D)})
+    rec["updates_per_s"] = C_FULL * graph.n / (rec["stream_call_ms"] / 1e3)
+    rec["device_ops_per_call"] = ops = device_ops_per_call(
+        lambda: eng.sweep(st))
+    check(round(ops) == 5, f"a chromatic sweep call issued {ops} device "
+          f"ops, expected 5 (the copy, and a torch.rand and a class launch "
+          f"per class)")
+    say("6 times", trace_line(f"chromatic sweep call lattice-ising-64x64 "
+                              f"C={C_FULL}", rec)
+        + f"; {rec['updates_per_s'] / 1e6:.3f}M updates/s; {ops:g} device "
+        f"ops a call")
+    return rec
+
+
 def device_busy(fn, kernels=(), top=5):
     """One call of ``fn`` under torch.profiler: wall ms (host clock, to a
     synchronize; the profiler's own cost included), device ms (the summed
@@ -2563,7 +2654,12 @@ def sweep_parts(potts, lattice):
             gen, potts, C_DMIN, S_DMIN, lam, K, lam2, K2), 5),
         "gibbs_draws": median_ms(lambda: samplers.gibbs_draws(
             gen, C_FULL, S_FULL, potts.n, potts.D, potts.device), 20),
-        "chromatic_draws_per_class": median_ms(lambda: samplers.gumbel(
+        # the uniforms a chromatic call draws per class, and the Gumbels
+        # of as many (the draw and five elementwise passes) it drew before
+        # the class kernel made them itself
+        "chromatic_draws_per_class": median_ms(lambda: torch.rand(
+            (C_FULL, half, 2), generator=gen, device=potts.device), 20),
+        "chromatic_gumbels_per_class": median_ms(lambda: samplers.gumbel(
             (C_FULL, half, 2), gen, potts.device), 20),
         # the scatter alone, of a state already in int64
         "marginal_accumulate": median_ms(lambda: marg.scatter_add_(

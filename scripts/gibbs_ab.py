@@ -15,7 +15,9 @@ inputs drawn on the card from fixed seeds:
   * one chromatic class of lattice-ising-64x64 (C=256, |class| = 2048,
     D=2) through the sequential Gibbs kernel (the parent's chromatic
     path) and, where the checkout has it, through the class kernel
-    (``kernels/chromatic_sweep.py``), beside the class's byte bound;
+    (``kernels/chromatic_sweep.py``; fed the class's uniforms where it
+    makes its Gumbels itself, else their Gumbels, ``samplers.gumbel``'s
+    operations), beside the class's byte bound;
   * the class's library yardstick: one float32 ``torch.matmul`` of
     W[class] (2048 x 4096) by the one-hot state (4096 x C*D), plus the
     Gumbels and the argmax, TF32 off (used nowhere in the port).
@@ -82,11 +84,13 @@ def time_tree(tree):
     import chip_smoke as cs        # puts ROOT/src on sys.path first ...
     import torch
     sys.path.insert(0, str(Path(tree).resolve() / "src"))   # ... then tree
-    from repro_torch.kernels import _build, fused_sweep as fs
+    from repro_torch.kernels import _build, fused_sweep as fs, ref
     try:
         from repro_torch.kernels import chromatic_sweep as chs
     except ImportError:            # a checkout from before the class kernel
         chs = None
+    # a class kernel that makes its Gumbels from uniforms takes those
+    takes_uniforms = hasattr(ref, "gumbel_from_uniform")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -130,7 +134,10 @@ def time_tree(tree):
     for k in range(2):
         sites = torch.nonzero(colors == k).flatten().to(torch.int32)
         m = sites.numel()
-        g = gumbel((C, m, D))
+        u = torch.rand((C, m, D), generator=gen, device=dev)
+        g = u.clone().clamp_min_(torch.finfo(torch.float32).tiny)
+        g = g.log_().neg_().log_().neg_()      # samplers.gumbel's operations
+        noise = u if takes_uniforms else g
         seq_i = sites.expand(C, -1).contiguous()
         shape = f"lattice-ising-64x64 class {k} C={C} m={m} D={D}"
         reps = REPS["sequential"] if k == 0 else 1
@@ -143,15 +150,15 @@ def time_tree(tree):
                                row_sum=W.sum(1))
             off, recs = graph.nbr_pack
             xk = x.clone()
-            f = lambda: chs.gibbs_class_sweep_cuda(xk, off, recs, sites, g,
-                                                   D=D)
+            f = lambda: chs.gibbs_class_sweep_cuda(xk, off, recs, sites,
+                                                   noise, D=D)
             if k == 0:
                 rec["ms"], _ = cs.timed(f, REPS["class_kernel"])
                 rec["per_launch_ms"] = cs.per_launch_ms(f, 20)
                 rec["device_ms"] = cs.kernel_device_ms(f, 20,
                                                        "gibbs_class")
                 rec["bound_ms"], rec["bound_by"] = cs.bound(
-                    *cs.gibbs_class_bound(x, off, sites, g))
+                    *cs.gibbs_class_bound(x, off, sites, u))
                 rec["library_ms"], v = cs.timed(
                     cs.class_library(W, x, sites, g), REPS["library"])
                 rec["library_equal"] = bool(torch.equal(

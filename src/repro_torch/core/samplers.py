@@ -71,6 +71,7 @@ from .estimators import (draw_global_minibatch, draw_local_minibatch,
 from .factor_graph import MatchGraph, build_alias_table, pack_alias
 from ..diagnostics.telemetry import SiteDraws, SweepStats
 from ..kernels import ops as kernel_ops
+from ..kernels.ref import gumbel_from_uniform
 
 __all__ = [
     "ChainState",
@@ -86,6 +87,7 @@ __all__ = [
     "min_gibbs_select",
     "at_code",
     "gumbel",
+    "gumbel_from_uniform",
     "gibbs_draws",
     "mgpmh_rate",
     "mgpmh_draws",
@@ -97,9 +99,6 @@ __all__ = [
     "inverse_cdf_sites",
     "validate_coloring",
 ]
-
-_TINY = torch.finfo(torch.float32).tiny
-
 
 class ChainState(NamedTuple):
     """Batched chain state.
@@ -135,10 +134,11 @@ def init_state(gen: torch.Generator, graph: MatchGraph, n_chains: int, *,
 
 
 def gumbel(shape, gen: torch.Generator, device) -> torch.Tensor:
-    """Standard Gumbel noise ``-log(-log u)`` from ``gen`` (in place in the
-    one buffer ``torch.rand`` returns)."""
-    u = torch.rand(shape, generator=gen, device=device).clamp_min_(_TINY)
-    return u.log_().neg_().log_().neg_()
+    """Standard Gumbel noise ``-log(-log u)`` from ``gen``: a ``torch.rand``
+    draw through :func:`gumbel_from_uniform`, in place in the one buffer
+    the draw returns."""
+    return gumbel_from_uniform(torch.rand(shape, generator=gen,
+                                          device=device))
 
 
 def gibbs_select(eps: torch.Tensor, gumbel_noise: torch.Tensor) -> torch.Tensor:
@@ -676,8 +676,10 @@ def _build_chromatic_gibbs_sweep(graph: MatchGraph, colors, *,
     the class kernel updates all (chain, site) pairs of a class at once,
     walking W's neighbour table (``graph.nbr_pack``, built here), and
     writes the class in place into the call's one copy of the state.  Per
-    class, in color order, the sweep draws Gumbels (C, |class|, D) from
-    ``state.gen``.  ``updates_per_call`` is n.
+    class, in color order, the sweep draws uniforms (C, |class|, D) from
+    ``state.gen`` (the draw :func:`gumbel` makes), and the class update
+    makes their Gumbels itself (in-kernel on the card): per class one
+    ``torch.rand`` and one launch.  ``updates_per_call`` is n.
 
     ``evidence=`` (an ``(ev_mask, ev_vals)`` pair) re-clamps x after every
     class launch: the class kernel resamples whole classes, observed sites
@@ -698,8 +700,9 @@ def _build_chromatic_gibbs_sweep(graph: MatchGraph, colors, *,
             observed = evidence[0] > 0.0
             values = evidence[1].to(x.dtype)
         for sites in classes:
-            g = gumbel((C, sites.shape[0], D), state.gen, dev)
-            kernel_ops.gibbs_class_sweep(x, W, nbr, sites, g, D=D)
+            u = torch.rand((C, sites.shape[0], D), generator=state.gen,
+                           device=dev)
+            kernel_ops.gibbs_class_sweep(x, W, nbr, sites, u, D=D)
             if evidence is not None:
                 x.copy_(torch.where(observed, values, x))
         new = state._replace(x=x)

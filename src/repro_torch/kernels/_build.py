@@ -39,8 +39,13 @@ _SIGNATURES = {
     # n, D, mgpmh (0: the Gibbs ring), out (3 int32: chunk, chunks,
     # shared-memory bytes)
     "sweep_ring_plan": [_c_int, _c_int, _c_int, _c_ptr],
-    # x (in place), offsets, records, sites, gumbel, C, n, m, D, stream
+    # x (in place), offsets, records, sites, u, C, n, m, D, stream
     "gibbs_class_sweep_launch": [_c_ptr] * 5 + [_c_int] * 4 + [_c_ptr],
+    # C, m, D, out (4 int32: chains a block, site tiles, chain groups,
+    # resident blocks an SM)
+    "gibbs_class_plan": [_c_int] * 3 + [_c_ptr],
+    # u, g, count, stream: the class kernel's Gumbel transform alone
+    "gumbel_transform_launch": [_c_ptr] * 2 + [_c_int64, _c_ptr],
     # x, W, row_pack, i_sites, B, u_idx, u_alias, gumbel, logu, x_out,
     # accepts, C, n, S, K, D, scale, stream
     "mgpmh_sweep_launch": [_c_ptr] * 11 + [_c_int] * 5 + [_c_float, _c_ptr],

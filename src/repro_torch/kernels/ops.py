@@ -22,7 +22,7 @@ from .local_sweep import local_gibbs_sweep_cuda
 from .minibatch_energy import bucket_energy_cuda
 from .ref import (bucket_energy_ref, double_min_sweep_ref,
                   flash_attention_bwd_ref, flash_attention_ref,
-                  gibbs_class_sweep_ref, gibbs_sweep_ref,
+                  gibbs_class_sweep_ref, gibbs_sweep_ref, gumbel_from_uniform,
                   local_gibbs_sweep_ref, mgpmh_sweep_ref, min_gibbs_sweep_ref,
                   selective_scan_bwd_ref, selective_scan_ref)
 from .selective_scan import selective_scan_bwd_cuda, selective_scan_cuda
@@ -175,18 +175,21 @@ def gibbs_sweep(x, W, i_sites, gumbel, *, D: int):
     return gibbs_sweep_cuda(x, W, i_sites, gumbel, D=D)
 
 
-def gibbs_class_sweep(x, W, nbr_pack, sites, gumbel, *, D: int):
+def gibbs_class_sweep(x, W, nbr_pack, sites, u, *, D: int):
     """One chromatic Gibbs color class of every chain, updated IN PLACE in
-    ``x``, which it returns (see ``ref.gibbs_class_sweep_ref``).
+    ``x``, which it returns (see ``ref.gibbs_class_sweep_ref``), its Gumbels
+    ``ref.gumbel_from_uniform(u)``.
 
     x (C, n) i32; W (n, n) f32 and ``nbr_pack`` = (offsets, records), its
     neighbour table (``MatchGraph.nbr_pack``): the kernel walks the table,
     the plain version reads W; sites (m,) i32, a color class of a proper
-    coloring; gumbel (C, m, D) f32.
+    coloring; u (C, m, D) f32 uniforms (not modified): the kernel makes the
+    Gumbels in-kernel, the plain version from a copy of u.
     """
     if _route(x, "gibbs_class_sweep") == "cpu":
-        return x.copy_(gibbs_class_sweep_ref(x, W, sites, gumbel, D))
-    return gibbs_class_sweep_cuda(x, *nbr_pack, sites, gumbel, D=D)
+        return x.copy_(gibbs_class_sweep_ref(
+            x, W, sites, gumbel_from_uniform(u.clone()), D))
+    return gibbs_class_sweep_cuda(x, *nbr_pack, sites, u, D=D)
 
 
 def _unpack(pack):

@@ -247,13 +247,20 @@ def class_graph(kind, size, weights="real"):
 
 
 def gibbs_class_inputs(C, D, n, sites, seed):
-    """(x, sites, gumbel) of one class update: x (C, n) int32 with values
-    in [-1, D] (a few outside [0, D), which match no bucket), the class
-    sites as int32, gumbel (C, m, D) float32."""
+    """(x, sites, gumbel, u) of one class update: x (C, n) int32 with
+    values in [-1, D] (a few outside [0, D), which match no bucket), the
+    class sites as int32, gumbel (C, m, D) float32, and u (C, m, D) float32
+    uniforms in [0, 1) for the kernel, which makes its Gumbels from them
+    (``ref.gumbel_from_uniform(u)``, not ``gumbel``); every 97th uniform is
+    0 (the clamp) and the one after it the largest float32 below 1."""
     rng = np.random.default_rng(seed)
     sites = np.asarray(sites, np.int32)
-    return (rng.integers(-1, D + 1, (C, n)).astype(np.int32), sites,
-            rng.gumbel(size=(C, sites.size, D)).astype(np.float32))
+    x = rng.integers(-1, D + 1, (C, n)).astype(np.int32)
+    g = rng.gumbel(size=(C, sites.size, D)).astype(np.float32)
+    u = rng.random((C, sites.size, D), dtype=np.float32)
+    u.reshape(-1)[::97] = 0.0
+    u.reshape(-1)[1::97] = np.nextafter(np.float32(1), np.float32(0))
+    return x, sites, g, u
 
 
 def telemetry_inputs(T, C, n, D, seed, *, stay=0.8, S=64):

@@ -40,7 +40,7 @@ import torch.nn.functional as F
 from . import philox
 
 __all__ = ["bucket_energy_ref", "gibbs_sweep_ref", "gibbs_class_sweep_ref",
-           "mgpmh_sweep_ref",
+           "gumbel_from_uniform", "mgpmh_sweep_ref",
            "min_gibbs_sweep_ref", "double_min_sweep_ref",
            "mgpmh_sweep_rng_ref", "min_gibbs_sweep_rng_ref",
            "double_min_sweep_rng_ref", "local_gibbs_subsets",
@@ -49,6 +49,7 @@ __all__ = ["bucket_energy_ref", "gibbs_sweep_ref", "gibbs_class_sweep_ref",
            "selective_scan_bwd_ref", "SCAN_CKPT_STEPS"]
 
 NEG_INF = -1e30     # the masked score of the TPU kernel (not -inf)
+_TINY = torch.finfo(torch.float32).tiny
 # steps between the selective scan's checkpoints: the state after steps
 # 15, 31, ... (csrc/selective_scan.cu kBT), which the backward restarts from
 SCAN_CKPT_STEPS = 16
@@ -299,6 +300,16 @@ def gibbs_sweep_ref(x, W, i_sites, gumbel, D: int):
         eps = bucket_energy_ref(W[i], x, D)                    # (C, D)
         x[rows, i] = torch.argmax(eps + gumbel[:, s, :], dim=-1).to(x.dtype)
     return x
+
+
+def gumbel_from_uniform(u: torch.Tensor) -> torch.Tensor:
+    """Standard Gumbel noise ``-log(-log u)`` from float32 uniforms, IN
+    PLACE in ``u``, which it returns: clamped below at the smallest normal
+    float32, then log, negate, log, negate.  ``samplers.gumbel`` is this
+    applied to a ``torch.rand`` draw; the class kernel
+    (``csrc/chromatic_sweep.cu``) applies the same operations to its
+    uniforms in-kernel, bit for bit on the card."""
+    return u.clamp_min_(_TINY).log_().neg_().log_().neg_()
 
 
 def gibbs_class_sweep_ref(x, W, sites, gumbel, D: int):

@@ -1,7 +1,9 @@
 """The port's chromatic Gibbs class update: its plain version against the
-JAX oracle on the CPU, the neighbour table it walks, the chromatic engine's
-replay, the class wrapper's checks -- and, on a machine with a CUDA card,
-the class kernel against its plain version.
+JAX oracle on the CPU, the neighbour table it walks, the Gumbel transform
+of its uniforms, the chromatic engine's replay and its draws, the class
+wrapper's checks -- and, on a machine with a CUDA card, the class kernel
+against its plain version and its in-kernel transform against the plain
+one over every float32 in [0, 1].
 
 A color class of a proper coloring shares no factor, so one class update
 equals the JAX package's sequential Gibbs sweep
@@ -21,6 +23,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.core import engine  # noqa: E402
 from repro_torch.core import factor_graph as tfg  # noqa: E402
+from repro_torch.core import samplers  # noqa: E402
 from repro_torch.kernels import chromatic_sweep, ops  # noqa: E402
 from repro_torch.kernels import parity_inputs as pin  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
@@ -39,7 +42,7 @@ def _classes(colors):
 
 
 def _class_case(kind, size, weights, D, C=5, seed=0):
-    """[(x, W, sites, gumbel) numpy, one per color class]."""
+    """[(x, sites, gumbel, u, W) numpy, one per color class]."""
     W, colors = pin.class_graph(kind, size, weights)
     return [(*pin.gibbs_class_inputs(C, D, W.shape[0], sites, seed + k), W)
             for k, sites in enumerate(_classes(colors))]
@@ -47,7 +50,7 @@ def _class_case(kind, size, weights, D, C=5, seed=0):
 
 @pytest.mark.parametrize("kind,size,weights,D", CLASS_CASES)
 def test_class_sweep_ref_equals_jax_oracle(kind, size, weights, D):
-    for x, sites, g, W in _class_case(kind, size, weights, D):
+    for x, sites, g, u, W in _class_case(kind, size, weights, D):
         C = x.shape[0]
         i_sites = np.ascontiguousarray(np.broadcast_to(sites, (C, sites.size)))
         xj = jref.gibbs_sweep_ref(jnp.asarray(x), jnp.asarray(W),
@@ -56,11 +59,14 @@ def test_class_sweep_ref_equals_jax_oracle(kind, size, weights, D):
         xt = tref.gibbs_class_sweep_ref(*args, D)
         np.testing.assert_array_equal(xt.numpy(), np.asarray(xj))
         np.testing.assert_array_equal(args[0].numpy(), x)  # input untouched
-        # the in-place op on the CPU routes to the plain version
-        xo = args[0].clone()
-        assert ops.gibbs_class_sweep(xo, args[1], None, args[2], args[3],
+        # the in-place op on the CPU routes to the plain version, fed the
+        # Gumbels of its uniforms, and leaves the uniforms as they were
+        xo, ut = args[0].clone(), torch.from_numpy(u)
+        assert ops.gibbs_class_sweep(xo, args[1], None, args[2], ut,
                                      D=D) is xo
-        assert torch.equal(xo, xt)
+        gu = samplers.gumbel_from_uniform(ut.clone())
+        assert torch.equal(xo, tref.gibbs_class_sweep_ref(*args[:3], gu, D))
+        np.testing.assert_array_equal(ut.numpy(), u)
 
 
 @pytest.mark.parametrize("kind,size", [("lattice", 4), ("pairs", 2),
@@ -115,6 +121,75 @@ def test_chromatic_engine_replays_from_seed_and_keeps_its_input():
     assert torch.equal(again.x, x0)               # init does not move
 
 
+@pytest.mark.parametrize("shape,seed", [((7, 33, 2), 0), ((3, 5, 129), 1),
+                                        ((1,), 2), ((256, 2048, 2), 3)])
+def test_gumbel_from_uniform_equals_samplers_gumbel(shape, seed):
+    """The split draw: ``gumbel_from_uniform`` of a ``torch.rand`` draw is
+    ``samplers.gumbel`` on the same generator, bit for bit, in place in
+    the draw's buffer, and leaves the generator where ``gumbel`` does."""
+    ga, gb = (torch.Generator().manual_seed(seed) for _ in range(2))
+    want = samplers.gumbel(shape, ga, "cpu")
+    u = torch.rand(shape, generator=gb)
+    got = samplers.gumbel_from_uniform(u)
+    assert got is u
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(ga.get_state(), gb.get_state())
+    edge = torch.tensor([0.0, 1e-45, torch.finfo(torch.float32).tiny, 0.5,
+                         np.nextafter(np.float32(1), np.float32(0))])
+    g = samplers.gumbel_from_uniform(edge.clone())
+    assert bool(torch.isfinite(g).all())
+    assert g[0] == g[1] == g[2]                  # clamped at the tiny normal
+
+
+def _parent_protocol(eng, st0, calls, evidence=None):
+    """The chromatic sweep as the class kernel's Gumbel inputs defined it:
+    per call and class, Gumbels from ``samplers.gumbel`` on the state's
+    generator, then the plain class update (and the clamp)."""
+    g = eng.graph
+    colors = eng.schedule.colors_array
+    classes = [torch.from_numpy(np.flatnonzero(colors == c)).to(torch.int32)
+               for c in range(int(colors.max()) + 1)]
+    gen = torch.Generator().manual_seed(0)
+    gen.set_state(st0.gen.get_state())
+    x = st0.x.clone()
+    for _ in range(calls):
+        for sites in classes:
+            noise = samplers.gumbel((x.shape[0], sites.numel(), g.D), gen,
+                                    "cpu")
+            x = tref.gibbs_class_sweep_ref(x, g.W, sites, noise, g.D)
+            if evidence is not None:
+                x = torch.where(evidence[0] > 0, evidence[1], x)
+    return x
+
+
+@pytest.mark.parametrize("evidence", [False, True])
+def test_chromatic_engine_equals_the_gumbel_protocol(evidence):
+    """The engine draws uniforms and the class update makes their Gumbels:
+    after three calls its states equal the protocol that drew Gumbels with
+    ``samplers.gumbel`` and fed them to the plain class update, with and
+    without evidence re-clamped after every class."""
+    g = tfg.make_lattice_ising(6, device="cpu")
+    eng = engine.make("gibbs", g,
+                      schedule=engine.ChromaticBlocks(tfg.lattice_colors(6)),
+                      device="cpu")
+    st = eng.init(5, 9, start="random")
+    ev = None
+    if evidence:
+        mask = torch.zeros(g.n)
+        mask[[0, 7, 20, 35]] = 1.0
+        vals = torch.zeros(g.n, dtype=torch.int32)
+        vals[[0, 7, 20, 35]] = torch.tensor([1, 0, 1, 1], dtype=torch.int32)
+        ev = (mask, vals)
+        st = eng.clamp(st, ev)
+    want = _parent_protocol(eng, st, 3, ev)
+    for _ in range(3):
+        st = eng.sweep(st, evidence=ev) if evidence else eng.sweep(st)
+    assert torch.equal(st.x, want)
+    if evidence:
+        assert torch.equal(st.x[:, [0, 7, 20, 35]],
+                           ev[1][[0, 7, 20, 35]].expand(9, 4))
+
+
 def test_class_wrapper_refuses_cpu_tensors_and_bad_inputs():
     chromatic_sweep.gibbs_class_sweep_cuda.launches = 0
     W, colors = pin.class_graph("lattice", 4, "ising")
@@ -122,13 +197,22 @@ def test_class_wrapper_refuses_cpu_tensors_and_bad_inputs():
                                          match_weight_scale=1.0, D=2,
                                          device="cpu")
     off, rec = g.nbr_pack
-    x, sites, gum = map(torch.from_numpy, pin.gibbs_class_inputs(
+    x, sites, _, gum = map(torch.from_numpy, pin.gibbs_class_inputs(
         3, 2, g.n, np.flatnonzero(colors == 0), 0))
     f = chromatic_sweep.gibbs_class_sweep_cuda
     with pytest.raises(ValueError, match="CUDA tensors"):
         f(x, off, rec, sites, gum, D=2)
-    with pytest.raises(ValueError, match="gumbel must have shape"):
+    with pytest.raises(ValueError, match="u must have shape"):
         f(x, off, rec, sites, gum[:, :, :1], D=2)
+    with pytest.raises(ValueError, match="u must have shape"):
+        f(x, off, rec, sites, gum[:2], D=2)
+    with pytest.raises(ValueError, match="u must be torch.float32"):
+        f(x, off, rec, sites, gum.double(), D=2)
+    with pytest.raises(ValueError, match="u must be contiguous"):
+        f(x, off, rec, sites, gum.transpose(0, 1).contiguous().transpose(
+            0, 1), D=2)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        chromatic_sweep.gumbel_from_uniform_cuda(gum)
     with pytest.raises(ValueError, match="x must be torch.int32"):
         f(x.long(), off, rec, sites, gum, D=2)
     with pytest.raises(ValueError, match="offsets must have shape"):
@@ -154,18 +238,20 @@ def cuda():
 
 
 def _on_card_exact(dev, W, colors, D, C, seed):
-    """Every class of (W, colors): the kernel (twice, on fresh copies)
-    equals its plain version and the sequential plain version exactly."""
+    """Every class of (W, colors): the kernel fed uniforms (twice, on fresh
+    copies) equals its plain version and the sequential plain version fed
+    their Gumbels exactly."""
     g = tfg.MatchGraph.from_interactions(W.astype(np.float64),
                                          match_weight_scale=1.0, D=D,
                                          device=dev)
     nbr = g.nbr_pack
     f = chromatic_sweep.gibbs_class_sweep_cuda
     for k, sites in enumerate(_classes(colors)):
-        x, s, gum = (torch.from_numpy(a).to(dev) for a in
-                     pin.gibbs_class_inputs(C, D, g.n, sites, seed + k))
+        x, s, _, u = (torch.from_numpy(a).to(dev) for a in
+                      pin.gibbs_class_inputs(C, D, g.n, sites, seed + k))
         before = f.launches
-        outs = [f(x.clone(), *nbr, s, gum, D=D) for _ in range(2)]
+        outs = [f(x.clone(), *nbr, s, u, D=D) for _ in range(2)]
+        gum = samplers.gumbel_from_uniform(u.clone())
         want = tref.gibbs_class_sweep_ref(x, g.W, s, gum, D)
         seq = tref.gibbs_sweep_ref(x, g.W, s.expand(C, -1).contiguous(), gum,
                                    D)
@@ -192,3 +278,22 @@ def test_class_kernel_equals_plain_version_at_high_degree(cuda, size, D):
     W, colors = pin.class_graph("hub", size, "integer")
     assert (W != 0).sum(1).max() == size - 1 > 32
     _on_card_exact(cuda, W, colors, D, 6, seed=size + D)
+
+
+@pytest.mark.gpu
+def test_in_kernel_gumbel_equals_the_plain_transform_everywhere(cuda):
+    """The class kernel's transform against ``gumbel_from_uniform`` on the
+    card over every float32 bit pattern in [0, 1] (1,065,353,217 values,
+    in chunks): no value may differ in a bit."""
+    top = int(np.float32(1.0).view(np.int32))
+    chunk = 1 << 26
+    differing = 0
+    for lo in range(0, top + 1, chunk):
+        bits = torch.arange(lo, min(lo + chunk, top + 1), dtype=torch.int32,
+                            device=cuda)
+        u = bits.view(torch.float32)
+        got = chromatic_sweep.gumbel_from_uniform_cuda(u)
+        want = samplers.gumbel_from_uniform(u.clone())
+        differing += int((got.view(torch.int32)
+                          != want.view(torch.int32)).sum())
+    assert differing == 0

@@ -156,6 +156,23 @@ Phases, each printed as it ends; any failure exits non-zero:
      output) and the forward's logits against 32 decode steps (recorded:
      past ~16 layers the reference's own paths miss its criterion), and
      the reference's criterion on each config cut to two layers;
+     (7m) the MoE family (``models/moe.py``; no kernel of its own, its
+     attention the flash kernel's hd-128 instance): mixtral-8x7b at full
+     width cut to 24 of 32 layers (35,092,631,552 parameters, 9,725,480,960
+     active a token), weights from a seed, capacity factor 1.25, through
+     ``make_prefill_step`` at B=1 S=4096 and B=8 S=2048 (a warm-up call,
+     then three timed by CUDA events with the launch counts reset before
+     and read after: one flash launch per layer and call, nothing else;
+     tokens/s, the model-FLOPs share, peak memory, the share of
+     assignments each layer drops) and 32 greedy decode steps at B=8 from
+     an empty 4096-position cache beside their byte bound; then one B=8
+     prefill and one decode step traced and one prefill under
+     ``set_sync_debug_mode("error")``; dropless (capacity factor 16, as
+     the reference's own decode test) at B=1 S=32 every layer's decode
+     against its prefill path (the 0.9 quantile over positions within
+     0.1) and the forward's logits against 32 decode steps (recorded at 24
+     layers, gated at two: the reference's criterion with its MoE
+     quantile);
   8. diagnostics at full width, every sampling loop under
      ``torch.cuda.set_sync_debug_mode("error")`` (a host sync raises) with
      the launch counts reset before and read after each run (one sweep
@@ -427,10 +444,12 @@ LOCAL_MAIN = 32                               # the local-gibbs default B
 STEP_CALLS = 64                               # phase 4 single-site steps
 # flash attention (B, Sq, Sk, H, KVH, hd, window, causal): the float32
 # shapes of tests/test_torch_flash.py that have a float32 template, then
-# bf16: the prefill attention of each dense config at full width —
+# bf16: the prefill attention of each config at full width —
 # tinyllama-1.1b (also with a 1024 window and at S=32, one ragged tile),
 # starcoder2-7b, h2o-danube-3-4b (window 4096 at S=8192: whole key tiles
-# outside it), gemma3-12b's local (window 1024) and global layers — and one
+# outside it), gemma3-12b's local (window 1024) and global layers,
+# mixtral-8x7b's two prefills of phase 7m (window 4096: at S=4096 the
+# window equals S, the band's edge) — and one
 # ragged bidirectional shape per head dim (Sq != Sk, neither a multiple of
 # the 128-row tile: the tensor maps' zero fill and the clipped stores)
 FLASH_SHAPES = [(2, 128, 128, 4, 2, 64, 0, True),
@@ -443,7 +462,10 @@ FLASH_CONFIGS = {"tinyllama-1.1b": (8, 2048, 2048, 32, 4, 64, 0, True),
                  "starcoder2-7b": (8, 2048, 2048, 36, 4, 128, 0, True),
                  "h2o-danube-3-4b": (1, 8192, 8192, 32, 8, 120, 4096, True),
                  "gemma3-12b local": (1, 4096, 4096, 16, 8, 256, 1024, True),
-                 "gemma3-12b global": (1, 4096, 4096, 16, 8, 256, 0, True)}
+                 "gemma3-12b global": (1, 4096, 4096, 16, 8, 256, 0, True),
+                 "mixtral-8x7b B=8": (8, 2048, 2048, 32, 8, 128, 4096, True),
+                 "mixtral-8x7b B=1": (1, 4096, 4096, 32, 8, 128, 4096,
+                                      True)}
 FLASH_BF16 = [*FLASH_CONFIGS.values(),
               (8, 2048, 2048, 32, 4, 64, 1024, True),
               (8, 2048, 2048, 25, 5, 64, 1024, True),    # hymba-1.5b, 7f
@@ -497,6 +519,34 @@ LAYER_GAP_TOL = 0.1
 # two layers) at full width; full depth is recorded, and held layer by
 # layer by LAYER_GAP_TOL.
 SSM_GATE_LAYERS = 2
+# phase 7m: the MoE family, after 7f's models are freed.  mixtral-8x7b at
+# full width cut to 24 of 32 layers (the full depth's 93.4 GB of bf16
+# weights do not fit one card; the cut's 70.19 GB leave ~14 GB for the
+# prefill's buckets and the decode cache), weights from a seed, at the
+# config's capacity factor 1.25: prefill (B, S), each timed over
+# MOE_PREFILL_REPS calls after a warm-up; decode B=DECODE_B from an empty
+# cache of MOE_DECODE_S positions (the window)
+MOE_ARCH, MOE_LAYERS = "mixtral-8x7b", 24
+MOE_PREFILL = [(1, 4096), (8, 2048)]
+MOE_PREFILL_REPS = 3
+MOE_DECODE_S = 4096
+# the gates run dropless, at the capacity factor of the reference's own
+# decode test (tests/test_models.py:70-71): at 1.25 the decode's T = B
+# tokens get 2 bucket rows an expert and drop where the prefill does not.
+# A MoE layer is held by the reference's MoE rule, the 0.9 quantile over
+# positions (transformer.MOE_GAP_QUANTILE; tests/test_models.py:92-96):
+# a router near-tie can flip one token's expert between the two paths
+MOE_DROPLESS = 16.0
+# the MoE layer on the card against a plain per-expert loop on the same
+# tensors (moe_layer_check): at the B=8 S=2048 prefill's T = 16384 and
+# capacity factor 1.25, the inputs shifted along expert 0's router column
+# (its logit up by MOE_CHECK_SKEW) so that it overflows its capacity.  Ids
+# are compared where the k-th and (k+1)-th probabilities lie more than
+# MOE_NEAR_TIE apart, and the outputs within tests/test_torch_moe.py's
+# bf16 bound (FFN_MAX, FFN_MEAN: about twice the distance measured there)
+MOE_CHECK_T, MOE_CHECK_SKEW = 8 * 2048, 3.0
+MOE_NEAR_TIE = 1e-5
+MOE_FFN_MAX, MOE_FFN_MEAN = 0.05, 0.005
 # phase 12: training.  tinyllama-1.1b at full width through launch.train
 TRAIN_ARCH, TRAIN_SEED, TRAIN_B, TRAIN_S = "tinyllama-1.1b", 0, 8, 2048
 TRAIN_STEPS = 2        # train(): steps, then its final checkpoint (13 GB)
@@ -2682,7 +2732,7 @@ def flash_inputs(B, Sq, Sk, H, KVH, hd, dtype, dev, seed):
 def phase_flash_parity(dev):
     """The flash-attention kernel against its plain version: float32 at the
     test shapes (rtol 1e-4, atol 1e-5, the JAX test's tolerance), bf16 at
-    every dense config's prefill shape, tinyllama-1.1b's also with a 1024
+    every config's prefill shape, tinyllama-1.1b's also with a 1024
     window and at S = 32 (one ragged tile), and the ragged bidirectional
     shapes of each head dim, within FLASH_BF16_TOL; the same bits on a
     second launch."""
@@ -2745,7 +2795,7 @@ def flash_bound(B, Sq, Sk, H, KVH, hd, w, causal):
 
 
 def flash_times(dev):
-    """At each dense config's prefill attention (FLASH_CONFIGS): the kernel
+    """At each config's prefill attention (FLASH_CONFIGS): the kernel
     (CUDA-event median), its plain version, scaled_dot_product_attention
     (enable_gqa, with is_causal or, where a window is set, the causal band
     as a boolean mask; the library yardstick, never called by the port) on
@@ -3173,7 +3223,7 @@ def ssm_model(arch, B, S, dev, smi):
     decode_prof = device_busy(step)
 
     one = toks[:1, :CHECK_S]
-    gaps = T.decode_gap_by_layer(cfg, model, one)
+    gaps, _ = T.decode_gap_by_layer(cfg, model, one)
     check(max(gaps) < LAYER_GAP_TOL,
           f"{arch}: decode off the prefill path in layer "
           f"{int(np.argmax(gaps))}: gap {max(gaps):.4f} (< {LAYER_GAP_TOL})")
@@ -3240,10 +3290,12 @@ def ssm_model(arch, B, S, dev, smi):
     return rec
 
 
-def forward_vs_decode(cfg, model, toks):
+def forward_vs_decode(cfg, model, toks, quantile=None):
     """(log-softmax max abs diff, argmax agreement) of the forward's logits
     against as many decode steps from an empty cache, tokens (1, S): the
-    reference's criterion (tests/test_models.py:92-99)."""
+    reference's criterion (tests/test_models.py:92-99).  With ``quantile``
+    (its MoE rule) the diff is that quantile over positions of each
+    position's max."""
     from repro_torch.launch import steps
     from repro_torch.models import transformer as T
     with torch.no_grad():
@@ -3252,8 +3304,10 @@ def forward_vs_decode(cfg, model, toks):
     cache = T.init_cache(cfg, 1, toks.shape[1], device=toks.device)
     dec = torch.stack([serve(model, toks[:, s:s + 1], cache)[0]
                        for s in range(toks.shape[1])], dim=1)
-    diff = float((torch.log_softmax(fwd, -1)
-                  - torch.log_softmax(dec, -1)).abs().max())
+    per_pos = (torch.log_softmax(fwd, -1)
+               - torch.log_softmax(dec, -1)).abs().amax(dim=(0, 2))
+    diff = float(per_pos.max() if quantile is None
+                 else torch.quantile(per_pos, quantile))
     return diff, float((fwd.argmax(-1) == dec.argmax(-1)).float().mean())
 
 
@@ -3274,6 +3328,362 @@ def phase_ssm_serve(dev, smi):
                seconds=time.perf_counter() - t0)
     rec["times"]["max_abs_err"] = parity["max_abs_err"]
     say("7f ssm serve", f"{rec['seconds']:.1f} s")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 7m: the MoE family
+# ---------------------------------------------------------------------------
+
+def moe_drops(model, call):
+    """Per MoE layer, the share of its T * k assignments dropped at the
+    config's capacity in one ``call()``: a forward hook runs each layer's
+    router and dispatch (``models/moe.py``) again on the layer's input."""
+    from repro_torch.models import moe as M
+    cfg, drops = model.cfg, []
+
+    def hook(mod, inputs, _out):
+        h = inputs[0].reshape(-1, cfg.d_model)
+        _, ids, _ = M.router_topk(h, mod.router, cfg.top_k)
+        cap = M.capacity(h.shape[0], cfg.top_k, cfg.num_experts,
+                         cfg.moe_capacity_factor)
+        drops.append(1.0 - M.dispatch_slots(ids, cfg.num_experts, cap)[1]
+                     .float().mean())
+    handles = [layer.moe.register_forward_hook(hook)
+               for layer in model.layers]
+    try:
+        call()
+    finally:
+        for h in handles:
+            h.remove()
+    return [float(d) for d in drops]
+
+
+def moe_prefill(cfg, model, B, S, dev):
+    """One prefill shape of phase 7m: a warm-up call, then
+    MOE_PREFILL_REPS calls timed by CUDA events (median) with the launch
+    counts reset before and read after (one flash launch per layer and
+    call, nothing else, the plain attention never called), finite float32
+    logits, the peak memory, the model-FLOPs share (2 N_active per token
+    over the bf16 tensor-core peak) and the dropped share per layer.
+    Returns (record, tokens, the call)."""
+    from repro_torch.launch import steps
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    gen = torch.Generator(device=dev).manual_seed(SERVE_SEED + 1)
+    toks = torch.randint(1, cfg.vocab_size, (B, S), generator=gen,
+                         device=dev)
+    prefill = steps.make_prefill_step(cfg)
+    call = lambda: prefill(model, {"tokens": toks})
+    torch.cuda.reset_peak_memory_stats()
+    first_ms, _ = _sync_ms(call)
+    with plain_calls(("flash_attention_ref",)) as plain:
+        reset_launches()
+        ms, logits = timed(call, MOE_PREFILL_REPS, warmup=0)
+        counts = read_launches()
+    L = cfg.num_layers
+    want = {"flash_attention": L * MOE_PREFILL_REPS}
+    check(all(counts[k] == want.get(k, 0) for k in counts),
+          f"{cfg.name} prefill B={B} S={S}: launches {counts} in "
+          f"{MOE_PREFILL_REPS} calls, expected {want} and no other")
+    check(not plain, f"{cfg.name} prefill called the plain attention")
+    check(tuple(logits.shape) == (B, T._pad_vocab(cfg.vocab_size))
+          and logits.dtype == torch.float32
+          and bool(torch.isfinite(logits).all()),
+          f"{cfg.name}: prefill logits not finite float32 (B, vocab_padded)")
+    n_active = T.active_param_count(cfg)
+    rec = dict(
+        B=B, S=S, first_call_ms=first_ms, prefill_ms=ms,
+        prefill_tokens_per_s=B * S / ms * 1e3,
+        model_flops_share=2 * n_active * B * S / (ms / 1e3)
+        / BF16_TC_FLOPS_PER_S,
+        flash_launches_per_call=counts["flash_attention"] / MOE_PREFILL_REPS,
+        launches=counts,
+        capacity=M.capacity(B * S, cfg.top_k, cfg.num_experts,
+                            cfg.moe_capacity_factor),
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        dropped_by_layer=moe_drops(model, call))
+    return rec, toks, call
+
+
+def moe_ffn_loop(xt, p, ids, weights, cap):
+    """The plain version of ``moe.moe_ffn`` (no shared experts) for given
+    ids and weights (T, k): expert by expert, its assignments in
+    token-major order (``nonzero``), the first ``cap`` kept, their rows
+    through the expert's three products; each kept assignment's output
+    times its weight (rounded to bf16, as there), added in slot order.
+    Returns (out (T, d) bf16, slot, keep) of the T * k assignments."""
+    T, k = ids.shape
+    E = p["router"].shape[-1]
+    flat = ids.reshape(-1).long()
+    keep = torch.zeros(T * k, dtype=torch.bool, device=xt.device)
+    slot = torch.full((T * k,), E * cap, dtype=torch.long, device=xt.device)
+    contrib = torch.zeros((T * k, xt.shape[1]), dtype=xt.dtype,
+                          device=xt.device)
+    w = weights.reshape(-1).to(xt.dtype)
+    for e in range(E):
+        a = (flat == e).nonzero()[:cap, 0]
+        keep[a] = True
+        slot[a] = e * cap + torch.arange(len(a), device=xt.device)
+        rows = xt[a // k]
+        h = (torch.nn.functional.silu(rows @ p["w_gate"][e])
+             * (rows @ p["w_up"][e]))
+        contrib[a] = (h @ p["w_down"][e]) * w[a, None]
+    contrib = contrib.view(T, k, -1)
+    out = torch.zeros_like(contrib[:, 0])
+    for j in range(k):
+        out = out + contrib[:, j]
+    return out, slot, keep
+
+
+def moe_layer_check(cfg, layer, dev):
+    """One MoE layer of ``cfg`` at its width on the card: ``router_topk``'s
+    ids against ``torch.topk`` of the same float32 probabilities away from
+    near-ties, ``dispatch_slots``' slots and keep mask equal to the plain
+    loop's (``moe_ffn_loop``) exactly, and ``moe_ffn`` (run with no host
+    sync) within MOE_FFN_MAX / MOE_FFN_MEAN of it, at MOE_CHECK_T tokens
+    and capacity factor 1.25 on inputs skewed toward expert 0."""
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    p = {k: T._compute(w) for k, w in layer.moe.named_parameters()}
+    k, E, cf = cfg.top_k, cfg.num_experts, 1.25
+    gen = torch.Generator(device=dev).manual_seed(SERVE_SEED + 2)
+    xt = torch.randn((MOE_CHECK_T, cfg.d_model), generator=gen, device=dev)
+    r0 = p["router"][:, 0].float()
+    xt = (xt + MOE_CHECK_SKEW * r0 / r0.square().sum()).to(p["router"].dtype)
+    weights, ids, _ = M.router_topk(xt, p["router"], k)
+    cap = M.capacity(MOE_CHECK_T, k, E, cf)
+    slot, keep = M.dispatch_slots(ids, E, cap)
+    with no_host_sync():
+        got = M.moe_ffn(xt[None], p, top_k=k, capacity_factor=cf)[0]
+    probs = torch.softmax(xt.float() @ p["router"].float(), dim=-1)
+    top = torch.topk(probs, k + 1, dim=-1)
+    clear = top.values[:, k - 1] - top.values[:, k] > MOE_NEAR_TIE
+    check(torch.equal(ids[clear].long(), top.indices[clear, :k]),
+          f"{cfg.name}: router ids off torch.topk away from near-ties")
+    plain_cap = max(k, int(cf * MOE_CHECK_T * k / E))
+    want, pslot, pkeep = moe_ffn_loop(xt, p, ids, weights, plain_cap)
+    check(cap == plain_cap and torch.equal(keep, pkeep)
+          and torch.equal(slot, pslot),
+          f"{cfg.name}: the dispatch's slots or keep mask off the plain "
+          f"per-expert loop's")
+    diff = (got.float() - want.float()).abs()
+    rec = dict(tokens=MOE_CHECK_T, capacity=cap,
+               near_ties=int((~clear).sum()),
+               dropped=float(1 - keep.float().mean()),
+               expert0_assignments=int((ids == 0).sum()),
+               max_abs_err=float(diff.max()), mean_abs_err=float(diff.mean()),
+               max_abs_out=float(want.float().abs().max()))
+    check(rec["max_abs_err"] <= MOE_FFN_MAX
+          and rec["mean_abs_err"] <= MOE_FFN_MEAN,
+          f"{cfg.name}: moe_ffn on the card off the plain per-expert loop: "
+          f"max abs {rec['max_abs_err']:.4g} (<= {MOE_FFN_MAX}), mean "
+          f"{rec['mean_abs_err']:.4g} (<= {MOE_FFN_MEAN})")
+    return rec
+
+
+def phase_moe_serve(dev, smi):
+    """Phase 7m: mixtral-8x7b at full width cut to MOE_LAYERS layers,
+    weights from a seed, capacity factor 1.25: prefill at each MOE_PREFILL
+    shape (moe_prefill), DECODE_STEPS greedy decode steps at B=DECODE_B
+    from an empty cache of MOE_DECODE_S positions beside their byte bound
+    (every weight but the embedding table read once a step; the bucketed
+    product reads every expert); then, after the timings, one B=DECODE_B
+    prefill call and one decode step traced, and one such prefill under
+    ``set_sync_debug_mode("error")``, and the decode timed again after
+    those traces (the same process and host: whether a profiler's session
+    slows the host-bound step); then dropless (MOE_DROPLESS) at B=1
+    S=CHECK_S every layer's decode against its prefill path (within
+    LAYER_GAP_TOL by the MoE rule) and the forward's logits against as
+    many decode steps (recorded at MOE_LAYERS layers, gated at
+    SSM_GATE_LAYERS, the reference's criterion with its MoE quantile); and
+    on the cut's first layer ``moe_layer_check`` at capacity factor 1.25."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    quant = T.MOE_GAP_QUANTILE
+    t0 = time.perf_counter()
+    full = get_arch(MOE_ARCH)
+    cfg = dataclasses.replace(full, name=f"{MOE_ARCH} {MOE_LAYERS} layers",
+                              num_layers=MOE_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_init, model = _sync_ms(lambda: T.init_params(cfg, SERVE_SEED,
+                                                   device=dev))
+    n_params = sum(x.numel() for x in model.parameters())
+    check(n_params == T.param_count(cfg),
+          f"{cfg.name}: the model's parameters != param_count")
+    rec = dict(arch=MOE_ARCH, layers=MOE_LAYERS,
+               full_layers=full.num_layers, params=n_params,
+               active_params=T.active_param_count(cfg),
+               full_params=T.param_count(full), seed=SERVE_SEED,
+               capacity_factor=cfg.moe_capacity_factor, init_ms=t_init,
+               load_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               card=smi)
+    say("7m moe serve", f"{cfg.name}: {n_params} parameters ({MOE_ARCH} "
+        f"whole: {rec['full_params']}), {rec['active_params']} active a "
+        f"token, weights from seed {SERVE_SEED} on {smi} in {t_init:.0f} "
+        f"ms; memory after load {rec['load_memory_gb']:.2f} GB")
+    prefills = {}
+    for B, S in MOE_PREFILL:
+        r, toks, call = moe_prefill(cfg, model, B, S, dev)
+        prefills[f"B={B} S={S}"] = r
+        drops = r["dropped_by_layer"]
+        say("7m moe serve", f"prefill B={B} S={S}: {r['prefill_ms']:.2f} ms "
+            f"a call (median of {MOE_PREFILL_REPS}, CUDA events; first "
+            f"{r['first_call_ms']:.1f} ms), {r['prefill_tokens_per_s']:.0f} "
+            f"tokens/s, model-FLOPs share {r['model_flops_share']:.4f}, "
+            f"{r['flash_launches_per_call']:.0f} flash launches a call, "
+            f"capacity {r['capacity']} rows an expert, dropped "
+            f"{statistics.mean(drops):.4f} of the assignments (layers "
+            f"{min(drops):.4f}-{max(drops):.4f}: "
+            f"{[round(d, 4) for d in drops]}); peak memory "
+            f"{r['peak_memory_gb']:.2f} GB")
+        if B == DECODE_B:
+            traced, traced_name = call, f"B={B} S={S}"
+            decode_toks = toks[:DECODE_B, :1]
+            one = toks[:1, :CHECK_S].clone()
+    rec["prefill"] = prefills
+
+    serve = steps.make_serve_step(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    cache = T.init_cache(cfg, DECODE_B, MOE_DECODE_S, device=dev)
+    tok = decode_toks
+
+    def step():
+        nonlocal tok, cache
+        lg, cache = serve(model, tok, cache)
+        tok = torch.argmax(lg, dim=-1, keepdim=True)
+        return lg
+    step_ms = []
+    for _ in range(DECODE_STEPS):
+        ms, lg = _sync_ms(step)
+        step_ms.append(ms)
+    check(cache["length"] == DECODE_STEPS
+          and bool(torch.isfinite(lg).all()),
+          f"{cfg.name} decode: cache length or logits wrong")
+    decode_ms = statistics.median(step_ms[1:])     # the first warms up
+    decode_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # traced after the timings, which a profiler's session could slow
+    prof = device_busy(traced, ("flash_bf16_kernel",), top=8)
+    decode_prof = device_busy(step)
+    with no_host_sync():
+        logits = traced()
+    torch.cuda.synchronize()
+    length = cache["length"]       # device_busy may profile a step again
+    after = [_sync_ms(step) for _ in range(DECODE_STEPS)]
+    after_ms, lg = [ms for ms, _ in after], after[-1][1]
+    del after
+    check(cache["length"] == length + DECODE_STEPS
+          and bool(torch.isfinite(lg).all()),
+          f"{cfg.name} decode after the traces: cache length or logits "
+          f"wrong")
+    check(bool(torch.isfinite(logits).all()),
+          f"{cfg.name}: the prefill without host syncs gave non-finite "
+          f"logits")
+    prefills[traced_name].update(profile=prof, host_syncs=0)
+    busy = prof["device_busy_ms"]
+    say("7m moe serve", f"prefill {traced_name} traced: wall "
+        f"{prof['profiled_wall_ms']:.2f} ms, device busy {busy:.2f} ms (idle "
+        f"{1 - busy / prof['profiled_wall_ms']:.3f}); flash "
+        f"{prof['kernels']['flash_bf16_kernel']['launches']} launches "
+        f"{prof['kernels']['flash_bf16_kernel']['device_ms']:.3f} ms; top "
+        f"device ops " + ", ".join(f"{n} {t:.3f}" for n, t in
+                                   prof["top_device_ops_ms"].items()))
+    say("7m moe serve", f"prefill {traced_name} under "
+        f"set_sync_debug_mode('error'): no host sync")
+    # the least a step moves: every weight once but the embedding table (B
+    # rows of it), and the K/V rows of the positions it attends
+    embed = model.embed
+    kv = cache["slots"][0]["kv"]["k"]
+    weight_bytes = sum(x.numel() * x.element_size()
+                       for x in model.parameters()) - embed.numel() \
+        * embed.element_size()
+    step_bytes = (weight_bytes + DECODE_B * cfg.d_model * embed.element_size()
+                  + 2 * cfg.num_layers * DECODE_B * cfg.num_kv_heads
+                  * DECODE_STEPS * cfg.head_dim * kv.element_size())
+    rec.update(
+        decode_ms_per_step=decode_ms, decode_ms_all=step_ms,
+        decode_tokens_per_s=DECODE_B / decode_ms * 1e3,
+        decode_bound_ms=step_bytes / HBM_BYTES_PER_S * 1e3,
+        decode_bound_bytes=step_bytes, decode_profile=decode_prof,
+        decode_peak_memory_gb=decode_peak_gb,
+        decode_ms_after_traces=statistics.median(after_ms),
+        decode_ms_all_after_traces=after_ms)
+    busy = decode_prof["device_busy_ms"]
+    say("7m moe serve", f"decode B={DECODE_B} from an empty "
+        f"{MOE_DECODE_S}-position cache: {decode_ms:.3f} ms a step (median "
+        f"of steps 2-{DECODE_STEPS}; first {step_ms[0]:.1f} ms; "
+        f"{rec['decode_tokens_per_s']:.1f} tokens/s) against a byte bound "
+        f"of {rec['decode_bound_ms']:.3f} ms ({step_bytes / 1e9:.2f} GB at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s); peak memory "
+        f"{rec['decode_peak_memory_gb']:.2f} GB; one step traced: wall "
+        f"{decode_prof['profiled_wall_ms']:.2f} ms, device busy "
+        f"{busy:.2f} ms (idle "
+        f"{1 - busy / decode_prof['profiled_wall_ms']:.3f}); top device ops "
+        + ", ".join(f"{n} {t:.3f}" for n, t in
+                    decode_prof["top_device_ops_ms"].items())
+        + f"; after the traces {rec['decode_ms_after_traces']:.3f} ms a "
+        f"step (median of {DECODE_STEPS}; before them {decode_ms:.3f})")
+    del model, cache, lg, tok, decode_toks, logits, traced, call
+    torch.cuda.empty_cache()
+
+    # the gates, dropless, on the same weights (the seed draws them alike
+    # whatever the capacity factor)
+    dropless = dataclasses.replace(cfg, moe_capacity_factor=MOE_DROPLESS)
+    model = T.init_params(dropless, SERVE_SEED, device=dev)
+    gaps, gap_max = T.decode_gap_by_layer(dropless, model, one)
+    check(max(gaps) < LAYER_GAP_TOL,
+          f"{cfg.name}: decode off the prefill path in layer "
+          f"{int(np.argmax(gaps))}: gap {max(gaps):.4f} (< {LAYER_GAP_TOL}, "
+          f"the {quant} quantile over positions)")
+    diff, agree = forward_vs_decode(dropless, model, one,
+                                    quantile=quant)
+    del model
+    torch.cuda.empty_cache()
+    cut = dataclasses.replace(dropless, name=f"{MOE_ARCH} "
+                              f"{SSM_GATE_LAYERS} layers",
+                              num_layers=SSM_GATE_LAYERS)
+    model = T.init_params(cut, SERVE_SEED, device=dev)
+    cut_diff, cut_agree = forward_vs_decode(cut, model, one,
+                                            quantile=quant)
+    check(cut_diff < SELF_TOL and cut_agree >= SELF_AGREE,
+          f"{cut.name}: decode vs forward at B=1, S={CHECK_S}: log-softmax "
+          f"diff {cut_diff:.4f} ({quant} quantile over positions, < "
+          f"{SELF_TOL}), argmax agreement {cut_agree:.3f} (>= {SELF_AGREE})")
+    layer_rec = moe_layer_check(full, model.layers[0], dev)
+    del model
+    torch.cuda.empty_cache()
+    rec.update(
+        decode_gap_by_layer=gaps, decode_gap_by_layer_max=gap_max,
+        decode_vs_forward=dict(layers=MOE_LAYERS, quantile=quant,
+                               logsoftmax_diff=diff, argmax_agree=agree),
+        decode_vs_forward_cut=dict(layers=SSM_GATE_LAYERS,
+                                   quantile=quant,
+                                   logsoftmax_diff=cut_diff,
+                                   argmax_agree=cut_agree),
+        moe_layer_check=layer_rec,
+        launches={"flash_attention": sum(
+            r["launches"]["flash_attention"] for r in prefills.values())},
+        seconds=time.perf_counter() - t0)
+    say("7m moe serve", f"capacity factor {MOE_DROPLESS} at B=1 S={CHECK_S}: "
+        f"each layer's decode within {max(gaps):.4f} of its prefill path "
+        f"(the {quant} quantile over positions; median "
+        f"{statistics.median(gaps):.4f}; largest over positions "
+        f"{max(gap_max):.4f}); decode vs forward log-softmax diff "
+        f"{diff:.4f}, argmax agreement {agree:.3f} at {MOE_LAYERS} layers "
+        f"(not gated), {cut_diff:.4f} / {cut_agree:.3f} at "
+        f"{SSM_GATE_LAYERS} layers; {rec['seconds']:.1f} s")
+    say("7m moe serve", f"moe_ffn of the cut's first layer at T="
+        f"{MOE_CHECK_T}, capacity factor 1.25 ({layer_rec['capacity']} rows "
+        f"an expert), inputs skewed toward expert 0 "
+        f"({layer_rec['expert0_assignments']} assignments): ids equal "
+        f"torch.topk's away from {layer_rec['near_ties']} near-ties, slots "
+        f"and keep mask equal the plain per-expert loop's ("
+        f"{layer_rec['dropped']:.4f} of the assignments dropped), outputs "
+        f"within max abs {layer_rec['max_abs_err']:.4g} (<= {MOE_FFN_MAX}), "
+        f"mean {layer_rec['mean_abs_err']:.4g} (<= {MOE_FFN_MEAN}) of it "
+        f"(outputs up to {layer_rec['max_abs_out']:.3g}); no host sync")
     return rec
 
 
@@ -6537,6 +6947,8 @@ def main():
         dev, record["device"]["nvidia_smi"])
     record["ssm_serve"] = ssm = phase_ssm_serve(
         dev, record["device"]["nvidia_smi"])
+    record["moe_serve"] = moe = phase_moe_serve(
+        dev, record["device"]["nvidia_smi"])
     record["diagnostics"] = phase_diagnostics(
         potts, lattice, record["device"]["nvidia_smi"])
     record["dist"] = phase_dist(potts, lattice,
@@ -6559,8 +6971,9 @@ def main():
     for k in KERNELS:
         if k.endswith("_rng"):
             launches = record["rng_path"]["launches"][k]
-        elif k == "flash_attention":  # prefill (7, 7f), training (12b, e, f)
+        elif k == "flash_attention":  # prefill (7, 7f, 7m), training
             launches = (serve["flash_launches"] + ssm["launches"][k]
+                        + moe["launches"][k]
                         + training["train"]["launches"][k]
                         + training["gemma3"]["launches"][k] + ssm_train[k])
         elif k == "selective_scan":  # SSM / hybrid prefills (7f), training

@@ -6,7 +6,7 @@
 Each checkout (a directory holding ``src/repro_torch``) runs in a process
 of its own, in the order parent, change, change, parent, builds its
 kernels from its own sources and times its ``flash_attention_cuda`` at
-``chip_smoke.FLASH_CONFIGS`` (bf16, the prefill attention of every dense
+``chip_smoke.FLASH_CONFIGS`` (bf16, the prefill attention of every served
 config), on the same seeded inputs and with the same CUDA-event median as
 ``chip_smoke.py`` phase 6.  A shape whose head dim a checkout's wrapper
 refuses is recorded as null.  Prints one JSON line

@@ -38,8 +38,10 @@ def make_train_step(cfg: ModelConfig, *, base_lr: float = 3e-4,
     gradients are summed one microbatch at a time (activations live one
     microbatch at a time) and divided by m, as is the loss.  metrics:
     ``loss`` and ``grad_norm`` as 0-d float32 tensors on the model's
-    device (nothing is read back), and ``lr`` (a float).  Any ported
-    family: dense GQA, SSM, hybrid."""
+    device (nothing is read back), and ``lr`` (a float).  Dense GQA, SSM
+    and hybrid families; a MoE config raises NotImplementedError
+    (``models.transformer.check_trainable``)."""
+    T.check_trainable(cfg)
     lr_fn = cosine_schedule(base_lr, warmup, total_steps)
 
     def train_step(params: T.Transformer, opt_state: AdamWState,
@@ -80,7 +82,8 @@ def make_prefill_step(cfg: ModelConfig):
     """prefill_step(params, batch) -> next-token logits (B, vocab_padded)
     float32: one forward pass over batch['tokens'] (B, S), the last
     position's hidden state times the lm head in bf16, widened.  Any ported
-    family: dense GQA, SSM (the scan kernel on the card), hybrid."""
+    family: dense GQA, SSM (the scan kernel on the card), hybrid, MoE (the
+    capacity-bucketed ``models/moe.py`` in place of the MLP)."""
     def prefill_step(params: T.Transformer, batch: Dict[str, Any]):
         if batch.get("frontend_embeds") is not None:
             raise NotImplementedError(

@@ -1,24 +1,32 @@
-"""The dense GQA, SSM and hybrid transformer families — init, forward,
-loss, decode — in PyTorch: the counterpart of ``repro/models/transformer.py``.
+"""The dense GQA, SSM, hybrid and MoE transformer families — init,
+forward, loss, decode — in PyTorch: the counterpart of
+``repro/models/transformer.py``.
 
 Covers every dense config of the registry (tinyllama-1.1b,
 h2o-danube-3-4b, gemma3-12b, starcoder2-7b: swiglu or gelu MLP, any
 ``window_pattern``, tied or untied embeddings), the SSM family
-(falcon-mamba-7b: mamba layers, no attention, no MLP) and the hybrid one
-(hymba-1.5b: attention and mamba heads in parallel, then the MLP).  The
-other families (MoE, MLA, encoder-decoder, VLM stub) raise
-``NotImplementedError``.  Every ported family trains (``loss_fn``).
+(falcon-mamba-7b: mamba layers, no attention, no MLP), the hybrid one
+(hymba-1.5b: attention and mamba heads in parallel, then the MLP) and the
+MoE family with GQA attention (mixtral-8x7b: ``models/moe.py`` in place of
+the MLP; shared experts and a dense prefix as DeepSeek's, which itself
+needs MLA).  The other families (MLA, encoder-decoder, VLM stub) raise
+``NotImplementedError``.  Every ported family but MoE trains
+(``loss_fn``); MoE serves only.
 
 Design notes
 ------------
-* **Modules.** ``Transformer`` holds ``embed``, one ``Layer`` per layer
-  (``ln1``; ``attn`` = ``Attention`` when the family has attention;
-  ``ssm`` = ``ssm.Mamba`` and, when parallel, ``ln_ssm``; ``ln2`` and
-  ``mlp`` = ``MLP`` when ``d_ff > 0``), ``final_norm`` and, untied,
-  ``lm_head``.  Weights keep the JAX package's layout (``x @ w``, w of
-  shape (d_in, d_out)), so ``params_from_jax`` is a copy.  Layer
-  ``g * P + p`` is the reference's stacked leaf ``[g, p]`` (P =
-  ``len(cfg.window_pattern)``) and has window ``window_pattern[p]``.
+* **Modules.** ``Transformer`` holds ``embed``, the ``dense_prefix``
+  layers (``cfg.first_dense_layers``, each with an ``MLP`` of ``d_ff`` and
+  window ``window_pattern[0]``), one ``Layer`` per layer of the stack
+  (``cfg.scan_layers``: ``ln1``; ``attn`` = ``Attention`` when the family
+  has attention; ``ssm`` = ``ssm.Mamba`` and, when parallel, ``ln_ssm``;
+  ``ln2`` and ``moe`` = ``MoE`` in a MoE config, else ``ln2`` and ``mlp``
+  = ``MLP`` when ``d_ff > 0``), ``final_norm`` and, untied, ``lm_head``.
+  Weights keep the JAX package's layout (``x @ w``, w of shape (d_in,
+  d_out)), so ``params_from_jax`` is a copy.  Stack layer ``g * P + p``
+  is the reference's stacked leaf ``[g, p]`` (P =
+  ``len(cfg.window_pattern)``) and has window ``window_pattern[p]``;
+  prefix layer i is its ``dense_prefix[i]``.
 * **The mix**, as the reference's ``_layer``: attention alone, mamba
   alone, or for ``parallel_ssm`` ``(attn + ssm) * 0.5`` summed in bf16;
   an SSM-only layer returns after the mixer.
@@ -45,7 +53,10 @@ Design notes
   ring buffers of ``min(window, seq)`` slots with an absolute-position
   array (``pos``) for masking, ``k``/``v`` (G, B, KVH, S_w, hd) and
   ``pos`` (G, S_w); the SSM's ``conv`` (G, B, K-1, d_inner) in the compute
-  dtype and ``state`` (G, B, d_inner, N) float32.  ``decode_step`` writes
+  dtype and ``state`` (G, B, d_inner, N) float32; per prefix layer an
+  entry of ``dense_prefix``, ``k``/``v`` (B, KVH, S_w, hd) and ``pos``
+  (S_w,).  The MoE layer's decode is ``moe_ffn`` at T = B tokens, with the
+  capacity of that T.  ``decode_step`` writes
   them in place (the reference returns a new tree) and returns the same
   dict; ``length`` is a Python int.
 * **Vocab padding.** Embedding / lm-head pad the vocab to a multiple of
@@ -54,7 +65,7 @@ Design notes
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -65,6 +76,7 @@ from torch.utils.checkpoint import checkpoint
 from .._device import resolve_device
 from ..configs.base import ModelConfig
 from . import attention as attn_lib
+from . import moe as moe_lib
 from . import ssm as ssm_lib
 from .layers import (COMPUTE_DTYPE, compute_weight as _compute,
                      new_weight as _weight, rms_norm, rope,
@@ -73,7 +85,8 @@ from .layers import (COMPUTE_DTYPE, compute_weight as _compute,
 __all__ = ["Transformer", "init_params", "params_from_jax", "forward",
            "loss_fn", "init_cache", "decode_step", "param_count",
            "active_param_count", "model_flops_per_token", "decay_mask",
-           "decode_gap_by_layer", "COMPUTE_DTYPE"]
+           "decode_gap_by_layer", "check_trainable", "MOE_GAP_QUANTILE",
+           "COMPUTE_DTYPE"]
 
 
 def _pad_vocab(v: int) -> int:
@@ -81,15 +94,13 @@ def _pad_vocab(v: int) -> int:
 
 
 # the attention each ported family runs
-_PORTED = {"dense": "gqa", "ssm": "none", "hybrid": "gqa"}
+_PORTED = {"dense": "gqa", "ssm": "none", "hybrid": "gqa", "moe": "gqa"}
 
 
 def _require_ported(cfg: ModelConfig) -> None:
     """Raise for a family the port does not run yet."""
     family = None
-    if cfg.is_moe:
-        family = "MoE"
-    elif cfg.attention == "mla":
+    if cfg.attention == "mla":
         family = "MLA"
     elif cfg.encoder_layers:
         family = "encoder-decoder"
@@ -100,8 +111,17 @@ def _require_ported(cfg: ModelConfig) -> None:
     if family is not None:
         raise NotImplementedError(
             f"{cfg.name}: the {family} family is not ported yet (ROADMAP.md "
-            f"Queue 1 item 10: the port runs the dense GQA, SSM and hybrid "
-            f"families)")
+            f"Queue 1 item 10: the port runs the dense GQA, SSM, hybrid "
+            f"and GQA MoE families)")
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise for a config the port serves but does not train yet."""
+    _require_ported(cfg)
+    if cfg.is_moe:
+        raise NotImplementedError(
+            f"{cfg.name}: training the MoE family is not ported yet "
+            f"(ROADMAP.md Queue 1 item 10b-train); it serves only")
 
 
 def _param_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
@@ -111,24 +131,30 @@ def _param_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
     d, H, KVH, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     G, P, vp, f = cfg.num_groups, cfg.period, _pad_vocab(cfg.vocab_size), \
         cfg.d_ff
-    shapes = {"embed": (vp, d), "final_norm": (d,), "layers/ln1": (G, P, d)}
-    if f > 0:                        # mamba-only layers carry no MLP
-        shapes["layers/ln2"] = (G, P, d)
+    attn = {"attn/wq": (d, H * hd), "attn/wk": (d, KVH * hd),
+            "attn/wv": (d, KVH * hd), "attn/wo": (H * hd, d)}
+    mlp = {"mlp/w_up": (d, f), "mlp/w_down": (f, d)}
+    if cfg.mlp_type == "swiglu":
+        mlp["mlp/w_gate"] = (d, f)
+    layer = {"ln1": (d,)}
+    if cfg.is_moe or f > 0:          # mamba-only layers carry no ffn
+        layer["ln2"] = (d,)
     if cfg.has_attention:
-        shapes.update({"layers/attn/wq": (G, P, d, H * hd),
-                       "layers/attn/wk": (G, P, d, KVH * hd),
-                       "layers/attn/wv": (G, P, d, KVH * hd),
-                       "layers/attn/wo": (G, P, H * hd, d)})
+        layer.update(attn)
     if cfg.has_ssm:
-        shapes.update({f"layers/ssm/{k}": (G, P, *v)
-                       for k, v in ssm_lib.Mamba.shapes(cfg).items()})
+        layer.update({f"ssm/{k}": v
+                      for k, v in ssm_lib.Mamba.shapes(cfg).items()})
         if cfg.parallel_ssm:
-            shapes["layers/ln_ssm"] = (G, P, d)
-    if f > 0:
-        shapes["layers/mlp/w_up"] = (G, P, d, f)
-        shapes["layers/mlp/w_down"] = (G, P, f, d)
-        if cfg.mlp_type == "swiglu":
-            shapes["layers/mlp/w_gate"] = (G, P, d, f)
+            layer["ln_ssm"] = (d,)
+    if cfg.is_moe:
+        layer.update({f"moe/{k}": v for k, v in MoE.shapes(cfg).items()})
+    elif f > 0:
+        layer.update(mlp)
+    shapes = {"embed": (vp, d), "final_norm": (d,),
+              **{f"layers/{k}": (G, P, *v) for k, v in layer.items()}}
+    for i in range(cfg.first_dense_layers):
+        shapes.update({f"dense_prefix/{i}/{k}": v for k, v in
+                       {"ln1": (d,), "ln2": (d,), **attn, **mlp}.items()})
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (d, vp)
     return shapes
@@ -140,10 +166,14 @@ def param_count(cfg: ModelConfig) -> int:
 
 
 def active_param_count(cfg: ModelConfig) -> int:
-    """Parameters touched per token: all of them in the dense family (the
-    reference subtracts the inactive experts of a MoE config, a family the
-    port refuses)."""
-    return param_count(cfg)
+    """Parameters touched per token: all of them, less a MoE config's
+    inactive experts (E - top_k of them in every stack layer, three
+    d x moe_d_ff matrices each), as the reference counts."""
+    inactive = 0
+    if cfg.is_moe:
+        inactive = ((cfg.num_experts - cfg.top_k) * 3 * cfg.d_model
+                    * cfg.moe_d_ff * cfg.scan_layers)
+    return param_count(cfg) - inactive
 
 
 def model_flops_per_token(cfg: ModelConfig, seq_len: int,
@@ -216,26 +246,69 @@ class MLP(nn.Module):
                                         in self.named_parameters()})
 
 
+class MoE(nn.Module):
+    """The MoE ffn (``models/moe.py``): router (d, E), w_gate / w_up (E, d,
+    moe_d_ff), w_down (E, moe_d_ff, d) and, with shared experts,
+    shared_gate / shared_up (d, shared_experts * moe_d_ff) and shared_down
+    (shared_experts * moe_d_ff, d)."""
+
+    def __init__(self, cfg: ModelConfig, device=None, master: bool = False):
+        super().__init__()
+        self.cfg = cfg
+        for name, shape in self.shapes(cfg).items():
+            setattr(self, name, _weight(shape, COMPUTE_DTYPE, device, master))
+
+    @staticmethod
+    def shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+        d, E, f = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+        shapes = {"router": (d, E), "w_gate": (E, d, f), "w_up": (E, d, f),
+                  "w_down": (E, f, d)}
+        if cfg.shared_experts > 0:
+            fs = cfg.shared_experts * f
+            shapes.update(shared_gate=(d, fs), shared_up=(d, fs),
+                          shared_down=(fs, d))
+        return shapes
+
+    @staticmethod
+    def fan_in(cfg: ModelConfig) -> Dict[str, int]:
+        """Each leaf's fan-in, as the reference's ``_init_moe``."""
+        d = cfg.d_model
+        return {"router": d, "w_gate": d, "w_up": d, "w_down": cfg.moe_d_ff,
+                "shared_gate": d, "shared_up": d,
+                "shared_down": cfg.shared_experts * cfg.moe_d_ff}
+
+    def forward(self, h):
+        cfg = self.cfg
+        return moe_lib.moe_ffn(
+            h, {k: _compute(w) for k, w in self.named_parameters()},
+            top_k=cfg.top_k, capacity_factor=cfg.moe_capacity_factor)
+
+
 class Layer(nn.Module):
-    """Pre-norm block: x + mix(norm(x)), then + mlp(norm(x)) where the
-    layer has an MLP.  The mix is attention, mamba, or (``parallel_ssm``)
-    the mean of attention on norm(x) and mamba on its own norm."""
+    """Pre-norm block: x + mix(norm(x)), then + ffn(norm(x)) where the
+    layer has one (the MLP, or in a MoE config's stack the MoE).  The mix
+    is attention, mamba, or (``parallel_ssm``) the mean of attention on
+    norm(x) and mamba on its own norm.  ``dense=True``: a dense-prefix
+    layer (attention and an MLP of ``d_ff``)."""
 
     def __init__(self, cfg: ModelConfig, window: int, device=None,
-                 master: bool = False):
+                 master: bool = False, dense: bool = False):
         super().__init__()
         self.cfg, self.window = cfg, window
         d = cfg.d_model
+        moe = cfg.is_moe and not dense
+        has_ffn = moe or cfg.d_ff > 0
         self.ln1 = _weight((d,), torch.float32, device, master)
         self.attn = (Attention(cfg, device, master) if cfg.has_attention
                      else None)
-        self.ssm = ssm_lib.Mamba(cfg, device, master) if cfg.has_ssm \
-            else None
+        self.ssm = (ssm_lib.Mamba(cfg, device, master)
+                    if cfg.has_ssm and not dense else None)
         self.ln_ssm = (_weight((d,), torch.float32, device, master)
-                       if cfg.has_ssm and cfg.parallel_ssm else None)
+                       if self.ssm is not None and cfg.parallel_ssm else None)
         self.ln2 = (_weight((d,), torch.float32, device, master)
-                    if cfg.d_ff > 0 else None)
-        self.mlp = MLP(cfg, device, master) if cfg.d_ff > 0 else None
+                    if has_ffn else None)
+        self.mlp = MLP(cfg, device, master) if has_ffn and not moe else None
+        self.moe = MoE(cfg, device, master) if moe else None
 
     def _mix(self, x, attend, scan):
         """x + the mixer's output; ``attend(h)`` and ``scan(h)`` run the
@@ -253,9 +326,10 @@ class Layer(nn.Module):
         return x + mix
 
     def _ffn(self, x):
-        if self.mlp is None:             # ssm-only layer: no ffn
+        if self.ln2 is None:             # ssm-only layer: no ffn
             return x
-        return x + self.mlp(rms_norm(x, self.ln2, self.cfg.norm_eps))
+        ffn = self.moe if self.moe is not None else self.mlp
+        return x + ffn(rms_norm(x, self.ln2, self.cfg.norm_eps))
 
     def forward(self, x, rope_cs):
         x = self._mix(x, lambda h: self.attn(h, rope_cs, self.window),
@@ -280,9 +354,10 @@ def _run_group(layers, x, rope_cs):
 
 
 class Transformer(nn.Module):
-    """The dense GQA, SSM or hybrid model; parameters are allocated empty on ``device`` and
-    filled by ``init_params`` (from a seed) or ``params_from_jax``.
-    ``master=True`` gives the trainer's float32 form (module docstring)."""
+    """The dense GQA, SSM, hybrid or MoE model; parameters are allocated
+    empty on ``device`` and filled by ``init_params`` (from a seed) or
+    ``params_from_jax``.  ``master=True`` gives the trainer's float32 form
+    (module docstring)."""
 
     def __init__(self, cfg: ModelConfig, device=None, master: bool = False):
         super().__init__()
@@ -291,9 +366,12 @@ class Transformer(nn.Module):
         self.cfg, self.master = cfg, master
         vp = _pad_vocab(cfg.vocab_size)
         self.embed = _weight((vp, cfg.d_model), COMPUTE_DTYPE, device, master)
+        self.dense_prefix = nn.ModuleList(
+            Layer(cfg, cfg.window_pattern[0], device, master, dense=True)
+            for _ in range(cfg.first_dense_layers))
         self.layers = nn.ModuleList(
             Layer(cfg, cfg.window_pattern[i % cfg.period], device, master)
-            for i in range(cfg.num_layers))
+            for i in range(cfg.scan_layers))
         self.final_norm = _weight((cfg.d_model,), torch.float32, device,
                                   master)
         if not cfg.tie_embeddings:
@@ -331,6 +409,7 @@ class Transformer(nn.Module):
         rope_cs = (_rope_tables(cfg, torch.arange(x.shape[1],
                                                   device=x.device))
                    if cfg.has_attention else None)
+        x = _run_group(self.dense_prefix, x, rope_cs)
         P = cfg.period
         for g0 in range(0, len(self.layers), P):
             group = self.layers[g0:g0 + P]
@@ -346,16 +425,27 @@ class Transformer(nn.Module):
 # Parameters
 # ===========================================================================
 
-def _layer_leaves(model: Transformer, i: int) -> Dict[str, torch.Tensor]:
-    """Layer i's parameters under the reference's 'layers/...' paths."""
-    layer = model.layers[i]
-    out = {f"layers/{name}": p for name in ("ln1", "ln2", "ln_ssm")
+def _layer_leaves(layer: Layer, prefix: str) -> Dict[str, torch.Tensor]:
+    """A layer's parameters under the reference's paths below ``prefix``
+    ('layers' for the stack, 'dense_prefix/<i>' for a prefix layer)."""
+    out = {f"{prefix}/{name}": p for name in ("ln1", "ln2", "ln_ssm")
            if (p := getattr(layer, name)) is not None}
-    for sub in ("attn", "ssm", "mlp"):
+    for sub in ("attn", "ssm", "mlp", "moe"):
         if getattr(layer, sub) is not None:
             for name, p in getattr(layer, sub).named_parameters():
-                out[f"layers/{sub}/{name}"] = p
+                out[f"{prefix}/{sub}/{name}"] = p
     return out
+
+
+def _all_layer_leaves(model: Transformer):
+    """(path, parameter, index into the reference's leaf) of every layer
+    parameter: [g, p] for stack layer g * P + p, () for a prefix layer."""
+    for i, layer in enumerate(model.dense_prefix):
+        for path, p in _layer_leaves(layer, f"dense_prefix/{i}").items():
+            yield path, p, ()
+    for i, layer in enumerate(model.layers):
+        for path, p in _layer_leaves(layer, "layers").items():
+            yield path, p, divmod(i, model.cfg.period)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None,
@@ -377,8 +467,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
               "w_up": d, "w_down": f, "embed": d, "lm_head": d,
               "w_in": d, "conv": cfg.conv_kernel, "w_x": cfg.d_inner,
               "w_dt": cfg.dt_rank, "w_out": cfg.d_inner}
+    moe_fan_in = MoE.fan_in(cfg)
 
-    def fill(p: torch.Tensor, name: str):
+    def fill(p: torch.Tensor, name: str, moe: bool = False):
         if name == "A_log":
             p.copy_(torch.log(torch.arange(
                 1, cfg.ssm_state + 1, dtype=torch.float32, device=dev)
@@ -390,14 +481,14 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
         elif p.dim() == 1:          # norm scales, conv_bias
             p.zero_()
         else:
-            p.copy_(truncated_normal_init(gen, p.shape, fan_in[name],
-                                          dtype=p.dtype, device=dev))
+            p.copy_(truncated_normal_init(
+                gen, p.shape, (moe_fan_in if moe else fan_in)[name],
+                dtype=p.dtype, device=dev))
 
     with torch.no_grad():
         fill(model.embed, "embed")
-        for i in range(cfg.num_layers):
-            for path, p in _layer_leaves(model, i).items():
-                fill(p, path.rsplit("/", 1)[-1])
+        for path, p, _ in _all_layer_leaves(model):
+            fill(p, path.rsplit("/", 1)[-1], "/moe/" in path)
         fill(model.final_norm, "final_norm")
         if not cfg.tie_embeddings:
             fill(model.lm_head, "lm_head")
@@ -405,9 +496,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
 
 
 def _flatten(tree, prefix="") -> Dict[str, Any]:
-    if isinstance(tree, dict):
+    """Nested dicts and lists (the reference's ``dense_prefix``) -> leaves
+    under '/'-joined paths, a list item under its index."""
+    if isinstance(tree, (dict, list, tuple)):
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
         out = {}
-        for k, v in tree.items():
+        for k, v in items:
             out.update(_flatten(v, f"{prefix}{k}/"))
         return out
     return {prefix[:-1]: tree}
@@ -419,8 +513,8 @@ def params_from_jax(cfg: ModelConfig, tree, device=None,
     form, or the float32 master form with ``master=True``).
 
     ``tree``: the reference's ``init_params`` tree as nested dicts of numpy
-    arrays (layer leaves stacked (G, P, ...); layer g * P + p is leaf
-    [g, p]).  Raises ValueError for a missing or extra leaf or a wrong
+    arrays (stack leaves (G, P, ...), stack layer g * P + p is leaf [g, p];
+    ``dense_prefix`` a list of per-layer dicts).  Raises ValueError for a missing or extra leaf or a wrong
     shape.  In the serve form, weights of two or more dimensions are cast to
     bf16 here, as the reference casts them per call."""
     want = _param_shapes(cfg)
@@ -436,7 +530,6 @@ def params_from_jax(cfg: ModelConfig, tree, device=None,
             raise ValueError(f"{cfg.name}: leaf {k} has shape "
                              f"{arrays[k].shape}, expected {shape}")
     model = Transformer(cfg, device, master)
-    P = cfg.period
 
     def put(p: torch.Tensor, a: np.ndarray):
         p.copy_(torch.from_numpy(np.array(a)).to(p.dtype))   # a copy
@@ -446,10 +539,8 @@ def params_from_jax(cfg: ModelConfig, tree, device=None,
         put(model.final_norm, arrays["final_norm"])
         if not cfg.tie_embeddings:
             put(model.lm_head, arrays["lm_head"])
-        for i in range(cfg.num_layers):
-            g, p = divmod(i, P)
-            for path, param in _layer_leaves(model, i).items():
-                put(param, arrays[path][g, p])
+        for path, param, index in _all_layer_leaves(model):
+            put(param, arrays[path][index])
     return model
 
 
@@ -496,8 +587,9 @@ def loss_fn(cfg: ModelConfig, params: Transformer, batch: Dict[str, Any],
     sequence chunks so the (S, V) logits never materialise whole: each
     chunk's logits are rematerialised in the backward, as the reference
     ``jax.checkpoint``s each; the forward rematerialises each layer group.
-    batch: tokens (B, S), labels (B, S) with -1 = ignore.  Any ported
-    family: dense GQA, SSM, hybrid."""
+    batch: tokens (B, S), labels (B, S) with -1 = ignore.  Dense GQA, SSM
+    and hybrid families; a MoE config raises (``check_trainable``)."""
+    check_trainable(cfg)
     if batch.get("frontend_embeds") is not None:
         raise NotImplementedError(
             f"{cfg.name}: frontend embeddings (VLM / audio) are not ported "
@@ -543,8 +635,10 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
     (G, B, KVH, S_w, hd) (ring buffer of the slot's window) and ``pos``
     (G, S_w) int32 where the family has attention, and ``ssm`` with
     ``conv`` (G, B, K-1, d_inner) in ``dtype`` and ``state`` (G, B,
-    d_inner, N) float32 where it has mamba layers — the reference's
-    layout.  On the card unless told otherwise."""
+    d_inner, N) float32 where it has mamba layers; with a dense prefix,
+    ``dense_prefix``, one {"kv": {k, v (B, KVH, S_w, hd), pos (S_w,)}} per
+    prefix layer at slot 0's window — the reference's layout.  On the card
+    unless told otherwise."""
     _require_ported(cfg)
     dev = resolve_device(device)
     G, KVH, hd = cfg.num_groups, cfg.num_kv_heads, cfg.head_dim
@@ -564,7 +658,15 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                 "state": zeros((G, batch, cfg.d_inner, cfg.ssm_state),
                                torch.float32)}
         slots.append(entry)
-    return {"length": 0, "slots": slots}
+    cache = {"length": 0, "slots": slots}
+    if cfg.first_dense_layers:
+        Sw = _cache_len(cfg, 0, seq_len)
+        cache["dense_prefix"] = [
+            {"kv": {"k": zeros((batch, KVH, Sw, hd), dtype),
+                    "v": zeros((batch, KVH, Sw, hd), dtype),
+                    "pos": zeros((Sw,), torch.int32)}}
+            for _ in range(cfg.first_dense_layers)]
+    return cache
 
 
 def _rope_scalar(cfg: ModelConfig, pos: int, device):
@@ -617,34 +719,57 @@ def _layer_cache(cache: Dict[str, Any], i: int, P: int) -> Dict[str, Any]:
             for name, part in cache["slots"][p].items()}
 
 
+def _decode_layers(params: Transformer, cache: Dict[str, Any]):
+    """(layer, its cache entry) in order: the dense prefix, then the
+    stack."""
+    for layer, entry in zip(params.dense_prefix,
+                            cache.get("dense_prefix", [])):
+        yield layer, entry
+    for i, layer in enumerate(params.layers):
+        yield layer, _layer_cache(cache, i, params.cfg.period)
+
+
+# a MoE layer's gap: this quantile over positions (the reference's MoE
+# rule, tests/test_models.py:92-96: a router near-tie can flip one token's
+# expert between the batched and the single-token path)
+MOE_GAP_QUANTILE = 0.9
+
+
 @torch.no_grad()
 def decode_gap_by_layer(cfg: ModelConfig, params: Transformer,
-                        tokens: torch.Tensor) -> List[float]:
+                        tokens: torch.Tensor
+                        ) -> Tuple[List[float], List[float]]:
     """How far each layer's decode path lies from its prefill path on the
     same input.  The forward's input to layer i (teacher forcing) goes
     through ``Layer.forward`` (on the card the prefill kernels) and, token
-    by token from an empty cache, through ``Layer.decode``; per layer,
-    max |decode delta - forward delta| / max |forward delta|, delta = the
-    layer's output minus its input.  Rounding apart the two compute the
-    same function; unlike the end-to-end logits, the gap does not compound
-    through depth.  tokens (B, S)."""
+    by token from an empty cache, through ``Layer.decode``; per layer and
+    position, max |decode delta - forward delta| / max |forward delta|
+    over the whole input, delta = the layer's output minus its input.  A
+    layer's gap is the largest over positions, or in a MoE config's stack
+    their ``MOE_GAP_QUANTILE`` quantile.  Rounding apart the two compute
+    the same function; unlike the end-to-end logits, the gap does not
+    compound through depth.  tokens (B, S).  Returns (gaps, maxes), one
+    per layer (the dense prefix first): the gaps, and the largest over
+    positions of each."""
     _check_cfg(cfg, params)
     x = params.embed_tokens(tokens)
     B, S = tokens.shape
     rope_cs = (_rope_tables(cfg, torch.arange(S, device=x.device))
                if cfg.has_attention else None)
     cache = init_cache(cfg, B, S, device=x.device)
-    gaps = []
-    for i, layer in enumerate(params.layers):
-        entry = _layer_cache(cache, i, cfg.period)
+    gaps, maxes = [], []
+    for layer, entry in _decode_layers(params, cache):
         fwd = layer(x, rope_cs)
         dec = torch.cat([layer.decode(x[:, s:s + 1], entry, s)
                          for s in range(S)], dim=1)
         df, dd = (fwd - x).float(), (dec - x).float()
-        gaps.append(float((df - dd).abs().max()
-                          / df.abs().max().clamp_min(1e-30)))
+        per_pos = ((df - dd).abs().amax(dim=(0, 2))
+                   / df.abs().max().clamp_min(1e-30)).cpu()
+        maxes.append(float(per_pos.max()))
+        gaps.append(float(torch.quantile(per_pos, MOE_GAP_QUANTILE))
+                    if layer.moe is not None else maxes[-1])
         x = fwd
-    return gaps
+    return gaps, maxes
 
 
 @torch.no_grad()
@@ -657,9 +782,8 @@ def decode_step(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor,
     _check_cfg(cfg, params)
     q_pos = int(cache["length"])
     x = params.embed_tokens(tokens)
-    P = cfg.period
-    for i, layer in enumerate(params.layers):
-        x = layer.decode(x, _layer_cache(cache, i, P), q_pos)
+    for layer, entry in _decode_layers(params, cache):
+        x = layer.decode(x, entry, q_pos)
     cache["length"] = q_pos + 1
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     logits = (x[:, 0] @ params.head()).to(torch.float32)
